@@ -1,0 +1,247 @@
+"""JAX <-> OpenCLIP <-> port weight name maps, on numpy arrays.
+
+Counterpart of ``openvision_tpu/convert/openclip.py``, with its own flatten
+helpers in place of ``openvision_tpu.utils`` (which imports JAX).
+
+Name map (flat JAX name <-> OpenCLIP key), vision tower:
+  img/cls                      <-> visual.class_embedding          (squeeze)
+  img/embedding/kernel         <-> visual.conv1.weight             (HWIO<->OIHW)
+  img/embedding/bias           <-> visual.conv1.bias
+  img/pos_embedding            <-> visual.positional_embedding     (squeeze)
+  img/encoder_norm/{scale,bias}<-> visual.ln_post.{weight,bias}
+  img/head/kernel              <-> visual.proj                     (no transpose)
+  img/head/bias                <-> visual.proj_bias
+  img/Transformer/encoderblock_N/LayerNorm_{0,1}    <-> resblocks.N.ln_{1,2}
+  .../MultiHeadDotProductAttention_0/{q,k,v}/kernel <-> attn.in_proj_weight (concat, T)
+  .../out/kernel                                     <-> attn.out_proj.weight (T)
+  .../MlpBlock_0/Dense_{0,1}/kernel                  <-> mlp.{c_fc,c_proj}.weight (T)
+Text tower: txt/Embed_0/embedding <-> token_embedding.weight, txt/pos_embedding
+<-> positional_embedding, txt/encoder_norm <-> ln_final, txt/head/kernel <->
+text_projection (no transpose), blocks <-> transformer.resblocks.N.*; and
+t <-> logit_scale.
+
+The port's ``CLIPModel`` state dict is the OpenCLIP one with the text
+tower's keys under ``text.``: :func:`openclip_to_state_dict` and
+:func:`state_dict_to_openclip` convert between the two, and
+:func:`jax_params_to_state_dict` takes a JAX param tree straight to the port.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def tree_flatten_with_names(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict -> {"a/b/c": leaf as numpy}."""
+    if isinstance(tree, dict):
+        out: Dict[str, np.ndarray] = {}
+        for k, v in tree.items():
+            out.update(tree_flatten_with_names(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def recover_tree(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{"a/b/c": leaf} -> nested dict (inverse of tree_flatten_with_names)."""
+    tree: Dict[str, Any] = {}
+    for name, val in flat.items():
+        node = tree
+        *parents, leaf = name.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return tree
+
+
+def _blk(key: str):
+    m = re.search(r"encoderblock_(\d+)/(.*)", key)
+    return (int(m.group(1)), m.group(2)) if m else (None, None)
+
+
+def jax_to_openclip(params: Any) -> Dict[str, np.ndarray]:
+    """Flattens a two-tower JAX param tree into an OpenCLIP state_dict."""
+    flat = tree_flatten_with_names(params)
+    out: Dict[str, np.ndarray] = {}
+    visited: set = set()
+
+    def attn_qkv(prefix_jax: str, prefix_torch: str, block_id):
+        if block_id in visited:
+            return
+        visited.add(block_id)
+        ws, bs = [], []
+        for n in ("query", "key", "value"):
+            w = flat[f"{prefix_jax}/MultiHeadDotProductAttention_0/{n}/kernel"]
+            b = flat[f"{prefix_jax}/MultiHeadDotProductAttention_0/{n}/bias"]
+            if w.ndim == 3:  # DenseGeneral (embed, heads, head_dim)
+                w = w.reshape(w.shape[0], -1)
+                b = b.reshape(-1)
+            ws.append(w.T)
+            bs.append(b)
+        out[f"{prefix_torch}.attn.in_proj_weight"] = np.concatenate(ws, axis=0)
+        out[f"{prefix_torch}.attn.in_proj_bias"] = np.concatenate(bs, axis=0)
+
+    for key, val in flat.items():
+        if key == "t":
+            out["logit_scale"] = val.reshape(())
+            continue
+        if key == "b":
+            out["logit_bias"] = val.reshape(())
+            continue
+        tower, rest = key.split("/", 1) if "/" in key else (key, "")
+        if tower == "img":
+            if rest == "cls":
+                out["visual.class_embedding"] = val[0, 0]
+            elif rest == "embedding/kernel":
+                out["visual.conv1.weight"] = val.transpose(3, 2, 0, 1)
+            elif rest == "embedding/bias":
+                out["visual.conv1.bias"] = val
+            elif rest == "pos_embedding":
+                out["visual.positional_embedding"] = val[0]
+            elif rest == "encoder_norm/scale":
+                out["visual.ln_post.weight"] = val
+            elif rest == "encoder_norm/bias":
+                out["visual.ln_post.bias"] = val
+            elif rest == "head/kernel":
+                out["visual.proj"] = val
+            elif rest == "head/bias":
+                out["visual.proj_bias"] = val
+            elif "encoderblock_" in rest:
+                i, sub = _blk(rest)
+                _convert_block(out, f"img/Transformer/encoderblock_{i}",
+                               f"visual.transformer.resblocks.{i}", sub, val,
+                               ("img", i), attn_qkv)
+        elif tower == "txt":
+            if rest == "Embed_0/embedding":
+                out["token_embedding.weight"] = val
+            elif rest == "pos_embedding":
+                out["positional_embedding"] = val[0]
+            elif rest == "encoder_norm/scale":
+                out["ln_final.weight"] = val
+            elif rest == "encoder_norm/bias":
+                out["ln_final.bias"] = val
+            elif rest == "head/kernel":
+                out["text_projection"] = val
+            elif "encoderblock_" in rest:
+                i, sub = _blk(rest)
+                _convert_block(out, f"txt/Transformer/encoderblock_{i}",
+                               f"transformer.resblocks.{i}", sub, val, ("txt", i), attn_qkv)
+        # txt_decoder params have no OpenCLIP counterpart (CoCa head) -- skipped.
+    return out
+
+
+def _convert_block(out, jax_prefix, torch_prefix, sub, val, block_id, attn_qkv):
+    if sub.startswith("LayerNorm_"):
+        n = int(sub.split("_")[1].split("/")[0]) + 1
+        kind = "weight" if sub.endswith("scale") else "bias"
+        out[f"{torch_prefix}.ln_{n}.{kind}"] = val
+    elif "MlpBlock_0/Dense_0" in sub:
+        name = "weight" if sub.endswith("kernel") else "bias"
+        out[f"{torch_prefix}.mlp.c_fc.{name}"] = val.T if name == "weight" else val
+    elif "MlpBlock_0/Dense_1" in sub:
+        name = "weight" if sub.endswith("kernel") else "bias"
+        out[f"{torch_prefix}.mlp.c_proj.{name}"] = val.T if name == "weight" else val
+    elif "MultiHeadDotProductAttention_0/out" in sub:
+        if sub.endswith("kernel"):
+            w = val.reshape(-1, val.shape[-1]) if val.ndim == 3 else val
+            out[f"{torch_prefix}.attn.out_proj.weight"] = w.T
+        else:
+            out[f"{torch_prefix}.attn.out_proj.bias"] = val
+    elif "MultiHeadDotProductAttention_0" in sub:
+        attn_qkv(jax_prefix, torch_prefix, block_id)
+
+
+def openclip_to_jax(state_dict: Dict[str, Any], *, num_heads_vision: int,
+                    num_heads_text: int, use_dense_general: bool = False) -> Dict[str, Any]:
+    """Inverse mapping: OpenCLIP state_dict -> nested JAX two-tower params."""
+    sd = {k: np.asarray(v) for k, v in state_dict.items()}
+    flat: Dict[str, np.ndarray] = {}
+
+    def put_block(torch_prefix: str, jax_prefix: str, num_heads: int):
+        blocks = sorted({
+            int(re.match(rf"{re.escape(torch_prefix)}\.(\d+)\.", k).group(1))
+            for k in sd if k.startswith(torch_prefix + ".")
+        })
+        for i in blocks:
+            tb = f"{torch_prefix}.{i}"
+            jb = f"{jax_prefix}/encoderblock_{i}"
+            for n in (1, 2):
+                flat[f"{jb}/LayerNorm_{n-1}/scale"] = sd[f"{tb}.ln_{n}.weight"]
+                flat[f"{jb}/LayerNorm_{n-1}/bias"] = sd[f"{tb}.ln_{n}.bias"]
+            flat[f"{jb}/MlpBlock_0/Dense_0/kernel"] = sd[f"{tb}.mlp.c_fc.weight"].T
+            flat[f"{jb}/MlpBlock_0/Dense_0/bias"] = sd[f"{tb}.mlp.c_fc.bias"]
+            flat[f"{jb}/MlpBlock_0/Dense_1/kernel"] = sd[f"{tb}.mlp.c_proj.weight"].T
+            flat[f"{jb}/MlpBlock_0/Dense_1/bias"] = sd[f"{tb}.mlp.c_proj.bias"]
+            w = sd[f"{tb}.attn.in_proj_weight"]  # (3D, D)
+            b = sd[f"{tb}.attn.in_proj_bias"]
+            d = w.shape[1]
+            for j, name in enumerate(("query", "key", "value")):
+                wj = w[j * d:(j + 1) * d].T  # (D, D)
+                bj = b[j * d:(j + 1) * d]
+                if use_dense_general:
+                    wj = wj.reshape(d, num_heads, d // num_heads)
+                    bj = bj.reshape(num_heads, d // num_heads)
+                flat[f"{jb}/MultiHeadDotProductAttention_0/{name}/kernel"] = wj
+                flat[f"{jb}/MultiHeadDotProductAttention_0/{name}/bias"] = bj
+            wo = sd[f"{tb}.attn.out_proj.weight"].T  # (D, D)
+            if use_dense_general:
+                wo = wo.reshape(num_heads, d // num_heads, d)
+            flat[f"{jb}/MultiHeadDotProductAttention_0/out/kernel"] = wo
+            flat[f"{jb}/MultiHeadDotProductAttention_0/out/bias"] = sd[f"{tb}.attn.out_proj.bias"]
+
+    flat["img/cls"] = sd["visual.class_embedding"][None, None, :]
+    flat["img/embedding/kernel"] = sd["visual.conv1.weight"].transpose(2, 3, 1, 0)
+    if "visual.conv1.bias" in sd:
+        flat["img/embedding/bias"] = sd["visual.conv1.bias"]
+    if "visual.positional_embedding" in sd:
+        flat["img/pos_embedding"] = sd["visual.positional_embedding"][None]
+    flat["img/encoder_norm/scale"] = sd["visual.ln_post.weight"]
+    flat["img/encoder_norm/bias"] = sd["visual.ln_post.bias"]
+    if "visual.proj" in sd:
+        flat["img/head/kernel"] = sd["visual.proj"]
+    if "visual.proj_bias" in sd:
+        flat["img/head/bias"] = sd["visual.proj_bias"]
+    put_block("visual.transformer.resblocks", "img/Transformer", num_heads_vision)
+
+    flat["txt/Embed_0/embedding"] = sd["token_embedding.weight"]
+    flat["txt/pos_embedding"] = sd["positional_embedding"][None]
+    flat["txt/encoder_norm/scale"] = sd["ln_final.weight"]
+    flat["txt/encoder_norm/bias"] = sd["ln_final.bias"]
+    flat["txt/head/kernel"] = sd["text_projection"]
+    put_block("transformer.resblocks", "txt/Transformer", num_heads_text)
+
+    flat["t"] = sd["logit_scale"].reshape(1)
+    if "logit_bias" in sd:
+        flat["b"] = sd["logit_bias"].reshape(1)
+    return recover_tree(flat)
+
+
+def openclip_to_state_dict(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """OpenCLIP state_dict -> the port's CLIPModel state dict (f32 tensors).
+
+    The text tower's keys move under ``text.``; ``logit_bias`` has no place
+    in the port's CLIPModel yet and is dropped, as the JAX tools ignore it.
+    """
+    out = {}
+    for k, v in state_dict.items():
+        if k == "logit_bias":
+            continue
+        name = k if k.startswith("visual.") or k == "logit_scale" else f"text.{k}"
+        out[name] = (v.detach().float() if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(np.array(v, dtype=np.float32)))
+    return out
+
+
+def state_dict_to_openclip(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's CLIPModel state dict -> OpenCLIP state_dict."""
+    return {k.removeprefix("text."): v for k, v in state_dict.items()}
+
+
+def jax_params_to_state_dict(params: Any) -> Dict[str, torch.Tensor]:
+    """JAX two-tower param tree (nested dict of arrays) -> port state dict.
+
+    This is how weights cross from the JAX package to the port."""
+    return openclip_to_state_dict(jax_to_openclip(params))

@@ -1,0 +1,275 @@
+"""The encoder block's two sub-blocks on hand-written Hopper kernels.
+
+Counterpart of ``openvision_tpu/ops/fused_encoder.py``, whose two Pallas
+kernels compute one pre-LN ViT block on the TPU:
+
+- ``_mhsa_t_kernel`` (:71): LN1 -> QKV + bias -> softmax attention ->
+  out-proj + bo -> residual;
+- ``_mlp_t_kernel`` (:502): LN2 -> fc1 + b1 -> tanh-GELU -> fc2 + b2 ->
+  residual.
+
+What they compute is ``_tblock_reference`` (:782) in the natural
+``(B, 1+P, D)`` layout with the cls token first. The transposed
+``(B, D, Ppad)`` stream, the cls row split out to XLA, the 128-lane padding
+and two images per grid step exist for TPU tiling and are not carried over.
+Here the two sub-blocks run as three CUDA kernels (``csrc/``):
+
+- :func:`layernorm` -- row LayerNorm, f32 statistics;
+- :func:`gemm_bias_act` -- ``A . W^T + b`` with optional tanh-GELU and
+  residual in the epilogue; it serves QKV, out-proj + residual, fc1 + GELU
+  and fc2 + residual;
+- :func:`attention` -- online-softmax attention straight off the QKV buffer.
+
+Each has a plain PyTorch version beside it (``*_plain``, f32 math) and a
+launch counter in :data:`LAUNCHES`. A wrapper takes the plain version only
+for tensors on the CPU; for CUDA tensors it launches its kernel or raises.
+The 4D MLP hidden goes through device memory in this version, where the
+Pallas kernel keeps it in VMEM.
+
+Forward only: a wrapper refuses CUDA tensors that require grad, because the
+backward kernels (``_mhsa_t_bwd_kernel``, ``_mlp_t_bwd_kernel``) are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from openvision_tpu_torch.ops import kernels
+
+# Launches of each kernel; a wrapper adds one right after its kernel launched.
+LAUNCHES = {"layernorm": 0, "gemm_bias_act": 0, "attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cpu(*tensors) -> bool:
+    devices = {t.device.type for t in tensors if t is not None}
+    if devices == {"cpu"}:
+        return True
+    if devices != {"cuda"}:
+        raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {devices}")
+    return False
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors")
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name}: the CUDA kernels are forward only (their backward "
+            "kernels are not ported yet); run under torch.inference_mode()")
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _gelu_tanh(h: torch.Tensor) -> torch.Tensor:
+    return 0.5 * h * (1.0 + torch.tanh(0.7978845608028654 * (h + 0.044715 * h * h * h)))
+
+
+# ---------------------------------------------------------------------------
+# layernorm
+# ---------------------------------------------------------------------------
+
+
+def layernorm_plain(x, weight, bias, eps: float):
+    """LayerNorm over the last dim with f32 statistics; output in x.dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+def layernorm(x, weight, bias, eps: float):
+    """Kernel ``csrc/layernorm.cu``: bf16 x, f32 weight and bias, bf16 out.
+
+    Replaces the LN prologue of ``_mhsa_t_kernel`` and ``_mlp_t_kernel``
+    (openvision_tpu/ops/fused_encoder.py:91-95, :525-529). Bound by device
+    memory (one read, one write of x); one warp per row with 16-byte loads,
+    no shared memory.
+    """
+    if _on_cpu(x, weight, bias):
+        return layernorm_plain(x, weight, bias, eps)
+    d = x.shape[-1]
+    if d % 8:
+        raise ValueError(f"layernorm: the kernel takes a width divisible by 8, got {d}")
+    _check("layernorm x", x, torch.bfloat16)
+    _check("layernorm weight", weight, torch.float32, (d,))
+    _check("layernorm bias", bias, torch.float32, (d,))
+    y = torch.empty_like(x)
+    rc = kernels.lib().ovt_layernorm(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+        x.numel() // d, d, eps, _stream(x))
+    _raise_on(rc, "layernorm")
+    LAUNCHES["layernorm"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# gemm_bias_act
+# ---------------------------------------------------------------------------
+
+
+def linear_plain(x, weight, bias=None, *, gelu: bool = False, residual=None):
+    """``x . weight^T + bias`` in f32 math, optional tanh-GELU, rounded to
+    x.dtype, then optional ``+ residual`` rounded again (the Pallas kernels
+    add the residual to the rounded projection)."""
+    y = x.float() @ weight.float().t()
+    if bias is not None:
+        y = y + bias.float()
+    if gelu:
+        y = _gelu_tanh(y)
+    y = y.to(x.dtype)
+    if residual is not None:
+        y = (y.float() + residual.float()).to(x.dtype)
+    return y
+
+
+def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
+    """Kernel ``csrc/gemm_bias_act.cu``: the projections of both sub-blocks.
+
+    x: (..., K) bf16; weight: (N, K) bf16 in torch's (out, in) layout;
+    bias: (N,) f32 or None; residual: x-shaped (..., N) bf16 or None.
+    Replaces the in-kernel products of ``_mhsa_t_kernel`` (QKV :98-101,
+    out-proj :162-168) and ``_mlp_t_kernel`` (fc1 :535-542, fc2 :543-550).
+    Bound by the tensor cores at ViT shapes; mma.sync m16n8k16 over a
+    two-stage cp.async ring of 128x128x32 tiles, epilogue fused.
+    """
+    if _on_cpu(x, weight, bias, residual):
+        return linear_plain(x, weight, bias, gelu=gelu, residual=residual)
+    n, k = weight.shape
+    if n % 8 or k % 8:
+        raise ValueError(f"gemm_bias_act: N and K must be multiples of 8, got N={n} K={k}")
+    if x.shape[-1] != k:
+        raise ValueError(f"gemm_bias_act: x has K={x.shape[-1]}, weight has K={k}")
+    m = x.numel() // k
+    _check("gemm x", x, torch.bfloat16)
+    _check("gemm weight", weight, torch.bfloat16)
+    if bias is not None:
+        _check("gemm bias", bias, torch.float32, (n,))
+    out = torch.empty(*x.shape[:-1], n, dtype=torch.bfloat16, device=x.device)
+    if residual is not None:
+        _check("gemm residual", residual, torch.bfloat16, out.shape)
+    rc = kernels.lib().ovt_gemm_bias_act(
+        x.data_ptr(), weight.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if residual is None else residual.data_ptr(),
+        out.data_ptr(), m, n, k, int(gelu), _stream(x))
+    _raise_on(rc, "gemm_bias_act")
+    LAUNCHES["gemm_bias_act"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attention_plain(qkv, num_heads: int, *, nomax: bool = False):
+    """softmax(q k^T) v from a (B, L, 3D) QKV buffer -> (B, L, D).
+
+    As the Pallas kernel: q scaled by head_dim**-0.5 and rounded to the
+    input dtype, f32 scores, unnormalized probabilities rounded to the input
+    dtype for p.v, then divided by their f32 row sum; ``nomax`` takes
+    exp(min(s, 80)) with no max subtraction.
+    """
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // num_heads
+    dt = qkv.dtype
+    q, k, v = (t.reshape(b, l, num_heads, hd) for t in qkv.split(d, dim=-1))
+    q = (q.float() * hd ** -0.5).to(dt)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if nomax:
+        p = torch.exp(torch.clamp(s, max=80.0))
+    else:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), v.float())
+    o = o / p.sum(-1).transpose(1, 2)[..., None]
+    return o.reshape(b, l, d).to(dt)
+
+
+def attention(qkv, num_heads: int, *, nomax: bool = False):
+    """Kernel ``csrc/attention.cu``: the attention core of ``_mhsa_t_kernel``.
+
+    qkv: (B, L, 3D) bf16 from the QKV projection; returns (B, L, D) bf16.
+    Replaces openvision_tpu/ops/fused_encoder.py:106-154 (per-head scores,
+    ``valid`` key mask, max or ``nomax`` softmax, p.v). One block per
+    (batch, head, 64-query tile), online softmax over 64-key tiles in
+    registers, keys past L masked; reads q, k, v by stride, no permutes.
+    head_dim must be 64.
+    """
+    if _on_cpu(qkv):
+        return attention_plain(qkv, num_heads, nomax=nomax)
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    hd = d // num_heads
+    if d3 % 3 or d % num_heads or hd != 64:
+        raise ValueError(
+            f"attention: the kernel takes head_dim 64, got width {d} over {num_heads} heads")
+    _check("attention qkv", qkv, torch.bfloat16)
+    out = torch.empty(b, l, d, dtype=torch.bfloat16, device=qkv.device)
+    rc = kernels.lib().ovt_attention(
+        qkv.data_ptr(), out.data_ptr(), b, l, num_heads, hd, hd ** -0.5,
+        int(nomax), _stream(qkv))
+    _raise_on(rc, "attention")
+    LAUNCHES["attention"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The two sub-blocks
+# ---------------------------------------------------------------------------
+
+
+def mhsa_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
+                     eps: float = 1e-6, nomax: bool = False):
+    """x + OutProj(MHA(LN(x))): the attention half of ``_tblock_reference``."""
+    y = layernorm_plain(x, ln_w, ln_b, eps)
+    qkv = linear_plain(y, w_qkv, b_qkv)
+    o = attention_plain(qkv, num_heads, nomax=nomax)
+    return linear_plain(o, w_o, b_o, residual=x)
+
+
+def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-6):
+    """x + fc2(tanh-GELU(fc1(LN(x)))): the MLP half of ``_tblock_reference``."""
+    y = layernorm_plain(x, ln_w, ln_b, eps)
+    h = linear_plain(y, w1, b1, gelu=True)
+    return linear_plain(h, w2, b2, residual=x)
+
+
+def mhsa_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
+               eps: float = 1e-6, nomax: bool = False):
+    """The ``_mhsa_t_kernel`` sub-block as 4 launches: LN, QKV, attention,
+    out-proj + residual. Weights in torch's (out, in) layout."""
+    y = layernorm(x, ln_w, ln_b, eps)
+    qkv = gemm_bias_act(y, w_qkv, b_qkv)
+    o = attention(qkv, num_heads, nomax=nomax)
+    return gemm_bias_act(o, w_o, b_o, residual=x)
+
+
+def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-6):
+    """The ``_mlp_t_kernel`` sub-block as 3 launches: LN, fc1 + GELU,
+    fc2 + residual."""
+    y = layernorm(x, ln_w, ln_b, eps)
+    h = gemm_bias_act(y, w1, b1, gelu=True)
+    return gemm_bias_act(h, w2, b2, residual=x)
