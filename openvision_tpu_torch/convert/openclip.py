@@ -20,10 +20,26 @@ Text tower: txt/Embed_0/embedding <-> token_embedding.weight, txt/pos_embedding
 text_projection (no transpose), blocks <-> transformer.resblocks.N.*; and
 t <-> logit_scale.
 
+Caption decoder (no OpenCLIP counterpart; port names under ``txt_decoder.``,
+JAX names under ``txt_decoder/``):
+  image_projection_layer/kernel <-> image_projection_layer.weight  (T)
+  text_projection_layer/kernel  <-> text_projection_layer.weight   (T)
+  learnable_tokens              <-> learnable_tokens
+  decoder_norm/{scale,bias}     <-> decoder_norm.{weight,bias}
+  head/kernel                   <-> head.weight                    (T)
+  Transformer/encoderblock_N    <-> transformer.resblocks.N        (as the towers)
+  Transformer/crossattn_encoderblock_N/LayerNorm_{0,1,2}
+                                <-> transformer.cross_resblocks.N.{ln_1,ln_1_kv,ln_2}
+  .../MultiHeadDotProductAttention_0 (DenseGeneral: (D, H, hd) q/k/v
+  kernels, (H, hd) biases, (H, hd, D) out) <-> attn.in_proj_weight (concat, T),
+  attn.out_proj; .../MlpBlock_0 <-> mlp.
+
 The port's ``CLIPModel`` state dict is the OpenCLIP one with the text
-tower's keys under ``text.``: :func:`openclip_to_state_dict` and
-:func:`state_dict_to_openclip` convert between the two, and
-:func:`jax_params_to_state_dict` takes a JAX param tree straight to the port.
+tower's keys under ``text.`` and the decoder's under ``txt_decoder.``:
+:func:`openclip_to_state_dict` and :func:`state_dict_to_openclip` convert
+the towers between the two, :func:`jax_params_to_state_dict` takes a JAX
+param tree (towers and decoder) straight to the port, and
+:func:`state_dict_to_jax_params` goes back.
 """
 
 from __future__ import annotations
@@ -36,12 +52,15 @@ import torch
 
 
 def tree_flatten_with_names(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict -> {"a/b/c": leaf as numpy}."""
+    """Nested dict -> {"a/b/c": leaf as numpy}; torch leaves (a bf16 one
+    from an npz) become f32 numpy."""
     if isinstance(tree, dict):
         out: Dict[str, np.ndarray] = {}
         for k, v in tree.items():
             out.update(tree_flatten_with_names(v, f"{prefix}/{k}" if prefix else str(k)))
         return out
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree.detach().float().numpy()}
     return {prefix: np.asarray(tree)}
 
 
@@ -129,7 +148,8 @@ def jax_to_openclip(params: Any) -> Dict[str, np.ndarray]:
                 i, sub = _blk(rest)
                 _convert_block(out, f"txt/Transformer/encoderblock_{i}",
                                f"transformer.resblocks.{i}", sub, val, ("txt", i), attn_qkv)
-        # txt_decoder params have no OpenCLIP counterpart (CoCa head) -- skipped.
+        # txt_decoder params have no OpenCLIP counterpart (CoCa head):
+        # jax_decoder_to_state_dict maps them to the port's names.
     return out
 
 
@@ -240,8 +260,114 @@ def state_dict_to_openclip(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor
     return {k.removeprefix("text."): v for k, v in state_dict.items()}
 
 
+_DEC_LN = {"LayerNorm_0": "ln_1", "LayerNorm_1": "ln_1_kv", "LayerNorm_2": "ln_2"}
+
+
+def jax_decoder_to_state_dict(params: Any) -> Dict[str, np.ndarray]:
+    """The ``txt_decoder`` JAX subtree -> the port's ``txt_decoder.*`` names."""
+    flat = tree_flatten_with_names(params)
+    out: Dict[str, np.ndarray] = {}
+    top = {
+        "image_projection_layer/kernel": ("image_projection_layer.weight", True),
+        "text_projection_layer/kernel": ("text_projection_layer.weight", True),
+        "learnable_tokens": ("learnable_tokens", False),
+        "decoder_norm/scale": ("decoder_norm.weight", False),
+        "decoder_norm/bias": ("decoder_norm.bias", False),
+        "head/kernel": ("head.weight", True),
+    }
+    for key, val in flat.items():
+        if key in top:
+            name, transpose = top[key]
+            out[f"txt_decoder.{name}"] = val.T if transpose else val
+            continue
+        m = re.match(r"Transformer/(crossattn_)?encoderblock_(\d+)/(.*)", key)
+        if m is None:
+            raise KeyError(f"unknown txt_decoder param {key!r}")
+        cross, i, sub = bool(m.group(1)), int(m.group(2)), m.group(3)
+        prefix = f"txt_decoder.transformer.{'cross_resblocks' if cross else 'resblocks'}.{i}"
+        if cross and sub.startswith("LayerNorm_"):
+            ln, kind = sub.split("/")
+            out[f"{prefix}.{_DEC_LN[ln]}.{'weight' if kind == 'scale' else 'bias'}"] = val
+            continue
+        jax_prefix = f"Transformer/{m.group(1) or ''}encoderblock_{i}"
+
+        def attn_qkv(jp, tp, _block_id, flat=flat):
+            if f"{tp}.attn.in_proj_weight" in out:
+                return
+            ws, bs = [], []
+            for n in ("query", "key", "value"):
+                w = flat[f"{jp}/MultiHeadDotProductAttention_0/{n}/kernel"]
+                b = flat[f"{jp}/MultiHeadDotProductAttention_0/{n}/bias"]
+                ws.append(w.reshape(w.shape[0], -1).T)
+                bs.append(b.reshape(-1))
+            out[f"{tp}.attn.in_proj_weight"] = np.concatenate(ws, axis=0)
+            out[f"{tp}.attn.in_proj_bias"] = np.concatenate(bs, axis=0)
+
+        _convert_block(out, jax_prefix, prefix, sub, val, None, attn_qkv)
+    return out
+
+
+def state_dict_to_jax_decoder(sd: Dict[str, Any], num_heads: int) -> Dict[str, np.ndarray]:
+    """The port's ``txt_decoder.*`` entries -> flat JAX names under
+    ``txt_decoder/`` (cross-attention params DenseGeneral-shaped)."""
+    sd = {k.removeprefix("txt_decoder."): np.asarray(v) for k, v in sd.items()
+          if k.startswith("txt_decoder.")}
+    flat = {
+        "txt_decoder/image_projection_layer/kernel": sd["image_projection_layer.weight"].T,
+        "txt_decoder/text_projection_layer/kernel": sd["text_projection_layer.weight"].T,
+        "txt_decoder/learnable_tokens": sd["learnable_tokens"],
+        "txt_decoder/decoder_norm/scale": sd["decoder_norm.weight"],
+        "txt_decoder/decoder_norm/bias": sd["decoder_norm.bias"],
+        "txt_decoder/head/kernel": sd["head.weight"].T,
+    }
+    blocks = sorted({tuple(k.split(".")[1:3]) for k in sd if k.startswith("transformer.")})
+    for kind, i in blocks:
+        tb = f"transformer.{kind}.{i}"
+        cross = kind == "cross_resblocks"
+        jb = f"txt_decoder/Transformer/{'crossattn_' if cross else ''}encoderblock_{i}"
+        lns = {v: k for k, v in _DEC_LN.items()} if cross else {"ln_1": "LayerNorm_0",
+                                                                   "ln_2": "LayerNorm_1"}
+        for tname, jname in lns.items():
+            flat[f"{jb}/{jname}/scale"] = sd[f"{tb}.{tname}.weight"]
+            flat[f"{jb}/{jname}/bias"] = sd[f"{tb}.{tname}.bias"]
+        for j in (0, 1):
+            lin = ("c_fc", "c_proj")[j]
+            flat[f"{jb}/MlpBlock_0/Dense_{j}/kernel"] = sd[f"{tb}.mlp.{lin}.weight"].T
+            flat[f"{jb}/MlpBlock_0/Dense_{j}/bias"] = sd[f"{tb}.mlp.{lin}.bias"]
+        w, b = sd[f"{tb}.attn.in_proj_weight"], sd[f"{tb}.attn.in_proj_bias"]
+        d = w.shape[1]
+        attn = f"{jb}/MultiHeadDotProductAttention_0"
+        for j, name in enumerate(("query", "key", "value")):
+            wj, bj = w[j * d:(j + 1) * d].T, b[j * d:(j + 1) * d]
+            if cross:
+                wj, bj = wj.reshape(d, num_heads, d // num_heads), bj.reshape(num_heads, -1)
+            flat[f"{attn}/{name}/kernel"], flat[f"{attn}/{name}/bias"] = wj, bj
+        wo = sd[f"{tb}.attn.out_proj.weight"].T
+        flat[f"{attn}/out/kernel"] = wo.reshape(num_heads, d // num_heads, d) if cross else wo
+        flat[f"{attn}/out/bias"] = sd[f"{tb}.attn.out_proj.bias"]
+    return flat
+
+
 def jax_params_to_state_dict(params: Any) -> Dict[str, torch.Tensor]:
-    """JAX two-tower param tree (nested dict of arrays) -> port state dict.
+    """JAX param tree (nested dict of arrays: towers, and the caption
+    decoder under ``txt_decoder`` if present) -> port state dict (f32).
 
     This is how weights cross from the JAX package to the port."""
-    return openclip_to_state_dict(jax_to_openclip(params))
+    sd = openclip_to_state_dict(jax_to_openclip(params))
+    if "txt_decoder" in params:
+        for k, v in jax_decoder_to_state_dict(params["txt_decoder"]).items():
+            sd[k] = torch.from_numpy(np.array(v, dtype=np.float32))
+    return sd
+
+
+def state_dict_to_jax_params(sd: Dict[str, Any], *, num_heads_vision: int,
+                             num_heads_text: int, num_heads_decoder: int = 0) -> Dict[str, Any]:
+    """The port's state dict -> the JAX param tree (numpy leaves), the
+    inverse of :func:`jax_params_to_state_dict`."""
+    towers = {k: v for k, v in sd.items() if not k.startswith("txt_decoder.")}
+    params = openclip_to_jax(state_dict_to_openclip(towers), num_heads_vision=num_heads_vision,
+                             num_heads_text=num_heads_text)
+    if len(towers) < len(sd):
+        dec = recover_tree(state_dict_to_jax_decoder(sd, num_heads_decoder))
+        params["txt_decoder"] = dec["txt_decoder"]
+    return params

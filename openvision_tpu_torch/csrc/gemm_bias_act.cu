@@ -4,7 +4,9 @@
 // Replaces the four projections inside the Pallas kernels _mhsa_t_kernel
 // (QKV + bias; out-proj + bo + residual) and _mlp_t_kernel (fc1 + b1 +
 // tanh-GELU; fc2 + b2 + residual), openvision_tpu/ops/fused_encoder.py:71,
-// :502. At ViT-L/14 shapes (M = B*257, K and N of 1024..4096) the products
+// :502, and the QKV and out-proj + residual of the natural-layout block
+// _block_kernel (openvision_tpu/ops/fused_attention.py:440). At ViT-L/14
+// shapes (M = B*257, K and N of 1024..4096) the products
 // are bound by the tensor cores: M=16448, N=K=1024 does 2MNK FLOPs over
 // 2(MK+NK+MN) bytes, about 500 FLOP/byte, above the card's ~295 FLOP/byte
 // ridge. This first version uses mma.sync

@@ -1,7 +1,10 @@
 // Row LayerNorm over the feature dim: bf16 in, f32 statistics, bf16 out.
 //
 // Replaces the LN prologue of the Pallas kernels _mhsa_t_kernel and
-// _mlp_t_kernel (openvision_tpu/ops/fused_encoder.py:71, :502). Bound on the
+// _mlp_t_kernel (openvision_tpu/ops/fused_encoder.py:71, :502) and of the
+// natural-layout block _block_kernel (openvision_tpu/ops/fused_attention.py
+// :440, whose E[x^2] - mean^2 variance differs from this two-pass one by f32
+// rounding only). Bound on the
 // card by device-memory bytes (one read and one write of the row; the three
 // passes over the row after the first hit L1). One warp owns one row and
 // moves 16 bytes a lane, so a block touches contiguous memory and no shared

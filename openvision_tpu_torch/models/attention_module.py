@@ -1,11 +1,24 @@
-"""Multi-head self-attention module.
+"""Multi-head attention module: self- and cross-attention.
 
 Counterpart of ``openvision_tpu/models/attention_module.py:MultiHeadAttention``
-on its self-attention, non-decode, ``xla`` path. Parameters carry
-OpenCLIP's names: ``in_proj_weight`` (3D, D) is the flax query, key and
-value kernels transposed and stacked, and ``out_proj`` is the flax ``out``
-Dense. The KV-cache decode path, DenseGeneral kernels and the fused and
-flash backends are not ported yet.
+without the KV-cache decode path. Parameters carry OpenCLIP's names:
+``in_proj_weight`` (3D, D) is the flax query, key and value kernels
+transposed and stacked, and ``out_proj`` is the flax ``out`` Dense. The
+JAX module's ``use_dense_general`` kernels ((D, H, hd) and (H, hd, D)) hold
+the same numbers; the port keeps the one layout and ``convert/openclip.py``
+reshapes (the caption decoder's cross-attention is always DenseGeneral).
+Dispatch follows the JAX module (:97-105, :212-214):
+
+- ``attn_impl="fused"`` on self-attention with no mask and plain-Dense
+  params would run the JAX package's ``fused_qkv_attention`` Pallas kernel
+  (``ops/fused_attention.py:92 _kernel``). Encoder blocks reach that only
+  with LayerScale or active dropout, which the port does not have (its
+  ``fused`` blocks run the whole sub-block on ``ops/fused_attention.py``);
+  it is not ported, and such a call raises. DenseGeneral self-attention,
+  which the JAX module sends to ``xla`` instead, has no caller in the port.
+- otherwise ``fused`` falls to ``xla`` (cross-attention, an external mask),
+  and a mask forces ``xla``;
+- ``flash`` and ``scan`` run the flash kernel (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -17,11 +30,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from openvision_tpu_torch.models.layers import linear, zero_init
-from openvision_tpu_torch.ops.attention import xla_attention
+from openvision_tpu_torch.ops.attention import dispatch_attention
 
 
 class MultiHeadAttention(nn.Module):
-    def __init__(self, width: int, num_heads: int, causal: bool = False,
+    def __init__(self, width: int, num_heads: int, attn_impl: str = "xla",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if width % num_heads:
@@ -30,14 +43,34 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * width))
         self.out_proj = zero_init(nn.Linear, width, width)
         self.num_heads = num_heads
-        self.causal = causal
+        self.attn_impl = attn_impl
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, l, d = x.shape
-        qkv = F.linear(x.to(self.dtype), self.in_proj_weight.to(self.dtype),
-                       self.in_proj_bias.to(self.dtype))
-        q, k, v = (t.reshape(b, l, self.num_heads, d // self.num_heads)
-                   for t in qkv.split(d, dim=-1))
-        o = xla_attention(q, k, v, mask=mask, causal=self.causal, dtype=self.dtype)
-        return linear(o.reshape(b, l, d), self.out_proj, self.dtype)
+    def forward(self, inputs_q: torch.Tensor, inputs_kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, *, causal: bool = False,
+                prefix_len: int = 0) -> torch.Tensor:
+        """inputs_kv=None is self-attention; `mask` broadcasts to (B, H, Lq,
+        Lk); `causal` with `prefix_len > 0` is the prefix-LM mask."""
+        self_attn = inputs_kv is None or inputs_kv is inputs_q
+        if self.attn_impl == "fused" and self_attn and mask is None:
+            raise NotImplementedError(
+                "attn_impl='fused' on this self-attention would run the JAX package's "
+                "fused_qkv_attention kernel (openvision_tpu/ops/fused_attention.py:92 "
+                "_kernel, Pallas kernel #7), which is not ported; encoder blocks take "
+                "the whole-sub-block fused path instead")
+        b, lq, d = inputs_q.shape
+        dt = self.dtype
+        w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+        if self_attn:
+            q, k, v = F.linear(inputs_q.to(dt), w, bias).split(d, dim=-1)
+        else:
+            q = F.linear(inputs_q.to(dt), w[:d], bias[:d])
+            k, v = F.linear(inputs_kv.to(dt), w[d:], bias[d:]).split(d, dim=-1)
+        heads = lambda t: t.reshape(t.shape[0], t.shape[1], self.num_heads, d // self.num_heads)
+        q, k, v = heads(q), heads(k), heads(v)
+
+        # a mask, or fused with its preconditions unmet: the unfused xla path
+        impl = "xla" if mask is not None or self.attn_impl == "fused" else self.attn_impl
+        o = dispatch_attention(impl, q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
+                               dtype=dt)
+        return linear(o.reshape(b, lq, d), self.out_proj, dt)

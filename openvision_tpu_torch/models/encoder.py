@@ -1,24 +1,34 @@
-"""Shared pre-LN transformer encoder stack (vision and text towers).
+"""Shared pre-LN transformer encoder stack (vision, text and caption decoder).
 
 Counterpart of ``openvision_tpu/models/encoder.py``: ``EncoderBlock`` and
-``Encoder`` with the ``fast_gelu`` and ``nomax_softmax`` options. A block
-runs one of two paths:
+``Encoder`` with causal and prefix-LM masking and the ``fast_gelu`` and
+``nomax_softmax`` options. A block runs one of these paths:
 
 - ``xla``: plain PyTorch (LN -> MultiHeadAttention -> residual -> LN ->
-  MlpBlock -> residual), the numerics reference;
-- ``fused_t``: the two sub-blocks on the hand-written kernels of
-  ``ops/fused_encoder.py``, taken when ``Encoder._fused_t_eligible`` holds
-  (self-attention, not causal, tanh GELU -- the in-kernel activation). The
-  JAX package runs this on its transposed patch stream; here the stream
-  keeps the natural (B, 1+P, D) layout, so no transposes are needed.
+  MlpBlock -> residual), the numerics reference; ``flash`` (and ``scan``)
+  the same with the attention core on the flash kernel;
+- ``fused``: the attention sub-block on the natural-layout block kernels
+  (``ops/fused_attention.py``, the JAX package's ``_block_kernel``). Of the
+  JAX block's eligibility rule (:134-145) nothing can fail here: the port's
+  blocks have no external mask (the kernels take the prefix-LM mask), no
+  DenseGeneral params, LayerScale, dropout or KV cache.
+  The MLP half is XLA in the JAX package; here it runs on the
+  ``layernorm`` + ``gemm_bias_act`` kernels where its GELU is tanh (the
+  kernel's activation) and in plain PyTorch where it is exact;
+- ``fused_t``: both sub-blocks on the kernels of ``ops/fused_encoder.py``,
+  taken when ``Encoder._fused_t_eligible`` holds (self-attention, no mask,
+  tanh GELU). The JAX package runs this on its transposed patch stream;
+  here the stream keeps the natural (B, 1+P, D) layout. Where ``fused_t``
+  is not eligible the stack runs ``fused`` blocks, as the JAX Encoder
+  falls back (:592-616).
 
-Where the JAX Encoder falls back from an ineligible ``fused_t`` to its
-natural-layout ``fused`` Pallas block, the port raises: that kernel
-(``ops/fused_attention.py:_block_kernel``) is not ported yet.
+The JAX blocks keep tiny sequences (< 32 tokens) off the Pallas kernels on a
+TPU, where a block pads the sequence to 128 lanes; the CUDA kernels tile by
+64 rows and masks, so the port applies no such guard.
 
 Parameters carry OpenCLIP's names (``transformer.resblocks.N.{ln_1, attn,
-ln_2, mlp}``). LayerScale, DropPath, dropout, the prefix-LM mask, remat,
-the scanned MLP, pipelining and the KV cache are not ported yet.
+ln_2, mlp}``). LayerScale, DropPath, dropout, remat, the scanned MLP,
+pipelining and the KV cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,35 +40,77 @@ from torch import nn
 
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
 from openvision_tpu_torch.models.layers import LayerNorm, MlpBlock
+from openvision_tpu_torch.ops.attention import prefix_lm_mask
+from openvision_tpu_torch.ops.fused_attention import fused_mhsa_block
 from openvision_tpu_torch.ops.fused_encoder import mhsa_block, mlp_block
 
 _GELU_APPROX = {"vit": False, "scaled": True}  # init_style -> tanh GELU
+ATTN_IMPLS = ("xla", "fused", "fused_t", "flash", "scan", "ring")
 
 
 class EncoderBlock(nn.Module):
     """Pre-LN MHSA + MLP residual block."""
 
     def __init__(self, width: int, num_heads: int, mlp_dim: Optional[int] = None,
-                 init_style: str = "vit", causal: bool = False, fast_gelu: bool = False,
-                 nomax_softmax: bool = False, dtype: torch.dtype = torch.float32):
+                 init_style: str = "vit", causal: bool = False, attn_impl: str = "xla",
+                 fast_gelu: bool = False, nomax_softmax: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if init_style not in _GELU_APPROX:
             raise ValueError(f"Unknown init_style: {init_style!r}")
         self.gelu_approx = _GELU_APPROX[init_style] or fast_gelu
         self.ln_1 = LayerNorm(width, dtype)
-        self.attn = MultiHeadAttention(width, num_heads, causal=causal, dtype=dtype)
+        self.attn = MultiHeadAttention(width, num_heads, attn_impl=attn_impl, dtype=dtype)
         self.ln_2 = LayerNorm(width, dtype)
         self.mlp = MlpBlock(width, mlp_dim, gelu_approx=self.gelu_approx, dtype=dtype)
         self.num_heads = num_heads
+        self.causal = causal
+        self.attn_impl = attn_impl
         self.nomax_softmax = nomax_softmax
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, fused_t: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fused_t: bool = False, prefix_len: int = 0) -> torch.Tensor:
+        """`prefix_len > 0` on a causal block is the prefix-LM mask (the
+        caption decoder knows its prefix only from its inputs)."""
         x = x.to(self.dtype)
         if fused_t:
             return self._fused_t_block(x)
-        x = x + self.attn(self.ln_1(x))
+        mask, causal, native_prefix = None, self.causal, 0
+        if self.causal and prefix_len > 0:
+            if self.attn_impl in ("flash", "scan", "fused"):
+                native_prefix = prefix_len  # these kernels mask natively
+            else:
+                mask = prefix_lm_mask(x.shape[0], x.shape[1], prefix_len, x.device)
+                causal = False
+        if self.attn_impl != "fused":
+            x = x + self.attn(self.ln_1(x), mask=mask, causal=causal, prefix_len=native_prefix)
+            return x + self.mlp(self.ln_2(x))
+        x = self._fused_attn_subblock(x, causal, native_prefix)
+        if self.gelu_approx:
+            return self._mlp_subblock_kernels(x)
         return x + self.mlp(self.ln_2(x))
+
+    def _fused_attn_subblock(self, x, causal: bool, prefix_len: int):
+        """``_block_kernel``'s sub-block: matrices in the compute dtype,
+        LayerNorm parameters and biases in f32 (openvision_tpu/models/
+        encoder.py:217-228)."""
+        dt, f32 = self.dtype, torch.float32
+        return fused_mhsa_block(
+            x.contiguous(),
+            self.ln_1.weight.to(f32), self.ln_1.bias.to(f32),
+            self.attn.in_proj_weight.to(dt), self.attn.in_proj_bias.to(f32),
+            self.attn.out_proj.weight.to(dt), self.attn.out_proj.bias.to(f32),
+            num_heads=self.num_heads, causal=causal, prefix_len=prefix_len,
+            eps=self.ln_1.eps)
+
+    def _mlp_subblock_kernels(self, x):
+        dt, f32 = self.dtype, torch.float32
+        return mlp_block(
+            x,
+            self.ln_2.weight.to(f32), self.ln_2.bias.to(f32),
+            self.mlp.c_fc.weight.to(dt), self.mlp.c_fc.bias.to(f32),
+            self.mlp.c_proj.weight.to(dt), self.mlp.c_proj.bias.to(f32),
+            eps=self.ln_2.eps)
 
     def _fused_t_block(self, x: torch.Tensor) -> torch.Tensor:
         """Both sub-blocks on the kernels: matrices in the compute dtype,
@@ -71,12 +123,7 @@ class EncoderBlock(nn.Module):
             self.attn.in_proj_weight.to(dt), self.attn.in_proj_bias.to(f32),
             self.attn.out_proj.weight.to(dt), self.attn.out_proj.bias.to(f32),
             num_heads=self.num_heads, eps=self.ln_1.eps, nomax=self.nomax_softmax)
-        return mlp_block(
-            x,
-            self.ln_2.weight.to(f32), self.ln_2.bias.to(f32),
-            self.mlp.c_fc.weight.to(dt), self.mlp.c_fc.bias.to(f32),
-            self.mlp.c_proj.weight.to(dt), self.mlp.c_proj.bias.to(f32),
-            eps=self.ln_2.eps)
+        return self._mlp_subblock_kernels(x)
 
 
 class Encoder(nn.Module):
@@ -87,19 +134,21 @@ class Encoder(nn.Module):
                  fast_gelu: bool = False, nomax_softmax: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if attn_impl not in ("xla", "fused_t"):
-            raise NotImplementedError(
-                f"attn_impl={attn_impl!r} is not ported yet (the port runs 'xla' and 'fused_t')")
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"Unknown attention impl: {attn_impl!r}")
+        # an ineligible fused_t stack runs natural-layout fused blocks
+        block_impl = "fused" if attn_impl == "fused_t" else attn_impl
         self.resblocks = nn.ModuleList(
             EncoderBlock(width, num_heads, mlp_dim, init_style=init_style, causal=causal,
-                         fast_gelu=fast_gelu, nomax_softmax=nomax_softmax, dtype=dtype)
+                         attn_impl=block_impl, fast_gelu=fast_gelu,
+                         nomax_softmax=nomax_softmax, dtype=dtype)
             for _ in range(depth))
         self.attn_impl = attn_impl
         self.causal = causal
         self.gelu_approx = _GELU_APPROX[init_style] or fast_gelu
         self.dtype = dtype
 
-    def _fused_t_eligible(self, x: torch.Tensor) -> bool:
+    def _fused_t_eligible(self, x: torch.Tensor, prefix_len: int) -> bool:
         """The fused_t kernels take the plain CLIP-vision-encode shape:
         cls-first self-attention with no mask, and tanh GELU (the in-kernel
         activation), as ``openvision_tpu/models/encoder.py:556``."""
@@ -108,17 +157,32 @@ class Encoder(nn.Module):
             and x.ndim == 3
             and x.shape[1] >= 2
             and not self.causal
+            and prefix_len == 0
             and self.gelu_approx
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fused_t = self._fused_t_eligible(x)
-        if self.attn_impl == "fused_t" and not fused_t:
-            raise NotImplementedError(
-                "attn_impl='fused_t' needs a non-causal encoder with tanh GELU "
-                "(fast_gelu=True); the JAX package falls back to its natural-layout "
-                "'fused' Pallas block here, which is not ported yet")
+    def forward(self, x: torch.Tensor, prefix_len: int = 0) -> torch.Tensor:
+        """`prefix_len > 0` on a causal stack is the prefix-LM mask."""
+        fused_t = self._fused_t_eligible(x, prefix_len)
         x = x.to(self.dtype)
         for block in self.resblocks:
-            x = block(x, fused_t=fused_t)
+            x = block(x, fused_t=fused_t, prefix_len=prefix_len)
         return x
+
+
+def cast_block_matrices(module: nn.Module, dtype: torch.dtype) -> None:
+    """Stores the weight matrices of every attention and MLP under `module`
+    in `dtype`, once (what the flax modules cast at every call); LayerNorm
+    parameters, biases, embeddings and heads stay f32."""
+    if dtype == torch.float32:
+        return
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, MultiHeadAttention):
+                params = (m.in_proj_weight, m.out_proj.weight)
+            elif isinstance(m, MlpBlock):
+                params = (m.c_fc.weight, m.c_proj.weight)
+            else:
+                continue
+            for p in params:
+                p.data = p.data.to(dtype)

@@ -7,8 +7,11 @@ token (the appended [CLS]) -- and a head without bias.
 
 Parameters carry OpenCLIP's names: ``token_embedding``,
 ``positional_embedding`` (L, D), ``transformer``, ``ln_final`` and
-``text_projection`` (D, out). Soft one-hot token input and token outputs
-for the caption decoder are not ported yet.
+``text_projection`` (D, out). With ``output_tokens`` the tower also
+returns the caption decoder's token features, taken BEFORE the final
+LayerNorm: ``x[:, :-1]`` for ``last`` pooling, ``x[:, 1:]`` for ``first``
+(openvision_tpu/models/text.py:144-154). Soft one-hot token input is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ class TextTransformer(nn.Module):
                  mlp_dim: Optional[int] = None, num_heads: int = 8, vocab_size: int = 32000,
                  context_length: int = 80, posemb: str = "learn", pool_type: str = "last",
                  causal: bool = False, attn_impl: str = "xla",
-                 dtype: torch.dtype = torch.float32):
+                 output_tokens: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if posemb not in ("learn", "sincos1d"):
             raise ValueError(f"Unknown posemb type: {posemb!r}")
@@ -76,12 +79,15 @@ class TextTransformer(nn.Module):
         if num_classes:
             self.text_projection = nn.Parameter(torch.zeros(width, num_classes))
         self.num_classes = num_classes
+        self.width = width
         self.posemb = posemb
         self.pool_type = pool_type
+        self.output_tokens = output_tokens
         self.dtype = dtype
 
-    def forward(self, text: torch.Tensor) -> torch.Tensor:
-        """text: (N, L) int token ids -> (N, num_classes) f32."""
+    def forward(self, text: torch.Tensor):
+        """text: (N, L) int token ids -> (N, num_classes) f32; with
+        ``output_tokens``, (pooled, pre-norm token features)."""
         x = self.token_embedding(text.long()).float()
         _, l, d = x.shape
         if self.posemb == "learn":
@@ -89,9 +95,12 @@ class TextTransformer(nn.Module):
         else:
             x = x + posemb_sincos_1d(l, d, device=x.device)
         x = self.transformer(x.to(self.dtype))
+        tokens = {"last": x[:, :-1], "first": x[:, 1:]}.get(self.pool_type, x)
         pooled = text_global_pool(self.ln_final(x), text, self.pool_type)
         if self.num_classes:
             pooled = pooled.float() @ self.text_projection.float()
+        if self.output_tokens:
+            return pooled, tokens
         return pooled
 
 

@@ -3,7 +3,10 @@
 Counterpart of ``openvision_tpu/models/vit.py``: the conv patch embed
 computed in f32, the cls token, learned or sincos2d position embedding, the
 shared Encoder, the pools ``gap``/``tok``/``0``/``avg`` and the head in f32.
-Images come in the JAX package's NHWC layout.
+Images come in the JAX package's NHWC layout. With ``output_tokens`` the
+tower also returns the encoder's patch tokens (the caption decoder's image
+tokens): ``encoded[:, 1:]``, or all of them under ``ignore_cls``, which
+drops the cls token before the encoder (:289-290, :336-362).
 
 Parameters carry OpenCLIP's ``visual.*`` names: ``conv1`` (OIHW),
 ``class_embedding`` (D,), ``positional_embedding`` (1+P, D),
@@ -65,6 +68,7 @@ class ViT(nn.Module):
                  num_heads: int = 12, posemb: str = "learn", pool_type: str = "gap",
                  attn_impl: str = "xla", fast_gelu: bool = False, nomax_softmax: bool = False,
                  emb_head_bias: bool = True, image_size: int = 224,
+                 ignore_cls: bool = False, output_tokens: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if pool_type not in ("gap", "tok", "0", "avg"):
@@ -86,12 +90,16 @@ class ViT(nn.Module):
             self.proj = nn.Parameter(torch.zeros(width, num_classes))
             self.proj_bias = nn.Parameter(torch.zeros(num_classes)) if emb_head_bias else None
         self.num_classes = num_classes
+        self.width = width
         self.posemb = posemb
         self.pool_type = pool_type
+        self.ignore_cls = ignore_cls
+        self.output_tokens = output_tokens
         self.dtype = dtype
 
-    def forward(self, image: torch.Tensor) -> torch.Tensor:
-        """image: (N, H, W, 3) -> (N, num_classes) f32 (or (N, width) without a head)."""
+    def forward(self, image: torch.Tensor):
+        """image: (N, H, W, 3) -> (N, num_classes) f32 (or (N, width) without a
+        head); with ``output_tokens``, (pooled, tokens (N, P, width))."""
         w = self.conv1
         x = F.conv2d(image.float().permute(0, 3, 1, 2), w.weight.float(),
                      None if w.bias is None else w.bias.float(), stride=w.stride)
@@ -102,12 +110,15 @@ class ViT(nn.Module):
             x = x + self.positional_embedding.float()
         else:
             x = x + posemb_sincos_2d(h, wd, c, cls_token=True, device=x.device)
+        if self.ignore_cls:
+            x = x[:, 1:]
         x = self.transformer(x.to(self.dtype))
+        patches = x if self.ignore_cls else x[:, 1:]
 
         if self.pool_type == "gap":
-            pooled = self.ln_post(x[:, 1:].mean(dim=1))
+            pooled = self.ln_post(patches.mean(dim=1))
         elif self.pool_type == "avg":
-            pooled = x[:, 1:].mean(dim=1)
+            pooled = patches.mean(dim=1)
         elif self.pool_type == "0":
             pooled = x[:, 0]
         else:  # "tok"
@@ -117,6 +128,8 @@ class ViT(nn.Module):
             pooled = pooled.float() @ self.proj.float()
             if self.proj_bias is not None:
                 pooled = pooled + self.proj_bias.float()
+        if self.output_tokens:
+            return pooled, patches
         return pooled
 
 

@@ -21,7 +21,7 @@ Here the two sub-blocks run as three CUDA kernels (``csrc/``):
 - :func:`attention` -- online-softmax attention straight off the QKV buffer.
 
 Each has a plain PyTorch version beside it (``*_plain``, f32 math) and a
-launch counter in :data:`LAUNCHES`. A wrapper takes the plain version only
+launch counter in ``kernels.LAUNCHES``. A wrapper takes the plain version only
 for tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 The 4D MLP hidden goes through device memory in this version, where the
 Pallas kernel keeps it in VMEM.
@@ -33,52 +33,9 @@ ported yet.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from openvision_tpu_torch.ops import kernels
-
-# Launches of each kernel; a wrapper adds one right after its kernel launched.
-LAUNCHES = {"layernorm": 0, "gemm_bias_act": 0, "attention": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
-
-def _on_cpu(*tensors) -> bool:
-    devices = {t.device.type for t in tensors if t is not None}
-    if devices == {"cpu"}:
-        return True
-    if devices != {"cuda"}:
-        raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {devices}")
-    return False
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors")
-    if t.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(
-            f"{name}: the CUDA kernels are forward only (their backward "
-            "kernels are not ported yet); run under torch.inference_mode()")
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def _gelu_tanh(h: torch.Tensor) -> torch.Tensor:
@@ -107,20 +64,20 @@ def layernorm(x, weight, bias, eps: float):
     memory (one read, one write of x); one warp per row with 16-byte loads,
     no shared memory.
     """
-    if _on_cpu(x, weight, bias):
+    if kernels.on_cpu(x, weight, bias):
         return layernorm_plain(x, weight, bias, eps)
     d = x.shape[-1]
     if d % 8:
         raise ValueError(f"layernorm: the kernel takes a width divisible by 8, got {d}")
-    _check("layernorm x", x, torch.bfloat16)
-    _check("layernorm weight", weight, torch.float32, (d,))
-    _check("layernorm bias", bias, torch.float32, (d,))
+    kernels.check_operand("layernorm x", x, torch.bfloat16)
+    kernels.check_operand("layernorm weight", weight, torch.float32, (d,))
+    kernels.check_operand("layernorm bias", bias, torch.float32, (d,))
     y = torch.empty_like(x)
     rc = kernels.lib().ovt_layernorm(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        x.numel() // d, d, eps, _stream(x))
-    _raise_on(rc, "layernorm")
-    LAUNCHES["layernorm"] += 1
+        x.numel() // d, d, eps, kernels.stream(x))
+    kernels.raise_on(rc, "layernorm")
+    kernels.LAUNCHES["layernorm"] += 1
     return y
 
 
@@ -154,7 +111,7 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
     Bound by the tensor cores at ViT shapes; mma.sync m16n8k16 over a
     two-stage cp.async ring of 128x128x32 tiles, epilogue fused.
     """
-    if _on_cpu(x, weight, bias, residual):
+    if kernels.on_cpu(x, weight, bias, residual):
         return linear_plain(x, weight, bias, gelu=gelu, residual=residual)
     n, k = weight.shape
     if n % 8 or k % 8:
@@ -162,20 +119,20 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
     if x.shape[-1] != k:
         raise ValueError(f"gemm_bias_act: x has K={x.shape[-1]}, weight has K={k}")
     m = x.numel() // k
-    _check("gemm x", x, torch.bfloat16)
-    _check("gemm weight", weight, torch.bfloat16)
+    kernels.check_operand("gemm x", x, torch.bfloat16)
+    kernels.check_operand("gemm weight", weight, torch.bfloat16)
     if bias is not None:
-        _check("gemm bias", bias, torch.float32, (n,))
+        kernels.check_operand("gemm bias", bias, torch.float32, (n,))
     out = torch.empty(*x.shape[:-1], n, dtype=torch.bfloat16, device=x.device)
     if residual is not None:
-        _check("gemm residual", residual, torch.bfloat16, out.shape)
+        kernels.check_operand("gemm residual", residual, torch.bfloat16, out.shape)
     rc = kernels.lib().ovt_gemm_bias_act(
         x.data_ptr(), weight.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
-        out.data_ptr(), m, n, k, int(gelu), _stream(x))
-    _raise_on(rc, "gemm_bias_act")
-    LAUNCHES["gemm_bias_act"] += 1
+        out.data_ptr(), m, n, k, int(gelu), kernels.stream(x))
+    kernels.raise_on(rc, "gemm_bias_act")
+    kernels.LAUNCHES["gemm_bias_act"] += 1
     return out
 
 
@@ -184,55 +141,102 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
 # ---------------------------------------------------------------------------
 
 
-def attention_plain(qkv, num_heads: int, *, nomax: bool = False):
+def attend_plain(q, k, v, *, scale: float, prescale: bool = True, causal: bool = False,
+                 prefix_len: int = 0, nomax: bool = False):
+    """softmax(q k^T) v over (B, L, H, hd) tensors -> (o, lse), the arithmetic
+    of the attention kernel (``csrc/attention.cu``) in f32.
+
+    ``prescale`` scales q and rounds it to the input dtype before q.k^T (the
+    order of ``_mhsa_t_kernel`` and the single-k flash kernel); otherwise the
+    f32 scores are scaled (the multi-k flash kernel). Key j is visible to
+    query i iff j <= max(i, prefix_len - 1) when causal. The probabilities
+    are rounded to the input dtype for p.v, then divided by their f32 row sum
+    (1 where a row sees no key); ``nomax`` takes exp(min(s, 80)) with no max
+    subtraction. lse = m + log(l), (B, H, Lq) f32, is the logsumexp of the
+    scores (meaningless under nomax).
+    """
+    dt = q.dtype
+    if prescale:
+        s = torch.einsum("bqhd,bkhd->bhqk", (q.float() * scale).to(dt).float(), k.float())
+    else:
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    lq, lk = s.shape[-2:]
+    if causal:
+        rows = torch.arange(lq, device=s.device)[:, None]
+        cols = torch.arange(lk, device=s.device)[None, :]
+        s = s.masked_fill(cols > torch.clamp(rows, min=prefix_len - 1), float("-inf"))
+    if nomax:
+        m = torch.zeros_like(s[..., :1])
+        p = torch.exp(torch.clamp(s, max=80.0))
+    else:
+        m = s.amax(-1, keepdim=True)
+        m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l <= 0, torch.ones_like(l), l)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), v.float())
+    o = o / l.squeeze(-1).transpose(1, 2)[..., None]
+    return o.to(dt), (m + torch.log(l)).squeeze(-1)
+
+
+def _split_qkv(qkv, num_heads: int):
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    return (t.reshape(b, l, num_heads, d // num_heads) for t in qkv.split(d, dim=-1))
+
+
+def attention_plain(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
+                    prefix_len: int = 0, scale: float | None = None):
     """softmax(q k^T) v from a (B, L, 3D) QKV buffer -> (B, L, D).
 
-    As the Pallas kernel: q scaled by head_dim**-0.5 and rounded to the
-    input dtype, f32 scores, unnormalized probabilities rounded to the input
-    dtype for p.v, then divided by their f32 row sum; ``nomax`` takes
+    As the Pallas kernels: q scaled (by head_dim**-0.5 unless `scale` is
+    given) and rounded to the input dtype, f32 scores, the causal or
+    prefix-LM mask, unnormalized probabilities rounded to the input dtype
+    for p.v, then divided by their f32 row sum; ``nomax`` takes
     exp(min(s, 80)) with no max subtraction.
     """
     b, l, d3 = qkv.shape
-    d = d3 // 3
-    hd = d // num_heads
-    dt = qkv.dtype
-    q, k, v = (t.reshape(b, l, num_heads, hd) for t in qkv.split(d, dim=-1))
-    q = (q.float() * hd ** -0.5).to(dt)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    if nomax:
-        p = torch.exp(torch.clamp(s, max=80.0))
-    else:
-        p = torch.exp(s - s.amax(-1, keepdim=True))
-    o = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), v.float())
-    o = o / p.sum(-1).transpose(1, 2)[..., None]
-    return o.reshape(b, l, d).to(dt)
+    q, k, v = _split_qkv(qkv, num_heads)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    o, _ = attend_plain(q, k, v, scale=scale, causal=causal, prefix_len=prefix_len,
+                        nomax=nomax)
+    return o.reshape(b, l, d3 // 3)
 
 
-def attention(qkv, num_heads: int, *, nomax: bool = False):
-    """Kernel ``csrc/attention.cu``: the attention core of ``_mhsa_t_kernel``.
+def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
+              prefix_len: int = 0, scale: float | None = None):
+    """Kernel ``csrc/attention.cu``: the attention core of ``_mhsa_t_kernel``
+    and of ``_block_kernel`` (openvision_tpu/ops/fused_attention.py:440).
 
     qkv: (B, L, 3D) bf16 from the QKV projection; returns (B, L, D) bf16.
     Replaces openvision_tpu/ops/fused_encoder.py:106-154 (per-head scores,
-    ``valid`` key mask, max or ``nomax`` softmax, p.v). One block per
+    ``valid`` key mask, max or ``nomax`` softmax, p.v) and the causal and
+    prefix-LM masks of ``_tvalid`` (fused_attention.py:64). One block per
     (batch, head, 64-query tile), online softmax over 64-key tiles in
-    registers, keys past L masked; reads q, k, v by stride, no permutes.
-    head_dim must be 64.
+    registers, keys past L and masked keys dropped, key tiles no query of the
+    block sees skipped; reads q, k, v by stride, no permutes. head_dim must
+    be 64.
     """
-    if _on_cpu(qkv):
-        return attention_plain(qkv, num_heads, nomax=nomax)
+    if kernels.on_cpu(qkv):
+        return attention_plain(qkv, num_heads, nomax=nomax, causal=causal,
+                               prefix_len=prefix_len, scale=scale)
     b, l, d3 = qkv.shape
     d = d3 // 3
     hd = d // num_heads
     if d3 % 3 or d % num_heads or hd != 64:
         raise ValueError(
             f"attention: the kernel takes head_dim 64, got width {d} over {num_heads} heads")
-    _check("attention qkv", qkv, torch.bfloat16)
+    kernels.check_operand("attention qkv", qkv, torch.bfloat16)
+    if l * d3 >= 2**31:
+        raise ValueError("attention: one batch item must hold fewer than 2**31 elements")
     out = torch.empty(b, l, d, dtype=torch.bfloat16, device=qkv.device)
     rc = kernels.lib().ovt_attention(
-        qkv.data_ptr(), out.data_ptr(), b, l, num_heads, hd, hd ** -0.5,
-        int(nomax), _stream(qkv))
-    _raise_on(rc, "attention")
-    LAUNCHES["attention"] += 1
+        qkv.data_ptr(), out.data_ptr(), b, l, num_heads, hd,
+        hd ** -0.5 if scale is None else scale, int(nomax), int(causal),
+        int(prefix_len) if causal else 0, kernels.stream(qkv))
+    kernels.raise_on(rc, "attention")
+    kernels.LAUNCHES["attention"] += 1
     return out
 
 

@@ -6,8 +6,13 @@ imported: the first call to :func:`lib` builds into
 ``build/openvision_tpu_torch/<hash>/`` at the repository root (the hash
 covers the sources and the flags, so an edited source rebuilds) and later
 calls reuse it. Every C entry point launches on the stream it is given and
-returns ``cudaGetLastError()``; the wrappers in ``ops/fused_encoder.py``
-raise when it is not 0.
+returns ``cudaGetLastError()``; the wrappers (``ops/fused_encoder.py``,
+``ops/flash_attention.py``) raise when it is not 0.
+
+The wrappers share :data:`LAUNCHES` (one count per wrapper, raised right
+after its kernel launched) and the operand checks below: a wrapper takes its
+plain version only when every tensor lies on the CPU, and for CUDA tensors
+launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu")
@@ -30,6 +37,56 @@ NVCC_FLAGS = (
 LIB_NAME = "libovt_kernels.so"
 
 _lib = None
+
+# Launches of each kernel; a wrapper adds one right after its kernel launched.
+LAUNCHES = {"layernorm": 0, "gemm_bias_act": 0, "attention": 0, "flash_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def on_cpu(*tensors) -> bool:
+    """True if every tensor is on the CPU, False if every one is on CUDA."""
+    devices = {t.device.type for t in tensors if t is not None}
+    if devices == {"cpu"}:
+        return True
+    if devices != {"cuda"}:
+        raise ValueError(f"tensors must all be on the CPU or all on CUDA, got {devices}")
+    return False
+
+
+def check_operand(name: str, t, dtype, shape=None, contiguous: bool = True) -> None:
+    """Raises unless `t` is what a kernel takes: `dtype`, `shape`, 16-byte
+    aligned, contiguous (or, with contiguous=False, unit stride in the last
+    dim and every other stride a multiple of 8 elements), and not a tensor
+    that autograd would need a backward kernel for."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+    if not contiguous and (t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1])):
+        raise ValueError(
+            f"{name}: the kernel takes unit stride in the last dim and other strides "
+            f"that are multiples of 8 elements, got {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors")
+    if t.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError(
+            f"{name}: the CUDA kernels are forward only (their backward "
+            "kernels are not ported yet); run under torch.inference_mode()")
+
+
+def stream(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def nvcc() -> str:
@@ -83,9 +140,11 @@ def lib() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         handle.ovt_layernorm.argtypes = [p, p, p, p, i, i, f, p]
         handle.ovt_gemm_bias_act.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        handle.ovt_attention.argtypes = [p, p, i, i, i, i, f, i, p]
+        handle.ovt_attention.argtypes = [p, p, i, i, i, i, f, i, i, i, p]
+        handle.ovt_flash_attention.argtypes = [
+            p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, f, i, i, i, p]
         for fn in (handle.ovt_layernorm, handle.ovt_gemm_bias_act,
-                   handle.ovt_attention):
+                   handle.ovt_attention, handle.ovt_flash_attention):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

@@ -23,6 +23,7 @@ import torch
 
 from openvision_tpu_torch.convert.openclip import openclip_to_state_dict
 from openvision_tpu_torch.models.clip import CLIPModel
+from openvision_tpu_torch.models.encoder import cast_block_matrices
 
 DEFAULT_VOCAB = str(Path(__file__).resolve().parents[2] / "assets" / "bert_base_vocab_bos_eos.txt")
 _DEFAULT_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -132,7 +133,7 @@ def load_model(model_dir: str, *, vocab_path: str = DEFAULT_VOCAB,
     clip.load_state_dict(openclip_to_state_dict(sd))
     del sd
     clip = clip.to(device).eval().requires_grad_(False)
-    _cast_block_matrices(clip, dtype)
+    cast_block_matrices(clip, dtype)
 
     # a vocab.txt in the model dir (the JAX exports write one) overrides
     local_vocab = os.path.join(model_dir, "vocab.txt")
@@ -152,19 +153,6 @@ def load_model(model_dir: str, *, vocab_path: str = DEFAULT_VOCAB,
         vocab_path=vocab_path,
         device=device,
     )
-
-
-def _cast_block_matrices(clip: CLIPModel, dtype: torch.dtype) -> None:
-    """Stores each encoder block's weight matrices in `dtype`, once; the
-    LayerNorm parameters, biases, embeddings and heads stay f32."""
-    if dtype == torch.float32:
-        return
-    with torch.no_grad():
-        for tower in (clip.visual, clip.text):
-            for block in tower.transformer.resblocks:
-                for p in (block.attn.in_proj_weight, block.attn.out_proj.weight,
-                          block.mlp.c_fc.weight, block.mlp.c_proj.weight):
-                    p.data = p.data.to(dtype)
 
 
 def tokenize_labels(labels, vocab_path: str, max_len: int) -> np.ndarray:

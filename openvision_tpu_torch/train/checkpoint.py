@@ -1,0 +1,105 @@
+"""Checkpoint reading and writing: the flat-name npz format.
+
+Counterpart of the npz half of ``openvision_tpu/train/checkpoint.py``
+(``save_npz`` / ``load_npz``, :177-204) with its own ``recover_tree`` and
+``recover_dtype`` (``openvision_tpu/utils/tree.py:52, :139``), since the
+JAX package's modules import JAX. An npz holds one array per flat
+slash-joined name ("params/img/cls", ...); numpy stores bfloat16 as 2-byte
+void, which :func:`recover_dtype` turns back into a ``torch.bfloat16``
+tensor. Orbax train-state directories and legacy tensorstore checkpoints
+are not ported yet: :func:`load_checkpoint` names the format and raises.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def recover_tree(names: Sequence[str], values: Sequence[Any]) -> Dict[str, Any]:
+    """Rebuilds a nested dict from flat slash-delimited names."""
+    tree: Dict[str, Any] = {}
+    for name, value in zip(names, values):
+        *parents, leaf = name.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def recover_dtype(a: np.ndarray):
+    """numpy's void-stored bfloat16 -> a torch.bfloat16 tensor; any other
+    array passes through."""
+    if a.dtype.kind == "V":
+        if a.itemsize != 2:
+            raise ValueError(f"unknown {a.itemsize}-byte void dtype in the npz")
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return a
+
+
+def _flatten(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    if isinstance(tree, dict):
+        out: Dict[str, Any] = {}
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}/{k}" if prefix else str(k)))
+        return out
+    return {prefix: tree}
+
+
+def _to_numpy(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:  # stored as 2-byte void, as numpy does
+            return v.view(torch.int16).numpy().view(np.dtype("V2"))
+        return v.numpy()
+    return np.asarray(v)
+
+
+def save_npz(path: str, tree: Any) -> None:
+    """Writes a nested dict of arrays (numpy or torch) as a flat-named npz,
+    atomically (a temporary file, then a rename)."""
+    flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+    tmp = path + "-TEMPORARY"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)
+
+
+def load_npz(path: str, tree_key: Optional[str] = None) -> Dict[str, Any]:
+    """Loads a flat-named npz back into a nested dict. `path` may carry a
+    ``:subtree`` suffix ("ckpt.npz:img") selecting a subtree."""
+    if tree_key is None and ":" in os.path.basename(path):
+        path, tree_key = path.rsplit(":", 1)
+    with open(path, "rb") as f:
+        data = np.load(f, allow_pickle=False)
+        flat = {k: recover_dtype(data[k]) for k in data.files}
+    tree = recover_tree(list(flat), list(flat.values()))
+    return tree[tree_key] if tree_key else tree
+
+
+def _is_legacy_ts(directory: str) -> bool:
+    """A reference tensorstore directory: `~`-joined array names, each a zarr
+    directory, or a base path with a `-LAST` step pointer beside it."""
+    if os.path.exists(directory + "-LAST"):
+        return True
+    if not os.path.isdir(directory):
+        return False
+    return any("~" in d and os.path.exists(os.path.join(directory, d, ".zarray"))
+               for d in os.listdir(directory))
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The param tree of a checkpoint, routed as the JAX caption tool routes
+    it: an .npz file (its ``params`` subtree if it holds a train state);
+    legacy tensorstore and Orbax checkpoints raise NotImplementedError."""
+    if os.path.isfile(path) and path.endswith(".npz"):
+        tree = load_npz(path)
+        return tree.get("params", tree)
+    fmt = "legacy tensorstore" if _is_legacy_ts(path) else "Orbax"
+    raise NotImplementedError(
+        f"{path}: {fmt} checkpoints are not ported yet; convert it to a flat npz "
+        "with the JAX package (train/checkpoint.py:save_npz)")

@@ -12,13 +12,19 @@ largest magnitude of the reference output:
 - layernorm and gemm_bias_act: 2**-7. The kernel rounds its output to bf16
   (at most 2**-9 relative), the residual add rounds once more, and the f32
   sums are taken in another order.
-- attention: 2**-6. It also rounds the probabilities to bf16 before p.v.
+- attention and flash_attention: 2**-6. They also round the probabilities
+  to bf16 before p.v. The flash LSE is f32 of the same bf16 scores: within
+  1e-3 absolute.
+- the composed blocks (several launches): 2**-5.
 """
 
 import pytest
 import torch
 
+from openvision_tpu_torch.ops import fused_attention as fa
 from openvision_tpu_torch.ops import fused_encoder as fe
+from openvision_tpu_torch.ops import kernels
+from openvision_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
 
 @pytest.fixture
@@ -89,14 +95,15 @@ def test_sub_blocks_count_launches(dev):
     w_o, b_o = _rand(g, dev, d, d, scale=d**-0.5).bfloat16(), _rand(g, dev, d, scale=0.1)
     w1, b1 = _rand(g, dev, 4 * d, d, scale=d**-0.5).bfloat16(), _rand(g, dev, 4 * d, scale=0.1)
     w2, b2 = _rand(g, dev, d, 4 * d, scale=(4 * d)**-0.5).bfloat16(), _rand(g, dev, d, scale=0.1)
-    fe.reset_launch_counts()
+    kernels.reset_launch_counts()
     with torch.inference_mode():
         y = fe.mhsa_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, num_heads=h)
         y = fe.mlp_block(y, ln_w, ln_b, w1, b1, w2, b2)
         ref = fe.mhsa_block_plain(x.float(), ln_w, ln_b, w_qkv.float(), b_qkv, w_o.float(), b_o,
                                   num_heads=h)
         ref = fe.mlp_block_plain(ref, ln_w, ln_b, w1.float(), b1, w2.float(), b2)
-    assert fe.LAUNCHES == {"layernorm": 2, "gemm_bias_act": 4, "attention": 1}
+    assert kernels.LAUNCHES == {"layernorm": 2, "gemm_bias_act": 4, "attention": 1,
+                           "flash_attention": 0}
     # two sub-blocks compound the per-kernel roundings
     assert _rel_err(y, ref) <= 2**-5
 
@@ -113,3 +120,88 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     w = torch.ones(16, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward only"):
         fe.layernorm(x, w, torch.zeros(16, device=dev), 1e-6)
+    d, f32 = 128, dict(device=dev)
+    with pytest.raises(ValueError, match="power-of-two"):
+        fa.fused_mhsa_block(
+            torch.zeros(1, 4, d, device=dev, dtype=torch.bfloat16), torch.ones(d, **f32),
+            torch.zeros(d, **f32), torch.zeros(3 * d, d, device=dev, dtype=torch.bfloat16),
+            torch.zeros(3 * d, **f32), torch.zeros(d, d, device=dev, dtype=torch.bfloat16),
+            torch.zeros(d, **f32), num_heads=2, sm_scale=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,h,prefix", [
+    (2, 463, 12, 335),  # concat decoder: prefix-LM
+    (2, 128, 12, 0),    # cross_attn decoder self-attention: causal
+    (3, 101, 4, 37),    # ragged, prefix inside a key tile
+    (1, 70, 2, 200),    # prefix past L: every key visible
+    (1, 1, 2, 0),
+])
+def test_attention_kernel_causal_and_prefix_masks(dev, b, l, h, prefix):
+    g = torch.Generator().manual_seed(b * l + prefix)
+    qkv = _rand(g, dev, b, l, 3 * h * 64).bfloat16()
+    with torch.inference_mode():
+        ref = fe.attention_plain(qkv.float(), h, causal=True, prefix_len=prefix)
+        got = fe.attention(qkv, h, causal=True, prefix_len=prefix)
+    assert _rel_err(got, ref) <= 2**-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l,d,h,causal,prefix", [
+    (257, 1024, 16, False, 0), (463, 768, 12, True, 335), (128, 768, 12, True, 0),
+])
+def test_fused_mhsa_block_counts_launches(dev, l, d, h, causal, prefix):
+    g = torch.Generator().manual_seed(l)
+    x = _rand(g, dev, 2, l, d).bfloat16()
+    ln_w, ln_b = _rand(g, dev, d) * 0.1 + 1, _rand(g, dev, d) * 0.1
+    w_qkv = _rand(g, dev, 3 * d, d, scale=d**-0.5).bfloat16()
+    b_qkv = _rand(g, dev, 3 * d, scale=0.1)
+    w_o, b_o = _rand(g, dev, d, d, scale=d**-0.5).bfloat16(), _rand(g, dev, d, scale=0.1)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        y = fa.fused_mhsa_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, num_heads=h,
+                                causal=causal, prefix_len=prefix)
+        ref = fa.fused_mhsa_block_plain(x.float(), ln_w, ln_b, w_qkv.float(), b_qkv,
+                                        w_o.float(), b_o, num_heads=h, causal=causal,
+                                        prefix_len=prefix)
+    assert kernels.LAUNCHES == {"layernorm": 1, "gemm_bias_act": 2, "attention": 1,
+                                "flash_attention": 0}
+    assert _rel_err(y, ref) <= 2**-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,h,causal,prefix", [
+    (2, 128, 335, 12, False, 0),   # cross-attention, Lq != Lk
+    (2, 463, 463, 12, True, 335),  # concat decoder, prefix-LM
+    (2, 128, 128, 12, True, 0),    # causal self-attention
+    (3, 101, 101, 4, True, 37),    # ragged
+    (2, 80, 40, 2, True, 0),       # causal with Lq > Lk
+    (1, 780, 780, 2, True, 340),   # multi-k rounding order (Lk > 768), prefix-LM
+    (2, 50, 900, 2, False, 0),     # multi-k, cross-attention
+])
+def test_flash_attention_kernel(dev, b, lq, lk, h, causal, prefix):
+    g = torch.Generator().manual_seed(lq * lk + prefix)
+    q = _rand(g, dev, b, lq, h, 64).bfloat16()
+    kv = _rand(g, dev, b, lk, 2, h, 64).bfloat16()  # k and v as strided views
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        o, lse = flash_attention(q, k, v, causal=causal, prefix_len=prefix, return_lse=True)
+        ref, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                             prefix_len=prefix)
+    assert kernels.LAUNCHES["flash_attention"] == 1
+    assert _rel_err(o, ref) <= 2**-6
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        flash_attention(*(torch.zeros(1, 8, 2, 96, device=dev, dtype=torch.bfloat16),) * 3)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="unit stride"):
+        flash_attention(q, q.transpose(-1, -2).contiguous().transpose(-1, -2), q)
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash_attention(q, q, q.clone().requires_grad_(True))

@@ -139,9 +139,32 @@ def test_vit_matches_jax(images, impl, posemb, pool):
 
 
 def test_vit_fused_t_needs_tanh_gelu(images):
-    port = tvit.Model(32, image_size=RES, **_vit_cfg(fast_gelu=False, attn_impl="fused_t"))
-    with pytest.raises(NotImplementedError, match="tanh GELU"):
-        port(torch.from_numpy(images))
+    # exact GELU makes fused_t ineligible: the stack falls back to the
+    # natural-layout fused blocks, as the JAX Encoder does
+    cfg = _vit_cfg(fast_gelu=False, attn_impl="fused_t")
+    jmodel = jvit.Model(32, **cfg)
+    params = _init(jmodel, jnp.zeros((1, RES, RES, 3)))
+    want = np.asarray(_apply(jmodel, params, images))
+    port = tvit.Model(32, image_size=RES, **cfg)
+    port.load_state_dict(tower_state_dict(params, "img"))
+    assert not port.transformer._fused_t_eligible(torch.zeros(1, 10, 32), 0)
+    with torch.inference_mode():
+        got = port(torch.from_numpy(images)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_causal_text_tower_under_fused_t_falls_back_to_fused():
+    tokens = np.random.default_rng(6).integers(0, VOCAB, (2, CTX)).astype(np.int32)
+    cfg = _text_cfg(causal=True, attn_impl="fused_t")
+    jmodel = jtext.TextTransformer(32, **cfg)
+    params = _init(jmodel, jnp.zeros((1, CTX), jnp.int32))
+    want = np.asarray(_apply(jmodel, params, tokens))
+    port = ttext.TextTransformer(32, context_length=CTX, **cfg)
+    port.load_state_dict(tower_state_dict(params, "txt"))
+    assert all(b.attn_impl == "fused" for b in port.transformer.resblocks)
+    with torch.inference_mode():
+        got = port(torch.from_numpy(tokens)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 def _text_cfg(**kw):
