@@ -44,6 +44,31 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    and each kernel's time at the caption shapes beside its bound, its plain
    version and one PyTorch library call computing the same function (its
    library_ms, a yardstick the port never calls).
+7. The backward kernels against their plain versions at B=8: the fused
+   block's backward (the Pallas _block_bwd_kernel: layernorm, QKV, flash
+   forward, gemm_nn, attention_bwd, gemm_tn, layernorm_bwd, colsum) at the
+   image tower's L=257 D=1024, the concat decoder's prefix-LM L=463 and the
+   cross_attn decoder's causal L=128, against the plain Pallas-order
+   backward, dx held on dx - g; the flash backward (_dq_kernel /
+   _dkv_kernel) at cross 128x335, causal L=128 and Lk=900 (multi-k order).
+   Each output's max|err| / max|plain| is printed beside its bound.
+8. Training at full width: ViT-L/14-224 + text L + decoder L, bf16 compute
+   on f32 master weights, remat=full, batch 64, seed-0 init, on the
+   synthetic source at 224x224 through the trainer's data path
+   (inception_crop is dropped from the pp string when the machine lacks
+   Pillow). On identical params and batch the kernel path's loss and
+   gradients are held against the plain bf16 path (loss within 2**-7
+   relative, global gradient cosine >= 0.999; the per-tensor minimum cosine
+   and the f32 plain path's printed beside). Then train/trainer.py runs 3
+   steps on the kernels with dec_fusion=concat + dec_attn_impl=fused and
+   with cross_attn + flash, and 3 on the plain bf16 path: every loss
+   finite, each kernel launched as the block counts give (remat=full runs
+   each forward twice); per configuration the step time by CUDA events,
+   images/s, peak memory and the profiler's busy/event ratio of one step.
+9. Each backward kernel at B=64, replayed from a CUDA graph, beside its
+   bound, its plain version and one PyTorch library call (the autograd
+   backward of scaled_dot_product_attention, torch.matmul in the same
+   layout, the autograd backward of F.layer_norm, a column sum).
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 
@@ -84,7 +109,10 @@ L14_CONFIG = {
 
 # Per encoder block on the kernels (fused_t, or fused with tanh GELU):
 # 2 LayerNorms, 4 projections, 1 attention.
-LAUNCHES_PER_BLOCK = {"layernorm": 2, "gemm_bias_act": 4, "attention": 1, "flash_attention": 0}
+# The backward kernels (phases 7-9) launch on no inference path.
+LAUNCHES_PER_BLOCK = {"layernorm": 2, "gemm_bias_act": 4, "attention": 1, "flash_attention": 0,
+                      "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "gemm_nn": 0, "gemm_tn": 0,
+                      "layernorm_bwd": 0, "colsum": 0}
 
 # Kernel-vs-plain bounds, relative to the largest |plain output|: the kernels
 # round their outputs to bf16 (<= 2**-9 relative), the residual add rounds
@@ -95,6 +123,15 @@ LAUNCHES_PER_BLOCK = {"layernorm": 2, "gemm_bias_act": 4, "attention": 1, "flash
 # plus per element the bf16 rounding of the residual add, 2**-8 of |out|.
 REL_TOL = {"layernorm": 2**-7, "gemm_bias_act": 2**-7, "attention": 2**-6,
            "flash_attention": 2**-6}
+# Backward outputs, relative to max|plain| of each output (phase 7): the
+# attention gradients round dS and P to bf16 where a different f32 summation
+# order can flip a rounding -> 2**-6; the fused block's backward is a chain
+# of 12 launches held against the plain Pallas-order backward, whose o and
+# delta come from the rounded normalized probabilities where the kernels
+# take the flash forward's -> 2**-5 for every output, dx on dx - g plus, per
+# element, the bf16 rounding of dx = g + (dx - g) on both sides (2**-8 of
+# |dx|, RESIDUAL_ROUNDING).
+BWD_TOL = {"attention_bwd": 2**-6, "fused block bwd": 2**-5}
 CASE_REL_TOL = {**REL_TOL, "fused block": 2**-6}
 RESIDUAL_ROUNDING = 2**-8  # half a bf16 ulp, relative to the value, at most
 
@@ -110,6 +147,14 @@ KERNEL_INFO = {
     "attention": ("openvision_tpu_torch/csrc/attention.cu", [f"{_FE}:71", f"{_FA}:440"]),
     "flash_attention": ("openvision_tpu_torch/csrc/attention.cu",
                         [f"{_FL}:133", f"{_FL}:76", f"{_FL}:85"]),
+    "attention_bwd_dq": ("openvision_tpu_torch/csrc/attention_bwd.cu",
+                         [f"{_FL}:207", f"{_FA}:698"]),
+    "attention_bwd_dkv": ("openvision_tpu_torch/csrc/attention_bwd.cu",
+                          [f"{_FL}:245", f"{_FA}:698"]),
+    "gemm_nn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698"]),
+    "gemm_tn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698"]),
+    "layernorm_bwd": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698"]),
+    "colsum": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698"]),
 }
 
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -787,6 +832,367 @@ def caption_throughput(device, loaded: dict, ckpts: dict, batch: int = 64) -> di
     return rates
 
 
+# ---------------------------------------------------------------------------
+# The backward kernels and training (phases 7, 8 and 9)
+# ---------------------------------------------------------------------------
+
+
+# The trainer's model (the caption tool's default model) in bf16 compute.
+TRAIN_ARG = "res=224,img=L/14,txt_name=L,txt_decoder_name=L"
+TRAIN_BATCH, TRAIN_STEPS = 64, 3
+
+# Launches of one fused block per step under remat=full: its forward twice
+# (the step's forward, then the recompute before its backward) and its
+# backward once; one differentiable flash call likewise.
+FUSED_BLOCK_STEP = {"layernorm": 3, "gemm_bias_act": 5, "attention": 2, "flash_attention": 1,
+                    "gemm_nn": 2, "attention_bwd_dq": 1, "attention_bwd_dkv": 1, "gemm_tn": 2,
+                    "layernorm_bwd": 1, "colsum": 2}
+FLASH_CALL_STEP = {"flash_attention": 2, "attention_bwd_dq": 1, "attention_bwd_dkv": 1}
+
+
+def expected_train_launches(fusion: str, dec_impl: str, steps: int, names) -> dict:
+    """Launches of `steps` training steps: the image tower's 24 fused blocks,
+    the text tower on xla (none), and the decoder's blocks."""
+    want = dict.fromkeys(names, 0)
+
+    def add(per, n):
+        for k, v in per.items():
+            want[k] += v * n * steps
+
+    if dec_impl == "xla":
+        return want  # the plain path: every tower on xla
+    add(FUSED_BLOCK_STEP, IMG_BLOCKS)
+    if dec_impl == "fused":  # concat: 12 masked fused blocks; cross_attn: 6 causal ones
+        add(FUSED_BLOCK_STEP, DEC_BLOCKS if fusion == "concat" else DEC_BLOCKS // 2)
+    else:  # flash: 12 self-attentions, or 6 causal self- and 6 cross-attentions
+        add(FLASH_CALL_STEP, DEC_BLOCKS)
+    return want
+
+
+def _leaves(*tensors):
+    return [t.detach().clone().requires_grad_(True) for t in tensors]
+
+
+def attention_bwd_cases(fl, gk, device, gen, b: int, which=None):
+    """The flash backward kernels (#15/#16, #10's attention) at the caption
+    and training shapes: per shape one case for each kernel, on the o and
+    logsumexp of the flash forward kernel. Their library call is the
+    autograd backward of scaled_dot_product_attention (all of dq, dk, dv)."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device).bfloat16()
+
+    shapes = [("cross", 128, 335, 12, False, 0), ("causal", 128, 128, 12, True, 0),
+              ("multi-k", 64, 900, 12, False, 0), ("#10 image", 257, 257, 16, False, 0),
+              ("#10 prefix=335", 463, 463, 12, True, 335)]
+    cases = []
+    for label, lq, lk, h, causal, prefix in shapes:
+        if which is not None and label not in which:
+            continue
+        q, do = rnd(b, lq, h, 64), rnd(b, lq, h, 64)
+        kv = rnd(b, lk, 2, h, 64)
+        k, v = kv[:, :, 0], kv[:, :, 1]
+        o, lse = fl.flash_attention(q, k, v, causal=causal, prefix_len=prefix, return_lse=True)
+        kw = dict(scale=0.125, causal=causal, prefix_len=prefix)
+        _, delta = gk.attention_bwd_dq(q, k, v, o, lse, do, **kw)
+        plain = (lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw: gk.attention_bwd_plain(
+            q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw))
+        qt, kt, vt = _leaves(*(t.transpose(1, 2) for t in (q, k, v)))
+        with torch.enable_grad():
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, **_sdpa_kwargs(lq, lk, causal, prefix, device))
+        lib = (lambda out=out, leaves=(qt, kt, vt), g=do.transpose(1, 2): torch.autograd.grad(
+            out, leaves, g, retain_graph=True))
+        pairs = b * h * visible_pairs(lq, lk, causal, prefix)
+        tag = f"{label} b={b} Lq={lq} Lk={lk} H={h}"
+        cases.append(Case(
+            "attention_bwd_dq", tag,
+            lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw: (
+                gk.attention_bwd_dq(q, k, v, o, lse, do, **kw)[0],),
+            lambda plain=plain: plain()[:1], lib,
+            (4 * b * lq * h * 64 + 2 * b * lk * h * 64) * 2 + b * h * lq * 4, 3 * 2 * 64 * pairs))
+        cases.append(Case(
+            "attention_bwd_dkv", tag,
+            lambda q=q, k=k, v=v, lse=lse, delta=delta, do=do, kw=kw: gk.attention_bwd_dkv(
+                q, k, v, lse, delta, do, **kw),
+            lambda plain=plain: plain()[1:], lib,
+            (2 * b * lq * h * 64 + 4 * b * lk * h * 64) * 2 + 2 * b * h * lq * 4,
+            4 * 2 * 64 * pairs))
+    return cases
+
+
+def block_bwd_parts(gk, device, gen, b: int, l: int = 257, d: int = 1024):
+    """One fused-block backward's GEMM, LayerNorm and column-sum launches at
+    the image tower's shapes (M = b * l rows), each a case of its kernel.
+    Library calls: torch.matmul in the same layout, the autograd backward of
+    F.layer_norm, torch.sum over the rows."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    m = b * l
+    g, o, y = (rnd(b, l, d).bfloat16() for _ in range(3))
+    dqkv = rnd(b, l, 3 * d, scale=0.1).bfloat16()
+    w_o, w_qkv = rnd(d, d, scale=d**-0.5).bfloat16(), rnd(3 * d, d, scale=d**-0.5).bfloat16()
+    x = (rnd(b, l, d) * 3 + 1).bfloat16()
+    gamma, dy = rnd(d, scale=0.1) + 1, rnd(b, l, d)
+    cases = []
+    for label, a, w, out in (("do = g.Wo", g, w_o, torch.bfloat16),
+                             ("dy = dqkv.Wqkv (f32 out)", dqkv, w_qkv, torch.float32)):
+        n_in, n_out = w.shape
+        cases.append(Case("gemm_nn", f"{label} ({m}x{n_in}->{n_out})",
+                          lambda a=a, w=w, out=out: (gk.gemm_nn(a, w, out),),
+                          lambda a=a, w=w: (gk.gemm_nn_plain(a, w, torch.float32),),
+                          lambda a=a, w=w: a @ w,
+                          (m * n_in + n_in * n_out) * 2 + m * n_out * (4 if out == torch.float32
+                                                                        else 2),
+                          2 * m * n_in * n_out))
+    for label, dc, xin in (("dWo = g^T o", g, o), ("dWqkv = dqkv^T y", dqkv, y)):
+        n, k = dc.shape[-1], xin.shape[-1]
+        cases.append(Case("gemm_tn", f"{label} ({n}x{k} over {m})",
+                          lambda dc=dc, xin=xin: (gk.gemm_tn(dc, xin),),
+                          lambda dc=dc, xin=xin: (gk.gemm_tn_plain(dc, xin, torch.float32),),
+                          lambda dc=dc, xin=xin, n=n, k=k: dc.reshape(-1, n).t() @ xin.reshape(-1, k),
+                          (m * n + m * k + n * k) * 2, 2 * m * n * k))
+    xl, wl, bl = _leaves(x, gamma.bfloat16(), torch.zeros(d, device=device).bfloat16())
+    with torch.enable_grad():
+        ln_out = F.layer_norm(xl, (d,), wl, bl, 1e-6)
+    cases.append(Case("layernorm_bwd", f"LN bwd + residual ({m}x{d})",
+                      lambda: gk.layernorm_bwd(x, gamma, dy, g, eps=1e-6),
+                      lambda: gk.layernorm_bwd_plain(x.float(), gamma, dy, g.float(), eps=1e-6),
+                      lambda: torch.autograd.grad(ln_out, (xl, wl, bl), dy.bfloat16(),
+                                                  retain_graph=True),
+                      m * d * (2 + 4 + 2 + 2) + 3 * d * 4, 0, 10 * m * d))
+    for label, t, rnd_ in (("db_qkv per image, rounded", dqkv, True), ("db_o", g, False)):
+        n = t.shape[-1]
+        cases.append(Case("colsum", f"{label} ({m}x{n})",
+                          lambda t=t, r=rnd_: (gk.colsum(t, l, r),),
+                          lambda t=t, r=rnd_: (gk.colsum_plain(t, l, r),),
+                          lambda t=t, n=n: t.reshape(-1, n).sum(0, dtype=torch.float32),
+                          m * n * 2 + n * 4, 0, m * n))
+    return cases
+
+
+def fused_block_bwd_cases(fa, device, gen, b: int):
+    """The fused block's whole backward (#10's 12 launches) at the three
+    training shapes, against the plain Pallas-order backward; its library
+    call is the autograd backward of the block as library calls."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    cases = []
+    for l, d, heads, causal, prefix in ((257, 1024, 16, False, 0), (463, 768, 12, True, 335),
+                                        (128, 768, 12, True, 0)):
+        x, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
+        w = (rnd(d, scale=0.1) + 1, rnd(d, scale=0.1), rnd(3 * d, d, scale=d**-0.5).bfloat16(),
+             rnd(3 * d, scale=0.1), rnd(d, d, scale=d**-0.5).bfloat16(), rnd(d, scale=0.1))
+        kw = dict(num_heads=heads, sm_scale=None, causal=causal, prefix_len=prefix, eps=1e-6)
+        leaves = _leaves(x, *(t.bfloat16() for t in w))
+        with torch.enable_grad():
+            out = _library_block(*leaves, heads, _sdpa_kwargs(l, l, causal, prefix, device))
+        m, pairs = b * l, b * heads * visible_pairs(l, l, causal, prefix)
+        cases.append(Case(
+            "fused block bwd", f"block bwd b={b} L={l} D={d} H={heads}"
+            + (f" prefix={prefix}" if prefix else " causal" if causal else ""),
+            lambda x=x, w=w, g=g, kw=kw: fa._backward_kernels(x, *w, g, **kw),
+            lambda x=x, w=w, g=g, kw=kw: fa.fused_mhsa_block_bwd_plain(x, *w, g, **kw),
+            lambda out=out, leaves=leaves, g=g: torch.autograd.grad(out, leaves, g,
+                                                                    retain_graph=True),
+            (3 * m * d + 4 * d * d + 4 * d * d) * 2 + 12 * d * 4,
+            3 * 6 * m * d * d + 2 * 2 * m * d * d + 6 * 2 * 64 * pairs, residual=g))
+    return cases
+
+
+BWD_OUTPUTS = {"fused block bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o", "db_o"),
+               "attention_bwd_dq": ("dq",), "attention_bwd_dkv": ("dk", "dv"),
+               "gemm_nn": ("out",), "gemm_tn": ("dW",), "layernorm_bwd": ("dx", "dvec"),
+               "colsum": ("sums",)}
+
+
+def bwd_tol(case, out_name: str, got) -> float:
+    """The bound of one backward output (see BWD_TOL and the GPU tests)."""
+    import torch
+
+    if case.name == "fused block bwd":
+        return BWD_TOL["fused block bwd"]
+    if case.name.startswith("attention_bwd"):
+        return BWD_TOL["attention_bwd"]
+    if case.name == "layernorm_bwd":
+        return 2**-6 if out_name == "dx" else 1e-4
+    if case.name == "colsum":
+        return 2**-7 if "rounded" in case.label else 1e-4
+    return 2**-7 if got.dtype == torch.bfloat16 else 2**-12
+
+
+def check_bwd_cases(cases, worst: dict) -> None:
+    """Each output of each case within its bound of max|plain|; a residual
+    case holds dx on dx - g. worst[kernel] collects max|err|."""
+    import torch
+
+    for c in cases:
+        got, ref = c.kern(), c.plain()
+        torch.cuda.synchronize()
+        for out_name, a, r in zip(BWD_OUTPUTS[c.name], got, ref):
+            a, r = a.float(), r.float()
+            tol = bwd_tol(c, out_name, got[0])
+            rounding = 0.0
+            if c.residual is not None and out_name == "dx":
+                # held on dx - g; both sides round dx = g + (dx - g) to bf16
+                rounding = RESIDUAL_ROUNDING * r.abs()
+                a, r = a - c.residual.float(), r - c.residual.float()
+            err, scale = (a - r).abs().max().item(), r.abs().max().item()
+            ok = bool(((a - r).abs() <= tol * scale + rounding).all()) and bool(
+                torch.isfinite(a).all())
+            print(f"  {c.name:17s} {c.label:44s} {out_name:6s} max|err|/max|plain| = "
+                  f"{err / max(scale, 1e-30):.3e}  bound {tol:.3e}  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{c.name} {c.label} {out_name}: {err / scale} > {tol}")
+            if c.name != "fused block bwd":
+                worst[c.name] = max(worst.get(c.name, 0.0), err)
+
+
+def time_bwd_case(c) -> dict:
+    """The kernel by CUDA events and replayed from a CUDA graph, its plain
+    version and its library call by CUDA events (an autograd backward is
+    not captured)."""
+    k_ms, p_ms = cuda_ms(c.kern, 10), cuda_ms(c.plain, 2, warmup=1)
+    l_ms = cuda_ms(c.lib, 10) if c.lib is not None else None
+    k_graph = graph_ms(c.kern, iters=10)
+    b_ms, b_by = c.bound()
+    print(f"  {c.name:17s} {c.label:44s} kernel {k_ms * 1e3:.1f} us (graph {k_graph * 1e3:.1f})"
+          f"  bound {b_ms * 1e3:.1f} us ({b_by})  plain {p_ms * 1e3:.1f} us  library "
+          f"{'n/a' if l_ms is None else f'{l_ms * 1e3:.1f}'} us")
+    return {"ms": k_ms, "graph_ms": k_graph, "plain_ms": p_ms, "library_ms": l_ms,
+            "library_graph_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def train_config(fusion: str, dec_impl: str, dtype: str = "bfloat16", no_pil: bool = False):
+    """The trainer's config for phase 8: the caption model's widths, batch 64, on
+    the synthetic source at 224x224, 3 steps (warmup 1 step, so the cosine
+    over 3 steps applies), no checkpoint. Every config computes the image
+    tower's MLP with tanh GELU (the bf16 default), so the f32 reference
+    computes the same function."""
+    from openvision_tpu_torch.configs.openvision import get_config
+
+    plain = dec_impl == "xla"
+    c = get_config(f"{TRAIN_ARG},dtype={dtype},dec_fusion={fusion},dec_attn_impl={dec_impl}"
+                   + (",attn_impl=xla" if plain else ""))
+    c["input"]["batch_size"] = TRAIN_BATCH
+    c["input"]["data"] = {"name": "synthetic", "num_examples": 1024, "res": RES}
+    c["total_steps"], c["log_training_steps"], c["save_ckpt"] = TRAIN_STEPS, 1, False
+    c["schedule"][0][1]["warmup_steps"] = 1
+    c["model"]["image"]["fast_gelu"] = True
+    if no_pil:  # the crop resizes with PIL; the source is already 224x224
+        c["input"]["pp"] = c["input"]["pp"].split("|", 1)[1]
+    return c
+
+
+def grad_cosines(a: dict, b: dict):
+    """(global cosine, (min per-tensor cosine, its name)) of two gradient dicts."""
+    import torch
+
+    dot = sum((a[n].double() * b[n].double()).sum() for n in a)
+    na = torch.sqrt(sum((a[n].double() ** 2).sum() for n in a))
+    nb = torch.sqrt(sum((b[n].double() ** 2).sum() for n in b))
+    per = {n: (a[n].double() * b[n].double()).sum().item()
+           / max((torch.linalg.norm(a[n].double()) * torch.linalg.norm(b[n].double())).item(),
+                 1e-300) for n in a}
+    worst = min(per, key=per.get)
+    return (dot / (na * nb)).item(), (per[worst], worst)
+
+
+def train_phase(device, no_pil: bool, totals: dict) -> dict:
+    """Phase 8. Returns per configuration its step ms, images/s and peak GB."""
+    import torch
+
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.train import step as tstep
+    from openvision_tpu_torch.train import trainer
+
+    # gradients on identical params and batch: kernels, plain bf16, plain f32
+    cfg_k = train_config("concat", "fused", no_pil=no_pil)
+    loader, _ = pipeline.training(cfg_k["input"], seed=SEED)
+    batch = next(loader)
+    print(f"batch: { {k: (v.shape, str(v.dtype)) for k, v in batch.items()} }")
+    model = tstep.build_model(cfg_k).to(device)
+    init_params(model, SEED)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+
+    def grads_for(cfg):
+        m = tstep.build_model(cfg).to(device)
+        m.load_state_dict(state)
+        loss, _ = tstep.make_loss_fn(cfg, m)(tstep.to_device(batch, device))
+        loss.backward()
+        g = {n: p.grad.detach().float().clone() for n, p in m.named_parameters()}
+        return loss.item(), g
+
+    t0 = time.perf_counter()
+    runs = {"kernels": grads_for(cfg_k),
+            "plain bf16": grads_for(train_config("concat", "xla", no_pil=no_pil)),
+            "plain f32": grads_for(train_config("concat", "xla", "float32", no_pil=no_pil))}
+    print(f"three forward/backward passes in {time.perf_counter() - t0:.1f} s; losses "
+          + ", ".join(f"{k} {v[0]:.6f}" for k, v in runs.items()))
+    (lk, gk_), (lp, gp), (_, gf) = runs.values()
+    for a, b, gb in (("kernels", "plain bf16", gp), ("kernels", "plain f32", gf),
+                     ("plain bf16", "plain f32", gf)):
+        glob, (worst, name) = grad_cosines(runs[a][1], gb)
+        print(f"  grads {a} vs {b}: global cosine {glob:.6f}, min per-tensor cosine {worst:.6f} "
+              f"({name})")
+    glob, _ = grad_cosines(gk_, gp)
+    if abs(lk - lp) > 2**-7 * abs(lp) or glob < 0.999:
+        raise AssertionError(f"kernel path vs plain bf16: loss {lk} vs {lp}, gradient cosine "
+                             f"{glob}")
+    del runs, gk_, gp, gf, state
+    torch.cuda.empty_cache()
+
+    results = {}
+    for fusion, dec_impl in (("concat", "fused"), ("cross_attn", "flash"), ("concat", "xla")):
+        tag = f"[{fusion} / dec_attn_impl={dec_impl}]" + (" plain bf16" if dec_impl == "xla" else "")
+        cfg = train_config(fusion, dec_impl, no_pil=no_pil)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with tempfile.TemporaryDirectory() as wd:
+            t0 = time.perf_counter()
+            model, opt, _ = trainer.train(cfg, wd, device)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            got = dict(kernels.LAUNCHES)
+            rows = [json.loads(line) for line in open(os.path.join(wd, "metrics.jsonl"))]
+        want = expected_train_launches(fusion, dec_impl, TRAIN_STEPS, kernels.LAUNCHES)
+        losses = [r["training_loss"] for r in rows]
+        print(f"{tag} trainer: {TRAIN_STEPS} steps in {took:.1f} s (build, init, data and "
+              f"steps); losses {losses}; launches {got}")
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got}, expected {want}")
+        if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"{tag}: losses {losses}")
+        for k, v in got.items():
+            totals[k] += v
+        last = rows[-1]
+        print(f"{tag} trainer's last step: step_ms {last.get('step_ms')}, img/sec "
+              f"{last.get('img/sec')}, host_wait_share {last.get('host_wait_share')}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        update = tstep.make_update_fn(cfg, model, opt)
+        step_batch = next(loader)
+        ms = cuda_ms(lambda: update(step_batch), iters=2, warmup=1)
+        prof = device_profile(lambda: update(step_batch), ms, iters=1)
+        print(f"{tag} step b={TRAIN_BATCH}: {ms:.1f} ms (CUDA events)  "
+              f"{TRAIN_BATCH / (ms / 1e3):.1f} images/s  peak memory {peak:.2f} GB")
+        print(f"{tag} profile of one step: {prof}")
+        results[tag] = {"step_ms": ms, "images_per_s": TRAIN_BATCH / (ms / 1e3), "peak_gb": peak}
+        del model, opt, update
+        torch.cuda.empty_cache()
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -798,6 +1204,7 @@ def main() -> int:
     from openvision_tpu_torch.ops import flash_attention as fl
     from openvision_tpu_torch.ops import fused_attention as fa
     from openvision_tpu_torch.ops import fused_encoder as fe
+    from openvision_tpu_torch.ops import grad_kernels as gk
     from openvision_tpu_torch.ops import kernels
     from openvision_tpu_torch.serving.encode import build_encode_fn
     from openvision_tpu_torch.tools import caption as tcap
@@ -931,12 +1338,55 @@ def main() -> int:
     flash_row = next(t for name, t in caption_times.values() if name == "flash_attention")
     times["flash_attention"] = flash_row  # the cross-attention case (first flash case)
 
+    phase("7. backward kernels against their plain versions (B=8)")
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    with torch.no_grad():
+        check_bwd_cases(fused_block_bwd_cases(fa, device, gen, 8)
+                        + attention_bwd_cases(fl, gk, device, gen, 8,
+                                              which=("cross", "causal", "multi-k"))
+                        + block_bwd_parts(gk, device, gen, 8), worst)
+
+    phase("8. training at full width: L/14 + text L + decoder L, bf16, batch 64, remat=full")
+    try:
+        import PIL  # noqa: F401
+        no_pil = False
+    except ImportError:
+        no_pil = True
+        print("Pillow is not installed: input.pp drops inception_crop (the synthetic source "
+              "is already 224x224); the CPU tests cover the crop")
+    train_results = train_phase(device, no_pil, totals)
+
+    phase("9. backward kernels at B=64: CUDA events and graph replay, bound, plain, library")
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    with torch.no_grad():
+        for c in fused_block_bwd_cases(fa, device, gen, 64):
+            time_bwd_case(c)
+        torch.cuda.empty_cache()
+        for c in attention_bwd_cases(fl, gk, device, gen, 64):
+            t = time_bwd_case(c)
+            if c.label.startswith("cross"):  # the JSON row: the flash cross-attention
+                times[c.name] = t
+        torch.cuda.empty_cache()
+        keys = ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")
+        largest = {}
+        for c in block_bwd_parts(gk, device, gen, 64):  # one image-tower block's launches
+            t = time_bwd_case(c)
+            acc = times.setdefault(c.name, {**dict.fromkeys(keys, 0.0), "library_graph_ms": None})
+            for key in keys:
+                acc[key] += t[key] or 0.0
+            if t["bound_ms"] >= largest.get(c.name, 0.0):
+                largest[c.name] = t["bound_ms"]
+                acc["bound_by"] = t["bound_by"]
+
     phase("summary")
     print(f"card: {smi}")
     print(f"encode b=64 img/s: kernels {rates['kernels']}  plain eager bf16 {rates['plain']}")
     for k, v in cap_rates.items():
         print(f"captions/s b=64 {k}: {[round(r, 1) for r in v]}")
-    print(f"main-path launches (zero-shot + caption runs): {totals}")
+    for k, v in train_results.items():
+        print(f"train step b={TRAIN_BATCH} {k}: {v['step_ms']:.1f} ms, {v['images_per_s']:.1f} "
+              f"images/s, peak {v['peak_gb']:.2f} GB")
+    print(f"main-path launches (zero-shot, caption and training runs): {totals}")
     missing = [k for k, v in totals.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels the main path never launched: {missing}")
@@ -950,7 +1400,7 @@ def main() -> int:
          "library_graph_ms": times[name]["library_graph_ms"],
          "plain_ms": times[name]["plain_ms"], "bound_ms": times[name]["bound_ms"],
          "bound_by": times[name]["bound_by"], "library_ms": times[name]["library_ms"]}
-        for name in REL_TOL
+        for name in KERNEL_INFO
     ]}
     print(smi_line())
     print(json.dumps(report))

@@ -371,3 +371,66 @@ def state_dict_to_jax_params(sd: Dict[str, Any], *, num_heads_vision: int,
         dec = recover_tree(state_dict_to_jax_decoder(sd, num_heads_decoder))
         params["txt_decoder"] = dec["txt_decoder"]
     return params
+
+
+_TOWER_LEAVES = {
+    "visual.class_embedding": "img/cls",
+    "visual.conv1.weight": "img/embedding/kernel",
+    "visual.conv1.bias": "img/embedding/bias",
+    "visual.positional_embedding": "img/pos_embedding",
+    "visual.ln_post.weight": "img/encoder_norm/scale",
+    "visual.ln_post.bias": "img/encoder_norm/bias",
+    "visual.proj": "img/head/kernel",
+    "visual.proj_bias": "img/head/bias",
+    "text.token_embedding.weight": "txt/Embed_0/embedding",
+    "text.positional_embedding": "txt/pos_embedding",
+    "text.ln_final.weight": "txt/encoder_norm/scale",
+    "text.ln_final.bias": "txt/encoder_norm/bias",
+    "text.text_projection": "txt/head/kernel",
+    "logit_scale": "t",
+    "txt_decoder.image_projection_layer.weight": "txt_decoder/image_projection_layer/kernel",
+    "txt_decoder.text_projection_layer.weight": "txt_decoder/text_projection_layer/kernel",
+    "txt_decoder.learnable_tokens": "txt_decoder/learnable_tokens",
+    "txt_decoder.decoder_norm.weight": "txt_decoder/decoder_norm/scale",
+    "txt_decoder.decoder_norm.bias": "txt_decoder/decoder_norm/bias",
+    "txt_decoder.head.weight": "txt_decoder/head/kernel",
+}
+_STACKS = {"visual.transformer.resblocks": "img/Transformer/encoderblock_",
+           "text.transformer.resblocks": "txt/Transformer/encoderblock_",
+           "txt_decoder.transformer.resblocks": "txt_decoder/Transformer/encoderblock_",
+           "txt_decoder.transformer.cross_resblocks":
+               "txt_decoder/Transformer/crossattn_encoderblock_"}
+_BLOCK_LEAVES = {
+    "attn.out_proj.weight": ["MultiHeadDotProductAttention_0/out/kernel"],
+    "attn.out_proj.bias": ["MultiHeadDotProductAttention_0/out/bias"],
+    "attn.in_proj_weight": [f"MultiHeadDotProductAttention_0/{n}/kernel"
+                            for n in ("query", "key", "value")],
+    "attn.in_proj_bias": [f"MultiHeadDotProductAttention_0/{n}/bias"
+                          for n in ("query", "key", "value")],
+    "mlp.c_fc.weight": ["MlpBlock_0/Dense_0/kernel"],
+    "mlp.c_fc.bias": ["MlpBlock_0/Dense_0/bias"],
+    "mlp.c_proj.weight": ["MlpBlock_0/Dense_1/kernel"],
+    "mlp.c_proj.bias": ["MlpBlock_0/Dense_1/bias"],
+}
+
+
+def flax_paths(name: str) -> list[str]:
+    """The flat JAX names (``a/b/c``) a port parameter holds: one, or the
+    query, key and value kernels (or biases) for ``in_proj_weight`` (``bias``).
+
+    The optimizer masks each parameter by these, so the JAX configs' regexes
+    (``.*/kernel$``, ``img/.*``) keep their meaning in the port."""
+    if name in _TOWER_LEAVES:
+        return [_TOWER_LEAVES[name]]
+    m = re.fullmatch(r"(.*)\.(\d+)\.(ln_\w+\.\w+|attn\.\w+(?:\.\w+)?|mlp\.\w+\.\w+)", name)
+    if m is None or m.group(1) not in _STACKS:
+        raise KeyError(f"no JAX name for parameter {name!r}")
+    prefix = f"{_STACKS[m.group(1)]}{m.group(2)}/"
+    leaf = m.group(3)
+    if leaf.startswith("ln_"):
+        ln, kind = leaf.split(".")
+        cross = "cross_resblocks" in m.group(1)
+        jax_ln = {v: k for k, v in _DEC_LN.items()}[ln] if cross else \
+            f"LayerNorm_{int(ln[3]) - 1}"
+        return [f"{prefix}{jax_ln}/{'scale' if kind == 'weight' else 'bias'}"]
+    return [prefix + p for p in _BLOCK_LEAVES[leaf]]

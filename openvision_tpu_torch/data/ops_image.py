@@ -4,10 +4,14 @@ imported inside).
 Counterpart of ``_to_image_array``, ``_resize`` and the eval ops
 ``resize_small``, ``central_crop`` and ``vgg_value_range`` of
 ``openvision_tpu/data/ops_image.py`` (:18-20, :87-188; its package loads
-JAX on import), as plain functions of an image rather than pp-string ops.
-A resize to the image's own size returns a copy without touching PIL, as
-PIL's ``Image.resize`` does, so already-sized arrays need no PIL at all.
-The random and pipeline ops are not ported yet.
+JAX on import), as plain functions of an image, and the training pp ops the base config
+names, registered as the JAX package registers them: ``inception_crop``
+(:146) and ``simclr_jitter_gray`` (:228), each drawing from the record's
+``np.random.Generator`` in the JAX op's order, so one generator state gives
+the same crop and jitter in both packages. A resize to the image's own size
+returns a copy without touching PIL, as PIL's ``Image.resize`` does, so
+already-sized arrays need no PIL at all. The other random ops are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from __future__ import annotations
 import io
 
 import numpy as np
+
+from openvision_tpu_torch.data.pp import inkey_outkey, pp_op
 
 # ImageNet mean/std in 0..255 units (the JAX package's vgg_value_range).
 VGG_MEAN = np.array([0.485, 0.456, 0.406], np.float32) * 255.0
@@ -78,3 +84,85 @@ def central_crop(image, crop_size) -> np.ndarray:
 def vgg_value_range(image) -> np.ndarray:
     """0..255 pixels -> ImageNet-normalized f32."""
     return (np.asarray(image, np.float32) - VGG_MEAN) / VGG_STD
+
+
+def _sample_inception_box(rng, h, w, area_min, area_max=100, min_aspect=3 / 4,
+                          max_aspect=4 / 3, max_attempts=10):
+    area = h * w
+    for _ in range(max_attempts):
+        target_area = rng.uniform(area_min / 100, area_max / 100) * area
+        aspect = np.exp(rng.uniform(np.log(min_aspect), np.log(max_aspect)))
+        cw = int(round(np.sqrt(target_area * aspect)))
+        ch = int(round(np.sqrt(target_area / aspect)))
+        if ch <= h and cw <= w:
+            top = int(rng.integers(0, h - ch + 1))
+            left = int(rng.integers(0, w - cw + 1))
+            return top, left, ch, cw
+    s = min(h, w)  # fallback: centered square crop
+    return (h - s) // 2, (w - s) // 2, s, s
+
+
+@pp_op("inception_crop")
+@inkey_outkey(indefault="image", outdefault="image")
+def get_inception_crop(size=None, area_min=5, area_max=100, method="bilinear",
+                       antialias=True):
+    def op(image, rng):
+        image = _to_image_array(image)
+        h, w = image.shape[:2]
+        top, left, ch, cw = _sample_inception_box(rng, h, w, area_min, area_max)
+        crop = image[top: top + ch, left: left + cw]
+        if size:
+            crop = _resize(crop, size, size, method, antialias)
+        return crop
+
+    return op
+
+
+def _rgb_to_gray(image: np.ndarray) -> np.ndarray:
+    gray = image @ np.array([0.2989, 0.587, 0.114], np.float32)
+    return np.repeat(gray[..., None], 3, axis=-1)
+
+
+def _adjust_contrast(img, factor):
+    mean = _rgb_to_gray(img).mean()
+    return (img - mean) * factor + mean
+
+
+def _adjust_saturation(img, factor):
+    gray = _rgb_to_gray(img)
+    return gray + (img - gray) * factor
+
+
+def _adjust_hue(img, delta):
+    """Hue rotation in YIQ space (delta in turns, like tf's fraction)."""
+    theta = delta * 2 * np.pi
+    u, w_ = np.cos(theta), np.sin(theta)
+    t_yiq = np.array(
+        [[0.299, 0.587, 0.114], [0.596, -0.274, -0.322], [0.211, -0.523, 0.312]], np.float32)
+    rot = np.array([[1, 0, 0], [0, u, -w_], [0, w_, u]], np.float32)
+    return img @ (np.linalg.inv(t_yiq) @ rot @ t_yiq).T
+
+
+@pp_op("simclr_jitter_gray")
+@inkey_outkey(indefault="image", outdefault="image")
+def get_simclr_jitter_gray(jitter_strength=0.4, p_jitter=0.8, p_gray=0.2):
+    """SimCLR-style random color jitter + random grayscale (uint8 in/out)."""
+    b = c = s = 0.8 * jitter_strength
+    hu = 0.2 * jitter_strength
+
+    def op(image, rng):
+        img = np.asarray(image, np.float32)
+        if rng.random() < p_jitter:
+            fns = [
+                lambda x: x * (1 + rng.uniform(-b, b)),
+                lambda x: _adjust_contrast(x, 1 + rng.uniform(-c, c)),
+                lambda x: _adjust_saturation(x, 1 + rng.uniform(-s, s)),
+                lambda x: _adjust_hue(x, rng.uniform(-hu, hu)),
+            ]
+            for i in rng.permutation(4):
+                img = np.clip(fns[i](img), 0, 255)
+        if rng.random() < p_gray:
+            img = _rgb_to_gray(img)
+        return img.astype(image.dtype if hasattr(image, "dtype") else np.uint8)
+
+    return op

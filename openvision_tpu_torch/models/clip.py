@@ -11,8 +11,11 @@ and the temperature is OpenCLIP's ``logit_scale``; ``convert/openclip.py``
 maps OpenCLIP and JAX weights onto these names. The decoder is built when
 ``text_decoder`` names one; the port's default is "none" (the JAX default
 is "text_decoder"), since the two-tower exports load no decoder weights.
-Inference only: the training batch's two text views are not split. The
-logit bias is not ported yet.
+With ``train=True`` (:90-97) the caption decoder reads the FIRST text view
+only (a training batch stacks two caption views per image, so the text
+tower's tokens are halved), and a decoder with ``return_prelogits`` returns
+its prelogits as ``out["cap_prelogits"]`` (logits None) for the head-fused
+caption loss. The logit bias is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,11 +47,12 @@ class CLIPModel(nn.Module):
                 **dict(text_decoder_config or {}))
         self.logit_scale = nn.Parameter(torch.tensor(math.log(temperature_init)))
 
-    def forward(self, image: Optional[torch.Tensor], text: Optional[torch.Tensor] = None):
+    def forward(self, image: Optional[torch.Tensor], text: Optional[torch.Tensor] = None,
+                train: bool = False):
         zimg = ztxt = image_embs = token_embs = None
         out = {"logits": None}
         if image is not None:
-            zimg = self.visual(image)
+            zimg = self.visual(image, train=train)
             if isinstance(zimg, tuple):
                 zimg, image_embs = zimg
             zimg = zimg.float()
@@ -64,7 +68,12 @@ class CLIPModel(nn.Module):
             ztxt = ztxt / (out["txt/norm"] + 1e-8)
             out["txt/normalized"] = ztxt
         if self.txt_decoder is not None and image_embs is not None and token_embs is not None:
-            out["logits"] = self.txt_decoder(image_embs, token_embs)
+            if train:  # two text views per image: caption the first
+                token_embs = token_embs[: token_embs.shape[0] // 2]
+            if train and self.txt_decoder.return_prelogits:
+                out["cap_prelogits"] = self.txt_decoder.prelogits(image_embs, token_embs)
+            else:
+                out["logits"] = self.txt_decoder(image_embs, token_embs)
         out["t"] = self.logit_scale.exp().reshape(1)
         out["t/parameter"] = self.logit_scale.reshape(1)
         return zimg, ztxt, out

@@ -31,8 +31,14 @@ in ``convert/openclip.py``): ``image_projection_layer``,
 ``transformer.resblocks.i`` (EncoderBlocks), for ``cross_attn`` also
 ``transformer.cross_resblocks.i.{ln_1, ln_1_kv, attn, ln_2, mlp}``,
 ``decoder_norm`` and ``head`` (vocab, D). Sampling in :func:`generate` takes
-an explicit ``torch.Generator``. Dropout, drop-path, remat, the scanned MLP
-and the head-fused training loss (``return_prelogits``) are not ported.
+an explicit ``torch.Generator``.
+
+Training: ``remat_policy`` wraps every block (self- and cross-attention) as
+the towers do, and with ``return_prelogits`` a ``train`` call returns
+``decoder_norm``'s output through :meth:`TextDecoder.prelogits` for the
+head-fused caption loss (``losses.linear_softmax_xent``; :246-253), so the
+(N, Q, vocab) logits are never built. Dropout and drop-path (a rate > 0
+raises) and the scanned MLP are not ported.
 """
 
 from __future__ import annotations
@@ -43,7 +49,8 @@ import torch
 from torch import nn
 
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
-from openvision_tpu_torch.models.encoder import Encoder, EncoderBlock
+from openvision_tpu_torch.models.encoder import (
+    Encoder, EncoderBlock, check_not_ported, check_remat_policy, remat)
 from openvision_tpu_torch.models.layers import LayerNorm, MlpBlock, zero_init
 
 # Decoder variant table (H/g differ from the text tower).
@@ -93,9 +100,11 @@ class CrossAttnStack(nn.Module):
     """Alternating (causal self-attention, cross-attention) pairs."""
 
     def __init__(self, width: int, depth: int, num_heads: int, mlp_dim: Optional[int] = None,
-                 causal: bool = True, attn_impl: str = "xla",
+                 causal: bool = True, attn_impl: str = "xla", remat_policy: str = "none",
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.remat_policy = check_remat_policy(remat_policy)
+        self.depth = depth
         self.resblocks = nn.ModuleList(
             EncoderBlock(width, num_heads, mlp_dim, init_style="scaled", causal=causal,
                          attn_impl=attn_impl, dtype=dtype)
@@ -106,7 +115,8 @@ class CrossAttnStack(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
         for block, cross in zip(self.resblocks, self.cross_resblocks):
-            x = cross(block(x), context)
+            x = remat(block, x, policy=self.remat_policy)
+            x = remat(cross, x, context, policy=self.remat_policy)
         return x
 
 
@@ -122,30 +132,41 @@ class TextDecoder(nn.Module):
                  fusion_style: str = "concat", causal: bool = True,
                  num_learnable_tokens: int = 80, drop_token: int = 0,
                  attn_impl: str = "xla", image_width: int = 512, text_width: int = 512,
+                 remat_policy: str = "none", return_prelogits: bool = False,
+                 dropout: float = 0.0, drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_not_ported(dropout=dropout, drop_path=drop_path)
         self.image_projection_layer = zero_init(nn.Linear, image_width, width, bias=False)
         self.text_projection_layer = zero_init(nn.Linear, text_width, width, bias=False)
         self.learnable_tokens = nn.Parameter(torch.zeros(num_learnable_tokens, width))
         if fusion_style == "concat":
             self.transformer = Encoder(
                 width, depth, num_heads, mlp_dim, init_style="scaled", causal=causal,
-                attn_impl=attn_impl, dtype=dtype)
+                attn_impl=attn_impl, remat_policy=remat_policy, dtype=dtype)
         elif fusion_style == "cross_attn":
             if depth % 2:
                 raise ValueError("cross_attn fusion needs even depth")
             self.transformer = CrossAttnStack(width, depth // 2, num_heads, mlp_dim,
-                                              causal=causal, attn_impl=attn_impl, dtype=dtype)
+                                              causal=causal, attn_impl=attn_impl,
+                                              remat_policy=remat_policy, dtype=dtype)
         else:
             raise ValueError(f"Unknown fusion_style: {fusion_style!r}")
         self.decoder_norm = LayerNorm(width)  # f32 out, like flax's default dtype
         self.head = zero_init(nn.Linear, width, num_classes, bias=False)
         self.fusion_style = fusion_style
         self.drop_token = drop_token
+        self.return_prelogits = return_prelogits
+        self.width, self.depth = width, depth
         self.dtype = dtype
 
     def forward(self, image_embeds: torch.Tensor, text_embeds: torch.Tensor) -> torch.Tensor:
         """(N, Li, Di) image tokens, (N, Lt, Dt) text tokens -> (N, Q, vocab) f32."""
+        x = self.prelogits(image_embeds, text_embeds)
+        return x @ self.head.weight.float().t()
+
+    def prelogits(self, image_embeds: torch.Tensor, text_embeds: torch.Tensor) -> torch.Tensor:
+        """``decoder_norm``'s output (N, Q, D) f32: what the head reads."""
         if self.drop_token > 0:
             image_embeds = image_embeds[:, : image_embeds.shape[1] - self.drop_token + 1]
         n = image_embeds.shape[0]
@@ -158,8 +179,7 @@ class TextDecoder(nn.Module):
             x = self.transformer(torch.cat([prefix, queries], dim=1), prefix_len=li)[:, li:]
         else:
             x = self.transformer(queries, prefix)
-        x = self.decoder_norm(x)
-        return x.float() @ self.head.weight.float().t()
+        return self.decoder_norm(x).float()
 
 
 def Model(num_classes=None, *, variant=None, **kw):

@@ -26,17 +26,34 @@ The JAX blocks keep tiny sequences (< 32 tokens) off the Pallas kernels on a
 TPU, where a block pads the sequence to 128 lanes; the CUDA kernels tile by
 64 rows and masks, so the port applies no such guard.
 
+Training (autograd recording): a ``fused`` block's attention half runs the
+block's autograd Function (the backward of ``_block_bwd_kernel``) and its
+MLP half runs ``MlpBlock`` in plain PyTorch, where the JAX package runs XLA
+with no Pallas kernel (:150-164); inference keeps the MLP kernels. A
+``fused_t`` stack raises under grad: its backward kernels
+(``_mhsa_t_bwd_kernel``, ``_mlp_t_bwd_kernel``) are not ported. The remat
+policies (:395-408, :619-626) wrap each block in
+``torch.utils.checkpoint(use_reentrant=False)``: ``full`` saves the block's
+input only; ``minimal`` (JAX ``checkpoint_dots_with_no_batch_dims``) saves
+the outputs of the matrix products that have no batch dimension, the nearest
+PyTorch form being a selective checkpoint that saves ``aten.mm`` and
+``aten.addmm`` (the linear layers; the attention einsums, batched over
+heads, and the hand-written kernels are recomputed); ``minimal_offloaded``
+raises.
+
 Parameters carry OpenCLIP's names (``transformer.resblocks.N.{ln_1, attn,
-ln_2, mlp}``). LayerScale, DropPath, dropout, remat, the scanned MLP,
-pipelining and the KV cache are not ported yet.
+ln_2, mlp}``). LayerScale, DropPath and dropout (a rate > 0 raises), the
+scanned MLP, pipelining and the KV cache are not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
 from openvision_tpu_torch.models.layers import LayerNorm, MlpBlock
@@ -46,6 +63,46 @@ from openvision_tpu_torch.ops.fused_encoder import mhsa_block, mlp_block
 
 _GELU_APPROX = {"vit": False, "scaled": True}  # init_style -> tanh GELU
 ATTN_IMPLS = ("xla", "fused", "fused_t", "flash", "scan", "ring")
+REMAT_POLICIES = ("none", "full", "minimal", "minimal_offloaded")
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``minimal`` policy: keep the linear layers' products, recompute the rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat_policy(policy: str) -> str:
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"Unknown remat policy: {policy!r}")
+    if policy == "minimal_offloaded":
+        raise NotImplementedError(
+            "remat policy 'minimal_offloaded' (device-to-host offload of the saved products) "
+            "is not ported yet")
+    return policy
+
+
+def recording(module: nn.Module) -> bool:
+    """Whether autograd records this call: grad enabled and a parameter needs it."""
+    return torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters())
+
+
+def remat(fn, *args, policy: str, **kwargs):
+    """fn(*args, **kwargs) under the remat `policy` when autograd records."""
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    if policy == "minimal":
+        kwargs["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                                 _save_matmuls)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+def check_not_ported(**rates) -> None:
+    """Raises for a dropout, drop-path or masking rate > 0 (not ported yet)."""
+    for name, rate in rates.items():
+        if rate:
+            raise NotImplementedError(f"{name}={rate} is not ported yet (only 0 is)")
 
 
 class EncoderBlock(nn.Module):
@@ -86,7 +143,7 @@ class EncoderBlock(nn.Module):
             x = x + self.attn(self.ln_1(x), mask=mask, causal=causal, prefix_len=native_prefix)
             return x + self.mlp(self.ln_2(x))
         x = self._fused_attn_subblock(x, causal, native_prefix)
-        if self.gelu_approx:
+        if self.gelu_approx and not recording(self):
             return self._mlp_subblock_kernels(x)
         return x + self.mlp(self.ln_2(x))
 
@@ -132,10 +189,13 @@ class Encoder(nn.Module):
     def __init__(self, width: int, depth: int, num_heads: int, mlp_dim: Optional[int] = None,
                  init_style: str = "vit", causal: bool = False, attn_impl: str = "xla",
                  fast_gelu: bool = False, nomax_softmax: bool = False,
+                 remat_policy: str = "none", dropout: float = 0.0, drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"Unknown attention impl: {attn_impl!r}")
+        check_not_ported(dropout=dropout, drop_path=drop_path)
+        self.remat_policy = check_remat_policy(remat_policy)
         # an ineligible fused_t stack runs natural-layout fused blocks
         block_impl = "fused" if attn_impl == "fused_t" else attn_impl
         self.resblocks = nn.ModuleList(
@@ -164,9 +224,14 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, prefix_len: int = 0) -> torch.Tensor:
         """`prefix_len > 0` on a causal stack is the prefix-LM mask."""
         fused_t = self._fused_t_eligible(x, prefix_len)
+        if fused_t and recording(self):
+            raise NotImplementedError(
+                "attn_impl='fused_t' under grad needs the backward kernels _mhsa_t_bwd_kernel "
+                "and _mlp_t_bwd_kernel (openvision_tpu/ops/fused_encoder.py, Pallas #3/#4), "
+                "which are not ported; train with attn_impl='fused'")
         x = x.to(self.dtype)
         for block in self.resblocks:
-            x = block(x, fused_t=fused_t, prefix_len=prefix_len)
+            x = remat(block, x, policy=self.remat_policy, fused_t=fused_t, prefix_len=prefix_len)
         return x
 
 

@@ -10,8 +10,9 @@ Parameters carry OpenCLIP's names: ``token_embedding``,
 ``text_projection`` (D, out). With ``output_tokens`` the tower also
 returns the caption decoder's token features, taken BEFORE the final
 LayerNorm: ``x[:, :-1]`` for ``last`` pooling, ``x[:, 1:]`` for ``first``
-(openvision_tpu/models/text.py:144-154). Soft one-hot token input is not
-ported yet.
+(openvision_tpu/models/text.py:144-154). ``remat_policy`` passes to the
+Encoder (training). Soft one-hot token input, dropout and drop-path (a rate
+> 0 raises) are not ported yet.
 """
 
 from __future__ import annotations
@@ -65,7 +66,9 @@ class TextTransformer(nn.Module):
                  mlp_dim: Optional[int] = None, num_heads: int = 8, vocab_size: int = 32000,
                  context_length: int = 80, posemb: str = "learn", pool_type: str = "last",
                  causal: bool = False, attn_impl: str = "xla",
-                 output_tokens: bool = False, dtype: torch.dtype = torch.float32):
+                 output_tokens: bool = False, remat_policy: str = "none", dropout: float = 0.0,
+                 drop_path: float = 0.0, head_zeroinit: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if posemb not in ("learn", "sincos1d"):
             raise ValueError(f"Unknown posemb type: {posemb!r}")
@@ -74,7 +77,8 @@ class TextTransformer(nn.Module):
             self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))
         self.transformer = Encoder(
             width, depth, num_heads, mlp_dim, init_style="scaled", causal=causal,
-            attn_impl=attn_impl, dtype=dtype)
+            attn_impl=attn_impl, remat_policy=remat_policy, dropout=dropout,
+            drop_path=drop_path, dtype=dtype)
         self.ln_final = LayerNorm(width)  # f32 out, like flax's default dtype
         if num_classes:
             self.text_projection = nn.Parameter(torch.zeros(width, num_classes))
@@ -83,6 +87,7 @@ class TextTransformer(nn.Module):
         self.posemb = posemb
         self.pool_type = pool_type
         self.output_tokens = output_tokens
+        self.head_zeroinit = head_zeroinit
         self.dtype = dtype
 
     def forward(self, text: torch.Tensor):

@@ -11,8 +11,10 @@ drops the cls token before the encoder (:289-290, :336-362).
 Parameters carry OpenCLIP's ``visual.*`` names: ``conv1`` (OIHW),
 ``class_embedding`` (D,), ``positional_embedding`` (1+P, D),
 ``transformer``, ``ln_post`` and ``proj`` (D, out) with ``proj_bias``.
-The ``map`` pool, the ``stem`` and ``linear`` patch embeds, token masking
-and ``resample_posemb`` are not ported yet.
+``remat_policy`` passes to the Encoder (training). The ``map`` pool, the
+``stem`` and ``linear`` patch embeds, token masking (``mask_ratio > 0``
+raises under ``train``), dropout and drop-path (a rate > 0 raises) and
+``resample_posemb`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from openvision_tpu_torch.models.encoder import Encoder
+from openvision_tpu_torch.models.encoder import Encoder, check_not_ported
 from openvision_tpu_torch.models.layers import LayerNorm, posemb_sincos_2d, zero_init
 
 # Width/depth/mlp/heads per variant, Table 2 of arXiv:2106.04560.
@@ -69,6 +71,8 @@ class ViT(nn.Module):
                  attn_impl: str = "xla", fast_gelu: bool = False, nomax_softmax: bool = False,
                  emb_head_bias: bool = True, image_size: int = 224,
                  ignore_cls: bool = False, output_tokens: bool = False,
+                 remat_policy: str = "none", mask_ratio: float = 0.0, dropout: float = 0.0,
+                 drop_path: float = 0.0, head_zeroinit: bool = False,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if pool_type not in ("gap", "tok", "0", "avg"):
@@ -83,7 +87,8 @@ class ViT(nn.Module):
             self.positional_embedding = nn.Parameter(torch.zeros(1 + grid, width))
         self.transformer = Encoder(
             width, depth, num_heads, mlp_dim, init_style="vit", attn_impl=attn_impl,
-            fast_gelu=fast_gelu, nomax_softmax=nomax_softmax, dtype=dtype)
+            fast_gelu=fast_gelu, nomax_softmax=nomax_softmax, remat_policy=remat_policy,
+            dropout=dropout, drop_path=drop_path, dtype=dtype)
         if pool_type in ("gap", "tok"):
             self.ln_post = LayerNorm(width, dtype)
         if num_classes:
@@ -95,11 +100,15 @@ class ViT(nn.Module):
         self.pool_type = pool_type
         self.ignore_cls = ignore_cls
         self.output_tokens = output_tokens
+        self.mask_ratio = mask_ratio
+        self.head_zeroinit = head_zeroinit
         self.dtype = dtype
 
-    def forward(self, image: torch.Tensor):
+    def forward(self, image: torch.Tensor, train: bool = False):
         """image: (N, H, W, 3) -> (N, num_classes) f32 (or (N, width) without a
         head); with ``output_tokens``, (pooled, tokens (N, P, width))."""
+        if train:
+            check_not_ported(mask_ratio=self.mask_ratio)
         w = self.conv1
         x = F.conv2d(image.float().permute(0, 3, 1, 2), w.weight.float(),
                      None if w.bias is None else w.bias.float(), stride=w.stride)

@@ -16,9 +16,16 @@ the f32 scores are scaled (:155). The CUDA kernel tiles keys by 64 either
 way and follows the order that plan takes for Lk; at head_dim 64 the two
 agree exactly (the scale is 2**-3).
 
-:func:`flash_attention_plain` is the f32 counterpart (o and lse). The
-backward kernels (``_dq_kernel``, ``_dkv_kernel``) are not ported yet: a CUDA
-tensor that requires grad raises.
+:func:`flash_attention_plain` is the f32 counterpart (o and lse).
+
+Under autograd the call runs as a ``torch.autograd.Function`` (the JAX
+package's ``jax.custom_vjp`` ``_flash``, :467-493): the forward saves q, k,
+v, o and the f32 logsumexp, and the backward runs the Pallas backward
+kernels ``_dq_kernel`` and ``_dkv_kernel`` (:207, :245, through ``_bwd_impl``
+:388) as ``ops/grad_kernels.py:attention_bwd``: delta = rowsum(do * o), P
+recomputed from the logsumexp with the unscaled q.k^T times the scale
+(``_recompute_p`` :201), the same masks, Lq != Lk and dead-tile skipping as
+the forward. On the CPU both passes run their plain versions.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch
 
 from openvision_tpu_torch.ops import kernels
 from openvision_tpu_torch.ops.fused_encoder import attend_plain
+from openvision_tpu_torch.ops.grad_kernels import attention_bwd
 
 LANES = 128  # the Pallas plan's alignment of a block
 
@@ -69,6 +77,26 @@ def flash_attention_plain(q, k, v, *, causal: bool = False, prefix_len: int = 0,
                         prefix_len=prefix_len)
 
 
+class _Flash(torch.autograd.Function):
+    """The flash forward (kernel or plain by device) with the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, prefix_len, sm_scale):
+        o, lse = _forward(q, k, v, causal=causal, prefix_len=prefix_len, sm_scale=sm_scale,
+                          return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (causal, prefix_len, q.shape[-1] ** -0.5 if sm_scale is None else sm_scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, prefix_len, scale = ctx.cfg
+        dq, dk, dv = attention_bwd(q, k, v, o, lse, do.contiguous(), scale=float(scale),
+                                   causal=causal, prefix_len=prefix_len if causal else 0)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = False, prefix_len: int = 0,
                     sm_scale: float | None = None, return_lse: bool = False):
     """Flash attention over (batch, length, heads, head_dim) inputs.
@@ -76,12 +104,24 @@ def flash_attention(q, k, v, *, causal: bool = False, prefix_len: int = 0,
     q: (B, Lq, H, 64), k and v: (B, Lk, H, 64), bf16 on CUDA with unit
     stride in head_dim (any other strides that are multiples of 8); returns
     o (B, Lq, H, 64) bf16, and lse (B, H, Lq) f32 with ``return_lse``. On the
-    CPU the plain version runs.
+    CPU the plain version runs. When autograd records (grad enabled and an
+    input requires grad) the call is differentiable through the backward
+    kernels; it then returns o only.
     """
     if q.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(
             f"expected q (B, Lq, H, D) and k, v (B, Lk, H, D), got {tuple(q.shape)}, "
             f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if return_lse:
+            raise ValueError("flash_attention: return_lse is for calls autograd does not record")
+        return _Flash.apply(q, k, v, causal, prefix_len, sm_scale)
+    return _forward(q, k, v, causal=causal, prefix_len=prefix_len, sm_scale=sm_scale,
+                    return_lse=return_lse)
+
+
+def _forward(q, k, v, *, causal: bool, prefix_len: int, sm_scale, return_lse: bool):
+    """The forward: the plain version on the CPU, the kernel on CUDA."""
     if kernels.on_cpu(q, k, v):
         o, lse = flash_attention_plain(q, k, v, causal=causal, prefix_len=prefix_len,
                                        sm_scale=sm_scale)

@@ -32,8 +32,27 @@ E[x^2] - mean^2, which differs by f32 rounding only.
 Weights are in torch's (out, in) layout: ``w_qkv`` (3D, D) is the query,
 key and value kernels transposed and stacked (``in_proj_weight``), ``w_o``
 (D, D) the out kernel transposed. LayerNorm parameters and biases are f32.
-The tensor-parallel variant (``_block_partial_kernel``) and the backward
-kernel are not ported yet: a CUDA tensor that requires grad raises.
+The tensor-parallel variant (``_block_partial_kernel``) is not ported yet.
+
+Under autograd the block is a ``torch.autograd.Function``, the JAX
+package's ``jax.custom_vjp`` ``_fused_block`` (:569-592): the forward saves
+x and the parameters only, and the backward computes what the Pallas
+backward ``_block_bwd_kernel`` (:698-855) computes, recomputing the forward
+from x. On the card that is a sequence of launches: layernorm, QKV
+gemm_bias_act and the flash forward (o and its logsumexp) recompute the
+forward; ``gemm_nn`` gives do = g . Wo; ``attention_bwd`` writes dq (times
+the softmax scale), dk and dv into one (B, L, 3D) dqkv buffer; ``gemm_tn``
+gives dWo = g^T o and dW_qkv = dqkv^T y; ``gemm_nn`` gives dy = dqkv . W_qkv
+in f32; ``layernorm_bwd`` gives dx (plus the residual g) and the LayerNorm
+grads; ``colsum`` the bias grads (ops/grad_kernels.py). As the Pallas
+wrapper (:906-907), the weight grads come back in the dtype of the weights
+given, the f32 sums rounded once (the encoder passes bf16 casts of f32
+master weights), and the LayerNorm and bias grads in f32.
+:func:`fused_mhsa_block_bwd_plain` mirrors the Pallas kernel's roundings; the
+kernel path differs from it only in f32 summation order and in taking o and
+delta from the flash forward (p rounded before p.v, delta = rowsum(do . o))
+where the Pallas kernel forms o from the rounded normalized probabilities
+and delta as rowsum(dp * a).
 """
 
 from __future__ import annotations
@@ -42,7 +61,9 @@ import math
 
 import torch
 
+from openvision_tpu_torch.ops import flash_attention as fl
 from openvision_tpu_torch.ops import fused_encoder as fe
+from openvision_tpu_torch.ops import grad_kernels as gk
 from openvision_tpu_torch.ops import kernels
 
 
@@ -63,24 +84,155 @@ def fused_mhsa_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: 
     return fe.linear_plain(o, w_o, b_o, residual=x)
 
 
+def fused_mhsa_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads: int,
+                               sm_scale: float | None = None, causal: bool = False,
+                               prefix_len: int = 0, eps: float = 1e-6):
+    """(dx, dln_w, dln_b, dw_qkv, db_qkv, dw_o, db_o) of the block for the
+    output gradient g, in f32 math with the roundings of ``_block_bwd_kernel``
+    (openvision_tpu/ops/fused_attention.py:698-855) to x's dtype (the compute
+    dtype): y; q (scaled after the bias), k and v; do = g . Wo; the
+    normalized probabilities a for o = a v and dv = a^T do; ds for dq and dk;
+    dq (times the scale), dk and dv before the products that consume them;
+    each image's bias-gradient sum over dq, dk and dv. dx is in x's dtype,
+    the weight grads in their weights' dtype, the rest f32."""
+    cdt = x.dtype
+
+    def r(t):
+        return t.to(cdt).float()
+
+    b, l, d = x.shape
+    hd = d // num_heads
+    scale = hd ** -0.5 if sm_scale is None else sm_scale
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
+    xhat = (xf - mean) * rstd
+    y = r(xhat * ln_w.float() + ln_b.float())
+    qkv = y @ w_qkv.float().t() + b_qkv.float()
+    q = r(qkv[..., :d] * scale).reshape(b, l, num_heads, hd)
+    k = r(qkv[..., d:2 * d]).reshape(b, l, num_heads, hd)
+    v = r(qkv[..., 2 * d:]).reshape(b, l, num_heads, hd)
+    gf = g.float()
+    do = r(gf @ w_o.float()).reshape(b, l, num_heads, hd)
+
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if causal:
+        s = s.masked_fill(~gk.visible_mask(l, l, True, prefix_len, x.device), float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    lsum = p.sum(-1, keepdim=True)
+    a = p / torch.where(lsum <= 0, torch.ones_like(lsum), lsum)
+    ab = r(a)
+    o = r(torch.einsum("bhqk,bkhd->bqhd", ab, v)).reshape(b, l, d)
+    dv = r(torch.einsum("bhqk,bqhd->bkhd", ab, do))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = r(a * (dp - (dp * a).sum(-1, keepdim=True)))
+    dq = r(torch.einsum("bhqk,bkhd->bqhd", ds, k)) * scale
+    dk = r(torch.einsum("bhqk,bqhd->bkhd", ds, q))
+    dqkv = torch.cat([t.reshape(b, l, d) for t in (dq, dk, dv)], dim=-1)
+
+    dw_o = (gf.reshape(-1, d).t() @ o.reshape(-1, d)).to(w_o.dtype)
+    dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ y.reshape(-1, d)).to(w_qkv.dtype)
+    dy = dqkv @ w_qkv.float()
+    dxhat = dy * ln_w.float()
+    dx = gf + rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                      - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    db_qkv = r(dqkv.sum(1)).sum(0)  # each image's sum in the compute dtype, then f32
+    return (dx.to(x.dtype), (dy * xhat).sum((0, 1)), dy.sum((0, 1)), dw_qkv, db_qkv, dw_o,
+            gf.sum((0, 1)))
+
+
+def _check_scale(x, num_heads: int, sm_scale):
+    """The kernel path's softmax scale: a power of two (see the module doc)."""
+    if sm_scale is None:
+        sm_scale = (x.shape[-1] // num_heads) ** -0.5
+    if math.frexp(sm_scale)[0] != 0.5:
+        raise ValueError(f"fused_mhsa_block: the kernel path takes a power-of-two softmax "
+                         f"scale, got {sm_scale}")
+    return sm_scale
+
+
+def _forward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads, sm_scale, causal,
+                     prefix_len, eps):
+    """``_block_kernel`` as 4 launches: layernorm, QKV, attention (masked, q
+    scaled by `sm_scale`), out-proj + residual."""
+    sm_scale = _check_scale(x, num_heads, sm_scale)
+    y = fe.layernorm(x, ln_w, ln_b, eps)
+    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
+    o = fe.attention(qkv, num_heads, causal=causal, prefix_len=prefix_len if causal else 0,
+                     scale=sm_scale)
+    return fe.gemm_bias_act(o, w_o, b_o, residual=x)
+
+
+def _backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads, sm_scale, causal,
+                      prefix_len, eps):
+    """The backward on the card (see the module doc): 12 launches."""
+    sm_scale = _check_scale(x, num_heads, sm_scale)
+    b, l, d = x.shape
+    hd = d // num_heads
+    prefix = prefix_len if causal else 0
+    if w_qkv.dtype != torch.bfloat16 or w_o.dtype != torch.bfloat16:
+        raise TypeError("fused_mhsa_block backward: the kernels take bf16 weights")
+    y = fe.layernorm(x, ln_w, ln_b, eps)
+    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)  # q unscaled: the kernels scale s
+    heads = [qkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3)]
+    o, lse = fl._forward(*heads, causal=causal, prefix_len=prefix, sm_scale=sm_scale,
+                         return_lse=True)
+    do = gk.gemm_nn(g, w_o)
+    dqkv = torch.empty(b, l, 3 * d, dtype=torch.bfloat16, device=x.device)
+    dq, dk, dv = (dqkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3))
+    gk.attention_bwd(*heads, o, lse, do.view(b, l, num_heads, hd), scale=sm_scale,
+                     causal=causal, prefix_len=prefix, dq=dq, dk=dk, dv=dv)
+    o = o.reshape(b, l, d)
+    dw_o = gk.gemm_tn(g, o)
+    dw_qkv = gk.gemm_tn(dqkv, y)
+    dy = gk.gemm_nn(dqkv, w_qkv, torch.float32)
+    dx, dvec = gk.layernorm_bwd(x, ln_w, dy, g, eps=eps)
+    db_qkv = gk.colsum(dqkv, seg_len=l, round_bf16=True)
+    db_o = gk.colsum(g, seg_len=l)
+    return dx, dvec[0], dvec[1], dw_qkv, db_qkv, dw_o, db_o
+
+
+class _FusedBlock(torch.autograd.Function):
+    """The block with its backward; each pass takes the kernels on CUDA and
+    the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, num_heads, sm_scale, causal,
+                prefix_len, eps):
+        kw = dict(num_heads=num_heads, sm_scale=sm_scale, causal=causal, prefix_len=prefix_len,
+                  eps=eps)
+        ctx.save_for_backward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o)
+        ctx.kw = kw
+        if kernels.on_cpu(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o):
+            return fused_mhsa_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, **kw)
+        return _forward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        g = g.contiguous()
+        if kernels.on_cpu(*saved, g):
+            grads = fused_mhsa_block_bwd_plain(*saved, g, **ctx.kw)
+        else:
+            grads = _backward_kernels(*saved, g, **ctx.kw)
+        return (*grads, None, None, None, None, None)
+
+
 def fused_mhsa_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
                      sm_scale: float | None = None, causal: bool = False,
                      prefix_len: int = 0, eps: float = 1e-6):
     """``_block_kernel`` as 4 launches: layernorm, QKV, attention (masked,
     q scaled by `sm_scale`), out-proj + residual. x: (B, L, D) bf16 on CUDA;
     on the CPU the plain version runs. A scale that is not a power of two
-    raises on CUDA: only a power of two gives the folded weights' bits."""
-    if kernels.on_cpu(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o):
-        return fused_mhsa_block_plain(
-            x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, num_heads=num_heads, sm_scale=sm_scale,
-            causal=causal, prefix_len=prefix_len, eps=eps)
-    if sm_scale is None:
-        sm_scale = (x.shape[-1] // num_heads) ** -0.5
-    if math.frexp(sm_scale)[0] != 0.5:
-        raise ValueError(f"fused_mhsa_block: the kernel path takes a power-of-two softmax "
-                         f"scale, got {sm_scale}")
-    y = fe.layernorm(x, ln_w, ln_b, eps)
-    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
-    o = fe.attention(qkv, num_heads, causal=causal, prefix_len=prefix_len if causal else 0,
-                     scale=sm_scale)
-    return fe.gemm_bias_act(o, w_o, b_o, residual=x)
+    raises on CUDA: only a power of two gives the folded weights' bits. When
+    autograd records (grad enabled and an input requires grad) the call is
+    differentiable through the backward of ``_block_bwd_kernel``."""
+    kw = dict(num_heads=num_heads, sm_scale=sm_scale, causal=causal, prefix_len=prefix_len,
+              eps=eps)
+    args = (x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedBlock.apply(*args, num_heads, sm_scale, causal, prefix_len, eps)
+    if kernels.on_cpu(*args):
+        return fused_mhsa_block_plain(*args, **kw)
+    return _forward_kernels(*args, **kw)

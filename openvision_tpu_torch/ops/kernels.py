@@ -7,12 +7,14 @@ imported: the first call to :func:`lib` builds into
 covers the sources and the flags, so an edited source rebuilds) and later
 calls reuse it. Every C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; the wrappers (``ops/fused_encoder.py``,
-``ops/flash_attention.py``) raise when it is not 0.
+``ops/flash_attention.py``, ``ops/grad_kernels.py``) raise when it is not 0.
 
 The wrappers share :data:`LAUNCHES` (one count per wrapper, raised right
 after its kernel launched) and the operand checks below: a wrapper takes its
 plain version only when every tensor lies on the CPU, and for CUDA tensors
-launches its kernel or raises.
+launches its kernel or raises. A kernel with a backward kernel runs inside a
+``torch.autograd.Function`` (``ops/flash_attention.py``,
+``ops/fused_attention.py``); the grad check below guards the ones without.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu")
+SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu", "attention_bwd.cu", "gemm_grad.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "openvision_tpu_torch"
 NVCC_FLAGS = (
@@ -39,7 +41,9 @@ LIB_NAME = "libovt_kernels.so"
 _lib = None
 
 # Launches of each kernel; a wrapper adds one right after its kernel launched.
-LAUNCHES = {"layernorm": 0, "gemm_bias_act": 0, "attention": 0, "flash_attention": 0}
+LAUNCHES = {"layernorm": 0, "gemm_bias_act": 0, "attention": 0, "flash_attention": 0,
+            "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "gemm_nn": 0, "gemm_tn": 0,
+            "layernorm_bwd": 0, "colsum": 0}
 
 
 def reset_launch_counts() -> None:
@@ -61,7 +65,9 @@ def check_operand(name: str, t, dtype, shape=None, contiguous: bool = True) -> N
     """Raises unless `t` is what a kernel takes: `dtype`, `shape`, 16-byte
     aligned, contiguous (or, with contiguous=False, unit stride in the last
     dim and every other stride a multiple of 8 elements), and not a tensor
-    that autograd would need a backward kernel for."""
+    that autograd would need a backward kernel for (the fused_t and MLP
+    kernels have none; the kernels with one run inside an autograd Function,
+    where grad mode is off)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -76,8 +82,9 @@ def check_operand(name: str, t, dtype, shape=None, contiguous: bool = True) -> N
         raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors")
     if t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(
-            f"{name}: the CUDA kernels are forward only (their backward "
-            "kernels are not ported yet); run under torch.inference_mode()")
+            f"{name}: this kernel has no backward kernel (the fused_t sub-blocks' "
+            "_mhsa_t_bwd_kernel / _mlp_t_bwd_kernel are not ported); train with "
+            "attn_impl='fused' or run under torch.inference_mode()")
 
 
 def stream(t) -> ctypes.c_void_p:
@@ -143,8 +150,18 @@ def lib() -> ctypes.CDLL:
         handle.ovt_attention.argtypes = [p, p, i, i, i, i, f, i, i, i, p]
         handle.ovt_flash_attention.argtypes = [
             p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, f, i, i, i, p]
+        ll = ctypes.POINTER(ctypes.c_longlong)
+        handle.ovt_attention_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i,
+                                                i, p]
+        handle.ovt_attention_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i,
+                                                 i, p]
+        handle.ovt_gemm_grad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        handle.ovt_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, i, i, f, i, p]
+        handle.ovt_colsum.argtypes = [p, i, p, p, i, i, i, i, p]
         for fn in (handle.ovt_layernorm, handle.ovt_gemm_bias_act,
-                   handle.ovt_attention, handle.ovt_flash_attention):
+                   handle.ovt_attention, handle.ovt_flash_attention,
+                   handle.ovt_attention_bwd_dq, handle.ovt_attention_bwd_dkv,
+                   handle.ovt_gemm_grad, handle.ovt_layernorm_bwd, handle.ovt_colsum):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

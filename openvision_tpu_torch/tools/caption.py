@@ -39,9 +39,9 @@ from openvision_tpu_torch.models.decoder import generate
 from openvision_tpu_torch.models.encoder import cast_block_matrices
 from openvision_tpu_torch.tools.model_io import DEFAULT_VOCAB, resolve_device
 from openvision_tpu_torch.train.checkpoint import load_checkpoint
+from openvision_tpu_torch.train.step import DTYPES, build_model
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 KERNEL_IMPLS = ("fused", "fused_t", "flash", "scan")
 
 
@@ -54,19 +54,6 @@ def preprocess(image, res: int) -> np.ndarray:
 def load_image(path: str, res: int) -> np.ndarray:
     with open(path, "rb") as f:
         return preprocess(f.read(), res)
-
-
-def build_model(config: dict) -> CLIPModel:
-    """The CLIP/CoCa model a config dict (``configs/openvision.py``) names."""
-    m = config["model"]
-
-    def typed(cfg):
-        return {**cfg, "dtype": DTYPES[cfg["dtype"]]}
-
-    return CLIPModel(
-        out_dim=tuple(m["out_dim"]), image=typed(m["image"]), text=typed(m["text"]),
-        text_decoder=m["text_decoder"], text_decoder_config=typed(m["text_decoder_config"]),
-        temperature_init=m["temperature_init"])
 
 
 class Captioner:

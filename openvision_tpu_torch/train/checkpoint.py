@@ -8,11 +8,20 @@ slash-joined name ("params/img/cls", ...); numpy stores bfloat16 as 2-byte
 void, which :func:`recover_dtype` turns back into a ``torch.bfloat16``
 tensor. Orbax train-state directories and legacy tensorstore checkpoints
 are not ported yet: :func:`load_checkpoint` names the format and raises.
+
+The trainer's own train state (:func:`save_train_state`,
+:func:`restore_train_state`) is one npz per step in the same format, under
+the port's parameter names: ``params/<name>``, the optimizer's
+``opt/count``, ``opt/mu/<name>`` (bf16) and ``opt/nu/<name>``, ``step``
+and ``data_position`` (records the input pipeline has read), written
+atomically; the newest `keep` files are kept.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -103,3 +112,41 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     raise NotImplementedError(
         f"{path}: {fmt} checkpoints are not ported yet; convert it to a flat npz "
         "with the JAX package (train/checkpoint.py:save_npz)")
+
+
+def _ckpt_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"ckpt-{step}.npz")
+
+
+def saved_steps(directory: str) -> list[int]:
+    steps = []
+    for path in glob.glob(os.path.join(directory, "ckpt-*.npz")):
+        m = re.fullmatch(r"ckpt-(\d+)\.npz", os.path.basename(path))
+        if m:
+            steps.append(int(m.group(1)))
+    return sorted(steps)
+
+
+def save_train_state(directory: str, step: int, model: torch.nn.Module, opt,
+                     data_position: int, keep: int = 1) -> str:
+    """Writes the train state of `step`; deletes all but the newest `keep`."""
+    os.makedirs(directory, exist_ok=True)
+    path = _ckpt_path(directory, step)
+    save_npz(path, {
+        "params": dict(model.state_dict()),
+        "opt": {"count": np.asarray(opt.state["count"]), "mu": opt.state["mu"],
+                "nu": opt.state["nu"]},
+        "step": np.asarray(step), "data_position": np.asarray(data_position)})
+    for old in saved_steps(directory)[:-max(keep, 1)]:
+        os.remove(_ckpt_path(directory, old))
+    return path
+
+
+def restore_train_state(directory: str, step: int, model: torch.nn.Module, opt) -> int:
+    """Loads the train state of `step` into `model` and `opt`; returns the
+    data position it was saved at."""
+    tree = load_npz(_ckpt_path(directory, step))
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in tree["params"].items()})
+    opt.load_state_dict({"count": int(tree["opt"]["count"]), "mu": tree["opt"]["mu"],
+                         "nu": tree["opt"]["nu"]})
+    return int(tree["data_position"])

@@ -1,5 +1,5 @@
-"""The port imports neither JAX, flax nor Triton, directly or through
-openvision_tpu, and chip_smoke.py refuses to run without a card."""
+"""The port imports neither JAX, flax, optax, grain nor Triton, directly or
+through openvision_tpu, and chip_smoke.py refuses to run without a card."""
 
 import os
 import subprocess
@@ -23,13 +23,15 @@ def _port_modules():
 
 def test_port_imports_no_jax_flax_or_triton():
     mods = _port_modules()
-    assert "openvision_tpu_torch.ops.fused_encoder" in mods
+    for m in ("ops.fused_encoder", "ops.grad_kernels", "losses", "optim", "train.step",
+              "train.trainer", "main_clip", "data.pipeline", "data.bert_ops", "utils.registry"):
+        assert f"openvision_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'triton', 'openvision_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'grain', 'triton', 'openvision_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

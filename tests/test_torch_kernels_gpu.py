@@ -16,6 +16,17 @@ largest magnitude of the reference output:
   to bf16 before p.v. The flash LSE is f32 of the same bf16 scores: within
   1e-3 absolute.
 - the composed blocks (several launches): 2**-5.
+- the backward kernels against their plain versions, from the same inputs
+  (the same o and logsumexp for attention): 2**-6 for the attention
+  gradients (dS and P rounded to bf16 where a sum order flips a rounding),
+  2**-7 for the bf16 GEMM and LayerNorm outputs, 2**-12 for f32 GEMM
+  outputs and 1e-4 for f32 column sums (summation order only); the fused
+  block's backward against the plain Pallas-order backward, and every
+  autograd gradient against torch.autograd.grad of the plain f32 forward:
+  2**-5, dx held on dx - g (what the backward adds to the residual).
+Under the causal and prefix-LM masks every query row sees key 0, so no row
+is fully masked; the attention backward cases hold the dual instead: keys
+that no query sees (causal, Lq < Lk) get exactly zero dk and dv.
 """
 
 import pytest
@@ -23,6 +34,7 @@ import torch
 
 from openvision_tpu_torch.ops import fused_attention as fa
 from openvision_tpu_torch.ops import fused_encoder as fe
+from openvision_tpu_torch.ops import grad_kernels as gk
 from openvision_tpu_torch.ops import kernels
 from openvision_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 
@@ -40,6 +52,11 @@ def _rand(g, dev, *shape, scale=1.0):
 
 def _rel_err(got, ref):
     return ((got.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def _launches(**nonzero):
+    """The full launch-count dict with the given nonzero entries."""
+    return {**dict.fromkeys(kernels.LAUNCHES, 0), **nonzero}
 
 
 @pytest.mark.gpu
@@ -102,8 +119,7 @@ def test_sub_blocks_count_launches(dev):
         ref = fe.mhsa_block_plain(x.float(), ln_w, ln_b, w_qkv.float(), b_qkv, w_o.float(), b_o,
                                   num_heads=h)
         ref = fe.mlp_block_plain(ref, ln_w, ln_b, w1.float(), b1, w2.float(), b2)
-    assert kernels.LAUNCHES == {"layernorm": 2, "gemm_bias_act": 4, "attention": 1,
-                           "flash_attention": 0}
+    assert kernels.LAUNCHES == _launches(layernorm=2, gemm_bias_act=4, attention=1)
     # two sub-blocks compound the per-kernel roundings
     assert _rel_err(y, ref) <= 2**-5
 
@@ -118,7 +134,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim 64"):
         fe.attention(torch.zeros(1, 4, 3 * 96, device=dev, dtype=torch.bfloat16), 3)
     w = torch.ones(16, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward only"):
+    with pytest.raises(RuntimeError, match="no backward kernel"):
         fe.layernorm(x, w, torch.zeros(16, device=dev), 1e-6)
     d, f32 = 128, dict(device=dev)
     with pytest.raises(ValueError, match="power-of-two"):
@@ -164,8 +180,7 @@ def test_fused_mhsa_block_counts_launches(dev, l, d, h, causal, prefix):
         ref = fa.fused_mhsa_block_plain(x.float(), ln_w, ln_b, w_qkv.float(), b_qkv,
                                         w_o.float(), b_o, num_heads=h, causal=causal,
                                         prefix_len=prefix)
-    assert kernels.LAUNCHES == {"layernorm": 1, "gemm_bias_act": 2, "attention": 1,
-                                "flash_attention": 0}
+    assert kernels.LAUNCHES == _launches(layernorm=1, gemm_bias_act=2, attention=1)
     assert _rel_err(y, ref) <= 2**-5
 
 
@@ -203,5 +218,202 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
         flash_attention(q.float(), q.float(), q.float())
     with pytest.raises(ValueError, match="unit stride"):
         flash_attention(q, q.transpose(-1, -2).contiguous().transpose(-1, -2), q)
-    with pytest.raises(RuntimeError, match="forward only"):
-        flash_attention(q, q, q.clone().requires_grad_(True))
+    with pytest.raises(ValueError, match="return_lse"):
+        flash_attention(q, q, q.clone().requires_grad_(True), return_lse=True)
+
+
+# ---------------------------------------------------------------------------
+# Backward kernels
+# ---------------------------------------------------------------------------
+
+
+ATTN_BWD_CASES = [
+    (2, 128, 335, 12, False, 0),   # cross-attention, Lq != Lk
+    (2, 463, 463, 12, True, 335),  # concat decoder, prefix-LM
+    (2, 128, 128, 12, True, 0),    # causal self-attention
+    (3, 101, 101, 4, True, 37),    # ragged, prefix inside a key tile
+    (2, 70, 70, 2, False, 0),      # Lk not a multiple of 64
+    (2, 64, 200, 2, True, 0),      # causal with Lq < Lk: keys 64.. seen by no query
+    (2, 50, 900, 2, False, 0),     # multi-k
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,h,causal,prefix", ATTN_BWD_CASES)
+def test_attention_bwd_kernels(dev, b, lq, lk, h, causal, prefix):
+    g = torch.Generator().manual_seed(lq * lk + prefix + 1)
+    q = _rand(g, dev, b, lq, h, 64).bfloat16()
+    kv = _rand(g, dev, b, lk, 2, h, 64).bfloat16()
+    k, v = kv[:, :, 0], kv[:, :, 1]
+    do = _rand(g, dev, b, lq, h, 64).bfloat16()
+    with torch.inference_mode():
+        o, lse = flash_attention(q, k, v, causal=causal, prefix_len=prefix, return_lse=True)
+        kernels.reset_launch_counts()
+        got = gk.attention_bwd(q, k, v, o, lse, do, scale=0.125, causal=causal,
+                               prefix_len=prefix)
+        torch.cuda.synchronize()
+        ref = gk.attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), scale=0.125, causal=causal, prefix_len=prefix)
+    assert kernels.LAUNCHES == _launches(attention_bwd_dq=1, attention_bwd_dkv=1)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, r) <= 2**-6, name
+    if causal and lk > lq:  # keys no query sees get no gradient
+        assert not got[1][:, lq:].any() and not got[2][:, lq:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,h,causal,prefix", ATTN_BWD_CASES[:4])
+def test_flash_function_matches_autograd_of_the_plain_forward(dev, b, lq, lk, h, causal, prefix):
+    from openvision_tpu_torch.ops.fused_encoder import attend_plain
+
+    g = torch.Generator().manual_seed(lq + lk + prefix)
+    q, k, v = (_rand(g, dev, b, n, h, 64).bfloat16() for n in (lq, lk, lk))
+    do = _rand(g, dev, b, lq, h, 64).bfloat16()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = flash_attention(*leaves, causal=causal, prefix_len=prefix)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == _launches(flash_attention=1, attention_bwd_dq=1,
+                                         attention_bwd_dkv=1)
+    ref_leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    ref_out, _ = attend_plain(*ref_leaves, scale=0.125, causal=causal, prefix_len=prefix)
+    ref = torch.autograd.grad(ref_out, ref_leaves, do.float())
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert a.dtype == torch.bfloat16
+        assert _rel_err(a, r) <= 2**-5, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(2 * 257, 3 * 256, 256), (101, 256, 768), (37, 40, 24)])
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_gemm_nn_kernel(dev, m, n, k, out_dtype):
+    g = torch.Generator().manual_seed(m + n + k)
+    a = _rand(g, dev, m, n).bfloat16()
+    w = _rand(g, dev, n, k, scale=n**-0.5).bfloat16()
+    with torch.inference_mode():
+        got = gk.gemm_nn(a, w, out_dtype)
+        ref = gk.gemm_nn_plain(a, w, torch.float32)
+    assert got.dtype == out_dtype and got.shape == (m, k)
+    assert _rel_err(got, ref) <= (2**-7 if out_dtype == torch.bfloat16 else 2**-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n,k", [
+    (8 * 257, 3 * 1024, 1024),  # dW_qkv at the image tower's width
+    (8 * 463, 768, 768),        # dWo at the decoder's width: split over rows
+    (101, 40, 24),              # ragged rows, one split
+    (5000, 256, 128),           # many splits, a ragged last split
+])
+def test_gemm_tn_kernel(dev, rows, n, k):
+    g = torch.Generator().manual_seed(rows + n + k)
+    dc = _rand(g, dev, rows, n).bfloat16()
+    x = _rand(g, dev, rows, k).bfloat16()
+    with torch.inference_mode():
+        got = gk.gemm_tn(dc, x)
+        ref = gk.gemm_tn_plain(dc, x, torch.float32)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, k)
+    assert _rel_err(got, ref) <= 2**-7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d,residual", [(2 * 257, 1024, True), (37, 768, False), (5, 72, True)])
+def test_layernorm_bwd_kernel(dev, rows, d, residual):
+    gen = torch.Generator().manual_seed(rows + d)
+    x = (_rand(gen, dev, rows, d) * 3 + 1).bfloat16()
+    gamma = _rand(gen, dev, d) * 0.1 + 1
+    dy = _rand(gen, dev, rows, d)
+    g = _rand(gen, dev, rows, d).bfloat16() if residual else None
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        dx, dvec = gk.layernorm_bwd(x, gamma, dy, g, eps=1e-6)
+        torch.cuda.synchronize()
+        ref_dx, ref_dvec = gk.layernorm_bwd_plain(x.float(), gamma, dy, None, eps=1e-6)
+    assert kernels.LAUNCHES == _launches(layernorm_bwd=1)
+    added = dx.float() - (g.float() if residual else 0)
+    assert _rel_err(added, ref_dx) <= 2**-6  # dx rounded once; dx - g once more
+    assert _rel_err(dvec, ref_dvec) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n,seg,round_bf16,dtype", [
+    (8 * 257, 3 * 1024, 257, True, torch.bfloat16),  # dbq/dbk/dbv per image
+    (8 * 257, 1024, 257, False, torch.bfloat16),     # dbo
+    (300, 40, None, False, torch.float32),
+])
+def test_colsum_kernel(dev, rows, n, seg, round_bf16, dtype):
+    g = torch.Generator().manual_seed(rows + n)
+    t = _rand(g, dev, rows, n).to(dtype)
+    with torch.inference_mode():
+        got = gk.colsum(t, seg, round_bf16)
+        ref = gk.colsum_plain(t, seg, round_bf16)
+    assert _rel_err(got, ref) <= (2**-7 if round_bf16 else 1e-4)
+
+
+def _block_inputs(g, dev, b, l, d):
+    x = _rand(g, dev, b, l, d).bfloat16()
+    w = [_rand(g, dev, d) * 0.1 + 1, _rand(g, dev, d) * 0.1,
+         _rand(g, dev, 3 * d, d, scale=d**-0.5).bfloat16(), _rand(g, dev, 3 * d, scale=0.1),
+         _rand(g, dev, d, d, scale=d**-0.5).bfloat16(), _rand(g, dev, d, scale=0.1)]
+    return x, w, _rand(g, dev, b, l, d).bfloat16()
+
+
+BLOCK_CASES = [(2, 257, 256, 4, False, 0), (2, 463, 256, 4, True, 335),
+               (2, 128, 256, 4, True, 0), (3, 101, 128, 2, True, 37)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,d,h,causal,prefix", BLOCK_CASES)
+def test_fused_block_backward_kernels(dev, b, l, d, h, causal, prefix):
+    from openvision_tpu_torch.ops.fused_attention import _backward_kernels
+
+    g = torch.Generator().manual_seed(l + d)
+    x, w, dout = _block_inputs(g, dev, b, l, d)
+    kw = dict(num_heads=h, sm_scale=None, causal=causal, prefix_len=prefix, eps=1e-6)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        got = _backward_kernels(x, *w, dout, **kw)
+        torch.cuda.synchronize()
+        ref = fa.fused_mhsa_block_bwd_plain(x, *w, dout, **kw)
+    assert kernels.LAUNCHES == _launches(
+        layernorm=1, gemm_bias_act=1, flash_attention=1, gemm_nn=2, attention_bwd_dq=1,
+        attention_bwd_dkv=1, gemm_tn=2, layernorm_bwd=1, colsum=2)
+    names = ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o", "db_o")
+    for name, a, r in zip(names, got, ref):
+        assert a.dtype == r.dtype, name
+        if name == "dx":
+            a, r = a.float() - dout.float(), r.float() - dout.float()
+        assert _rel_err(a, r.float()) <= 2**-5, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,d,h,causal,prefix", BLOCK_CASES[:3])
+def test_fused_block_function_matches_autograd_of_the_plain_forward(dev, b, l, d, h, causal,
+                                                                    prefix):
+    g = torch.Generator().manual_seed(l * d)
+    x, w, dout = _block_inputs(g, dev, b, l, d)
+    kw = dict(num_heads=h, causal=causal, prefix_len=prefix)
+    leaves = [t.clone().requires_grad_(True) for t in (x, *w)]
+    got = torch.autograd.grad(fa.fused_mhsa_block(*leaves, **kw), leaves, dout)
+    ref_leaves = [t.float().requires_grad_(True) for t in (x, *w)]
+    ref = torch.autograd.grad(fa.fused_mhsa_block_plain(*ref_leaves, **kw), ref_leaves,
+                              dout.float())
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert a.dtype == (x, *w)[i].dtype
+        if i == 0:
+            a, r = a.float() - dout.float(), r - dout.float()
+        assert _rel_err(a, r) <= 2**-5, i
+
+
+@pytest.mark.gpu
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    a = torch.zeros(4, 16, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gk.gemm_nn(a, torch.zeros(16, 12, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="bfloat16"):
+        gk.gemm_tn(a.float(), a.float())
+    with pytest.raises(ValueError, match="whole segments"):
+        gk.colsum(a, seg_len=3)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.bfloat16)
+        gk.attention_bwd(q, q, q, q, torch.zeros(1, 2, 8, device=dev), q, scale=0.125)
