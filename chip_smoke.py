@@ -69,6 +69,35 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    bound, its plain version and one PyTorch library call (the autograd
    backward of scaled_dot_product_attention, torch.matmul in the same
    layout, the autograd backward of F.layer_norm, a column sum).
+10. The int8 serving kernels against their plain versions at ViT-L/14
+   shapes (B=8, L=257 and a ragged L=101): gemm_int8 in each epilogue (QKV
+   bf16, out-proj + residual, fc1 + GELU in f32, fc2 + residual),
+   layernorm_quant, quant_rows (attention output and GELU hidden), the
+   attention kernel's f32 output, and the composed int8 sub-blocks
+   (mhsa_t_int8, mlp_t_int8) held on out - x. Quantised outputs: per-row
+   scales within 2**-20 relative, int8 values equal but for flips by 1
+   (an f32 value on a rounding boundary) on at most 0.1% of them.
+11. The int8 encode and the serving daemon at full width, on phase 3's
+   export and phase 5's concat checkpoint: load_model(int8=True), the
+   testcat batch through build_encode_fn(int8=True) on float and on uint8
+   input (exact launch counts, unit-norm rows, zimg cosine >= 0.995
+   against the f32 plain path, uint8 against float input); encode img/s at
+   b=64 (CUDA events) on the int8 kernels, the bf16 fused_t kernels and
+   plain eager bf16; each int8 kernel at b=64 by events and graph replay
+   beside its bound (max(bytes / 3.35 TB/s, int8 ops / 1979 TOPS)), its
+   plain version and a library yardstick (torch._int_mm plus the dequant
+   as torch ops; the bf16 F.layer_norm + F.linear + SDPA sequence for the
+   sub-blocks). Then the port's server in-process on 127.0.0.1 (port 0,
+   max_batch 48, so the capped bucket is warmed and used), once --int8 and
+   once bf16 fused_t with the caption service, driven from 8 client
+   threads over http.client on every route (the caption route's 503 and
+   the next request on the same keep-alive connection included): replies,
+   embeddings against build_encode_fn on the same rows (cosine >=
+   0.99999), captions against the caption tool's greedy ids, coalescing;
+   then requests/s and p50/p95 latency of /v1/embed/tensor under load.
+   Without Pillow on the machine the routes that decode PNG bytes
+   (/v1/rank, /v1/caption with an image) are not driven, and the script
+   says so; the caption service is then driven through its batcher.
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 
@@ -78,8 +107,10 @@ zlib (the card's machine may lack Pillow).
 
 from __future__ import annotations
 
+import base64
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
@@ -112,7 +143,14 @@ L14_CONFIG = {
 # The backward kernels (phases 7-9) launch on no inference path.
 LAUNCHES_PER_BLOCK = {"layernorm": 2, "gemm_bias_act": 4, "attention": 1, "flash_attention": 0,
                       "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "gemm_nn": 0, "gemm_tn": 0,
-                      "layernorm_bwd": 0, "colsum": 0}
+                      "layernorm_bwd": 0, "colsum": 0, "gemm_int8": 0, "layernorm_quant": 0,
+                      "quant_rows": 0}
+# Per int8 block (phase 11): 2 LN + quantise, 4 int8 products, 1 attention
+# with f32 output, 2 quantises; per encode the pooled row's quantise and the
+# head's int8 product on top.
+INT8_LAUNCHES_PER_BLOCK = {"layernorm_quant": 2, "gemm_int8": 4, "attention": 1,
+                           "quant_rows": 2}
+INT8_LAUNCHES_PER_ENCODE = {"gemm_int8": 1, "quant_rows": 1}
 
 # Kernel-vs-plain bounds, relative to the largest |plain output|: the kernels
 # round their outputs to bf16 (<= 2**-9 relative), the residual add rounds
@@ -123,6 +161,17 @@ LAUNCHES_PER_BLOCK = {"layernorm": 2, "gemm_bias_act": 4, "attention": 1, "flash
 # plus per element the bf16 rounding of the residual add, 2**-8 of |out|.
 REL_TOL = {"layernorm": 2**-7, "gemm_bias_act": 2**-7, "attention": 2**-6,
            "flash_attention": 2**-6}
+# The int8 kernels (phase 10), from the same int8 or bf16 inputs as their
+# plain versions: gemm_int8's int32 sums are exact and its epilogue repeats
+# the plain order, so only the bf16 rounding of its output (2**-9), the
+# residual add's and GELU's last bits remain -> 2**-7; the composed int8
+# sub-blocks are held on out - x as the fused block (2**-6 plus the residual
+# rounding), since an int8 value that flips at a rounding boundary moves its
+# row's product by one quantisation step. Quantised outputs: per-row scales
+# within SCALE_REL_TOL, int8 values equal but for flips by 1 on at most
+# QUANT_FLIPS of them.
+REL_TOL["gemm_int8"] = 2**-7
+SCALE_REL_TOL, QUANT_FLIPS = 2**-20, 1e-3
 # Backward outputs, relative to max|plain| of each output (phase 7): the
 # attention gradients round dS and P to bf16 where a different f32 summation
 # order can flip a rounding -> 2**-6; the fused block's backward is a chain
@@ -132,19 +181,21 @@ REL_TOL = {"layernorm": 2**-7, "gemm_bias_act": 2**-7, "attention": 2**-6,
 # element, the bf16 rounding of dx = g + (dx - g) on both sides (2**-8 of
 # |dx|, RESIDUAL_ROUNDING).
 BWD_TOL = {"attention_bwd": 2**-6, "fused block bwd": 2**-5}
-CASE_REL_TOL = {**REL_TOL, "fused block": 2**-6}
+CASE_REL_TOL = {**REL_TOL, "fused block": 2**-6, "int8 mhsa block": 2**-6,
+                "int8 mlp block": 2**-6}
 RESIDUAL_ROUNDING = 2**-8  # half a bf16 ulp, relative to the value, at most
 
 # Source and the Pallas kernels each serves, as file:line; the JSON line's
 # "replaces" is the first of them, "serves" all of them.
 _FE, _FA, _FL = ("openvision_tpu/ops/fused_encoder.py", "openvision_tpu/ops/fused_attention.py",
                  "openvision_tpu/ops/flash_attention.py")
+_F8, _Q = "openvision_tpu/ops/fused_encoder_int8.py", "openvision_tpu/serving/quant.py"
 KERNEL_INFO = {
     "layernorm": ("openvision_tpu_torch/csrc/layernorm.cu",
                   [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440"]),
     "gemm_bias_act": ("openvision_tpu_torch/csrc/gemm_bias_act.cu",
                       [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440"]),
-    "attention": ("openvision_tpu_torch/csrc/attention.cu", [f"{_FE}:71", f"{_FA}:440"]),
+    "attention": ("openvision_tpu_torch/csrc/attention.cu", [f"{_FE}:71", f"{_FA}:440", f"{_F8}:39"]),
     "flash_attention": ("openvision_tpu_torch/csrc/attention.cu",
                         [f"{_FL}:133", f"{_FL}:76", f"{_FL}:85"]),
     "attention_bwd_dq": ("openvision_tpu_torch/csrc/attention_bwd.cu",
@@ -155,11 +206,15 @@ KERNEL_INFO = {
     "gemm_tn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698"]),
     "layernorm_bwd": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698"]),
     "colsum": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698"]),
+    "gemm_int8": ("openvision_tpu_torch/csrc/gemm_int8.cu", [f"{_F8}:39", f"{_F8}:138", f"{_Q}:415"]),
+    "layernorm_quant": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_F8}:39", f"{_F8}:138"]),
+    "quant_rows": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_F8}:39", f"{_F8}:138", f"{_Q}:415"]),
 }
 
 BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 F32_PEAK_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+INT8_PEAK_OPS = 1979e12  # H100 SXM dense int8 (NVIDIA data sheet)
 
 # The caption tool's default model (tools/caption.py --config), bf16 for the
 # kernels: ViT-L/14-224, text L, decoder L, vocab 32000, 80 text tokens and
@@ -358,16 +413,19 @@ class Case:
     and operations the function needs (for its bound), and for a residual
     block its input x (the check then holds the block on out - x)."""
 
-    def __init__(self, name, label, kern, plain, lib, nbytes, flops, f32_ops=0, residual=None):
+    def __init__(self, name, label, kern, plain, lib, nbytes, flops, f32_ops=0, residual=None,
+                 int8_ops=0, quant=False):
         self.name, self.label, self.kern, self.plain, self.lib = name, label, kern, plain, lib
-        self.nbytes, self.flops, self.f32_ops = nbytes, flops, f32_ops
+        self.nbytes, self.flops, self.f32_ops, self.int8_ops = nbytes, flops, f32_ops, int8_ops
         self.residual = residual
+        self.quant = quant  # kern and plain return (int8 values, f32 per-row scales)
 
     def bound(self):
         """(ms, "bytes" | "operations"): the least time the card could take,
         each input read once and each output written once."""
         t_bytes = self.nbytes / HBM_BYTES_PER_S
-        t_ops = self.flops / BF16_PEAK_FLOPS + self.f32_ops / F32_PEAK_FLOPS
+        t_ops = (self.flops / BF16_PEAK_FLOPS + self.f32_ops / F32_PEAK_FLOPS
+                 + self.int8_ops / INT8_PEAK_OPS)
         return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -547,6 +605,9 @@ def check_cases(cases, worst: dict) -> None:
     for c in cases:
         got, ref = c.kern(), c.plain()
         torch.cuda.synchronize()
+        if c.quant:
+            check_quant(c, got, ref, worst)
+            continue
         err = (got.float() - ref).abs()
         if c.residual is None:
             scale = ref.abs().max().item()
@@ -564,6 +625,27 @@ def check_cases(cases, worst: dict) -> None:
         if not ok:
             raise AssertionError(f"{c.name} {c.label}: max|err|/bound {ratio} > 1")
         worst[c.name] = max(worst.get(c.name, 0.0), err.max().item())
+
+
+def check_quant(c: Case, got, ref, worst: dict) -> None:
+    """A quantise: per-row scales within SCALE_REL_TOL, int8 values equal
+    but for flips by 1 on at most QUANT_FLIPS of them; its max|err| is that
+    of the dequantised values."""
+    import torch
+
+    (q, scale), (q_ref, scale_ref) = got, ref
+    rel = ((scale - scale_ref).abs() / scale_ref.abs()).max().item()
+    diff = (q.int() - q_ref.int()).abs()
+    flips = diff.count_nonzero().item() / diff.numel()
+    err = (q.float() * scale[..., None] - q_ref.float() * scale_ref[..., None]).abs().max().item()
+    ok = (q.dtype == torch.int8 and rel <= SCALE_REL_TOL and diff.max().item() <= 1
+          and flips <= QUANT_FLIPS)
+    print(f"  {c.name:15s} {c.label:46s} scales max rel {rel:.3e} (bound {SCALE_REL_TOL:.3e})  "
+          f"int8 flips {100 * flips:.4f}% (bound {100 * QUANT_FLIPS:.1f}%, max {diff.max().item()})"
+          f"  dequantised max|err|={err:.3e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{c.name} {c.label}: scales {rel}, flips {flips}")
+    worst[c.name] = max(worst.get(c.name, 0.0), err)
 
 
 def time_case(c: Case) -> dict:
@@ -1193,6 +1275,482 @@ def train_phase(device, no_pil: bool, totals: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# The int8 serving kernels, the int8 encode and the daemon (phases 10, 11)
+# ---------------------------------------------------------------------------
+
+
+# uint8 input against float input through the int8 encode (phase 11): the
+# JAX package's f32 bound is 1e-4 (tests/test_quant.py:275); on the card the
+# int8 path rounds the normalized pixels to bf16 for its conv, and a pixel
+# whose host (f64, then f32) and device (f32) normalization straddle a bf16
+# rounding boundary moves by one bf16 step (2**-8 relative) -> 1e-4 * 10.
+UINT8_TOL = 1e-3
+DAEMON_MAX_BATCH = 48  # not a power of two: the capped bucket is formed and warmed
+DAEMON_CLIENTS, DAEMON_LOAD_REQUESTS = 8, 40  # client threads; tensor requests each under load
+
+
+def int8_cases(fe, fe8, device, gen, b: int, l: int, d: int = 1024, heads: int = 16,
+               mlp: int = 4096):
+    """Cases of one int8 block's launches (the int8 encode's shapes) and of
+    the composed sub-blocks. Weights are quantised from random f32
+    ones; the activations the products take are quantised with the plain
+    versions, so each case sees the int8 values and scales its kernel sees
+    on the path."""
+    import torch
+    import torch.nn.functional as F
+
+    from openvision_tpu_torch.serving.quant import quant_w
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    m = b * l
+    x = rnd(b, l, d).bfloat16()
+    ln = [(rnd(d, scale=0.1) + 1, rnd(d, scale=0.1)) for _ in range(2)]
+    w = {"qkv": rnd(3 * d, d, scale=d**-0.5), "out": rnd(d, d, scale=d**-0.5),
+         "fc1": rnd(mlp, d, scale=d**-0.5), "fc2": rnd(d, mlp, scale=mlp**-0.5)}
+    q = {k: quant_w(v) for k, v in w.items()}
+    bias = {k: rnd(v.shape[0], scale=0.1) for k, v in w.items()}
+    w16 = {k: v.bfloat16() for k, v in w.items()}
+    b16 = {k: v.bfloat16() for k, v in bias.items()}
+    yq, ys = fe8.layernorm_quant_plain(x, *ln[0], 1e-6)
+    o, h = rnd(b, l, d, scale=0.5), rnd(b, l, mlp)
+    oq, os_ = fe8.quant_plain(o)
+    hq, hs = fe8.quant_plain(h)
+    qkv = rnd(b, l, 3 * d).bfloat16()
+
+    def int_mm(a, a_s, name, gelu=False, res=None, out=torch.bfloat16):
+        """torch._int_mm and the dequant as torch ops (a yardstick the port never calls)."""
+        wq, ws = q[name]
+
+        def run():
+            y = torch._int_mm(a.reshape(-1, a.shape[-1]), wq.t()).float()
+            y = (y * ws * a_s.reshape(-1, 1) + bias[name]).reshape(*a.shape[:-1], -1)
+            if gelu:
+                y = F.gelu(y, approximate="tanh")
+            y = y.to(out)
+            return y if res is None else y + res
+        return run
+
+    cases = []
+    for i, (lw, lb) in enumerate(ln):
+        cases.append(Case("layernorm_quant", f"LN{i + 1} + quantise ({m}x{d})",
+                          lambda lw=lw, lb=lb: fe8.layernorm_quant(x, lw, lb, 1e-6),
+                          lambda lw=lw, lb=lb: fe8.layernorm_quant_plain(x, lw, lb, 1e-6), None,
+                          m * d * 2 + m * d + m * 4 + 2 * d * 4, 0, 10 * m * d, quant=True))
+    for label, a, a_s, name, gelu, res, out in (
+            ("qkv", yq, ys, "qkv", False, None, torch.bfloat16),
+            ("out+res", oq, os_, "out", False, x, torch.bfloat16),
+            ("fc1+gelu f32", yq, ys, "fc1", True, None, torch.float32),
+            ("fc2+res", hq, hs, "fc2", False, x, torch.bfloat16)):
+        n, k = q[name][0].shape
+        cases.append(Case(
+            "gemm_int8", f"{label} ({m}x{n}x{k})",
+            lambda a=a, a_s=a_s, name=name, gelu=gelu, res=res, out=out: fe8.gemm_int8(
+                a, a_s, *q[name], bias[name], gelu=gelu, out_dtype=out, residual=res),
+            lambda a=a, a_s=a_s, name=name, gelu=gelu, res=res, out=out: fe8.gemm_int8_plain(
+                a, a_s, *q[name], bias[name], gelu=gelu, out_dtype=out, residual=res).float(),
+            int_mm(a, a_s, name, gelu, res, out),
+            m * k + n * k + m * n * (2 if out == torch.bfloat16 else 4)
+            + (m * n * 2 if res is not None else 0) + m * 4 + n * 8,
+            0, int8_ops=2 * m * n * k))
+    for label, t in (("attention output", o), ("GELU hidden", h)):
+        n = t.shape[-1]
+        cases.append(Case("quant_rows", f"{label} ({m}x{n})",
+                          lambda t=t: fe8.quant_rows(t), lambda t=t: fe8.quant_plain(t), None,
+                          m * n * 4 + m * n + m * 4, 0, 3 * m * n, quant=True))
+    qh, kh, vh = (t.reshape(b, l, heads, 64).transpose(1, 2).contiguous()
+                  for t in qkv.split(d, dim=-1))
+    cases.append(Case("attention", f"attn f32 out b={b} L={l} H={heads} nomax",
+                      lambda: fe.attention(qkv, heads, nomax=True, out_dtype=torch.float32),
+                      lambda: fe.attention_plain(qkv, heads, nomax=True, out_dtype=torch.float32),
+                      _sdpa(qh, kh, vh, False, 0), 3 * m * d * 2 + m * d * 4,
+                      4 * b * heads * 64 * l * l))
+    mhsa_args = (*ln[0], *q["qkv"], bias["qkv"], *q["out"], bias["out"])
+    mlp_args = (*ln[1], *q["fc1"], bias["fc1"], *q["fc2"], bias["fc2"])
+    ln16 = [(lw.bfloat16(), lb.bfloat16()) for lw, lb in ln]
+    cases.append(Case(
+        "int8 mhsa block", f"mhsa_t_int8 b={b} L={l} D={d} H={heads}",
+        lambda: fe8.mhsa_t_int8(x, *mhsa_args, num_heads=heads),
+        lambda: fe8.mhsa_t_int8_plain(x, *mhsa_args, num_heads=heads).float(),
+        lambda: _library_block(x, *ln16[0], w16["qkv"], b16["qkv"], w16["out"], b16["out"],
+                               heads, {}),
+        2 * m * d * 2 + 4 * d * d + 8 * d * 4, 4 * b * heads * 64 * l * l, residual=x,
+        int8_ops=2 * m * 4 * d * d))
+
+    def library_mlp():
+        y = F.layer_norm(x, (d,), *ln16[1], 1e-6)
+        y = F.gelu(F.linear(y, w16["fc1"], b16["fc1"]), approximate="tanh")
+        return x + F.linear(y, w16["fc2"], b16["fc2"])
+
+    cases.append(Case(
+        "int8 mlp block", f"mlp_t_int8 b={b} L={l} D={d} MLP={mlp}",
+        lambda: fe8.mlp_t_int8(x, *mlp_args),
+        lambda: fe8.mlp_t_int8_plain(x, *mlp_args).float(), library_mlp,
+        2 * m * d * 2 + 2 * d * mlp + (2 * mlp + 2 * d) * 4, 0, residual=x,
+        int8_ops=2 * m * 2 * d * mlp))
+    return cases
+
+
+def time_int8_kernels(fe, fe8, device, batch: int = 64) -> dict:
+    """Phase 11b: one int8 block's launches at `batch`, summed per kernel
+    (time, graph time, bound, plain version and library yardstick); the f32
+    attention and the composed sub-blocks are printed beside them."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    keys = ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
+    times, largest = {}, {}
+    for c in int8_cases(fe, fe8, device, gen, batch, 257):
+        t = time_case(c)
+        if c.name not in ("gemm_int8", "layernorm_quant", "quant_rows"):
+            continue
+        acc = times.setdefault(c.name, dict.fromkeys(keys, 0.0))
+        for key in keys:  # no library call for one launch: none for the kernel
+            acc[key] = None if t[key] is None or acc[key] is None else acc[key] + t[key]
+        if t["bound_ms"] >= largest.get(c.name, 0.0):
+            largest[c.name] = t["bound_ms"]
+            acc["bound_by"] = t["bound_by"]
+    return times
+
+
+def int8_encode_phase(model_dir: str, images, totals: dict, device):
+    """Phase 11a: the testcat batch through build_encode_fn(int8=True) on
+    float and uint8 input. Returns the loaded model (bf16 fused_t tower and
+    int8 weights)."""
+    import torch
+
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.serving.encode import build_encode_fn
+    from openvision_tpu_torch.tools.model_io import load_model
+
+    t0 = time.perf_counter()
+    model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t", fast_gelu=True,
+                       device=device, int8=True)
+    print(f"load_model(bf16, fused_t, int8=True) in {time.perf_counter() - t0:.1f} s")
+    depth = len(model.vision.transformer.resblocks)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for k, v in INT8_LAUNCHES_PER_BLOCK.items():
+        want[k] += v * depth
+    for k, v in INT8_LAUNCHES_PER_ENCODE.items():
+        want[k] += v
+    raw = np.stack(images)  # the testcat images are 224 px: the uint8 rows as they are
+    pre = np.stack([model.preprocess(im) for im in images]).astype(np.float32)
+    n = len(images)
+    z = {}
+    for which, rows, kw in (("float", pre, {}), ("uint8", raw, {"uint8_input": True})):
+        enc = build_encode_fn(model, int8=True, **kw)
+        padded = np.pad(rows, ((0, 8 - n), (0, 0), (0, 0), (0, 0)))
+        kernels.reset_launch_counts()
+        z[which] = enc(torch.from_numpy(padded).to(device))[:n]
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        print(f"int8 encode ({which} input), launches {got}")
+        if got != want:
+            raise AssertionError(f"int8 encode ({which}): launches {got}, expected {want}")
+        for k, v in got.items():
+            totals[k] += v
+        norms = torch.linalg.norm(z[which], dim=-1)
+        if z[which].shape != (n, 768) or not torch.isfinite(z[which]).all():
+            raise AssertionError(f"int8 embeddings ({which}) are not finite or misshapen")
+        if (norms - 1).abs().max().item() > 1e-3:
+            raise AssertionError(f"int8 embeddings ({which}) are not unit-norm")
+    cos = {}
+    for gelu_name, fast in (("exact GELU", False), ("tanh GELU", True)):
+        ref = load_model(model_dir, dtype=torch.float32, attn_impl="xla", fast_gelu=fast,
+                         device=device)
+        cos[gelu_name] = (z["float"] * ref.encode_image(torch.from_numpy(pre).to(device))).sum(-1)
+        print(f"zimg cosine, int8 kernels vs plain f32 xla ({gelu_name}): min "
+              f"{cos[gelu_name].min().item():.6f}  per image "
+              f"{[round(c, 6) for c in cos[gelu_name].tolist()]}")
+        del ref
+    diff = (z["uint8"] - z["float"]).abs().max().item()
+    print(f"int8 encode, uint8 against float input: max|diff| {diff:.3e} (bound {UINT8_TOL:.0e})")
+    if cos["exact GELU"].min().item() < 0.995:
+        raise AssertionError("int8 zimg cosine against the f32 plain path is below 0.995")
+    if diff > UINT8_TOL:
+        raise AssertionError(f"int8 encode: uint8 and float input differ by {diff}")
+    return model
+
+
+def encode_rates(model, model_dir: str, device, batch: int = 64) -> dict:
+    """Phase 11b: encode img/s at `batch` (CUDA events around build_encode_fn
+    on f32 input on the card) for the int8 kernels, the bf16 fused_t kernels
+    and the plain eager bf16 path, in turns."""
+    import torch
+
+    from openvision_tpu_torch.serving.encode import build_encode_fn
+    from openvision_tpu_torch.tools.model_io import load_model
+
+    plain = load_model(model_dir, dtype=torch.bfloat16, attn_impl="xla", fast_gelu=True,
+                       device=device)
+    fns = {"int8 kernels": build_encode_fn(model, int8=True),
+           "bf16 fused_t kernels": build_encode_fn(model, int8=False),
+           "plain eager bf16": build_encode_fn(plain, int8=False)}
+    x = torch.randn(batch, RES, RES, 3, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device)
+    rates = {}
+    for which in list(fns) + list(fns)[::-1]:
+        ms = cuda_ms(lambda: fns[which](x), iters=10)
+        rates.setdefault(which, []).append(batch / (ms / 1e3))
+        print(f"  {which:22s} encode b={batch}: {ms:8.2f} ms/batch  {rates[which][-1]:8.1f} img/s")
+    del plain, fns
+    torch.cuda.empty_cache()
+    return rates
+
+
+def _http(conn, method: str, path: str, body=None, headers=None):
+    """(status, reply bytes, seconds) of one request on a kept-alive connection."""
+    t0 = time.perf_counter()
+    conn.request(method, path, body=body, headers=headers or {})
+    resp = conn.getresponse()
+    return resp.status, resp.read(), time.perf_counter() - t0
+
+
+def _tensor_headers(rows: np.ndarray, raw_reply: bool = False) -> dict:
+    h = {"Content-Type": "application/octet-stream", "X-Tensor-Dtype": "uint8",
+         "X-Tensor-Shape": ",".join(map(str, rows.shape))}
+    if raw_reply:
+        h["Accept"] = "application/octet-stream"
+    return h
+
+
+def _run_clients(fn, n: int) -> list:
+    """fn(i) on n threads at once; returns their results, raises the first error."""
+    import threading
+
+    out, errs = [None] * n, []
+
+    def body(i):
+        try:
+            out[i] = fn(i)
+        except Exception as e:  # noqa: BLE001 -- raised below, in the main thread
+            errs.append(e)
+
+    threads = [threading.Thread(target=body, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errs:
+        raise errs[0]
+    return out
+
+
+def daemon_phase(model, ckpt: str, images, names, totals: dict, device) -> dict:
+    """Phase 11c: the port's server in-process, --int8 and bf16 fused_t (the
+    latter with the caption service), driven over HTTP. Returns per server
+    its /v1/embed/tensor requests/s and p50/p95 latency under load."""
+    import http.client
+    import threading
+
+    import torch
+
+    from openvision_tpu_torch.configs.openvision import get_config
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.serving import server as srv
+    from openvision_tpu_torch.serving.encode import build_encode_fn
+    from openvision_tpu_torch.tools import caption as tcap
+    from openvision_tpu_torch.tools.zero_shot import TEXTS
+
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+        print("Pillow is not installed: the routes that decode PNG bytes (/v1/rank, /v1/caption "
+              "with an image) are not driven over HTTP; the caption service is driven through "
+              "its batcher with the caption tool's preprocessed rows")
+    pngs = []
+    for f in names:
+        with open(os.path.join(REPO, "testcat", f), "rb") as fh:
+            pngs.append(fh.read())
+    raw = np.stack(images)
+    cap_rows = np.stack([tcap.preprocess(im, RES) for im in images]).astype(np.float32)
+
+    t0 = time.perf_counter()
+    services = {"int8": srv.EmbedService(model, int8=True, max_batch=DAEMON_MAX_BATCH),
+                "bf16": srv.EmbedService(model, int8=False, max_batch=DAEMON_MAX_BATCH)}
+    capsvc = srv.CaptionService(get_config(caption_arg("concat", "fused")), ckpt,
+                                max_batch=DAEMON_MAX_BATCH, device=device)
+    print(f"services up in {time.perf_counter() - t0:.1f} s (caption: build_captioner of the "
+          f"concat checkpoint, bf16, fused)")
+    t0 = time.perf_counter()
+    buckets = [svc.warmup() for svc in services.values()] + [capsvc.warmup()]
+    print(f"warmup of every bucket {buckets[0]} (image f32, image uint8, text; captions) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if any(b[-1] != DAEMON_MAX_BATCH for b in buckets):
+        raise AssertionError(f"warmup did not run the capped bucket {DAEMON_MAX_BATCH}: {buckets}")
+    servers = {"int8": srv.make_server(services["int8"], "127.0.0.1", 0),
+               "bf16": srv.make_server(services["bf16"], "127.0.0.1", 0, caption_service=capsvc)}
+    for s in servers.values():
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    addr = {k: s.server_address for k, s in servers.items()}
+    results = {}
+    try:
+        n = len(images)
+        with torch.inference_mode():
+            direct = {k: build_encode_fn(model, int8=k == "int8", uint8_input=True)(
+                torch.from_numpy(raw).to(device)).cpu().numpy() for k in services}
+            ztxt = model.encode_text(model.tokenize(TEXTS)).cpu().numpy()
+            # the caption tool's greedy ids for the images as one batch, padded
+            # to the bucket the daemon forms for them (the cuBLAS f32
+            # projections pick their algorithm by batch size, which can flip
+            # a near-tie argmax between batch sizes)
+            padded = np.zeros((srv.bucket_size(n, DAEMON_MAX_BATCH),) + cap_rows.shape[1:],
+                              np.float32)
+            padded[:n] = cap_rows
+            ids = capsvc.captioner(torch.from_numpy(padded).to(device))[:n].cpu().tolist()
+        want_caps = [capsvc.tok.decode(row) for row in ids]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()  # the daemon's own run starts here
+
+        def client(i):
+            j, out = i % len(images), []
+            for tag in ("int8", "bf16"):
+                conn = http.client.HTTPConnection(*addr[tag], timeout=300)
+                for path in ("/healthz", "/stats"):
+                    st, body, _ = _http(conn, "GET", path)
+                    out.append((tag, path, st, 200, json.loads(body)))
+                rows = raw[j:j + 1]
+                st, body, _ = _http(conn, "POST", "/v1/embed/tensor", rows.tobytes(),
+                                    _tensor_headers(rows))
+                out.append((tag, "tensor json", st, 200,
+                            ([j], np.asarray(json.loads(body)["embeddings"], np.float32))))
+                pair = raw[[j, (j + 1) % len(images)]]
+                st, body, _ = _http(conn, "POST", "/v1/embed/tensor", pair.tobytes(),
+                                    _tensor_headers(pair, raw_reply=True))
+                out.append((tag, "tensor octet-stream", st, 200,
+                            ([j, (j + 1) % len(images)],
+                             np.frombuffer(body, np.float32).reshape(2, -1))))
+                t = [i % len(TEXTS), (i + 1) % len(TEXTS)]
+                st, body, _ = _http(conn, "POST", "/v1/embed/text",
+                                    json.dumps({"texts": [TEXTS[k] for k in t]}),
+                                    {"Content-Type": "application/json"})
+                out.append((tag, "text", st, 200,
+                            (t, np.asarray(json.loads(body)["embeddings"], np.float32))))
+                if have_pil:
+                    st, body, _ = _http(conn, "POST", "/v1/rank", json.dumps(
+                        {"b64": base64.b64encode(pngs[j]).decode(),
+                         "texts": TEXTS}), {"Content-Type": "application/json"})
+                    out.append((tag, "rank", st, 200, json.loads(body)))
+                if tag == "bf16" and have_pil:
+                    st, body, _ = _http(conn, "POST", "/v1/caption", pngs[j],
+                                        {"Content-Type": "image/png"})
+                    out.append((tag, "caption", st, 200, (j, json.loads(body)["captions"])))
+                if tag == "int8":  # no caption model: 503, then the same connection serves on
+                    st, body, _ = _http(conn, "POST", "/v1/caption", pngs[j],
+                                        {"Content-Type": "image/png"})
+                    out.append((tag, "caption (none loaded)", st, 503, json.loads(body)))
+                    st, body, _ = _http(conn, "GET", "/healthz")
+                    out.append((tag, "healthz after the 503", st, 200, json.loads(body)))
+                conn.close()
+            if not have_pil:
+                out.append(("bf16", "caption (batcher)", 200, 200,
+                            (j, [capsvc.batcher.submit(cap_rows[j]).result(timeout=300)])))
+            return out
+
+        t0 = time.perf_counter()
+        replies = [r for rs in _run_clients(client, DAEMON_CLIENTS) for r in rs]
+        print(f"{DAEMON_CLIENTS} clients, {len(replies)} requests on every route in "
+              f"{time.perf_counter() - t0:.2f} s")
+        worst_cos, worst_diff, counts, caps_equal = 1.0, 0.0, {}, 0
+        for tag, route, st, want_st, out in replies:
+            counts[(tag, route)] = counts.get((tag, route), 0) + 1
+            if st != want_st:
+                raise AssertionError(f"[{tag}] {route}: status {st}, expected {want_st}: {out}")
+            if route.startswith("tensor") or route == "text":
+                rows, z = out
+                ref = (direct[tag] if route != "text" else ztxt)[rows]
+                cos = (z * ref).sum(-1) / (np.linalg.norm(z, axis=-1) * np.linalg.norm(ref, axis=-1))
+                worst_cos = min(worst_cos, float(cos.min()))
+                worst_diff = max(worst_diff, float(np.abs(z - ref).max()))
+            elif route == "rank":
+                if abs(sum(out["probs"]) - 1) > 1e-4 or sorted(out["texts"]) != sorted(TEXTS):
+                    raise AssertionError(f"[{tag}] rank: {out}")
+            elif route.startswith("caption") and st == 200:
+                j, caps = out
+                caps_equal += caps == [want_caps[j]]
+            elif route == "healthz after the 503" and out["status"] != "ok":
+                raise AssertionError(f"{route}: {out}")
+        print(f"replies per route: { {f'{t} {r}': c for (t, r), c in sorted(counts.items())} }")
+        print(f"daemon embeddings against build_encode_fn on the same rows: min cosine "
+              f"{worst_cos:.7f}, max|diff| {worst_diff:.3e}")
+        if worst_cos < 0.99999:
+            raise AssertionError(f"daemon embeddings differ from the direct encode: {worst_cos}")
+        print(f"captions under concurrent load equal to the caption tool's: "
+              f"{caps_equal} of {DAEMON_CLIENTS} (not gated: the batches "
+              f"the load forms differ in size from the tool's)")
+        # the images as one batch, as the tool captions them: equal, gated
+        old_wait, capsvc.batcher.max_wait = capsvc.batcher.max_wait, 1.0
+        try:
+            if have_pil:
+                conn = http.client.HTTPConnection(*addr["bf16"], timeout=300)
+                st, body, _ = _http(conn, "POST", "/v1/caption", json.dumps(
+                    {"b64": [base64.b64encode(b).decode() for b in pngs]}),
+                    {"Content-Type": "application/json"})
+                conn.close()
+                caps = json.loads(body)["captions"] if st == 200 else body
+            else:
+                futs = [capsvc.batcher.submit(r) for r in cap_rows]
+                st, caps = 200, [f.result(timeout=300) for f in futs]
+        finally:
+            capsvc.batcher.max_wait = old_wait
+        if st != 200 or caps != want_caps:
+            raise AssertionError(f"captions of the {n} images in one request: {st} {caps}, "
+                                 f"expected {want_caps}")
+        print(f"captions of the {n} images in one request "
+              f"({'over HTTP' if have_pil else 'through the batcher'}) equal the caption tool's "
+              f"greedy ids; e.g. {names[0]}: {want_caps[0][:60]!r}")
+
+        for tag in ("int8", "bf16"):
+            lat, lock = [], threading.Lock()
+
+            def load(i, tag=tag, lat=lat, lock=lock):
+                conn = http.client.HTTPConnection(*addr[tag], timeout=300)
+                for r in range(DAEMON_LOAD_REQUESTS):
+                    rows = raw[(i + r) % len(images)][None]
+                    st, _, dt = _http(conn, "POST", "/v1/embed/tensor", rows.tobytes(),
+                                      _tensor_headers(rows))
+                    if st != 200:
+                        raise AssertionError(f"[{tag}] /v1/embed/tensor under load: {st}")
+                    with lock:
+                        lat.append(dt)
+                conn.close()
+
+            before = services[tag].images.stats()
+            t0 = time.perf_counter()
+            _run_clients(load, DAEMON_CLIENTS)
+            wall = time.perf_counter() - t0
+            st = services[tag].images.stats()
+            lat.sort()
+            p50, p95 = lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.95 * len(lat)))]
+            batches = st["batches"] - before["batches"]
+            mean_batch = (st["requests"] - before["requests"]) / max(batches, 1)
+            results[tag] = {"requests_per_s": len(lat) / wall, "p50_ms": p50 * 1e3,
+                            "p95_ms": p95 * 1e3, "mean_batch": mean_batch}
+            print(f"[{tag}] /v1/embed/tensor under load: {len(lat)} requests of one uint8 row "
+                  f"from {DAEMON_CLIENTS} threads in {wall:.2f} s: {len(lat) / wall:.1f} "
+                  f"requests/s, p50 {p50 * 1e3:.1f} ms, p95 {p95 * 1e3:.1f} ms, {batches} "
+                  f"batches (mean {mean_batch:.2f} rows)")
+            if mean_batch <= 1:
+                raise AssertionError(f"[{tag}] the batcher did not coalesce: {st}")
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        print(f"daemon launches (routes and load): {got}; stats: "
+              f"{ {k: s.stats() for k, s in services.items()} } caption {capsvc.stats()}")
+        for k, v in got.items():
+            totals[k] += v
+    finally:
+        for s in servers.values():
+            s.shutdown()
+            s.server_close()
+        for svc in (*services.values(), capsvc):
+            svc.stop()
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -1200,10 +1758,22 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    # phase 3's export and phase 5's checkpoints are read again in phase 11
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run(work: str) -> int:
+    import torch
+
     sys.path.insert(0, REPO)
     from openvision_tpu_torch.ops import flash_attention as fl
     from openvision_tpu_torch.ops import fused_attention as fa
     from openvision_tpu_torch.ops import fused_encoder as fe
+    from openvision_tpu_torch.ops import fused_encoder_int8 as fe8
     from openvision_tpu_torch.ops import grad_kernels as gk
     from openvision_tpu_torch.ops import kernels
     from openvision_tpu_torch.serving.encode import build_encode_fn
@@ -1247,64 +1817,65 @@ def main() -> int:
         names = sorted(f for f in os.listdir(os.path.join(REPO, "testcat")) if f.endswith(".png"))
         images = [read_png(os.path.join(REPO, "testcat", f)) for f in names]
         print(f"decoded {len(images)} testcat images {images[0].shape} {images[0].dtype}")
-        with tempfile.TemporaryDirectory() as model_dir:
-            t0 = time.perf_counter()
-            export_random_model(model_dir, L14_CONFIG, SEED)
-            print(f"wrote random-init export in {time.perf_counter() - t0:.1f} s")
-            t0 = time.perf_counter()
-            model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t",
-                               fast_gelu=True, device=device)
-            print(f"load_model(bf16, fused_t, fast_gelu) in {time.perf_counter() - t0:.1f} s")
-            depth = len(model.vision.transformer.resblocks)
-            per_encode = {k: v * depth for k, v in LAUNCHES_PER_BLOCK.items()}
+        model_dir = os.path.join(work, "model")
+        os.makedirs(model_dir)
+        t0 = time.perf_counter()
+        export_random_model(model_dir, L14_CONFIG, SEED)
+        print(f"wrote random-init export in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t",
+                           fast_gelu=True, device=device)
+        print(f"load_model(bf16, fused_t, fast_gelu) in {time.perf_counter() - t0:.1f} s")
+        depth = len(model.vision.transformer.resblocks)
+        per_encode = {k: v * depth for k, v in LAUNCHES_PER_BLOCK.items()}
 
-            encode = build_encode_fn(model, int8=False)
-            batch = np.stack([model.preprocess(im) for im in images]).astype(np.float32)
-            padded = np.pad(batch, ((0, 8 - len(batch)), (0, 0), (0, 0), (0, 0)))
+        encode = build_encode_fn(model, int8=False)
+        batch = np.stack([model.preprocess(im) for im in images]).astype(np.float32)
+        padded = np.pad(batch, ((0, 8 - len(batch)), (0, 0), (0, 0), (0, 0)))
 
-            kernels.reset_launch_counts()
-            z = encode(torch.from_numpy(padded).to(device, torch.bfloat16))[:len(images)]
-            torch.cuda.synchronize()
-            after_encode = dict(kernels.LAUNCHES)
-            results = zero_shot.rank(model, names, images)
-            torch.cuda.synchronize()
-            launches = dict(kernels.LAUNCHES)
-            for k, v in launches.items():
-                totals[k] += v
-            print(f"\nlaunches after one batch encode: {after_encode} (expected {per_encode})")
-            print(f"launches after the zero-shot ranking ({len(images)} single-image encodes): "
-                  f"{launches}")
-            if after_encode != per_encode:
-                raise AssertionError("the encode did not launch each kernel the expected times")
-            if launches != {k: v * (1 + len(images)) for k, v in per_encode.items()}:
-                raise AssertionError("the ranking did not run every encode through the kernels")
+        kernels.reset_launch_counts()
+        z = encode(torch.from_numpy(padded).to(device, torch.bfloat16))[:len(images)]
+        torch.cuda.synchronize()
+        after_encode = dict(kernels.LAUNCHES)
+        results = zero_shot.rank(model, names, images)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        print(f"\nlaunches after one batch encode: {after_encode} (expected {per_encode})")
+        print(f"launches after the zero-shot ranking ({len(images)} single-image encodes): "
+              f"{launches}")
+        if after_encode != per_encode:
+            raise AssertionError("the encode did not launch each kernel the expected times")
+        if launches != {k: v * (1 + len(images)) for k, v in per_encode.items()}:
+            raise AssertionError("the ranking did not run every encode through the kernels")
 
-            norms = torch.linalg.norm(z, dim=-1)
-            print(f"zimg {tuple(z.shape)} finite={bool(torch.isfinite(z).all())} "
-                  f"norms in [{norms.min().item():.6f}, {norms.max().item():.6f}]")
-            if z.shape != (len(images), 768) or not torch.isfinite(z).all():
-                raise AssertionError("embeddings are not finite or have the wrong shape")
-            if (norms - 1).abs().max().item() > 1e-3:
-                raise AssertionError("embeddings are not unit-norm")
-            if len(results) != len(images):
-                raise AssertionError("zero-shot ranking did not cover every image")
+        norms = torch.linalg.norm(z, dim=-1)
+        print(f"zimg {tuple(z.shape)} finite={bool(torch.isfinite(z).all())} "
+              f"norms in [{norms.min().item():.6f}, {norms.max().item():.6f}]")
+        if z.shape != (len(images), 768) or not torch.isfinite(z).all():
+            raise AssertionError("embeddings are not finite or have the wrong shape")
+        if (norms - 1).abs().max().item() > 1e-3:
+            raise AssertionError("embeddings are not unit-norm")
+        if len(results) != len(images):
+            raise AssertionError("zero-shot ranking did not cover every image")
 
-            cos = {}
-            for gelu_name, fast in (("exact GELU", False), ("tanh GELU", True)):
-                ref = load_model(model_dir, dtype=torch.float32, attn_impl="xla",
-                                 fast_gelu=fast, device=device)
-                z_ref = ref.encode_image(torch.from_numpy(batch).to(device))
-                cos[gelu_name] = (z * z_ref).sum(-1)
-                print(f"zimg cosine, kernels bf16 vs plain f32 xla ({gelu_name}): "
-                      f"min {cos[gelu_name].min().item():.6f}  "
-                      f"per image {[round(c, 6) for c in cos[gelu_name].tolist()]}")
-                del ref
-            if cos["exact GELU"].min().item() < 0.999:
-                raise AssertionError("zimg cosine against the f32 plain path is below 0.999")
+        cos = {}
+        for gelu_name, fast in (("exact GELU", False), ("tanh GELU", True)):
+            ref = load_model(model_dir, dtype=torch.float32, attn_impl="xla",
+                             fast_gelu=fast, device=device)
+            z_ref = ref.encode_image(torch.from_numpy(batch).to(device))
+            cos[gelu_name] = (z * z_ref).sum(-1)
+            print(f"zimg cosine, kernels bf16 vs plain f32 xla ({gelu_name}): "
+                  f"min {cos[gelu_name].min().item():.6f}  "
+                  f"per image {[round(c, 6) for c in cos[gelu_name].tolist()]}")
+            del ref
+        if cos["exact GELU"].min().item() < 0.999:
+            raise AssertionError("zimg cosine against the f32 plain path is below 0.999")
 
-            phase("4. encode throughput at batch 64 and per-kernel time")
-            plain = load_model(model_dir, dtype=torch.bfloat16, attn_impl="xla",
-                               fast_gelu=True, device=device)
+        phase("4. encode throughput at batch 64 and per-kernel time")
+        plain = load_model(model_dir, dtype=torch.bfloat16, attn_impl="xla",
+                           fast_gelu=True, device=device)
         flops = vit_l14_flops_per_image()
         x64 = torch.randn(64, 224, 224, 3, generator=torch.Generator(device=device).manual_seed(1),
                           device=device).bfloat16()
@@ -1321,8 +1892,8 @@ def main() -> int:
 
     phase("5. caption path: ViT-L/14-224 + text-L + decoder-L, bf16, random weights (seed 0)")
     cap_batch = np.stack([tcap.preprocess(im, RES) for im in images]).astype(np.float32)
-    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
-        loaded, ckpts = caption_phase(device, tmp, cap_batch, names, totals)
+    with torch.inference_mode():
+        loaded, ckpts = caption_phase(device, work, cap_batch, names, totals)
 
         phase("6. caption throughput at batch 64, and the new kernels' time at caption shapes")
         cap_rates = caption_throughput(device, loaded, ckpts)
@@ -1378,15 +1949,37 @@ def main() -> int:
                 largest[c.name] = t["bound_ms"]
                 acc["bound_by"] = t["bound_by"]
 
+    phase("10. int8 serving kernels against their plain versions (B=8, L=257 and L=101)")
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    with torch.inference_mode():
+        for b, l in ((8, 257), (8, 101)):
+            check_cases(int8_cases(fe, fe8, device, gen, b, l), worst)
+    torch.cuda.empty_cache()
+
+    phase("11. int8 encode and the serving daemon: ViT-L/14-224 + text-L, phase 3's export")
+    with torch.inference_mode():
+        model8 = int8_encode_phase(model_dir, images, totals, device)
+        int8_rates = encode_rates(model8, model_dir, device)
+        times.update(time_int8_kernels(fe, fe8, device))
+    torch.cuda.empty_cache()
+    daemon = daemon_phase(model8, ckpts["concat"], images, names, totals, device)
+    del model8
+
     phase("summary")
     print(f"card: {smi}")
     print(f"encode b=64 img/s: kernels {rates['kernels']}  plain eager bf16 {rates['plain']}")
+    for k, v in int8_rates.items():
+        print(f"encode b=64 img/s (f32 input, phase 11) {k}: {[round(r, 1) for r in v]}")
+    for k, v in daemon.items():
+        print(f"daemon [{k}] /v1/embed/tensor: {v['requests_per_s']:.1f} requests/s, p50 "
+              f"{v['p50_ms']:.1f} ms, p95 {v['p95_ms']:.1f} ms, mean batch {v['mean_batch']:.2f}")
     for k, v in cap_rates.items():
         print(f"captions/s b=64 {k}: {[round(r, 1) for r in v]}")
     for k, v in train_results.items():
         print(f"train step b={TRAIN_BATCH} {k}: {v['step_ms']:.1f} ms, {v['images_per_s']:.1f} "
               f"images/s, peak {v['peak_gb']:.2f} GB")
-    print(f"main-path launches (zero-shot, caption and training runs): {totals}")
+    print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "
+          f"{totals}")
     missing = [k for k, v in totals.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels the main path never launched: {missing}")

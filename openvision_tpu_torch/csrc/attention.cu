@@ -11,6 +11,11 @@
 //   unnormalized probabilities rounded to bf16 for p.v and divided by the f32
 //   row sum afterwards, and the `nomax` variant exp(min(s, 80)) with no max
 //   subtraction;
+// - _mhsa_t_int8_kernel (openvision_tpu/ops/fused_encoder_int8.py:39), the
+//   same core with an f32 output: Pallas quantises the f32 oT / l to int8
+//   (:112-126), so ovt_attention's `out_f32` writes o / l unrounded, divided
+//   by the row sum as Pallas divides (the bf16 output multiplies by 1 / l,
+//   which its bf16 rounding hides);
 // - _block_kernel (openvision_tpu/ops/fused_attention.py:440): the same core
 //   and the unmasked, causal and prefix-LM masks (_tvalid, :64); Pallas folds
 //   the scale into the q projection, and at head_dim 64 (scale 2**-3) scaling
@@ -56,7 +61,7 @@ struct AttnArgs {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  bf16* o;
+  void* o;     // OutT: bf16, or f32 for the int8 block
   float* lse;  // (B, H, Lq) f32, or null
   Strides sq, sk, sv, so;
   int Lq, Lk, H;
@@ -65,9 +70,20 @@ struct AttnArgs {
   int nomax, causal, prefix;
 };
 
+// Two output columns (c, c + 1) of one row: o / l rounded to bf16 (by the
+// reciprocal), or o / l in f32 (by a division, as Pallas's oT / l).
+__device__ __forceinline__ void store_out(bf16* p, float x, float y, float l) {
+  const float inv = 1.f / l;
+  *reinterpret_cast<uint32_t*>(p) = ovt::pack_bf16x2(x * inv, y * inv);
+}
+__device__ __forceinline__ void store_out(float* p, float x, float y, float l) {
+  *reinterpret_cast<float2*>(p) = make_float2(x / l, y / l);
+}
+
 // kCausal: the causal / prefix-LM mask (a compile-time switch, so the
-// unmasked encoder path carries none of its index arithmetic).
-template <bool kCausal>
+// unmasked encoder path carries none of its index arithmetic). OutT: the
+// output's type, bf16 or f32.
+template <bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
   __shared__ __align__(16) bf16 Qs[BQ][LDA];
   __shared__ __align__(16) bf16 Ks[BKV][LDA];
@@ -239,17 +255,12 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     if (l_run[r] <= 0.f) l_run[r] = 1.f;  // no visible key: o = 0
   }
-  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
   const int qa = row0, qb = row0 + 8;
-  bf16* obase = a.o + b * a.so.b + h * a.so.h + t4 * 2;
+  OutT* obase = static_cast<OutT*>(a.o) + b * a.so.b + h * a.so.h + t4 * 2;
 #pragma unroll
   for (int nt = 0; nt < 8; ++nt) {
-    if (qa < a.Lq)
-      *reinterpret_cast<uint32_t*>(obase + (qa * a.so.l + nt * 8)) =
-          ovt::pack_bf16x2(o[nt][0] * inv0, o[nt][1] * inv0);
-    if (qb < a.Lq)
-      *reinterpret_cast<uint32_t*>(obase + (qb * a.so.l + nt * 8)) =
-          ovt::pack_bf16x2(o[nt][2] * inv1, o[nt][3] * inv1);
+    if (qa < a.Lq) store_out(obase + (qa * a.so.l + nt * 8), o[nt][0], o[nt][1], l_run[0]);
+    if (qb < a.Lq) store_out(obase + (qb * a.so.l + nt * 8), o[nt][2], o[nt][3], l_run[1]);
   }
   if (a.lse != nullptr && t4 == 0) {
     float* lrow = a.lse + (static_cast<long long>(b) * a.H + h) * a.Lq;
@@ -260,34 +271,38 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(const AttnArgs a) {
   }
 }
 
-int launch(const AttnArgs& a, int batch, void* stream) {
+int launch(const AttnArgs& a, int batch, int out_f32, void* stream) {
   const dim3 grid((a.Lq + BQ - 1) / BQ, a.H, batch);
-  if (a.causal)
-    attention_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_f32)  // the int8 block: unmasked
+    attention_kernel<false, float><<<grid, kThreads, 0, st>>>(a);
+  else if (a.causal)
+    attention_kernel<true, bf16><<<grid, kThreads, 0, st>>>(a);
   else
-    attention_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+    attention_kernel<false, bf16><<<grid, kThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // qkv: (batch, seq, 3 * heads * head_dim) bf16, contiguous, 16-byte aligned,
-// q | k | v blocks each head-major; out: (batch, seq, heads * head_dim) bf16;
-// one batch item of qkv must hold fewer than 2**31 elements.
+// q | k | v blocks each head-major; out: (batch, seq, heads * head_dim) bf16,
+// or f32 when out_f32 (unmasked only); one batch item of qkv must hold fewer
+// than 2**31 elements.
 // q is scaled by `scale` and rounded before q.k^T. causal / prefix select the
 // causal and prefix-LM masks. head_dim must be 64. Returns cudaGetLastError()
 // after the launch (or cudaErrorInvalidValue for what the kernel does not take).
 extern "C" int ovt_attention(const void* qkv, void* out, int batch, int seq, int heads,
                              int head_dim, float scale, int nomax, int causal, int prefix,
-                             void* stream) {
-  if (head_dim != HD) return static_cast<int>(cudaErrorInvalidValue);
+                             int out_f32, void* stream) {
+  if (head_dim != HD || (out_f32 && causal)) return static_cast<int>(cudaErrorInvalidValue);
   const long long d = static_cast<long long>(heads) * HD;
   const bf16* base = static_cast<const bf16*>(qkv);
   const Strides in{seq * 3 * d, static_cast<int>(3 * d), HD};
-  AttnArgs a{base, base + d, base + 2 * d, static_cast<bf16*>(out), nullptr,
+  AttnArgs a{base, base + d, base + 2 * d, out, nullptr,
              in, in, in, Strides{seq * d, static_cast<int>(d), HD},
              seq, seq, heads, scale, 1, nomax, causal, prefix};
-  return launch(a, batch, stream);
+  return launch(a, batch, out_f32, stream);
 }
 
 // q: (batch, lq, heads, 64), k and v: (batch, lk, heads, 64), all bf16 with
@@ -304,12 +319,12 @@ extern "C" int ovt_flash_attention(const void* q, const void* k, const void* v, 
   if (head_dim != HD) return static_cast<int>(cudaErrorInvalidValue);
   const long long* s = strides;
   AttnArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-             static_cast<const bf16*>(v), static_cast<bf16*>(out),
+             static_cast<const bf16*>(v), out,
              static_cast<float*>(lse),
              Strides{s[0], static_cast<int>(s[1]), static_cast<int>(s[2])},
              Strides{s[3], static_cast<int>(s[4]), static_cast<int>(s[5])},
              Strides{s[6], static_cast<int>(s[7]), static_cast<int>(s[8])},
              Strides{s[9], static_cast<int>(s[10]), static_cast<int>(s[11])},
              lq, lk, heads, scale, prescale, 0, causal, prefix};
-  return launch(a, batch, stream);
+  return launch(a, batch, 0, stream);
 }

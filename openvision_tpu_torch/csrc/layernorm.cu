@@ -1,4 +1,6 @@
 // Row LayerNorm over the feature dim: bf16 in, f32 statistics, bf16 out.
+// Further down: its backward and column sums, and the int8 serving path's
+// LayerNorm + per-row quantise and per-row quantise.
 //
 // Replaces the LN prologue of the Pallas kernels _mhsa_t_kernel and
 // _mlp_t_kernel (openvision_tpu/ops/fused_encoder.py:71, :502) and of the
@@ -296,4 +298,164 @@ extern "C" int ovt_colsum(const void* in, int in_f32, void* out, void* work, int
   float* w = static_cast<float*>(work);
   if (in_f32) return colsum<float>(static_cast<const float*>(in), o, w, rows, n, seg_len, round_bf16, st);
   return colsum<bf16>(static_cast<const bf16*>(in), o, w, rows, n, seg_len, round_bf16, st);
+}
+
+// ---------------------------------------------------------------------------
+// int8 serving: LayerNorm + per-row quantise, and per-row quantise
+// ---------------------------------------------------------------------------
+//
+// Replace the LN prologues and the per-token activation quantisation of the
+// Pallas kernels _mhsa_t_int8_kernel and _mlp_t_int8_kernel
+// (openvision_tpu/ops/fused_encoder_int8.py:39, :138): LN in f32 with the
+// variance as E[x^2] - mean^2 (:58-62, :144-148; the bf16 layernorm above is
+// two-pass), its f32 output never rounded to bf16, then _quant_cols (:31-36):
+// scale = amax / 127 (1 where amax is 0), q = clip(rint(y / scale), -127,
+// 127), by a division, not a multiply by the reciprocal, rounding half to
+// even. ovt_quant_rows quantises an f32 (rows, n) input the same way: the
+// attention output (:126) and the GELU hidden (:155). Both are bound on the
+// H100 by device memory (the input read once, int8 and one f32 scale per row
+// written): one warp per row, 16-byte loads, the LN row (d <= 2048) held in
+// registers between its passes, no shared memory.
+
+namespace {
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int quant1(float y, float scale) {
+  return static_cast<int>(fminf(fmaxf(rintf(__fdiv_rn(y, scale)), -127.f), 127.f));
+}
+
+// Eight int8 values -> one 8-byte store.
+__device__ __forceinline__ void store_q8(int8_t* p, const float (&y)[8], float scale) {
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    w[j >> 2] |= (static_cast<uint32_t>(quant1(y[j], scale)) & 0xffu) << (8 * (j & 3));
+  *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+
+__device__ __forceinline__ float row_scale(float amax) {
+  return amax == 0.f ? 1.f : __fdiv_rn(amax, 127.f);
+}
+
+template <int NC>
+__global__ void __launch_bounds__(kWarps * 32)
+layernorm_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                       const float* __restrict__ beta, int8_t* __restrict__ q,
+                       float* __restrict__ scale, int rows, int d, float eps) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const size_t base = static_cast<size_t>(row) * d;
+  float y[NC][8];
+  float s = 0.f, sq = 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int i = lane * 8 + c * 256;
+    if (i >= d) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(x + base + i);
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 f = ovt::unpack_bf16x2(w[j]);
+      y[c][2 * j] = f.x;
+      y[c][2 * j + 1] = f.y;
+      s += f.x + f.y;
+      sq += f.x * f.x + f.y * f.y;
+    }
+  }
+  const float mean = ovt::warp_sum(s) / d;
+  const float var = ovt::warp_sum(sq) / d - mean * mean;  // E[x^2] - mean^2, as Pallas
+  const float rstd = rsqrtf(var + eps);
+  float amax = 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int i = lane * 8 + c * 256;
+    if (i >= d) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      y[c][j] = __fadd_rn(__fmul_rn(__fmul_rn(y[c][j] - mean, rstd), gamma[i + j]), beta[i + j]);
+      amax = fmaxf(amax, fabsf(y[c][j]));
+    }
+  }
+  const float sc = row_scale(warp_max(amax));
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int i = lane * 8 + c * 256;
+    if (i < d) store_q8(q + base + i, y[c], sc);
+  }
+  if (lane == 0) scale[row] = sc;
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+quant_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
+                  int rows, int n) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;
+  const float* xr = x + static_cast<size_t>(row) * n;
+  float amax = 0.f;
+  for (int i = lane * 8; i < n; i += 256) {
+    const float4 a = *reinterpret_cast<const float4*>(xr + i);
+    const float4 b = *reinterpret_cast<const float4*>(xr + i + 4);
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
+    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(b.x), fabsf(b.y)), fmaxf(fabsf(b.z), fabsf(b.w))));
+  }
+  const float sc = row_scale(warp_max(amax));
+  for (int i = lane * 8; i < n; i += 256) {  // the row's second read hits L1/L2
+    const float4 a = *reinterpret_cast<const float4*>(xr + i);
+    const float4 b = *reinterpret_cast<const float4*>(xr + i + 4);
+    const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    store_q8(q + static_cast<size_t>(row) * n + i, v, sc);
+  }
+  if (lane == 0) scale[row] = sc;
+}
+
+template <int NC>
+void launch_ln_quant(const bf16* x, const float* gamma, const float* beta, int8_t* q,
+                     float* scale, int rows, int d, float eps, cudaStream_t st) {
+  layernorm_quant_kernel<NC><<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
+      x, gamma, beta, q, scale, rows, d, eps);
+}
+
+}  // namespace
+
+// x: (rows, d) bf16; gamma, beta: (d,) f32; q: (rows, d) int8; scale: (rows,)
+// f32. All contiguous and 16-byte aligned; d % 8 == 0 and d <= 2048. Returns
+// cudaGetLastError() after the launch.
+extern "C" int ovt_layernorm_quant(const void* x, const void* gamma, const void* beta, void* q,
+                                   void* scale, int rows, int d, float eps, void* stream) {
+  if (d % 8 || d > 2048) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  int8_t* qo = static_cast<int8_t*>(q);
+  float* so = static_cast<float*>(scale);
+  switch ((d + 255) / 256) {
+    case 1: launch_ln_quant<1>(xb, g, b, qo, so, rows, d, eps, st); break;
+    case 2: launch_ln_quant<2>(xb, g, b, qo, so, rows, d, eps, st); break;
+    case 3: launch_ln_quant<3>(xb, g, b, qo, so, rows, d, eps, st); break;
+    case 4: launch_ln_quant<4>(xb, g, b, qo, so, rows, d, eps, st); break;
+    case 5: launch_ln_quant<5>(xb, g, b, qo, so, rows, d, eps, st); break;
+    case 6: launch_ln_quant<6>(xb, g, b, qo, so, rows, d, eps, st); break;
+    case 7: launch_ln_quant<7>(xb, g, b, qo, so, rows, d, eps, st); break;
+    default: launch_ln_quant<8>(xb, g, b, qo, so, rows, d, eps, st); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (rows, n) f32; q: (rows, n) int8; scale: (rows,) f32. All contiguous
+// and 16-byte aligned; n % 8 == 0. Returns cudaGetLastError() after the launch.
+extern "C" int ovt_quant_rows(const void* x, void* q, void* scale, int rows, int n,
+                              void* stream) {
+  if (n % 8) return static_cast<int>(cudaErrorInvalidValue);
+  quant_rows_kernel<<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale), rows, n);
+  return static_cast<int>(cudaGetLastError());
 }

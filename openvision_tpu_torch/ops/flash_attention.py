@@ -147,5 +147,5 @@ def _forward(q, k, v, *, causal: bool, prefix_len: int, sm_scale, return_lse: bo
         None if lse is None else lse.data_ptr(), strides, b, lq, lk, h, hd, scale,
         int(prescale), int(causal), int(prefix_len), kernels.stream(q))
     kernels.raise_on(rc, "flash_attention")
-    kernels.LAUNCHES["flash_attention"] += 1
+    kernels.count("flash_attention")
     return (out, lse) if return_lse else out

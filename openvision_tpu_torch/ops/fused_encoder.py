@@ -77,7 +77,7 @@ def layernorm(x, weight, bias, eps: float):
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
         x.numel() // d, d, eps, kernels.stream(x))
     kernels.raise_on(rc, "layernorm")
-    kernels.LAUNCHES["layernorm"] += 1
+    kernels.count("layernorm")
     return y
 
 
@@ -132,7 +132,7 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
         None if residual is None else residual.data_ptr(),
         out.data_ptr(), m, n, k, int(gelu), kernels.stream(x))
     kernels.raise_on(rc, "gemm_bias_act")
-    kernels.LAUNCHES["gemm_bias_act"] += 1
+    kernels.count("gemm_bias_act")
     return out
 
 
@@ -142,7 +142,7 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
 
 
 def attend_plain(q, k, v, *, scale: float, prescale: bool = True, causal: bool = False,
-                 prefix_len: int = 0, nomax: bool = False):
+                 prefix_len: int = 0, nomax: bool = False, out_dtype=None):
     """softmax(q k^T) v over (B, L, H, hd) tensors -> (o, lse), the arithmetic
     of the attention kernel (``csrc/attention.cu``) in f32.
 
@@ -153,7 +153,8 @@ def attend_plain(q, k, v, *, scale: float, prescale: bool = True, causal: bool =
     are rounded to the input dtype for p.v, then divided by their f32 row sum
     (1 where a row sees no key); ``nomax`` takes exp(min(s, 80)) with no max
     subtraction. lse = m + log(l), (B, H, Lq) f32, is the logsumexp of the
-    scores (meaningless under nomax).
+    scores (meaningless under nomax). o comes in `out_dtype` (the input
+    dtype by default; f32 leaves it unrounded).
     """
     dt = q.dtype
     if prescale:
@@ -176,7 +177,7 @@ def attend_plain(q, k, v, *, scale: float, prescale: bool = True, causal: bool =
     l = torch.where(l <= 0, torch.ones_like(l), l)
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(dt).float(), v.float())
     o = o / l.squeeze(-1).transpose(1, 2)[..., None]
-    return o.to(dt), (m + torch.log(l)).squeeze(-1)
+    return o.to(out_dtype or dt), (m + torch.log(l)).squeeze(-1)
 
 
 def _split_qkv(qkv, num_heads: int):
@@ -186,30 +187,34 @@ def _split_qkv(qkv, num_heads: int):
 
 
 def attention_plain(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
-                    prefix_len: int = 0, scale: float | None = None):
+                    prefix_len: int = 0, scale: float | None = None, out_dtype=None):
     """softmax(q k^T) v from a (B, L, 3D) QKV buffer -> (B, L, D).
 
     As the Pallas kernels: q scaled (by head_dim**-0.5 unless `scale` is
     given) and rounded to the input dtype, f32 scores, the causal or
     prefix-LM mask, unnormalized probabilities rounded to the input dtype
     for p.v, then divided by their f32 row sum; ``nomax`` takes
-    exp(min(s, 80)) with no max subtraction.
+    exp(min(s, 80)) with no max subtraction. The output comes in
+    `out_dtype`, by default the input dtype.
     """
     b, l, d3 = qkv.shape
     q, k, v = _split_qkv(qkv, num_heads)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     o, _ = attend_plain(q, k, v, scale=scale, causal=causal, prefix_len=prefix_len,
-                        nomax=nomax)
+                        nomax=nomax, out_dtype=out_dtype)
     return o.reshape(b, l, d3 // 3)
 
 
 def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
-              prefix_len: int = 0, scale: float | None = None):
+              prefix_len: int = 0, scale: float | None = None, out_dtype=None):
     """Kernel ``csrc/attention.cu``: the attention core of ``_mhsa_t_kernel``
     and of ``_block_kernel`` (openvision_tpu/ops/fused_attention.py:440).
 
-    qkv: (B, L, 3D) bf16 from the QKV projection; returns (B, L, D) bf16.
+    qkv: (B, L, 3D) bf16 from the QKV projection; returns (B, L, D) in
+    `out_dtype`: qkv's dtype by default, or f32 (unmasked only) for
+    ``_mhsa_t_int8_kernel``, which quantises the unrounded o / l
+    (fused_encoder_int8.py:112-126).
     Replaces openvision_tpu/ops/fused_encoder.py:106-154 (per-head scores,
     ``valid`` key mask, max or ``nomax`` softmax, p.v) and the causal and
     prefix-LM masks of ``_tvalid`` (fused_attention.py:64). One block per
@@ -220,7 +225,7 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
     """
     if kernels.on_cpu(qkv):
         return attention_plain(qkv, num_heads, nomax=nomax, causal=causal,
-                               prefix_len=prefix_len, scale=scale)
+                               prefix_len=prefix_len, scale=scale, out_dtype=out_dtype)
     b, l, d3 = qkv.shape
     d = d3 // 3
     hd = d // num_heads
@@ -230,13 +235,17 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
     kernels.check_operand("attention qkv", qkv, torch.bfloat16)
     if l * d3 >= 2**31:
         raise ValueError("attention: one batch item must hold fewer than 2**31 elements")
-    out = torch.empty(b, l, d, dtype=torch.bfloat16, device=qkv.device)
+    out_dtype = out_dtype or torch.bfloat16
+    if out_dtype not in (torch.bfloat16, torch.float32) or (out_dtype == torch.float32 and causal):
+        raise ValueError(f"attention: the kernel writes bf16, or f32 unmasked; got {out_dtype}"
+                         f"{' with a causal mask' if causal else ''}")
+    out = torch.empty(b, l, d, dtype=out_dtype, device=qkv.device)
     rc = kernels.lib().ovt_attention(
         qkv.data_ptr(), out.data_ptr(), b, l, num_heads, hd,
         hd ** -0.5 if scale is None else scale, int(nomax), int(causal),
-        int(prefix_len) if causal else 0, kernels.stream(qkv))
+        int(prefix_len) if causal else 0, int(out_dtype == torch.float32), kernels.stream(qkv))
     kernels.raise_on(rc, "attention")
-    kernels.LAUNCHES["attention"] += 1
+    kernels.count("attention")
     return out
 
 

@@ -100,7 +100,7 @@ def attention_bwd_dq(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
         delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, o, do, dq, k, v), b, lq, lk, h, hd,
         scale, int(causal), int(prefix_len) if causal else 0, kernels.stream(q))
     kernels.raise_on(rc, "attention_bwd_dq")
-    kernels.LAUNCHES["attention_bwd_dq"] += 1
+    kernels.count("attention_bwd_dq")
     return dq, delta
 
 
@@ -122,7 +122,7 @@ def attention_bwd_dkv(q, k, v, lse, delta, do, *, scale: float, causal: bool = F
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, q, do, q, dk, dv), b,
         lq, lk, h, hd, scale, int(causal), int(prefix_len) if causal else 0, kernels.stream(q))
     kernels.raise_on(rc, "attention_bwd_dkv")
-    kernels.LAUNCHES["attention_bwd_dkv"] += 1
+    kernels.count("attention_bwd_dkv")
     return dk, dv
 
 
@@ -174,7 +174,7 @@ def _gemm(name: str, a, b, out, m: int, n: int, k: int, a_t: int, b_t: int, spli
         a.data_ptr(), b.data_ptr(), out.data_ptr(), None if work is None else work.data_ptr(),
         m, n, k, a_t, b_t, int(out.dtype == torch.float32), splits, k_split, kernels.stream(a))
     kernels.raise_on(rc, name)
-    kernels.LAUNCHES[name] += 1
+    kernels.count(name)
     return out
 
 
@@ -275,7 +275,7 @@ def layernorm_bwd(x, gamma, dy, g=None, *, eps: float):
         dx.data_ptr(), dvec.data_ptr(), work.data_ptr(), rows, d, eps, blocks,
         kernels.stream(x))
     kernels.raise_on(rc, "layernorm_bwd")
-    kernels.LAUNCHES["layernorm_bwd"] += 1
+    kernels.count("layernorm_bwd")
     return dx, dvec
 
 
@@ -311,5 +311,5 @@ def colsum(t, seg_len: int | None = None, round_bf16: bool = False):
         None if work is None else work.data_ptr(), rows, n, seg_len, int(round_bf16),
         kernels.stream(t))
     kernels.raise_on(rc, "colsum")
-    kernels.LAUNCHES["colsum"] += 1
+    kernels.count("colsum")
     return out

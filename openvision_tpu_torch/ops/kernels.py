@@ -7,14 +7,20 @@ imported: the first call to :func:`lib` builds into
 covers the sources and the flags, so an edited source rebuilds) and later
 calls reuse it. Every C entry point launches on the stream it is given and
 returns ``cudaGetLastError()``; the wrappers (``ops/fused_encoder.py``,
-``ops/flash_attention.py``, ``ops/grad_kernels.py``) raise when it is not 0.
+``ops/fused_encoder_int8.py``, ``ops/flash_attention.py``,
+``ops/grad_kernels.py``) raise when it is not 0.
 
-The wrappers share :data:`LAUNCHES` (one count per wrapper, raised right
-after its kernel launched) and the operand checks below: a wrapper takes its
-plain version only when every tensor lies on the CPU, and for CUDA tensors
-launches its kernel or raises. A kernel with a backward kernel runs inside a
+The wrappers share :data:`LAUNCHES` (one count per wrapper, raised by
+:func:`count` right after its kernel launched) and the operand checks below:
+a wrapper takes its plain version only when every tensor lies on the CPU,
+and for CUDA tensors launches its kernel or raises. A kernel with a backward kernel runs inside a
 ``torch.autograd.Function`` (``ops/flash_attention.py``,
 ``ops/fused_attention.py``); the grad check below guards the ones without.
+
+The serving daemon calls the kernels from several dispatcher threads at
+once: the first build and load run under one lock (a second thread waits
+for the first one's library), each build writes to a temp name of its own,
+and :func:`count` raises a count under a lock, so the counts stay exact.
 """
 
 from __future__ import annotations
@@ -24,12 +30,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu", "attention_bwd.cu", "gemm_grad.cu")
+SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu", "attention_bwd.cu", "gemm_grad.cu",
+           "gemm_int8.cu")
 HEADERS = ("common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "openvision_tpu_torch"
 NVCC_FLAGS = (
@@ -39,16 +47,26 @@ NVCC_FLAGS = (
 LIB_NAME = "libovt_kernels.so"
 
 _lib = None
+_lib_lock = threading.Lock()  # one build and load, whichever thread comes first
+_count_lock = threading.Lock()
 
 # Launches of each kernel; a wrapper adds one right after its kernel launched.
 LAUNCHES = {"layernorm": 0, "gemm_bias_act": 0, "attention": 0, "flash_attention": 0,
             "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "gemm_nn": 0, "gemm_tn": 0,
-            "layernorm_bwd": 0, "colsum": 0}
+            "layernorm_bwd": 0, "colsum": 0, "gemm_int8": 0, "layernorm_quant": 0,
+            "quant_rows": 0}
+
+
+def count(name: str) -> None:
+    """Adds one launch of `name` (atomic across threads)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def on_cpu(*tensors) -> bool:
@@ -127,7 +145,7 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out.mkdir(parents=True, exist_ok=True)
-    tmp = out / f"{LIB_NAME}.{os.getpid()}.tmp"
+    tmp = out / f"{LIB_NAME}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            *(str(CSRC / s) for s in SOURCES)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -140,28 +158,35 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (once across threads)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        handle.ovt_layernorm.argtypes = [p, p, p, p, i, i, f, p]
-        handle.ovt_gemm_bias_act.argtypes = [p, p, p, p, p, i, i, i, i, p]
-        handle.ovt_attention.argtypes = [p, p, i, i, i, i, f, i, i, i, p]
-        handle.ovt_flash_attention.argtypes = [
-            p, p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, f, i, i, i, p]
-        ll = ctypes.POINTER(ctypes.c_longlong)
-        handle.ovt_attention_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i,
-                                                i, p]
-        handle.ovt_attention_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i,
-                                                 i, p]
-        handle.ovt_gemm_grad.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
-        handle.ovt_layernorm_bwd.argtypes = [p, p, p, p, p, p, p, i, i, f, i, p]
-        handle.ovt_colsum.argtypes = [p, i, p, p, i, i, i, i, p]
-        for fn in (handle.ovt_layernorm, handle.ovt_gemm_bias_act,
-                   handle.ovt_attention, handle.ovt_flash_attention,
-                   handle.ovt_attention_bwd_dq, handle.ovt_attention_bwd_dkv,
-                   handle.ovt_gemm_grad, handle.ovt_layernorm_bwd, handle.ovt_colsum):
-            fn.restype = ctypes.c_int
-        _lib = handle
+        with _lib_lock:
+            if _lib is None:
+                _lib = _bind(ctypes.CDLL(str(build())))
     return _lib
+
+
+def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets each entry point's argument and return types."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    argtypes = {
+        "ovt_layernorm": [p, p, p, p, i, i, f, p],
+        "ovt_gemm_bias_act": [p, p, p, p, p, i, i, i, i, p],
+        "ovt_attention": [p, p, i, i, i, i, f, i, i, i, i, p],
+        "ovt_flash_attention": [p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, p],
+        "ovt_attention_bwd_dq": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, p],
+        "ovt_attention_bwd_dkv": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, p],
+        "ovt_gemm_grad": [p, p, p, p, i, i, i, i, i, i, i, i, p],
+        "ovt_layernorm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
+        "ovt_colsum": [p, i, p, p, i, i, i, i, p],
+        "ovt_gemm_int8": [p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "ovt_layernorm_quant": [p, p, p, p, p, i, i, f, p],
+        "ovt_quant_rows": [p, p, p, i, i, p],
+    }
+    for name, types in argtypes.items():
+        fn = getattr(handle, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+    return handle

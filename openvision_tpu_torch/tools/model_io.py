@@ -5,7 +5,9 @@ OpenVision checkpoint directory (``open_clip_config.json`` +
 ``open_clip_pytorch_model.bin``) into the port's towers. The weights load
 with ``torch.load(weights_only=True)`` onto the CPU, move to `device`, and
 the encoder blocks' weight matrices are cast once to the compute `dtype`
-(what the flax modules do at every call). Hub tags (``hf-hub:``) and a
+(what the flax modules do at every call). With ``int8=True`` the image
+tower's int8 serving weights are quantised first, from the f32 weights as
+loaded (``serving/quant.py``), and kept beside the float tower. Hub tags (``hf-hub:``) and a
 Hugging Face tokenizer in the model dir are not supported yet: tokens come
 from the WordPiece vocab.
 """
@@ -43,6 +45,7 @@ class LoadedModel:
     vocab_path: str
     device: torch.device
     model_dir: str = ""
+    int8: dict | None = None  # serving/quant.quantize_vit_params of the f32 tower
 
     @torch.inference_mode()
     def encode_image(self, images) -> torch.Tensor:
@@ -86,8 +89,9 @@ def resolve_device(device) -> torch.device:
 
 def load_model(model_dir: str, *, vocab_path: str = DEFAULT_VOCAB,
                dtype: torch.dtype = torch.float32, attn_impl: str = "xla",
-               fast_gelu: bool = False, device="cuda") -> LoadedModel:
-    """Loads ``open_clip_config.json`` + ``open_clip_pytorch_model.bin``."""
+               fast_gelu: bool = False, device="cuda", int8: bool = False) -> LoadedModel:
+    """Loads ``open_clip_config.json`` + ``open_clip_pytorch_model.bin``;
+    with `int8`, also the image tower's int8 weights (``LoadedModel.int8``)."""
     device = resolve_device(device)
     with open(os.path.join(model_dir, "open_clip_config.json")) as f:
         cfg = json.load(f)
@@ -133,6 +137,11 @@ def load_model(model_dir: str, *, vocab_path: str = DEFAULT_VOCAB,
     clip.load_state_dict(openclip_to_state_dict(sd))
     del sd
     clip = clip.to(device).eval().requires_grad_(False)
+    qvision = None
+    if int8:  # from the f32 weights, before the cast below
+        from openvision_tpu_torch.serving.quant import quantize_vit_params
+
+        qvision = quantize_vit_params(clip.visual)
     cast_block_matrices(clip, dtype)
 
     # a vocab.txt in the model dir (the JAX exports write one) overrides
@@ -152,6 +161,7 @@ def load_model(model_dir: str, *, vocab_path: str = DEFAULT_VOCAB,
         std=tuple(pp.get("std", _DEFAULT_STD)),
         vocab_path=vocab_path,
         device=device,
+        int8=qvision,
     )
 
 

@@ -24,7 +24,8 @@ def _port_modules():
 def test_port_imports_no_jax_flax_or_triton():
     mods = _port_modules()
     for m in ("ops.fused_encoder", "ops.grad_kernels", "losses", "optim", "train.step",
-              "train.trainer", "main_clip", "data.pipeline", "data.bert_ops", "utils.registry"):
+              "train.trainer", "main_clip", "data.pipeline", "data.bert_ops", "utils.registry",
+              "ops.fused_encoder_int8", "serving.quant", "serving.server"):
         assert f"openvision_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

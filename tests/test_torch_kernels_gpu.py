@@ -24,6 +24,15 @@ largest magnitude of the reference output:
   block's backward against the plain Pallas-order backward, and every
   autograd gradient against torch.autograd.grad of the plain f32 forward:
   2**-5, dx held on dx - g (what the backward adds to the residual).
+The int8 serving kernels (``ops/fused_encoder_int8.py``) against their
+plain versions on the same int8 or bf16 inputs: per-row scales within 2**-20
+relative; int8 values equal except where an f32 value lies on a rounding
+boundary, where they may differ by 1 (at most 0.1% of the values); f32
+outputs of gemm_int8 within 2**-12 relative (the int32 sums are exact and
+the epilogue repeats the plain order; GELU's tanh differs in its last
+bits), bf16 ones 2**-7; the f32 attention output 2**-8 (summation order,
+and a bf16 rounding of p that can flip); the int8 sub-blocks on out - x,
+2**-6 of its max plus the residual add's rounding (2**-8 of |out|).
 Under the causal and prefix-LM masks every query row sees key 0, so no row
 is fully masked; the attention backward cases hold the dual instead: keys
 that no query sees (causal, Lq < Lk) get exactly zero dk and dv.
@@ -34,6 +43,7 @@ import torch
 
 from openvision_tpu_torch.ops import fused_attention as fa
 from openvision_tpu_torch.ops import fused_encoder as fe
+from openvision_tpu_torch.ops import fused_encoder_int8 as fe8
 from openvision_tpu_torch.ops import grad_kernels as gk
 from openvision_tpu_torch.ops import kernels
 from openvision_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
@@ -417,3 +427,126 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="head_dim 64"):
         q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.bfloat16)
         gk.attention_bwd(q, q, q, q, torch.zeros(1, 2, 8, device=dev), q, scale=0.125)
+
+
+# ---------------------------------------------------------------------------
+# int8 serving kernels
+# ---------------------------------------------------------------------------
+
+
+def _check_quant(q, scale, q_ref, scale_ref, max_flips=1e-3):
+    assert q.dtype == torch.int8 and q.shape == q_ref.shape
+    rel = ((scale - scale_ref).abs() / scale_ref.abs()).max().item()
+    assert rel <= 2**-20, rel
+    diff = (q.int() - q_ref.int()).abs()
+    assert diff.max().item() <= 1
+    assert diff.count_nonzero().item() <= max(1, max_flips * q.numel())
+
+
+def _int8_rows(g, dev, m, k):
+    return torch.randint(-127, 128, (m, k), generator=g).to(torch.int8).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", [(2 * 257, 1024), (37, 1152), (1, 8)])
+def test_layernorm_quant_kernel(dev, rows, d):
+    g = torch.Generator().manual_seed(rows + d)
+    x = (_rand(g, dev, rows, d) * 3 + 1).bfloat16()
+    w, b = _rand(g, dev, d) * 0.1 + 1, _rand(g, dev, d) * 0.1
+    with torch.inference_mode():
+        _check_quant(*fe8.layernorm_quant(x, w, b, 1e-6), *fe8.layernorm_quant_plain(x, w, b, 1e-6))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n", [(2 * 257, 1024), (2 * 257, 4096), (3, 8)])
+def test_quant_rows_kernel(dev, rows, n):
+    g = torch.Generator().manual_seed(rows + n)
+    x = _rand(g, dev, rows, n) * 2
+    x[0] = 0  # an all-zero row takes scale 1
+    with torch.inference_mode():
+        q, scale = fe8.quant_rows(x)
+        _check_quant(q, scale, *fe8.quant_plain(x))
+    assert scale[0].item() == 1.0 and q[0].abs().max().item() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k,gelu,out,res", [
+    (2 * 257, 3 * 1024, 1024, False, torch.bfloat16, False),  # QKV
+    (2 * 257, 1024, 1024, False, torch.bfloat16, True),       # out-proj + residual
+    (2 * 257, 4096, 1024, True, torch.float32, False),        # fc1 + GELU, f32 hidden
+    (2 * 257, 1024, 4096, False, torch.bfloat16, True),       # fc2 + residual
+    (5, 768, 1024, False, torch.float32, False),              # the head
+    (37, 40, 48, False, torch.float32, False),                # ragged M, N and K
+])
+def test_gemm_int8_kernel(dev, m, n, k, gelu, out, res):
+    g = torch.Generator().manual_seed(m + n + k)
+    a, w = _int8_rows(g, dev, m, k), _int8_rows(g, dev, n, k)
+    a_s = (torch.rand(m, generator=g) * 0.05 + 1e-3).to(dev)
+    w_s = (torch.rand(n, generator=g) * k**-0.5 / 127 + 1e-5).to(dev)
+    b = _rand(g, dev, n, scale=0.1)
+    r = _rand(g, dev, m, n).bfloat16() if res else None
+    with torch.inference_mode():
+        got = fe8.gemm_int8(a, a_s, w, w_s, b, gelu=gelu, out_dtype=out, residual=r)
+        ref = fe8.gemm_int8_plain(a, a_s, w, w_s, b, gelu=gelu, out_dtype=torch.float32,
+                                  residual=r)
+    assert got.dtype == out
+    assert _rel_err(got, ref) <= (2**-12 if out == torch.float32 else 2**-7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l", [(2, 257), (3, 101)])
+def test_attention_kernel_f32_output(dev, b, l):
+    g = torch.Generator().manual_seed(b * l)
+    qkv = _rand(g, dev, b, l, 3 * 16 * 64).bfloat16()
+    with torch.inference_mode():
+        got = fe.attention(qkv, 16, nomax=True, out_dtype=torch.float32)
+        ref = fe.attention_plain(qkv, 16, nomax=True, out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    assert _rel_err(got, ref) <= 2**-8
+
+
+@pytest.mark.gpu
+def test_int8_sub_blocks_count_launches(dev):
+    from openvision_tpu_torch.serving.quant import quant_w
+
+    g = torch.Generator().manual_seed(0)
+    d, h = 256, 4
+    x = _rand(g, dev, 2, 257, d).bfloat16()
+    ln_w, ln_b = _rand(g, dev, d) * 0.1 + 1, _rand(g, dev, d) * 0.1
+    wqkv, wo = quant_w(_rand(g, dev, 3 * d, d, scale=d**-0.5)), quant_w(_rand(g, dev, d, d))
+    w1, w2 = quant_w(_rand(g, dev, 4 * d, d)), quant_w(_rand(g, dev, d, 4 * d, scale=0.1))
+    bqkv, bo, b1, b2 = (_rand(g, dev, n, scale=0.1) for n in (3 * d, d, 4 * d, d))
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        y = fe8.mhsa_t_int8(x, ln_w, ln_b, *wqkv, bqkv, *wo, bo, num_heads=h)
+        assert kernels.LAUNCHES == _launches(layernorm_quant=1, gemm_int8=2, attention=1,
+                                             quant_rows=1)
+        ref = fe8.mhsa_t_int8_plain(x, ln_w, ln_b, *wqkv, bqkv, *wo, bo, num_heads=h)
+        z = fe8.mlp_t_int8(y, ln_w, ln_b, *w1, b1, *w2, b2)
+        z_ref = fe8.mlp_t_int8_plain(y, ln_w, ln_b, *w1, b1, *w2, b2)
+    assert kernels.LAUNCHES == _launches(layernorm_quant=2, gemm_int8=4, attention=1,
+                                         quant_rows=2)
+    for got, want, inp in ((y, ref, x), (z, z_ref, y)):
+        add = (want.float() - inp.float()).abs().max()
+        err = (got.float() - want.float()).abs()
+        assert (err <= 2**-6 * add + 2**-8 * want.float().abs()).all()
+
+
+@pytest.mark.gpu
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    a = torch.zeros(4, 40, device=dev, dtype=torch.int8)
+    s4, s8 = torch.ones(4, device=dev), torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="K of 16"):
+        fe8.gemm_int8(a, s4, torch.zeros(8, 40, device=dev, dtype=torch.int8), s8)
+    with pytest.raises(TypeError, match="int8"):
+        fe8.gemm_int8(a[:, :32].float(), s4, torch.zeros(8, 32, device=dev, dtype=torch.int8), s8)
+    with pytest.raises(ValueError, match="bf16 with a residual"):
+        fe8.gemm_int8(a[:, :32], s4, torch.zeros(8, 32, device=dev, dtype=torch.int8), s8,
+                      out_dtype=torch.float32,
+                      residual=torch.zeros(4, 8, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="at most 2048"):
+        fe8.layernorm_quant(torch.zeros(2, 4096, device=dev, dtype=torch.bfloat16),
+                            torch.ones(4096, device=dev), torch.zeros(4096, device=dev), 1e-6)
+    with pytest.raises(ValueError, match="f32 unmasked"):
+        fe.attention(torch.zeros(1, 4, 3 * 128, device=dev, dtype=torch.bfloat16), 2,
+                     causal=True, out_dtype=torch.float32)

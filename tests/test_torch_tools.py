@@ -119,11 +119,19 @@ def test_fused_t_matches_xla_on_cpu(model_dir):
 
 
 def test_int8_encode_is_not_ported(model_dir):
+    """The int8 encode is ported now (tests/test_torch_quant.py holds it
+    against the JAX package): it needs the int8 weights that
+    load_model(int8=True) quantises from the f32 tower, and stays within the
+    serving bound (cosine >= 0.995) of the float encode."""
     from openvision_tpu_torch.serving.encode import build_encode_fn
     from openvision_tpu_torch.tools.model_io import load_model
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="int8=True"):
         build_encode_fn(load_model(model_dir, device="cpu"), int8=True)
+    m = load_model(model_dir, device="cpu", int8=True)
+    img = np.random.default_rng(0).random((2, RES, RES, 3), dtype=np.float32)
+    z = build_encode_fn(m, int8=True)(img)
+    assert (z * m.encode_image(img)).sum(-1).min() >= 0.995
 
 
 def test_load_model_refuses_absent_cuda(model_dir):
