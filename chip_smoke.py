@@ -98,6 +98,33 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    Without Pillow on the machine the routes that decode PNG bytes
    (/v1/rank, /v1/caption with an image) are not driven, and the script
    says so; the caption service is then driven through its batcher.
+12. The training paths' kernels against their plain twins at B=8: the
+   _mhsa_t_bwd_kernel chain (#3: the fused block's backward with the nomax
+   recompute and f32 bias sums) at the image tower's L=257 D=1024 and the
+   text tower's L=80 D=768, nomax off and on; the _mlp_t_bwd_kernel chain
+   (#4: fc1 recompute writing the f32 pre-activation, the dGELU GEMM with
+   column partials, the NN/TN GEMMs, LN backward, column sums) at both
+   widths; the dGELU GEMM alone; fused_qkv_attention's forward (#7) and
+   the _qkv_bwd_kernel chain (#8) unmasked at L=257, causal at L=128 and
+   prefix-LM at L=463. Each output within its bound (BWD_TOL), dx on dx - g.
+13. Those kernels at B=64 (the image tower's shapes): CUDA events and
+   CUDA-graph replay, launches per call, bound, plain, and the library
+   calls for the same function (the autograd backward of F.layer_norm,
+   F.linear, SDPA, F.linear + add for #3; of F.layer_norm, F.linear + tanh
+   F.gelu, F.linear + add for #4; F.linear + SDPA and its autograd
+   backward for #7 and #8).
+14. Training path (a): phase 8's model and config with attn_impl=fused_t
+   (both towers' 36 blocks on the fused_t kernels and their backwards, the
+   concat decoder on fused): on identical params and batch the first
+   step's loss within 2**-7 and gradient cosine >= 0.999 against plain
+   bf16; then 3 steps through train/trainer.py with exact launch counts;
+   step time, images/s, peak memory and the profiler's busy/event ratio.
+15. Training path (b): the attn_impl=auto model with
+   model.image.init_values=1e-5 and model.image.drop_path=0.1 (#7/#8 in
+   all 24 image blocks), checked and timed as path (a) on one drop-path
+   generator; then the trained weights loaded into an inference model
+   encode one batch on #7's forward alone (24 launches of each kernel),
+   zimg cosine >= 0.999 against the plain f32 path.
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 
@@ -144,7 +171,7 @@ L14_CONFIG = {
 LAUNCHES_PER_BLOCK = {"layernorm": 2, "gemm_bias_act": 4, "attention": 1, "flash_attention": 0,
                       "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "gemm_nn": 0, "gemm_tn": 0,
                       "layernorm_bwd": 0, "colsum": 0, "gemm_int8": 0, "layernorm_quant": 0,
-                      "quant_rows": 0}
+                      "quant_rows": 0, "gemm_nn_dgelu": 0}
 # Per int8 block (phase 11): 2 LN + quantise, 4 int8 products, 1 attention
 # with f32 output, 2 quantises; per encode the pooled row's quantise and the
 # head's int8 product on top.
@@ -180,9 +207,16 @@ SCALE_REL_TOL, QUANT_FLIPS = 2**-20, 1e-3
 # take the flash forward's -> 2**-5 for every output, dx on dx - g plus, per
 # element, the bf16 rounding of dx = g + (dx - g) on both sides (2**-8 of
 # |dx|, RESIDUAL_ROUNDING).
-BWD_TOL = {"attention_bwd": 2**-6, "fused block bwd": 2**-5}
+# The training paths' backward chains (phase 12) are held like the fused
+# block's: #3 (the fused block's chain with the nomax recompute and f32
+# bias sums), #4 (9 launches: dh rounded to bf16 where a sum order can flip
+# it, compounded through dW1 and dy) and #8 (7 launches) -> 2**-5 for every
+# output, dx on dx - g; #7's forward as the attention kernel, 2**-6; the
+# dGELU GEMM's bf16 dh 2**-7 and its f32 column sums (db1) 2**-12.
+BWD_TOL = {"attention_bwd": 2**-6, "fused block bwd": 2**-5, "mhsa_t bwd": 2**-5,
+           "mlp_t bwd": 2**-5, "qkv bwd": 2**-5}
 CASE_REL_TOL = {**REL_TOL, "fused block": 2**-6, "int8 mhsa block": 2**-6,
-                "int8 mlp block": 2**-6}
+                "int8 mlp block": 2**-6, "qkv attention": 2**-6}
 RESIDUAL_ROUNDING = 2**-8  # half a bf16 ulp, relative to the value, at most
 
 # Source and the Pallas kernels each serves, as file:line; the JSON line's
@@ -190,22 +224,25 @@ RESIDUAL_ROUNDING = 2**-8  # half a bf16 ulp, relative to the value, at most
 _FE, _FA, _FL = ("openvision_tpu/ops/fused_encoder.py", "openvision_tpu/ops/fused_attention.py",
                  "openvision_tpu/ops/flash_attention.py")
 _F8, _Q = "openvision_tpu/ops/fused_encoder_int8.py", "openvision_tpu/serving/quant.py"
+_BWD3, _BWD4, _QKV7, _QKV8 = f"{_FE}:215", f"{_FE}:593", f"{_FA}:92", f"{_FA}:215"
 KERNEL_INFO = {
     "layernorm": ("openvision_tpu_torch/csrc/layernorm.cu",
-                  [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440"]),
+                  [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440", _BWD3, _BWD4]),
     "gemm_bias_act": ("openvision_tpu_torch/csrc/gemm_bias_act.cu",
-                      [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440"]),
-    "attention": ("openvision_tpu_torch/csrc/attention.cu", [f"{_FE}:71", f"{_FA}:440", f"{_F8}:39"]),
+                      [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440", _QKV7, _BWD3, _BWD4, _QKV8]),
+    "attention": ("openvision_tpu_torch/csrc/attention.cu",
+                  [f"{_FE}:71", f"{_FA}:440", f"{_F8}:39", _QKV7]),
     "flash_attention": ("openvision_tpu_torch/csrc/attention.cu",
-                        [f"{_FL}:133", f"{_FL}:76", f"{_FL}:85"]),
+                        [f"{_FL}:133", f"{_FL}:76", f"{_FL}:85", _BWD3, _QKV8]),
     "attention_bwd_dq": ("openvision_tpu_torch/csrc/attention_bwd.cu",
-                         [f"{_FL}:207", f"{_FA}:698"]),
+                         [f"{_FL}:207", f"{_FA}:698", _BWD3, _QKV8]),
     "attention_bwd_dkv": ("openvision_tpu_torch/csrc/attention_bwd.cu",
-                          [f"{_FL}:245", f"{_FA}:698"]),
-    "gemm_nn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698"]),
-    "gemm_tn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698"]),
-    "layernorm_bwd": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698"]),
-    "colsum": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698"]),
+                          [f"{_FL}:245", f"{_FA}:698", _BWD3, _QKV8]),
+    "gemm_nn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698", _BWD3, _BWD4, _QKV8]),
+    "gemm_tn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698", _BWD3, _BWD4, _QKV8]),
+    "layernorm_bwd": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698", _BWD3, _BWD4]),
+    "colsum": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698", _BWD3, _BWD4, _QKV8]),
+    "gemm_nn_dgelu": ("openvision_tpu_torch/csrc/gemm_grad.cu", [_BWD4]),
     "gemm_int8": ("openvision_tpu_torch/csrc/gemm_int8.cu", [f"{_F8}:39", f"{_F8}:138", f"{_Q}:415"]),
     "layernorm_quant": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_F8}:39", f"{_F8}:138"]),
     "quant_rows": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_F8}:39", f"{_F8}:138", f"{_Q}:415"]),
@@ -1093,15 +1130,20 @@ def fused_block_bwd_cases(fa, device, gen, b: int):
 BWD_OUTPUTS = {"fused block bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o", "db_o"),
                "attention_bwd_dq": ("dq",), "attention_bwd_dkv": ("dk", "dv"),
                "gemm_nn": ("out",), "gemm_tn": ("dW",), "layernorm_bwd": ("dx", "dvec"),
-               "colsum": ("sums",)}
+               "colsum": ("sums",),
+               "mhsa_t bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o", "db_o"),
+               "mlp_t bwd": ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"),
+               "qkv bwd": ("dy", "dw_qkv", "db_qkv"), "gemm_nn_dgelu": ("dh", "db1")}
 
 
 def bwd_tol(case, out_name: str, got) -> float:
     """The bound of one backward output (see BWD_TOL and the GPU tests)."""
     import torch
 
-    if case.name == "fused block bwd":
-        return BWD_TOL["fused block bwd"]
+    if case.name in BWD_TOL:
+        return BWD_TOL[case.name]
+    if case.name == "gemm_nn_dgelu":
+        return 2**-7 if out_name == "dh" else 2**-12
     if case.name.startswith("attention_bwd"):
         return BWD_TOL["attention_bwd"]
     if case.name == "layernorm_bwd":
@@ -1134,7 +1176,7 @@ def check_bwd_cases(cases, worst: dict) -> None:
                   f"{err / max(scale, 1e-30):.3e}  bound {tol:.3e}  {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{c.name} {c.label} {out_name}: {err / scale} > {tol}")
-            if c.name != "fused block bwd":
+            if c.name in KERNEL_INFO:  # the composed chains are not rows of the JSON line
                 worst[c.name] = max(worst.get(c.name, 0.0), err)
 
 
@@ -1751,6 +1793,326 @@ def daemon_phase(model, ckpt: str, images, names, totals: dict, device) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# Training on fused_t and on LayerScale / drop-path blocks (phases 12-15)
+# ---------------------------------------------------------------------------
+
+
+# Launches of one fused_t block per step under remat=full: both sub-blocks'
+# forwards twice (4 + 3 launches each time), the _mhsa_t_bwd_kernel chain
+# (12) and the _mlp_t_bwd_kernel chain (9) once.
+FUSED_T_BLOCK_STEP = {"layernorm": 6, "gemm_bias_act": 10, "attention": 2, "flash_attention": 1,
+                      "gemm_nn": 3, "attention_bwd_dq": 1, "attention_bwd_dkv": 1, "gemm_tn": 4,
+                      "layernorm_bwd": 2, "colsum": 4, "gemm_nn_dgelu": 1}
+# One LayerScale block's attention per step: #7 twice (QKV gemm_bias_act and
+# attention) and the #8 chain (7 launches) once; its out-projection and MLP
+# are plain PyTorch in training, as XLA in the JAX package.
+QKV_BLOCK_STEP = {"gemm_bias_act": 3, "attention": 2, "flash_attention": 1, "attention_bwd_dq": 1,
+                  "attention_bwd_dkv": 1, "gemm_tn": 1, "gemm_nn": 1, "colsum": 1}
+TXT_BLOCKS = 12
+LAYERSCALE_INIT, DROP_PATH = 1e-5, 0.1  # the JAX LayerScale default (models/layers.py:189)
+
+
+def _block_params(rnd, d: int):
+    return (rnd(d, scale=0.1) + 1, rnd(d, scale=0.1), rnd(3 * d, d, scale=d**-0.5).bfloat16(),
+            rnd(3 * d, scale=0.1), rnd(d, d, scale=d**-0.5).bfloat16(), rnd(d, scale=0.1))
+
+
+def _mlp_params(rnd, d: int, hidden: int):
+    return (rnd(d, scale=0.1) + 1, rnd(d, scale=0.1), rnd(hidden, d, scale=d**-0.5).bfloat16(),
+            rnd(hidden, scale=0.1), rnd(d, hidden, scale=hidden**-0.5).bfloat16(),
+            rnd(d, scale=0.1))
+
+
+def _library_mlp(x, ln_w, ln_b, w1, b1, w2, b2):
+    """The MLP sub-block as library calls: F.layer_norm, F.linear + tanh
+    F.gelu, F.linear and the residual add."""
+    import torch.nn.functional as F
+
+    y = F.layer_norm(x, (x.shape[-1],), ln_w, ln_b, 1e-6)
+    return x + F.linear(F.gelu(F.linear(y, w1, b1), approximate="tanh"), w2, b2)
+
+
+def _library_qkv(y, w_qkv, b_qkv, heads: int, sdpa_kw: dict):
+    """#7 as library calls: F.linear (QKV) and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    b, l, d = y.shape
+    q, k, v = F.linear(y, w_qkv, b_qkv).view(b, l, 3, heads, d // heads).permute(2, 0, 3, 1, 4)
+    return F.scaled_dot_product_attention(q, k, v, **sdpa_kw).transpose(1, 2).reshape(b, l, d)
+
+
+def training_kernel_cases(fe, fa, gk, device, gen, b: int):
+    """The new training kernels at B=`b`: the #3 chain (image and text
+    shapes, nomax off and on), the #4 chain, #7's forward and the #8 chain
+    (unmasked image shapes, causal, prefix-LM), and the dGELU GEMM alone.
+    Each with its bound, its plain twin and its library call(s); the
+    forward #7 cases apart (a forward check)."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    fwd, bwd = [], []
+    for l, d, heads, nomax in ((257, 1024, 16, False), (257, 1024, 16, True),
+                               (80, 768, 12, False), (80, 768, 12, True)):
+        if b > 8 and (nomax or d != 1024):
+            continue  # the timings run the image tower's shapes, max-subtracted
+        x, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
+        w = _block_params(rnd, d)
+        kw = dict(num_heads=heads, eps=1e-6, nomax=nomax)
+        leaves = _leaves(x, *(t.bfloat16() for t in w))
+        with torch.enable_grad():
+            out = _library_block(*leaves, heads, {})
+        m, pairs = b * l, b * heads * l * l
+        bwd.append(Case(
+            "mhsa_t bwd", f"#3 b={b} L={l} D={d} H={heads}{' nomax' if nomax else ''}",
+            lambda x=x, w=w, g=g, kw=kw: fa._backward_kernels(
+                x, *w, g, sm_scale=None, causal=False, prefix_len=0, bias_sum_per_image=False,
+                **kw),
+            lambda x=x, w=w, g=g, kw=kw: fe.mhsa_block_bwd_plain(x, *w, g, **kw),
+            lambda out=out, leaves=leaves, g=g: torch.autograd.grad(out, leaves, g,
+                                                                    retain_graph=True),
+            (3 * m * d + 4 * d * d + 4 * d * d) * 2 + 12 * d * 4,
+            22 * m * d * d + 12 * 64 * pairs, residual=g))
+    for l, d in ((257, 1024), (80, 768)):
+        if b > 8 and d != 1024:
+            continue
+        hidden = 4 * d
+        x, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
+        w = _mlp_params(rnd, d, hidden)
+        leaves = _leaves(x, *(t.bfloat16() for t in w))
+        with torch.enable_grad():
+            out = _library_mlp(*leaves)
+        m = b * l
+        bwd.append(Case(
+            "mlp_t bwd", f"#4 b={b} L={l} D={d} hidden={hidden}",
+            lambda x=x, w=w, g=g: fe._mlp_backward_kernels(x, *w, g, eps=1e-6),
+            lambda x=x, w=w, g=g: fe.mlp_block_bwd_plain(x, *w, g),
+            lambda out=out, leaves=leaves, g=g: torch.autograd.grad(out, leaves, g,
+                                                                    retain_graph=True),
+            3 * m * d * 2 + 4 * d * hidden * 2 + 14 * d * 4, 10 * m * d * hidden, residual=g))
+        a, h = rnd(b, l, d).bfloat16(), rnd(b, l, hidden, scale=2.0)
+        w2 = w[4]
+        bwd.append(Case(
+            "gemm_nn_dgelu", f"dh = (g.W2) gelu'(h) ({m}x{d}->{hidden})",
+            lambda a=a, w2=w2, h=h: (lambda dh, col: (dh, col.sum(0)))(*gk.gemm_nn_dgelu(a, w2, h)),
+            lambda a=a, w2=w2, h=h: (lambda dh, col: (dh, col.sum(0)))(
+                *gk.gemm_nn_dgelu_plain(a, w2, h)),
+            None,
+            m * d * 2 + d * hidden * 2 + m * hidden * (4 + 2) + 2 * -(-m // 128) * hidden * 4,
+            2 * m * d * hidden))
+    for l, d, heads, causal, prefix in ((257, 1024, 16, False, 0), (128, 768, 12, True, 0),
+                                        (463, 768, 12, True, 335)):
+        if b > 8 and causal:
+            continue  # path (b) runs the image tower's unmasked shape
+        y, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
+        w_qkv, b_qkv = rnd(3 * d, d, scale=d**-0.5).bfloat16(), rnd(3 * d, scale=0.1)
+        kw = dict(num_heads=heads, sm_scale=None, causal=causal, prefix_len=prefix)
+        sdpa_kw = _sdpa_kwargs(l, l, causal, prefix, device)
+        m, pairs = b * l, b * heads * visible_pairs(l, l, causal, prefix)
+        mask = f" prefix={prefix}" if prefix else " causal" if causal else ""
+        fwd.append(Case(
+            "qkv attention", f"#7 b={b} L={l} D={d} H={heads}{mask}",
+            lambda y=y, w=w_qkv, bq=b_qkv, kw=kw: fa._qkv_forward_kernels(y, w, bq, **kw),
+            lambda y=y, w=w_qkv, bq=b_qkv, kw=kw: fa.fused_qkv_attention_plain(
+                y.float(), w.float(), bq, **kw),
+            lambda y=y, w=w_qkv, bq=b_qkv.bfloat16(), h=heads, skw=sdpa_kw: _library_qkv(
+                y, w, bq, h, skw),
+            2 * m * d * 2 + 3 * d * d * 2 + 3 * d * 4, 6 * m * d * d + 4 * 64 * pairs))
+        leaves = _leaves(y, w_qkv, b_qkv.bfloat16())
+        with torch.enable_grad():
+            out = _library_qkv(*leaves, heads, sdpa_kw)
+        bwd.append(Case(
+            "qkv bwd", f"#8 b={b} L={l} D={d} H={heads}{mask}",
+            lambda y=y, w=w_qkv, bq=b_qkv, g=g, kw=kw: fa._qkv_backward_kernels(y, w, bq, g, **kw),
+            lambda y=y, w=w_qkv, bq=b_qkv, g=g, kw=kw: fa.fused_qkv_attention_bwd_plain(
+                y, w, bq, g, **kw),
+            lambda out=out, leaves=leaves, g=g: torch.autograd.grad(out, leaves, g,
+                                                                    retain_graph=True),
+            3 * m * d * 2 + 6 * d * d * 2 + 6 * d * 4, 18 * m * d * d + 12 * 64 * pairs))
+    return fwd, bwd
+
+
+def time_training_kernels(fe, fa, gk, device) -> dict:
+    """Phase 13: each case of :func:`training_kernel_cases` at b=64 with its
+    launches per call; returns the dGELU GEMM's times (its JSON row)."""
+    import torch
+
+    from openvision_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    row = None
+    with torch.no_grad():
+        fwd, bwd = training_kernel_cases(fe, fa, gk, device, gen, 64)
+        for c in fwd + bwd:
+            kernels.reset_launch_counts()
+            c.kern()
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            t = time_bwd_case(c)
+            print(f"  {'':17s} launches per call: {launched}")
+            if c.name == "gemm_nn_dgelu" and row is None:  # the image tower's shape
+                row = t
+    return row
+
+
+def training_config(path: str, dtype: str = "bfloat16", plain: bool = False,
+                    no_pil: bool = False) -> dict:
+    """Phase 14/15's config: phase 8's model, batch, steps and schedule with
+    ``attn_impl=fused_t`` (path a) or ``auto`` with LayerScale and drop-path
+    on the image tower (path b); `plain` runs every tower on xla."""
+    c = train_config("concat", "xla" if plain else "fused", dtype, no_pil=no_pil)
+    if not plain and path == "a":
+        for tower in ("image", "text"):
+            c["model"][tower]["attn_impl"] = "fused_t"  # the config's attn_impl=fused_t
+    if path == "b":
+        c["model"]["image"]["init_values"] = LAYERSCALE_INIT
+        c["model"]["image"]["drop_path"] = DROP_PATH
+    return c
+
+
+def expected_path_launches(path: str, steps: int, names) -> dict:
+    """Launches of `steps` training steps of path (a) or (b): the fused_t
+    chains in the 24 image and 12 text blocks, or #7/#8 in the 24 image
+    blocks; the concat decoder's 12 fused blocks either way."""
+    want = dict.fromkeys(names, 0)
+    per = ((FUSED_T_BLOCK_STEP, IMG_BLOCKS + TXT_BLOCKS) if path == "a"
+           else (QKV_BLOCK_STEP, IMG_BLOCKS))
+    for table, n in (per, (FUSED_BLOCK_STEP, DEC_BLOCKS)):
+        for k, v in table.items():
+            want[k] += v * n * steps
+    return want
+
+
+def training_path_phase(path: str, device, no_pil: bool, totals: dict) -> dict:
+    """Phases 14 and 15: on identical params, batch and drop-path generator
+    the kernel path's loss and gradients against the plain bf16 path (loss
+    within 2**-7 relative, global gradient cosine >= 0.999); then
+    train/trainer.py's TRAIN_STEPS steps with exact launch counts, the step
+    time by CUDA events, images/s, peak memory and the profiler's
+    busy/event ratio of one step. Path (b) then loads the trained weights
+    into an inference model and encodes one batch on #7's forward alone,
+    against the plain f32 path (cosine >= 0.999)."""
+    import torch
+
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.train import step as tstep
+    from openvision_tpu_torch.train import trainer
+
+    tag = {"a": "[a: attn_impl=fused_t]",
+           "b": f"[b: LayerScale {LAYERSCALE_INIT}, drop_path {DROP_PATH}]"}[path]
+    cfg_k = training_config(path, no_pil=no_pil)
+    loader, _ = pipeline.training(cfg_k["input"], seed=SEED)
+    batch = next(loader)
+    model = tstep.build_model(cfg_k).to(device)
+    init_params(model, SEED)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+
+    def grads_for(cfg):
+        m = tstep.build_model(cfg).to(device)
+        m.load_state_dict(state)
+        kernels.reset_launch_counts()
+        loss, _ = tstep.make_loss_fn(cfg, m)(tstep.to_device(batch, device),
+                                             rng=tstep.step_generator(SEED, 0))
+        loss.backward()
+        launched = sum(kernels.LAUNCHES.values())
+        return loss.item(), {n: p.grad.detach().float().clone()
+                             for n, p in m.named_parameters()}, launched
+
+    t0 = time.perf_counter()
+    (lk, gk_, nk), (lp, gp, npl) = grads_for(cfg_k), grads_for(training_config(path, plain=True,
+                                                                                no_pil=no_pil))
+    del state
+    glob, (worst, name) = grad_cosines(gk_, gp)
+    print(f"{tag} first step on identical params, batch and drop-path generator "
+          f"({time.perf_counter() - t0:.1f} s): loss kernels {lk:.6f} plain bf16 {lp:.6f} "
+          f"(rel {abs(lk - lp) / abs(lp):.3e}, bound {2**-7:.3e}); gradient cosine {glob:.6f}, "
+          f"min per-tensor {worst:.6f} ({name}); launches {nk} kernels / {npl} plain")
+    if abs(lk - lp) > 2**-7 * abs(lp) or glob < 0.999 or npl != 0 or nk == 0:
+        raise AssertionError(f"{tag}: loss {lk} vs {lp}, gradient cosine {glob}")
+    del gk_, gp
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        model, opt, _ = trainer.train(cfg_k, wd, device)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        got = dict(kernels.LAUNCHES)
+        rows = [json.loads(line) for line in open(os.path.join(wd, "metrics.jsonl"))]
+    want = expected_path_launches(path, TRAIN_STEPS, kernels.LAUNCHES)
+    losses = [r["training_loss"] for r in rows]
+    print(f"{tag} trainer: {TRAIN_STEPS} steps in {took:.1f} s (build, init, data and steps); "
+          f"losses {losses}; launches {got}")
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    for k, v in got.items():
+        totals[k] += v
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    update = tstep.make_update_fn(cfg_k, model, opt)
+    step_batch = next(loader)
+    ms = cuda_ms(lambda: update(step_batch), iters=2, warmup=1)
+    prof = device_profile(lambda: update(step_batch), ms, iters=1)
+    print(f"{tag} step b={TRAIN_BATCH}: {ms:.1f} ms (CUDA events)  "
+          f"{TRAIN_BATCH / (ms / 1e3):.1f} images/s  peak memory {peak:.2f} GB")
+    print(f"{tag} profile of one step: {prof}")
+    result = {"step_ms": ms, "images_per_s": TRAIN_BATCH / (ms / 1e3), "peak_gb": peak,
+              "loss_rel": abs(lk - lp) / abs(lp), "grad_cosine": glob}
+    if path == "b":
+        trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        del model, opt, update
+        torch.cuda.empty_cache()
+        result["encode_cosine"] = layerscale_encode(trained, step_batch, device, no_pil, totals)
+    return result
+
+
+def layerscale_encode(trained: dict, batch: dict, device, no_pil: bool, totals: dict) -> float:
+    """Path (b)'s trained weights loaded into an inference model: one batch
+    through the image tower on #7's forward (24 blocks, no backward kernel)
+    against the plain f32 path; returns the minimum per-image cosine."""
+    import torch
+
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.train import step as tstep
+
+    images = tstep.normalize_uint8(torch.as_tensor(np.asarray(batch["image"])).to(device))
+    zs = {}
+    for which, cfg in (("kernels", training_config("b", no_pil=no_pil)),
+                       ("plain f32", training_config("b", "float32", plain=True,
+                                                     no_pil=no_pil))):
+        m = tstep.build_model(cfg).to(device)
+        m.load_state_dict(trained)
+        m.eval()
+        kernels.reset_launch_counts()
+        with torch.inference_mode():
+            z, _ = m.visual(images)
+            zs[which] = torch.nn.functional.normalize(z.float(), dim=-1)
+        torch.cuda.synchronize()
+        if which == "kernels":
+            got = dict(kernels.LAUNCHES)
+            want = {**dict.fromkeys(kernels.LAUNCHES, 0), "gemm_bias_act": IMG_BLOCKS,
+                    "attention": IMG_BLOCKS}
+            print(f"[b] inference encode of {images.shape[0]} images: launches {got}")
+            if got != want:
+                raise AssertionError(f"[b] encode launches {got}, expected {want}")
+            for k, v in got.items():
+                totals[k] += v
+        del m
+    cos = (zs["kernels"] * zs["plain f32"]).sum(-1)
+    print(f"[b] encode zimg cosine, kernels bf16 vs plain f32: min {cos.min().item():.6f}")
+    if not bool(torch.isfinite(zs["kernels"]).all()) or cos.min().item() < 0.999:
+        raise AssertionError(f"[b] encode does not match the plain path: {cos.min().item()}")
+    return cos.min().item()
+
+
 def main() -> int:
     import torch
 
@@ -1964,6 +2326,28 @@ def run(work: str) -> int:
     torch.cuda.empty_cache()
     daemon = daemon_phase(model8, ckpts["concat"], images, names, totals, device)
     del model8
+    torch.cuda.empty_cache()
+
+    phase("12. training kernels against their plain twins (B=8): #3, #4, #7, #8, dGELU GEMM")
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    with torch.no_grad():
+        fwd, bwd = training_kernel_cases(fe, fa, gk, device, gen, 8)
+        check_cases(fwd, worst)
+        check_bwd_cases(bwd, worst)
+    del fwd, bwd
+    torch.cuda.empty_cache()
+
+    phase("13. training kernels at B=64: CUDA events and graph replay, bound, plain, library")
+    times["gemm_nn_dgelu"] = time_training_kernels(fe, fa, gk, device)
+    torch.cuda.empty_cache()
+
+    phase("14. training path (a): attn_impl=fused_t, L/14 + text L + decoder L, bf16, batch 64")
+    train_results["[a] fused_t"] = training_path_phase("a", device, no_pil, totals)
+    torch.cuda.empty_cache()
+
+    phase("15. training path (b): LayerScale + drop-path image tower, attn_impl=auto, batch 64")
+    train_results["[b] LayerScale"] = training_path_phase("b", device, no_pil, totals)
+    torch.cuda.empty_cache()
 
     phase("summary")
     print(f"card: {smi}")

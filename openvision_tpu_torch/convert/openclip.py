@@ -15,6 +15,7 @@ Name map (flat JAX name <-> OpenCLIP key), vision tower:
   .../MultiHeadDotProductAttention_0/{q,k,v}/kernel <-> attn.in_proj_weight (concat, T)
   .../out/kernel                                     <-> attn.out_proj.weight (T)
   .../MlpBlock_0/Dense_{0,1}/kernel                  <-> mlp.{c_fc,c_proj}.weight (T)
+  .../ls1/ls1, .../ls2/ls2 (LayerScale)              <-> ls_1.gamma, ls_2.gamma
 Text tower: txt/Embed_0/embedding <-> token_embedding.weight, txt/pos_embedding
 <-> positional_embedding, txt/encoder_norm <-> ln_final, txt/head/kernel <->
 text_projection (no transpose), blocks <-> transformer.resblocks.N.*; and
@@ -172,6 +173,8 @@ def _convert_block(out, jax_prefix, torch_prefix, sub, val, block_id, attn_qkv):
             out[f"{torch_prefix}.attn.out_proj.bias"] = val
     elif "MultiHeadDotProductAttention_0" in sub:
         attn_qkv(jax_prefix, torch_prefix, block_id)
+    elif sub in ("ls1/ls1", "ls2/ls2"):
+        out[f"{torch_prefix}.ls_{sub[2]}.gamma"] = val
 
 
 def openclip_to_jax(state_dict: Dict[str, Any], *, num_heads_vision: int,
@@ -195,6 +198,9 @@ def openclip_to_jax(state_dict: Dict[str, Any], *, num_heads_vision: int,
             flat[f"{jb}/MlpBlock_0/Dense_0/bias"] = sd[f"{tb}.mlp.c_fc.bias"]
             flat[f"{jb}/MlpBlock_0/Dense_1/kernel"] = sd[f"{tb}.mlp.c_proj.weight"].T
             flat[f"{jb}/MlpBlock_0/Dense_1/bias"] = sd[f"{tb}.mlp.c_proj.bias"]
+            for n in (1, 2):
+                if f"{tb}.ls_{n}.gamma" in sd:
+                    flat[f"{jb}/ls{n}/ls{n}"] = sd[f"{tb}.ls_{n}.gamma"]
             w = sd[f"{tb}.attn.in_proj_weight"]  # (3D, D)
             b = sd[f"{tb}.attn.in_proj_bias"]
             d = w.shape[1]
@@ -422,11 +428,14 @@ def flax_paths(name: str) -> list[str]:
     (``.*/kernel$``, ``img/.*``) keep their meaning in the port."""
     if name in _TOWER_LEAVES:
         return [_TOWER_LEAVES[name]]
-    m = re.fullmatch(r"(.*)\.(\d+)\.(ln_\w+\.\w+|attn\.\w+(?:\.\w+)?|mlp\.\w+\.\w+)", name)
+    m = re.fullmatch(r"(.*)\.(\d+)\.(ln_\w+\.\w+|ls_\d\.gamma|attn\.\w+(?:\.\w+)?|mlp\.\w+\.\w+)",
+                     name)
     if m is None or m.group(1) not in _STACKS:
         raise KeyError(f"no JAX name for parameter {name!r}")
     prefix = f"{_STACKS[m.group(1)]}{m.group(2)}/"
     leaf = m.group(3)
+    if leaf.startswith("ls_"):  # the JAX checkpoint quirk: module ls1 holds param ls1
+        return [f"{prefix}ls{leaf[3]}/ls{leaf[3]}"]
     if leaf.startswith("ln_"):
         ln, kind = leaf.split(".")
         cross = "cross_resblocks" in m.group(1)

@@ -311,11 +311,15 @@ extern "C" int ovt_attention(const void* qkv, void* out, int batch, int seq, int
 // Within one batch item, offsets must stay below 2**31 elements.
 // out: (batch, lq, heads, 64) bf16 by its strides; lse: (batch, heads, lq)
 // f32 contiguous, or null. prescale = 1 rounds q * scale to bf16 before
-// q.k^T (the single-k Pallas order), 0 scales the f32 scores.
+// q.k^T (the single-k Pallas order), 0 scales the f32 scores. nomax = 1
+// takes exp(min(s, 80)) with no max subtraction (the fused_t option), and
+// the lse it writes is then log(l): the recompute of _mhsa_t_bwd_kernel's
+// forward (openvision_tpu/ops/fused_encoder.py:215) for the backward.
 extern "C" int ovt_flash_attention(const void* q, const void* k, const void* v, void* out,
                                    void* lse, const long long* strides, int batch, int lq,
                                    int lk, int heads, int head_dim, float scale,
-                                   int prescale, int causal, int prefix, void* stream) {
+                                   int prescale, int causal, int prefix, int nomax,
+                                   void* stream) {
   if (head_dim != HD) return static_cast<int>(cudaErrorInvalidValue);
   const long long* s = strides;
   AttnArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -325,6 +329,6 @@ extern "C" int ovt_flash_attention(const void* q, const void* k, const void* v, 
              Strides{s[3], static_cast<int>(s[4]), static_cast<int>(s[5])},
              Strides{s[6], static_cast<int>(s[7]), static_cast<int>(s[8])},
              Strides{s[9], static_cast<int>(s[10]), static_cast<int>(s[11])},
-             lq, lk, heads, scale, prescale, 0, causal, prefix};
+             lq, lk, heads, scale, prescale, nomax, causal, prefix};
   return launch(a, batch, 0, stream);
 }

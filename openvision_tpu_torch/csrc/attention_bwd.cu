@@ -69,7 +69,15 @@ struct BwdArgs {
   int Lq, Lk, H;
   float scale;
   int causal, prefix;
+  int nomax;  // P = exp(min(s, 80) - lse): the fused_t forward's nomax softmax
 };
+
+// The scaled score whose exp, less the forward's lse, is P: clamped at 80
+// under nomax, as the forward's exp(min(s, 80)).
+__device__ __forceinline__ float score(float qk, const BwdArgs& a) {
+  const float s = qk * a.scale;
+  return a.nomax ? fminf(s, 80.f) : s;
+}
 
 __device__ __forceinline__ bool visible(int key, int query, const BwdArgs& a) {
   return key < a.Lk && query < a.Lq && (!a.causal || key <= max(query, a.prefix - 1));
@@ -235,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
         const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
         const int row = row0 + ((e & 2) ? 8 : 0);
         const float p = (whole || visible(col, row, a))
-                            ? expf(s[nt][e] * a.scale - ((e & 2) ? lse1 : lse0))
+                            ? expf(score(s[nt][e], a) - ((e & 2) ? lse1 : lse0))
                             : 0.f;
         s[nt][e] = p * (dp[nt][e] - ((e & 2) ? del1 : del0)) * a.scale;
       }
@@ -307,8 +315,8 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
       for (int e = 0; e < 4; ++e) {
         const int c = nt * 8 + t4 * 2 + (e & 1);
         const int key = key0 + ((e & 2) ? 8 : 0);
-        const float p = (whole || visible(key, q0 + c, a)) ? expf(st[nt][e] * a.scale - lse_s[c])
-                                                          : 0.f;
+        const float p =
+            (whole || visible(key, q0 + c, a)) ? expf(score(st[nt][e], a) - lse_s[c]) : 0.f;
         st[nt][e] = p;
         dpt[nt][e] = p * (dpt[nt][e] - delta_s[c]) * a.scale;
       }
@@ -322,7 +330,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
 BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, const void* dout,
                   const void* lse, void* delta, void* dq, void* dk, void* dv,
                   const long long* s, int lq, int lk, int heads, float scale, int causal,
-                  int prefix) {
+                  int prefix, int nomax) {
   auto st = [s](int i) {
     return Strides{s[3 * i], static_cast<int>(s[3 * i + 1]), static_cast<int>(s[3 * i + 2])};
   };
@@ -331,7 +339,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, co
                  static_cast<const bf16*>(dout), static_cast<const float*>(lse),
                  static_cast<float*>(delta), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
                  static_cast<bf16*>(dv), st(0), st(1), st(2), st(3), st(4), st(5), st(6), st(7),
-                 lq, lk, heads, scale, causal, prefix};
+                 lq, lk, heads, scale, causal, prefix, nomax};
 }
 
 }  // namespace
@@ -342,15 +350,16 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, co
 // elements, 24 in all; offsets inside one batch item stay below 2**31.
 // lse and delta: (batch, heads, lq) f32 contiguous. The dq entry writes delta
 // and dq; the dk/dv entry reads delta, so it runs after the dq entry on the
-// same stream. Each returns cudaGetLastError() after its launch.
+// same stream. nomax = 1 recomputes P as exp(min(s, 80) - lse), lse = log(l)
+// from the nomax forward. Each returns cudaGetLastError() after its launch.
 extern "C" int ovt_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                     const void* dout, const void* lse, void* delta, void* dq,
                                     const long long* strides, int batch, int lq, int lk,
                                     int heads, int head_dim, float scale, int causal,
-                                    int prefix, void* stream) {
+                                    int prefix, int nomax, void* stream) {
   if (head_dim != HD) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a = make_args(q, k, v, o, dout, lse, delta, dq, nullptr, nullptr, strides, lq,
-                              lk, heads, scale, causal, prefix);
+                              lk, heads, scale, causal, prefix, nomax);
   const dim3 grid((lq + BQ - 1) / BQ, heads, batch);
   attention_bwd_dq_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -360,10 +369,10 @@ extern "C" int ovt_attention_bwd_dkv(const void* q, const void* k, const void* v
                                      const void* dout, const void* lse, const void* delta,
                                      void* dk, void* dv, const long long* strides, int batch,
                                      int lq, int lk, int heads, int head_dim, float scale,
-                                     int causal, int prefix, void* stream) {
+                                     int causal, int prefix, int nomax, void* stream) {
   if (head_dim != HD) return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a = make_args(q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk,
-                              dv, strides, lq, lk, heads, scale, causal, prefix);
+                              dv, strides, lq, lk, heads, scale, causal, prefix, nomax);
   const dim3 grid((lk + BKV - 1) / BKV, heads, batch);
   attention_bwd_dkv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,9 @@
 // C[M,N] = A[M,K] . W[N,K]^T + b, then optionally tanh-GELU, then optionally
-// + R[M,N]. bf16 operands, f32 accumulation and epilogue, bf16 out.
+// + R[M,N]. bf16 operands, f32 accumulation and epilogue, bf16 out; with
+// H given, the f32 pre-activation A . W^T + b is written there too (the fc1
+// recompute of the MLP backward, _mlp_t_bwd_kernel
+// openvision_tpu/ops/fused_encoder.py:593, whose tanh-GELU derivative reads
+// h in f32: 4 bytes per element more out, 269 MB at M = 64*257, N = 4096).
 //
 // Replaces the four projections inside the Pallas kernels _mhsa_t_kernel
 // (QKV + bias; out-proj + bo + residual) and _mlp_t_kernel (fc1 + b1 +
@@ -33,7 +37,8 @@ __device__ __forceinline__ float gelu_tanh(float h) {
 __global__ void __launch_bounds__(kThreads)
 gemm_bias_act_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
                      const float* __restrict__ bias, const bf16* __restrict__ R,
-                     bf16* __restrict__ C, int M, int N, int K, int gelu) {
+                     bf16* __restrict__ C, float* __restrict__ H, int M, int N, int K,
+                     int gelu) {
   __shared__ __align__(16) bf16 As[2][BM][LDS];
   __shared__ __align__(16) bf16 Ws[2][BN][LDS];
 
@@ -117,12 +122,13 @@ gemm_bias_act_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
         const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
         if (row >= M) continue;
         float v0 = acc[mt][nt][2 * half] + b0, v1 = acc[mt][nt][2 * half + 1] + b1;
+        const size_t off = static_cast<size_t>(row) * N + col;
+        if (H) *reinterpret_cast<float2*>(H + off) = make_float2(v0, v1);
         if (gelu) {
           v0 = gelu_tanh(v0);
           v1 = gelu_tanh(v1);
         }
         uint32_t out = ovt::pack_bf16x2(v0, v1);
-        const size_t off = static_cast<size_t>(row) * N + col;
         if (R) {
           const float2 o = ovt::unpack_bf16x2(out);
           const float2 r = ovt::unpack_bf16x2(*reinterpret_cast<const uint32_t*>(R + off));
@@ -137,15 +143,16 @@ gemm_bias_act_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
 }  // namespace
 
 // a: (m, k) bf16; w: (n, k) bf16; bias: (n,) f32 or null; residual: (m, n)
-// bf16 or null; c: (m, n) bf16. All contiguous and 16-byte aligned;
-// n % 8 == 0 and k % 8 == 0. Returns cudaGetLastError() after the launch.
+// bf16 or null; c: (m, n) bf16; h: (m, n) f32 or null (the pre-activation).
+// All contiguous and 16-byte aligned; n % 8 == 0 and k % 8 == 0. Returns
+// cudaGetLastError() after the launch.
 extern "C" int ovt_gemm_bias_act(const void* a, const void* w, const void* bias,
-                                 const void* residual, void* c, int m, int n, int k,
+                                 const void* residual, void* c, void* h, int m, int n, int k,
                                  int gelu, void* stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
   gemm_bias_act_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(a), static_cast<const bf16*>(w),
       static_cast<const float*>(bias), static_cast<const bf16*>(residual),
-      static_cast<bf16*>(c), m, n, k, gelu);
+      static_cast<bf16*>(c), static_cast<float*>(h), m, n, k, gelu);
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,6 +22,17 @@
 // wgmma, TMA and a persistent schedule are later work. Ragged tails are
 // zero-filled on load and masked on store; the contiguous dimension of every
 // operand must be a multiple of 8.
+//
+// The NN product also has a tanh-GELU-derivative epilogue
+// (ovt_gemm_nn_dgelu), for the MLP backward _mlp_t_bwd_kernel
+// (openvision_tpu/ops/fused_encoder.py:593, :628-635): dgact = g . W2 in
+// f32, then dh = dgact * gelu'(h) with the f32 pre-activation h read from
+// device memory (written by the fc1 recompute, gemm_bias_act.cu), dh
+// rounded to bf16 for the dW1 and dy products, and each warp's f32 column
+// sums of the unrounded dh written as one row of partials (two rows per
+// 128-row tile) for db1, which a column sum reduces. The f32 h costs 4 bytes
+// per element read (269 MB at M = 64*257, N = 4096), where the Pallas
+// kernel keeps it in VMEM; keeping it on chip is later work.
 #include <algorithm>
 
 #include "common.cuh"
@@ -34,14 +45,25 @@ constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int LDK = BK + 8;    // [row][k] tiles: 80-byte rows
 constexpr int LDMN = BM + 8;   // [k][m or n] tiles: 272-byte rows
 constexpr int kThreads = 256;
+constexpr float kGeluC = 0.7978845608028654f;  // sqrt(2 / pi)
+constexpr float kGeluA = 0.044715f;
+
+// d/dh of 0.5 h (1 + tanh(C (h + A h^3))), in the Pallas kernel's order.
+__device__ __forceinline__ float gelu_tanh_grad(float h) {
+  const float t = tanhf(kGeluC * (h + kGeluA * h * h * h));
+  return 0.5f * (1.f + t) + 0.5f * h * (1.f - t * t) * kGeluC * (1.f + 3.f * kGeluA * h * h);
+}
 
 // kAT: A is stored (K, M) ("A transposed"); else (M, K).
 // kBT: B is stored (K, N); else (N, K) (the forward's weight layout).
-template <bool kAT, bool kBT>
+// kDGelu: the tanh-GELU-derivative epilogue (see the file's note): Cb gets
+// bf16(C * gelu'(H)), colpart row (2 * blockIdx.y + warp row) its f32
+// column sums.
+template <bool kAT, bool kBT, bool kDGelu = false>
 __global__ void __launch_bounds__(kThreads)
 gemm_grad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                 float* __restrict__ Cf, bf16* __restrict__ Cb, int M, int N, int K,
-                 int k_split) {
+                 float* __restrict__ Cf, bf16* __restrict__ Cb, const float* __restrict__ H,
+                 float* __restrict__ colpart, int M, int N, int K, int k_split) {
   constexpr int A_ELEMS = kAT ? BK * LDMN : BM * LDK;
   constexpr int B_ELEMS = kBT ? BK * LDMN : BN * LDK;
   __shared__ __align__(16) bf16 As[2][A_ELEMS];
@@ -145,6 +167,37 @@ gemm_grad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   }
 
   const int g = lane >> 2, t4 = lane & 3;
+  if constexpr (kDGelu) {
+    const size_t prow = 2 * static_cast<size_t>(blockIdx.y) + wm;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = n0 + wn * 32 + nt * 8 + t4 * 2;
+      if (col >= N) continue;  // the warp's 8 columns of this n8 tile all end, N % 8 == 0
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = m0 + wm * 64 + mt * 16 + g + half * 8;
+          if (row >= M) continue;
+          const size_t off = static_cast<size_t>(row) * N + col;
+          const float2 h = *reinterpret_cast<const float2*>(H + off);
+          const float d0 = acc[mt][nt][2 * half] * gelu_tanh_grad(h.x);
+          const float d1 = acc[mt][nt][2 * half + 1] * gelu_tanh_grad(h.y);
+          *reinterpret_cast<uint32_t*>(Cb + off) = ovt::pack_bf16x2(d0, d1);
+          s0 += d0;
+          s1 += d1;
+        }
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {  // the 8 lanes of one column pair (same t4)
+        s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      }
+      if (g == 0) *reinterpret_cast<float2*>(colpart + prow * N + col) = make_float2(s0, s1);
+    }
+    return;
+  }
   float* cf = Cf ? Cf + static_cast<size_t>(blockIdx.z) * M * N : nullptr;
 #pragma unroll
   for (int nt = 0; nt < 4; ++nt) {
@@ -186,7 +239,8 @@ template <bool kAT, bool kBT>
 int launch(const bf16* a, const bf16* b, float* cf, bf16* cb, int m, int n, int k, int k_split,
            int splits, cudaStream_t stream) {
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, splits);
-  gemm_grad_kernel<kAT, kBT><<<grid, kThreads, 0, stream>>>(a, b, cf, cb, m, n, k, k_split);
+  gemm_grad_kernel<kAT, kBT><<<grid, kThreads, 0, stream>>>(a, b, cf, cb, nullptr, nullptr, m, n,
+                                                             k, k_split);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -227,5 +281,20 @@ extern "C" int ovt_gemm_grad(const void* a, const void* b, void* c, void* worksp
   splitk_sum_kernel<<<blocks, 256, 0, st>>>(static_cast<const float*>(workspace), splits, count,
                                             out_f32 ? static_cast<float*>(c) : nullptr,
                                             out_f32 ? nullptr : static_cast<bf16*>(c));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dh = bf16((a . b) * gelu'(h)) with a: (m, k) bf16 row-major (the output
+// gradient g), b: (k, n) bf16 row-major (W2 in torch's (out, in) layout),
+// h: (m, n) f32 (the pre-activation), dh: (m, n) bf16; colpart: (2 *
+// ceil(m / 128), n) f32, the column sums of the unrounded product per
+// 64-row warp tile (sum them for db1). All contiguous and 16-byte aligned;
+// n % 8 == 0 and k % 8 == 0. Returns cudaGetLastError() after the launch.
+extern "C" int ovt_gemm_nn_dgelu(const void* a, const void* b, const void* h, void* dh,
+                                 void* colpart, int m, int n, int k, void* stream) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, 1);
+  gemm_grad_kernel<false, true, true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), static_cast<const bf16*>(b), nullptr, static_cast<bf16*>(dh),
+      static_cast<const float*>(h), static_cast<float*>(colpart), m, n, k, k);
   return static_cast<int>(cudaGetLastError());
 }

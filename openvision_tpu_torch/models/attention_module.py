@@ -10,12 +10,16 @@ reshapes (the caption decoder's cross-attention is always DenseGeneral).
 Dispatch follows the JAX module (:97-105, :212-214):
 
 - ``attn_impl="fused"`` on self-attention with no mask and plain-Dense
-  params would run the JAX package's ``fused_qkv_attention`` Pallas kernel
-  (``ops/fused_attention.py:92 _kernel``). Encoder blocks reach that only
-  with LayerScale or active dropout, which the port does not have (its
-  ``fused`` blocks run the whole sub-block on ``ops/fused_attention.py``);
-  it is not ported, and such a call raises. DenseGeneral self-attention,
-  which the JAX module sends to ``xla`` instead, has no caller in the port.
+  params runs ``ops/fused_attention.py:fused_qkv_attention``, the JAX
+  package's Pallas ``_kernel`` (#7; its backward ``_qkv_bwd_kernel``, #8),
+  then the out-projection. Encoder blocks reach it where the whole-sub-block
+  path is not eligible (openvision_tpu/models/encoder.py:134-145): with
+  LayerScale, or in training with drop-path > 0 and dropout 0. Active
+  dropout turns off both fused paths in the JAX package
+  (models/encoder.py:141, models/attention_module.py:103) and runs plain
+  attention; the port refuses a dropout rate > 0 by name, so no block with
+  dropout reaches #7. DenseGeneral self-attention, which the JAX module
+  sends to ``xla`` instead, has no caller in the port.
 - otherwise ``fused`` falls to ``xla`` (cross-attention, an external mask),
   and a mask forces ``xla``;
 - ``flash`` and ``scan`` run the flash kernel (``ops/attention.py``).
@@ -31,6 +35,7 @@ from torch import nn
 
 from openvision_tpu_torch.models.layers import linear, zero_init
 from openvision_tpu_torch.ops.attention import dispatch_attention
+from openvision_tpu_torch.ops.fused_attention import fused_qkv_attention
 
 
 class MultiHeadAttention(nn.Module):
@@ -52,14 +57,16 @@ class MultiHeadAttention(nn.Module):
         """inputs_kv=None is self-attention; `mask` broadcasts to (B, H, Lq,
         Lk); `causal` with `prefix_len > 0` is the prefix-LM mask."""
         self_attn = inputs_kv is None or inputs_kv is inputs_q
-        if self.attn_impl == "fused" and self_attn and mask is None:
-            raise NotImplementedError(
-                "attn_impl='fused' on this self-attention would run the JAX package's "
-                "fused_qkv_attention kernel (openvision_tpu/ops/fused_attention.py:92 "
-                "_kernel, Pallas kernel #7), which is not ported; encoder blocks take "
-                "the whole-sub-block fused path instead")
         b, lq, d = inputs_q.shape
         dt = self.dtype
+        if self.attn_impl == "fused" and self_attn and mask is None:
+            # the JAX module's fused route (:97-134): q/k/v weights in the
+            # compute dtype, their biases f32 (the param dtype)
+            o = fused_qkv_attention(
+                inputs_q.to(dt).contiguous(), self.in_proj_weight.to(dt),
+                self.in_proj_bias.float(), num_heads=self.num_heads, causal=causal,
+                prefix_len=prefix_len)
+            return linear(o, self.out_proj, dt)
         w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
         if self_attn:
             q, k, v = F.linear(inputs_q.to(dt), w, bias).split(d, dim=-1)

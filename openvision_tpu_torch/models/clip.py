@@ -48,11 +48,13 @@ class CLIPModel(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(math.log(temperature_init)))
 
     def forward(self, image: Optional[torch.Tensor], text: Optional[torch.Tensor] = None,
-                train: bool = False):
+                train: bool = False, rng: Optional[torch.Generator] = None):
+        """`rng` draws the image tower's drop-path masks in training (the
+        JAX ``rngs={"drop_path": ...}``)."""
         zimg = ztxt = image_embs = token_embs = None
         out = {"logits": None}
         if image is not None:
-            zimg = self.visual(image, train=train)
+            zimg = self.visual(image, train=train, rng=rng)
             if isinstance(zimg, tuple):
                 zimg, image_embs = zimg
             zimg = zimg.float()

@@ -12,6 +12,8 @@ distributions, not its bits (the two RNGs differ).
 Per parameter (OpenCLIP names):
 
 - LayerNorm weights one, biases zero; every Dense and conv bias zero;
+  LayerScale gains (``ls_1.gamma``, ``ls_2.gamma``) the constant
+  ``init_values`` (openvision_tpu/models/layers.py:193-195);
 - ``vit`` blocks (the image tower): q/k/v, out and fc kernels N(0, 0.02),
   the MLP's second kernel the truncated normal of variance_scaling(0.3072,
   fan_out);
@@ -53,6 +55,8 @@ def _fill_block(name: str, p: torch.Tensor, inits: dict, gen: torch.Generator) -
     kind = ".".join(leaf[-2:])
     if name.endswith("bias") or re.search(r"\.ln_\w+\.weight$", name):
         p.fill_(1.0 if name.endswith("weight") else 0.0)
+    elif kind in ("ls_1.gamma", "ls_2.gamma"):
+        p.fill_(inits["ls"])
     elif kind == "attn.in_proj_weight":
         p.normal_(0.0, inits["qkv"], generator=gen)
     elif kind == "out_proj.weight":
@@ -80,7 +84,8 @@ def init_params(model: CLIPModel, seed: int) -> CLIPModel:
         return gens[p.device]
 
     vis, txt, dec = model.visual, model.text, model.txt_decoder
-    styles = {"visual.transformer.": _block_inits("vit", vis.width, 0),
+    styles = {"visual.transformer.": {**_block_inits("vit", vis.width, 0),
+                                      "ls": vis.transformer.init_values},
               "text.transformer.": _block_inits("scaled", txt.width,
                                                 len(txt.transformer.resblocks))}
     if dec is not None:

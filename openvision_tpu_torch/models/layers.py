@@ -10,9 +10,10 @@ flax modules are kept:
 
 Parameters use OpenCLIP's names and torch's (out, in) weight layout, so an
 ``open_clip_pytorch_model.bin`` loads with ``load_state_dict``. They start
-at zero (LayerNorm scales at one) and draw nothing from the global RNG: the
-weights come from a checkpoint. LayerScale, DropPath and the logical
-sharding helpers are not ported yet.
+at zero (LayerNorm scales at one, LayerScale at its init value) and draw
+nothing from the global RNG: the weights come from a checkpoint or
+``models/init.py``. ``DropPath`` draws from an explicit
+``torch.Generator``. The logical sharding helpers are not ported yet.
 """
 
 from __future__ import annotations
@@ -108,3 +109,40 @@ class MlpBlock(nn.Module):
         h = linear(x, self.c_fc, self.dtype)
         h = F.gelu(h, approximate="tanh" if self.gelu_approx else "none")
         return linear(h, self.c_proj, self.dtype)
+
+
+class LayerScale(nn.Module):
+    """Per-channel learnable residual scaling (CaiT), the JAX package's
+    ``LayerScale`` (openvision_tpu/models/layers.py:181-196): x * gamma, gamma
+    (dim,) f32 initialised to `init_values`. The product with the f32 gain
+    is f32, as flax promotes a bf16 x. OpenCLIP names it ``ls_N.gamma``; the
+    flax path is ``lsN/lsN`` (the param inside module ``ls1`` is also
+    called ``ls1``)."""
+
+    def __init__(self, dim: int, init_values: float = 1e-5):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_values)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma
+
+
+class DropPath(nn.Module):
+    """Stochastic depth, the JAX package's ``DropPath`` (:199-212): drops
+    whole residual branches per sample, x / keep * floor(keep + U) with
+    keep = 1 - rate and U ~ U[0, 1) in f32, one per sample, drawn from the
+    `generator` given (never the global RNG). The identity when no generator
+    is given (not training) or the rate is 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if generator is None or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
+        return x / keep * torch.floor(keep + u).to(x.device)

@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from openvision_tpu_torch.models.encoder import Encoder
+from openvision_tpu_torch.models.encoder import Encoder, check_not_ported
 from openvision_tpu_torch.models.layers import LayerNorm, posemb_sincos_1d, zero_init
 
 # The text variant table differs from the vision one.
@@ -72,6 +72,7 @@ class TextTransformer(nn.Module):
         super().__init__()
         if posemb not in ("learn", "sincos1d"):
             raise ValueError(f"Unknown posemb type: {posemb!r}")
+        check_not_ported(drop_path=drop_path)  # no generator reaches this tower's stack
         self.token_embedding = zero_init(nn.Embedding, vocab_size, width)
         if posemb == "learn":
             self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))

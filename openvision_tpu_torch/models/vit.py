@@ -11,9 +11,11 @@ drops the cls token before the encoder (:289-290, :336-362).
 Parameters carry OpenCLIP's ``visual.*`` names: ``conv1`` (OIHW),
 ``class_embedding`` (D,), ``positional_embedding`` (1+P, D),
 ``transformer``, ``ln_post`` and ``proj`` (D, out) with ``proj_bias``.
-``remat_policy`` passes to the Encoder (training). The ``map`` pool, the
-``stem`` and ``linear`` patch embeds, token masking (``mask_ratio > 0``
-raises under ``train``), dropout and drop-path (a rate > 0 raises) and
+``remat_policy`` passes to the Encoder (training), and so do LayerScale
+(``init_values``, :190) and stochastic depth (``drop_path``, whose masks
+come from the generator ``forward`` is given with ``train``). The ``map``
+pool, the ``stem`` and ``linear`` patch embeds, token masking
+(``mask_ratio > 0`` raises under ``train``), dropout (a rate > 0 raises) and
 ``resample_posemb`` are not ported yet.
 """
 
@@ -72,8 +74,8 @@ class ViT(nn.Module):
                  emb_head_bias: bool = True, image_size: int = 224,
                  ignore_cls: bool = False, output_tokens: bool = False,
                  remat_policy: str = "none", mask_ratio: float = 0.0, dropout: float = 0.0,
-                 drop_path: float = 0.0, head_zeroinit: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 drop_path: float = 0.0, init_values: Optional[float] = None,
+                 head_zeroinit: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if pool_type not in ("gap", "tok", "0", "avg"):
             raise NotImplementedError(f"pool_type={pool_type!r} is not ported yet")
@@ -88,7 +90,7 @@ class ViT(nn.Module):
         self.transformer = Encoder(
             width, depth, num_heads, mlp_dim, init_style="vit", attn_impl=attn_impl,
             fast_gelu=fast_gelu, nomax_softmax=nomax_softmax, remat_policy=remat_policy,
-            dropout=dropout, drop_path=drop_path, dtype=dtype)
+            dropout=dropout, drop_path=drop_path, init_values=init_values, dtype=dtype)
         if pool_type in ("gap", "tok"):
             self.ln_post = LayerNorm(width, dtype)
         if num_classes:
@@ -104,9 +106,11 @@ class ViT(nn.Module):
         self.head_zeroinit = head_zeroinit
         self.dtype = dtype
 
-    def forward(self, image: torch.Tensor, train: bool = False):
+    def forward(self, image: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None):
         """image: (N, H, W, 3) -> (N, num_classes) f32 (or (N, width) without a
-        head); with ``output_tokens``, (pooled, tokens (N, P, width))."""
+        head); with ``output_tokens``, (pooled, tokens (N, P, width)). With
+        ``train`` and a drop-path rate > 0 the masks are drawn from `rng`."""
         if train:
             check_not_ported(mask_ratio=self.mask_ratio)
         w = self.conv1
@@ -121,7 +125,7 @@ class ViT(nn.Module):
             x = x + posemb_sincos_2d(h, wd, c, cls_token=True, device=x.device)
         if self.ignore_cls:
             x = x[:, 1:]
-        x = self.transformer(x.to(self.dtype))
+        x = self.transformer(x.to(self.dtype), train=train, rng=rng)
         patches = x if self.ignore_cls else x[:, 1:]
 
         if self.pool_type == "gap":

@@ -68,13 +68,14 @@ def _order(q, lk, sm_scale):
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False, prefix_len: int = 0,
-                          sm_scale: float | None = None):
-    """(o, lse): o (B, Lq, H, hd) in q.dtype, lse (B, H, Lq) f32."""
+                          sm_scale: float | None = None, nomax: bool = False):
+    """(o, lse): o (B, Lq, H, hd) in q.dtype, lse (B, H, Lq) f32 (log(l)
+    under ``nomax``, the fused_t softmax's exp(min(s, 80)))."""
     if prefix_len and not causal:
         prefix_len = 0  # dense attention already sees everything
     scale, prescale = _order(q, k.shape[1], sm_scale)
     return attend_plain(q, k, v, scale=scale, prescale=prescale, causal=causal,
-                        prefix_len=prefix_len)
+                        prefix_len=prefix_len, nomax=nomax)
 
 
 class _Flash(torch.autograd.Function):
@@ -120,11 +121,14 @@ def flash_attention(q, k, v, *, causal: bool = False, prefix_len: int = 0,
                     return_lse=return_lse)
 
 
-def _forward(q, k, v, *, causal: bool, prefix_len: int, sm_scale, return_lse: bool):
-    """The forward: the plain version on the CPU, the kernel on CUDA."""
+def _forward(q, k, v, *, causal: bool, prefix_len: int, sm_scale, return_lse: bool,
+             nomax: bool = False):
+    """The forward: the plain version on the CPU, the kernel on CUDA.
+    ``nomax`` (exp(min(s, 80)), lse = log(l)) serves the fused_t backward's
+    recompute (``_mhsa_t_bwd_kernel``); the flash path itself has none."""
     if kernels.on_cpu(q, k, v):
         o, lse = flash_attention_plain(q, k, v, causal=causal, prefix_len=prefix_len,
-                                       sm_scale=sm_scale)
+                                       sm_scale=sm_scale, nomax=nomax)
         return (o, lse) if return_lse else o
     b, lq, h, hd = q.shape
     lk = k.shape[1]
@@ -145,7 +149,7 @@ def _forward(q, k, v, *, causal: bool, prefix_len: int, sm_scale, return_lse: bo
     rc = kernels.lib().ovt_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), strides, b, lq, lk, h, hd, scale,
-        int(prescale), int(causal), int(prefix_len), kernels.stream(q))
+        int(prescale), int(causal), int(prefix_len), int(nomax), kernels.stream(q))
     kernels.raise_on(rc, "flash_attention")
     kernels.count("flash_attention")
     return (out, lse) if return_lse else out

@@ -34,6 +34,13 @@ key and value kernels transposed and stacked (``in_proj_weight``), ``w_o``
 (D, D) the out kernel transposed. LayerNorm parameters and biases are f32.
 The tensor-parallel variant (``_block_partial_kernel``) is not ported yet.
 
+:func:`fused_qkv_attention` is the Pallas ``_kernel`` (:92), the QKV
+projection and attention without LayerNorm and out-projection, which the
+attention module runs where the whole-sub-block path is not eligible
+(LayerScale, or drop-path > 0 with dropout 0, in training): the QKV
+``gemm_bias_act`` and the ``attention`` kernel forward, and under autograd
+the backward of ``_qkv_bwd_kernel`` (:215) in 7 launches.
+
 Under autograd the block is a ``torch.autograd.Function``, the JAX
 package's ``jax.custom_vjp`` ``_fused_block`` (:569-592): the forward saves
 x and the parameters only, and the backward computes what the Pallas
@@ -67,6 +74,14 @@ from openvision_tpu_torch.ops import grad_kernels as gk
 from openvision_tpu_torch.ops import kernels
 
 
+def _folded(w_qkv, b_qkv, sm_scale: float):
+    """The Pallas wrapper's fold of the softmax scale into wq (rounded to the
+    weight's dtype) and bq (f32), :157-162."""
+    d = w_qkv.shape[1]
+    return (torch.cat([w_qkv[:d] * sm_scale, w_qkv[d:]]),
+            torch.cat([b_qkv[:d].float() * sm_scale, b_qkv[d:].float()]))
+
+
 def fused_mhsa_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
                            sm_scale: float | None = None, causal: bool = False,
                            prefix_len: int = 0, eps: float = 1e-6):
@@ -75,8 +90,7 @@ def fused_mhsa_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: 
     d = x.shape[-1]
     if sm_scale is None:
         sm_scale = (d // num_heads) ** -0.5
-    w = torch.cat([w_qkv[:d] * sm_scale, w_qkv[d:]])
-    b = torch.cat([b_qkv[:d].float() * sm_scale, b_qkv[d:].float()])
+    w, b = _folded(w_qkv, b_qkv, sm_scale)
     y = fe.layernorm_plain(x, ln_w, ln_b, eps)
     qkv = fe.linear_plain(y, w, b)
     o = fe.attention_plain(qkv, num_heads, causal=causal,
@@ -94,52 +108,11 @@ def fused_mhsa_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_
     normalized probabilities a for o = a v and dv = a^T do; ds for dq and dk;
     dq (times the scale), dk and dv before the products that consume them;
     each image's bias-gradient sum over dq, dk and dv. dx is in x's dtype,
-    the weight grads in their weights' dtype, the rest f32."""
-    cdt = x.dtype
-
-    def r(t):
-        return t.to(cdt).float()
-
-    b, l, d = x.shape
-    hd = d // num_heads
-    scale = hd ** -0.5 if sm_scale is None else sm_scale
-    xf = x.float()
-    mean = xf.mean(-1, keepdim=True)
-    rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
-    xhat = (xf - mean) * rstd
-    y = r(xhat * ln_w.float() + ln_b.float())
-    qkv = y @ w_qkv.float().t() + b_qkv.float()
-    q = r(qkv[..., :d] * scale).reshape(b, l, num_heads, hd)
-    k = r(qkv[..., d:2 * d]).reshape(b, l, num_heads, hd)
-    v = r(qkv[..., 2 * d:]).reshape(b, l, num_heads, hd)
-    gf = g.float()
-    do = r(gf @ w_o.float()).reshape(b, l, num_heads, hd)
-
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    if causal:
-        s = s.masked_fill(~gk.visible_mask(l, l, True, prefix_len, x.device), float("-inf"))
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
-    lsum = p.sum(-1, keepdim=True)
-    a = p / torch.where(lsum <= 0, torch.ones_like(lsum), lsum)
-    ab = r(a)
-    o = r(torch.einsum("bhqk,bkhd->bqhd", ab, v)).reshape(b, l, d)
-    dv = r(torch.einsum("bhqk,bqhd->bkhd", ab, do))
-    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
-    ds = r(a * (dp - (dp * a).sum(-1, keepdim=True)))
-    dq = r(torch.einsum("bhqk,bkhd->bqhd", ds, k)) * scale
-    dk = r(torch.einsum("bhqk,bqhd->bkhd", ds, q))
-    dqkv = torch.cat([t.reshape(b, l, d) for t in (dq, dk, dv)], dim=-1)
-
-    dw_o = (gf.reshape(-1, d).t() @ o.reshape(-1, d)).to(w_o.dtype)
-    dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ y.reshape(-1, d)).to(w_qkv.dtype)
-    dy = dqkv @ w_qkv.float()
-    dxhat = dy * ln_w.float()
-    dx = gf + rstd * (dxhat - dxhat.mean(-1, keepdim=True)
-                      - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    db_qkv = r(dqkv.sum(1)).sum(0)  # each image's sum in the compute dtype, then f32
-    return (dx.to(x.dtype), (dy * xhat).sum((0, 1)), dy.sum((0, 1)), dw_qkv, db_qkv, dw_o,
-            gf.sum((0, 1)))
+    the weight grads in their weights' dtype, the rest f32
+    (``fused_encoder.attn_block_bwd_plain``)."""
+    return fe.attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g,
+                                   num_heads=num_heads, sm_scale=sm_scale, causal=causal,
+                                   prefix_len=prefix_len, eps=eps)
 
 
 def _check_scale(x, num_heads: int, sm_scale):
@@ -165,8 +138,12 @@ def _forward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads, sm_sca
 
 
 def _backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads, sm_scale, causal,
-                      prefix_len, eps):
-    """The backward on the card (see the module doc): 12 launches."""
+                      prefix_len, eps, nomax=False, bias_sum_per_image=True):
+    """The backward on the card (see the module doc): 12 launches. It also
+    serves ``_mhsa_t_bwd_kernel`` (``fused_encoder.mhsa_block``'s backward):
+    ``nomax`` recomputes the probabilities as exp(min(s, 80)) / l, and the
+    QKV bias gradient is then summed in f32 over every row
+    (``bias_sum_per_image=False``)."""
     sm_scale = _check_scale(x, num_heads, sm_scale)
     b, l, d = x.shape
     hd = d // num_heads
@@ -177,18 +154,19 @@ def _backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads, sm
     qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)  # q unscaled: the kernels scale s
     heads = [qkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3)]
     o, lse = fl._forward(*heads, causal=causal, prefix_len=prefix, sm_scale=sm_scale,
-                         return_lse=True)
+                         return_lse=True, nomax=nomax)
     do = gk.gemm_nn(g, w_o)
     dqkv = torch.empty(b, l, 3 * d, dtype=torch.bfloat16, device=x.device)
     dq, dk, dv = (dqkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3))
     gk.attention_bwd(*heads, o, lse, do.view(b, l, num_heads, hd), scale=sm_scale,
-                     causal=causal, prefix_len=prefix, dq=dq, dk=dk, dv=dv)
+                     causal=causal, prefix_len=prefix, nomax=nomax, dq=dq, dk=dk, dv=dv)
     o = o.reshape(b, l, d)
     dw_o = gk.gemm_tn(g, o)
     dw_qkv = gk.gemm_tn(dqkv, y)
     dy = gk.gemm_nn(dqkv, w_qkv, torch.float32)
     dx, dvec = gk.layernorm_bwd(x, ln_w, dy, g, eps=eps)
-    db_qkv = gk.colsum(dqkv, seg_len=l, round_bf16=True)
+    # per-image sums (rounded to bf16 for #10), then their f32 sum
+    db_qkv = gk.colsum(dqkv, seg_len=l, round_bf16=bias_sum_per_image)
     db_o = gk.colsum(g, seg_len=l)
     return dx, dvec[0], dvec[1], dw_qkv, db_qkv, dw_o, db_o
 
@@ -236,3 +214,135 @@ def fused_mhsa_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
     if kernels.on_cpu(*args):
         return fused_mhsa_block_plain(*args, **kw)
     return _forward_kernels(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# fused_qkv_attention: QKV projection + MHA (_kernel, _qkv_bwd_kernel)
+# ---------------------------------------------------------------------------
+
+
+def fused_qkv_attention_plain(y, w_qkv, b_qkv, *, num_heads: int,
+                              sm_scale: float | None = None, causal: bool = False,
+                              prefix_len: int = 0):
+    """softmax(q k^T) v of the QKV projection of y, (B, L, D) in y's dtype:
+    the counterpart of ``_reference`` (:185-198) in ``_kernel``'s roundings
+    (:92-143): q, k, v rounded to the compute dtype after the bias (q with
+    the folded scale), f32 scores, the masked max-subtracted softmax with a
+    row sum of 0 taken as 1, p rounded for p.v, then divided by l."""
+    d = y.shape[-1]
+    if sm_scale is None:
+        sm_scale = (d // num_heads) ** -0.5
+    w, b = _folded(w_qkv, b_qkv, sm_scale)
+    qkv = fe.linear_plain(y, w, b)
+    return fe.attention_plain(qkv, num_heads, causal=causal,
+                              prefix_len=prefix_len if causal else 0, scale=1.0)
+
+
+def fused_qkv_attention_bwd_plain(y, w_qkv, b_qkv, g, *, num_heads: int,
+                                  sm_scale: float | None = None, causal: bool = False,
+                                  prefix_len: int = 0):
+    """(dy, dw_qkv, db_qkv) for the output gradient g (B, L, D), in the
+    roundings of ``_qkv_bwd_kernel`` (:215-329): q (times the scale), k, v
+    and do = g rounded to the compute dtype, the attention gradients of
+    ``fused_encoder.attention_grads_plain``; dy = dqkv . W_qkv in f32,
+    returned in y's dtype (:377-379); dW_qkv = dqkv^T y in f32, returned in
+    the weight's dtype; db_qkv each image's sum of the rounded dq, dk, dv in
+    the compute dtype, then f32 (:313-320)."""
+    cdt = y.dtype
+
+    def r(t):
+        return t.to(cdt).float()
+
+    b, l, d = y.shape
+    hd = d // num_heads
+    scale = hd ** -0.5 if sm_scale is None else sm_scale
+    yf = y.float()
+    qkv = yf @ w_qkv.float().t() + b_qkv.float()
+    heads = lambda t: t.reshape(b, l, num_heads, hd)
+    q = heads(r(qkv[..., :d] * scale))
+    k, v = heads(r(qkv[..., d:2 * d])), heads(r(qkv[..., 2 * d:]))
+    _, dq, dk, dv = fe.attention_grads_plain(q, k, v, heads(g.to(cdt)), scale=scale,
+                                             causal=causal, prefix_len=prefix_len)
+    dqkv = torch.cat([t.reshape(b, l, d) for t in (dq, dk, dv)], dim=-1)
+    dy = (dqkv @ w_qkv.float()).to(cdt)
+    dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ yf.reshape(-1, d)).to(w_qkv.dtype)
+    return dy, dw_qkv, r(dqkv.sum(1)).sum(0)
+
+
+def _qkv_forward_kernels(y, w_qkv, b_qkv, *, num_heads, sm_scale, causal, prefix_len):
+    """``_kernel`` as 2 launches: the QKV gemm_bias_act and the attention
+    kernel (masked, q scaled by the power-of-two `sm_scale`: the bits of the
+    folded weights, as the module doc argues)."""
+    sm_scale = _check_scale(y, num_heads, sm_scale)
+    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
+    return fe.attention(qkv, num_heads, causal=causal, prefix_len=prefix_len if causal else 0,
+                        scale=sm_scale)
+
+
+def _qkv_backward_kernels(y, w_qkv, b_qkv, g, *, num_heads, sm_scale, causal, prefix_len):
+    """``_qkv_bwd_kernel`` on the card: 7 launches. The QKV projection and
+    the flash forward (o and its logsumexp) recompute the forward;
+    ``attention_bwd`` writes dq (times the scale), dk and dv into one dqkv
+    buffer; ``gemm_tn`` gives dW_qkv = dqkv^T y, ``gemm_nn`` dy = dqkv . W_qkv
+    in y's dtype, ``colsum`` each image's bias sums, rounded, then f32."""
+    sm_scale = _check_scale(y, num_heads, sm_scale)
+    b, l, d = y.shape
+    hd = d // num_heads
+    prefix = prefix_len if causal else 0
+    if w_qkv.dtype != torch.bfloat16:
+        raise TypeError("fused_qkv_attention backward: the kernels take bf16 weights")
+    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
+    heads = [qkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3)]
+    o, lse = fl._forward(*heads, causal=causal, prefix_len=prefix, sm_scale=sm_scale,
+                         return_lse=True)
+    dqkv = torch.empty(b, l, 3 * d, dtype=torch.bfloat16, device=y.device)
+    dq, dk, dv = (dqkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3))
+    gk.attention_bwd(*heads, o, lse, g.view(b, l, num_heads, hd), scale=sm_scale,
+                     causal=causal, prefix_len=prefix, dq=dq, dk=dk, dv=dv)
+    dw_qkv = gk.gemm_tn(dqkv, y)
+    dy = gk.gemm_nn(dqkv, w_qkv)
+    return dy, dw_qkv, gk.colsum(dqkv, seg_len=l, round_bf16=True)
+
+
+class _FusedQKV(torch.autograd.Function):
+    """fused_qkv_attention with the backward of ``_qkv_bwd_kernel``."""
+
+    @staticmethod
+    def forward(ctx, y, w_qkv, b_qkv, num_heads, sm_scale, causal, prefix_len):
+        kw = dict(num_heads=num_heads, sm_scale=sm_scale, causal=causal, prefix_len=prefix_len)
+        ctx.save_for_backward(y, w_qkv, b_qkv)
+        ctx.kw = kw
+        if kernels.on_cpu(y, w_qkv, b_qkv):
+            return fused_qkv_attention_plain(y, w_qkv, b_qkv, **kw)
+        return _qkv_forward_kernels(y, w_qkv, b_qkv, **kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        g = g.contiguous()
+        if kernels.on_cpu(*saved, g):
+            grads = fused_qkv_attention_bwd_plain(*saved, g, **ctx.kw)
+        else:
+            grads = _qkv_backward_kernels(*saved, g, **ctx.kw)
+        return (*grads, None, None, None, None)
+
+
+def fused_qkv_attention(y, w_qkv, b_qkv, *, num_heads: int, sm_scale: float | None = None,
+                        causal: bool = False, prefix_len: int = 0):
+    """QKV projection + multi-head attention, the Pallas ``_kernel``
+    (openvision_tpu/ops/fused_attention.py:92, via ``fused_qkv_attention``
+    :391): the pre-out-projection attention output (B, L, D) of y (B, L, D).
+    ``w_qkv`` (3D, D) is the query, key and value kernels transposed and
+    stacked (torch's (out, in) layout), ``b_qkv`` (3D,) f32. Masks: none,
+    causal, prefix-LM (key j visible to query i iff j <= max(i, prefix - 1)).
+    On CUDA (bf16) 2 launches; on the CPU the plain version. When autograd
+    records, the call is differentiable through the backward of
+    ``_qkv_bwd_kernel`` (:215). A scale that is not a power of two raises on
+    CUDA, as for :func:`fused_mhsa_block`."""
+    kw = dict(num_heads=num_heads, sm_scale=sm_scale, causal=causal, prefix_len=prefix_len)
+    args = (y, w_qkv, b_qkv)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _FusedQKV.apply(*args, num_heads, sm_scale, causal, prefix_len)
+    if kernels.on_cpu(*args):
+        return fused_qkv_attention_plain(*args, **kw)
+    return _qkv_forward_kernels(*args, **kw)

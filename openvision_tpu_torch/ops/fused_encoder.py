@@ -26,15 +26,34 @@ for tensors on the CPU; for CUDA tensors it launches its kernel or raises.
 The 4D MLP hidden goes through device memory in this version, where the
 Pallas kernel keeps it in VMEM.
 
-Forward only: a wrapper refuses CUDA tensors that require grad, because the
-backward kernels (``_mhsa_t_bwd_kernel``, ``_mlp_t_bwd_kernel``) are not
-ported yet.
+Under autograd each sub-block is a ``torch.autograd.Function``, the
+counterpart of the JAX custom VJPs ``_mhsa_t`` (:466-494) and ``_mlp_t``
+(:699-717): the forward saves x and the parameters only, and the backward
+recomputes the forward from x, as the Pallas backwards do:
+
+- ``_mhsa_t_bwd_kernel`` (:215-417) is the natural-layout block backward of
+  ``ops/fused_attention.py`` (12 launches) with the ``nomax`` recompute of
+  the probabilities (flash forward and ``attention_bwd``) and the QKV bias
+  gradient summed in f32 over every row (:388-389);
+- ``_mlp_t_bwd_kernel`` (:593-662) is 9 launches: layernorm, fc1 + GELU that
+  also writes the f32 pre-activation h, ``gemm_tn`` (dW2 = g^T gact),
+  ``gemm_nn_dgelu`` (dh = (g . W2) gelu'(h), bf16, with f32 column
+  partials), ``gemm_tn`` (dW1 = dh^T y), ``gemm_nn`` (dy = dh . W1, f32),
+  ``layernorm_bwd`` (dx + g and the LN grads) and two ``colsum`` (db1 from
+  the partials, db2 from g).
+
+:func:`mhsa_block_bwd_plain` and :func:`mlp_block_bwd_plain` follow the
+Pallas kernels' roundings. The cls row, which the transposed stream splits
+out to XLA (:740-779), is one more row here, as in the forward. Weight
+gradients come back in the weights' dtype (the f32 sums rounded once), the
+LayerNorm and bias gradients in f32, dx in x's dtype.
 """
 
 from __future__ import annotations
 
 import torch
 
+from openvision_tpu_torch.ops import grad_kernels as gk
 from openvision_tpu_torch.ops import kernels
 
 
@@ -86,22 +105,23 @@ def layernorm(x, weight, bias, eps: float):
 # ---------------------------------------------------------------------------
 
 
-def linear_plain(x, weight, bias=None, *, gelu: bool = False, residual=None):
+def linear_plain(x, weight, bias=None, *, gelu: bool = False, residual=None,
+                 save_pre_act: bool = False):
     """``x . weight^T + bias`` in f32 math, optional tanh-GELU, rounded to
     x.dtype, then optional ``+ residual`` rounded again (the Pallas kernels
-    add the residual to the rounded projection)."""
-    y = x.float() @ weight.float().t()
+    add the residual to the rounded projection). With ``save_pre_act``
+    returns (y, h), h the f32 ``x . weight^T + bias``."""
+    h = x.float() @ weight.float().t()
     if bias is not None:
-        y = y + bias.float()
-    if gelu:
-        y = _gelu_tanh(y)
-    y = y.to(x.dtype)
+        h = h + bias.float()
+    y = (_gelu_tanh(h) if gelu else h).to(x.dtype)
     if residual is not None:
         y = (y.float() + residual.float()).to(x.dtype)
-    return y
+    return (y, h) if save_pre_act else y
 
 
-def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
+def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None,
+                  save_pre_act: bool = False):
     """Kernel ``csrc/gemm_bias_act.cu``: the projections of both sub-blocks.
 
     x: (..., K) bf16; weight: (N, K) bf16 in torch's (out, in) layout;
@@ -109,10 +129,13 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
     Replaces the in-kernel products of ``_mhsa_t_kernel`` (QKV :98-101,
     out-proj :162-168) and ``_mlp_t_kernel`` (fc1 :535-542, fc2 :543-550).
     Bound by the tensor cores at ViT shapes; mma.sync m16n8k16 over a
-    two-stage cp.async ring of 128x128x32 tiles, epilogue fused.
+    two-stage cp.async ring of 128x128x32 tiles, epilogue fused. With
+    ``save_pre_act`` it also writes the f32 pre-activation and returns
+    (out, h): the fc1 recompute of ``_mlp_t_bwd_kernel`` (:612-617).
     """
     if kernels.on_cpu(x, weight, bias, residual):
-        return linear_plain(x, weight, bias, gelu=gelu, residual=residual)
+        return linear_plain(x, weight, bias, gelu=gelu, residual=residual,
+                            save_pre_act=save_pre_act)
     n, k = weight.shape
     if n % 8 or k % 8:
         raise ValueError(f"gemm_bias_act: N and K must be multiples of 8, got N={n} K={k}")
@@ -126,14 +149,17 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
     out = torch.empty(*x.shape[:-1], n, dtype=torch.bfloat16, device=x.device)
     if residual is not None:
         kernels.check_operand("gemm residual", residual, torch.bfloat16, out.shape)
+    h = (torch.empty(*x.shape[:-1], n, dtype=torch.float32, device=x.device)
+         if save_pre_act else None)
     rc = kernels.lib().ovt_gemm_bias_act(
         x.data_ptr(), weight.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
-        out.data_ptr(), m, n, k, int(gelu), kernels.stream(x))
+        out.data_ptr(), None if h is None else h.data_ptr(), m, n, k, int(gelu),
+        kernels.stream(x))
     kernels.raise_on(rc, "gemm_bias_act")
     kernels.count("gemm_bias_act")
-    return out
+    return (out, h) if save_pre_act else out
 
 
 # ---------------------------------------------------------------------------
@@ -270,19 +296,228 @@ def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-6):
     return linear_plain(h, w2, b2, residual=x)
 
 
-def mhsa_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
-               eps: float = 1e-6, nomax: bool = False):
-    """The ``_mhsa_t_kernel`` sub-block as 4 launches: LN, QKV, attention,
-    out-proj + residual. Weights in torch's (out, in) layout."""
+def attention_grads_plain(q, k, v, do, *, scale: float, causal: bool = False,
+                          prefix_len: int = 0, nomax: bool = False):
+    """(o, dq, dk, dv) of softmax attention over (B, L, H, hd) tensors whose
+    values are those of the compute dtype, do's dtype, in the order of the
+    Pallas backward kernels (``_mhsa_t_bwd_kernel``
+    fused_encoder.py:285-365, ``_block_bwd_kernel`` fused_attention.py:755-
+    804, ``_qkv_bwd_kernel`` :270-300): q arrives scaled, f32 scores, the
+    max-subtracted (or ``nomax``: exp(min(s, 80))) softmax a = p / l, its
+    rounding ab for o = ab v and dv = ab^T do, ds = a (dp - rowsum(dp a))
+    rounded for dq = ds k (rounded, then times `scale`) and dk = ds^T q.
+    Every output is rounded to do's dtype and returned in f32."""
+    dt = do.dtype
+
+    def r(t):
+        return t.to(dt).float()
+
+    q, k, v, do = q.float(), k.float(), v.float(), do.float()
+    lq, lk = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if causal:
+        rows = torch.arange(lq, device=s.device)[:, None]
+        cols = torch.arange(lk, device=s.device)[None, :]
+        s = s.masked_fill(cols > torch.clamp(rows, min=prefix_len - 1), float("-inf"))
+    if nomax:
+        p = torch.exp(torch.clamp(s, max=80.0))
+    else:
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp(s - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+    lsum = p.sum(-1, keepdim=True)
+    a = p / torch.where(lsum <= 0, torch.ones_like(lsum), lsum)
+    ab = r(a)
+    o = r(torch.einsum("bhqk,bkhd->bqhd", ab, v))
+    dv = r(torch.einsum("bhqk,bqhd->bkhd", ab, do))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = r(a * (dp - (dp * a).sum(-1, keepdim=True)))
+    dq = r(torch.einsum("bhqk,bkhd->bqhd", ds, k)) * scale
+    dk = r(torch.einsum("bhqk,bqhd->bkhd", ds, q))
+    return o, dq, dk, dv
+
+
+def attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads: int,
+                         sm_scale: float | None = None, causal: bool = False,
+                         prefix_len: int = 0, eps: float = 1e-6, nomax: bool = False,
+                         bias_sum_per_image: bool = True):
+    """(dx, dln_w, dln_b, dw_qkv, db_qkv, dw_o, db_o) of x + OutProj(MHA(LN(x)))
+    for the output gradient g, in f32 math with the Pallas backwards'
+    roundings to x's dtype (the compute dtype): y; q (scaled after the bias),
+    k and v; do = g . Wo; then :func:`attention_grads_plain`. The QKV bias
+    gradient sums the rounded dq, dk, dv per image in the compute dtype,
+    then in f32 (``_block_bwd_kernel``, ``bias_sum_per_image``), or in f32
+    over every row (``_mhsa_t_bwd_kernel`` :388-389). dx is in x's dtype, the
+    weight grads in their weights' dtype, the rest f32."""
+    cdt = x.dtype
+
+    def r(t):
+        return t.to(cdt).float()
+
+    b, l, d = x.shape
+    hd = d // num_heads
+    scale = hd ** -0.5 if sm_scale is None else sm_scale
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
+    xhat = (xf - mean) * rstd
+    y = r(xhat * ln_w.float() + ln_b.float())
+    qkv = y @ w_qkv.float().t() + b_qkv.float()
+    heads = lambda t: t.reshape(b, l, num_heads, hd)
+    q = heads(r(qkv[..., :d] * scale))
+    k, v = heads(r(qkv[..., d:2 * d])), heads(r(qkv[..., 2 * d:]))
+    gf = g.float()
+    do = heads((gf @ w_o.float()).to(cdt))
+    o, dq, dk, dv = attention_grads_plain(q, k, v, do, scale=scale, causal=causal,
+                                          prefix_len=prefix_len, nomax=nomax)
+    o = o.reshape(b, l, d)
+    dqkv = torch.cat([t.reshape(b, l, d) for t in (dq, dk, dv)], dim=-1)
+
+    dw_o = (gf.reshape(-1, d).t() @ o.reshape(-1, d)).to(w_o.dtype)
+    dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ y.reshape(-1, d)).to(w_qkv.dtype)
+    dy = dqkv @ w_qkv.float()
+    dxhat = dy * ln_w.float()
+    dx = gf + rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                      - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    db_qkv = r(dqkv.sum(1)).sum(0) if bias_sum_per_image else dqkv.sum((0, 1))
+    return (dx.to(x.dtype), (dy * xhat).sum((0, 1)), dy.sum((0, 1)), dw_qkv, db_qkv, dw_o,
+            gf.sum((0, 1)))
+
+
+def mhsa_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads: int,
+                         eps: float = 1e-6, nomax: bool = False):
+    """The gradients of :func:`mhsa_block` (x, ln_w, ln_b, w_qkv, b_qkv, w_o,
+    b_o order) in the roundings of ``_mhsa_t_bwd_kernel`` (:215-417): o and
+    dq/dk/dv rounded to the compute dtype, dq times the scale, the QKV bias
+    gradient summed in f32 from the rounded dqkv, the LayerNorm backward in
+    f32. Under ``nomax`` the probabilities are exp(min(s, 80)) / l and the
+    softmax backward is the plain one (:337-338, no derivative of the clamp)."""
+    return attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, num_heads=num_heads,
+                                eps=eps, nomax=nomax, bias_sum_per_image=False)
+
+
+def mlp_block_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, g, *, eps: float = 1e-6):
+    """The gradients of :func:`mlp_block` (x, ln_w, ln_b, w1, b1, w2, b2
+    order) in the roundings of ``_mlp_t_bwd_kernel`` (:593-662): h = y W1 + b1
+    and t = tanh(...) in f32, gact = bf16(0.5 h (1 + t)); dgact = g W2 and
+    dh = dgact gelu'(h) in f32; db1 = sum dh in f32; dhb = bf16(dh) for dW1
+    and dy; db2 = sum g; dx = g + the LayerNorm backward of dy."""
+    cdt = x.dtype
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
+    xhat = (xf - mean) * rstd
+    y = (xhat * ln_w.float() + ln_b.float()).to(cdt).float()
+    gact, h = linear_plain(y.to(cdt), w1, b1, gelu=True, save_pre_act=True)
+    gf = g.float()
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    dw2 = (rows(gf).t() @ rows(gact.float())).to(w2.dtype)
+    dh = (gf @ w2.float()) * gk.gelu_tanh_grad(h)
+    dhb = dh.to(cdt).float()
+    dw1 = (rows(dhb).t() @ rows(y)).to(w1.dtype)
+    dy = dhb @ w1.float()
+    dxhat = dy * ln_w.float()
+    dx = gf + rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                      - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return (dx.to(cdt), rows(dy * xhat).sum(0), rows(dy).sum(0), dw1, rows(dh).sum(0), dw2,
+            rows(gf).sum(0))
+
+
+def _mlp_backward_kernels(x, ln_w, ln_b, w1, b1, w2, b2, g, *, eps: float):
+    """``_mlp_t_bwd_kernel`` on the card: 9 launches (see the module doc)."""
+    if w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
+        raise TypeError("mlp_block backward: the kernels take bf16 weights")
+    y = layernorm(x, ln_w, ln_b, eps)
+    gact, h = gemm_bias_act(y, w1, b1, gelu=True, save_pre_act=True)
+    dw2 = gk.gemm_tn(g, gact)
+    dhb, col = gk.gemm_nn_dgelu(g, w2, h)
+    dw1 = gk.gemm_tn(dhb, y)
+    dy = gk.gemm_nn(dhb, w1, torch.float32)
+    dx, dvec = gk.layernorm_bwd(x, ln_w, dy, g, eps=eps)
+    # column sums in two passes (per image, per 128-row tile's pair of
+    # partials), so no thread walks a whole batch's rows
+    db1, db2 = gk.colsum(col, seg_len=2), gk.colsum(g, seg_len=x.shape[-2])
+    return dx, dvec[0], dvec[1], dw1, db1, dw2, db2
+
+
+def _mhsa_forward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads, eps, nomax):
     y = layernorm(x, ln_w, ln_b, eps)
     qkv = gemm_bias_act(y, w_qkv, b_qkv)
     o = attention(qkv, num_heads, nomax=nomax)
     return gemm_bias_act(o, w_o, b_o, residual=x)
 
 
-def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-6):
-    """The ``_mlp_t_kernel`` sub-block as 3 launches: LN, fc1 + GELU,
-    fc2 + residual."""
+def _mlp_forward(x, ln_w, ln_b, w1, b1, w2, b2, *, eps):
     y = layernorm(x, ln_w, ln_b, eps)
     h = gemm_bias_act(y, w1, b1, gelu=True)
     return gemm_bias_act(h, w2, b2, residual=x)
+
+
+class _MhsaBlock(torch.autograd.Function):
+    """:func:`mhsa_block` with the backward of ``_mhsa_t_bwd_kernel``; each
+    pass takes the kernels on CUDA and the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, num_heads, eps, nomax):
+        ctx.save_for_backward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o)
+        ctx.kw = dict(num_heads=num_heads, eps=eps, nomax=nomax)
+        return _mhsa_forward(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        g = g.contiguous()
+        if kernels.on_cpu(*saved, g):
+            grads = mhsa_block_bwd_plain(*saved, g, **ctx.kw)
+        else:
+            from openvision_tpu_torch.ops import fused_attention  # it imports this module
+
+            grads = fused_attention._backward_kernels(
+                *saved, g, sm_scale=None, causal=False, prefix_len=0, bias_sum_per_image=False,
+                **ctx.kw)
+        return (*grads, None, None, None)
+
+
+class _MlpBlock(torch.autograd.Function):
+    """:func:`mlp_block` with the backward of ``_mlp_t_bwd_kernel``."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
+        ctx.eps = eps
+        return _mlp_forward(x, ln_w, ln_b, w1, b1, w2, b2, eps=eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        g = g.contiguous()
+        if kernels.on_cpu(*saved, g):
+            grads = mlp_block_bwd_plain(*saved, g, eps=ctx.eps)
+        else:
+            grads = _mlp_backward_kernels(*saved, g, eps=ctx.eps)
+        return (*grads, None)
+
+
+def _records(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def mhsa_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
+               eps: float = 1e-6, nomax: bool = False):
+    """The ``_mhsa_t_kernel`` sub-block as 4 launches: LN, QKV, attention,
+    out-proj + residual. Weights in torch's (out, in) layout. When autograd
+    records (grad enabled and an input requires grad) the call is
+    differentiable through the backward of ``_mhsa_t_bwd_kernel``."""
+    args = (x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o)
+    if _records(*args):
+        return _MhsaBlock.apply(*args, num_heads, eps, nomax)
+    return _mhsa_forward(*args, num_heads=num_heads, eps=eps, nomax=nomax)
+
+
+def mlp_block(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-6):
+    """The ``_mlp_t_kernel`` sub-block as 3 launches: LN, fc1 + GELU,
+    fc2 + residual; differentiable through the backward of
+    ``_mlp_t_bwd_kernel`` when autograd records."""
+    args = (x, ln_w, ln_b, w1, b1, w2, b2)
+    if _records(*args):
+        return _MlpBlock.apply(*args, eps)
+    return _mlp_forward(*args, eps=eps)

@@ -10,7 +10,12 @@ their own bodies:
   weight and input products are :func:`gemm_nn` (dA = dC . W) and
   :func:`gemm_tn` (dW = dC^T . X, ``csrc/gemm_grad.cu``), whose LayerNorm
   backward is :func:`layernorm_bwd` and whose bias gradients are
-  :func:`colsum` (``csrc/layernorm.cu``).
+  :func:`colsum` (``csrc/layernorm.cu``); the same kernels carry
+  ``_mhsa_t_bwd_kernel`` (fused_encoder.py:215, with the ``nomax`` recompute
+  of P) and ``_qkv_bwd_kernel`` (fused_attention.py:215);
+- ``_mlp_t_bwd_kernel`` (fused_encoder.py:593), which adds
+  :func:`gemm_nn_dgelu` (dh = (g . W2) * gelu'(h) with column partials
+  for db1) to them.
 
 Each wrapper runs its plain PyTorch version (``*_plain``, f32 math with the
 kernel's roundings) when every tensor lies on the CPU; for CUDA tensors it
@@ -44,15 +49,20 @@ def visible_mask(lq: int, lk: int, causal: bool, prefix_len: int, device) -> tor
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
-                        prefix_len: int = 0):
+                        prefix_len: int = 0, nomax: bool = False):
     """(dq, dk, dv) of softmax(q k^T * scale) v over (B, L, H, hd) tensors,
     the arithmetic of ``csrc/attention_bwd.cu`` in f32: P = exp(s - lse)
     from the forward's logsumexp lse (B, H, Lq), delta = rowsum(do * o),
     dS = P (dP - delta) scale; dS is rounded to the input dtype for dq = dS k
-    and dk = dS^T q, P for dv = P^T do; the outputs are in the input dtype."""
+    and dk = dS^T q, P for dv = P^T do; the outputs are in the input dtype.
+    ``nomax`` takes P = exp(min(s, 80) - lse), lse = log(l) of the nomax
+    forward, with the plain softmax backward (no derivative of the clamp),
+    as ``_mhsa_t_bwd_kernel`` (openvision_tpu/ops/fused_encoder.py:337-338)."""
     dt = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if nomax:
+        s = torch.clamp(s, max=80.0)
     keep = visible_mask(q.shape[1], k.shape[1], causal, prefix_len if causal else 0, q.device)
     p = torch.where(keep, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
@@ -85,7 +95,7 @@ def _strides(q, k, v, o, do, dq, dk, dv):
 
 
 def attention_bwd_dq(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
-                     prefix_len: int = 0, dq=None):
+                     prefix_len: int = 0, nomax: bool = False, dq=None):
     """Kernel ``attention_bwd_dq``: (dq, delta), delta = rowsum(do * o)
     (B, H, Lq) f32 for :func:`attention_bwd_dkv`. CUDA tensors only."""
     b, lq, h, hd = q.shape
@@ -98,14 +108,14 @@ def attention_bwd_dq(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
     rc = kernels.lib().ovt_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, o, do, dq, k, v), b, lq, lk, h, hd,
-        scale, int(causal), int(prefix_len) if causal else 0, kernels.stream(q))
+        scale, int(causal), int(prefix_len) if causal else 0, int(nomax), kernels.stream(q))
     kernels.raise_on(rc, "attention_bwd_dq")
     kernels.count("attention_bwd_dq")
     return dq, delta
 
 
 def attention_bwd_dkv(q, k, v, lse, delta, do, *, scale: float, causal: bool = False,
-                      prefix_len: int = 0, dk=None, dv=None):
+                      prefix_len: int = 0, nomax: bool = False, dk=None, dv=None):
     """Kernel ``attention_bwd_dkv``: (dk, dv) from the delta of
     :func:`attention_bwd_dq`. CUDA tensors only."""
     b, lq, h, hd = q.shape
@@ -120,31 +130,33 @@ def attention_bwd_dkv(q, k, v, lse, delta, do, *, scale: float, causal: bool = F
     rc = kernels.lib().ovt_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, q, do, q, dk, dv), b,
-        lq, lk, h, hd, scale, int(causal), int(prefix_len) if causal else 0, kernels.stream(q))
+        lq, lk, h, hd, scale, int(causal), int(prefix_len) if causal else 0, int(nomax),
+        kernels.stream(q))
     kernels.raise_on(rc, "attention_bwd_dkv")
     kernels.count("attention_bwd_dkv")
     return dk, dv
 
 
 def attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
-                  prefix_len: int = 0, dq=None, dk=None, dv=None):
+                  prefix_len: int = 0, nomax: bool = False, dq=None, dk=None, dv=None):
     """Kernels ``attention_bwd_dq`` then ``attention_bwd_dkv``.
 
     q, o, do: (B, Lq, H, 64); k, v: (B, Lk, H, 64); bf16 with unit stride in
     head_dim and other strides multiples of 8 (views of a QKV buffer work);
     lse: (B, H, Lq) f32 from the forward. dq, dk and dv may be given as such
     views (the fused block writes them into one dqkv buffer); else they are
-    allocated. Returns (dq, dk, dv). On the CPU the plain version runs.
+    allocated. ``nomax`` recomputes P as the nomax forward's (lse = log(l)).
+    Returns (dq, dk, dv). On the CPU the plain version runs.
     """
     if kernels.on_cpu(q, k, v, o, lse, do):
         grads = attention_bwd_plain(q, k, v, o, lse, do, scale=scale, causal=causal,
-                                    prefix_len=prefix_len)
+                                    prefix_len=prefix_len, nomax=nomax)
         outs = (dq, dk, dv)
         for out, grad in zip(outs, grads):
             if out is not None:
                 out.copy_(grad)
         return tuple(grad if out is None else out for out, grad in zip(outs, grads))
-    kw = dict(scale=scale, causal=causal, prefix_len=prefix_len)
+    kw = dict(scale=scale, causal=causal, prefix_len=prefix_len, nomax=nomax)
     dq, delta = attention_bwd_dq(q, k, v, o, lse, do, dq=dq, **kw)
     dk, dv = attention_bwd_dkv(q, k, v, lse, delta, do, dk=dk, dv=dv, **kw)
     return dq, dk, dv
@@ -194,6 +206,55 @@ def gemm_nn(a, w, out_dtype=torch.bfloat16):
     kernels.check_operand("gemm_nn w", w, torch.bfloat16)
     out = torch.empty(*a.shape[:-1], k, dtype=out_dtype, device=a.device)
     return _gemm("gemm_nn", a, w, out, a.numel() // n, k, n, 0, 1)
+
+
+GELU_C, GELU_A = 0.7978845608028654, 0.044715  # sqrt(2 / pi), the tanh-GELU cubic
+
+
+def gelu_tanh_grad(h):
+    """d/dh of 0.5 h (1 + tanh(C (h + A h^3))) in f32, in the order of
+    ``_mlp_t_bwd_kernel`` (openvision_tpu/ops/fused_encoder.py:628-633)."""
+    t = torch.tanh(GELU_C * (h + GELU_A * h * h * h))
+    return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * GELU_C * (1.0 + 3.0 * GELU_A * h * h)
+
+
+def gemm_nn_dgelu_plain(a, w, h):
+    """(dh, col): dh = (a . w) * gelu'(h) in f32, rounded to bf16, and col
+    (2 ceil(M / 128), K) f32 the column sums of the unrounded dh over each
+    64-row tile (the kernel's per-warp partials)."""
+    dh = (a.float() @ w.float()) * gelu_tanh_grad(h.float())
+    rows = dh.reshape(-1, dh.shape[-1])
+    tiles = 2 * -(-rows.shape[0] // 128)
+    padded = torch.nn.functional.pad(rows, (0, 0, 0, 64 * tiles - rows.shape[0]))
+    return dh.to(torch.bfloat16), padded.reshape(tiles, 64, -1).sum(1)
+
+
+def gemm_nn_dgelu(a, w, h):
+    """Kernel ``gemm_nn_dgelu`` (``csrc/gemm_grad.cu``): the MLP backward's
+    dh = (g . W2) * gelu'(h) of ``_mlp_t_bwd_kernel``
+    (openvision_tpu/ops/fused_encoder.py:593, :624-635). a (..., N) bf16 is
+    the output gradient g, w (N, K) bf16 the fc2 weight in torch's (out, in)
+    layout, h (..., K) f32 the fc1 pre-activation (``gemm_bias_act`` with
+    ``save_pre_act``). Returns (dh bf16 (..., K), col f32 (P, K)): col's rows
+    are per-tile column sums of the unrounded dh, whose sum over P (one
+    :func:`colsum` launch) is db1."""
+    if kernels.on_cpu(a, w, h):
+        return gemm_nn_dgelu_plain(a, w, h)
+    n, k = w.shape
+    if a.shape[-1] != n or n % 8 or k % 8:
+        raise ValueError(f"gemm_nn_dgelu: a (..., {a.shape[-1]}) . w {tuple(w.shape)}; N and K "
+                         "must match and be multiples of 8")
+    m = a.numel() // n
+    kernels.check_operand("gemm_nn_dgelu a", a, torch.bfloat16)
+    kernels.check_operand("gemm_nn_dgelu w", w, torch.bfloat16)
+    kernels.check_operand("gemm_nn_dgelu h", h, torch.float32, (*a.shape[:-1], k))
+    dh = torch.empty(*a.shape[:-1], k, dtype=torch.bfloat16, device=a.device)
+    col = torch.empty(2 * -(-m // 128), k, dtype=torch.float32, device=a.device)
+    rc = kernels.lib().ovt_gemm_nn_dgelu(a.data_ptr(), w.data_ptr(), h.data_ptr(), dh.data_ptr(),
+                                         col.data_ptr(), m, k, n, kernels.stream(a))
+    kernels.raise_on(rc, "gemm_nn_dgelu")
+    kernels.count("gemm_nn_dgelu")
+    return dh, col
 
 
 def split_k(m: int, n: int, rows: int) -> tuple[int, int]:

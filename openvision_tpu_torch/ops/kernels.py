@@ -54,7 +54,7 @@ _count_lock = threading.Lock()
 LAUNCHES = {"layernorm": 0, "gemm_bias_act": 0, "attention": 0, "flash_attention": 0,
             "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "gemm_nn": 0, "gemm_tn": 0,
             "layernorm_bwd": 0, "colsum": 0, "gemm_int8": 0, "layernorm_quant": 0,
-            "quant_rows": 0}
+            "quant_rows": 0, "gemm_nn_dgelu": 0}
 
 
 def count(name: str) -> None:
@@ -83,9 +83,9 @@ def check_operand(name: str, t, dtype, shape=None, contiguous: bool = True) -> N
     """Raises unless `t` is what a kernel takes: `dtype`, `shape`, 16-byte
     aligned, contiguous (or, with contiguous=False, unit stride in the last
     dim and every other stride a multiple of 8 elements), and not a tensor
-    that autograd would need a backward kernel for (the fused_t and MLP
-    kernels have none; the kernels with one run inside an autograd Function,
-    where grad mode is off)."""
+    that autograd would need a backward for (a kernel wrapper has none of
+    its own: the sub-blocks that have a backward kernel run inside an
+    autograd Function, where grad mode is off)."""
     if t.dtype != dtype:
         raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -100,9 +100,9 @@ def check_operand(name: str, t, dtype, shape=None, contiguous: bool = True) -> N
         raise ValueError(f"{name}: the kernel takes 16-byte aligned tensors")
     if t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(
-            f"{name}: this kernel has no backward kernel (the fused_t sub-blocks' "
-            "_mhsa_t_bwd_kernel / _mlp_t_bwd_kernel are not ported); train with "
-            "attn_impl='fused' or run under torch.inference_mode()")
+            f"{name}: this wrapper has no backward kernel of its own; train through the "
+            "sub-blocks (fused_encoder.mhsa_block / mlp_block, fused_attention."
+            "fused_mhsa_block / fused_qkv_attention) or run under torch.inference_mode()")
 
 
 def stream(t) -> ctypes.c_void_p:
@@ -173,12 +173,13 @@ def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
     ll = ctypes.POINTER(ctypes.c_longlong)
     argtypes = {
         "ovt_layernorm": [p, p, p, p, i, i, f, p],
-        "ovt_gemm_bias_act": [p, p, p, p, p, i, i, i, i, p],
+        "ovt_gemm_bias_act": [p, p, p, p, p, p, i, i, i, i, p],
         "ovt_attention": [p, p, i, i, i, i, f, i, i, i, i, p],
-        "ovt_flash_attention": [p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, p],
-        "ovt_attention_bwd_dq": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, p],
-        "ovt_attention_bwd_dkv": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, p],
+        "ovt_flash_attention": [p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, i, p],
+        "ovt_attention_bwd_dq": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, p],
+        "ovt_attention_bwd_dkv": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, p],
         "ovt_gemm_grad": [p, p, p, p, i, i, i, i, i, i, i, i, p],
+        "ovt_gemm_nn_dgelu": [p, p, p, p, p, i, i, i, p],
         "ovt_layernorm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
         "ovt_colsum": [p, i, p, p, i, i, i, i, p],
         "ovt_gemm_int8": [p, p, p, p, p, p, p, i, i, i, i, i, p],

@@ -12,7 +12,10 @@ a logit bias and is not ported), backward, the optimizer update, and the
 measurements: t, t/parameter, nimg, ntxt, the loss terms, and ``l2_grads``
 (over the parameters that are not frozen), ``l2_params`` and
 ``l2_updates`` with f32 accumulation (:39-50, :255-261). ``grad_accum > 1``
-raises (not ported yet).
+raises (not ported yet). The image tower's drop-path masks come from
+:func:`step_generator`, seeded from the config seed and the optimizer's step
+count, as the JAX step folds the count into its rng (:175-183): a resumed
+run draws the masks an uninterrupted one draws.
 """
 
 from __future__ import annotations
@@ -65,13 +68,21 @@ def init_train_state(config: dict, model: CLIPModel, *, total_steps: int,
         data_size=data_size))
 
 
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The generator of one step's random draws (drop-path), a function of
+    (seed, step) only."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state >> np.uint64(1)))
+
+
 def to_device(batch: dict, device) -> dict:
     return {k: torch.as_tensor(np.asarray(v)).to(device, non_blocking=True)
             for k, v in batch.items()}
 
 
 def make_loss_fn(config: dict, model: CLIPModel) -> Callable:
-    """loss_fn(batch on the device) -> (loss, measurements), differentiable."""
+    """loss_fn(batch on the device, rng=None) -> (loss, measurements),
+    differentiable; `rng` draws the drop-path masks."""
     if int(config.get("grad_accum", 1) or 1) > 1:
         raise NotImplementedError("grad_accum > 1 (the embedding-cached microbatched step) is "
                                   "not ported yet")
@@ -85,10 +96,10 @@ def make_loss_fn(config: dict, model: CLIPModel) -> Callable:
     cap_chunk = config.get("cap_xent_chunk", 16)
     cpu_uint8 = config.get("cpu_unit8", False)
 
-    def loss_fn(batch: dict):
+    def loss_fn(batch: dict, rng: torch.Generator | None = None):
         images = normalize_uint8(batch["image"]) if cpu_uint8 else batch["image"].float()
         labels = torch.cat([batch["labels1"], batch["labels2"]], dim=0)
-        zimg, ztxt, out = model(images, labels, train=True)
+        zimg, ztxt, out = model(images, labels, train=True, rng=rng)
         half = ztxt.shape[0] // 2
         loss, extras = losses.bidirectional_contrastive_loss(
             zimg, [ztxt[:half], ztxt[half:]], out["t"], mode=mode)
@@ -119,12 +130,14 @@ def make_update_fn(config: dict, model: CLIPModel, opt: optim.Optimizer) -> Call
     tensors on the device."""
     loss_fn = make_loss_fn(config, model)
     params = dict(model.named_parameters())
+    seed = config.get("seed", 0)
 
     def update_fn(batch: dict) -> dict:
         device = next(model.parameters()).device
         for p in params.values():
             p.grad = None
-        loss, measurements = loss_fn(to_device(batch, device))
+        loss, measurements = loss_fn(to_device(batch, device),
+                                     rng=step_generator(seed, opt.state["count"]))
         loss.backward()
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  for n, p in params.items()}

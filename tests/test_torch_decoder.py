@@ -24,6 +24,7 @@ from openvision_tpu_torch.convert.openclip import (
     jax_decoder_to_state_dict,
     state_dict_to_jax_decoder,
 )
+from openvision_tpu_torch.models import attention_module
 from openvision_tpu_torch.models import decoder as tdec
 from openvision_tpu_torch.models import text as ttext
 from openvision_tpu_torch.models import vit as tvit
@@ -167,11 +168,23 @@ def test_config_model_section_matches_jax(arg):
         assert {k: t["model"][sec][k] for k in common} == {k: jsec[k] for k in common}
 
 
-def test_fused_self_attention_module_would_need_kernel_7():
+def test_fused_self_attention_module_would_need_kernel_7(monkeypatch):
+    # fused self-attention with no mask runs fused_qkv_attention (Pallas #7),
+    # then the out-projection: the xla module's output on the same weights
     mha = MultiHeadAttention(64, 2, attn_impl="fused")
-    x = torch.zeros(1, 5, 64)
-    with pytest.raises(NotImplementedError, match="fused_attention.py:92"):
-        mha(x)
+    ref = MultiHeadAttention(64, 2, attn_impl="xla")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in mha.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+    ref.load_state_dict(mha.state_dict())
+    x = torch.randn(1, 5, 64, generator=gen)
+    calls = []
+    real = attention_module.fused_qkv_attention
+    monkeypatch.setattr(attention_module, "fused_qkv_attention",
+                        lambda *a, **k: calls.append(k) or real(*a, **k))
+    torch.testing.assert_close(mha(x), ref(x), atol=1e-5, rtol=1e-5)
+    assert len(calls) == 1
     # cross-attention and a masked self-attention fall to xla, as in the JAX module
     assert mha(x, torch.zeros(1, 3, 64)).shape == (1, 5, 64)
     assert mha(x, mask=torch.ones(1, 1, 5, 5, dtype=torch.bool)).shape == (1, 5, 64)

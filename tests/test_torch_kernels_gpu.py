@@ -550,3 +550,183 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="f32 unmasked"):
         fe.attention(torch.zeros(1, 4, 3 * 128, device=dev, dtype=torch.bfloat16), 2,
                      causal=True, out_dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Training on fused_t (#3, #4) and on LayerScale / drop-path blocks (#7, #8)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,h", [(2, 257, 4), (3, 80, 12), (2, 101, 2)])
+def test_attention_bwd_kernels_nomax(dev, b, l, h):
+    """The nomax flash forward (lse = log l) and the backward's recompute of
+    P as exp(min(s, 80) - lse), against the plain versions."""
+    from openvision_tpu_torch.ops import flash_attention as fl
+
+    g = torch.Generator().manual_seed(l + h)
+    q, k, v, do = (_rand(g, dev, b, l, h, 64, scale=3.0).bfloat16() for _ in range(4))
+    with torch.inference_mode():
+        o, lse = fl._forward(q, k, v, causal=False, prefix_len=0, sm_scale=None,
+                             return_lse=True, nomax=True)
+        o_ref, lse_ref = fl.flash_attention_plain(q.float(), k.float(), v.float(), nomax=True)
+        assert _rel_err(o, o_ref) <= 2**-6
+        assert (lse - lse_ref).abs().max().item() <= 1e-3
+        kernels.reset_launch_counts()
+        got = gk.attention_bwd(q, k, v, o, lse, do, scale=0.125, nomax=True)
+        torch.cuda.synchronize()
+        ref = gk.attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), scale=0.125, nomax=True)
+    assert kernels.LAUNCHES == _launches(attention_bwd_dq=1, attention_bwd_dkv=1)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, r) <= 2**-6, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(2 * 257, 1024, 256), (101, 768, 192), (37, 40, 24)])
+def test_gemm_bias_act_writes_the_pre_activation(dev, m, n, k):
+    g = torch.Generator().manual_seed(m + n)
+    x = _rand(g, dev, m, k).bfloat16()
+    w = _rand(g, dev, n, k, scale=k**-0.5).bfloat16()
+    bias = _rand(g, dev, n, scale=0.1)
+    with torch.inference_mode():
+        out, h = fe.gemm_bias_act(x, w, bias, gelu=True, save_pre_act=True)
+        out_ref, h_ref = fe.linear_plain(x.float(), w.float(), bias, gelu=True, save_pre_act=True)
+    assert h.dtype == torch.float32 and _rel_err(h, h_ref) <= 2**-12
+    assert _rel_err(out, out_ref) <= 2**-7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(2 * 257, 256, 1024), (101, 192, 768), (37, 24, 40),
+                                   (129, 64, 136)])
+def test_gemm_nn_dgelu_kernel(dev, m, n, k):
+    """dh = (g . W2) gelu'(h) on ragged M and N: bf16 dh, and the f32 column
+    partials whose sum is db1 (every row of the partials written)."""
+    g = torch.Generator().manual_seed(m * n)
+    a = _rand(g, dev, m, n).bfloat16()
+    w = _rand(g, dev, n, k, scale=n**-0.5).bfloat16()
+    h = _rand(g, dev, m, k, scale=2.0)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        dh, col = gk.gemm_nn_dgelu(a, w, h)
+        torch.cuda.synchronize()
+        dh_ref, col_ref = gk.gemm_nn_dgelu_plain(a.float(), w.float(), h)
+    assert kernels.LAUNCHES == _launches(gemm_nn_dgelu=1)
+    assert dh.dtype == torch.bfloat16 and col.shape == (2 * -(-m // 128), k)
+    assert _rel_err(dh, dh_ref.float()) <= 2**-7
+    assert _rel_err(col, col_ref) <= 1e-4 and _rel_err(col.sum(0), col_ref.sum(0)) <= 1e-4
+
+
+MHSA_T_CASES = [(2, 257, 256, 4), (3, 80, 768, 12), (2, 101, 128, 2)]
+MHSA_T_LAUNCHES = dict(layernorm=1, gemm_bias_act=1, flash_attention=1, gemm_nn=2,
+                       attention_bwd_dq=1, attention_bwd_dkv=1, gemm_tn=2, layernorm_bwd=1,
+                       colsum=2)
+MLP_T_LAUNCHES = dict(layernorm=1, gemm_bias_act=1, gemm_tn=2, gemm_nn_dgelu=1, gemm_nn=1,
+                      layernorm_bwd=1, colsum=2)
+
+
+def _mlp_inputs(g, dev, b, l, d):
+    x = _rand(g, dev, b, l, d).bfloat16()
+    w = [_rand(g, dev, d) * 0.1 + 1, _rand(g, dev, d) * 0.1,
+         _rand(g, dev, 4 * d, d, scale=d**-0.5).bfloat16(), _rand(g, dev, 4 * d, scale=0.1),
+         _rand(g, dev, d, 4 * d, scale=(4 * d)**-0.5).bfloat16(), _rand(g, dev, d, scale=0.1)]
+    return x, w, _rand(g, dev, b, l, d).bfloat16()
+
+
+def _check_grads(got, ref, dout, tol=2**-5):
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert a.dtype == r.dtype, i
+        if i == 0:  # dx held on dx - g
+            a, r = a.float() - dout.float(), r.float() - dout.float()
+        assert _rel_err(a, r.float()) <= tol, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nomax", [False, True])
+@pytest.mark.parametrize("b,l,d,h", MHSA_T_CASES)
+def test_mhsa_t_backward_kernels(dev, b, l, d, h, nomax):
+    from openvision_tpu_torch.ops.fused_attention import _backward_kernels
+
+    g = torch.Generator().manual_seed(l + d + nomax)
+    x, w, dout = _block_inputs(g, dev, b, l, d)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        got = _backward_kernels(x, *w, dout, num_heads=h, sm_scale=None, causal=False,
+                                prefix_len=0, eps=1e-6, nomax=nomax, bias_sum_per_image=False)
+        torch.cuda.synchronize()
+        ref = fe.mhsa_block_bwd_plain(x, *w, dout, num_heads=h, nomax=nomax)
+    assert kernels.LAUNCHES == _launches(**MHSA_T_LAUNCHES)
+    _check_grads(got, ref, dout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,d", [(2, 257, 256), (3, 80, 192), (2, 37, 64)])
+def test_mlp_t_backward_kernels(dev, b, l, d):
+    g = torch.Generator().manual_seed(l * d)
+    x, w, dout = _mlp_inputs(g, dev, b, l, d)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        got = fe._mlp_backward_kernels(x, *w, dout, eps=1e-6)
+        torch.cuda.synchronize()
+        ref = fe.mlp_block_bwd_plain(x, *w, dout)
+    assert kernels.LAUNCHES == _launches(**MLP_T_LAUNCHES)
+    _check_grads(got, ref, dout)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nomax", [False, True])
+def test_fused_t_functions_match_autograd_of_the_plain_forward(dev, nomax):
+    g = torch.Generator().manual_seed(7 + nomax)
+    x, w, dout = _block_inputs(g, dev, 2, 101, 256)
+    _, w2, _ = _mlp_inputs(g, dev, 2, 101, 256)
+    leaves = [t.clone().requires_grad_(True) for t in (x, *w, *w2)]
+    kernels.reset_launch_counts()
+    y = fe.mhsa_block(*leaves[:7], num_heads=4, nomax=nomax)
+    out = fe.mlp_block(y, *leaves[7:])
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    fwd = _launches(layernorm=2, gemm_bias_act=4, attention=1)
+    want = {k: fwd[k] + MHSA_T_LAUNCHES.get(k, 0) + MLP_T_LAUNCHES.get(k, 0) for k in fwd}
+    assert kernels.LAUNCHES == want
+    ref_leaves = [t.float().requires_grad_(True) for t in (x, *w, *w2)]
+    ref_y = fe.mhsa_block_plain(*ref_leaves[:7], num_heads=4, nomax=nomax)
+    ref = torch.autograd.grad(fe.mlp_block_plain(ref_y, *ref_leaves[7:]), ref_leaves,
+                              dout.float())
+    for i, (a, r) in enumerate(zip(got, ref)):
+        assert a.dtype == (x, *w, *w2)[i].dtype
+        if i == 0:
+            a, r = a.float() - dout.float(), r - dout.float()
+        assert _rel_err(a, r) <= 2**-5, i
+
+
+QKV_CASES = [(2, 257, 256, 4, False, 0), (2, 128, 256, 4, True, 0), (3, 101, 128, 2, True, 37)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,d,h,causal,prefix", QKV_CASES)
+def test_fused_qkv_attention_kernels(dev, b, l, d, h, causal, prefix):
+    """#7 forward (2 launches) and #8 backward (7 launches) against the
+    plain twins of _kernel and _qkv_bwd_kernel."""
+    g = torch.Generator().manual_seed(l * h + prefix)
+    y, dout = _rand(g, dev, b, l, d).bfloat16(), _rand(g, dev, b, l, d).bfloat16()
+    w_qkv = _rand(g, dev, 3 * d, d, scale=d**-0.5).bfloat16()
+    b_qkv = _rand(g, dev, 3 * d, scale=0.1)
+    kw = dict(num_heads=h, sm_scale=None, causal=causal, prefix_len=prefix)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        out = fa.fused_qkv_attention(y, w_qkv, b_qkv, num_heads=h, causal=causal,
+                                     prefix_len=prefix)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == _launches(gemm_bias_act=1, attention=1)
+        assert _rel_err(out, fa.fused_qkv_attention_plain(y.float(), w_qkv.float(), b_qkv,
+                                                          **kw)) <= 2**-6
+        kernels.reset_launch_counts()
+        got = fa._qkv_backward_kernels(y, w_qkv, b_qkv, dout, **kw)
+        torch.cuda.synchronize()
+        ref = fa.fused_qkv_attention_bwd_plain(y, w_qkv, b_qkv, dout, **kw)
+    assert kernels.LAUNCHES == _launches(gemm_bias_act=1, flash_attention=1,
+                                         attention_bwd_dq=1, attention_bwd_dkv=1, gemm_tn=1,
+                                         gemm_nn=1, colsum=1)
+    for name, a, r in zip(("dy", "dw_qkv", "db_qkv"), got, ref):
+        assert a.dtype == r.dtype, name
+        assert _rel_err(a, r.float()) <= 2**-5, name
