@@ -125,6 +125,33 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    generator; then the trained weights loaded into an inference model
    encode one batch on #7's forward alone (24 launches of each kernel),
    zimg cosine >= 0.999 against the plain f32 path.
+16. The tensor-parallel block kernels against their plain twins at B=8:
+   _block_partial_kernel (#11: layernorm, QKV on the shard's (3D/t, D)
+   rows, attention over its heads, the out-projection with K = D/t and no
+   bias or residual) and _block_partial_bwd_kernel (#12: #10's chain on the
+   shard's weights, dx the LayerNorm path's alone, no db_o) at the image
+   tower's L=257 D=1024 (16 heads), the concat decoder's prefix-LM L=463
+   (prefix 335, D=768, 12 heads) at tensor 2 and 4, and a ragged causal
+   L=101 at tensor 2; then the shard identity on the card: the shards'
+   #11 summed, plus x and bo, against #9, and #12's dx summed plus g and
+   its gradients joined against #10.
+17. #11 and #12 at B=64, L=257, tensor 2 and 4: CUDA events and CUDA-graph
+   replay, launches per call, bound (max(bytes / 3.35 TB/s, FLOPs / 989
+   TFLOP/s)), plain twin, and the library calls (F.layer_norm, F.linear on
+   the shard, SDPA, F.linear; their autograd backward).
+18. Tensor-parallel training through the normal entry point: torchrun
+   (python -m torch.distributed.run --nproc_per_node 2) runs this script's
+   --tp-grads mode, two ranks on the one card over gloo at tensor 2 (phase
+   8's model, config, params and batch), whose loss and gathered gradients
+   are held against the one-process kernel path (loss within 2**-7
+   relative, global cosine >= 0.999), and which prints each rank's step
+   time, peak memory and the all-reduce's share of a step; then
+   python -m torch.distributed.run --nproc_per_node 2 -m
+   openvision_tpu_torch.main_clip with sharding.mesh tensor=2 trains 3
+   steps: finite losses, every TP block's #11/#12 launches as the block
+   counts give (24 image + 12 decoder blocks, the forward twice under
+   remat), one checkpoint, which the caption tool loads in one process and
+   captions the testcat images with. A failure in any rank fails the phase.
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 
@@ -213,10 +240,13 @@ SCALE_REL_TOL, QUANT_FLIPS = 2**-20, 1e-3
 # it, compounded through dW1 and dy) and #8 (7 launches) -> 2**-5 for every
 # output, dx on dx - g; #7's forward as the attention kernel, 2**-6; the
 # dGELU GEMM's bf16 dh 2**-7 and its f32 column sums (db1) 2**-12.
+# The tensor-parallel kernels (phase 16) are held as #9 and #10: #11's
+# partial (no residual) at 2**-6 of max|plain|, #12's outputs at 2**-5, dx
+# on dx alone (it has no residual).
 BWD_TOL = {"attention_bwd": 2**-6, "fused block bwd": 2**-5, "mhsa_t bwd": 2**-5,
-           "mlp_t bwd": 2**-5, "qkv bwd": 2**-5}
+           "mlp_t bwd": 2**-5, "qkv bwd": 2**-5, "tp block bwd": 2**-5}
 CASE_REL_TOL = {**REL_TOL, "fused block": 2**-6, "int8 mhsa block": 2**-6,
-                "int8 mlp block": 2**-6, "qkv attention": 2**-6}
+                "int8 mlp block": 2**-6, "qkv attention": 2**-6, "tp block": 2**-6}
 RESIDUAL_ROUNDING = 2**-8  # half a bf16 ulp, relative to the value, at most
 
 # Source and the Pallas kernels each serves, as file:line; the JSON line's
@@ -225,23 +255,29 @@ _FE, _FA, _FL = ("openvision_tpu/ops/fused_encoder.py", "openvision_tpu/ops/fuse
                  "openvision_tpu/ops/flash_attention.py")
 _F8, _Q = "openvision_tpu/ops/fused_encoder_int8.py", "openvision_tpu/serving/quant.py"
 _BWD3, _BWD4, _QKV7, _QKV8 = f"{_FE}:215", f"{_FE}:593", f"{_FA}:92", f"{_FA}:215"
+_TP11, _TP12 = f"{_FA}:938", f"{_FA}:1057"
 KERNEL_INFO = {
     "layernorm": ("openvision_tpu_torch/csrc/layernorm.cu",
-                  [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440", _BWD3, _BWD4]),
+                  [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440", _BWD3, _BWD4, _TP11, _TP12]),
     "gemm_bias_act": ("openvision_tpu_torch/csrc/gemm_bias_act.cu",
-                      [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440", _QKV7, _BWD3, _BWD4, _QKV8]),
+                      [f"{_FE}:71", f"{_FE}:502", f"{_FA}:440", _QKV7, _BWD3, _BWD4, _QKV8, _TP11,
+                       _TP12]),
     "attention": ("openvision_tpu_torch/csrc/attention.cu",
-                  [f"{_FE}:71", f"{_FA}:440", f"{_F8}:39", _QKV7]),
+                  [f"{_FE}:71", f"{_FA}:440", f"{_F8}:39", _QKV7, _TP11]),
     "flash_attention": ("openvision_tpu_torch/csrc/attention.cu",
-                        [f"{_FL}:133", f"{_FL}:76", f"{_FL}:85", _BWD3, _QKV8]),
+                        [f"{_FL}:133", f"{_FL}:76", f"{_FL}:85", _BWD3, _QKV8, _TP12]),
     "attention_bwd_dq": ("openvision_tpu_torch/csrc/attention_bwd.cu",
-                         [f"{_FL}:207", f"{_FA}:698", _BWD3, _QKV8]),
+                         [f"{_FL}:207", f"{_FA}:698", _BWD3, _QKV8, _TP12]),
     "attention_bwd_dkv": ("openvision_tpu_torch/csrc/attention_bwd.cu",
-                          [f"{_FL}:245", f"{_FA}:698", _BWD3, _QKV8]),
-    "gemm_nn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698", _BWD3, _BWD4, _QKV8]),
-    "gemm_tn": ("openvision_tpu_torch/csrc/gemm_grad.cu", [f"{_FA}:698", _BWD3, _BWD4, _QKV8]),
-    "layernorm_bwd": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698", _BWD3, _BWD4]),
-    "colsum": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_FA}:698", _BWD3, _BWD4, _QKV8]),
+                          [f"{_FL}:245", f"{_FA}:698", _BWD3, _QKV8, _TP12]),
+    "gemm_nn": ("openvision_tpu_torch/csrc/gemm_grad.cu",
+                [f"{_FA}:698", _BWD3, _BWD4, _QKV8, _TP12]),
+    "gemm_tn": ("openvision_tpu_torch/csrc/gemm_grad.cu",
+                [f"{_FA}:698", _BWD3, _BWD4, _QKV8, _TP12]),
+    "layernorm_bwd": ("openvision_tpu_torch/csrc/layernorm.cu",
+                      [f"{_FA}:698", _BWD3, _BWD4, _TP12]),
+    "colsum": ("openvision_tpu_torch/csrc/layernorm.cu",
+               [f"{_FA}:698", _BWD3, _BWD4, _QKV8, _TP12]),
     "gemm_nn_dgelu": ("openvision_tpu_torch/csrc/gemm_grad.cu", [_BWD4]),
     "gemm_int8": ("openvision_tpu_torch/csrc/gemm_int8.cu", [f"{_F8}:39", f"{_F8}:138", f"{_Q}:415"]),
     "layernorm_quant": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_F8}:39", f"{_F8}:138"]),
@@ -1133,7 +1169,8 @@ BWD_OUTPUTS = {"fused block bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "
                "colsum": ("sums",),
                "mhsa_t bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o", "db_o"),
                "mlp_t bwd": ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"),
-               "qkv bwd": ("dy", "dw_qkv", "db_qkv"), "gemm_nn_dgelu": ("dh", "db1")}
+               "qkv bwd": ("dy", "dw_qkv", "db_qkv"), "gemm_nn_dgelu": ("dh", "db1"),
+               "tp block bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o")}
 
 
 def bwd_tol(case, out_name: str, got) -> float:
@@ -2113,6 +2150,359 @@ def layerscale_encode(trained: dict, batch: dict, device, no_pil: bool, totals: 
     return cos.min().item()
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism: #11, #12 and training on a mesh (phases 16, 17, 18)
+# ---------------------------------------------------------------------------
+
+
+# One tensor-parallel block per training step under remat=full: #11's four
+# launches twice (the forward, then the recompute before its backward) and
+# #12's eleven (#10's chain without db_o's column sum).
+TP_BLOCK_STEP = {**FUSED_BLOCK_STEP, "colsum": 1}
+TP_PARTIAL_LAUNCHES = {"layernorm": 1, "gemm_bias_act": 2, "attention": 1}
+TP_PARTIAL_BWD_LAUNCHES = {"layernorm": 1, "gemm_bias_act": 1, "flash_attention": 1,
+                           "gemm_nn": 2, "attention_bwd_dq": 1, "attention_bwd_dkv": 1,
+                           "gemm_tn": 2, "layernorm_bwd": 1, "colsum": 1}
+TP_SIZE = 2  # phase 18's tensor axis: two ranks share the one card
+TP_TIMEOUT_S = 420  # each torchrun launch of phase 18
+
+
+def _library_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads: int, sdpa_kw: dict):
+    """The shard's partial block as library calls: F.layer_norm, F.linear on
+    the shard's rows, scaled_dot_product_attention, F.linear (no bias)."""
+    import torch.nn.functional as F
+
+    b, l, d = x.shape
+    dl = w_qkv.shape[0] // 3
+    y = F.layer_norm(x, (d,), ln_w, ln_b, 1e-6)
+    q, k, v = F.linear(y, w_qkv, b_qkv).view(b, l, 3, heads, dl // heads).permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(q, k, v, **sdpa_kw)
+    return F.linear(o.transpose(1, 2).reshape(b, l, dl), w_o)
+
+
+def tp_block_cases(fa, device, gen, b: int, shapes):
+    """Per (L, D, heads, causal, prefix, t): #11's Case, #12's Case (the
+    last shard's weights) and the whole block's inputs for the identity."""
+    import torch
+
+    from openvision_tpu_torch.convert.openclip import shard_tensor
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    out = []
+    for l, d, heads, causal, prefix, t in shapes:
+        x, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
+        whole = (rnd(d, scale=0.1) + 1, rnd(d, scale=0.1), rnd(3 * d, d, scale=d**-0.5).bfloat16(),
+                 rnd(3 * d, scale=0.1), rnd(d, d, scale=d**-0.5).bfloat16(), rnd(d, scale=0.1))
+        ln_w, ln_b, w_qkv, b_qkv, w_o, _ = whole
+        ws, bs, wos = (shard_tensor(v, kind, t - 1, t).contiguous()
+                       for v, kind in ((w_qkv, "qkv"), (b_qkv, "qkv"), (w_o, "cols")))
+        h, dl, m = heads // t, d // t, b * l
+        kw = dict(num_heads=h, sm_scale=0.125, causal=causal, prefix_len=prefix)
+        lib_args = (ln_w.bfloat16(), ln_b.bfloat16(), ws, bs.bfloat16(), wos)
+        sdpa_kw = _sdpa_kwargs(l, l, causal, prefix, device)
+        pairs = b * h * visible_pairs(l, l, causal, prefix)
+        tag = (f"b={b} L={l} D={d} H={heads} t={t}"
+               + (f" prefix={prefix}" if prefix else " causal" if causal else ""))
+        fwd = Case(
+            "tp block", f"#11 {tag}",
+            lambda x=x, kw=kw, s=(ws, bs, wos), lw=ln_w, lb=ln_b: fa.block_partial(x, lw, lb, *s,
+                                                                                 **kw),
+            lambda x=x, kw=kw, s=(ws, bs, wos), lw=ln_w, lb=ln_b: fa.block_partial_plain(
+                x.float(), lw, lb, s[0].float(), s[1], s[2].float(), **kw),
+            lambda x=x, a=lib_args, h=h, skw=sdpa_kw: _library_partial(x, *a, h, skw),
+            (2 * m * d + 4 * d * dl) * 2 + (2 * d + 3 * dl) * 4,
+            2 * m * d * 3 * dl + 2 * m * dl * d + 4 * 64 * pairs)
+        leaves = _leaves(x, *lib_args)
+        with torch.enable_grad():
+            lib_out = _library_partial(*leaves, h, sdpa_kw)
+        bwd = Case(
+            "tp block bwd", f"#12 {tag}",
+            lambda x=x, g=g, kw=kw, s=(ws, bs, wos), lw=ln_w, lb=ln_b: fa.block_partial_bwd(
+                x, lw, lb, *s, g, **kw),
+            lambda x=x, g=g, kw=kw, s=(ws, bs, wos), lw=ln_w, lb=ln_b: fa.block_partial_bwd_plain(
+                x, lw, lb, *s, g, **kw),
+            lambda out=lib_out, leaves=leaves, g=g: torch.autograd.grad(out, leaves, g,
+                                                                        retain_graph=True),
+            (3 * m * d + 8 * d * dl) * 2 + (4 * d + 6 * dl) * 4,
+            3 * 6 * m * d * dl + 2 * 2 * m * d * dl + 6 * 2 * 64 * pairs)
+        out.append((fwd, bwd, (x, g, whole, dict(num_heads=heads, causal=causal,
+                                                 prefix_len=prefix), t)))
+    return out
+
+
+def check_tp_identity(fa, x, g, whole, kw, t: int) -> None:
+    """On the card: the t shards' #11 summed (in bf16, as the all-reduce of
+    bf16 partials), then + x + bo, against #9; #12's dx summed, + g, and its
+    gradients summed (LayerNorm) or joined (the sharded leaves) against
+    #10. Out on out - x within 2**-6 of max|out - x| plus per element two
+    bf16 roundings of the residual adds (the TP block rounds x + sum and
+    + bo apart); dx on dx - g alike at 2**-5; each gradient at 2**-5 of its
+    max|#10|."""
+    import torch
+
+    from openvision_tpu_torch.convert.openclip import shard_tensor, unshard_tensor
+
+    ln_w, ln_b, w_qkv, b_qkv, w_o, b_o = whole
+    kw_shard = dict(kw, num_heads=kw["num_heads"] // t, sm_scale=0.125)
+    shards = [tuple(shard_tensor(v, kind, r, t).contiguous()
+                    for v, kind in ((w_qkv, "qkv"), (b_qkv, "qkv"), (w_o, "cols")))
+              for r in range(t)]
+    parts = [fa.block_partial(x, ln_w, ln_b, *s, **kw_shard) for s in shards]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    out = (x + total) + b_o.bfloat16()
+    ref = fa.fused_mhsa_block(x, *whole, **kw)
+    grads = [fa.block_partial_bwd(x, ln_w, ln_b, *s, g, **kw_shard) for s in shards]
+    want = fa._backward_kernels(x, *whole, g, sm_scale=None, eps=1e-6, **kw)
+    torch.cuda.synchronize()
+    dx = g
+    for gr in grads:
+        dx = dx + gr[0]
+    checks = [("out", out, ref, x, 2**-6), ("dx", dx, want[0], g, 2**-5)]
+    for label, a, r, base, tol in checks:
+        a, r, base = a.float(), r.float(), base.float()
+        scale = (r - base).abs().max().item()
+        ratio = ((a - r).abs() / (tol * scale + 2 * RESIDUAL_ROUNDING * r.abs())).max().item()
+        err = (a - r).abs().max().item()
+        print(f"  tp identity t={t} L={x.shape[1]} {label:6s} max|err|={err:.3e}  "
+              f"err/bound<={ratio:.3f}  {'ok' if ratio <= 1 else 'FAIL'}")
+        if ratio > 1 or not torch.isfinite(a).all():
+            raise AssertionError(f"tp identity {label}: err/bound {ratio}")
+    joined = [sum(gr[1] for gr in grads), sum(gr[2] for gr in grads)]
+    joined += [unshard_tensor([gr[i].float() for gr in grads], kind)
+               for i, kind in ((3, "qkv"), (4, "qkv"), (5, "cols"))]
+    for label, a, r in zip(("dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o"), joined, want[1:6]):
+        rel = ((a.float() - r.float()).abs().max() / r.float().abs().max()).item()
+        print(f"  tp identity t={t} L={x.shape[1]} {label:6s} max|err|/max|#10| = {rel:.3e}  "
+              f"bound {2**-5:.3e}  {'ok' if rel <= 2**-5 else 'FAIL'}")
+        if rel > 2**-5:
+            raise AssertionError(f"tp identity {label}: {rel}")
+
+
+def count_launches(fn) -> dict:
+    """The kernel launches of one call of fn (nonzero counts)."""
+    from openvision_tpu_torch.ops import kernels
+
+    before = dict(kernels.LAUNCHES)
+    fn()
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v != before[k]}
+
+
+def time_tp_kernels(fa, device) -> dict:
+    """Phase 17: #11 and #12 at b=64, L=257, D=1024, 16 heads, tensor 2 and
+    4; returns {label: times}."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    rows = {}
+    for t in (2, 4):
+        fwd, bwd, _ = tp_block_cases(fa, device, gen, 64, [(257, 1024, 16, False, 0, t)])[0]
+        for c, want, timer in ((fwd, TP_PARTIAL_LAUNCHES, time_case),
+                               (bwd, TP_PARTIAL_BWD_LAUNCHES, time_bwd_case)):
+            got = count_launches(c.kern)
+            print(f"  {c.label}: launches per call {got}")
+            if got != want:
+                raise AssertionError(f"{c.label}: launches {got}, expected {want}")
+            rows[c.label] = {**timer(c), "launches_per_call": sum(got.values())}
+        del fwd, bwd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_train_overrides(no_pil: bool) -> list:
+    """main_clip's arguments for phase 8's config (train_config) with the
+    mesh's tensor axis at TP_SIZE and a checkpoint at the last step."""
+    c = train_config("concat", "fused", no_pil=no_pil)
+    arg = (f"{TRAIN_ARG},dtype=bfloat16,dec_fusion=concat,dec_attn_impl=fused,"
+           f"tensor_parallelism={TP_SIZE}")
+    args = ["--config", f"openvision_tpu_torch/configs/openvision.py:{arg}"]
+    for key, value in (("input.batch_size", TRAIN_BATCH), ("input.data.num_examples", 1024),
+                       ("input.data.res", RES), ("total_steps", TRAIN_STEPS),
+                       ("log_training_steps", 1), ("schedule.0.1.warmup_steps", 1),
+                       ("model.image.fast_gelu", True), ("input.pp", c["input"]["pp"])):
+        args += ["--override", f"{key}={value}"]
+    return args
+
+
+def torchrun(args, log_path: str) -> None:
+    """python -m torch.distributed.run --nproc_per_node TP_SIZE `args`, in a
+    session of its own (every process it starts ends with it, or is killed
+    at TP_TIMEOUT_S); raises unless every rank exits 0."""
+    import signal
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(TP_SIZE),
+           "--master_port", str(port), *args]
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=log, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=TP_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = "timeout"
+    text = open(log_path).read()
+    if rc != 0:
+        print(text[-8000:])
+        raise AssertionError(f"torchrun {' '.join(args[:2])}: exit {rc}")
+    return text
+
+
+def tp_grads_worker(out_dir: str, no_pil: bool) -> int:
+    """One rank of phase 18's first launch (``chip_smoke.py --tp-grads``):
+    phase 8's model on a tensor-2 mesh, the loss and gradients of the first
+    batch (process 0 writes them gathered whole), then each rank's step
+    time, peak memory and the collectives' share of one step."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from openvision_tpu_torch import parallel
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.parallel import mesh as mesh_mod
+    from openvision_tpu_torch.train import checkpoint as ckpt
+    from openvision_tpu_torch.train import step as tstep
+
+    device = parallel.maybe_distributed_init("cuda")
+    mesh = parallel.create_mesh(data=1, fsdp=1, tensor=TP_SIZE, device_type="cuda")
+    rank = parallel.rank()
+    cfg = train_config("concat", "fused", no_pil=no_pil)
+    with parallel.use_mesh(mesh):
+        model = tstep.build_model(cfg).to(device)
+        opt = tstep.init_train_state(cfg, model, total_steps=TRAIN_STEPS, mesh=mesh)
+        loader, _ = pipeline.training(cfg["input"], seed=SEED,
+                                      rows=mesh.batch_rows(TRAIN_BATCH))
+        batch = tstep.to_device(next(loader), device)
+        kernels.reset_launch_counts()
+        meas, grads = tstep.make_grad_fn(cfg, model, opt)(batch)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        whole = ckpt.gather_leaves(grads, model, opt)
+        if rank == 0:
+            torch.save({"loss": float(meas["training_loss"]), "grads": whole},
+                       os.path.join(out_dir, "tp_grads.pt"))
+        del grads, whole
+        update = tstep.make_update_fn(cfg, model, opt)
+        step_batch = next(loader)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: update(step_batch), iters=1, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        mesh_mod.COMM.update(timing=True, seconds=0.0, calls=0)
+        t0 = time.perf_counter()
+        update(step_batch)
+        torch.cuda.synchronize()
+        timed_ms = (time.perf_counter() - t0) * 1e3
+        mesh_mod.COMM["timing"] = False
+    with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "step_ms": ms, "peak_gb": peak, "timed_step_ms": timed_ms,
+                   "comm_ms": mesh_mod.COMM["seconds"] * 1e3, "comm_calls": mesh_mod.COMM["calls"],
+                   "launches": launches}, f)
+    parallel.sync("done")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> dict:
+    """Phase 18 (see the module doc). Returns the step times and memory."""
+    import torch
+
+    from openvision_tpu_torch.configs.openvision import get_config
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.tools.caption import build_captioner
+    from openvision_tpu_torch.train import step as tstep
+
+    # the one-process kernel path on the params and batch the ranks see
+    cfg = train_config("concat", "fused", no_pil=no_pil)
+    loader, _ = pipeline.training(cfg["input"], seed=SEED)
+    model = init_params(tstep.build_model(cfg).to(device), SEED)
+    loss, _ = tstep.make_loss_fn(cfg, model)(tstep.to_device(next(loader), device))
+    loss.backward()
+    ref_loss = loss.item()
+    ref = {n: p.grad.detach().float() for n, p in model.named_parameters()}
+    del model, loss
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(work, "tp")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    torchrun([os.path.abspath(__file__), "--tp-grads", out_dir]
+             + (["--no-pil"] if no_pil else []), os.path.join(out_dir, "grads.log"))
+    print(f"[tensor={TP_SIZE}] --tp-grads ranks done in {time.perf_counter() - t0:.1f} s")
+    got = torch.load(os.path.join(out_dir, "tp_grads.pt"))
+    tp = {n: g.to(device) for n, g in got["grads"].items()}
+    glob, (worst, name) = grad_cosines(tp, ref)
+    print(f"[tensor={TP_SIZE}] first-batch loss {got['loss']:.6f} vs one process {ref_loss:.6f} "
+          f"(rel {abs(got['loss'] - ref_loss) / abs(ref_loss):.3e}); gradient cosine global "
+          f"{glob:.6f}, min per-tensor {worst:.6f} ({name})")
+    if abs(got["loss"] - ref_loss) > 2**-7 * abs(ref_loss) or glob < 0.999:
+        raise AssertionError(f"tensor parallel vs one process: loss {got['loss']} vs {ref_loss}, "
+                             f"gradient cosine {glob}")
+    del tp, ref, got
+    torch.cuda.empty_cache()
+    ranks = [json.load(open(os.path.join(out_dir, f"tp_rank{r}.json"))) for r in range(TP_SIZE)]
+    blocks = IMG_BLOCKS + DEC_BLOCKS
+    grad_want = {k: v * blocks for k, v in TP_BLOCK_STEP.items()}  # fwd, recompute, bwd
+    for r in ranks:
+        print(f"[tensor={TP_SIZE}] rank {r['rank']}: step {r['step_ms']:.1f} ms (CUDA events; two "
+              f"ranks share one card over gloo, so not comparable with phase 8), peak memory "
+              f"{r['peak_gb']:.2f} GB, all-reduce {r['comm_ms']:.1f} ms over {r['comm_calls']} "
+              f"calls = {100 * r['comm_ms'] / r['timed_step_ms']:.1f}% of a timed step of "
+              f"{r['timed_step_ms']:.1f} ms (each collective synchronized); launches of the "
+              f"gradient step {r['launches']}")
+        if {k: v for k, v in r["launches"].items() if v} != {k: v for k, v in grad_want.items()
+                                                            if v}:
+            raise AssertionError(f"rank {r['rank']}: launches {r['launches']}, expected "
+                                 f"{grad_want}")
+
+    wd = os.path.join(out_dir, "train")
+    t0 = time.perf_counter()
+    log = torchrun(["-m", "openvision_tpu_torch.main_clip", *tp_train_overrides(no_pil),
+                    "--workdir", wd], os.path.join(out_dir, "train.log"))
+    took = time.perf_counter() - t0
+    print("\n".join(line for line in log.splitlines() if line.startswith("NOTE")))
+    rows = [json.loads(line) for line in open(os.path.join(wd, "metrics.jsonl"))]
+    losses = [r["training_loss"] for r in rows if "training_loss" in r]
+    launches = {k.split("/", 1)[1]: int(v) for k, v in rows[-1].items()
+                if k.startswith("launches/")}
+    want = {k: v * blocks * TRAIN_STEPS for k, v in TP_BLOCK_STEP.items() if v}
+    print(f"[tensor={TP_SIZE}] main_clip: {TRAIN_STEPS} steps in {took:.1f} s (start-up, build, "
+          f"init, data, steps, checkpoint); losses {losses}; process 0's launches {launches}; "
+          f"last step_ms {rows[-1].get('step_ms')}")
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"tensor parallel training: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"tensor parallel training: launches {launches}, expected {want}")
+    for k, v in launches.items():
+        totals[k] += v
+
+    ckpts = sorted(os.listdir(os.path.join(wd, "checkpoints")))
+    if ckpts != [f"ckpt-{TRAIN_STEPS}.npz"]:
+        raise AssertionError(f"tensor parallel training wrote {ckpts}")
+    with torch.inference_mode():
+        cap, tok = build_captioner(get_config(caption_arg("concat", "fused")),
+                                   os.path.join(wd, "checkpoints", ckpts[0]), device=device)
+        ids = cap(cap_batch)
+        logits = cap.logits(cap_batch)
+    if (tuple(ids.shape) != (len(cap_batch), QUERIES) or not torch.isfinite(logits).all()
+            or int(ids.min()) < 0 or int(ids.max()) >= VOCAB):
+        raise AssertionError(f"captions from the tensor-parallel checkpoint: {tuple(ids.shape)}")
+    print(f"[tensor={TP_SIZE}] the checkpoint captions in one process: "
+          f"{tok.decode(ids[0].tolist())[:70]!r}")
+    del cap
+    torch.cuda.empty_cache()
+    return {f"[tensor={TP_SIZE}] rank {r['rank']}": {
+        "step_ms": r["step_ms"], "images_per_s": TRAIN_BATCH / (r["step_ms"] / 1e3),
+        "peak_gb": r["peak_gb"]} for r in ranks}
+
+
 def main() -> int:
     import torch
 
@@ -2349,6 +2739,26 @@ def run(work: str) -> int:
     train_results["[b] LayerScale"] = training_path_phase("b", device, no_pil, totals)
     torch.cuda.empty_cache()
 
+    phase("16. tensor-parallel kernels #11/#12 against their plain twins, and #9/#10 (B=8)")
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    shapes = [(257, 1024, 16, False, 0, 2), (257, 1024, 16, False, 0, 4),
+              (463, 768, 12, True, 335, 2), (463, 768, 12, True, 335, 4),
+              (101, 768, 12, True, 0, 2)]
+    with torch.no_grad():
+        for fwd, bwd, (x, g, whole, kw, t) in tp_block_cases(fa, device, gen, 8, shapes):
+            check_cases([fwd], worst)
+            check_bwd_cases([bwd], worst)
+            check_tp_identity(fa, x, g, whole, kw, t)
+    torch.cuda.empty_cache()
+
+    phase("17. #11/#12 at B=64, L=257, tensor 2 and 4: events, graph replay, bound, plain, library")
+    with torch.no_grad():
+        time_tp_kernels(fa, device)
+    torch.cuda.empty_cache()
+
+    phase(f"18. tensor-parallel training, tensor={TP_SIZE}: torchrun, two ranks on the one card")
+    train_results.update(tp_train_phase(device, work, no_pil, cap_batch, totals))
+
     phase("summary")
     print(f"card: {smi}")
     print(f"encode b=64 img/s: kernels {rates['kernels']}  plain eager bf16 {rates['plain']}")
@@ -2388,4 +2798,6 @@ def run(work: str) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tp-grads"]:  # one rank of phase 18 (torchrun starts it)
+        sys.exit(tp_grads_worker(sys.argv[2], "--no-pil" in sys.argv))
     sys.exit(main())

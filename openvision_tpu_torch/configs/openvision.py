@@ -12,8 +12,9 @@ caption, the caption cross-entropy head-fused in ``cap_xent_chunk`` chunks),
 ``remat``, ``total_steps`` and ``runlocal``. The result is a plain dict; the
 tower dicts carry the port's keyword names (the JAX names, plus
 ``image_size`` and ``context_length``, which flax infers from the first
-input). The sharding mesh, wandb and eval sections are not ported: the
-port's trainer runs on one device.
+input). ``sharding.mesh`` is the JAX section (:81-92): the (data, fsdp,
+tensor) process mesh of ``train/trainer.py`` (seq and pipe > 1 raise); the
+wandb and eval sections are not ported.
 """
 
 from __future__ import annotations
@@ -29,6 +30,10 @@ DEFAULTS = dict(
     imagenet_epoch=2000,
     vitual_warmup_epoch=20,
     runlocal=False,
+    data_parallelism=-1,
+    fsdp_parallelism=1,
+    tensor_parallelism=1,
+    seq_parallelism=1,
     token_len=80,
     output_token_len=128,
     remat="full",
@@ -89,6 +94,10 @@ def get_config(arg: str | None = None) -> dict:
         "res": arg["res"],
         "seed": 0,
         "runlocal": arg["runlocal"],
+        "sharding": {"mesh": dict(
+            data=arg["data_parallelism"], fsdp=arg["fsdp_parallelism"],
+            tensor=arg["tensor_parallelism"], seq=arg["seq_parallelism"],
+            pipe=arg["pipe_parallelism"])},
         "save_ckpt": True,
         "ckpt_steps": 1000,
         "log_training_steps": 50,

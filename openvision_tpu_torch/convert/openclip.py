@@ -41,6 +41,14 @@ tower's keys under ``text.`` and the decoder's under ``txt_decoder.``:
 the towers between the two, :func:`jax_params_to_state_dict` takes a JAX
 param tree (towers and decoder) straight to the port, and
 :func:`state_dict_to_jax_params` goes back.
+
+Tensor-parallel shards (the JAX ``tensor`` axis rules, parallel/mesh.py:41-52:
+heads and mlp over tensor): a plan names each sharded leaf's kind --
+``qkv`` (``attn.in_proj_weight`` / ``in_proj_bias``: the rank's rows of q, of
+k and of v, stacked), ``rows`` (``mlp.c_fc.weight`` / ``c_fc.bias``) or
+``cols`` (``attn.out_proj.weight``, ``mlp.c_proj.weight``) --
+and :func:`shard_state_dict` cuts one rank's shard, :func:`unshard_state_dict`
+joins the shards of every rank back, bit for bit (numpy or torch leaves).
 """
 
 from __future__ import annotations
@@ -443,3 +451,53 @@ def flax_paths(name: str) -> list[str]:
             f"LayerNorm_{int(ln[3]) - 1}"
         return [f"{prefix}{jax_ln}/{'scale' if kind == 'weight' else 'bias'}"]
     return [prefix + p for p in _BLOCK_LEAVES[leaf]]
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel shards
+# ---------------------------------------------------------------------------
+
+TENSOR_KINDS = ("qkv", "rows", "cols")
+
+
+def _cat(parts, axis: int):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(list(parts), dim=axis)
+    return np.concatenate(parts, axis=axis)
+
+
+def shard_tensor(value, kind: str, rank: int, size: int):
+    """Rank `rank` of `size`'s shard of one leaf (see the module doc)."""
+    if kind == "qkv":
+        d = value.shape[0] // 3
+        n = d // size
+        return _cat([value[i * d + rank * n:i * d + (rank + 1) * n] for i in range(3)], 0)
+    if kind == "rows":
+        n = value.shape[0] // size
+        return value[rank * n:(rank + 1) * n]
+    if kind == "cols":
+        n = value.shape[1] // size
+        return value[:, rank * n:(rank + 1) * n]
+    raise ValueError(f"unknown tensor-shard kind {kind!r}")
+
+
+def unshard_tensor(parts, kind: str):
+    """The leaf whose shards, in rank order, are `parts`."""
+    if kind == "qkv":
+        n = parts[0].shape[0] // 3
+        return _cat([p[i * n:(i + 1) * n] for i in range(3) for p in parts], 0)
+    return _cat(parts, 0 if kind == "rows" else 1)
+
+
+def shard_state_dict(sd: Dict[str, Any], plan: Dict[str, str], *, rank: int,
+                     size: int) -> Dict[str, Any]:
+    """Rank `rank` of `size`'s state dict: each leaf `plan` names cut to its
+    shard, every other leaf as it is (replicated over tensor)."""
+    return {k: shard_tensor(v, plan[k], rank, size) if k in plan else v for k, v in sd.items()}
+
+
+def unshard_state_dict(parts, plan: Dict[str, str]) -> Dict[str, Any]:
+    """The whole state dict from the shards of every tensor rank, in rank
+    order; the inverse of :func:`shard_state_dict`."""
+    return {k: unshard_tensor([p[k] for p in parts], plan[k]) if k in plan else v
+            for k, v in parts[0].items()}

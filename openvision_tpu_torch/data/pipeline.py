@@ -10,6 +10,11 @@ stream, so a run is reproducible and its position (the count of records
 read) is all a checkpoint needs to resume on the exact next batch; grain's
 own shuffle and per-record seeds are not reproduced. Only the ``synthetic``
 source is ported.
+
+On a process mesh each process reads only its rows of every global batch
+(``rows``, its (data, fsdp) shard: ``parallel.Mesh.batch_rows``): the same
+records, with the same generators, that the one-process loader puts there;
+the position still counts the global batch's records.
 """
 
 from __future__ import annotations
@@ -58,9 +63,11 @@ def get_source(data_cfg: dict) -> SyntheticClipSource:
 class TrainIterator:
     """Batches of preprocessed records, forever, with a resumable position."""
 
-    def __init__(self, source, pp_fn, batch_size: int, seed: int, position: int = 0):
+    def __init__(self, source, pp_fn, batch_size: int, seed: int, position: int = 0,
+                 rows: slice = slice(None)):
         self.source, self.pp_fn = source, pp_fn
         self.batch_size, self.seed = batch_size, seed
+        self.rows = rows  # this process's rows of each global batch
         self.position = position  # records read so far
         self._order_epoch, self._order = None, None
 
@@ -77,7 +84,7 @@ class TrainIterator:
 
     def __next__(self) -> dict:
         examples = []
-        for pos in range(self.position, self.position + self.batch_size):
+        for pos in range(self.position, self.position + self.batch_size)[self.rows]:
             rng = np.random.default_rng([self.seed, pos])
             examples.append(self.pp_fn(dict(self.source[self._index(pos)]), rng))
         self.position += self.batch_size
@@ -87,9 +94,11 @@ class TrainIterator:
         return self.position
 
 
-def training(input_cfg: dict, *, seed: int = 0, position: int = 0):
-    """(batch iterator, number of examples) for the config's input section."""
+def training(input_cfg: dict, *, seed: int = 0, position: int = 0,
+             rows: slice = slice(None)):
+    """(batch iterator, number of examples) for the config's input section;
+    the iterator yields `rows` of each global batch."""
     import_pp_modules()
     source = get_source(input_cfg["data"])
     return (TrainIterator(source, build_pp_fn(input_cfg["pp"]), input_cfg["batch_size"], seed,
-                          position), len(source))
+                          position, rows), len(source))

@@ -1,12 +1,19 @@
 """Losses: bidirectional contrastive (CLIP), SigLIP and the caption cross-entropy.
 
-Counterpart of ``openvision_tpu/losses.py`` on one device:
+Counterpart of ``openvision_tpu/losses.py``:
 
 - :func:`bidirectional_contrastive_loss` in the ``global``, ``efficient``
   and ``local`` modes, over one or two text views per image (the loss is the
-  mean over views). ``local`` all-gathers the embeddings over the mesh's
-  batch axes in the JAX package (:93-124); on one device (world size 1,
-  rank 0) that is the global math with the positives on the diagonal;
+  mean over views). ``local`` (:93-124) takes a process's rows against the
+  columns of every batch shard, gathered over the mesh's (data, fsdp) axes
+  with a gather that carries gradients (``parallel.gather_batch``), the
+  positives on the diagonal shifted by the shard's offset in the global
+  batch (its (data, fsdp) coordinate, not its global rank). It returns
+  this process's share of the global mean, its rows' mean over the shard
+  count: the shares of the batch shards sum to the loss, and their
+  gradients, summed over data x fsdp by the train step, are the loss's (the
+  JAX psum of one global-mean loss). In one process that is the global math
+  with the positives on the diagonal;
 - :func:`siglip_loss` (:129), its ``local`` mode likewise the global math;
 - :func:`softmax_xent` (:177) and :func:`linear_softmax_xent` (:200-253),
   the caption cross-entropy fused with the vocab head: the f32 head product
@@ -24,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from openvision_tpu_torch.parallel import Mesh, gather_batch
+
 
 def _pair_loss_global(zimg, ztxt, t):
     """Full-matrix bidirectional NLL: (per-example loss, logits)."""
@@ -33,12 +42,15 @@ def _pair_loss_global(zimg, ztxt, t):
     return 0.5 * (l_i2t + l_t2i), logits
 
 
-def bidirectional_contrastive_loss(zimg, ztxt, t, *, mode: str = "local"):
+def bidirectional_contrastive_loss(zimg, ztxt, t, *, mode: str = "local",
+                                   mesh: Mesh | None = None):
     """Bidirectional contrastive loss over L2-normalized embeddings.
 
     zimg: (B, D); ztxt: (B, D) or a list of per-view (B, D); t: the exp'd
-    temperature. Returns (loss, extras), extras holding "ncorrect" (the
-    global mode's top-1 accuracy, zero in the others, as in the JAX package).
+    temperature; `mesh` (``local`` mode): the process mesh whose batch
+    shard these rows are (None: one process). Returns (loss, extras), extras
+    holding "ncorrect" (the global mode's top-1 accuracy, zero in the
+    others, as in the JAX package); ``local``'s loss is this shard's share.
     """
     views = list(ztxt) if isinstance(ztxt, (list, tuple)) else [ztxt]
     if mode == "global":
@@ -56,16 +68,20 @@ def bidirectional_contrastive_loss(zimg, ztxt, t, *, mode: str = "local"):
                           + (torch.logsumexp(logits, 0) - pos).mean())
 
         return sum(one(z) for z in views) / len(views), {"ncorrect": zimg.new_zeros(())}
-    if mode == "local":  # one device: rank 0's rows against every column
-        diag = torch.arange(zimg.shape[0], device=zimg.device)[:, None]
+    if mode == "local":  # this shard's rows against every shard's columns
+        shards, index = (1, 0) if mesh is None else (mesh.batch_shards, mesh.batch_index)
+        gather = (lambda z: z) if mesh is None else (lambda z: gather_batch(z, mesh))
+        bl = zimg.shape[0]
+        diag = index * bl + torch.arange(bl, device=zimg.device)[:, None]
+        gimg = gather(zimg)
 
         def view_loss(z):
-            lp_img = F.log_softmax((zimg @ z.t()) * t, dim=1)
-            lp_txt = F.log_softmax((z @ zimg.t()) * t, dim=1)
+            lp_img = F.log_softmax((zimg @ gather(z).t()) * t, dim=1)
+            lp_txt = F.log_softmax((z @ gimg.t()) * t, dim=1)
             return 0.5 * (-lp_img.gather(1, diag)[:, 0] - lp_txt.gather(1, diag)[:, 0])
 
         loss = sum(view_loss(z) for z in views) / len(views)
-        return loss.mean(), {"ncorrect": zimg.new_zeros(())}
+        return loss.mean() / shards, {"ncorrect": zimg.new_zeros(())}
     raise ValueError(f"Unknown contrastive mode: {mode!r}")
 
 

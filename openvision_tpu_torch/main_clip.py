@@ -10,6 +10,17 @@ string after it, each ``--override a.b.c=value`` sets one dotted key (the
 value parsed as int, float, bool, or else kept as a string), and
 ``train/trainer.py:train`` runs. ``--device`` defaults to ``cuda`` and raises
 without a card; ``--device cpu`` runs the plain versions of the kernels.
+
+Several processes, one per rank of the config's ``sharding.mesh``
+(``data_parallelism``, ``fsdp_parallelism``, ``tensor_parallelism`` in the
+config arg, or ``--override sharding.mesh.tensor=2``), come from torchrun:
+
+    python -m torch.distributed.run --nproc_per_node 2 -m openvision_tpu_torch.main_clip \
+        --config openvision_tpu_torch/configs/openvision.py:...,tensor_parallelism=2 ...
+
+Each process takes ``cuda:{LOCAL_RANK % device_count}``; the processes talk
+over NCCL when each has a GPU of its own, over gloo when they share one or
+run on the CPU (``--device cpu``).
 """
 
 from __future__ import annotations

@@ -23,6 +23,15 @@ Dispatch follows the JAX module (:97-105, :212-214):
 - otherwise ``fused`` falls to ``xla`` (cross-attention, an external mask),
   and a mask forces ``xla``;
 - ``flash`` and ``scan`` run the flash kernel (``ops/attention.py``).
+
+Under tensor parallelism (``train/step.py:shard_model``, when tensor divides
+the heads) a rank holds the q, k and v rows of its num_heads/t heads
+(``in_proj_weight`` (3 D/t, D)) and the matching columns of ``out_proj``
+(D, D/t): the inputs' gradients sum over tensor, the attention runs on the
+rank's heads (the ``fused`` route through ``fused_qkv_attention_tp``, the
+JAX ``_tp_qkv``), and the out-projection's partial is summed over tensor
+before the bias, as the JAX package's GSPMD does with its row-sharded out
+kernel.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from torch import nn
 
 from openvision_tpu_torch.models.layers import linear, zero_init
 from openvision_tpu_torch.ops.attention import dispatch_attention
-from openvision_tpu_torch.ops.fused_attention import fused_qkv_attention
+from openvision_tpu_torch.ops.fused_attention import fused_qkv_attention, fused_qkv_attention_tp
+from openvision_tpu_torch.parallel import copy_to_tensor, reduce_from_tensor, sharded_mesh
 
 
 class MultiHeadAttention(nn.Module):
@@ -50,6 +60,7 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.attn_impl = attn_impl
         self.dtype = dtype
+        self.tensor_parallel = 1  # the tensor axis size its heads are sharded over
 
     def forward(self, inputs_q: torch.Tensor, inputs_kv: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, *, causal: bool = False,
@@ -57,27 +68,45 @@ class MultiHeadAttention(nn.Module):
         """inputs_kv=None is self-attention; `mask` broadcasts to (B, H, Lq,
         Lk); `causal` with `prefix_len > 0` is the prefix-LM mask."""
         self_attn = inputs_kv is None or inputs_kv is inputs_q
-        b, lq, d = inputs_q.shape
+        b, lq, _ = inputs_q.shape
         dt = self.dtype
+        mesh = sharded_mesh(self.tensor_parallel)
+        num_heads = self.num_heads // self.tensor_parallel
+        d = self.in_proj_weight.shape[0] // 3  # D, or D/t on a tensor shard
         if self.attn_impl == "fused" and self_attn and mask is None:
             # the JAX module's fused route (:97-134): q/k/v weights in the
             # compute dtype, their biases f32 (the param dtype)
-            o = fused_qkv_attention(
-                inputs_q.to(dt).contiguous(), self.in_proj_weight.to(dt),
-                self.in_proj_bias.float(), num_heads=self.num_heads, causal=causal,
-                prefix_len=prefix_len)
-            return linear(o, self.out_proj, dt)
+            args = (inputs_q.to(dt).contiguous(), self.in_proj_weight.to(dt),
+                    self.in_proj_bias.float())
+            kw = dict(num_heads=self.num_heads, causal=causal, prefix_len=prefix_len)
+            o = fused_qkv_attention(*args, **kw) if mesh is None else \
+                fused_qkv_attention_tp(*args, **kw)
+            return self._out_proj(o, mesh)
         w, bias = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+        xq = inputs_q.to(dt)
+        if mesh is not None:  # the inputs' gradients sum over the shards
+            xq = copy_to_tensor(xq, mesh)
         if self_attn:
-            q, k, v = F.linear(inputs_q.to(dt), w, bias).split(d, dim=-1)
+            q, k, v = F.linear(xq, w, bias).split(d, dim=-1)
         else:
-            q = F.linear(inputs_q.to(dt), w[:d], bias[:d])
-            k, v = F.linear(inputs_kv.to(dt), w[d:], bias[d:]).split(d, dim=-1)
-        heads = lambda t: t.reshape(t.shape[0], t.shape[1], self.num_heads, d // self.num_heads)
+            xkv = inputs_kv.to(dt)
+            if mesh is not None:
+                xkv = copy_to_tensor(xkv, mesh)
+            q = F.linear(xq, w[:d], bias[:d])
+            k, v = F.linear(xkv, w[d:], bias[d:]).split(d, dim=-1)
+        heads = lambda t: t.reshape(t.shape[0], t.shape[1], num_heads, d // num_heads)
         q, k, v = heads(q), heads(k), heads(v)
 
         # a mask, or fused with its preconditions unmet: the unfused xla path
         impl = "xla" if mask is not None or self.attn_impl == "fused" else self.attn_impl
         o = dispatch_attention(impl, q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
                                dtype=dt)
-        return linear(o.reshape(b, lq, d), self.out_proj, dt)
+        return self._out_proj(o.reshape(b, lq, d), mesh)
+
+    def _out_proj(self, o: torch.Tensor, mesh) -> torch.Tensor:
+        """The out-projection; on a tensor shard the partial of its heads,
+        summed over tensor, then the bias."""
+        if mesh is None:
+            return linear(o, self.out_proj, self.dtype)
+        part = F.linear(o.to(self.dtype), self.out_proj.weight.to(self.dtype))
+        return reduce_from_tensor(part, mesh) + self.out_proj.bias.to(self.dtype)

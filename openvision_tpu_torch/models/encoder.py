@@ -52,6 +52,16 @@ PyTorch form being a selective checkpoint that saves ``aten.mm`` and
 heads, and the hand-written kernels are recomputed); ``minimal_offloaded``
 raises.
 
+Tensor parallelism (weights sharded by ``train/step.py:shard_model``, the
+tensor axis of the active mesh): a ``fused`` block's attention half runs
+``fused_mhsa_block_tp`` (the JAX ``_tp_block``: #11 and #12 on the rank's
+heads) when the heads divide by tensor, and otherwise the one-device block
+on the rank's batch rows; the LayerScale / drop-path route takes
+``MultiHeadAttention``'s ``_tp_qkv`` counterpart, and the MLP half the
+Megatron-sharded ``MlpBlock``. ``fused_t`` under tensor > 1 runs TP
+``fused`` blocks and logs a warning, as JAX ``models/encoder.py:564,
+593-616``.
+
 Parameters carry OpenCLIP's names (``transformer.resblocks.N.{ln_1, attn,
 ln_2, mlp}``, and ``ls_1.gamma`` / ``ls_2.gamma`` with LayerScale). Dropout
 (a rate > 0 raises), the scanned MLP, pipelining and the KV cache are not
@@ -61,6 +71,7 @@ ported yet.
 from __future__ import annotations
 
 import functools
+import logging
 from typing import Optional
 
 import numpy as np
@@ -71,8 +82,9 @@ from torch.utils import checkpoint as ckpt
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
 from openvision_tpu_torch.models.layers import DropPath, LayerNorm, LayerScale, MlpBlock
 from openvision_tpu_torch.ops.attention import prefix_lm_mask
-from openvision_tpu_torch.ops.fused_attention import fused_mhsa_block
+from openvision_tpu_torch.ops.fused_attention import fused_mhsa_block, fused_mhsa_block_tp
 from openvision_tpu_torch.ops.fused_encoder import mhsa_block, mlp_block
+from openvision_tpu_torch.parallel import sharded_mesh, tensor_size
 
 _GELU_APPROX = {"vit": False, "scaled": True}  # init_style -> tanh GELU
 ATTN_IMPLS = ("xla", "fused", "fused_t", "flash", "scan", "ring")
@@ -167,7 +179,7 @@ class EncoderBlock(nn.Module):
         # whole-sub-block fusion (:134-145): no LayerScale, no active drop-path
         if self.attn_impl == "fused" and not self.layer_scale and gen is None:
             x = self._fused_attn_subblock(x, causal, native_prefix)
-            if self.gelu_approx and not recording(self):
+            if self.gelu_approx and not recording(self) and self.mlp.tensor_parallel == 1:
                 return self._mlp_subblock_kernels(x)
             return x + self.mlp(self.ln_2(x))
         y = self.attn(self.ln_1(x), mask=mask, causal=causal, prefix_len=native_prefix)
@@ -178,15 +190,18 @@ class EncoderBlock(nn.Module):
     def _fused_attn_subblock(self, x, causal: bool, prefix_len: int):
         """``_block_kernel``'s sub-block: matrices in the compute dtype,
         LayerNorm parameters and biases in f32 (openvision_tpu/models/
-        encoder.py:217-228)."""
+        encoder.py:217-228); with the heads sharded over tensor,
+        ``fused_mhsa_block_tp``."""
         dt, f32 = self.dtype, torch.float32
-        return fused_mhsa_block(
-            x.contiguous(),
-            self.ln_1.weight.to(f32), self.ln_1.bias.to(f32),
-            self.attn.in_proj_weight.to(dt), self.attn.in_proj_bias.to(f32),
-            self.attn.out_proj.weight.to(dt), self.attn.out_proj.bias.to(f32),
-            num_heads=self.num_heads, causal=causal, prefix_len=prefix_len,
-            eps=self.ln_1.eps)
+        args = (x.contiguous(),
+                self.ln_1.weight.to(f32), self.ln_1.bias.to(f32),
+                self.attn.in_proj_weight.to(dt), self.attn.in_proj_bias.to(f32),
+                self.attn.out_proj.weight.to(dt), self.attn.out_proj.bias.to(f32))
+        kw = dict(num_heads=self.num_heads, causal=causal, prefix_len=prefix_len,
+                  eps=self.ln_1.eps)
+        if sharded_mesh(self.attn.tensor_parallel) is not None:
+            return fused_mhsa_block_tp(*args, **kw)
+        return fused_mhsa_block(*args, **kw)
 
     def _mlp_subblock_kernels(self, x):
         dt, f32 = self.dtype, torch.float32
@@ -243,7 +258,13 @@ class Encoder(nn.Module):
         """The fused_t kernels take the plain CLIP-vision-encode shape:
         cls-first self-attention with no mask, tanh GELU (the in-kernel
         activation), no LayerScale, and in training no drop-path, as
-        ``openvision_tpu/models/encoder.py:556-584``."""
+        ``openvision_tpu/models/encoder.py:556-584``; batch-sharded only (no
+        tensor > 1 mesh)."""
+        if self.attn_impl == "fused_t" and tensor_size() > 1:
+            logging.getLogger(__name__).warning(
+                "attn_impl=fused_t is batch-sharded only; tensor=%d mesh active -> using the "
+                "TP-aware 'fused' path (natural layout)", tensor_size())
+            return False
         return (
             self.attn_impl == "fused_t"
             and x.ndim == 3

@@ -13,7 +13,13 @@ Parameters use OpenCLIP's names and torch's (out, in) weight layout, so an
 at zero (LayerNorm scales at one, LayerScale at its init value) and draw
 nothing from the global RNG: the weights come from a checkpoint or
 ``models/init.py``. ``DropPath`` draws from an explicit
-``torch.Generator``. The logical sharding helpers are not ported yet.
+``torch.Generator``.
+
+Under tensor parallelism (``train/step.py:shard_model``) the MLP is
+Megatron-sharded, as the JAX logical rules shard ``mlp`` over ``tensor``
+(:159, :173; parallel/mesh.py:45-48): a rank holds its hidden slice of
+``c_fc`` (column-parallel) and the matching columns of ``c_proj``
+(row-parallel into a partial); one sum over tensor, then the bias.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from openvision_tpu_torch.ops.fused_encoder import layernorm_plain
+from openvision_tpu_torch.parallel import copy_to_tensor, reduce_from_tensor, sharded_mesh
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -104,11 +111,18 @@ class MlpBlock(nn.Module):
         self.c_proj = zero_init(nn.Linear, mlp_dim, width)
         self.gelu_approx = gelu_approx
         self.dtype = dtype
+        self.tensor_parallel = 1  # the tensor axis size its weights are sharded over
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = sharded_mesh(self.tensor_parallel)
+        if mesh is not None:  # the input's gradient sums over the shards
+            x = copy_to_tensor(x, mesh)
         h = linear(x, self.c_fc, self.dtype)
         h = F.gelu(h, approximate="tanh" if self.gelu_approx else "none")
-        return linear(h, self.c_proj, self.dtype)
+        if mesh is None:
+            return linear(h, self.c_proj, self.dtype)
+        part = F.linear(h.to(self.dtype), self.c_proj.weight.to(self.dtype))
+        return reduce_from_tensor(part, mesh) + self.c_proj.bias.to(self.dtype)
 
 
 class LayerScale(nn.Module):

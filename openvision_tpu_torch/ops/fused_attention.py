@@ -32,7 +32,20 @@ E[x^2] - mean^2, which differs by f32 rounding only.
 Weights are in torch's (out, in) layout: ``w_qkv`` (3D, D) is the query,
 key and value kernels transposed and stacked (``in_proj_weight``), ``w_o``
 (D, D) the out kernel transposed. LayerNorm parameters and biases are f32.
-The tensor-parallel variant (``_block_partial_kernel``) is not ported yet.
+
+Tensor parallelism (the JAX ``_tp_block`` / ``_tp_qkv``, :910-1439): with
+the heads sharded over the active mesh's tensor axis t, a rank holds
+``w_qkv`` (3 D/t, D) (the q, k and v rows of its num_heads/t heads) and
+``w_o`` (D, D/t). :func:`block_partial` is ``_block_partial_kernel`` (#11,
+:938): the same chain with rectangular weights, ending in the out-projection
+with no bias and no residual; :func:`block_partial_bwd` is
+``_block_partial_bwd_kernel`` (#12, :1057): #10's chain with rectangular
+weights, no residual in dx and no db_o. :func:`fused_mhsa_block_tp` sums
+the shards' bf16 partials over tensor and adds x and bo (``_TPBlock``);
+:func:`fused_qkv_attention_tp` runs #7/#8 on the shard's heads with dy
+summed over tensor. The existing kernels take the shard's shapes (N and K
+need only be multiples of 8; the attention kernels read q, k, v by stride),
+so the two ports add no CUDA source.
 
 :func:`fused_qkv_attention` is the Pallas ``_kernel`` (:92), the QKV
 projection and attention without LayerNorm and out-projection, which the
@@ -72,30 +85,36 @@ from openvision_tpu_torch.ops import flash_attention as fl
 from openvision_tpu_torch.ops import fused_encoder as fe
 from openvision_tpu_torch.ops import grad_kernels as gk
 from openvision_tpu_torch.ops import kernels
+from openvision_tpu_torch.parallel import active_mesh, all_reduce, copy_to_tensor
 
 
 def _folded(w_qkv, b_qkv, sm_scale: float):
     """The Pallas wrapper's fold of the softmax scale into wq (rounded to the
-    weight's dtype) and bq (f32), :157-162."""
-    d = w_qkv.shape[1]
+    weight's dtype) and bq (f32), :157-162 (:1005-1006 for a shard's
+    (3 D/t, D) weight)."""
+    d = w_qkv.shape[0] // 3
     return (torch.cat([w_qkv[:d] * sm_scale, w_qkv[d:]]),
             torch.cat([b_qkv[:d].float() * sm_scale, b_qkv[d:].float()]))
 
 
+def _head_dim(w_qkv, num_heads: int) -> int:
+    return w_qkv.shape[0] // 3 // num_heads
+
+
 def fused_mhsa_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
                            sm_scale: float | None = None, causal: bool = False,
-                           prefix_len: int = 0, eps: float = 1e-6):
+                           prefix_len: int = 0, eps: float = 1e-6, partial: bool = False):
     """x + OutProj(MHA(LN(x))) in f32 math, rounded where the kernels round;
-    the counterpart of ``_block_reference``. x: (B, L, D)."""
-    d = x.shape[-1]
+    the counterpart of ``_block_reference``. x: (B, L, D). With ``partial``
+    (and b_o None) it is :func:`block_partial_plain`."""
     if sm_scale is None:
-        sm_scale = (d // num_heads) ** -0.5
+        sm_scale = _head_dim(w_qkv, num_heads) ** -0.5
     w, b = _folded(w_qkv, b_qkv, sm_scale)
     y = fe.layernorm_plain(x, ln_w, ln_b, eps)
     qkv = fe.linear_plain(y, w, b)
     o = fe.attention_plain(qkv, num_heads, causal=causal,
                            prefix_len=prefix_len if causal else 0, scale=1.0)
-    return fe.linear_plain(o, w_o, b_o, residual=x)
+    return fe.linear_plain(o, w_o, b_o, residual=None if partial else x)
 
 
 def fused_mhsa_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads: int,
@@ -115,10 +134,10 @@ def fused_mhsa_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_
                                    prefix_len=prefix_len, eps=eps)
 
 
-def _check_scale(x, num_heads: int, sm_scale):
+def _check_scale(w_qkv, num_heads: int, sm_scale):
     """The kernel path's softmax scale: a power of two (see the module doc)."""
     if sm_scale is None:
-        sm_scale = (x.shape[-1] // num_heads) ** -0.5
+        sm_scale = _head_dim(w_qkv, num_heads) ** -0.5
     if math.frexp(sm_scale)[0] != 0.5:
         raise ValueError(f"fused_mhsa_block: the kernel path takes a power-of-two softmax "
                          f"scale, got {sm_scale}")
@@ -126,26 +145,30 @@ def _check_scale(x, num_heads: int, sm_scale):
 
 
 def _forward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads, sm_scale, causal,
-                     prefix_len, eps):
+                     prefix_len, eps, partial=False):
     """``_block_kernel`` as 4 launches: layernorm, QKV, attention (masked, q
-    scaled by `sm_scale`), out-proj + residual."""
-    sm_scale = _check_scale(x, num_heads, sm_scale)
+    scaled by `sm_scale`), out-proj + residual; ``partial`` (a shard's
+    weights, b_o None) ends in the out-proj alone, ``_block_partial_kernel``."""
+    sm_scale = _check_scale(w_qkv, num_heads, sm_scale)
     y = fe.layernorm(x, ln_w, ln_b, eps)
     qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
     o = fe.attention(qkv, num_heads, causal=causal, prefix_len=prefix_len if causal else 0,
                      scale=sm_scale)
-    return fe.gemm_bias_act(o, w_o, b_o, residual=x)
+    return fe.gemm_bias_act(o, w_o, b_o, residual=None if partial else x)
 
 
 def _backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads, sm_scale, causal,
-                      prefix_len, eps, nomax=False, bias_sum_per_image=True):
+                      prefix_len, eps, nomax=False, bias_sum_per_image=True, partial=False):
     """The backward on the card (see the module doc): 12 launches. It also
     serves ``_mhsa_t_bwd_kernel`` (``fused_encoder.mhsa_block``'s backward):
     ``nomax`` recomputes the probabilities as exp(min(s, 80)) / l, and the
     QKV bias gradient is then summed in f32 over every row
-    (``bias_sum_per_image=False``)."""
-    sm_scale = _check_scale(x, num_heads, sm_scale)
-    b, l, d = x.shape
+    (``bias_sum_per_image=False``); and ``_block_partial_bwd_kernel`` with
+    ``partial`` (a shard's rectangular weights): the LayerNorm backward
+    adds no g and no db_o is summed, 11 launches."""
+    sm_scale = _check_scale(w_qkv, num_heads, sm_scale)
+    b, l, _ = x.shape
+    d = w_qkv.shape[0] // 3
     hd = d // num_heads
     prefix = prefix_len if causal else 0
     if w_qkv.dtype != torch.bfloat16 or w_o.dtype != torch.bfloat16:
@@ -164,9 +187,11 @@ def _backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads, sm
     dw_o = gk.gemm_tn(g, o)
     dw_qkv = gk.gemm_tn(dqkv, y)
     dy = gk.gemm_nn(dqkv, w_qkv, torch.float32)
-    dx, dvec = gk.layernorm_bwd(x, ln_w, dy, g, eps=eps)
-    # per-image sums (rounded to bf16 for #10), then their f32 sum
+    dx, dvec = gk.layernorm_bwd(x, ln_w, dy, None if partial else g, eps=eps)
+    # per-image sums (rounded to bf16 for #10 and #12), then their f32 sum
     db_qkv = gk.colsum(dqkv, seg_len=l, round_bf16=bias_sum_per_image)
+    if partial:
+        return dx, dvec[0], dvec[1], dw_qkv, db_qkv, dw_o
     db_o = gk.colsum(g, seg_len=l)
     return dx, dvec[0], dvec[1], dw_qkv, db_qkv, dw_o, db_o
 
@@ -229,9 +254,8 @@ def fused_qkv_attention_plain(y, w_qkv, b_qkv, *, num_heads: int,
     (:92-143): q, k, v rounded to the compute dtype after the bias (q with
     the folded scale), f32 scores, the masked max-subtracted softmax with a
     row sum of 0 taken as 1, p rounded for p.v, then divided by l."""
-    d = y.shape[-1]
     if sm_scale is None:
-        sm_scale = (d // num_heads) ** -0.5
+        sm_scale = _head_dim(w_qkv, num_heads) ** -0.5
     w, b = _folded(w_qkv, b_qkv, sm_scale)
     qkv = fe.linear_plain(y, w, b)
     return fe.attention_plain(qkv, num_heads, causal=causal,
@@ -253,7 +277,8 @@ def fused_qkv_attention_bwd_plain(y, w_qkv, b_qkv, g, *, num_heads: int,
     def r(t):
         return t.to(cdt).float()
 
-    b, l, d = y.shape
+    b, l, _ = y.shape
+    d = w_qkv.shape[0] // 3  # D, or D/t on a tensor shard
     hd = d // num_heads
     scale = hd ** -0.5 if sm_scale is None else sm_scale
     yf = y.float()
@@ -265,7 +290,7 @@ def fused_qkv_attention_bwd_plain(y, w_qkv, b_qkv, g, *, num_heads: int,
                                              causal=causal, prefix_len=prefix_len)
     dqkv = torch.cat([t.reshape(b, l, d) for t in (dq, dk, dv)], dim=-1)
     dy = (dqkv @ w_qkv.float()).to(cdt)
-    dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ yf.reshape(-1, d)).to(w_qkv.dtype)
+    dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ yf.reshape(-1, y.shape[-1])).to(w_qkv.dtype)
     return dy, dw_qkv, r(dqkv.sum(1)).sum(0)
 
 
@@ -273,7 +298,7 @@ def _qkv_forward_kernels(y, w_qkv, b_qkv, *, num_heads, sm_scale, causal, prefix
     """``_kernel`` as 2 launches: the QKV gemm_bias_act and the attention
     kernel (masked, q scaled by the power-of-two `sm_scale`: the bits of the
     folded weights, as the module doc argues)."""
-    sm_scale = _check_scale(y, num_heads, sm_scale)
+    sm_scale = _check_scale(w_qkv, num_heads, sm_scale)
     qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
     return fe.attention(qkv, num_heads, causal=causal, prefix_len=prefix_len if causal else 0,
                         scale=sm_scale)
@@ -285,8 +310,9 @@ def _qkv_backward_kernels(y, w_qkv, b_qkv, g, *, num_heads, sm_scale, causal, pr
     ``attention_bwd`` writes dq (times the scale), dk and dv into one dqkv
     buffer; ``gemm_tn`` gives dW_qkv = dqkv^T y, ``gemm_nn`` dy = dqkv . W_qkv
     in y's dtype, ``colsum`` each image's bias sums, rounded, then f32."""
-    sm_scale = _check_scale(y, num_heads, sm_scale)
-    b, l, d = y.shape
+    sm_scale = _check_scale(w_qkv, num_heads, sm_scale)
+    b, l, _ = y.shape
+    d = w_qkv.shape[0] // 3
     hd = d // num_heads
     prefix = prefix_len if causal else 0
     if w_qkv.dtype != torch.bfloat16:
@@ -346,3 +372,157 @@ def fused_qkv_attention(y, w_qkv, b_qkv, *, num_heads: int, sm_scale: float | No
     if kernels.on_cpu(*args):
         return fused_qkv_attention_plain(*args, **kw)
     return _qkv_forward_kernels(*args, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: heads sharded over the mesh's tensor axis
+# (_block_partial_kernel, _block_partial_bwd_kernel, _tp_block, _tp_qkv)
+# ---------------------------------------------------------------------------
+
+
+def block_partial_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, *, num_heads: int,
+                        sm_scale: float | None = None, causal: bool = False,
+                        prefix_len: int = 0, eps: float = 1e-6):
+    """One tensor shard's OutProj_local(MHA_local(LN(x))), no residual and no
+    bo, in f32 math with the roundings of ``_block_partial_kernel``
+    (openvision_tpu/ops/fused_attention.py:938; twin of
+    ``_block_partial_reference`` :1034): y, q (the folded scale), k, v and o
+    rounded to x's dtype, the masked max-subtracted softmax with a row sum
+    of 0 taken as 1, the out-projection summed in f32 and rounded once.
+    x (B, L, D); w_qkv (3 D/t, D) the shard's q|k|v rows; b_qkv (3 D/t,)
+    f32; w_o (D, D/t); num_heads the shard's heads (num_heads / t)."""
+    return fused_mhsa_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, None, num_heads=num_heads,
+                                  sm_scale=sm_scale, causal=causal, prefix_len=prefix_len,
+                                  eps=eps, partial=True)
+
+
+def block_partial_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, *, num_heads: int,
+                            sm_scale: float | None = None, causal: bool = False,
+                            prefix_len: int = 0, eps: float = 1e-6):
+    """(dx, dln_w, dln_b, dw_qkv, db_qkv, dw_o) of :func:`block_partial_plain`
+    for the output gradient g, in the roundings of
+    ``_block_partial_bwd_kernel`` (:1057-1196): the #10 backward's
+    (:func:`fused_mhsa_block_bwd_plain`) on the shard's heads, with the
+    max-subtracted recompute, dx the LayerNorm path's alone (the caller sums
+    it over tensor and adds g) and no db_o. The weight grads come in their
+    weights' dtype (the f32 sums rounded once, the wrapper's cast
+    :1303-1306), the LayerNorm and bias grads in f32; the bias grads sum
+    each image's rounded dq, dk, dv (Pallas sums a bf16 array per grid
+    step, :1186-1190)."""
+    return fe.attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, None, g,
+                                   num_heads=num_heads, sm_scale=sm_scale, causal=causal,
+                                   prefix_len=prefix_len, eps=eps, partial=True)
+
+
+def block_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, *, num_heads: int,
+                  sm_scale: float | None = None, causal: bool = False, prefix_len: int = 0,
+                  eps: float = 1e-6):
+    """``_block_partial_kernel`` (#11) on the card: 4 launches, layernorm ->
+    QKV ``gemm_bias_act`` with the shard's (3 D/t, D) weight -> the
+    ``attention`` kernel over the shard's heads (q scaled by the power-of-two
+    scale) -> the out-projection ``gemm_bias_act`` with K = D/t, no bias and
+    no residual (bf16 out). On the CPU the plain version runs."""
+    kw = dict(num_heads=num_heads, sm_scale=sm_scale, causal=causal, prefix_len=prefix_len,
+              eps=eps)
+    if kernels.on_cpu(x, ln_w, ln_b, w_qkv, b_qkv, w_o):
+        return block_partial_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, **kw)
+    return _forward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, None, partial=True, **kw)
+
+
+def block_partial_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, *, num_heads: int,
+                      sm_scale: float | None = None, causal: bool = False, prefix_len: int = 0,
+                      eps: float = 1e-6):
+    """``_block_partial_bwd_kernel`` (#12) on the card: #10's chain on the
+    shard's rectangular weights in 11 launches (layernorm, QKV, the flash
+    forward with its logsumexp, do = g . Wo, ``attention_bwd`` dq and dk/dv,
+    two ``gemm_tn``, dy = dqkv . W_qkv in f32, ``layernorm_bwd`` without g,
+    one ``colsum``). Returns what :func:`block_partial_bwd_plain` returns;
+    on the CPU the plain version runs."""
+    kw = dict(num_heads=num_heads, sm_scale=sm_scale, causal=causal, prefix_len=prefix_len,
+              eps=eps)
+    if kernels.on_cpu(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g):
+        return block_partial_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, g, **kw)
+    return _backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, None, g, partial=True, **kw)
+
+
+def _tp_info(num_heads: int):
+    """(mesh, t) when head-sharded tensor parallelism applies (``_tp_info``
+    :924-935: an active mesh with tensor > 1 that divides the heads), else None."""
+    mesh = active_mesh()
+    if mesh is None or mesh.tensor <= 1 or num_heads % mesh.tensor:
+        return None
+    return mesh, mesh.tensor
+
+
+class _TPBlock(torch.autograd.Function):
+    """``_tp_block`` (:1253-1333): the shard's #11, the bf16 partials summed
+    over tensor, then x + out + bo (two roundings, :1274); the backward runs
+    #12 on the shard's heads, sums dx over tensor and adds g, sums the
+    LayerNorm grads over tensor, and forms dbo = sum g in f32, rounded to g's
+    dtype (:1329). The sums over the batch axes (the weight, bias and
+    LayerNorm grads of every rank's rows) are the step's gradient reduction,
+    which sums every parameter's gradient over data x fsdp once."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, mesh, kw):
+        ctx.save_for_backward(x, ln_w, ln_b, w_qkv, b_qkv, w_o)
+        ctx.mesh, ctx.kw = mesh, kw
+        part = block_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, **kw)
+        return (x + all_reduce(part, mesh.tensor_group)) + b_o
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        g = g.contiguous()
+        dx, dln_w, dln_b, dw_qkv, db_qkv, dw_o = block_partial_bwd(*saved, g, **ctx.kw)
+        group = ctx.mesh.tensor_group
+        dln = all_reduce(torch.stack([dln_w, dln_b]), group)
+        dbo = g.float().sum((0, 1)).to(g.dtype)
+        return g + all_reduce(dx, group), dln[0], dln[1], dw_qkv, db_qkv, dw_o, dbo, None, None
+
+
+def fused_mhsa_block_tp(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
+                        sm_scale: float | None = None, causal: bool = False,
+                        prefix_len: int = 0, eps: float = 1e-6):
+    """Tensor-parallel x + OutProj(MHA(LN(x))) with the heads sharded over
+    the active mesh's tensor axis (JAX :1336-1364): None when that does not
+    apply (no mesh, tensor 1, or heads that tensor does not divide), so the
+    caller runs :func:`fused_mhsa_block` on its batch rows.
+
+    x (B, L, D) is this rank's batch rows; w_qkv (3 D/t, D), b_qkv (3 D/t,)
+    and w_o (D, D/t) its shard (the q, k, v rows of its heads, the matching
+    columns of the out-projection); num_heads the model's (all shards').
+    b_o is taken in x's dtype, as the JAX wrapper casts it. Differentiable
+    when autograd records (``_TPBlock``)."""
+    info = _tp_info(num_heads)
+    if info is None:
+        return None
+    mesh, t = info
+    d = x.shape[-1]
+    if tuple(w_qkv.shape) != (3 * d // t, d) or tuple(w_o.shape) != (d, d // t):
+        raise ValueError(f"fused_mhsa_block_tp: tensor={t} takes the shard's weights, w_qkv "
+                         f"({3 * d // t}, {d}) and w_o ({d}, {d // t}); got "
+                         f"{tuple(w_qkv.shape)} and {tuple(w_o.shape)}")
+    kw = dict(num_heads=num_heads // t, sm_scale=(d // num_heads) ** -0.5 if sm_scale is None
+              else sm_scale, causal=causal, prefix_len=prefix_len if causal else 0, eps=eps)
+    args = (x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o.to(x.dtype))
+    return _TPBlock.apply(*args, mesh, kw)
+
+
+def fused_qkv_attention_tp(y, w_qkv, b_qkv, *, num_heads: int, sm_scale: float | None = None,
+                           causal: bool = False, prefix_len: int = 0):
+    """``_tp_qkv`` (:1376-1439): :func:`fused_qkv_attention` (#7, and #8
+    under autograd) on this shard's heads, the shard's columns of the
+    attention output (B, L, D/t) in head order; y's gradient is summed over
+    tensor (``parallel.copy_to_tensor``), the weight grads stay the shard's.
+    None when tensor parallelism does not apply (see
+    :func:`fused_mhsa_block_tp`)."""
+    info = _tp_info(num_heads)
+    if info is None:
+        return None
+    mesh, t = info
+    d = y.shape[-1]
+    return fused_qkv_attention(
+        copy_to_tensor(y, mesh), w_qkv, b_qkv, num_heads=num_heads // t,
+        sm_scale=(d // num_heads) ** -0.5 if sm_scale is None else sm_scale, causal=causal,
+        prefix_len=prefix_len)

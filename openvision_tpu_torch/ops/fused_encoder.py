@@ -339,7 +339,7 @@ def attention_grads_plain(q, k, v, do, *, scale: float, causal: bool = False,
 def attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads: int,
                          sm_scale: float | None = None, causal: bool = False,
                          prefix_len: int = 0, eps: float = 1e-6, nomax: bool = False,
-                         bias_sum_per_image: bool = True):
+                         bias_sum_per_image: bool = True, partial: bool = False):
     """(dx, dln_w, dln_b, dw_qkv, db_qkv, dw_o, db_o) of x + OutProj(MHA(LN(x)))
     for the output gradient g, in f32 math with the Pallas backwards'
     roundings to x's dtype (the compute dtype): y; q (scaled after the bias),
@@ -347,13 +347,20 @@ def attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads:
     gradient sums the rounded dq, dk, dv per image in the compute dtype,
     then in f32 (``_block_bwd_kernel``, ``bias_sum_per_image``), or in f32
     over every row (``_mhsa_t_bwd_kernel`` :388-389). dx is in x's dtype, the
-    weight grads in their weights' dtype, the rest f32."""
+    weight grads in their weights' dtype, the rest f32.
+
+    The weights may be one tensor shard's (``w_qkv`` (3 D/t, D) over
+    num_heads/t heads, ``w_o`` (D, D/t)). ``partial`` is the backward of
+    the shard's partial block OutProj(MHA(LN(x))) with no residual and no
+    bo (``_block_partial_bwd_kernel``, fused_attention.py:1057): dx is the
+    LayerNorm path's alone and no db_o is returned."""
     cdt = x.dtype
 
     def r(t):
         return t.to(cdt).float()
 
-    b, l, d = x.shape
+    b, l, _ = x.shape
+    d = w_qkv.shape[0] // 3  # the q (and k, v) width: D, or D/t on a shard
     hd = d // num_heads
     scale = hd ** -0.5 if sm_scale is None else sm_scale
     xf = x.float()
@@ -372,15 +379,17 @@ def attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads:
     o = o.reshape(b, l, d)
     dqkv = torch.cat([t.reshape(b, l, d) for t in (dq, dk, dv)], dim=-1)
 
-    dw_o = (gf.reshape(-1, d).t() @ o.reshape(-1, d)).to(w_o.dtype)
-    dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ y.reshape(-1, d)).to(w_qkv.dtype)
+    width = x.shape[-1]
+    dw_o = (gf.reshape(-1, width).t() @ o.reshape(-1, d)).to(w_o.dtype)
+    dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ y.reshape(-1, width)).to(w_qkv.dtype)
     dy = dqkv @ w_qkv.float()
     dxhat = dy * ln_w.float()
-    dx = gf + rstd * (dxhat - dxhat.mean(-1, keepdim=True)
-                      - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
     db_qkv = r(dqkv.sum(1)).sum(0) if bias_sum_per_image else dqkv.sum((0, 1))
-    return (dx.to(x.dtype), (dy * xhat).sum((0, 1)), dy.sum((0, 1)), dw_qkv, db_qkv, dw_o,
-            gf.sum((0, 1)))
+    grads = ((dx if partial else gf + dx).to(x.dtype), (dy * xhat).sum((0, 1)), dy.sum((0, 1)),
+             dw_qkv, db_qkv, dw_o)
+    return grads if partial else (*grads, gf.sum((0, 1)))
 
 
 def mhsa_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads: int,

@@ -19,6 +19,15 @@ rounded to bf16, as JAX's weak-typed scalar is), adds the f32 gradient term
 in f32 and rounds to bf16 only when it stores mu (optax's
 ``scale_by_adam`` with ``mu_dtype``). Updates are computed in f32 as optax does; parameters are
 updated in place.
+
+Under a process mesh the optimizer holds this process's pieces of the
+parameters (their tensor shards, and under FSDP2 their fsdp chunks): Adam
+and the decays are elementwise, so each piece updates alone, and the global
+norm of ``clip_by_global_norm`` (JAX :182) and of the telemetry (JAX
+``train/step.py:39-50``, f32 accumulation) sums each tensor-sharded leaf's
+squares over the tensor axis and every chunk's over fsdp, counting each
+replicated leaf once (:meth:`Optimizer.global_norm`): the one-process norm
+up to f32 summation order.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 
 from openvision_tpu_torch.convert.openclip import flax_paths
+from openvision_tpu_torch.parallel import Mesh, all_reduce
 
 
 def steps(prefix: str, config: dict, data_size: Optional[int] = None,
@@ -130,8 +140,15 @@ class Optimizer:
     grad_clip_norm, lr_mults, lwd with lwd_depth, wd, wd_mults.
     """
 
-    def __init__(self, config: dict, params: dict, *, sched_kw: dict):
+    def __init__(self, config: dict, params: dict, *, sched_kw: dict, mesh: Mesh | None = None,
+                 tensor_plan: Optional[dict] = None, fsdp_chunked=frozenset()):
+        """`params` this process's pieces (name -> tensor updated in place);
+        `mesh` the process mesh, `tensor_plan` the leaves sharded over its
+        tensor axis (name -> kind, ``train/step.py:tensor_plan``),
+        `fsdp_chunked` the leaves FSDP2 chunks over its fsdp axis."""
         self.params = params
+        self.mesh, self.tensor_plan = mesh, dict(tensor_plan or {})
+        self.fsdp_chunked = set(fsdp_chunked)
         names = list(params)
         schedule = config.get("schedule")
         if not isinstance(schedule, (list, tuple)):
@@ -195,7 +212,7 @@ class Optimizer:
         count = st["count"]
         g = {n: grads[n].float() for n in self.live}
         if self.clip_norm:
-            norm = torch.sqrt(sum((t * t).sum() for t in g.values()))
+            norm = self.global_norm(g)
             if not bool(norm < self.clip_norm):
                 g = {n: t / norm * self.clip_norm for n, t in g.items()}
         c = count + 1
@@ -232,6 +249,23 @@ class Optimizer:
             p.copy_((p.float() + u).to(p.dtype))
         st["count"] = c
         return updates
+
+    def global_norm(self, named: dict) -> torch.Tensor:
+        """The l2 norm (f32 accumulation) of the whole leaves whose pieces
+        `named` (name -> tensor) holds, the same on every process."""
+        if self.mesh is None:
+            return l2_norm(named.values())
+        zero = next(iter(named.values())).new_zeros((), dtype=torch.float32)
+        sq = {}  # (tensor-sharded, fsdp-chunked) -> the squares of such pieces
+        for n, t in named.items():
+            key = (n in self.tensor_plan, n in self.fsdp_chunked)
+            sq[key] = sq.get(key, zero) + (t.float() ** 2).sum()
+        tp = self.mesh.tensor_group
+        chunked = all_reduce(sq.get((True, True), zero), tp) + sq.get((False, True), zero)
+        if self.fsdp_chunked:
+            chunked = all_reduce(chunked, self.mesh.device_mesh.get_group("fsdp"))
+        return torch.sqrt(chunked + all_reduce(sq.get((True, False), zero), tp)
+                          + sq.get((False, False), zero))
 
     def state_dict(self) -> dict:
         return {"count": self.state["count"], "mu": dict(self.state["mu"]),

@@ -14,8 +14,10 @@ Usage:
       --config "res=224,img=L/14,txt_name=L,txt_decoder_name=L,dtype=bfloat16" \
       --image_folder testcat [--temperature 0.7 --top_k 40] [--device cuda]
 
-The checkpoint is a flat npz (the JAX package's ``save_npz``); Orbax and
-legacy tensorstore checkpoints are not ported yet and raise. With
+The checkpoint is a flat npz: the JAX package's ``save_npz``, or the port
+trainer's own train state (one process or a process mesh: the save gathers
+it whole); Orbax and legacy tensorstore checkpoints are not ported yet and
+raise. With
 ``--device cuda`` the ``fused``, ``fused_t`` and ``flash`` attention picks run
 the hand-written kernels, which take bf16: a float32 config with such a pick
 on CUDA raises rather than running the plain path. ``--device cpu`` runs the
@@ -31,14 +33,13 @@ import numpy as np
 import torch
 
 from openvision_tpu_torch.configs import openvision as cfg_mod
-from openvision_tpu_torch.convert.openclip import jax_params_to_state_dict
 from openvision_tpu_torch.data import ops_image
 from openvision_tpu_torch.data.tokenizer import get_tokenizer
 from openvision_tpu_torch.models.clip import CLIPModel
 from openvision_tpu_torch.models.decoder import generate
 from openvision_tpu_torch.models.encoder import cast_block_matrices
 from openvision_tpu_torch.tools.model_io import DEFAULT_VOCAB, resolve_device
-from openvision_tpu_torch.train.checkpoint import load_checkpoint
+from openvision_tpu_torch.train.checkpoint import load_state_dict
 from openvision_tpu_torch.train.step import DTYPES, build_model
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
@@ -108,7 +109,7 @@ def build_captioner(config: dict, checkpoint: str, vocab_path: str = DEFAULT_VOC
             "dtype=bfloat16, or attn_impl=xla,dec_attn_impl=xla for the plain path")
     device = resolve_device(device)
     model = build_model(config)
-    model.load_state_dict(jax_params_to_state_dict(load_checkpoint(checkpoint)))
+    model.load_state_dict(load_state_dict(checkpoint))
     model = model.to(device).eval().requires_grad_(False)
     cast_block_matrices(model, dtype)
     tok = get_tokenizer(vocab_path)

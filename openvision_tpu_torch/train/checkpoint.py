@@ -14,7 +14,11 @@ The trainer's own train state (:func:`save_train_state`,
 the port's parameter names: ``params/<name>``, the optimizer's
 ``opt/count``, ``opt/mu/<name>`` (bf16) and ``opt/nu/<name>``, ``step``
 and ``data_position`` (records the input pipeline has read), written
-atomically; the newest `keep` files are kept.
+atomically; the newest `keep` files are kept. On a process mesh the save
+gathers every leaf whole (FSDP2 chunks over data x fsdp, tensor shards over
+tensor, ``convert/openclip.py:unshard_tensor``) and process 0 alone writes
+the one-process file, which the caption tool and the daemon load unchanged;
+the restore cuts each process's pieces from it again.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from openvision_tpu_torch.convert.openclip import shard_tensor, unshard_tensor
 
 
 def recover_tree(names: Sequence[str], values: Sequence[Any]) -> Dict[str, Any]:
@@ -114,6 +121,18 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         "with the JAX package (train/checkpoint.py:save_npz)")
 
 
+def load_state_dict(path: str) -> Dict[str, Any]:
+    """The port's state dict of a checkpoint: the trainer's own train state
+    (the port's names, one process or a gathered mesh) as it is, a JAX param
+    tree converted (``convert/openclip.py:jax_params_to_state_dict``)."""
+    from openvision_tpu_torch.convert.openclip import jax_params_to_state_dict
+
+    params = load_checkpoint(path)
+    if "logit_scale" in params:  # the port's names (JAX calls the temperature "t")
+        return {k: torch.as_tensor(v) for k, v in params.items()}
+    return jax_params_to_state_dict(params)
+
+
 def _ckpt_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"ckpt-{step}.npz")
 
@@ -127,26 +146,91 @@ def saved_steps(directory: str) -> list[int]:
     return sorted(steps)
 
 
+def _whole(piece: torch.Tensor, name: str, param, opt) -> torch.Tensor:
+    """The whole leaf of which `piece` is this process's part, `param` the
+    model's parameter (an FSDP2 DTensor gives the chunks' layout)."""
+    if hasattr(param, "device_mesh"):
+        from torch.distributed.tensor import DTensor
+
+        piece = DTensor.from_local(piece, param.device_mesh, param.placements,
+                                   shape=param.shape, stride=param.stride()).full_tensor()
+    kind = opt.tensor_plan.get(name)
+    if kind is not None:
+        parts = [torch.empty_like(piece) for _ in range(opt.mesh.tensor)]
+        dist.all_gather(parts, piece.contiguous(), group=opt.mesh.tensor_group)
+        piece = unshard_tensor(parts, kind)
+    return piece
+
+
+def _piece(whole: torch.Tensor, name: str, param, opt) -> torch.Tensor:
+    """This process's part of a whole leaf (the inverse of :func:`_whole`)."""
+    kind = opt.tensor_plan.get(name)
+    if kind is not None:
+        whole = shard_tensor(whole, kind, opt.mesh.coords["tensor"], opt.mesh.tensor)
+    if hasattr(param, "device_mesh"):  # FSDP2: torch.chunk rows over fsdp
+        chunks = torch.chunk(whole, opt.mesh.shape["fsdp"], dim=0)
+        i = opt.mesh.coords["fsdp"]
+        whole = chunks[i] if i < len(chunks) else whole[:0]
+    return whole
+
+
+def gather_leaves(pieces: dict, model: torch.nn.Module, opt) -> dict:
+    """The whole leaves (on the CPU) of which `pieces` (name -> tensor, laid
+    out as the optimizer's parameters: gradients, moments) are this
+    process's parts; a collective on a process mesh (every process calls it)."""
+    if opt.mesh is None:
+        return {n: t.detach().cpu() for n, t in pieces.items()}
+    params = dict(model.named_parameters())
+    return {n: _whole(t.detach(), n, params[n], opt).cpu() for n, t in pieces.items()}
+
+
+def gather_train_state(model: torch.nn.Module, opt) -> dict:
+    """The whole train state (params, opt count, mu, nu) on the CPU; a
+    collective on a process mesh."""
+    if opt.mesh is None:
+        return {"params": dict(model.state_dict()), "count": opt.state["count"],
+                "mu": opt.state["mu"], "nu": opt.state["nu"]}
+    return {"params": gather_leaves(opt.params, model, opt), "count": opt.state["count"],
+            "mu": gather_leaves(opt.state["mu"], model, opt),
+            "nu": gather_leaves(opt.state["nu"], model, opt)}
+
+
 def save_train_state(directory: str, step: int, model: torch.nn.Module, opt,
-                     data_position: int, keep: int = 1) -> str:
-    """Writes the train state of `step`; deletes all but the newest `keep`."""
+                     data_position: int, keep: int = 1) -> Optional[str]:
+    """Writes the train state of `step`; deletes all but the newest `keep`.
+    On a process mesh every process calls it, process 0 writes."""
+    state = gather_train_state(model, opt)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return None
     os.makedirs(directory, exist_ok=True)
     path = _ckpt_path(directory, step)
     save_npz(path, {
-        "params": dict(model.state_dict()),
-        "opt": {"count": np.asarray(opt.state["count"]), "mu": opt.state["mu"],
-                "nu": opt.state["nu"]},
+        "params": state["params"],
+        "opt": {"count": np.asarray(state["count"]), "mu": state["mu"], "nu": state["nu"]},
         "step": np.asarray(step), "data_position": np.asarray(data_position)})
     for old in saved_steps(directory)[:-max(keep, 1)]:
         os.remove(_ckpt_path(directory, old))
     return path
 
 
+@torch.no_grad()
 def restore_train_state(directory: str, step: int, model: torch.nn.Module, opt) -> int:
-    """Loads the train state of `step` into `model` and `opt`; returns the
-    data position it was saved at."""
+    """Loads the train state of `step` into `model` and `opt` (this
+    process's pieces of it on a process mesh); returns the data position it
+    was saved at."""
     tree = load_npz(_ckpt_path(directory, step))
-    model.load_state_dict({k: torch.as_tensor(v) for k, v in tree["params"].items()})
-    opt.load_state_dict({"count": int(tree["opt"]["count"]), "mu": tree["opt"]["mu"],
-                         "nu": tree["opt"]["nu"]})
+    opt_tree = tree["opt"]
+    if opt.mesh is None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in tree["params"].items()})
+        mu, nu = opt_tree["mu"], opt_tree["nu"]
+    else:
+        params = dict(model.named_parameters())
+
+        def pieces(leaves, names):
+            return {n: _piece(torch.as_tensor(leaves[n]), n, params[n], opt) for n in names}
+
+        for n, t in pieces(tree["params"], opt.params).items():
+            opt.params[n].copy_(t)
+        mu, nu = pieces(opt_tree["mu"], opt.live), pieces(opt_tree["nu"], opt.live)
+    opt.load_state_dict({"count": int(opt_tree["count"]), "mu": mu, "nu": nu})
     return int(tree["data_position"])

@@ -1,12 +1,13 @@
 """The training loop: config -> data -> model -> state -> steps.
 
-Counterpart of ``openvision_tpu/train/trainer.py:train`` (:180-506) on one
-device: the input pipeline (``data/pipeline.py``), the model and optimizer
-from the config's seed (``train/step.py``), the init decision chain (resume
-from the workdir's own newest checkpoint, with the data position it was
-saved at; else ``ft_from``, a flat-name npz param tree as the JAX package
-writes it; else the fresh init), then the loop: one update per batch,
-measurements and :class:`~openvision_tpu_torch.train.chrono.Chrono` timing
+Counterpart of ``openvision_tpu/train/trainer.py:train`` (:180-506): the
+input pipeline (``data/pipeline.py``), the model and optimizer from the
+config's seed (``train/step.py``), the init decision chain (resume from the
+workdir's own newest checkpoint, with the data position it was saved at;
+else ``ft_from``, a flat-name npz: a JAX param tree or the port's own train
+state; else the fresh init), then the loop: one update per batch,
+measurements, :class:`~openvision_tpu_torch.train.chrono.Chrono` timing and
+the process's CUDA kernel launch counts so far (``launches/<kernel>``)
 written every ``log_training_steps``, the train state every ``ckpt_steps``
 and at the end (``train/checkpoint.py``). The first batch's token ids are
 checked against the vocabulary sizes (:45-79).
@@ -14,10 +15,20 @@ checked against the vocabulary sizes (:45-79).
 Each step ends in a device synchronize, so its host time covers its device
 work and the chronometer's host-wait share is the input pipeline's part.
 
+Several processes (``torchrun``, one per rank): ``maybe_distributed_init``
+(``parallel/mesh.py``; JAX :82) joins the process group of torchrun's
+environment and gives each process its device, the config's
+``sharding.mesh`` (data, fsdp, tensor) becomes the process mesh, active for
+the whole run, each process loads its (data, fsdp) rows of every batch, the
+model and optimizer are placed by ``train/step.py``, ``sync`` (JAX :90) is a
+barrier at the run's named points, and process 0 alone writes the metrics,
+the chronometer and the checkpoints (JAX :194, :228, :385), which save the
+whole state.
+
 Left out, and refused by name when a config asks for them: evaluators,
-a mesh of more than one device and multiple processes, the profiler hook,
-``steps_per_dispatch``, ``load_transform`` and ``masked_init``; the SIGTERM
-hook is not installed (a resume loses the steps since the last checkpoint).
+the seq and pipe mesh axes, the profiler hook, ``steps_per_dispatch``,
+``load_transform`` and ``masked_init``; the SIGTERM hook is not installed (a
+resume loses the steps since the last checkpoint).
 """
 
 from __future__ import annotations
@@ -31,9 +42,9 @@ import numpy as np
 import torch
 
 from openvision_tpu_torch import optim
-from openvision_tpu_torch.convert.openclip import jax_params_to_state_dict
 from openvision_tpu_torch.data import pipeline
-from openvision_tpu_torch.tools.model_io import resolve_device
+from openvision_tpu_torch.ops import kernels
+from openvision_tpu_torch.parallel import create_mesh, maybe_distributed_init, rank, sync, use_mesh
 from openvision_tpu_torch.train import checkpoint as ckpt_lib
 from openvision_tpu_torch.train import step as step_mod
 from openvision_tpu_torch.train.chrono import Chrono
@@ -45,9 +56,6 @@ def _should(step: int, every: Optional[int], total: int) -> bool:
 
 
 def _refuse_unported(config: dict) -> None:
-    mesh = dict((config.get("sharding") or {}).get("mesh") or {})
-    if any(v not in (-1, 1) for v in mesh.values()):
-        raise NotImplementedError(f"sharding.mesh {mesh}: the port trains on one device only")
     for key in ("evals", "load_transform", "masked_init"):
         if config.get(key):
             raise NotImplementedError(f"config.{key} is not ported yet")
@@ -75,28 +83,45 @@ def train(config: dict, workdir: Optional[str] = None, device="cuda"):
     """Trains for config["total_steps"]; returns (model, optimizer, the last
     step's measurements as floats)."""
     _refuse_unported(config)
-    device = resolve_device(device)
-    writer = MetricWriter(workdir, config)
+    device = maybe_distributed_init(device)
+    mesh = create_mesh(**dict((config.get("sharding") or {}).get("mesh") or {}),
+                       device_type=device.type)
+    with use_mesh(mesh):
+        return _train(config, workdir, device, mesh)
+
+
+def _train(config, workdir, device, mesh):
+    main = rank() == 0
+    writer = MetricWriter(workdir if main else None, config)
     chrono = Chrono()
 
     def note(msg):
-        print(f"NOTE: {msg}", flush=True)
+        if main:
+            print(f"NOTE: {msg}", flush=True)
 
     batch_size = config["input"]["batch_size"]
-    loader, ntrain = pipeline.training(config["input"], seed=config.get("seed", 0))
+    loader, ntrain = pipeline.training(config["input"], seed=config.get("seed", 0),
+                                       rows=mesh.batch_rows(batch_size))
     total_steps = optim.steps("total", config, ntrain, batch_size)
     chrono.inform(total_steps=total_steps, global_bs=batch_size)
-    note(f"{total_steps} steps, batch {batch_size}, on {device}")
-
-    model = step_mod.build_model(config).to(device)
-    opt = step_mod.init_train_state(config, model, total_steps=total_steps, data_size=ntrain)
-    writer.measure("num_params", sum(p.numel() for p in model.parameters()))
-    note(f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params")
+    note(f"{total_steps} steps, batch {batch_size}, on {device}, mesh {mesh.shape}")
 
     ckpt_dir = os.path.join(workdir, "checkpoints") if workdir else None
     chrono_path = os.path.join(workdir, "chrono.json") if workdir else None
-    first_step = 0
     saved = ckpt_lib.saved_steps(ckpt_dir) if ckpt_dir else []
+    params = None
+    if not saved and config.get("ft_from"):
+        note(f"finetuning from {config['ft_from']}")
+        params = ckpt_lib.load_state_dict(config["ft_from"])
+    model = step_mod.build_model(config).to(device)
+    sizes = {n: p.numel() for n, p in model.named_parameters()}  # whole, before placement
+    opt = step_mod.init_train_state(
+        config, model, total_steps=total_steps, data_size=ntrain, mesh=mesh,
+        params=None if params is None else {k: v.to(device) for k, v in params.items()})
+    writer.measure("num_params", sum(sizes.values()))
+    note(f"{sum(sizes.values()) / 1e6:.1f}M params")
+
+    first_step = 0
     if saved:
         first_step = saved[-1]
         loader.position = ckpt_lib.restore_train_state(ckpt_dir, first_step, model, opt)
@@ -104,10 +129,7 @@ def train(config: dict, workdir: Optional[str] = None, device="cuda"):
         if os.path.exists(chrono_path):
             with open(chrono_path) as f:
                 chrono.load(json.load(f))
-    elif config.get("ft_from"):
-        note(f"finetuning from {config['ft_from']}")
-        sd = jax_params_to_state_dict(ckpt_lib.load_checkpoint(config["ft_from"]))
-        model.load_state_dict({k: v.to(device) for k, v in sd.items()})
+    sync("init")
 
     update_fn = step_mod.make_update_fn(config, model, opt)
     log_every = config.get("log_training_steps", 50)
@@ -129,11 +151,17 @@ def train(config: dict, workdir: Optional[str] = None, device="cuda"):
             writer.step_start(step)
             for name, value in measurements.items():
                 writer.measure(name, value)
+            for name, n in kernels.LAUNCHES.items():  # this process's, since it started
+                if n:
+                    writer.measure(f"launches/{name}", n)
             chrono.tick(step, writer.measure)
             note(f"step {step}/{total_steps} loss={float(measurements['training_loss']):.4f}")
         if ckpt_dir and _should(step, ckpt_every, total_steps):
             ckpt_lib.save_train_state(ckpt_dir, step, model, opt, loader.get_state(), keep)
-            with open(chrono_path, "w") as f:
-                json.dump(chrono.save(), f)
+            if main:
+                with open(chrono_path, "w") as f:
+                    json.dump(chrono.save(), f)
+            sync("checkpoint")
     writer.close()
+    sync("final")
     return model, opt, {k: float(v) for k, v in measurements.items()}

@@ -25,7 +25,8 @@ def test_port_imports_no_jax_flax_or_triton():
     mods = _port_modules()
     for m in ("ops.fused_encoder", "ops.grad_kernels", "losses", "optim", "train.step",
               "train.trainer", "main_clip", "data.pipeline", "data.bert_ops", "utils.registry",
-              "ops.fused_encoder_int8", "serving.quant", "serving.server"):
+              "ops.fused_encoder_int8", "serving.quant", "serving.server", "parallel",
+              "parallel.mesh", "ops.fused_attention", "train.checkpoint", "convert.openclip"):
         assert f"openvision_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

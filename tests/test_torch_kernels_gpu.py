@@ -33,6 +33,9 @@ the epilogue repeats the plain order; GELU's tanh differs in its last
 bits), bf16 ones 2**-7; the f32 attention output 2**-8 (summation order,
 and a bf16 rounding of p that can flip); the int8 sub-blocks on out - x,
 2**-6 of its max plus the residual add's rounding (2**-8 of |out|).
+The tensor-parallel block kernels (#11, #12: one shard's rectangular
+weights) as the fused block: 2**-6 for #11's partial (no residual), 2**-5
+for each output of #12.
 Under the causal and prefix-LM masks every query row sees key 0, so no row
 is fully masked; the attention backward cases hold the dual instead: keys
 that no query sees (causal, Lq < Lk) get exactly zero dk and dv.
@@ -728,5 +731,45 @@ def test_fused_qkv_attention_kernels(dev, b, l, d, h, causal, prefix):
                                          attention_bwd_dq=1, attention_bwd_dkv=1, gemm_tn=1,
                                          gemm_nn=1, colsum=1)
     for name, a, r in zip(("dy", "dw_qkv", "db_qkv"), got, ref):
+        assert a.dtype == r.dtype, name
+        assert _rel_err(a, r.float()) <= 2**-5, name
+
+
+TP_CASES = [(2, 257, 1024, 16, False, 0, 2), (2, 257, 1024, 16, False, 0, 4),
+            (2, 463, 768, 12, True, 335, 2), (2, 101, 768, 12, True, 0, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,d,h,causal,prefix,t", TP_CASES)
+def test_tensor_parallel_block_kernels(dev, b, l, d, h, causal, prefix, t):
+    """#11 (4 launches) and #12 (11 launches) on the last shard's weights
+    against the plain twins of _block_partial_kernel and
+    _block_partial_bwd_kernel."""
+    from openvision_tpu_torch.convert.openclip import shard_tensor
+
+    g = torch.Generator().manual_seed(l * t + prefix)
+    x, dout = _rand(g, dev, b, l, d).bfloat16(), _rand(g, dev, b, l, d).bfloat16()
+    ln_w, ln_b = _rand(g, dev, d) * 0.1 + 1, _rand(g, dev, d) * 0.1
+    w_qkv = shard_tensor(_rand(g, dev, 3 * d, d, scale=d**-0.5), "qkv", t - 1, t)
+    b_qkv = shard_tensor(_rand(g, dev, 3 * d, scale=0.1), "qkv", t - 1, t).contiguous()
+    w_o = shard_tensor(_rand(g, dev, d, d, scale=d**-0.5), "cols", t - 1, t)
+    w_qkv, w_o = w_qkv.bfloat16().contiguous(), w_o.bfloat16().contiguous()
+    kw = dict(num_heads=h // t, sm_scale=0.125, causal=causal, prefix_len=prefix)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        out = fa.block_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES == _launches(layernorm=1, gemm_bias_act=2, attention=1)
+        ref = fa.block_partial_plain(x.float(), ln_w, ln_b, w_qkv.float(), b_qkv,
+                                     w_o.float(), **kw)
+        assert _rel_err(out, ref) <= 2**-6
+        kernels.reset_launch_counts()
+        got = fa.block_partial_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_o, dout, **kw)
+        torch.cuda.synchronize()
+        want = fa.block_partial_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, dout, **kw)
+    assert kernels.LAUNCHES == _launches(layernorm=1, gemm_bias_act=1, flash_attention=1,
+                                         gemm_nn=2, attention_bwd_dq=1, attention_bwd_dkv=1,
+                                         gemm_tn=2, layernorm_bwd=1, colsum=1)
+    for name, a, r in zip(("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o"), got, want):
         assert a.dtype == r.dtype, name
         assert _rel_err(a, r.float()) <= 2**-5, name
