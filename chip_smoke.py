@@ -17,6 +17,18 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    single-k and, at Lk > 768, the multi-k Pallas rounding order; the
    composed fused block (layernorm, QKV, attention, out-proj) against its
    plain version, held on what it adds to its input.
+2c. The Hopper GEMM family (csrc/hopper.cuh: TMA + wgmma, warp-specialised,
+   persistent): each layout (forward, NN, TN with and without the split over
+   rows, #4's dual kernel) and epilogue against its plain version at a
+   ragged M = 1000 and at the main path's b=64 products (QKV, out-proj,
+   fc1, fc2, the tensor-2 shards, the dgrads, the wgrads, the dual kernel),
+   bf16 outputs within 2**-7 and f32 ones within 2**-12 of max|plain|; each
+   product then timed by CUDA-graph replay, its TFLOP/s and share of 989
+   beside F.linear / torch.matmul, and the wrapper's host time a call; then
+   #2 (mlp_block) and #4 (_mlp_backward_kernels) whole. `python3
+   chip_smoke.py --gemm [ROOT]` runs this phase alone on the package of the
+   checkout at ROOT (checks only for this checkout), so that two checkouts
+   are timed on one card in one call.
 3. The zero-shot path at full width, with random weights made from a seed:
    a ViT-L/14-224 + text-L export in OpenCLIP layout is written to a temp
    dir, loaded with load_model(dtype=bfloat16, attn_impl="fused_t",
@@ -102,9 +114,10 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    _mhsa_t_bwd_kernel chain (#3: the fused block's backward with the nomax
    recompute and f32 bias sums) at the image tower's L=257 D=1024 and the
    text tower's L=80 D=768, nomax off and on; the _mlp_t_bwd_kernel chain
-   (#4: fc1 recompute writing the f32 pre-activation, the dGELU GEMM with
-   column partials, the NN/TN GEMMs, LN backward, column sums) at both
-   widths; the dGELU GEMM alone; fused_qkv_attention's forward (#7) and
+   (#4: LayerNorm, the dual kernel (fc1 recompute and dGELU product in two
+   accumulators, the f32 pre-activation kept on chip, column partials), the
+   NN/TN GEMMs, LN backward, column sums) at both widths; the dual kernel
+   alone; fused_qkv_attention's forward (#7) and
    the _qkv_bwd_kernel chain (#8) unmasked at L=257, causal at L=128 and
    prefix-LM at L=463. Each output within its bound (BWD_TOL), dx on dx - g.
 13. Those kernels at B=64 (the image tower's shapes): CUDA events and
@@ -198,7 +211,7 @@ L14_CONFIG = {
 LAUNCHES_PER_BLOCK = {"layernorm": 2, "gemm_bias_act": 4, "attention": 1, "flash_attention": 0,
                       "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "gemm_nn": 0, "gemm_tn": 0,
                       "layernorm_bwd": 0, "colsum": 0, "gemm_int8": 0, "layernorm_quant": 0,
-                      "quant_rows": 0, "gemm_nn_dgelu": 0}
+                      "quant_rows": 0, "mlp_bwd_dual": 0}
 # Per int8 block (phase 11): 2 LN + quantise, 4 int8 products, 1 attention
 # with f32 output, 2 quantises; per encode the pooled row's quantise and the
 # head's int8 product on top.
@@ -236,10 +249,10 @@ SCALE_REL_TOL, QUANT_FLIPS = 2**-20, 1e-3
 # |dx|, RESIDUAL_ROUNDING).
 # The training paths' backward chains (phase 12) are held like the fused
 # block's: #3 (the fused block's chain with the nomax recompute and f32
-# bias sums), #4 (9 launches: dh rounded to bf16 where a sum order can flip
+# bias sums), #4 (8 launches: dh rounded to bf16 where a sum order can flip
 # it, compounded through dW1 and dy) and #8 (7 launches) -> 2**-5 for every
 # output, dx on dx - g; #7's forward as the attention kernel, 2**-6; the
-# dGELU GEMM's bf16 dh 2**-7 and its f32 column sums (db1) 2**-12.
+# dual kernel's bf16 gact and dh 2**-7 and its f32 column sums (db1) 2**-12.
 # The tensor-parallel kernels (phase 16) are held as #9 and #10: #11's
 # partial (no residual) at 2**-6 of max|plain|, #12's outputs at 2**-5, dx
 # on dx alone (it has no residual).
@@ -278,7 +291,7 @@ KERNEL_INFO = {
                       [f"{_FA}:698", _BWD3, _BWD4, _TP12]),
     "colsum": ("openvision_tpu_torch/csrc/layernorm.cu",
                [f"{_FA}:698", _BWD3, _BWD4, _QKV8, _TP12]),
-    "gemm_nn_dgelu": ("openvision_tpu_torch/csrc/gemm_grad.cu", [_BWD4]),
+    "mlp_bwd_dual": ("openvision_tpu_torch/csrc/gemm_grad.cu", [_BWD4]),
     "gemm_int8": ("openvision_tpu_torch/csrc/gemm_int8.cu", [f"{_F8}:39", f"{_F8}:138", f"{_Q}:415"]),
     "layernorm_quant": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_F8}:39", f"{_F8}:138"]),
     "quant_rows": ("openvision_tpu_torch/csrc/layernorm.cu", [f"{_F8}:39", f"{_F8}:138", f"{_Q}:415"]),
@@ -376,6 +389,27 @@ def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log: str) -> dict:
+    """Prints each kernel's registers and spill stores from nvcc's -Xptxas -v
+    output (build.log); returns {kernel: spill store bytes}."""
+    import re
+
+    spills, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spills[name] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            print(f"  ptxas: {name[:100]:100s} {m.group(1):>3s} registers, "
+                  f"{spills.get(name, 0)} bytes spill stores")
+            name = None
+    return spills
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -760,6 +794,146 @@ def time_kernels(fe, device, batch: int = 64) -> dict:
             largest[c.name] = t["bound_ms"]
             acc["bound_by"] = t["bound_by"]
     return times
+
+
+# ---------------------------------------------------------------------------
+# The Hopper GEMM family (phase 2c; alone: chip_smoke.py --gemm [ROOT])
+# ---------------------------------------------------------------------------
+
+
+GEMM_ROWS = 64 * 257  # b=64 at ViT-L/14's 257 tokens
+# The main path's products at b=64: (label, layout, N, K, options). "fwd" is
+# gemm_bias_act, A (M, K) . W (N, K)^T; "nn" is gemm_nn, dC (M, K) . W (K, N);
+# "tn" is gemm_tn, dC (M, N)^T . X (M, K) -> (N, K); "dual" is #4's
+# mlp_bwd_dual, y . W1^T and g . W2 over K = D into N = hidden.
+GEMM_PRODUCTS = [
+    ("QKV", "fwd", 3072, 1024, {}),
+    ("out-proj + res", "fwd", 1024, 1024, {"residual": True}),
+    ("fc1 + GELU", "fwd", 4096, 1024, {"gelu": True}),
+    ("fc2 + res", "fwd", 1024, 4096, {"residual": True}),
+    ("QKV t=2 (N = 3D/2)", "fwd", 1536, 1024, {}),
+    ("out-proj t=2 (K = D/2, no bias)", "fwd", 1024, 512, {"bias": False}),
+    ("do = g.Wo", "nn", 1024, 1024, {}),
+    ("dy = dqkv.Wqkv, f32", "nn", 1024, 3072, {"f32": True}),
+    ("dy = dh.W1, f32", "nn", 1024, 4096, {"f32": True}),
+    ("dy t=2 = dqkv.Wqkv shard, f32", "nn", 1024, 1536, {"f32": True}),
+    ("dWqkv = dqkv^T y", "tn", 3072, 1024, {}),
+    ("dWo = g^T o", "tn", 1024, 1024, {}),
+    ("dW1 = dh^T y", "tn", 4096, 1024, {}),
+    ("dW2 = g^T gact", "tn", 1024, 4096, {}),
+    ("dWqkv t=2", "tn", 1536, 1024, {}),
+    ("#4 dual: y.W1^T and g.W2", "dual", 4096, 1024, {}),
+]
+GEMM_NAMES = {"fwd": "gemm_bias_act", "nn": "gemm_nn", "tn": "gemm_tn", "dual": "mlp_bwd_dual"}
+
+
+def gemm_product(fe, gk, device, gen, m: int, layout: str, n: int, k: int, opts: dict):
+    """(kernel, plain, library, flops) of one product: the kernel's call, its
+    plain version in f32 from the same bf16 inputs (a tuple of outputs), the
+    PyTorch call(s) for the same product, and its operations."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    if layout == "fwd":
+        a, w = rnd(m, k).bfloat16(), rnd(n, k, scale=k**-0.5).bfloat16()
+        b = rnd(n, scale=0.1) if opts.get("bias", True) else None
+        r = rnd(m, n).bfloat16() if opts.get("residual") else None
+        gelu = bool(opts.get("gelu"))
+        b16 = None if b is None else b.bfloat16()
+        return (lambda: (fe.gemm_bias_act(a, w, b, gelu=gelu, residual=r),),
+                lambda: (fe.linear_plain(a.float(), w.float(), b, gelu=gelu,
+                                         residual=None if r is None else r.float()),),
+                lambda: F.linear(a, w, b16), 2 * m * n * k)
+    if layout == "nn":
+        a, w = rnd(m, k).bfloat16(), rnd(k, n, scale=k**-0.5).bfloat16()
+        out = torch.float32 if opts.get("f32") else torch.bfloat16
+        return (lambda: (gk.gemm_nn(a, w, out),), lambda: (gk.gemm_nn_plain(a, w, torch.float32),),
+                lambda: torch.matmul(a, w), 2 * m * n * k)
+    if layout == "tn":
+        dc, x = rnd(m, n).bfloat16(), rnd(m, k).bfloat16()
+        return (lambda: (gk.gemm_tn(dc, x),), lambda: (gk.gemm_tn_plain(dc, x, torch.float32),),
+                lambda: torch.matmul(dc.t(), x), 2 * m * n * k)
+    y, g = rnd(m, k).bfloat16(), rnd(m, k).bfloat16()
+    w1, b1 = rnd(n, k, scale=k**-0.5).bfloat16(), rnd(n, scale=0.1)
+    w2 = rnd(k, n, scale=n**-0.5).bfloat16()
+
+    def sums(gact, dh, col):
+        return gact, dh, col.sum(0)
+
+    return (lambda: sums(*gk.mlp_bwd_dual(y, w1, b1, g, w2)),
+            lambda: sums(*gk.mlp_bwd_dual_plain(y, w1, b1, g, w2)),
+            lambda: (torch.matmul(y, w1.t()), torch.matmul(g, w2)), 4 * m * n * k)
+
+
+def check_gemm(name: str, label: str, kern, plain, worst: dict) -> None:
+    """Each output within 2**-7 (bf16) or 2**-12 (f32) of max|plain|."""
+    import torch
+
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    ratios = []
+    for a, r in zip(got, ref):
+        err = (a.float() - r.float()).abs().max().item()
+        tol = 2**-7 if a.dtype == torch.bfloat16 else 2**-12
+        ok = err <= tol * r.float().abs().max().item() and bool(torch.isfinite(a).all())
+        ratios.append(err / (tol * r.float().abs().max().item()))
+        if not ok:
+            raise AssertionError(f"{name} {label}: max|err| {err} over {tol} of max|plain|")
+        worst[name] = max(worst.get(name, 0.0), err)
+    print(f"  {name:13s} {label:44s} err/bound <= {max(ratios):.3f} ok")
+
+
+def gemm_phase(fe, gk, device, worst: dict, check: bool = True) -> None:
+    """Phase 2c: the GEMM family's layouts and epilogues against their plain
+    versions at a ragged M = 1000 and at the main path's b=64 shapes, then
+    each product timed by CUDA-graph replay beside F.linear / torch.matmul,
+    with the wrapper's host time a call (tensor maps encoded, launch, no
+    synchronize); then #2 (mlp_block) and #4 (_mlp_backward_kernels) whole.
+    Products whose wrapper the package lacks are left out (an older
+    checkout)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    products = [p for p in GEMM_PRODUCTS if hasattr(gk if p[1] != "fwd" else fe,
+                                                    GEMM_NAMES[p[1]])]
+    if check:
+        for layout, n, k, opts in (("fwd", 1536, 768, {"gelu": True, "residual": True}),
+                                   ("fwd", 256, 4096, {"bias": False}),
+                                   ("nn", 768, 1536, {}), ("nn", 3072, 256, {"f32": True}),
+                                   ("tn", 256, 4096, {}), ("dual", 768, 256, {})):
+            if hasattr(gk if layout != "fwd" else fe, GEMM_NAMES[layout]):
+                kern, plain, _, _ = gemm_product(fe, gk, device, gen, 1000, layout, n, k, opts)
+                check_gemm(GEMM_NAMES[layout], f"{layout} 1000x{n}x{k} {opts}", kern, plain, worst)
+    print(f"  products at M = {GEMM_ROWS} (b=64, L=257), CUDA-graph replay; peak 989 TFLOP/s "
+          f"bf16 dense")
+    for label, layout, n, k, opts in products:
+        name = GEMM_NAMES[layout]
+        kern, plain, lib, flops = gemm_product(fe, gk, device, gen, GEMM_ROWS, layout, n, k, opts)
+        if check:
+            check_gemm(name, f"{label} ({GEMM_ROWS}x{n}x{k})", kern, plain, worst)
+        ms, lib_ms = graph_ms(kern), graph_ms(lib)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            kern()
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        tf, lib_tf = flops / ms / 1e9, flops / lib_ms / 1e9
+        print(f"  {label:36s} {n:5d}x{k:<5d} {ms * 1e3:7.1f} us {tf:6.1f} TFLOP/s "
+              f"({100 * tf / (BF16_PEAK_FLOPS / 1e12):4.1f}% of 989)  library {lib_ms * 1e3:7.1f} "
+              f"us {lib_tf:6.1f} TFLOP/s  host {host_us:5.1f} us/call")
+    rnd = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=device) * scale
+    d, hidden = 1024, 4096
+    x, g = rnd(64, 257, d).bfloat16(), rnd(64, 257, d).bfloat16()
+    w = _mlp_params(rnd, d, hidden)
+    w16 = [t.bfloat16() for t in w]
+    fwd_ms, fwd_lib = graph_ms(lambda: fe.mlp_block(x, *w)), graph_ms(lambda: _library_mlp(x, *w16))
+    bwd_ms = graph_ms(lambda: fe._mlp_backward_kernels(x, *w, g, eps=1e-6), iters=10)
+    print(f"  #2 mlp_block (LN, fc1 + GELU, fc2 + res) b=64: {fwd_ms * 1e3:.1f} us (library "
+          f"{fwd_lib * 1e3:.1f} us: F.layer_norm, F.linear + tanh F.gelu, F.linear + add)")
+    print(f"  #4 _mlp_backward_kernels b=64: {bwd_ms * 1e3:.1f} us")
 
 
 # ---------------------------------------------------------------------------
@@ -1169,7 +1343,7 @@ BWD_OUTPUTS = {"fused block bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "
                "colsum": ("sums",),
                "mhsa_t bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o", "db_o"),
                "mlp_t bwd": ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2"),
-               "qkv bwd": ("dy", "dw_qkv", "db_qkv"), "gemm_nn_dgelu": ("dh", "db1"),
+               "qkv bwd": ("dy", "dw_qkv", "db_qkv"), "mlp_bwd_dual": ("gact", "dh", "db1"),
                "tp block bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o")}
 
 
@@ -1179,8 +1353,8 @@ def bwd_tol(case, out_name: str, got) -> float:
 
     if case.name in BWD_TOL:
         return BWD_TOL[case.name]
-    if case.name == "gemm_nn_dgelu":
-        return 2**-7 if out_name == "dh" else 2**-12
+    if case.name == "mlp_bwd_dual":
+        return 2**-12 if out_name == "db1" else 2**-7
     if case.name.startswith("attention_bwd"):
         return BWD_TOL["attention_bwd"]
     if case.name == "layernorm_bwd":
@@ -1837,10 +2011,10 @@ def daemon_phase(model, ckpt: str, images, names, totals: dict, device) -> dict:
 
 # Launches of one fused_t block per step under remat=full: both sub-blocks'
 # forwards twice (4 + 3 launches each time), the _mhsa_t_bwd_kernel chain
-# (12) and the _mlp_t_bwd_kernel chain (9) once.
-FUSED_T_BLOCK_STEP = {"layernorm": 6, "gemm_bias_act": 10, "attention": 2, "flash_attention": 1,
+# (12) and the _mlp_t_bwd_kernel chain (8) once.
+FUSED_T_BLOCK_STEP = {"layernorm": 6, "gemm_bias_act": 9, "attention": 2, "flash_attention": 1,
                       "gemm_nn": 3, "attention_bwd_dq": 1, "attention_bwd_dkv": 1, "gemm_tn": 4,
-                      "layernorm_bwd": 2, "colsum": 4, "gemm_nn_dgelu": 1}
+                      "layernorm_bwd": 2, "colsum": 4, "mlp_bwd_dual": 1}
 # One LayerScale block's attention per step: #7 twice (QKV gemm_bias_act and
 # attention) and the #8 chain (7 launches) once; its out-projection and MLP
 # are plain PyTorch in training, as XLA in the JAX package.
@@ -1882,7 +2056,7 @@ def _library_qkv(y, w_qkv, b_qkv, heads: int, sdpa_kw: dict):
 def training_kernel_cases(fe, fa, gk, device, gen, b: int):
     """The new training kernels at B=`b`: the #3 chain (image and text
     shapes, nomax off and on), the #4 chain, #7's forward and the #8 chain
-    (unmasked image shapes, causal, prefix-LM), and the dGELU GEMM alone.
+    (unmasked image shapes, causal, prefix-LM), and #4's dual kernel alone.
     Each with its bound, its plain twin and its library call(s); the
     forward #7 cases apart (a forward check)."""
     import torch
@@ -1929,16 +2103,18 @@ def training_kernel_cases(fe, fa, gk, device, gen, b: int):
             lambda out=out, leaves=leaves, g=g: torch.autograd.grad(out, leaves, g,
                                                                     retain_graph=True),
             3 * m * d * 2 + 4 * d * hidden * 2 + 14 * d * 4, 10 * m * d * hidden, residual=g))
-        a, h = rnd(b, l, d).bfloat16(), rnd(b, l, hidden, scale=2.0)
-        w2 = w[4]
+        y = rnd(b, l, d).bfloat16()
+        w1, b1, w2 = w[2], w[3], w[4]
         bwd.append(Case(
-            "gemm_nn_dgelu", f"dh = (g.W2) gelu'(h) ({m}x{d}->{hidden})",
-            lambda a=a, w2=w2, h=h: (lambda dh, col: (dh, col.sum(0)))(*gk.gemm_nn_dgelu(a, w2, h)),
-            lambda a=a, w2=w2, h=h: (lambda dh, col: (dh, col.sum(0)))(
-                *gk.gemm_nn_dgelu_plain(a, w2, h)),
+            "mlp_bwd_dual", f"gact, dh = y.W1^T, (g.W2) gelu' ({m}x{d}->{hidden})",
+            lambda y=y, w1=w1, b1=b1, g=g, w2=w2: (lambda ga, dh, col: (ga, dh, col.sum(0)))(
+                *gk.mlp_bwd_dual(y, w1, b1, g, w2)),
+            lambda y=y, w1=w1, b1=b1, g=g, w2=w2: (lambda ga, dh, col: (ga, dh, col.sum(0)))(
+                *gk.mlp_bwd_dual_plain(y, w1, b1, g, w2)),
             None,
-            m * d * 2 + d * hidden * 2 + m * hidden * (4 + 2) + 2 * -(-m // 128) * hidden * 4,
-            2 * m * d * hidden))
+            2 * m * d * 2 + 2 * d * hidden * 2 + hidden * 4 + 2 * m * hidden * 2
+            + 2 * -(-m // 128) * hidden * 4,
+            4 * m * d * hidden))
     for l, d, heads, causal, prefix in ((257, 1024, 16, False, 0), (128, 768, 12, True, 0),
                                         (463, 768, 12, True, 335)):
         if b > 8 and causal:
@@ -1973,7 +2149,7 @@ def training_kernel_cases(fe, fa, gk, device, gen, b: int):
 
 def time_training_kernels(fe, fa, gk, device) -> dict:
     """Phase 13: each case of :func:`training_kernel_cases` at b=64 with its
-    launches per call; returns the dGELU GEMM's times (its JSON row)."""
+    launches per call; returns the dual kernel's times (its JSON row)."""
     import torch
 
     from openvision_tpu_torch.ops import kernels
@@ -1989,7 +2165,7 @@ def time_training_kernels(fe, fa, gk, device) -> dict:
             launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
             t = time_bwd_case(c)
             print(f"  {'':17s} launches per call: {launched}")
-            if c.name == "gemm_nn_dgelu" and row is None:  # the image tower's shape
+            if c.name == "mlp_bwd_dual" and row is None:  # the image tower's shape
                 row = t
     return row
 
@@ -2549,9 +2725,10 @@ def run(work: str) -> int:
     kernels.lib()
     print(f"built {os.path.relpath(lib_path, REPO)} with {kernels.nvcc()} "
           f"in {time.perf_counter() - t0:.1f} s")
-    for line in (lib_path.parent / "build.log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    spills = ptxas_summary((lib_path.parent / "build.log").read_text())
+    gemm_spills = [f for f, n in spills.items() if "gemm_ws_kernel" in f and n]
+    if gemm_spills:
+        raise AssertionError(f"the GEMM family's kernels spill registers: {gemm_spills}")
 
     worst = {}
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -2564,6 +2741,9 @@ def run(work: str) -> int:
         phase("2b. masked attention and flash kernels at the caption shapes (B=8)")
         check_cases(caption_attention_cases(fe, fl, device, gen, 8) + block_cases(fa, device, gen, 8),
                     worst)
+
+        phase("2c. the Hopper GEMM family: layouts and epilogues, the main path's products")
+        gemm_phase(fe, gk, device, worst)
 
         phase("3. zero-shot path: ViT-L/14-224 + text-L, random weights (seed 0)")
         names = sorted(f for f in os.listdir(os.path.join(REPO, "testcat")) if f.endswith(".png"))
@@ -2718,7 +2898,7 @@ def run(work: str) -> int:
     del model8
     torch.cuda.empty_cache()
 
-    phase("12. training kernels against their plain twins (B=8): #3, #4, #7, #8, dGELU GEMM")
+    phase("12. training kernels against their plain twins (B=8): #3, #4, #7, #8, dual kernel")
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     with torch.no_grad():
         fwd, bwd = training_kernel_cases(fe, fa, gk, device, gen, 8)
@@ -2728,7 +2908,7 @@ def run(work: str) -> int:
     torch.cuda.empty_cache()
 
     phase("13. training kernels at B=64: CUDA events and graph replay, bound, plain, library")
-    times["gemm_nn_dgelu"] = time_training_kernels(fe, fa, gk, device)
+    times["mlp_bwd_dual"] = time_training_kernels(fe, fa, gk, device)
     torch.cuda.empty_cache()
 
     phase("14. training path (a): attn_impl=fused_t, L/14 + text L + decoder L, bf16, batch 64")
@@ -2797,7 +2977,35 @@ def run(work: str) -> int:
     return 0
 
 
+def gemm_only(root: str) -> int:
+    """``chip_smoke.py --gemm [ROOT]``: phase 2c alone, on the package of the
+    checkout at ROOT (this one by default), so that two checkouts are timed
+    on one card in one call; checks only for this checkout's package."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --gemm: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from openvision_tpu_torch.ops import fused_encoder as fe
+    from openvision_tpu_torch.ops import grad_kernels as gk
+    from openvision_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"package {os.path.dirname(kernels.__file__)}")
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    kernels.lib()
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        gemm_phase(fe, gk, torch.device("cuda"), {}, check=root == REPO)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-grads"]:  # one rank of phase 18 (torchrun starts it)
         sys.exit(tp_grads_worker(sys.argv[2], "--no-pil" in sys.argv))
+    if sys.argv[1:2] == ["--gemm"]:
+        sys.exit(gemm_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

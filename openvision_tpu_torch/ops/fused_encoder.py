@@ -23,8 +23,9 @@ Here the two sub-blocks run as three CUDA kernels (``csrc/``):
 Each has a plain PyTorch version beside it (``*_plain``, f32 math) and a
 launch counter in ``kernels.LAUNCHES``. A wrapper takes the plain version only
 for tensors on the CPU; for CUDA tensors it launches its kernel or raises.
-The 4D MLP hidden goes through device memory in this version, where the
-Pallas kernel keeps it in VMEM.
+The forward's bf16 4D MLP hidden goes through device memory (fc2's
+accumulator for a 128-row tile would be 128 x D f32, far past a block's
+shared memory and registers), where the Pallas kernel keeps it in VMEM.
 
 Under autograd each sub-block is a ``torch.autograd.Function``, the
 counterpart of the JAX custom VJPs ``_mhsa_t`` (:466-494) and ``_mlp_t``
@@ -35,10 +36,11 @@ recomputes the forward from x, as the Pallas backwards do:
   ``ops/fused_attention.py`` (12 launches) with the ``nomax`` recompute of
   the probabilities (flash forward and ``attention_bwd``) and the QKV bias
   gradient summed in f32 over every row (:388-389);
-- ``_mlp_t_bwd_kernel`` (:593-662) is 9 launches: layernorm, fc1 + GELU that
-  also writes the f32 pre-activation h, ``gemm_tn`` (dW2 = g^T gact),
-  ``gemm_nn_dgelu`` (dh = (g . W2) gelu'(h), bf16, with f32 column
-  partials), ``gemm_tn`` (dW1 = dh^T y), ``gemm_nn`` (dy = dh . W1, f32),
+- ``_mlp_t_bwd_kernel`` (:593-662) is 8 launches: layernorm,
+  ``mlp_bwd_dual`` (the fc1 recompute h = y W1^T + b1 and dh = (g . W2)
+  gelu'(h) as two accumulators of one kernel: gact and dh in bf16, f32
+  column partials; the f32 h stays in registers), ``gemm_tn`` (dW2 =
+  g^T gact), ``gemm_tn`` (dW1 = dh^T y), ``gemm_nn`` (dy = dh . W1, f32),
   ``layernorm_bwd`` (dx + g and the LN grads) and two ``colsum`` (db1 from
   the partials, db2 from g).
 
@@ -105,37 +107,31 @@ def layernorm(x, weight, bias, eps: float):
 # ---------------------------------------------------------------------------
 
 
-def linear_plain(x, weight, bias=None, *, gelu: bool = False, residual=None,
-                 save_pre_act: bool = False):
+def linear_plain(x, weight, bias=None, *, gelu: bool = False, residual=None):
     """``x . weight^T + bias`` in f32 math, optional tanh-GELU, rounded to
     x.dtype, then optional ``+ residual`` rounded again (the Pallas kernels
-    add the residual to the rounded projection). With ``save_pre_act``
-    returns (y, h), h the f32 ``x . weight^T + bias``."""
+    add the residual to the rounded projection)."""
     h = x.float() @ weight.float().t()
     if bias is not None:
         h = h + bias.float()
     y = (_gelu_tanh(h) if gelu else h).to(x.dtype)
     if residual is not None:
         y = (y.float() + residual.float()).to(x.dtype)
-    return (y, h) if save_pre_act else y
+    return y
 
 
-def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None,
-                  save_pre_act: bool = False):
+def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
     """Kernel ``csrc/gemm_bias_act.cu``: the projections of both sub-blocks.
 
     x: (..., K) bf16; weight: (N, K) bf16 in torch's (out, in) layout;
     bias: (N,) f32 or None; residual: x-shaped (..., N) bf16 or None.
     Replaces the in-kernel products of ``_mhsa_t_kernel`` (QKV :98-101,
     out-proj :162-168) and ``_mlp_t_kernel`` (fc1 :535-542, fc2 :543-550).
-    Bound by the tensor cores at ViT shapes; mma.sync m16n8k16 over a
-    two-stage cp.async ring of 128x128x32 tiles, epilogue fused. With
-    ``save_pre_act`` it also writes the f32 pre-activation and returns
-    (out, h): the fc1 recompute of ``_mlp_t_bwd_kernel`` (:612-617).
+    Bound by the tensor cores at ViT shapes: the warp-specialised,
+    persistent TMA + wgmma mainloop of ``csrc/hopper.cuh``, epilogue fused.
     """
     if kernels.on_cpu(x, weight, bias, residual):
-        return linear_plain(x, weight, bias, gelu=gelu, residual=residual,
-                            save_pre_act=save_pre_act)
+        return linear_plain(x, weight, bias, gelu=gelu, residual=residual)
     n, k = weight.shape
     if n % 8 or k % 8:
         raise ValueError(f"gemm_bias_act: N and K must be multiples of 8, got N={n} K={k}")
@@ -149,17 +145,14 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None,
     out = torch.empty(*x.shape[:-1], n, dtype=torch.bfloat16, device=x.device)
     if residual is not None:
         kernels.check_operand("gemm residual", residual, torch.bfloat16, out.shape)
-    h = (torch.empty(*x.shape[:-1], n, dtype=torch.float32, device=x.device)
-         if save_pre_act else None)
     rc = kernels.lib().ovt_gemm_bias_act(
         x.data_ptr(), weight.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
-        out.data_ptr(), None if h is None else h.data_ptr(), m, n, k, int(gelu),
-        kernels.stream(x))
+        out.data_ptr(), m, n, k, int(gelu), kernels.stream(x))
     kernels.raise_on(rc, "gemm_bias_act")
     kernels.count("gemm_bias_act")
-    return (out, h) if save_pre_act else out
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -416,29 +409,27 @@ def mlp_block_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, g, *, eps: float = 1e-6):
     rstd = torch.rsqrt(((xf - mean) ** 2).mean(-1, keepdim=True) + eps)
     xhat = (xf - mean) * rstd
     y = (xhat * ln_w.float() + ln_b.float()).to(cdt).float()
-    gact, h = linear_plain(y.to(cdt), w1, b1, gelu=True, save_pre_act=True)
+    gact, dhb, col = gk.mlp_bwd_dual_plain(y.to(cdt), w1, b1, g, w2)
     gf = g.float()
     rows = lambda t: t.reshape(-1, t.shape[-1])
     dw2 = (rows(gf).t() @ rows(gact.float())).to(w2.dtype)
-    dh = (gf @ w2.float()) * gk.gelu_tanh_grad(h)
-    dhb = dh.to(cdt).float()
+    dhb = dhb.float()
     dw1 = (rows(dhb).t() @ rows(y)).to(w1.dtype)
     dy = dhb @ w1.float()
     dxhat = dy * ln_w.float()
     dx = gf + rstd * (dxhat - dxhat.mean(-1, keepdim=True)
                       - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    return (dx.to(cdt), rows(dy * xhat).sum(0), rows(dy).sum(0), dw1, rows(dh).sum(0), dw2,
+    return (dx.to(cdt), rows(dy * xhat).sum(0), rows(dy).sum(0), dw1, col.sum(0), dw2,
             rows(gf).sum(0))
 
 
 def _mlp_backward_kernels(x, ln_w, ln_b, w1, b1, w2, b2, g, *, eps: float):
-    """``_mlp_t_bwd_kernel`` on the card: 9 launches (see the module doc)."""
+    """``_mlp_t_bwd_kernel`` on the card: 8 launches (see the module doc)."""
     if w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
         raise TypeError("mlp_block backward: the kernels take bf16 weights")
     y = layernorm(x, ln_w, ln_b, eps)
-    gact, h = gemm_bias_act(y, w1, b1, gelu=True, save_pre_act=True)
+    gact, dhb, col = gk.mlp_bwd_dual(y, w1, b1, g, w2)
     dw2 = gk.gemm_tn(g, gact)
-    dhb, col = gk.gemm_nn_dgelu(g, w2, h)
     dw1 = gk.gemm_tn(dhb, y)
     dy = gk.gemm_nn(dhb, w1, torch.float32)
     dx, dvec = gk.layernorm_bwd(x, ln_w, dy, g, eps=eps)

@@ -14,8 +14,9 @@ their own bodies:
   ``_mhsa_t_bwd_kernel`` (fused_encoder.py:215, with the ``nomax`` recompute
   of P) and ``_qkv_bwd_kernel`` (fused_attention.py:215);
 - ``_mlp_t_bwd_kernel`` (fused_encoder.py:593), which adds
-  :func:`gemm_nn_dgelu` (dh = (g . W2) * gelu'(h) with column partials
-  for db1) to them.
+  :func:`mlp_bwd_dual` (the fc1 recompute and dh = (g . W2) * gelu'(h) in
+  one kernel with two accumulators, gact and dh in bf16 and column
+  partials for db1) to them.
 
 Each wrapper runs its plain PyTorch version (``*_plain``, f32 math with the
 kernel's roundings) when every tensor lies on the CPU; for CUDA tensors it
@@ -218,53 +219,64 @@ def gelu_tanh_grad(h):
     return 0.5 * (1.0 + t) + 0.5 * h * (1.0 - t * t) * GELU_C * (1.0 + 3.0 * GELU_A * h * h)
 
 
-def gemm_nn_dgelu_plain(a, w, h):
-    """(dh, col): dh = (a . w) * gelu'(h) in f32, rounded to bf16, and col
-    (2 ceil(M / 128), K) f32 the column sums of the unrounded dh over each
-    64-row tile (the kernel's per-warp partials)."""
-    dh = (a.float() @ w.float()) * gelu_tanh_grad(h.float())
+def mlp_bwd_dual_plain(y, w1, b1, g, w2):
+    """(gact, dh, col) of :func:`mlp_bwd_dual` in f32 math, in the order of
+    ``_mlp_t_bwd_kernel`` (openvision_tpu/ops/fused_encoder.py:612-635):
+    h = y . W1^T + b1 and t = tanh(C (h + A h^3)); gact = 0.5 h (1 + t) and
+    dh = (g . W2) gelu'(h), both rounded to y's dtype; col (2 ceil(M / 128),
+    hidden) f32 the column sums of the unrounded dh over each 64-row slab
+    (the kernel's per-warpgroup partials), whose sum over rows is db1."""
+    h = y.float() @ w1.float().t() + b1.float()
+    gact = 0.5 * h * (1.0 + torch.tanh(GELU_C * (h + GELU_A * h * h * h)))
+    dh = (g.float() @ w2.float()) * gelu_tanh_grad(h)
     rows = dh.reshape(-1, dh.shape[-1])
     tiles = 2 * -(-rows.shape[0] // 128)
     padded = torch.nn.functional.pad(rows, (0, 0, 0, 64 * tiles - rows.shape[0]))
-    return dh.to(torch.bfloat16), padded.reshape(tiles, 64, -1).sum(1)
+    return gact.to(y.dtype), dh.to(y.dtype), padded.reshape(tiles, 64, -1).sum(1)
 
 
-def gemm_nn_dgelu(a, w, h):
-    """Kernel ``gemm_nn_dgelu`` (``csrc/gemm_grad.cu``): the MLP backward's
-    dh = (g . W2) * gelu'(h) of ``_mlp_t_bwd_kernel``
-    (openvision_tpu/ops/fused_encoder.py:593, :624-635). a (..., N) bf16 is
-    the output gradient g, w (N, K) bf16 the fc2 weight in torch's (out, in)
-    layout, h (..., K) f32 the fc1 pre-activation (``gemm_bias_act`` with
-    ``save_pre_act``). Returns (dh bf16 (..., K), col f32 (P, K)): col's rows
-    are per-tile column sums of the unrounded dh, whose sum over P (one
-    :func:`colsum` launch) is db1."""
-    if kernels.on_cpu(a, w, h):
-        return gemm_nn_dgelu_plain(a, w, h)
-    n, k = w.shape
-    if a.shape[-1] != n or n % 8 or k % 8:
-        raise ValueError(f"gemm_nn_dgelu: a (..., {a.shape[-1]}) . w {tuple(w.shape)}; N and K "
-                         "must match and be multiples of 8")
-    m = a.numel() // n
-    kernels.check_operand("gemm_nn_dgelu a", a, torch.bfloat16)
-    kernels.check_operand("gemm_nn_dgelu w", w, torch.bfloat16)
-    kernels.check_operand("gemm_nn_dgelu h", h, torch.float32, (*a.shape[:-1], k))
-    dh = torch.empty(*a.shape[:-1], k, dtype=torch.bfloat16, device=a.device)
-    col = torch.empty(2 * -(-m // 128), k, dtype=torch.float32, device=a.device)
-    rc = kernels.lib().ovt_gemm_nn_dgelu(a.data_ptr(), w.data_ptr(), h.data_ptr(), dh.data_ptr(),
-                                         col.data_ptr(), m, k, n, kernels.stream(a))
-    kernels.raise_on(rc, "gemm_nn_dgelu")
-    kernels.count("gemm_nn_dgelu")
-    return dh, col
+def mlp_bwd_dual(y, w1, b1, g, w2):
+    """Kernel ``mlp_bwd_dual`` (``csrc/gemm_grad.cu``): the hidden of
+    ``_mlp_t_bwd_kernel`` (openvision_tpu/ops/fused_encoder.py:593,
+    :612-635) kept on chip. y (..., D) bf16 is the LayerNorm output, g
+    (..., D) bf16 the output gradient, w1 (hidden, D) and w2 (D, hidden)
+    bf16 the fc1 and fc2 weights in torch's (out, in) layout, b1 (hidden,)
+    f32. Two products per tile into two f32 accumulators, h = y . W1^T and
+    g . W2; the f32 pre-activation never leaves the registers. Returns
+    (gact bf16 (..., hidden), dh bf16 (..., hidden), col f32 (P, hidden)):
+    col's rows are per-64-row column sums of the unrounded dh, whose sum
+    over P (one :func:`colsum` launch) is db1."""
+    if kernels.on_cpu(y, w1, b1, g, w2):
+        return mlp_bwd_dual_plain(y, w1, b1, g, w2)
+    hidden, d = w1.shape
+    if hidden % 8 or d % 8 or y.shape[-1] != d or tuple(w2.shape) != (d, hidden):
+        raise ValueError(f"mlp_bwd_dual: y (..., {y.shape[-1]}), w1 {tuple(w1.shape)}, w2 "
+                         f"{tuple(w2.shape)}; widths must match and be multiples of 8")
+    kernels.check_operand("mlp_bwd_dual y", y, torch.bfloat16)
+    kernels.check_operand("mlp_bwd_dual w1", w1, torch.bfloat16)
+    kernels.check_operand("mlp_bwd_dual b1", b1, torch.float32, (hidden,))
+    kernels.check_operand("mlp_bwd_dual g", g, torch.bfloat16, y.shape)
+    kernels.check_operand("mlp_bwd_dual w2", w2, torch.bfloat16)
+    m = y.numel() // d
+    gact = torch.empty(*y.shape[:-1], hidden, dtype=torch.bfloat16, device=y.device)
+    dh = torch.empty_like(gact)
+    col = torch.empty(2 * -(-m // 128), hidden, dtype=torch.float32, device=y.device)
+    rc = kernels.lib().ovt_mlp_bwd_dual(
+        y.data_ptr(), w1.data_ptr(), b1.data_ptr(), g.data_ptr(), w2.data_ptr(),
+        gact.data_ptr(), dh.data_ptr(), col.data_ptr(), m, hidden, d, kernels.stream(y))
+    kernels.raise_on(rc, "mlp_bwd_dual")
+    kernels.count("mlp_bwd_dual")
+    return gact, dh, col
 
 
 def split_k(m: int, n: int, rows: int) -> tuple[int, int]:
     """(splits, rows per split) for a TN product of an (m, n) output over
-    `rows`: enough splits to give two blocks per SM, each of at least 512
-    rows, rows per split a multiple of the 32-row tile."""
+    `rows`: enough splits to give two work items per SM, each of at least
+    512 rows, rows per split a multiple of the 64-row k-block."""
     tiles = -(-m // 128) * -(-n // 128)
     splits = max(1, min(16, -(-2 * SMS // tiles), rows // 512))
     per = -(-rows // splits)
-    per = -(-per // 32) * 32
+    per = -(-per // 64) * 64
     return -(-rows // per), per
 
 

@@ -38,7 +38,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu", "attention_bwd.cu", "gemm_grad.cu",
            "gemm_int8.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "openvision_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -54,7 +54,7 @@ _count_lock = threading.Lock()
 LAUNCHES = {"layernorm": 0, "gemm_bias_act": 0, "attention": 0, "flash_attention": 0,
             "attention_bwd_dq": 0, "attention_bwd_dkv": 0, "gemm_nn": 0, "gemm_tn": 0,
             "layernorm_bwd": 0, "colsum": 0, "gemm_int8": 0, "layernorm_quant": 0,
-            "quant_rows": 0, "gemm_nn_dgelu": 0}
+            "quant_rows": 0, "mlp_bwd_dual": 0}
 
 
 def count(name: str) -> None:
@@ -173,13 +173,13 @@ def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
     ll = ctypes.POINTER(ctypes.c_longlong)
     argtypes = {
         "ovt_layernorm": [p, p, p, p, i, i, f, p],
-        "ovt_gemm_bias_act": [p, p, p, p, p, p, i, i, i, i, p],
+        "ovt_gemm_bias_act": [p, p, p, p, p, i, i, i, i, p],
         "ovt_attention": [p, p, i, i, i, i, f, i, i, i, i, p],
         "ovt_flash_attention": [p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, i, p],
         "ovt_attention_bwd_dq": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, p],
         "ovt_attention_bwd_dkv": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, p],
         "ovt_gemm_grad": [p, p, p, p, i, i, i, i, i, i, i, i, p],
-        "ovt_gemm_nn_dgelu": [p, p, p, p, p, i, i, i, p],
+        "ovt_mlp_bwd_dual": [p, p, p, p, p, p, p, p, i, i, i, p],
         "ovt_layernorm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
         "ovt_colsum": [p, i, p, p, i, i, i, i, p],
         "ovt_gemm_int8": [p, p, p, p, p, p, p, i, i, i, i, i, p],

@@ -585,47 +585,110 @@ def test_attention_bwd_kernels_nomax(dev, b, l, h):
         assert _rel_err(a, r) <= 2**-6, name
 
 
+# The Hopper GEMM family (csrc/hopper.cuh) at ragged shapes: M of 1000 and
+# 16448 + 1 (a partial 128-row tile), every N and K the callers use from
+# 256 to 4096 in each role; each layout and epilogue against its plain twin.
+WIDTHS = [(256, 4096), (768, 1536), (1024, 1024), (1536, 768), (3072, 256), (4096, 3072)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n,k", [(2 * 257, 1024, 256), (101, 768, 192), (37, 40, 24)])
-def test_gemm_bias_act_writes_the_pre_activation(dev, m, n, k):
-    g = torch.Generator().manual_seed(m + n)
+@pytest.mark.parametrize("m", [1000, 16449])
+@pytest.mark.parametrize("i,nk", list(enumerate(WIDTHS)))
+def test_gemm_family_forward_layout(dev, m, i, nk):
+    """A . W^T: bias, GELU and the residual in turn (both K-major)."""
+    n, k = nk
+    gelu, res, bias = i % 2 == 0, i % 3 == 0, i != 5
+    g = torch.Generator().manual_seed(m + i)
     x = _rand(g, dev, m, k).bfloat16()
     w = _rand(g, dev, n, k, scale=k**-0.5).bfloat16()
-    bias = _rand(g, dev, n, scale=0.1)
+    b = _rand(g, dev, n, scale=0.1) if bias else None
+    r = _rand(g, dev, m, n).bfloat16() if res else None
     with torch.inference_mode():
-        out, h = fe.gemm_bias_act(x, w, bias, gelu=True, save_pre_act=True)
-        out_ref, h_ref = fe.linear_plain(x.float(), w.float(), bias, gelu=True, save_pre_act=True)
-    assert h.dtype == torch.float32 and _rel_err(h, h_ref) <= 2**-12
-    assert _rel_err(out, out_ref) <= 2**-7
+        kernels.reset_launch_counts()
+        got = fe.gemm_bias_act(x, w, b, gelu=gelu, residual=r)
+        torch.cuda.synchronize()
+        ref = fe.linear_plain(x.float(), w.float(), b, gelu=gelu,
+                              residual=None if r is None else r.float())
+    assert kernels.LAUNCHES == _launches(gemm_bias_act=1)
+    assert _rel_err(got, ref) <= 2**-7
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n,k", [(2 * 257, 256, 1024), (101, 192, 768), (37, 24, 40),
-                                   (129, 64, 136)])
-def test_gemm_nn_dgelu_kernel(dev, m, n, k):
-    """dh = (g . W2) gelu'(h) on ragged M and N: bf16 dh, and the f32 column
-    partials whose sum is db1 (every row of the partials written)."""
-    g = torch.Generator().manual_seed(m * n)
+@pytest.mark.parametrize("m", [1000, 16449])
+@pytest.mark.parametrize("i,nk", list(enumerate(WIDTHS)))
+def test_gemm_family_nn_layout(dev, m, i, nk):
+    """dC . W with W (K, N) MN-major, bf16 and f32 out in turn."""
+    n, k = nk
+    out_dtype = torch.float32 if i % 2 else torch.bfloat16
+    g = torch.Generator().manual_seed(2 * m + i)
     a = _rand(g, dev, m, n).bfloat16()
     w = _rand(g, dev, n, k, scale=n**-0.5).bfloat16()
-    h = _rand(g, dev, m, k, scale=2.0)
+    with torch.inference_mode():
+        got = gk.gemm_nn(a, w, out_dtype)
+        ref = gk.gemm_nn_plain(a, w, torch.float32)
+    assert got.dtype == out_dtype
+    assert _rel_err(got, ref) <= (2**-7 if out_dtype == torch.bfloat16 else 2**-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1000, 16449])
+@pytest.mark.parametrize("i,nk", list(enumerate(WIDTHS)))
+def test_gemm_family_tn_layout(dev, rows, i, nk):
+    """dC^T . X, both MN-major: 16449 rows split into 4-6 ranges for every
+    output here but 4096 x 3072 (gk.split_k); 1000 rows are not split."""
+    n, k = nk
+    g = torch.Generator().manual_seed(3 * rows + i)
+    dc = _rand(g, dev, rows, n).bfloat16()
+    x = _rand(g, dev, rows, k).bfloat16()
+    with torch.inference_mode():
+        got = gk.gemm_tn(dc, x)
+        ref = gk.gemm_tn_plain(dc, x, torch.float32)
+    assert _rel_err(got, ref) <= 2**-7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,d", [(1000, 1024), (16449, 768), (16449, 1024), (101, 256), (37, 64)])
+def test_mlp_bwd_dual_kernel(dev, m, d):
+    """The dual kernel: bf16 gact and dh, and the f32 per-64-row column
+    partials of the unrounded dh (every row of partials written)."""
+    hidden = 4 * d
+    g = torch.Generator().manual_seed(m + d)
+    y, gg = _rand(g, dev, m, d).bfloat16(), _rand(g, dev, m, d).bfloat16()
+    w1 = _rand(g, dev, hidden, d, scale=d**-0.5).bfloat16()
+    b1 = _rand(g, dev, hidden, scale=0.1)
+    w2 = _rand(g, dev, d, hidden, scale=hidden**-0.5).bfloat16()
     with torch.inference_mode():
         kernels.reset_launch_counts()
-        dh, col = gk.gemm_nn_dgelu(a, w, h)
+        gact, dh, col = gk.mlp_bwd_dual(y, w1, b1, gg, w2)
         torch.cuda.synchronize()
-        dh_ref, col_ref = gk.gemm_nn_dgelu_plain(a.float(), w.float(), h)
-    assert kernels.LAUNCHES == _launches(gemm_nn_dgelu=1)
-    assert dh.dtype == torch.bfloat16 and col.shape == (2 * -(-m // 128), k)
-    assert _rel_err(dh, dh_ref.float()) <= 2**-7
-    assert _rel_err(col, col_ref) <= 1e-4 and _rel_err(col.sum(0), col_ref.sum(0)) <= 1e-4
+        refs = gk.mlp_bwd_dual_plain(y.float(), w1.float(), b1, gg.float(), w2.float())
+    assert kernels.LAUNCHES == _launches(mlp_bwd_dual=1)
+    assert gact.dtype == dh.dtype == torch.bfloat16 and col.shape == (2 * -(-m // 128), hidden)
+    assert _rel_err(gact, refs[0].float()) <= 2**-7
+    assert _rel_err(dh, refs[1].float()) <= 2**-7
+    assert _rel_err(col, refs[2]) <= 1e-4 and _rel_err(col.sum(0), refs[2].sum(0)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gemm_family_refuses_a_misaligned_operand(dev):
+    """TMA takes 16-byte aligned bases (and row pitches: N, K % 8 == 0): a
+    view one element into its buffer is refused, never run another way."""
+    buf = torch.zeros(64 * 16 + 8, device=dev, dtype=torch.bfloat16)
+    x = buf[1:1 + 64 * 16].view(64, 16)
+    w = torch.zeros(16, 16, device=dev, dtype=torch.bfloat16)
+    for call in (lambda: fe.gemm_bias_act(x, w), lambda: gk.gemm_nn(x, w),
+                 lambda: gk.gemm_tn(x, x),
+                 lambda: gk.mlp_bwd_dual(x, w, torch.zeros(16, device=dev), x, w)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            call()
 
 
 MHSA_T_CASES = [(2, 257, 256, 4), (3, 80, 768, 12), (2, 101, 128, 2)]
 MHSA_T_LAUNCHES = dict(layernorm=1, gemm_bias_act=1, flash_attention=1, gemm_nn=2,
                        attention_bwd_dq=1, attention_bwd_dkv=1, gemm_tn=2, layernorm_bwd=1,
                        colsum=2)
-MLP_T_LAUNCHES = dict(layernorm=1, gemm_bias_act=1, gemm_tn=2, gemm_nn_dgelu=1, gemm_nn=1,
-                      layernorm_bwd=1, colsum=2)
+MLP_T_LAUNCHES = dict(layernorm=1, mlp_bwd_dual=1, gemm_tn=2, gemm_nn=1, layernorm_bwd=1,
+                      colsum=2)
 
 
 def _mlp_inputs(g, dev, b, l, d):
