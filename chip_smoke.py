@@ -5,7 +5,10 @@
 
 Phases (each prints as it goes; any failure raises and exits non-zero):
 1. torch / CUDA versions, the card's name and power limit, and the nvcc
-   build of the kernels in openvision_tpu_torch/csrc (timed).
+   build of the kernels in openvision_tpu_torch/csrc (timed; one nvcc per
+   source, in parallel). Fails if a GEMM kernel (bf16 or int8, one
+   mainloop) or an int8 quantiser spills registers, or if the build holds
+   no int8 GEMM.
 2. Each kernel against its plain PyTorch version at ViT-L/14 shapes
    (B=8, L=257, D=1024, 16 heads, MLP 4096) and at a ragged L=101, with
    nomax on and off for attention. Inputs are bf16; the plain version runs
@@ -25,10 +28,22 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    bf16 outputs within 2**-7 and f32 ones within 2**-12 of max|plain|; each
    product then timed by CUDA-graph replay, its TFLOP/s and share of 989
    beside F.linear / torch.matmul, and the wrapper's host time a call; then
-   #2 (mlp_block) and #4 (_mlp_backward_kernels) whole. `python3
-   chip_smoke.py --gemm [ROOT]` runs this phase alone on the package of the
-   checkout at ROOT (checks only for this checkout), so that two checkouts
-   are timed on one card in one call.
+   #2 (mlp_block) and #4 (_mlp_backward_kernels) whole. Then the int8
+   products (gemm_int8 on the same mainloop with s8 wgmma): bit-equal to
+   their plain versions without GELU, 2**-12 with it, fc1's row max
+   bit-equal to that of its output, at ragged shapes and the b=64 products
+   for each tile width (128 x 128, 128 x 256 and the kernel's own choice);
+   each of the int8 encode's products (QKV, out-proj, fc1 + GELU, fc2, the
+   head) timed by graph replay at each tile width, its TOPS and share of
+   1979 beside torch._int_mm alone and the bf16 product of the same shape;
+   fc1 with its row max and one read of the hidden against two reads; #5
+   and #6 whole beside the bf16 library calls; each int8 product at each
+   bucket the daemon forms (M = b*257, b <= 48) at both tile widths and at
+   the kernel's choice, the data of its tile rule. `python3 chip_smoke.py
+   --gemm [ROOT]` runs this phase alone on the package of the checkout at
+   ROOT (checks only for this checkout), so that two checkouts are timed on
+   one card in one call; it then also times the int8, bf16 and plain
+   encode at b=64 as phase 11 does, on a random export kept under build/.
 3. The zero-shot path at full width, with random weights made from a seed:
    a ViT-L/14-224 + text-L export in OpenCLIP layout is written to a temp
    dir, loaded with load_model(dtype=bfloat16, attn_impl="fused_t",
@@ -86,9 +101,13 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    bf16, out-proj + residual, fc1 + GELU in f32, fc2 + residual),
    layernorm_quant, quant_rows (attention output and GELU hidden), the
    attention kernel's f32 output, and the composed int8 sub-blocks
-   (mhsa_t_int8, mlp_t_int8) held on out - x. Quantised outputs: per-row
-   scales within 2**-20 relative, int8 values equal but for flips by 1
-   (an f32 value on a rounding boundary) on at most 0.1% of them.
+   (mhsa_t_int8, mlp_t_int8) held on out - x. The products without GELU
+   are bit-equal to their plain versions; fc1 also gives the hidden's row
+   max, bit-equal to that of its output, and quant_rows on that hidden with
+   that max is bit-equal to quant_rows reading the hidden for it. Quantised
+   outputs against their plain versions: per-row scales within 2**-20 relative, int8 values
+   equal but for flips by 1 (an f32 value on a rounding boundary) on at
+   most 0.1% of them.
 11. The int8 encode and the serving daemon at full width, on phase 3's
    export and phase 5's concat checkpoint: load_model(int8=True), the
    testcat batch through build_encode_fn(int8=True) on float and on uint8
@@ -521,11 +540,14 @@ class Case:
     block its input x (the check then holds the block on out - x)."""
 
     def __init__(self, name, label, kern, plain, lib, nbytes, flops, f32_ops=0, residual=None,
-                 int8_ops=0, quant=False):
+                 int8_ops=0, quant=False, exact=False, row_max=False):
         self.name, self.label, self.kern, self.plain, self.lib = name, label, kern, plain, lib
         self.nbytes, self.flops, self.f32_ops, self.int8_ops = nbytes, flops, f32_ops, int8_ops
         self.residual = residual
         self.quant = quant  # kern and plain return (int8 values, f32 per-row scales)
+        self.exact = exact  # the kernel's output must equal the plain version's bit for bit
+        # (not for a quantise: the plain scale on the card may round otherwise)
+        self.row_max = row_max  # kern returns (out, each row's max |out|): held bit-equal
 
     def bound(self):
         """(ms, "bytes" | "operations"): the least time the card could take,
@@ -712,6 +734,10 @@ def check_cases(cases, worst: dict) -> None:
     for c in cases:
         got, ref = c.kern(), c.plain()
         torch.cuda.synchronize()
+        if c.row_max:
+            got, amax = got
+            if not torch.equal(amax, got.abs().amax(-1)):
+                raise AssertionError(f"{c.name} {c.label}: the row max is not that of the output")
         if c.quant:
             check_quant(c, got, ref, worst)
             continue
@@ -726,6 +752,9 @@ def check_cases(cases, worst: dict) -> None:
             note = f" max|out-x|={scale:.3e}"
         ratio = (err / bound).max().item()
         ok = ratio <= 1 and bool(torch.isfinite(got).all())
+        if c.exact:
+            ok = ok and err.max().item() == 0
+            note += "  (bit-equal required)"
         print(f"  {c.name:15s} {c.label:46s} max|err|={err.max().item():.3e}  "
               f"bound={CASE_REL_TOL[c.name] * scale:.3e}{note}  err/bound<={ratio:.3f}  "
               f"{'ok' if ok else 'FAIL'}")
@@ -886,7 +915,7 @@ def check_gemm(name: str, label: str, kern, plain, worst: dict) -> None:
     print(f"  {name:13s} {label:44s} err/bound <= {max(ratios):.3f} ok")
 
 
-def gemm_phase(fe, gk, device, worst: dict, check: bool = True) -> None:
+def gemm_phase(fe, gk, fe8, device, worst: dict, check: bool = True) -> None:
     """Phase 2c: the GEMM family's layouts and epilogues against their plain
     versions at a ragged M = 1000 and at the main path's b=64 shapes, then
     each product timed by CUDA-graph replay beside F.linear / torch.matmul,
@@ -934,6 +963,176 @@ def gemm_phase(fe, gk, device, worst: dict, check: bool = True) -> None:
     print(f"  #2 mlp_block (LN, fc1 + GELU, fc2 + res) b=64: {fwd_ms * 1e3:.1f} us (library "
           f"{fwd_lib * 1e3:.1f} us: F.layer_norm, F.linear + tanh F.gelu, F.linear + add)")
     print(f"  #4 _mlp_backward_kernels b=64: {bwd_ms * 1e3:.1f} us")
+    del x, g, w, w16
+    int8_gemm_phase(fe, fe8, device, worst, check)
+
+
+# The int8 encode's products at b=64 (phase 2c, gemm_int8): (label, N, K,
+# options); M = GEMM_ROWS, the head's M = 64 (the batch).
+INT8_PRODUCTS = [
+    ("QKV", 3072, 1024, {}),
+    ("out-proj + res", 1024, 1024, {"residual": True}),
+    ("fc1 + GELU, f32 + row max", 4096, 1024, {"gelu": True}),
+    ("fc2 + res", 1024, 4096, {"residual": True}),
+    ("head (M = 64), f32", 768, 1024, {"rows": 64}),
+]
+
+
+def int8_product(fe, fe8, device, gen, m: int, n: int, k: int, opts: dict, new_api: bool):
+    """(kernel(tile_n), plain, _int_mm, bf16 product, int8 ops, bytes) of one
+    gemm_int8 product: the kernel's call at a tile width (0: its own choice;
+    an older package takes only 0), its plain version, torch._int_mm alone,
+    and gemm_bias_act on bf16 operands of the same shape."""
+    import torch
+
+    a = torch.randint(-127, 128, (m, k), generator=gen, device=device).to(torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=gen, device=device).to(torch.int8)
+    a_s = torch.rand(m, generator=gen, device=device) * 0.05 + 1e-3
+    w_s = torch.rand(n, generator=gen, device=device) * k**-0.5 / 127 + 1e-5
+    b = torch.randn(n, generator=gen, device=device) * 0.1
+    gelu, res = bool(opts.get("gelu")), opts.get("residual")
+    r = torch.randn(m, n, generator=gen, device=device).bfloat16() if res else None
+    out = torch.float32 if gelu or "rows" in opts else torch.bfloat16
+    kw = dict(gelu=gelu, out_dtype=out, residual=r)
+
+    def kern(tile_n=0, row_amax=gelu):
+        if not new_api:
+            return fe8.gemm_int8(a, a_s, w, w_s, b, **kw)
+        return fe8._gemm_int8(a, a_s, w, w_s, b, row_amax=row_amax, tile_n=tile_n, **kw)
+
+    a16 = torch.randn(m, k, generator=gen, device=device).bfloat16()
+    w16 = (torch.randn(n, k, generator=gen, device=device) * k**-0.5).bfloat16()
+    nbytes = m * k + n * k + m * n * (4 if out == torch.float32 else 2) + (m * n * 2 if res else 0)
+    return (kern, lambda: fe8.gemm_int8_plain(a, a_s, w, w_s, b, **kw),
+            lambda: torch._int_mm(a, w.t()),
+            lambda: fe.gemm_bias_act(a16, w16, b, gelu=gelu, residual=r),
+            2 * m * n * k, nbytes + m * 4 + n * 8)
+
+
+def int8_gemm_phase(fe, fe8, device, worst: dict, check: bool = True) -> None:
+    """Phase 2c's int8 half: gemm_int8 against its plain version (bit-equal
+    without GELU, 2**-12 with it, the row max bit-equal to that of its own
+    output) at ragged shapes and at the int8 encode's b=64 products, at each
+    tile width; then each product by CUDA-graph replay, its TOPS and share
+    of 1979 at each tile width, beside torch._int_mm alone and the bf16
+    product of the same shape; fc1 with the row max and one read of the
+    hidden against fc1 and two reads; then #5 (mhsa_t_int8) and #6
+    (mlp_t_int8) whole beside the bf16 library calls; then each product at
+    each of the daemon's buckets at both widths and at the kernel's choice.
+    An older package (no forced width, no row max) is timed at its own tile
+    and route, at b=64 only."""
+    import torch
+    import torch.nn.functional as F
+
+    from openvision_tpu_torch.serving.quant import quant_w
+
+    new_api = hasattr(fe8, "_gemm_int8")
+    tiles = (0, 128, 256) if new_api else (0,)
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    if check:
+        shapes = [(1000, n, k, o) for _, n, k, o in INT8_PRODUCTS]
+        shapes += [(257, 776, 1040, {"residual": True}), (257, 776, 1040, {"gelu": True}),
+                   (GEMM_ROWS, 3072, 1024, {}), (GEMM_ROWS, 4096, 1024, {"gelu": True})]
+        for m, n, k, opts in shapes:
+            kern, plain, _, _, _, _ = int8_product(fe, fe8, device, gen, m, n, k, opts, new_api)
+            ref = plain()
+            for tile_n in tiles:
+                got = kern(tile_n)
+                label = f"{m}x{n}x{k} {opts} tile_n={tile_n}"
+                if opts.get("gelu"):
+                    got, amax = got
+                    if not torch.equal(amax, got.abs().amax(-1)):
+                        raise AssertionError(f"gemm_int8 {label}: row max differs")
+                    err = (got - ref).abs().max().item()
+                    ok = err <= 2**-12 * ref.abs().max().item()
+                else:
+                    err = (got.float() - ref.float()).abs().max().item()
+                    ok = torch.equal(got, ref)
+                worst["gemm_int8"] = max(worst.get("gemm_int8", 0.0), err)
+                print(f"  gemm_int8     {label:60s} max|err|={err:.3e} "
+                      f"{'(row max equal) ' if opts.get('gelu') else '(bit-equal) '}"
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"gemm_int8 {label}: max|err| {err}")
+    print(f"  int8 products (b=64), CUDA-graph replay; peak 1979 TOPS int8 dense; tile widths "
+          f"{tiles} (0: the kernel's own choice)")
+    for label, n, k, opts in INT8_PRODUCTS:
+        m = opts.get("rows", GEMM_ROWS)
+        kern, _, int_mm, bf16_mm, ops, nbytes = int8_product(fe, fe8, device, gen, m, n, k,
+                                                             opts, new_api)
+        bound = max(ops / INT8_PEAK_OPS, nbytes / HBM_BYTES_PER_S) * 1e6
+        times = {t: graph_ms(lambda t=t: kern(t)) for t in tiles}
+        lib_ms, bf_ms = graph_ms(int_mm), graph_ms(bf16_mm)
+        line = "  ".join(f"tile {t or 'auto'} {ms * 1e3:7.1f} us {ops / ms / 1e9:6.1f} TOPS "
+                         f"({100 * ops / ms / 1e9 / (INT8_PEAK_OPS / 1e12):4.1f}%)"
+                         for t, ms in times.items())
+        print(f"  int8 {label:27s} {m}x{n}x{k}  {line}  bound {bound:6.1f} us  _int_mm "
+              f"{lib_ms * 1e3:7.1f} us  bf16 gemm_bias_act {bf_ms * 1e3:7.1f} us")
+    m, d, hidden, heads = GEMM_ROWS, 1024, 4096, 16
+    x = torch.randn(64, 257, d, generator=gen, device=device).bfloat16()
+    h = torch.randn(64, 257, hidden, generator=gen, device=device) * 2
+    if new_api:
+        amax = h.abs().amax(-1)
+        kern, _, _, _, _, _ = int8_product(fe, fe8, device, gen, m, hidden, d, {"gelu": True},
+                                           new_api)
+        one = graph_ms(lambda: fe8.quant_rows(*kern()))
+        two = graph_ms(lambda: fe8.quant_rows(kern(row_amax=False)))
+        q_one = graph_ms(lambda: fe8.quant_rows(h, amax))
+        q_two = graph_ms(lambda: fe8.quant_rows(h))
+        print(f"  fc1 + GELU, then quant_rows of its hidden (b=64): with fc1's row max, one "
+              f"read {one * 1e3:.1f} us; without, two reads {two * 1e3:.1f} us; quant_rows "
+              f"alone {q_one * 1e3:.1f} / {q_two * 1e3:.1f} us")
+    rnd = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=device) * scale
+    ln = [(rnd(d, scale=0.1) + 1, rnd(d, scale=0.1)) for _ in range(2)]
+    w = {"qkv": rnd(3 * d, d, scale=d**-0.5), "out": rnd(d, d, scale=d**-0.5),
+         "fc1": rnd(hidden, d, scale=d**-0.5), "fc2": rnd(d, hidden, scale=hidden**-0.5)}
+    bias = {k_: rnd(v.shape[0], scale=0.1) for k_, v in w.items()}
+    q = {k_: quant_w(v) for k_, v in w.items()}
+    w16 = {k_: v.bfloat16() for k_, v in w.items()}
+    b16 = {k_: v.bfloat16() for k_, v in bias.items()}
+    ln16 = [(lw.bfloat16(), lb.bfloat16()) for lw, lb in ln]
+    mhsa = graph_ms(lambda: fe8.mhsa_t_int8(x, *ln[0], *q["qkv"], bias["qkv"], *q["out"],
+                                            bias["out"], num_heads=heads), iters=10)
+    mlp = graph_ms(lambda: fe8.mlp_t_int8(x, *ln[1], *q["fc1"], bias["fc1"], *q["fc2"],
+                                          bias["fc2"]), iters=10)
+    mhsa_lib = graph_ms(lambda: _library_block(x, *ln16[0], w16["qkv"], b16["qkv"], w16["out"],
+                                               b16["out"], heads, {}), iters=10)
+
+    def library_mlp():
+        y = F.layer_norm(x, (d,), *ln16[1], 1e-6)
+        y = F.gelu(F.linear(y, w16["fc1"], b16["fc1"]), approximate="tanh")
+        return x + F.linear(y, w16["fc2"], b16["fc2"])
+
+    mlp_lib = graph_ms(library_mlp, iters=10)
+    print(f"  #5 mhsa_t_int8 b=64: {mhsa * 1e3:.1f} us (bf16 library {mhsa_lib * 1e3:.1f} us: "
+          f"F.layer_norm, F.linear, SDPA, F.linear + add)")
+    print(f"  #6 mlp_t_int8 b=64: {mlp * 1e3:.1f} us (bf16 library {mlp_lib * 1e3:.1f} us: "
+          f"F.layer_norm, F.linear + tanh F.gelu, F.linear + add)")
+    if new_api:
+        int8_bucket_tiles(fe, fe8, device, gen)
+
+
+def int8_bucket_tiles(fe, fe8, device, gen) -> None:
+    """The int8 products at each bucket the daemon forms (max_batch 48:
+    M = b*257, the head's M = b), by graph replay at tile widths 128 and
+    256 and at the kernel's own choice, with the choice's time over the
+    faster width's: the measurement that sets gemm_int8's tile rule."""
+    from openvision_tpu_torch.serving.server import bucket_sizes
+
+    print("  int8 products at the daemon's buckets (max_batch 48), graph replay, us: "
+          "tile 128 / tile 256 / the kernel's choice (choice over the faster)")
+    worst = 1.0
+    for b in bucket_sizes(48):
+        cells = []
+        for label, n, k, opts in INT8_PRODUCTS:
+            m = b if "rows" in opts else b * 257
+            kern = int8_product(fe, fe8, device, gen, m, n, k, opts, True)[0]
+            t = [graph_ms(lambda t=t: kern(t)) * 1e3 for t in (128, 256, 0)]
+            worst = max(worst, t[2] / min(t[:2]))
+            cells.append(f"{label.split(',')[0].split(' (')[0]} {t[0]:.1f}/{t[1]:.1f}/{t[2]:.1f} "
+                         f"({t[2] / min(t[:2]):.3f})")
+        print(f"  bucket b={b:2d} (M={b * 257:5d}): " + "; ".join(cells))
+    print(f"  int8 tile choice at the buckets: worst {worst:.3f}x the faster width")
 
 
 # ---------------------------------------------------------------------------
@@ -1592,26 +1791,41 @@ def int8_cases(fe, fe8, device, gen, b: int, l: int, d: int = 1024, heads: int =
                           lambda lw=lw, lb=lb: fe8.layernorm_quant(x, lw, lb, 1e-6),
                           lambda lw=lw, lb=lb: fe8.layernorm_quant_plain(x, lw, lb, 1e-6), None,
                           m * d * 2 + m * d + m * 4 + 2 * d * 4, 0, 10 * m * d, quant=True))
+    # fc1 as the path runs it: with the hidden's row max, which must be that
+    # of its own output bit for bit
     for label, a, a_s, name, gelu, res, out in (
             ("qkv", yq, ys, "qkv", False, None, torch.bfloat16),
             ("out+res", oq, os_, "out", False, x, torch.bfloat16),
-            ("fc1+gelu f32", yq, ys, "fc1", True, None, torch.float32),
+            ("fc1+gelu f32 + row max", yq, ys, "fc1", True, None, torch.float32),
             ("fc2+res", hq, hs, "fc2", False, x, torch.bfloat16)):
         n, k = q[name][0].shape
         cases.append(Case(
             "gemm_int8", f"{label} ({m}x{n}x{k})",
             lambda a=a, a_s=a_s, name=name, gelu=gelu, res=res, out=out: fe8.gemm_int8(
-                a, a_s, *q[name], bias[name], gelu=gelu, out_dtype=out, residual=res),
+                a, a_s, *q[name], bias[name], gelu=gelu, out_dtype=out, residual=res,
+                row_amax=gelu),
             lambda a=a, a_s=a_s, name=name, gelu=gelu, res=res, out=out: fe8.gemm_int8_plain(
                 a, a_s, *q[name], bias[name], gelu=gelu, out_dtype=out, residual=res).float(),
             int_mm(a, a_s, name, gelu, res, out),
             m * k + n * k + m * n * (2 if out == torch.bfloat16 else 4)
             + (m * n * 2 if res is not None else 0) + m * 4 + n * 8,
-            0, int8_ops=2 * m * n * k))
-    for label, t in (("attention output", o), ("GELU hidden", h)):
+            0, int8_ops=2 * m * n * k, exact=not gelu, row_max=gelu))
+    # the GELU hidden as the path quantises it: fc1's output, read once with
+    # fc1's row max, bit-equal to the kernel's quantise that reads it for its
+    # max (the plain version's scale, amax / 127 on the card, may round
+    # otherwise: it is held as every quantise is)
+    h, hmax = fe8.gemm_int8(yq, ys, *q["fc1"], bias["fc1"], gelu=True, out_dtype=torch.float32,
+                            row_amax=True)
+    (q1, s1), (q2, s2) = fe8.quant_rows(h, hmax), fe8.quant_rows(h)
+    if not (torch.equal(q1, q2) and torch.equal(s1, s2)):
+        raise AssertionError("quant_rows with fc1's row max differs from quant_rows alone")
+    print(f"  quant_rows      GELU hidden ({m}x{mlp}): with fc1's row max, bit-equal to its "
+          f"quantise alone  ok")
+    for label, t, t_max in (("attention output", o, None), ("GELU hidden, fc1's row max", h, hmax)):
         n = t.shape[-1]
         cases.append(Case("quant_rows", f"{label} ({m}x{n})",
-                          lambda t=t: fe8.quant_rows(t), lambda t=t: fe8.quant_plain(t), None,
+                          lambda t=t, t_max=t_max: fe8.quant_rows(t, t_max),
+                          lambda t=t: fe8.quant_plain(t), None,
                           m * n * 4 + m * n + m * 4, 0, 3 * m * n, quant=True))
     qh, kh, vh = (t.reshape(b, l, heads, 64).transpose(1, 2).contiguous()
                   for t in qkv.split(d, dim=-1))
@@ -2726,9 +2940,14 @@ def run(work: str) -> int:
     print(f"built {os.path.relpath(lib_path, REPO)} with {kernels.nvcc()} "
           f"in {time.perf_counter() - t0:.1f} s")
     spills = ptxas_summary((lib_path.parent / "build.log").read_text())
-    gemm_spills = [f for f, n in spills.items() if "gemm_ws_kernel" in f and n]
-    if gemm_spills:
-        raise AssertionError(f"the GEMM family's kernels spill registers: {gemm_spills}")
+    # the GEMM family (bf16 and int8: one mainloop) and the int8 quantisers
+    gated = [f for f in spills if "gemm_ws_kernel" in f or "quant" in f]
+    int8_gemms = [f for f in gated if "gemm_ws_kernel" in f and "2S8E" in f]
+    print(f"spill gate: {len(gated)} kernels, {len(int8_gemms)} of them int8 GEMMs")
+    if not int8_gemms:
+        raise AssertionError("no int8 instantiation of gemm_ws_kernel in the build")
+    if any(spills[f] for f in gated):
+        raise AssertionError(f"kernels that spill registers: {[f for f in gated if spills[f]]}")
 
     worst = {}
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -2743,7 +2962,7 @@ def run(work: str) -> int:
                     worst)
 
         phase("2c. the Hopper GEMM family: layouts and epilogues, the main path's products")
-        gemm_phase(fe, gk, device, worst)
+        gemm_phase(fe, gk, fe8, device, worst)
 
         phase("3. zero-shot path: ViT-L/14-224 + text-L, random weights (seed 0)")
         names = sorted(f for f in os.listdir(os.path.join(REPO, "testcat")) if f.endswith(".png"))
@@ -2978,7 +3197,9 @@ def run(work: str) -> int:
 
 
 def gemm_only(root: str) -> int:
-    """``chip_smoke.py --gemm [ROOT]``: phase 2c alone, on the package of the
+    """``chip_smoke.py --gemm [ROOT]``: phase 2c alone, then encode img/s at
+    b=64 (int8, bf16 fused_t, plain eager bf16; phase 11's encode_rates) on
+    a random ViT-L/14 export kept under build/, on the package of the
     checkout at ROOT (this one by default), so that two checkouts are timed
     on one card in one call; checks only for this checkout's package."""
     import torch
@@ -2989,6 +3210,7 @@ def gemm_only(root: str) -> int:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     from openvision_tpu_torch.ops import fused_encoder as fe
+    from openvision_tpu_torch.ops import fused_encoder_int8 as fe8
     from openvision_tpu_torch.ops import grad_kernels as gk
     from openvision_tpu_torch.ops import kernels
 
@@ -2998,8 +3220,19 @@ def gemm_only(root: str) -> int:
     t0 = time.perf_counter()
     kernels.lib()
     print(f"built in {time.perf_counter() - t0:.1f} s")
+    device = torch.device("cuda")
     with torch.inference_mode():
-        gemm_phase(fe, gk, torch.device("cuda"), {}, check=root == REPO)
+        gemm_phase(fe, gk, fe8, device, {}, check=root == REPO)
+        # encode img/s at b=64 on one random export, shared by the checkouts
+        from openvision_tpu_torch.tools.model_io import load_model
+
+        model_dir = os.path.join(REPO, "build", "chip_smoke_export")
+        if not os.path.exists(os.path.join(model_dir, "open_clip_config.json")):
+            os.makedirs(model_dir, exist_ok=True)
+            export_random_model(model_dir, L14_CONFIG, SEED)  # the config is written last
+        model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t", fast_gelu=True,
+                           device=device, int8=True)
+        encode_rates(model, model_dir, device)
     return 0
 
 

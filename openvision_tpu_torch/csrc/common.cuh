@@ -1,5 +1,6 @@
 // Shared device helpers for the hand-written Hopper kernels: cp.async copies,
-// ldmatrix fragment loads and the m16n8k16 bf16 tensor-core product.
+// ldmatrix fragment loads, the m16n8k16 bf16 tensor-core product, bf16
+// packing and the GEMM epilogues' residual add and tanh-GELU.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..),
@@ -71,6 +72,18 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
+}
+
+// Two packed bf16 pairs added in f32 and rounded again: a residual added to
+// a rounded projection, as the Pallas epilogues add it.
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  const float2 x = unpack_bf16x2(a), y = unpack_bf16x2(b);
+  return pack_bf16x2(x.x + y.x, x.y + y.y);
+}
+
+// tanh-GELU in f32 (the GEMM epilogues').
+__device__ __forceinline__ float gelu_tanh(float h) {
+  return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -33,15 +33,6 @@ namespace {
 using ovt::bf16;
 namespace hp = ovt::hopper;
 
-__device__ __forceinline__ float gelu_tanh(float h) {
-  return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
-}
-
-__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
-  const float2 x = ovt::unpack_bf16x2(a), y = ovt::unpack_bf16x2(b);
-  return ovt::pack_bf16x2(x.x + y.x, x.y + y.y);
-}
-
 template <bool kGelu, bool kResidual>
 struct BiasActEpilogue {
   const float* bias;
@@ -85,17 +76,17 @@ struct BiasActEpilogue {
           float v0 = acc[16 * g + 4 * c + 2 * h] + b[4 * g + c].x;
           float v1 = acc[16 * g + 4 * c + 2 * h + 1] + b[4 * g + c].y;
           if constexpr (kGelu) {
-            v0 = gelu_tanh(v0);
-            v1 = gelu_tanh(v1);
+            v0 = ovt::gelu_tanh(v0);
+            v1 = ovt::gelu_tanh(v1);
           }
           w[g][h][c] = ovt::pack_bf16x2(v0, v1);
         }
         hp::transpose_quad(w[g][h], q);
         if constexpr (kResidual) {  // added to the rounded projection, then rounded again
-          w[g][h][0] = add_bf16x2(w[g][h][0], r[g][h].x);
-          w[g][h][1] = add_bf16x2(w[g][h][1], r[g][h].y);
-          w[g][h][2] = add_bf16x2(w[g][h][2], r[g][h].z);
-          w[g][h][3] = add_bf16x2(w[g][h][3], r[g][h].w);
+          w[g][h][0] = ovt::add_bf16x2(w[g][h][0], r[g][h].x);
+          w[g][h][1] = ovt::add_bf16x2(w[g][h][1], r[g][h].y);
+          w[g][h][2] = ovt::add_bf16x2(w[g][h][2], r[g][h].z);
+          w[g][h][3] = ovt::add_bf16x2(w[g][h][3], r[g][h].w);
         }
       }
     }
@@ -119,8 +110,8 @@ int launch_bias_act(const hp::Maps& maps, const void* bias, const void* residual
                                               static_cast<bf16*>(c), m, n};
   // GELU's epilogue outlasts the next tile's products: both warpgroups
   // share it (cooperative) rather than overlap it with them (pingpong)
-  return hp::launch<1, !kGelu, false, false, false, false>(maps, hp::make_tiles(m, n, k), epi,
-                                                           stream);
+  return hp::launch<hp::Bf16Cfg, 1, !kGelu, false, false, false, false>(
+      maps, hp::make_tiles(m, n, k), epi, stream);
 }
 
 }  // namespace

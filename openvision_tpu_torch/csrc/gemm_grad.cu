@@ -213,8 +213,9 @@ extern "C" int ovt_gemm_grad(const void* a, const void* b, void* c, void* worksp
   bf16* cb = (splits == 1 && !out_f32) ? static_cast<bf16*>(c) : nullptr;
   const hp::Tiles tiles = hp::make_tiles(m, n, k, splits, k_split);
   const GradEpilogue epi{cf, cb, m, n};
-  const int rc = a_t ? hp::launch<1, true, true, true, false, false>(maps, tiles, epi, st)
-                     : hp::launch<1, true, false, true, false, false>(maps, tiles, epi, st);
+  using C = hp::Bf16Cfg;
+  const int rc = a_t ? hp::launch<C, 1, true, true, true, false, false>(maps, tiles, epi, st)
+                     : hp::launch<C, 1, true, false, true, false, false>(maps, tiles, epi, st);
   if (rc != 0 || splits == 1) return rc;
   const size_t count = static_cast<size_t>(m) * n;
   const int blocks = static_cast<int>(std::min<size_t>((count + 255) / 256, 4096));
@@ -243,6 +244,6 @@ extern "C" int ovt_mlp_bwd_dual(const void* y, const void* w1, const void* b1, c
     return static_cast<int>(cudaErrorInvalidValue);
   const DualEpilogue epi{static_cast<const float*>(b1), static_cast<bf16*>(gact),
                          static_cast<bf16*>(dh), static_cast<float*>(colpart), m, n};
-  return hp::launch<2, false, false, false, false, true>(maps, hp::make_tiles(m, n, k), epi,
-                                                         static_cast<cudaStream_t>(stream));
+  return hp::launch<hp::Bf16Cfg, 2, false, false, false, false, true>(
+      maps, hp::make_tiles(m, n, k), epi, static_cast<cudaStream_t>(stream));
 }

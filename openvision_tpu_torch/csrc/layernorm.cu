@@ -312,10 +312,11 @@ extern "C" int ovt_colsum(const void* in, int in_f32, void* out, void* work, int
 // scale = amax / 127 (1 where amax is 0), q = clip(rint(y / scale), -127,
 // 127), by a division, not a multiply by the reciprocal, rounding half to
 // even. ovt_quant_rows quantises an f32 (rows, n) input the same way: the
-// attention output (:126) and the GELU hidden (:155). Both are bound on the
-// H100 by device memory (the input read once, int8 and one f32 scale per row
-// written): one warp per row, 16-byte loads, the LN row (d <= 2048) held in
-// registers between its passes, no shared memory.
+// attention output (:126) and the GELU hidden (:155), whose row max the fc1
+// launch gives (gemm_int8.cu), so that the hidden is read once. Both are
+// bound on the H100 by device memory (the input read once, int8 and one f32
+// scale per row written): one warp per row, 16-byte loads, the LN row (d <=
+// 2048) held in registers between its passes, no shared memory.
 
 namespace {
 
@@ -391,22 +392,29 @@ layernorm_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ gam
   if (lane == 0) scale[row] = sc;
 }
 
+// With row_amax given (the fc1 launch's row max of the GELU hidden, the
+// same max of the same f32 values) the row is read once.
 __global__ void __launch_bounds__(kWarps * 32)
-quant_rows_kernel(const float* __restrict__ x, int8_t* __restrict__ q, float* __restrict__ scale,
-                  int rows, int n) {
+quant_rows_kernel(const float* __restrict__ x, const float* __restrict__ row_amax,
+                  int8_t* __restrict__ q, float* __restrict__ scale, int rows, int n) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const float* xr = x + static_cast<size_t>(row) * n;
   float amax = 0.f;
-  for (int i = lane * 8; i < n; i += 256) {
-    const float4 a = *reinterpret_cast<const float4*>(xr + i);
-    const float4 b = *reinterpret_cast<const float4*>(xr + i + 4);
-    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
-    amax = fmaxf(amax, fmaxf(fmaxf(fabsf(b.x), fabsf(b.y)), fmaxf(fabsf(b.z), fabsf(b.w))));
+  if (row_amax != nullptr) {
+    amax = row_amax[row];
+  } else {
+    for (int i = lane * 8; i < n; i += 256) {
+      const float4 a = *reinterpret_cast<const float4*>(xr + i);
+      const float4 b = *reinterpret_cast<const float4*>(xr + i + 4);
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(b.x), fabsf(b.y)), fmaxf(fabsf(b.z), fabsf(b.w))));
+    }
+    amax = warp_max(amax);
   }
-  const float sc = row_scale(warp_max(amax));
-  for (int i = lane * 8; i < n; i += 256) {  // the row's second read hits L1/L2
+  const float sc = row_scale(amax);
+  for (int i = lane * 8; i < n; i += 256) {  // after a first read, from L1/L2
     const float4 a = *reinterpret_cast<const float4*>(xr + i);
     const float4 b = *reinterpret_cast<const float4*>(xr + i + 4);
     const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
@@ -449,13 +457,15 @@ extern "C" int ovt_layernorm_quant(const void* x, const void* gamma, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (rows, n) f32; q: (rows, n) int8; scale: (rows,) f32. All contiguous
-// and 16-byte aligned; n % 8 == 0. Returns cudaGetLastError() after the launch.
-extern "C" int ovt_quant_rows(const void* x, void* q, void* scale, int rows, int n,
-                              void* stream) {
+// x: (rows, n) f32; row_amax: (rows,) f32 max |x| of each row, or null;
+// q: (rows, n) int8; scale: (rows,) f32. All contiguous and 16-byte aligned;
+// n % 8 == 0. Returns cudaGetLastError() after the launch.
+extern "C" int ovt_quant_rows(const void* x, const void* row_amax, void* q, void* scale, int rows,
+                              int n, void* stream) {
   if (n % 8) return static_cast<int>(cudaErrorInvalidValue);
   quant_rows_kernel<<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale), rows, n);
+      static_cast<const float*>(x), static_cast<const float*>(row_amax), static_cast<int8_t*>(q),
+      static_cast<float*>(scale), rows, n);
   return static_cast<int>(cudaGetLastError());
 }

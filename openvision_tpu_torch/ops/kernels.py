@@ -1,14 +1,14 @@
 """Build and bind the hand-written Hopper kernels in ``csrc/``.
 
-The CUDA sources compile with nvcc into one shared library with a plain C
-interface, loaded through ctypes. Nothing is built when this module is
-imported: the first call to :func:`lib` builds into
-``build/openvision_tpu_torch/<hash>/`` at the repository root (the hash
-covers the sources and the flags, so an edited source rebuilds) and later
-calls reuse it. Every C entry point launches on the stream it is given and
-returns ``cudaGetLastError()``; the wrappers (``ops/fused_encoder.py``,
-``ops/fused_encoder_int8.py``, ``ops/flash_attention.py``,
-``ops/grad_kernels.py``) raise when it is not 0.
+The CUDA sources compile with nvcc (one process per source, in parallel)
+into one shared library with a plain C interface, loaded through ctypes.
+Nothing is built when this module is imported: the first call to
+:func:`lib` builds into ``build/openvision_tpu_torch/<hash>/`` at the
+repository root (the hash covers the sources and the flags, so an edited
+source rebuilds) and later calls reuse it. Every C entry point launches on
+the stream it is given and returns ``cudaGetLastError()``; the wrappers
+(``ops/fused_encoder.py``, ``ops/fused_encoder_int8.py``,
+``ops/flash_attention.py``, ``ops/grad_kernels.py``) raise when it is not 0.
 
 The wrappers share :data:`LAUNCHES` (one count per wrapper, raised by
 :func:`count` right after its kernel launched) and the operand checks below:
@@ -42,7 +42,7 @@ HEADERS = ("common.cuh", "hopper.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "openvision_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libovt_kernels.so"
 
@@ -137,22 +137,36 @@ def build_dir() -> Path:
 def build() -> Path:
     """Compiles the kernels unless this exact build exists; returns the .so.
 
-    The compiler's output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept in ``build.log`` beside the library.
+    One nvcc per source, all started together, then one link. The
+    compiler's output (``-Xptxas -v``: registers, shared memory and spills
+    per kernel) is kept in ``build.log`` beside the library.
     """
     out = build_dir()
     lib_path = out / LIB_NAME
     if lib_path.exists():
         return lib_path
     out.mkdir(parents=True, exist_ok=True)
-    tmp = out / f"{LIB_NAME}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-6000:]}")
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = out / f"{LIB_NAME}.{tag}.tmp"
+    objs = [out / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj),
+                               str(CSRC / s)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, obj in zip(SOURCES, objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [s for s, proc in zip(SOURCES, procs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("the link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    log = "".join(logs)
+    (out / "build.log").write_text(log)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log[-6000:]}")
     os.replace(tmp, lib_path)  # atomic: a reader never sees a partial file
     return lib_path
 
@@ -182,9 +196,9 @@ def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
         "ovt_mlp_bwd_dual": [p, p, p, p, p, p, p, p, i, i, i, p],
         "ovt_layernorm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
         "ovt_colsum": [p, i, p, p, i, i, i, i, p],
-        "ovt_gemm_int8": [p, p, p, p, p, p, p, i, i, i, i, i, p],
+        "ovt_gemm_int8": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "ovt_layernorm_quant": [p, p, p, p, p, i, i, f, p],
-        "ovt_quant_rows": [p, p, p, i, i, p],
+        "ovt_quant_rows": [p, p, p, p, i, i, p],
     }
     for name, types in argtypes.items():
         fn = getattr(handle, name)

@@ -27,10 +27,12 @@ largest magnitude of the reference output:
 The int8 serving kernels (``ops/fused_encoder_int8.py``) against their
 plain versions on the same int8 or bf16 inputs: per-row scales within 2**-20
 relative; int8 values equal except where an f32 value lies on a rounding
-boundary, where they may differ by 1 (at most 0.1% of the values); f32
-outputs of gemm_int8 within 2**-12 relative (the int32 sums are exact and
-the epilogue repeats the plain order; GELU's tanh differs in its last
-bits), bf16 ones 2**-7; the f32 attention output 2**-8 (summation order,
+boundary, where they may differ by 1 (at most 0.1% of the values);
+gemm_int8 bit-equal to its plain version without GELU (the int32 sums are
+exact and the epilogue repeats the plain order), within 2**-12 relative
+with GELU (tanh's last bits), its row max bit-equal to that of its own
+output, and quant_rows given that max bit-equal to quant_rows alone; the
+f32 attention output 2**-8 (summation order,
 and a bf16 rounding of p that can flip); the int8 sub-blocks on out - x,
 2**-6 of its max plus the residual add's rounding (2**-8 of |out|).
 The tensor-parallel block kernels (#11, #12: one shard's rectangular
@@ -469,19 +471,30 @@ def test_quant_rows_kernel(dev, rows, n):
     with torch.inference_mode():
         q, scale = fe8.quant_rows(x)
         _check_quant(q, scale, *fe8.quant_plain(x))
+        # with the row max given, the row is read once: the same bits
+        q1, scale1 = fe8.quant_rows(x, x.abs().amax(-1))
     assert scale[0].item() == 1.0 and q[0].abs().max().item() == 0
+    assert torch.equal(q1, q) and torch.equal(scale1, scale)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tile_n", [0, 128, 256])
 @pytest.mark.parametrize("m,n,k,gelu,out,res", [
-    (2 * 257, 3 * 1024, 1024, False, torch.bfloat16, False),  # QKV
-    (2 * 257, 1024, 1024, False, torch.bfloat16, True),       # out-proj + residual
-    (2 * 257, 4096, 1024, True, torch.float32, False),        # fc1 + GELU, f32 hidden
-    (2 * 257, 1024, 4096, False, torch.bfloat16, True),       # fc2 + residual
-    (5, 768, 1024, False, torch.float32, False),              # the head
-    (37, 40, 48, False, torch.float32, False),                # ragged M, N and K
+    (1000, 3 * 1024, 1024, False, torch.bfloat16, False),  # QKV
+    (1000, 1024, 1024, False, torch.bfloat16, True),       # out-proj + residual
+    (1000, 4096, 1024, True, torch.float32, False),        # fc1 + GELU, f32 hidden
+    (1000, 1024, 4096, False, torch.bfloat16, True),       # fc2 + residual
+    (64, 768, 1024, False, torch.float32, False),          # the head at b=64
+    (5, 768, 1024, False, torch.float32, False),           # the head at b=5
+    (257, 776, 1040, False, torch.bfloat16, True),         # ragged M, N and K
+    (257, 776, 1040, True, torch.float32, False),
+    (64, 1024, 4096, False, torch.bfloat16, False),
+    (37, 40, 48, False, torch.float32, False),
 ])
-def test_gemm_int8_kernel(dev, m, n, k, gelu, out, res):
+def test_gemm_int8_kernel(dev, m, n, k, gelu, out, res, tile_n):
+    """Bit-equal to the plain version without GELU (exact int32 sums, the
+    plain epilogue's order); with GELU within 2**-12 (tanh's last bits),
+    and the row max bit-equal to that of the kernel's own output."""
     g = torch.Generator().manual_seed(m + n + k)
     a, w = _int8_rows(g, dev, m, k), _int8_rows(g, dev, n, k)
     a_s = (torch.rand(m, generator=g) * 0.05 + 1e-3).to(dev)
@@ -489,11 +502,16 @@ def test_gemm_int8_kernel(dev, m, n, k, gelu, out, res):
     b = _rand(g, dev, n, scale=0.1)
     r = _rand(g, dev, m, n).bfloat16() if res else None
     with torch.inference_mode():
-        got = fe8.gemm_int8(a, a_s, w, w_s, b, gelu=gelu, out_dtype=out, residual=r)
-        ref = fe8.gemm_int8_plain(a, a_s, w, w_s, b, gelu=gelu, out_dtype=torch.float32,
-                                  residual=r)
+        got = fe8._gemm_int8(a, a_s, w, w_s, b, gelu=gelu, out_dtype=out, residual=r,
+                             row_amax=gelu, tile_n=tile_n)
+        ref = fe8.gemm_int8_plain(a, a_s, w, w_s, b, gelu=gelu, out_dtype=out, residual=r)
+    if gelu:
+        got, amax = got
+        assert torch.equal(amax, got.abs().amax(-1))
+        assert _rel_err(got, ref.float()) <= 2**-12
+    else:
+        assert torch.equal(got, ref)
     assert got.dtype == out
-    assert _rel_err(got, ref) <= (2**-12 if out == torch.float32 else 2**-7)
 
 
 @pytest.mark.gpu
@@ -541,6 +559,16 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     s4, s8 = torch.ones(4, device=dev), torch.ones(8, device=dev)
     with pytest.raises(ValueError, match="K of 16"):
         fe8.gemm_int8(a, s4, torch.zeros(8, 40, device=dev, dtype=torch.int8), s8)
+    w32 = torch.zeros(8, 32, device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError, match="f32 GELU output"):
+        fe8.gemm_int8(a[:, :32], s4, w32, s8, row_amax=True)
+    with pytest.raises(ValueError, match="tile_n"):
+        fe8._gemm_int8(a[:, :32], s4, w32, s8, tile_n=64)
+    with pytest.raises(ValueError, match="GELU into bf16"):
+        fe8._gemm_int8(a[:, :32], s4, w32, s8, gelu=True, tile_n=256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fe8.gemm_int8(torch.zeros(4 * 32 + 8, device=dev, dtype=torch.int8)[8:].view(4, 32), s4,
+                      w32, s8)
     with pytest.raises(TypeError, match="int8"):
         fe8.gemm_int8(a[:, :32].float(), s4, torch.zeros(8, 32, device=dev, dtype=torch.int8), s8)
     with pytest.raises(ValueError, match="bf16 with a residual"):
