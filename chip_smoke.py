@@ -7,8 +7,9 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
 1. torch / CUDA versions, the card's name and power limit, and the nvcc
    build of the kernels in openvision_tpu_torch/csrc (timed; one nvcc per
    source, in parallel). Fails if a GEMM kernel (bf16 or int8, one
-   mainloop) or an int8 quantiser spills registers, or if the build holds
-   no int8 GEMM.
+   mainloop), an int8 quantiser or one of the two attention backward
+   kernels spills registers, or if the build holds no int8 GEMM or not both
+   attention backward kernels; prints ptxas's notes on serialized wgmma.
 2. Each kernel against its plain PyTorch version at ViT-L/14 shapes
    (B=8, L=257, D=1024, 16 heads, MLP 4096) and at a ragged L=101, with
    nomax on and off for attention. Inputs are bf16; the plain version runs
@@ -77,7 +78,8 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    image tower's L=257 D=1024, the concat decoder's prefix-LM L=463 and the
    cross_attn decoder's causal L=128, against the plain Pallas-order
    backward, dx held on dx - g; the flash backward (_dq_kernel /
-   _dkv_kernel) at cross 128x335, causal L=128 and Lk=900 (multi-k order).
+   _dkv_kernel) at cross 128x335, causal L=128, Lk=900 (multi-k order) and
+   the image tower's L=257 (a one-row tail tile on both axes).
    Each output's max|err| / max|plain| is printed beside its bound.
 8. Training at full width: ViT-L/14-224 + text L + decoder L, bf16 compute
    on f32 master weights, remat=full, batch 64, seed-0 init, on the
@@ -95,7 +97,15 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
 9. Each backward kernel at B=64, replayed from a CUDA graph, beside its
    bound, its plain version and one PyTorch library call (the autograd
    backward of scaled_dot_product_attention, torch.matmul in the same
-   layout, the autograd backward of F.layer_norm, a column sum).
+   layout, the autograd backward of F.layer_norm, a column sum); per flash
+   backward shape the pair's sum (attention_bwd_dq + attention_bwd_dkv, by
+   events and by graph replay) beside SDPA's autograd backward, which
+   computes what the two compute together, and each wrapper's host time a
+   call. `python3 chip_smoke.py --attn [ROOT]` runs the flash backward
+   shapes and #10's chain at L=257 alone on the package of the checkout at
+   ROOT (for this checkout it first applies phase 1's spill gate and
+   phase 7's checks at B=8), so that two checkouts are timed on one card in
+   one call.
 10. The int8 serving kernels against their plain versions at ViT-L/14
    shapes (B=8, L=257 and a ragged L=101): gemm_int8 in each epilogue (QKV
    bf16, out-proj + residual, fc1 + GELU in f32, fc2 + residual),
@@ -429,6 +439,29 @@ def ptxas_summary(log: str) -> dict:
                   f"{spills.get(name, 0)} bytes spill stores")
             name = None
     return spills
+
+
+def spill_gate(lib_path) -> None:
+    """Phase 1's gate on the build log: the GEMM family (bf16 and int8, one
+    mainloop), the int8 quantisers and the attention backward pair must not
+    spill registers; the build must hold an int8 GEMM and both attention
+    backward kernels. ptxas's notes on serialized wgmma are printed."""
+    log = (lib_path.parent / "build.log").read_text()
+    spills = ptxas_summary(log)
+    gated = [f for f in spills if "gemm_ws_kernel" in f or "quant" in f or "attention_bwd" in f]
+    int8_gemms = [f for f in gated if "gemm_ws_kernel" in f and "2S8E" in f]
+    attn_bwd = [f for f in gated if "attention_bwd" in f]
+    print(f"spill gate: {len(gated)} kernels, {len(int8_gemms)} of them int8 GEMMs, "
+          f"{len(attn_bwd)} attention backward")
+    for line in log.splitlines():
+        if "wgmma" in line and "serializ" in line:
+            print(f"  ptxas: {line.strip()[:200]}")
+    if not int8_gemms:
+        raise AssertionError("no int8 instantiation of gemm_ws_kernel in the build")
+    if len(attn_bwd) != 2:
+        raise AssertionError(f"expected the two attention backward kernels, found {attn_bwd}")
+    if any(spills[f] for f in gated):
+        raise AssertionError(f"kernels that spill registers: {[f for f in gated if spills[f]]}")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1504,10 +1537,11 @@ def block_bwd_parts(gk, device, gen, b: int, l: int = 257, d: int = 1024):
     return cases
 
 
-def fused_block_bwd_cases(fa, device, gen, b: int):
+def fused_block_bwd_cases(fa, device, gen, b: int, lengths=(257, 463, 128)):
     """The fused block's whole backward (#10's 12 launches) at the three
-    training shapes, against the plain Pallas-order backward; its library
-    call is the autograd backward of the block as library calls."""
+    training shapes (those of `lengths`), against the plain Pallas-order
+    backward; its library call is the autograd backward of the block as
+    library calls."""
     import torch
 
     def rnd(*shape, scale=1.0):
@@ -1516,6 +1550,8 @@ def fused_block_bwd_cases(fa, device, gen, b: int):
     cases = []
     for l, d, heads, causal, prefix in ((257, 1024, 16, False, 0), (463, 768, 12, True, 335),
                                         (128, 768, 12, True, 0)):
+        if l not in lengths:
+            continue
         x, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
         w = (rnd(d, scale=0.1) + 1, rnd(d, scale=0.1), rnd(3 * d, d, scale=d**-0.5).bfloat16(),
              rnd(3 * d, scale=0.1), rnd(d, d, scale=d**-0.5).bfloat16(), rnd(d, scale=0.1))
@@ -1603,6 +1639,37 @@ def time_bwd_case(c) -> dict:
           f"{'n/a' if l_ms is None else f'{l_ms * 1e3:.1f}'} us")
     return {"ms": k_ms, "graph_ms": k_graph, "plain_ms": p_ms, "library_ms": l_ms,
             "library_graph_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def time_attention_bwd(fl, gk, device, gen, b: int = 64) -> dict:
+    """Phase 9's flash backward cases (#15/#16, #10's attention) at `b`:
+    each kernel timed (time_bwd_case), then per shape the pair's sum against
+    the autograd backward of SDPA, which computes what the two compute
+    together (its time the mean of the two cases' library calls), and each
+    wrapper's host time a call (50 calls, no synchronize: the checks, the
+    tensor maps and the launch). Returns the cross-attention shape's rows,
+    the JSON line's."""
+    import torch
+
+    rows, by_shape = {}, {}
+    for c in attention_bwd_cases(fl, gk, device, gen, b):
+        t = time_bwd_case(c)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            c.kern()
+        t["host_us"] = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        by_shape.setdefault(c.label, []).append(t)
+        if c.label.startswith("cross"):  # the JSON row: the flash cross-attention
+            rows[c.name] = t
+    for label, (dq, dkv) in by_shape.items():
+        pair, graph = (dq["ms"] + dkv["ms"]) * 1e3, (dq["graph_ms"] + dkv["graph_ms"]) * 1e3
+        lib = (dq["library_ms"] + dkv["library_ms"]) / 2 * 1e3
+        bound = (dq["bound_ms"] + dkv["bound_ms"]) * 1e3
+        print(f"  pair {label:44s} dq + dkv {pair:.1f} us (graph {graph:.1f})  bound {bound:.1f} "
+              f"us  SDPA backward {lib:.1f} us  pair / SDPA {pair / lib:.2f}  wrappers' host "
+              f"time {dq['host_us']:.1f} + {dkv['host_us']:.1f} us a call")
+    return rows
 
 
 def train_config(fusion: str, dec_impl: str, dtype: str = "bfloat16", no_pil: bool = False):
@@ -2939,15 +3006,7 @@ def run(work: str) -> int:
     kernels.lib()
     print(f"built {os.path.relpath(lib_path, REPO)} with {kernels.nvcc()} "
           f"in {time.perf_counter() - t0:.1f} s")
-    spills = ptxas_summary((lib_path.parent / "build.log").read_text())
-    # the GEMM family (bf16 and int8: one mainloop) and the int8 quantisers
-    gated = [f for f in spills if "gemm_ws_kernel" in f or "quant" in f]
-    int8_gemms = [f for f in gated if "gemm_ws_kernel" in f and "2S8E" in f]
-    print(f"spill gate: {len(gated)} kernels, {len(int8_gemms)} of them int8 GEMMs")
-    if not int8_gemms:
-        raise AssertionError("no int8 instantiation of gemm_ws_kernel in the build")
-    if any(spills[f] for f in gated):
-        raise AssertionError(f"kernels that spill registers: {[f for f in gated if spills[f]]}")
+    spill_gate(lib_path)
 
     worst = {}
     totals = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -3065,7 +3124,7 @@ def run(work: str) -> int:
     with torch.no_grad():
         check_bwd_cases(fused_block_bwd_cases(fa, device, gen, 8)
                         + attention_bwd_cases(fl, gk, device, gen, 8,
-                                              which=("cross", "causal", "multi-k"))
+                                              which=("cross", "causal", "multi-k", "#10 image"))
                         + block_bwd_parts(gk, device, gen, 8), worst)
 
     phase("8. training at full width: L/14 + text L + decoder L, bf16, batch 64, remat=full")
@@ -3084,10 +3143,7 @@ def run(work: str) -> int:
         for c in fused_block_bwd_cases(fa, device, gen, 64):
             time_bwd_case(c)
         torch.cuda.empty_cache()
-        for c in attention_bwd_cases(fl, gk, device, gen, 64):
-            t = time_bwd_case(c)
-            if c.label.startswith("cross"):  # the JSON row: the flash cross-attention
-                times[c.name] = t
+        times.update(time_attention_bwd(fl, gk, device, gen))
         torch.cuda.empty_cache()
         keys = ("ms", "graph_ms", "plain_ms", "library_ms", "bound_ms")
         largest = {}
@@ -3236,9 +3292,53 @@ def gemm_only(root: str) -> int:
     return 0
 
 
+def attn_only(root: str) -> int:
+    """``chip_smoke.py --attn [ROOT]``: phase 9's flash backward cases at b=64
+    (each kernel by CUDA events and graph replay, the pair's sum beside
+    SDPA's autograd backward) and #10's chain at L=257, on the package of the
+    checkout at ROOT (this one by default), so that two checkouts are timed
+    on one card in one call. For this checkout's package it first holds the
+    build to phase 1's spill gate and the same cases at B=8 to their bounds
+    (phase 7)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --attn: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from openvision_tpu_torch.ops import flash_attention as fl
+    from openvision_tpu_torch.ops import fused_attention as fa
+    from openvision_tpu_torch.ops import grad_kernels as gk
+    from openvision_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"package {os.path.dirname(kernels.__file__)}")
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    lib_path = kernels.build()
+    kernels.lib()
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    device = torch.device("cuda")
+    with torch.no_grad():
+        if root == REPO:
+            spill_gate(lib_path)
+            gen = torch.Generator(device=device).manual_seed(SEED + 3)
+            check_bwd_cases(attention_bwd_cases(fl, gk, device, gen, 8)
+                            + fused_block_bwd_cases(fa, device, gen, 8, lengths=(257,)), {})
+        gen = torch.Generator(device=device).manual_seed(SEED + 4)
+        for c in fused_block_bwd_cases(fa, device, gen, 64, lengths=(257,)):
+            time_bwd_case(c)
+        torch.cuda.empty_cache()
+        time_attention_bwd(fl, gk, device, gen)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-grads"]:  # one rank of phase 18 (torchrun starts it)
         sys.exit(tp_grads_worker(sys.argv[2], "--no-pil" in sys.argv))
     if sys.argv[1:2] == ["--gemm"]:
         sys.exit(gemm_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
+    if sys.argv[1:2] == ["--attn"]:
+        sys.exit(attn_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

@@ -20,34 +20,89 @@
 // (ds.astype(k.dtype)); P is rounded to bf16 for dv (the Pallas flash kernel
 // keeps it in f32 there, the fused block rounds it). The fused block's
 // formulation (q scaled before q.k^T, dq scaled after) gives the same bits
-// at head_dim 64, where the scale is 2**-3.
+// at head_dim 64, where the scale is 2**-3. P is taken as
+// exp2(s_raw * scale * log2(e) - lse * log2(e)) (one ex2 an element); under
+// nomax (the fused_t forward's exp(min(s, 80))) the scaled score is clamped
+// at 80 * log2(e) first.
 //
-// Bound on the H100: like the forward, at the port's shapes (L of 128..463,
-// head_dim 64) the bytes of q, k, v, o, do, dq, dk and dv over the card's
-// memory rate against 8*Lq*Lk*64 FLOPs per (batch, head) put these kernels
-// near the ridge; what bounds this version is mma.sync throughput and the
-// exp/mask arithmetic, with no overlap of loads and compute.
+// Bound on the H100: at the port's shapes (L of 128..463, head_dim 64) the
+// bytes of q, k, v, o, do, dq, dk and dv over the card's memory rate exceed
+// the 7 products (2 Lq Lk 64 FLOPs each per (batch, head)) over its bf16
+// rate, so the pair is bytes-bound on paper (121.6 us at b=64, L=257, 16
+// heads). What they move between L2 and the SMs is more: each 64-row CTA
+// reads the whole streamed sequence of its head, ~460 MB for the dq kernel
+// at that shape by its tile counts. A CTA of 128 rows (twice the registers:
+// the dk/dv kernel already holds 168 a thread) or TMA multicast across a
+// cluster would halve that; whether the L2 is what holds the pair at ~2x
+// its bound is not measured (the card gives no counters here).
 //
-// Two kernels, each a FlashAttention-2 loop that keeps every (Lq, Lk) tile in
-// registers:
-// - attention_bwd_dq: one block of 4 warps per (64-query tile, head, batch);
-//   it first writes delta for its rows, then walks the live key tiles
-//   (tiles no query of the block sees are skipped, as _live does) and
-//   accumulates dq in registers;
-// - attention_bwd_dkv: one block per (64-key tile, head, batch); each warp
-//   owns 16 keys, keeps its k and v fragments in registers, walks the query
-//   tiles that can see its keys and accumulates dk and dv. It reads the delta
-//   the dq kernel wrote, so it runs after it on the same stream.
-#include "common.cuh"
+// Two kernels, each one warpgroup (128 threads) per (64-row tile, head,
+// batch) whose 64 rows are the M of every product (wgmma, csrc/hopper.cuh's
+// descriptors and 128-byte swizzle):
+// - attention_bwd_dq: the CTA's rows are queries. Q, dO and O arrive once by
+//   TMA (O into the ring's last stage, free until the loop starts); delta is
+//   formed from dO and O and written for the dk/dv kernel. The live key
+//   tiles (those some query of the tile sees, as _live does) stream through
+//   a ring of K/V tiles, each loaded a tile ahead of its use by one thread's
+//   TMA under an mbarrier. Per tile S = Q K^T and dP = dO V^T run on
+//   shared-memory operands (both K-major) as two wgmma groups, P is formed
+//   from S while dP's group still runs, then dS in place of P, and
+//   dq += dS K takes dS from registers as wgmma's A operand and K as an
+//   MN-major B (the transpose bit): dS never goes through shared memory.
+//   Four CTAs an SM (122 registers, 49 KB).
+// - attention_bwd_dkv: the CTA's rows are keys. K and V arrive once; Q/dO
+//   tiles stream through the ring with their lse and delta rows (staged in
+//   shared memory a tile ahead by plain loads: a row of 257 floats has no
+//   16-byte alignment for TMA). Per tile S^T = K Q^T and dP^T = V dO^T from
+//   shared memory, P^T from S^T while dP^T runs, dv += P^T dO started from
+//   registers before dS^T is formed, then dk += dS^T Q. It reads the delta
+//   the dq kernel wrote, so it runs after it on the stream. Three CTAs an
+//   SM (168 registers: two 64 x 64 f32 sums and two score blocks).
+// Each kernel recomputes S and dP: 7 products where the math needs 5, and no
+// atomics, so both stay deterministic as the Pallas pair is. Two ring stages:
+// three and four measured no faster on the card.
+//
+// The ragged tail. The last tile of the streamed sequence runs at the
+// narrowest wgmma N of 8, 16, 32 or 64 that covers it (keys in the dq
+// kernel, queries in the dk/dv kernel); its product into dq, dk or dv then
+// reduces over N rows rounded up to wgmma's k16 (the rest of the A fragment
+// is zero, the rest of the B tile TMA's zero fill). At L = 257 per (batch,
+// head) and per kernel: 5 x 5 = 25 tile pairs of 64 x 64 before, each paying
+// the whole products and exps; now 5 x (4 whole + 1 of N = 8): 20.6 of the
+// S/dP products' work in 64 x 64 units, against 16.1 of useful work. The
+// CTA's own 64 rows stay a whole tile: at L = 257 one CTA in five holds one
+// valid row (the cls token), 20% of each kernel's work for 1/257 of the rows.
+// Rows past the sequence read zeros (TMA), take lse = delta = 0 and so add
+// exact zeros (P = 1 times a zero row); keys past Lk are masked in the tile
+// that straddles Lk. The causal mask is applied only in tiles that straddle
+// its edge (a warp-uniform test per 16 rows); whole tiles run unmasked.
+#include <limits>
+
+#include "hopper.cuh"
 
 namespace {
 
 using ovt::bf16;
+namespace hp = ovt::hopper;
 
 constexpr int HD = 64;
-constexpr int BQ = 64, BKV = 64;
-constexpr int LDA = HD + 8;  // padded row: 144 bytes, conflict-free ldmatrix
-constexpr int kThreads = 128;
+constexpr int BT = 64;                   // rows of a tile: the CTA's own, and a whole streamed one
+constexpr int kThreads = 128;            // one warpgroup
+constexpr int kTileBytes = BT * HD * 2;  // 8 KB: 64 rows of 128 bytes, one swizzle span each
+constexpr float kLog2e = 1.4426950408889634f;
+// The streamed operand's ring: kStages stages of two tiles (K and V, or Q and
+// dO), loaded kStages - 1 tiles ahead of use.
+constexpr int kStages = 2;
+// Dynamic shared memory: 1 KB to align the swizzled tiles, then Q and dO
+// (dq) or K and V (dk/dv), then the ring.
+constexpr int kSmem = 1024 + (2 + 2 * kStages) * kTileBytes;
+
+// The operands' tensor maps: (64, heads, rows, batch) views read in boxes of
+// one head's 64 rows. dk/dv does not read o.
+enum { kQ, kK, kV, kO, kDo, kMaps };
+struct Maps {
+  CUtensorMap m[kMaps];
+};
 
 struct Strides {  // in elements: batch, row (sequence position), head
   long long b;
@@ -55,140 +110,304 @@ struct Strides {  // in elements: batch, row (sequence position), head
 };
 
 struct BwdArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const bf16* o;
-  const bf16* dout;
   const float* lse;  // (B, H, Lq) f32
   float* delta;      // (B, H, Lq) f32, written by the dq kernel
   bf16* dq;
   bf16* dk;
   bf16* dv;
-  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  Strides sdq, sdk, sdv;
   int Lq, Lk, H;
-  float scale;
+  float scale;   // dS's factor
+  float scale2;  // scale * log2(e): P's exponent
+  float clamp2;  // 80 * log2(e) under nomax, else +inf
   int causal, prefix;
-  int nomax;  // P = exp(min(s, 80) - lse): the fused_t forward's nomax softmax
 };
 
-// The scaled score whose exp, less the forward's lse, is P: clamped at 80
-// under nomax, as the forward's exp(min(s, 80)).
-__device__ __forceinline__ float score(float qk, const BwdArgs& a) {
-  const float s = qk * a.scale;
-  return a.nomax ? fminf(s, 80.f) : s;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ bool visible(int key, int query, const BwdArgs& a) {
-  return key < a.Lk && query < a.Lq && (!a.causal || key <= max(query, a.prefix - 1));
+  return key < a.Lk && (!a.causal || key <= max(query, a.prefix - 1));
 }
 
-// Loads a 64 x 64 bf16 tile (rows r0.., columns 0..63) by row stride into
-// shared memory; rows at or past `rows` are zero-filled.
-__device__ __forceinline__ void load_tile(bf16 (*dst)[LDA], const bf16* base, int stride,
-                                          int r0, int rows, int tid) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {  // 64 rows x 8 chunks of 8
-    const int c = tid + i * kThreads;
-    const int r = c >> 3, cc = (c & 7) * 8;
-    const bool p = (r0 + r) < rows;
-    ovt::cp_async16(&dst[r][cc], p ? base + (static_cast<long long>(r0 + r) * stride + cc) : base,
-                    p);
+// A 64-row box of one head (TMA, 128-byte swizzled) into shared memory.
+__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                          int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(ovt::smem_u32(bar)), "r"(0),
+         "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+// Descriptors of a 64-row swizzled tile: as a K-major operand (the reduction
+// along its 128-byte rows, k16 step kk), or as an MN-major B operand (the
+// reduction down its rows: 16 rows a k16 step; N = the 64 values of a row).
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return hp::desc_sw128(tile + kk * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return hp::desc_sw128(tile + kk * 2048, hp::kChunkBytes, 1024);
+}
+
+#define OVT_F4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
+#define OVT_F8(i) OVT_F4(i), OVT_F4((i) + 4)
+#define OVT_F16(i) OVT_F8(i), OVT_F8((i) + 8)
+#define OVT_F32(i) OVT_F16(i), OVT_F16((i) + 16)
+
+// d (64 x N f32) = A (64 x 16) B (16 x N) + (scale_d ? d : 0), both operands
+// K-major in shared memory. The fragment: d[4j + e] is row 16 w + lane / 4
+// + 8 (e >> 1), column 8 j + 2 (lane % 4) + (e & 1) (w: the warp).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  if constexpr (N == 8) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+        : OVT_F4(0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : OVT_F8(0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n}\n"
+        : OVT_F16(0)
+        : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    static_assert(N == 64, "the streamed tile is 8, 16, 32 or 64 wide");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : OVT_F32(0)
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 }
 
-// acc[8][4] (16 rows x 64 columns) += A (16 x 64, four k16 fragments) . B^T
-// with B's 64 rows in shared memory (row-major, the reduction along a row).
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4], const uint32_t (&af)[4][4],
-                                        bf16 (*bs)[LDA], int lane) {
+// d (64 x 64 f32) += A (64 x 16 bf16, registers: mma.m16n8k16's A fragment
+// per warp) B (16 x 64, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : OVT_F32(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef OVT_F32
+#undef OVT_F16
+#undef OVT_F8
+#undef OVT_F4
+
+// Starts a tile's two 64 x N score products as two wgmma groups: x = A . B^T
+// then y = C . D^T over the head dim, all four operands K-major 64-row
+// tiles. wgmma_wait<1> then leaves y running while x is read.
+template <int N>
+__device__ __forceinline__ void start_scores(float (&x)[N / 2], float (&y)[N / 2], uint32_t a,
+                                             uint32_t b, uint32_t c, uint32_t d) {
+  hp::wgmma_fence();
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<N>(x, desc_k(a, kk), desc_k(b, kk), kk);
+  hp::wgmma_commit();
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t t[4];
-      ovt::ldmatrix_x4(t, &bs[np * 16 + (lane >> 4) * 8 + (lane & 7)]
-                              [ks * 16 + ((lane >> 3) & 1) * 8]);
-      ovt::mma_bf16_16816(acc[2 * np], af[ks], t[0], t[1]);
-      ovt::mma_bf16_16816(acc[2 * np + 1], af[ks], t[2], t[3]);
+  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<N>(y, desc_k(c, kk), desc_k(d, kk), kk);
+  hp::wgmma_commit();
+}
+
+// X (64 x N f32, the accumulator layout) rounded to bf16 as wgmma's A
+// fragments, one per k16 step; columns past N are zero.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[(N + 15) / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < (N + 15) / 16; ++kk) {
+    f[kk][0] = ovt::pack_bf16x2(x[8 * kk], x[8 * kk + 1]);
+    f[kk][1] = ovt::pack_bf16x2(x[8 * kk + 2], x[8 * kk + 3]);
+    if constexpr (N >= 16) {
+      f[kk][2] = ovt::pack_bf16x2(x[8 * kk + 4], x[8 * kk + 5]);
+      f[kk][3] = ovt::pack_bf16x2(x[8 * kk + 6], x[8 * kk + 7]);
+    } else {
+      f[kk][2] = f[kk][3] = 0u;
     }
   }
 }
 
-// acc[8][4] (16 rows x 64 columns) += P (16 x 64 accumulator layout, rounded
-// to bf16) . B with B's 64 rows in shared memory (the reduction down the rows).
-__device__ __forceinline__ void mma_pb(float (&acc)[8][4], const float (&p)[8][4],
-                                       bf16 (*bs)[LDA], int lane) {
+// Keeps A fragments alive (and in place) until the products reading them
+// have been waited for: wgmma reads its register operands asynchronously.
+template <int K>
+__device__ __forceinline__ void fence_frag(uint32_t (&f)[K][4]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    uint32_t pa[4];
-    pa[0] = ovt::pack_bf16x2(p[2 * ks][0], p[2 * ks][1]);
-    pa[1] = ovt::pack_bf16x2(p[2 * ks][2], p[2 * ks][3]);
-    pa[2] = ovt::pack_bf16x2(p[2 * ks + 1][0], p[2 * ks + 1][1]);
-    pa[3] = ovt::pack_bf16x2(p[2 * ks + 1][2], p[2 * ks + 1][3]);
+  for (int kk = 0; kk < K; ++kk)
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t t[4];
-      ovt::ldmatrix_x4_trans(t, &bs[ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8]
-                                   [np * 16 + (lane >> 4) * 8]);
-      ovt::mma_bf16_16816(acc[2 * np], pa, t[0], t[1]);
-      ovt::mma_bf16_16816(acc[2 * np + 1], pa, t[2], t[3]);
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f[kk][i]) :: "memory");
+}
+
+// Starts acc (64 x 64) += X . T, X given as its A fragments, T the streamed
+// tile's rows (MN-major): the reduction runs over N rounded up to k16.
+template <int K>
+__device__ __forceinline__ void start_rs(float (&acc)[32], const uint32_t (&f)[K][4],
+                                         uint32_t tile) {
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk) wgmma_rs(acc, f[kk], desc_mn(tile, kk));
+  hp::wgmma_commit();
+}
+
+// Writes the warpgroup's 64 x 64 f32 fragment as bf16 rows r0.. (those
+// below `rows`), 16 bytes a lane: each row's four lanes swap their column
+// pairs (hopper.cuh's transpose_quad) so that a lane holds 8 columns.
+__device__ __forceinline__ void store_tile(bf16* base, int stride, int r0, int rows,
+                                           const float (&acc)[32], int warp, int lane) {
+  const int t4 = lane & 3;
+  const int ra = r0 + warp * 16 + (lane >> 2), rb = ra + 8;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t wa[4], wb[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 4 * half + c;
+      wa[c] = ovt::pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+      wb[c] = ovt::pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
     }
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
-}
-
-// Writes a warp's 16 x 64 f32 accumulator as bf16 rows r0 + g and r0 + g + 8.
-__device__ __forceinline__ void store_rows(bf16* base, int stride, int r0, int rows,
-                                           const float (&acc)[8][4], int lane) {
-  const int g = lane >> 2, t4 = lane & 3;
-  const int ra = r0 + g, rb = ra + 8;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int col = nt * 8 + t4 * 2;
+    hp::transpose_quad(wa, t4);
+    hp::transpose_quad(wb, t4);
+    const int col = 8 * (4 * half + t4);
     if (ra < rows)
-      *reinterpret_cast<uint32_t*>(base + (static_cast<long long>(ra) * stride + col)) =
-          ovt::pack_bf16x2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<uint4*>(base + (static_cast<long long>(ra) * stride + col)) =
+          make_uint4(wa[0], wa[1], wa[2], wa[3]);
     if (rb < rows)
-      *reinterpret_cast<uint32_t*>(base + (static_cast<long long>(rb) * stride + col)) =
-          ovt::pack_bf16x2(acc[nt][2], acc[nt][3]);
+      *reinterpret_cast<uint4*>(base + (static_cast<long long>(rb) * stride + col)) =
+          make_uint4(wb[0], wb[1], wb[2], wb[3]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bf16 Qs[BQ][LDA];
-  __shared__ __align__(16) bf16 Ds[BQ][LDA];  // do
-  __shared__ __align__(16) bf16 Ks[BKV][LDA];  // o while delta is formed, then k
-  __shared__ __align__(16) bf16 Vs[BKV][LDA];
-  __shared__ float delta_s[BQ];
+// bar[0]: the tiles loaded once; bar[1 + s]: ring stage s.
+__device__ __forceinline__ void init_barriers(uint64_t* bar, const Maps& maps, int count) {
+  for (int i = 0; i <= kStages; ++i) hp::mbar_init(&bar[i], 1);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  for (int i = 0; i < count; ++i) hp::tma_prefetch_map(&maps.m[i]);
+}
 
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bf16* kbase = a.k + b * a.sk.b + h * a.sk.h;
-  const bf16* vbase = a.v + b * a.sv.b + h * a.sv.h;
+// ---------------------------------------------------------------------------
+// dq (and delta)
+// ---------------------------------------------------------------------------
 
-  load_tile(Qs, a.q + b * a.sq.b + h * a.sq.h, a.sq.l, q0, a.Lq, tid);
-  load_tile(Ds, a.dout + b * a.sdo.b + h * a.sdo.h, a.sdo.l, q0, a.Lq, tid);
-  load_tile(Ks, a.o + b * a.so.b + h * a.so.h, a.so.l, q0, a.Lq, tid);
-  ovt::cp_async_commit();
-  ovt::cp_async_wait<0>();
+// P of the dq kernel's tile in place: s (rows: the CTA's queries, columns:
+// keys k0..) becomes P. kMask: the tile straddles Lk or the causal edge for
+// this warp's rows.
+template <int N, bool kMask>
+__device__ __forceinline__ void dq_probs(float (&s)[N / 2], const BwdArgs& a, int row0, int col0,
+                                         const float (&lse)[2]) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const int e = i & 3;
+    const float p = ex2(fminf(s[i] * a.scale2, a.clamp2) - lse[e >> 1]);
+    s[i] = (kMask && !visible(col0 + (i >> 2) * 8 + (e & 1), row0 + 8 * (e >> 1), a)) ? 0.f : p;
+  }
+}
+
+// One K/V tile: S and dP (the dP product runs on while P is formed), dS in
+// place of P, then dq += dS K from registers.
+template <int N>
+__device__ __forceinline__ void dq_tile(float (&dq)[32], uint32_t qs, uint32_t dos, uint32_t ks,
+                                        uint32_t vs, const BwdArgs& a, int k0, int q0, int warp,
+                                        int lane, const float (&lse)[2], const float (&del)[2]) {
+  float s[N / 2], dp[N / 2];
+  start_scores<N>(s, dp, qs, ks, dos, vs);
+  hp::wgmma_wait<1>();
+  hp::fence_acc(s);
+  const int row0 = q0 + warp * 16 + (lane >> 2), col0 = k0 + 2 * (lane & 3);
+  // warp-uniform: every key of the tile is visible to every row of the warp
+  const bool whole =
+      k0 + N <= a.Lk && (!a.causal || k0 + N - 1 <= max(q0 + warp * 16, a.prefix - 1));
+  if (whole)
+    dq_probs<N, false>(s, a, row0, col0, lse);
+  else
+    dq_probs<N, true>(s, a, row0, col0, lse);
+  hp::wgmma_wait<0>();
+  hp::fence_acc(dp);
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) s[i] = s[i] * (dp[i] - del[(i >> 1) & 1]) * a.scale;
+  uint32_t f[(N + 15) / 16][4];
+  pack_a<N>(f, s);
+  start_rs(dq, f, ks);
+  hp::wgmma_wait<0>();
+  hp::fence_acc(dq);
+  fence_frag(f);
+}
+
+__global__ void __launch_bounds__(kThreads, 4) attention_bwd_dq_kernel(const __grid_constant__ Maps maps,
+                                                                  const BwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[1 + kStages];  // Q, dO and O; the K/V stages
+  __shared__ float delta_s[BT];
+
+  // Q, dO, then the K/V stages; O, read once for delta, lands in the last
+  // stage, which is not loaded before the first tile's iteration
+  const uint32_t raw = ovt::smem_u32(smem_raw), base = (raw + 1023u) & ~1023u;
+  const uint8_t* smem = smem_raw + (base - raw);
+  const int o_off = (2 + 2 * (kStages - 1)) * kTileBytes;
+  const uint32_t qs = base, dos = base + kTileBytes, os = base + o_off;
+  auto stage_at = [&](int st) { return base + (2 + 2 * st) * kTileBytes; };
+  const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  int last = (a.Lk + BT - 1) / BT - 1;  // the live key tiles are [0, last]
+  if (a.causal) last = min(last, max(q0 + BT - 1, a.prefix - 1) / BT);
+
+  if (tid == 0) init_barriers(bar, maps, kMaps);
   __syncthreads();
+  if (tid == 0) {
+    hp::mbar_expect_tx(&bar[0], 3 * kTileBytes);
+    load_tile(qs, &maps.m[kQ], &bar[0], h, q0, b);
+    load_tile(dos, &maps.m[kDo], &bar[0], h, q0, b);
+    load_tile(os, &maps.m[kO], &bar[0], h, q0, b);
+    for (int t = 0; t < kStages - 1 && t <= last; ++t) {  // the first K/V tiles
+      hp::mbar_expect_tx(&bar[1 + t], 2 * kTileBytes);
+      load_tile(stage_at(t), &maps.m[kK], &bar[1 + t], h, t * BT, b);
+      load_tile(stage_at(t) + kTileBytes, &maps.m[kV], &bar[1 + t], h, t * BT, b);
+    }
+  }
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // and row0 + 8
+  const float* lrow = a.lse + (static_cast<long long>(b) * a.H + h) * a.Lq;
+  const float lse[2] = {row0 < a.Lq ? lrow[row0] * kLog2e : 0.f,
+                        row0 + 8 < a.Lq ? lrow[row0 + 8] * kLog2e : 0.f};
 
-  // delta for the tile's 64 rows: two threads per row, 32 columns each
-  {
-    const int r = tid >> 1, c0 = (tid & 1) * 32;
+  hp::mbar_wait(&bar[0], 0);
+  {  // delta: two threads a row, four 16-byte chunks each
+    const int r = tid >> 1;
+    const uint8_t* drow = smem + kTileBytes + r * 128;
+    const uint8_t* orow = smem + o_off + r * 128;
     float acc = 0.f;
 #pragma unroll
-    for (int c = 0; c < 32; c += 2) {
-      const float2 d2 = ovt::unpack_bf16x2(*reinterpret_cast<const uint32_t*>(&Ds[r][c0 + c]));
-      const float2 o2 = ovt::unpack_bf16x2(*reinterpret_cast<const uint32_t*>(&Ks[r][c0 + c]));
-      acc += d2.x * o2.x + d2.y * o2.y;
+    for (int c = 0; c < 4; ++c) {
+      const int off = (((tid & 1) * 4 + c) ^ (r & 7)) * 16;  // the 128-byte swizzle
+      const uint4 d4 = *reinterpret_cast<const uint4*>(drow + off);
+      const uint4 o4 = *reinterpret_cast<const uint4*>(orow + off);
+      const uint32_t dw[4] = {d4.x, d4.y, d4.z, d4.w}, ow[4] = {o4.x, o4.y, o4.z, o4.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float2 d2 = ovt::unpack_bf16x2(dw[w]), o2 = ovt::unpack_bf16x2(ow[w]);
+        acc += d2.x * o2.x + d2.y * o2.y;
+      }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if ((tid & 1) == 0) {
@@ -196,150 +415,220 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
       if (q0 + r < a.Lq) a.delta[(static_cast<long long>(b) * a.H + h) * a.Lq + q0 + r] = acc;
     }
   }
-
-  uint32_t qf[4][4], df[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    ovt::ldmatrix_x4(qf[ks], &Qs[warp * 16 + (lane & 15)][ks * 16 + (lane >> 4) * 8]);
-    ovt::ldmatrix_x4(df[ks], &Ds[warp * 16 + (lane & 15)][ks * 16 + (lane >> 4) * 8]);
-  }
-  __syncthreads();  // delta_s is complete; Ks is free for k
-
-  const int row0 = q0 + warp * 16 + g;  // rows of e = 0, 1; e = 2, 3 add 8
-  const float* lrow = a.lse + (static_cast<long long>(b) * a.H + h) * a.Lq;
-  const float lse0 = row0 < a.Lq ? lrow[row0] : 0.f;
-  const float lse1 = row0 + 8 < a.Lq ? lrow[row0 + 8] : 0.f;
-  const float del0 = delta_s[warp * 16 + g], del1 = delta_s[warp * 16 + g + 8];
-  const int vis_warp = a.causal ? max(q0 + warp * 16, a.prefix - 1) : a.Lk - 1;
-
-  float dq[8][4];
-  zero(dq);
-  const int nkv = (a.Lk + BKV - 1) / BKV;
-  int last = nkv - 1;
-  if (a.causal) {  // the live key tiles of this query tile are [0, last]
-    int live = (q0 + BQ - 1) / BKV;
-    if (a.prefix > 0) live = max(live, (a.prefix - 1) / BKV);
-    last = min(last, live);
-  }
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * BKV;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(Ks, kbase, a.sk.l, k0, a.Lk, tid);
-    load_tile(Vs, vbase, a.sv.l, k0, a.Lk, tid);
-    ovt::cp_async_commit();
-    ovt::cp_async_wait<0>();
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    zero(s);
-    zero(dp);
-    mma_abt(s, qf, Ks, lane);
-    mma_abt(dp, df, Vs, lane);
-    const bool whole = k0 + BKV <= a.Lk && k0 + BKV - 1 <= vis_warp && q0 + warp * 16 + 15 < a.Lq;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const int row = row0 + ((e & 2) ? 8 : 0);
-        const float p = (whole || visible(col, row, a))
-                            ? expf(score(s[nt][e], a) - ((e & 2) ? lse1 : lse0))
-                            : 0.f;
-        s[nt][e] = p * (dp[nt][e] - ((e & 2) ? del1 : del0)) * a.scale;
-      }
-    mma_pb(dq, s, Ks, lane);
-  }
-  store_rows(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.l, q0 + warp * 16, a.Lq, dq, lane);
-}
-
-__global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bf16 Qs[BQ][LDA];
-  __shared__ __align__(16) bf16 Ds[BQ][LDA];  // do
-  __shared__ __align__(16) bf16 Ks[BKV][LDA];
-  __shared__ __align__(16) bf16 Vs[BKV][LDA];
-  __shared__ float lse_s[BQ], delta_s[BQ];
-
-  const int k0 = blockIdx.x * BKV, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const bf16* qbase = a.q + b * a.sq.b + h * a.sq.h;
-  const bf16* dbase = a.dout + b * a.sdo.b + h * a.sdo.h;
-  const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Lq;
-
-  load_tile(Ks, a.k + b * a.sk.b + h * a.sk.h, a.sk.l, k0, a.Lk, tid);
-  load_tile(Vs, a.v + b * a.sv.b + h * a.sv.h, a.sv.l, k0, a.Lk, tid);
-  ovt::cp_async_commit();
-  ovt::cp_async_wait<0>();
+  // O's reads (generic proxy) before the next TMA write (async proxy) there
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
-  uint32_t kf[4][4], vf[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    ovt::ldmatrix_x4(kf[ks], &Ks[warp * 16 + (lane & 15)][ks * 16 + (lane >> 4) * 8]);
-    ovt::ldmatrix_x4(vf[ks], &Vs[warp * 16 + (lane & 15)][ks * 16 + (lane >> 4) * 8]);
-  }
+  const float del[2] = {delta_s[warp * 16 + (lane >> 2)], delta_s[warp * 16 + (lane >> 2) + 8]};
 
-  const int key0 = k0 + warp * 16 + g;  // keys of e = 0, 1; e = 2, 3 add 8
-  const int key_last = k0 + warp * 16 + 15;
-  float dk[8][4], dv[8][4];
-  zero(dk);
-  zero(dv);
-  const int nq = (a.Lq + BQ - 1) / BQ;
-  // query tiles that can see this key tile: all of them, or with the causal
-  // mask those from the diagonal on unless the tile lies in the prefix
-  const int first = (a.causal && k0 >= a.prefix) ? k0 / BQ : 0;
-  for (int qt = first; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile(Qs, qbase, a.sq.l, q0, a.Lq, tid);
-    load_tile(Ds, dbase, a.sdo.l, q0, a.Lq, tid);
-    if (tid < BQ) {
-      const bool in = q0 + tid < a.Lq;
-      lse_s[tid] = in ? a.lse[row_base + q0 + tid] : 0.f;
-      delta_s[tid] = in ? a.delta[row_base + q0 + tid] : 0.f;
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.f;
+  for (int kt = 0; kt <= last; ++kt) {
+    const int s = kt % kStages, ahead = kt + kStages - 1;
+    hp::mbar_wait(&bar[1 + s], (kt / kStages) & 1);
+    if (tid == 0 && ahead <= last) {  // into the stage the last iteration freed
+      const int sa = ahead % kStages;
+      hp::mbar_expect_tx(&bar[1 + sa], 2 * kTileBytes);
+      load_tile(stage_at(sa), &maps.m[kK], &bar[1 + sa], h, ahead * BT, b);
+      load_tile(stage_at(sa) + kTileBytes, &maps.m[kV], &bar[1 + sa], h, ahead * BT, b);
     }
-    ovt::cp_async_commit();
-    ovt::cp_async_wait<0>();
-    __syncthreads();
-
-    float st[8][4], dpt[8][4];  // s^T and dP^T: 16 keys x 64 queries
-    zero(st);
-    zero(dpt);
-    mma_abt(st, kf, Qs, lane);
-    mma_abt(dpt, vf, Ds, lane);
-    // every (key, query) pair of the warp's tile is visible
-    const bool whole = key_last < a.Lk && q0 + BQ <= a.Lq &&
-                       (!a.causal || key_last <= max(q0, a.prefix - 1));
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + t4 * 2 + (e & 1);
-        const int key = key0 + ((e & 2) ? 8 : 0);
-        const float p =
-            (whole || visible(key, q0 + c, a)) ? expf(score(st[nt][e], a) - lse_s[c]) : 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - delta_s[c]) * a.scale;
-      }
-    mma_pb(dv, st, Ds, lane);
-    mma_pb(dk, dpt, Qs, lane);
+    const int k0 = kt * BT, rem = a.Lk - k0;
+    const uint32_t ks = stage_at(s), vs = ks + kTileBytes;
+    if (rem > 32)
+      dq_tile<64>(dq, qs, dos, ks, vs, a, k0, q0, warp, lane, lse, del);
+    else if (rem > 16)
+      dq_tile<32>(dq, qs, dos, ks, vs, a, k0, q0, warp, lane, lse, del);
+    else if (rem > 8)
+      dq_tile<16>(dq, qs, dos, ks, vs, a, k0, q0, warp, lane, lse, del);
+    else
+      dq_tile<8>(dq, qs, dos, ks, vs, a, k0, q0, warp, lane, lse, del);
+    __syncthreads();  // every thread is done with this stage before it is loaded again
   }
-  store_rows(a.dk + b * a.sdk.b + h * a.sdk.h, a.sdk.l, k0 + warp * 16, a.Lk, dk, lane);
-  store_rows(a.dv + b * a.sdv.b + h * a.sdv.h, a.sdv.l, k0 + warp * 16, a.Lk, dv, lane);
+  store_tile(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.l, q0, a.Lq, dq, warp, lane);
 }
 
-BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                  const void* lse, void* delta, void* dq, void* dk, void* dv,
-                  const long long* s, int lq, int lk, int heads, float scale, int causal,
-                  int prefix, int nomax) {
-  auto st = [s](int i) {
-    return Strides{s[3 * i], static_cast<int>(s[3 * i + 1]), static_cast<int>(s[3 * i + 2])};
+// ---------------------------------------------------------------------------
+// dk and dv
+// ---------------------------------------------------------------------------
+
+// P^T of the dk/dv kernel's tile in place: st (rows: the CTA's keys,
+// columns: queries q0..) becomes P^T; lse_s holds the tile's lse * log2(e).
+// kMask: the tile straddles the causal edge for this warp's keys.
+template <int N, bool kMask>
+__device__ __forceinline__ void dkv_probs(float (&st)[N / 2], const BwdArgs& a, int key0, int q0,
+                                          int t4, const float* lse_s) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = 8 * j + 2 * t4;
+    const float2 lse = *reinterpret_cast<const float2*>(&lse_s[c]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float p = ex2(fminf(st[i] * a.scale2, a.clamp2) - ((e & 1) ? lse.y : lse.x));
+      st[i] = (kMask && !(key0 + 8 * (e >> 1) <= max(q0 + c + (e & 1), a.prefix - 1))) ? 0.f : p;
+    }
+  }
+}
+
+// One Q/dO tile: S^T and dP^T (the dP^T product runs on while P^T is
+// formed), dv += P^T dO started before dS^T is formed in place of dP^T, then
+// dk += dS^T Q; both from registers. rows[0] holds the tile's lse * log2(e),
+// rows[1] its delta; `next` (the next tile's row entry, loaded before the
+// products) goes to next_slot.
+template <int N>
+__device__ __forceinline__ void dkv_tile(float (&dk)[32], float (&dv)[32], uint32_t ks,
+                                         uint32_t vs, uint32_t qs, uint32_t dos, const BwdArgs& a,
+                                         int k0, int q0, int warp, int lane,
+                                         const float (*rows)[BT], float* next_slot, float next) {
+  float st[N / 2], dpt[N / 2];
+  start_scores<N>(st, dpt, ks, qs, vs, dos);
+  *next_slot = next;
+  hp::wgmma_wait<1>();
+  hp::fence_acc(st);
+  // warp-uniform: every query of the tile sees every key of the warp
+  const bool whole = !a.causal || k0 + warp * 16 + 15 <= max(q0, a.prefix - 1);
+  const int key0 = k0 + warp * 16 + (lane >> 2), t4 = lane & 3;
+  if (whole)
+    dkv_probs<N, false>(st, a, key0, q0, t4, rows[0]);
+  else
+    dkv_probs<N, true>(st, a, key0, q0, t4, rows[0]);
+  uint32_t fp[(N + 15) / 16][4], fd[(N + 15) / 16][4];
+  pack_a<N>(fp, st);
+  start_rs(dv, fp, dos);
+  hp::wgmma_wait<1>();  // dP^T (dv's product may still run)
+  hp::fence_acc(dpt);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 del = *reinterpret_cast<const float2*>(&rows[1][8 * j + 2 * t4]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      dpt[i] = st[i] * (dpt[i] - ((e & 1) ? del.y : del.x)) * a.scale;
+    }
+  }
+  pack_a<N>(fd, dpt);
+  start_rs(dk, fd, qs);
+  hp::wgmma_wait<0>();
+  hp::fence_acc(dk);
+  hp::fence_acc(dv);
+  fence_frag(fp);
+  fence_frag(fd);
+}
+
+__global__ void __launch_bounds__(kThreads, 3) attention_bwd_dkv_kernel(const __grid_constant__ Maps maps,
+                                                                   const BwdArgs a) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar[1 + kStages];       // K and V; the Q/dO stages
+  __shared__ __align__(16) float rows_s[kStages][2][BT];  // per stage: lse * log2(e), delta
+
+  const uint32_t raw = ovt::smem_u32(smem_raw), base = (raw + 1023u) & ~1023u;
+  const uint32_t ks = base, vs = base + kTileBytes;
+  auto stage_at = [&](int st) { return base + (2 + 2 * st) * kTileBytes; };
+  const int k0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int nq = (a.Lq + BT - 1) / BT;
+  // query tiles that can see this key tile: all of them, or with the causal
+  // mask those from the diagonal on unless the tile reaches into the prefix
+  const int first = (a.causal && k0 >= a.prefix) ? k0 / BT : 0;
+  bf16* dk_out = a.dk + b * a.sdk.b + h * a.sdk.h;
+  bf16* dv_out = a.dv + b * a.sdv.b + h * a.sdv.h;
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  if (first >= nq) {  // keys no query sees: zero gradients
+    store_tile(dk_out, a.sdk.l, k0, a.Lk, dk, warp, lane);
+    store_tile(dv_out, a.sdv.l, k0, a.Lk, dv, warp, lane);
+    return;
+  }
+
+  if (tid == 0) {
+    init_barriers(bar, maps, kO);  // q, k, v
+    hp::tma_prefetch_map(&maps.m[kDo]);
+    hp::mbar_expect_tx(&bar[0], 2 * kTileBytes);
+    load_tile(ks, &maps.m[kK], &bar[0], h, k0, b);
+    load_tile(vs, &maps.m[kV], &bar[0], h, k0, b);
+    for (int t = 0; t < kStages - 1 && first + t < nq; ++t) {  // the first Q/dO tiles
+      hp::mbar_expect_tx(&bar[1 + t], 2 * kTileBytes);
+      load_tile(stage_at(t), &maps.m[kQ], &bar[1 + t], h, (first + t) * BT, b);
+      load_tile(stage_at(t) + kTileBytes, &maps.m[kDo], &bar[1 + t], h, (first + t) * BT, b);
+    }
+  }
+  // lse and delta of a query tile: threads 0-63 one lse each, 64-127 one delta
+  const long long row_base = (static_cast<long long>(b) * a.H + h) * a.Lq;
+  auto row_entry = [&](int qt) {
+    const int q = qt * BT + (tid & (BT - 1));
+    if (q >= a.Lq) return 0.f;
+    return tid < BT ? a.lse[row_base + q] * kLog2e : a.delta[row_base + q];
   };
-  return BwdArgs{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                 static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-                 static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-                 static_cast<float*>(delta), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                 static_cast<bf16*>(dv), st(0), st(1), st(2), st(3), st(4), st(5), st(6), st(7),
-                 lq, lk, heads, scale, causal, prefix, nomax};
+  rows_s[0][tid / BT][tid & (BT - 1)] = row_entry(first);
+  __syncthreads();  // the barriers' init and the first rows
+  hp::mbar_wait(&bar[0], 0);
+
+  for (int qt = first; qt < nq; ++qt) {
+    const int it = qt - first, s = it % kStages, ahead = qt + kStages - 1;
+    hp::mbar_wait(&bar[1 + s], (it / kStages) & 1);
+    if (tid == 0 && ahead < nq) {  // into the stage the last iteration freed
+      const int sa = (it + kStages - 1) % kStages;
+      hp::mbar_expect_tx(&bar[1 + sa], 2 * kTileBytes);
+      load_tile(stage_at(sa), &maps.m[kQ], &bar[1 + sa], h, ahead * BT, b);
+      load_tile(stage_at(sa) + kTileBytes, &maps.m[kDo], &bar[1 + sa], h, ahead * BT, b);
+    }
+    // the next tile's lse or delta entry, staged a tile ahead
+    const float next = qt + 1 < nq ? row_entry(qt + 1) : 0.f;
+    float* next_slot = &rows_s[(it + 1) % kStages][tid / BT][tid & (BT - 1)];
+    const int q0 = qt * BT, rem = a.Lq - q0;
+    const uint32_t qs = stage_at(s), dos = qs + kTileBytes;
+    if (rem > 32)
+      dkv_tile<64>(dk, dv, ks, vs, qs, dos, a, k0, q0, warp, lane, rows_s[s], next_slot, next);
+    else if (rem > 16)
+      dkv_tile<32>(dk, dv, ks, vs, qs, dos, a, k0, q0, warp, lane, rows_s[s], next_slot, next);
+    else if (rem > 8)
+      dkv_tile<16>(dk, dv, ks, vs, qs, dos, a, k0, q0, warp, lane, rows_s[s], next_slot, next);
+    else
+      dkv_tile<8>(dk, dv, ks, vs, qs, dos, a, k0, q0, warp, lane, rows_s[s], next_slot, next);
+    __syncthreads();  // every thread is done with this stage before it is loaded again
+  }
+  store_tile(dk_out, a.sdk.l, k0, a.Lk, dk, warp, lane);
+  store_tile(dv_out, a.sdv.l, k0, a.Lk, dv, warp, lane);
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+Strides strides_of(const long long* s, int i) {
+  return Strides{s[3 * i], static_cast<int>(s[3 * i + 1]), static_cast<int>(s[3 * i + 2])};
+}
+
+// The (64, heads, rows, batch) tensor map of a (batch, rows, heads, 64) bf16
+// operand at element strides `st`, read in 64-row boxes of one head, 128-byte
+// swizzled, zero-filled past the last row. A dimension of size 1 takes a
+// stride that TMA accepts (its own is never used). False if
+// cuTensorMapEncodeTiled refuses the view.
+bool head_map(CUtensorMap* map, const void* ptr, const Strides& st, int heads, int rows,
+              int batch) {
+  const hp::EncodeTiledFn fn = hp::encode_tiled();
+  if (fn == nullptr || !hp::bind_context()) return false;
+  const cuuint64_t row = static_cast<cuuint64_t>(st.l) * 2;
+  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {heads > 1 ? static_cast<cuuint64_t>(st.h) * 2 : HD * 2, row,
+                                 batch > 1 ? static_cast<cuuint64_t>(st.b) * 2 : row * rows};
+  const cuuint32_t box[4] = {HD, 1, BT, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+BwdArgs make_args(const void* lse, void* delta, void* dq, void* dk, void* dv, const long long* s,
+                  int lq, int lk, int heads, float scale, int causal, int prefix, int nomax) {
+  return BwdArgs{static_cast<const float*>(lse), static_cast<float*>(delta),
+                 static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                 strides_of(s, 5), strides_of(s, 6), strides_of(s, 7), lq, lk, heads, scale,
+                 scale * kLog2e, nomax ? 80.f * kLog2e : std::numeric_limits<float>::infinity(), causal,
+                 prefix};
 }
 
 }  // namespace
@@ -351,17 +640,29 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* o, co
 // lse and delta: (batch, heads, lq) f32 contiguous. The dq entry writes delta
 // and dq; the dk/dv entry reads delta, so it runs after the dq entry on the
 // same stream. nomax = 1 recomputes P as exp(min(s, 80) - lse), lse = log(l)
-// from the nomax forward. Each returns cudaGetLastError() after its launch.
+// from the nomax forward. Each returns cudaGetLastError() after its launch,
+// or cudaErrorInvalidValue if a tensor map cannot describe an operand.
 extern "C" int ovt_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                                     const void* dout, const void* lse, void* delta, void* dq,
                                     const long long* strides, int batch, int lq, int lk,
                                     int heads, int head_dim, float scale, int causal,
                                     int prefix, int nomax, void* stream) {
   if (head_dim != HD) return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a = make_args(q, k, v, o, dout, lse, delta, dq, nullptr, nullptr, strides, lq,
-                              lk, heads, scale, causal, prefix, nomax);
-  const dim3 grid((lq + BQ - 1) / BQ, heads, batch);
-  attention_bwd_dq_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  Maps maps;
+  const void* ops[kMaps] = {q, k, v, o, dout};
+  for (int i = 0; i < kMaps; ++i) {
+    const int rows = (i == kK || i == kV) ? lk : lq;
+    if (!head_map(&maps.m[i], ops[i], strides_of(strides, i), heads, rows, batch))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BwdArgs a = make_args(lse, delta, dq, nullptr, nullptr, strides, lq, lk, heads, scale,
+                              causal, prefix, nomax);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((lq + BT - 1) / BT, heads, batch);
+  attention_bwd_dq_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(maps,
+                                                                                         a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -371,9 +672,21 @@ extern "C" int ovt_attention_bwd_dkv(const void* q, const void* k, const void* v
                                      int lq, int lk, int heads, int head_dim, float scale,
                                      int causal, int prefix, int nomax, void* stream) {
   if (head_dim != HD) return static_cast<int>(cudaErrorInvalidValue);
-  const BwdArgs a = make_args(q, k, v, nullptr, dout, lse, const_cast<void*>(delta), nullptr, dk,
-                              dv, strides, lq, lk, heads, scale, causal, prefix, nomax);
-  const dim3 grid((lk + BKV - 1) / BKV, heads, batch);
-  attention_bwd_dkv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  Maps maps;
+  const void* ops[kMaps] = {q, k, v, nullptr, dout};
+  for (int i = 0; i < kMaps; ++i) {
+    if (i == kO) continue;
+    const int rows = (i == kK || i == kV) ? lk : lq;
+    if (!head_map(&maps.m[i], ops[i], strides_of(strides, i), heads, rows, batch))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const BwdArgs a = make_args(lse, const_cast<void*>(delta), nullptr, dk, dv, strides, lq, lk,
+                              heads, scale, causal, prefix, nomax);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid((lk + BT - 1) / BT, heads, batch);
+  attention_bwd_dkv_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(maps,
+                                                                                           a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -619,6 +619,21 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a context current on the calling thread. The
+// runtime makes its primary context current at a thread's first call that
+// needs one, and the map may come first: autograd runs a backward on a
+// thread of its own, whose first CUDA call may be this wrapper's. Setting
+// the current device again makes its primary context current; once done, a
+// thread keeps a current context (the runtime switches it with the device).
+inline bool bind_context() {
+  thread_local bool bound = false;
+  if (!bound) {
+    int dev = 0;
+    bound = cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  }
+  return bound;
+}
+
 // A (rows, cols) row-major matrix of T, boxes of `box_cols` columns (128
 // bytes, swizzled) by `box_rows` rows. False if cuTensorMapEncodeTiled
 // refuses it.
@@ -626,7 +641,7 @@ template <class T>
 inline bool make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_cols,
                      int box_rows) {
   const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_context()) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * T::kBytes};
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};

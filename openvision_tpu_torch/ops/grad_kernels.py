@@ -33,6 +33,7 @@ import torch
 from openvision_tpu_torch.ops import kernels
 
 SMS = 132  # H100 SXM streaming multiprocessors: the split-K and grid targets
+LOG2E = 1.4426950408889634  # the attention backward's exponent base change: exp(x) = exp2(x log2 e)
 
 
 # ---------------------------------------------------------------------------
@@ -53,19 +54,21 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, scale: float, causal: bool = Fal
                         prefix_len: int = 0, nomax: bool = False):
     """(dq, dk, dv) of softmax(q k^T * scale) v over (B, L, H, hd) tensors,
     the arithmetic of ``csrc/attention_bwd.cu`` in f32: P = exp(s - lse)
-    from the forward's logsumexp lse (B, H, Lq), delta = rowsum(do * o),
+    from the forward's logsumexp lse (B, H, Lq), taken as the kernels take
+    it, exp2(q.k * (scale log2 e) - lse log2 e); delta = rowsum(do * o),
     dS = P (dP - delta) scale; dS is rounded to the input dtype for dq = dS k
     and dk = dS^T q, P for dv = P^T do; the outputs are in the input dtype.
     ``nomax`` takes P = exp(min(s, 80) - lse), lse = log(l) of the nomax
-    forward, with the plain softmax backward (no derivative of the clamp),
-    as ``_mhsa_t_bwd_kernel`` (openvision_tpu/ops/fused_encoder.py:337-338)."""
+    forward (the scaled score clamped at 80 log2 e), with the plain softmax
+    backward (no derivative of the clamp), as ``_mhsa_t_bwd_kernel``
+    (openvision_tpu/ops/fused_encoder.py:337-338)."""
     dt = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    s2 = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (scale * LOG2E)
     if nomax:
-        s = torch.clamp(s, max=80.0)
+        s2 = torch.clamp(s2, max=80.0 * LOG2E)
     keep = visible_mask(q.shape[1], k.shape[1], causal, prefix_len if causal else 0, q.device)
-    p = torch.where(keep, torch.exp(s - lse.float()[..., None]), torch.zeros_like(s))
+    p = torch.where(keep, torch.exp2(s2 - lse.float()[..., None] * LOG2E), torch.zeros_like(s2))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = (dof * o.float()).sum(-1).transpose(1, 2)  # (B, H, Lq)
     ds = (p * (dp - delta[..., None]) * scale).to(dt).float()

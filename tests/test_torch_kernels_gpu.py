@@ -250,6 +250,8 @@ ATTN_BWD_CASES = [
     (2, 70, 70, 2, False, 0),      # Lk not a multiple of 64
     (2, 64, 200, 2, True, 0),      # causal with Lq < Lk: keys 64.. seen by no query
     (2, 50, 900, 2, False, 0),     # multi-k
+    (2, 257, 257, 16, False, 0),   # the image tower: a one-row tail tile (N = 8) on both axes
+    (2, 129, 129, 4, True, 0),     # causal with a one-row tail tile
 ]
 
 
@@ -274,6 +276,86 @@ def test_attention_bwd_kernels(dev, b, lq, lk, h, causal, prefix):
         assert _rel_err(a, r) <= 2**-6, name
     if causal and lk > lq:  # keys no query sees get no gradient
         assert not got[1][:, lq:].any() and not got[2][:, lq:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,lq,lk,h,causal,prefix", [ATTN_BWD_CASES[i] for i in (0, 1, 7, 8)])
+def test_attention_bwd_kernels_are_deterministic(dev, b, lq, lk, h, causal, prefix):
+    """Two calls on the same inputs give bit-equal dq, dk and dv: no atomics,
+    each output row summed by one warpgroup in a fixed order."""
+    g = torch.Generator().manual_seed(lq + lk + h)
+    q, k, v, do = (_rand(g, dev, b, n, h, 64).bfloat16() for n in (lq, lk, lk, lq))
+    with torch.inference_mode():
+        o, lse = flash_attention(q, k, v, causal=causal, prefix_len=prefix, return_lse=True)
+        kw = dict(scale=0.125, causal=causal, prefix_len=prefix)
+        first = gk.attention_bwd(q, k, v, o, lse, do, **kw)
+        second = gk.attention_bwd(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, r), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,l,heads", [(2, 257, 16), (3, 80, 12)])
+def test_attention_bwd_kernels_on_qkv_views_nomax(dev, b, l, heads):
+    """The fused blocks' layout under nomax: q, k and v strided views of one
+    (B, L, 3D) QKV buffer, dq, dk and dv written into views of one dqkv
+    buffer (as ``_backward_kernels`` passes them), against the plain version
+    on the same views; the dqkv buffer's other bytes are left alone."""
+    from openvision_tpu_torch.ops import flash_attention as fl
+
+    d = heads * 64
+    g = torch.Generator().manual_seed(l + heads)
+    qkv = _rand(g, dev, b, l, 3 * d, scale=3.0).bfloat16()
+    q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, l, heads, 64) for i in range(3))
+    do = _rand(g, dev, b, l, heads, 64).bfloat16()
+    with torch.inference_mode():
+        o, lse = fl._forward(q, k, v, causal=False, prefix_len=0, sm_scale=None,
+                             return_lse=True, nomax=True)
+        dqkv = torch.full((b, l, 3 * d + 64), 7.0, dtype=torch.bfloat16, device=dev)
+        outs = [dqkv[..., i * d:(i + 1) * d].view(b, l, heads, 64) for i in range(3)]
+        kernels.reset_launch_counts()
+        got = gk.attention_bwd(q, k, v, o, lse, do, scale=0.125, nomax=True, dq=outs[0],
+                               dk=outs[1], dv=outs[2])
+        torch.cuda.synchronize()
+        ref = gk.attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), scale=0.125, nomax=True)
+    assert kernels.LAUNCHES == _launches(attention_bwd_dq=1, attention_bwd_dkv=1)
+    for name, a, out, r in zip(("dq", "dk", "dv"), got, outs, ref):
+        assert a.data_ptr() == out.data_ptr(), name
+        assert _rel_err(a, r) <= 2**-6, name
+    assert bool((dqkv[..., 3 * d:] == 7.0).all())
+
+
+@pytest.mark.gpu
+def test_tensor_map_kernels_run_first_on_a_fresh_thread(dev):
+    """A kernel whose wrapper encodes TMA tensor maps may be a thread's first
+    CUDA call (autograd runs a backward on a thread of its own): the
+    attention backward pair and a GEMM of the Hopper family, called first on
+    a new thread, give what they give on this one."""
+    import threading
+
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (_rand(g, dev, 2, 128, 4, 64).bfloat16() for _ in range(4))
+    a, w = _rand(g, dev, 300, 256).bfloat16(), _rand(g, dev, 256, 512).bfloat16()
+    with torch.inference_mode():
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        here = (*gk.attention_bwd(q, k, v, o, lse, do, scale=0.125), gk.gemm_nn(a, w))
+        torch.cuda.synchronize()
+    there = []
+
+    def run():
+        with torch.inference_mode():
+            there.extend((*gk.attention_bwd(q, k, v, o, lse, do, scale=0.125),
+                          gk.gemm_nn(a, w)))
+            torch.cuda.synchronize()
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert len(there) == 4
+    for x, y in zip(here, there):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
