@@ -7,8 +7,9 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
 1. torch / CUDA versions, the card's name and power limit, and the nvcc
    build of the kernels in openvision_tpu_torch/csrc (timed; one nvcc per
    source, in parallel). Fails if a GEMM kernel (bf16 or int8, one
-   mainloop), an int8 quantiser or one of the two attention backward
-   kernels spills registers, or if the build holds no int8 GEMM or not both
+   mainloop), an int8 quantiser or an attention kernel (the forward's
+   instantiations, the two backward kernels) spills registers, or if the
+   build holds no int8 GEMM, no forward attention kernel or not both
    attention backward kernels; prints ptxas's notes on serialized wgmma.
 2. Each kernel against its plain PyTorch version at ViT-L/14 shapes
    (B=8, L=257, D=1024, 16 heads, MLP 4096) and at a ragged L=101, with
@@ -101,11 +102,13 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    backward shape the pair's sum (attention_bwd_dq + attention_bwd_dkv, by
    events and by graph replay) beside SDPA's autograd backward, which
    computes what the two compute together, and each wrapper's host time a
-   call. `python3 chip_smoke.py --attn [ROOT]` runs the flash backward
-   shapes and #10's chain at L=257 alone on the package of the checkout at
-   ROOT (for this checkout it first applies phase 1's spill gate and
-   phase 7's checks at B=8), so that two checkouts are timed on one card in
-   one call.
+   call. `python3 chip_smoke.py --attn [ROOT]` times the forward kernel's
+   cases (phase 2b's, the f32 nomax output at L=257, b=64: events, graph
+   replay, bound, SDPA, the wrapper's host time a call), then runs the
+   flash backward shapes and #10's chain at L=257 alone, on the package of
+   the checkout at ROOT (for this checkout it first applies phase 1's spill
+   gate and the forward and phase 7's checks at B=8), so that two checkouts
+   are timed on one card in one call.
 10. The int8 serving kernels against their plain versions at ViT-L/14
    shapes (B=8, L=257 and a ragged L=101): gemm_int8 in each epilogue (QKV
    bf16, out-proj + residual, fc1 + GELU in f32, fc2 + residual),
@@ -443,21 +446,26 @@ def ptxas_summary(log: str) -> dict:
 
 def spill_gate(lib_path) -> None:
     """Phase 1's gate on the build log: the GEMM family (bf16 and int8, one
-    mainloop), the int8 quantisers and the attention backward pair must not
-    spill registers; the build must hold an int8 GEMM and both attention
-    backward kernels. ptxas's notes on serialized wgmma are printed."""
+    mainloop), the int8 quantisers and the attention kernels (the forward's
+    instantiations and the backward pair) must not spill registers; the
+    build must hold an int8 GEMM, the forward attention kernel and both
+    attention backward kernels. ptxas's notes on serialized wgmma are
+    printed."""
     log = (lib_path.parent / "build.log").read_text()
     spills = ptxas_summary(log)
-    gated = [f for f in spills if "gemm_ws_kernel" in f or "quant" in f or "attention_bwd" in f]
+    gated = [f for f in spills if "gemm_ws_kernel" in f or "quant" in f or "attention_" in f]
     int8_gemms = [f for f in gated if "gemm_ws_kernel" in f and "2S8E" in f]
+    attn_fwd = [f for f in gated if "attention_fwd" in f]
     attn_bwd = [f for f in gated if "attention_bwd" in f]
     print(f"spill gate: {len(gated)} kernels, {len(int8_gemms)} of them int8 GEMMs, "
-          f"{len(attn_bwd)} attention backward")
+          f"{len(attn_fwd)} attention forward, {len(attn_bwd)} attention backward")
     for line in log.splitlines():
         if "wgmma" in line and "serializ" in line:
             print(f"  ptxas: {line.strip()[:200]}")
     if not int8_gemms:
         raise AssertionError("no int8 instantiation of gemm_ws_kernel in the build")
+    if not attn_fwd:
+        raise AssertionError("no forward attention kernel (attention_fwd_kernel) in the build")
     if len(attn_bwd) != 2:
         raise AssertionError(f"expected the two attention backward kernels, found {attn_bwd}")
     if any(spills[f] for f in gated):
@@ -644,6 +652,21 @@ def attention_case(fe, qkv, heads: int, *, causal=False, prefix=0, nomax=False) 
                                    prefix_len=prefix),
         _sdpa(q, k, v, causal, prefix),
         (3 * b * l * d + b * l * d) * 2, 4 * b * heads * 64 * visible_pairs(l, l, causal, prefix))
+
+
+def f32_attention_case(fe, qkv, heads: int) -> Case:
+    """The int8 block's attention (#5): nomax, o / l written in f32."""
+    import torch
+
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    q, k, v = (t.reshape(b, l, heads, 64).transpose(1, 2).contiguous()
+               for t in qkv.split(d, dim=-1))
+    return Case("attention", f"attn f32 out b={b} L={l} H={heads} nomax",
+                lambda: fe.attention(qkv, heads, nomax=True, out_dtype=torch.float32),
+                lambda: fe.attention_plain(qkv, heads, nomax=True, out_dtype=torch.float32),
+                _sdpa(q, k, v, False, 0), 3 * b * l * d * 2 + b * l * d * 4,
+                4 * b * heads * 64 * l * l)
 
 
 def flash_case(fl, q, k, v, label, *, causal=False, prefix=0) -> Case:
@@ -1672,6 +1695,36 @@ def time_attention_bwd(fl, gk, device, gen, b: int = 64) -> dict:
     return rows
 
 
+def forward_attention_cases(fe, fl, device, gen, b: int):
+    """The forward kernel's cases (csrc/attention.cu) at batch b: the int8
+    block's f32 nomax output at L=257 over the QKV buffer (#5), then phase
+    2b's attention (#1, #7, #9, #11: unmasked L=257, prefix-LM, causal) and
+    flash cases (#13, #14)."""
+    import torch
+
+    qkv = torch.randn(b, 257, 3 * 1024, generator=gen, device=device).bfloat16()
+    return [f32_attention_case(fe, qkv, 16), *caption_attention_cases(fe, fl, device, gen, b)]
+
+
+def time_attention_fwd(fe, fl, device, gen, b: int = 64) -> None:
+    """Each forward case at `b` by CUDA events and graph replay beside its
+    bound, SDPA's time (the library call) and the wrapper's host time a
+    call (50 calls, no synchronize: the checks, the tensor maps and the
+    launch); the kernel's ratio to SDPA and to its bound by graph."""
+    import torch
+
+    for c in forward_attention_cases(fe, fl, device, gen, b):
+        t = time_case(c)
+        t0 = time.perf_counter()
+        for _ in range(50):
+            c.kern()
+        host_us = (time.perf_counter() - t0) / 50 * 1e6
+        torch.cuda.synchronize()
+        print(f"  {'':15s} {c.label:46s} kernel / SDPA {t['ms'] / t['library_ms']:.2f} (graph "
+              f"{t['graph_ms'] / t['library_graph_ms']:.2f})  graph / bound "
+              f"{t['graph_ms'] / t['bound_ms']:.2f}  wrapper host {host_us:.1f} us a call")
+
+
 def train_config(fusion: str, dec_impl: str, dtype: str = "bfloat16", no_pil: bool = False):
     """The trainer's config for phase 8: the caption model's widths, batch 64, on
     the synthetic source at 224x224, 3 steps (warmup 1 step, so the cosine
@@ -1894,13 +1947,7 @@ def int8_cases(fe, fe8, device, gen, b: int, l: int, d: int = 1024, heads: int =
                           lambda t=t, t_max=t_max: fe8.quant_rows(t, t_max),
                           lambda t=t: fe8.quant_plain(t), None,
                           m * n * 4 + m * n + m * 4, 0, 3 * m * n, quant=True))
-    qh, kh, vh = (t.reshape(b, l, heads, 64).transpose(1, 2).contiguous()
-                  for t in qkv.split(d, dim=-1))
-    cases.append(Case("attention", f"attn f32 out b={b} L={l} H={heads} nomax",
-                      lambda: fe.attention(qkv, heads, nomax=True, out_dtype=torch.float32),
-                      lambda: fe.attention_plain(qkv, heads, nomax=True, out_dtype=torch.float32),
-                      _sdpa(qh, kh, vh, False, 0), 3 * m * d * 2 + m * d * 4,
-                      4 * b * heads * 64 * l * l))
+    cases.append(f32_attention_case(fe, qkv, heads))
     mhsa_args = (*ln[0], *q["qkv"], bias["qkv"], *q["out"], bias["out"])
     mlp_args = (*ln[1], *q["fc1"], bias["fc1"], *q["fc2"], bias["fc2"])
     ln16 = [(lw.bfloat16(), lb.bfloat16()) for lw, lb in ln]
@@ -3293,13 +3340,15 @@ def gemm_only(root: str) -> int:
 
 
 def attn_only(root: str) -> int:
-    """``chip_smoke.py --attn [ROOT]``: phase 9's flash backward cases at b=64
+    """``chip_smoke.py --attn [ROOT]``: the forward attention kernel's cases
+    at b=64 (time_attention_fwd: events, graph replay, bound, SDPA and the
+    wrapper's host time a call), then phase 9's flash backward cases at b=64
     (each kernel by CUDA events and graph replay, the pair's sum beside
     SDPA's autograd backward) and #10's chain at L=257, on the package of the
     checkout at ROOT (this one by default), so that two checkouts are timed
     on one card in one call. For this checkout's package it first holds the
-    build to phase 1's spill gate and the same cases at B=8 to their bounds
-    (phase 7)."""
+    build to phase 1's spill gate, the forward cases at B=8 and the
+    backward cases at B=8 to their bounds (phases 2b and 7)."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3309,6 +3358,7 @@ def attn_only(root: str) -> int:
     sys.path.insert(0, root)
     from openvision_tpu_torch.ops import flash_attention as fl
     from openvision_tpu_torch.ops import fused_attention as fa
+    from openvision_tpu_torch.ops import fused_encoder as fe
     from openvision_tpu_torch.ops import grad_kernels as gk
     from openvision_tpu_torch.ops import kernels
 
@@ -3323,9 +3373,15 @@ def attn_only(root: str) -> int:
     with torch.no_grad():
         if root == REPO:
             spill_gate(lib_path)
+            gen = torch.Generator(device=device).manual_seed(SEED + 2)
+            check_cases(forward_attention_cases(fe, fl, device, gen, 8), {})
             gen = torch.Generator(device=device).manual_seed(SEED + 3)
             check_bwd_cases(attention_bwd_cases(fl, gk, device, gen, 8)
                             + fused_block_bwd_cases(fa, device, gen, 8, lengths=(257,)), {})
+        gen = torch.Generator(device=device).manual_seed(SEED + 2)
+        print("forward attention (csrc/attention.cu) at b=64:")
+        time_attention_fwd(fe, fl, device, gen)
+        torch.cuda.empty_cache()
         gen = torch.Generator(device=device).manual_seed(SEED + 4)
         for c in fused_block_bwd_cases(fa, device, gen, 64, lengths=(257,)):
             time_bwd_case(c)

@@ -78,18 +78,14 @@
 // its edge (a warp-uniform test per 16 rows); whole tiles run unmasked.
 #include <limits>
 
-#include "hopper.cuh"
+#include "attention.cuh"
 
 namespace {
 
+using namespace ovt::attn;
 using ovt::bf16;
-namespace hp = ovt::hopper;
 
-constexpr int HD = 64;
-constexpr int BT = 64;                   // rows of a tile: the CTA's own, and a whole streamed one
-constexpr int kThreads = 128;            // one warpgroup
-constexpr int kTileBytes = BT * HD * 2;  // 8 KB: 64 rows of 128 bytes, one swizzle span each
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 128;  // one warpgroup
 // The streamed operand's ring: kStages stages of two tiles (K and V, or Q and
 // dO), loaded kStages - 1 tiles ahead of use.
 constexpr int kStages = 2;
@@ -102,11 +98,6 @@ constexpr int kSmem = 1024 + (2 + 2 * kStages) * kTileBytes;
 enum { kQ, kK, kV, kO, kDo, kMaps };
 struct Maps {
   CUtensorMap m[kMaps];
-};
-
-struct Strides {  // in elements: batch, row (sequence position), head
-  long long b;
-  int l, h;
 };
 
 struct BwdArgs {
@@ -123,100 +114,9 @@ struct BwdArgs {
   int causal, prefix;
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ bool visible(int key, int query, const BwdArgs& a) {
   return key < a.Lk && (!a.causal || key <= max(query, a.prefix - 1));
 }
-
-// A 64-row box of one head (TMA, 128-byte swizzled) into shared memory.
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                          int h, int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(ovt::smem_u32(bar)), "r"(0),
-         "r"(h), "r"(row), "r"(b)
-      : "memory");
-}
-
-// Descriptors of a 64-row swizzled tile: as a K-major operand (the reduction
-// along its 128-byte rows, k16 step kk), or as an MN-major B operand (the
-// reduction down its rows: 16 rows a k16 step; N = the 64 values of a row).
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return hp::desc_sw128(tile + kk * 32, 16, 1024);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return hp::desc_sw128(tile + kk * 2048, hp::kChunkBytes, 1024);
-}
-
-#define OVT_F4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
-#define OVT_F8(i) OVT_F4(i), OVT_F4((i) + 4)
-#define OVT_F16(i) OVT_F8(i), OVT_F8((i) + 8)
-#define OVT_F32(i) OVT_F16(i), OVT_F16((i) + 16)
-
-// d (64 x N f32) = A (64 x 16) B (16 x N) + (scale_d ? d : 0), both operands
-// K-major in shared memory. The fragment: d[4j + e] is row 16 w + lane / 4
-// + 8 (e >> 1), column 8 j + 2 (lane % 4) + (e & 1) (w: the warp).
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  if constexpr (N == 8) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
-        : OVT_F4(0)
-        : "l"(da), "l"(db), "r"(scale_d));
-  } else if constexpr (N == 16) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : OVT_F8(0)
-        : "l"(da), "l"(db), "r"(scale_d));
-  } else if constexpr (N == 32) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n}\n"
-        : OVT_F16(0)
-        : "l"(da), "l"(db), "r"(scale_d));
-  } else {
-    static_assert(N == 64, "the streamed tile is 8, 16, 32 or 64 wide");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : OVT_F32(0)
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-}
-
-// d (64 x 64 f32) += A (64 x 16 bf16, registers: mma.m16n8k16's A fragment
-// per warp) B (16 x 64, MN-major in shared memory).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : OVT_F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef OVT_F32
-#undef OVT_F16
-#undef OVT_F8
-#undef OVT_F4
 
 // Starts a tile's two 64 x N score products as two wgmma groups: x = A . B^T
 // then y = C . D^T over the head dim, all four operands K-major 64-row
@@ -225,78 +125,8 @@ template <int N>
 __device__ __forceinline__ void start_scores(float (&x)[N / 2], float (&y)[N / 2], uint32_t a,
                                              uint32_t b, uint32_t c, uint32_t d) {
   hp::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<N>(x, desc_k(a, kk), desc_k(b, kk), kk);
-  hp::wgmma_commit();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<N>(y, desc_k(c, kk), desc_k(d, kk), kk);
-  hp::wgmma_commit();
-}
-
-// X (64 x N f32, the accumulator layout) rounded to bf16 as wgmma's A
-// fragments, one per k16 step; columns past N are zero.
-template <int N>
-__device__ __forceinline__ void pack_a(uint32_t (&f)[(N + 15) / 16][4], const float (&x)[N / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < (N + 15) / 16; ++kk) {
-    f[kk][0] = ovt::pack_bf16x2(x[8 * kk], x[8 * kk + 1]);
-    f[kk][1] = ovt::pack_bf16x2(x[8 * kk + 2], x[8 * kk + 3]);
-    if constexpr (N >= 16) {
-      f[kk][2] = ovt::pack_bf16x2(x[8 * kk + 4], x[8 * kk + 5]);
-      f[kk][3] = ovt::pack_bf16x2(x[8 * kk + 6], x[8 * kk + 7]);
-    } else {
-      f[kk][2] = f[kk][3] = 0u;
-    }
-  }
-}
-
-// Keeps A fragments alive (and in place) until the products reading them
-// have been waited for: wgmma reads its register operands asynchronously.
-template <int K>
-__device__ __forceinline__ void fence_frag(uint32_t (&f)[K][4]) {
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f[kk][i]) :: "memory");
-}
-
-// Starts acc (64 x 64) += X . T, X given as its A fragments, T the streamed
-// tile's rows (MN-major): the reduction runs over N rounded up to k16.
-template <int K>
-__device__ __forceinline__ void start_rs(float (&acc)[32], const uint32_t (&f)[K][4],
-                                         uint32_t tile) {
-  hp::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < K; ++kk) wgmma_rs(acc, f[kk], desc_mn(tile, kk));
-  hp::wgmma_commit();
-}
-
-// Writes the warpgroup's 64 x 64 f32 fragment as bf16 rows r0.. (those
-// below `rows`), 16 bytes a lane: each row's four lanes swap their column
-// pairs (hopper.cuh's transpose_quad) so that a lane holds 8 columns.
-__device__ __forceinline__ void store_tile(bf16* base, int stride, int r0, int rows,
-                                           const float (&acc)[32], int warp, int lane) {
-  const int t4 = lane & 3;
-  const int ra = r0 + warp * 16 + (lane >> 2), rb = ra + 8;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint32_t wa[4], wb[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = 4 * half + c;
-      wa[c] = ovt::pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
-      wb[c] = ovt::pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-    hp::transpose_quad(wa, t4);
-    hp::transpose_quad(wb, t4);
-    const int col = 8 * (4 * half + t4);
-    if (ra < rows)
-      *reinterpret_cast<uint4*>(base + (static_cast<long long>(ra) * stride + col)) =
-          make_uint4(wa[0], wa[1], wa[2], wa[3]);
-    if (rb < rows)
-      *reinterpret_cast<uint4*>(base + (static_cast<long long>(rb) * stride + col)) =
-          make_uint4(wb[0], wb[1], wb[2], wb[3]);
-  }
+  start_ss<N>(x, a, b);
+  start_ss<N>(y, c, d);
 }
 
 // bar[0]: the tiles loaded once; bar[1 + s]: ring stage s.
@@ -348,7 +178,7 @@ __device__ __forceinline__ void dq_tile(float (&dq)[32], uint32_t qs, uint32_t d
   for (int i = 0; i < N / 2; ++i) s[i] = s[i] * (dp[i] - del[(i >> 1) & 1]) * a.scale;
   uint32_t f[(N + 15) / 16][4];
   pack_a<N>(f, s);
-  start_rs(dq, f, ks);
+  start_rs<(N + 15) / 16>(dq, f, ks);
   hp::wgmma_wait<0>();
   hp::fence_acc(dq);
   fence_frag(f);
@@ -494,7 +324,7 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[32], float (&dv)[32], uint3
     dkv_probs<N, true>(st, a, key0, q0, t4, rows[0]);
   uint32_t fp[(N + 15) / 16][4], fd[(N + 15) / 16][4];
   pack_a<N>(fp, st);
-  start_rs(dv, fp, dos);
+  start_rs<(N + 15) / 16>(dv, fp, dos);
   hp::wgmma_wait<1>();  // dP^T (dv's product may still run)
   hp::fence_acc(dpt);
 #pragma unroll
@@ -507,7 +337,7 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[32], float (&dv)[32], uint3
     }
   }
   pack_a<N>(fd, dpt);
-  start_rs(dk, fd, qs);
+  start_rs<(N + 15) / 16>(dk, fd, qs);
   hp::wgmma_wait<0>();
   hp::fence_acc(dk);
   hp::fence_acc(dv);
@@ -596,31 +426,6 @@ __global__ void __launch_bounds__(kThreads, 3) attention_bwd_dkv_kernel(const __
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-
-Strides strides_of(const long long* s, int i) {
-  return Strides{s[3 * i], static_cast<int>(s[3 * i + 1]), static_cast<int>(s[3 * i + 2])};
-}
-
-// The (64, heads, rows, batch) tensor map of a (batch, rows, heads, 64) bf16
-// operand at element strides `st`, read in 64-row boxes of one head, 128-byte
-// swizzled, zero-filled past the last row. A dimension of size 1 takes a
-// stride that TMA accepts (its own is never used). False if
-// cuTensorMapEncodeTiled refuses the view.
-bool head_map(CUtensorMap* map, const void* ptr, const Strides& st, int heads, int rows,
-              int batch) {
-  const hp::EncodeTiledFn fn = hp::encode_tiled();
-  if (fn == nullptr || !hp::bind_context()) return false;
-  const cuuint64_t row = static_cast<cuuint64_t>(st.l) * 2;
-  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {heads > 1 ? static_cast<cuuint64_t>(st.h) * 2 : HD * 2, row,
-                                 batch > 1 ? static_cast<cuuint64_t>(st.b) * 2 : row * rows};
-  const cuuint32_t box[4] = {HD, 1, BT, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 BwdArgs make_args(const void* lse, void* delta, void* dq, void* dk, void* dv, const long long* s,
                   int lq, int lk, int heads, float scale, int causal, int prefix, int nomax) {

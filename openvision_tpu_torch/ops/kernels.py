@@ -38,7 +38,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu", "attention_bwd.cu", "gemm_grad.cu",
            "gemm_int8.cu")
-HEADERS = ("common.cuh", "hopper.cuh")
+HEADERS = ("common.cuh", "hopper.cuh", "attention.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "openvision_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -106,8 +106,14 @@ def test_gemm_bias_act_kernel(dev, m, n, k, gelu, res):
         assert _rel_err(fe.gemm_bias_act(x, w, b, gelu=gelu, residual=r), ref) <= 2**-7
 
 
+# Key tails of L mod 64 in {1, 8, 9, 15, 63}: the last key tile runs at
+# wgmma N = 8, 8, 16, 16 and 64 (TMA's zero rows and the Lk mask pad it).
+KEY_TAILS = [1, 8, 9, 15, 63]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,l,h", [(2, 257, 16), (3, 50, 4), (1, 1, 2), (1, 577, 4)])
+@pytest.mark.parametrize("b,l,h", [(2, 257, 16), (3, 50, 4), (1, 1, 2), (1, 577, 4),
+                                   *[(2, 128 + t, 4) for t in KEY_TAILS]])
 @pytest.mark.parametrize("nomax", [False, True])
 def test_attention_kernel(dev, b, l, h, nomax):
     g = torch.Generator().manual_seed(b * l * h)
@@ -167,6 +173,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     (3, 101, 4, 37),    # ragged, prefix inside a key tile
     (1, 70, 2, 200),    # prefix past L: every key visible
     (1, 1, 2, 0),
+    *[(2, 128 + t, 4, 70) for t in KEY_TAILS],
 ])
 def test_attention_kernel_causal_and_prefix_masks(dev, b, l, h, prefix):
     g = torch.Generator().manual_seed(b * l + prefix)
@@ -208,6 +215,13 @@ def test_fused_mhsa_block_counts_launches(dev, l, d, h, causal, prefix):
     (2, 80, 40, 2, True, 0),       # causal with Lq > Lk
     (1, 780, 780, 2, True, 340),   # multi-k rounding order (Lk > 768), prefix-LM
     (2, 50, 900, 2, False, 0),     # multi-k, cross-attention
+    *[(2, 70, 64 + t, 3, False, 0) for t in KEY_TAILS],
+    *[(2, 200, 128 + t, 2, True, 0) for t in KEY_TAILS],  # Lq > Lk causal
+    (2, 150, 40, 2, True, 17),    # Lq > Lk, prefix-LM
+    (2, 90, 90, 2, True, 300),    # a prefix past L: every key visible
+    (3, 1, 1, 2, False, 0),       # L = 1
+    (2, 1, 900, 2, False, 0),     # one query, multi-k order
+    (2, 129, 1, 2, True, 0),      # one key
 ])
 def test_flash_attention_kernel(dev, b, lq, lk, h, causal, prefix):
     g = torch.Generator().manual_seed(lq * lk + prefix)
@@ -222,6 +236,69 @@ def test_flash_attention_kernel(dev, b, lq, lk, h, causal, prefix):
     assert kernels.LAUNCHES["flash_attention"] == 1
     assert _rel_err(o, ref) <= 2**-6
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("l", [1, 73, 257])
+def test_attention_kernel_nomax_clamp(dev, l):
+    """Scores above 80 (inputs scaled by 8: |q.k| / 8 reaches a few
+    hundred), so exp(min(s, 80)) clamps, on both entry points; the LSE is
+    then log(l)."""
+    g = torch.Generator().manual_seed(l + 80)
+    qkv = (_rand(g, dev, 2, l, 3 * 2 * 64) * 8).bfloat16()
+    with torch.inference_mode():
+        ref = fe.attention_plain(qkv.float(), 2, nomax=True)
+        got = fe.attention(qkv, 2, nomax=True)
+        q, k, v = (t.reshape(2, l, 2, 64) for t in qkv.split(128, dim=-1))
+        assert (torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / 8).max().item() > 80
+        from openvision_tpu_torch.ops import flash_attention as fl
+
+        o, lse = fl._forward(q, k, v, causal=False, prefix_len=0, sm_scale=None,
+                             return_lse=True, nomax=True)
+        ref_o, ref_lse = flash_attention_plain(q.float(), k.float(), v.float(), nomax=True)
+    assert _rel_err(got, ref) <= 2**-6
+    assert _rel_err(o, ref_o) <= 2**-6
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [False, True])
+def test_attention_kernels_at_a_scale_that_is_no_power_of_two(dev, causal):
+    """A power-of-two scale (head_dim 64's 2**-3) goes into the exponent;
+    any other takes the single-k order's pass over Q (q * scale rounded to
+    bf16), on both entry points. The plain versions get the bf16 tensors,
+    so that they round q * scale to bf16 too (in f32 they would not, and
+    the LSE would move by ~2**-9 of the scores)."""
+    g = torch.Generator().manual_seed(10)
+    qkv = _rand(g, dev, 2, 150, 3 * 2 * 64).bfloat16()
+    q, k, v = (t.reshape(2, 150, 2, 64) for t in qkv.split(128, dim=-1))
+    with torch.inference_mode():
+        got = fe.attention(qkv, 2, causal=causal, prefix_len=20, scale=0.1)
+        ref = fe.attention_plain(qkv, 2, causal=causal, prefix_len=20, scale=0.1,
+                                 out_dtype=torch.float32)
+        o, lse = flash_attention(q, k, v, causal=causal, prefix_len=20, sm_scale=0.1,
+                                 return_lse=True)
+        ref_o, ref_lse = flash_attention_plain(q, k, v, causal=causal, prefix_len=20,
+                                               sm_scale=0.1)
+        ref_o = ref_o.float()
+    assert _rel_err(got, ref) <= 2**-6
+    assert _rel_err(o, ref_o) <= 2**-6
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.gpu
+def test_forward_attention_kernels_are_deterministic(dev):
+    g = torch.Generator().manual_seed(9)
+    qkv = _rand(g, dev, 2, 257, 3 * 4 * 64).bfloat16()
+    q = _rand(g, dev, 2, 128, 4, 64).bfloat16()
+    kv = _rand(g, dev, 2, 335, 2, 4, 64).bfloat16()
+    with torch.inference_mode():
+        runs = [(fe.attention(qkv, 4), fe.attention(qkv, 4, nomax=True, out_dtype=torch.float32),
+                 fe.attention(qkv, 4, causal=True, prefix_len=100),
+                 *flash_attention(q, kv[:, :, 0], kv[:, :, 1], return_lse=True))
+                for _ in range(2)]
+    for x, y in zip(*runs):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
@@ -330,32 +407,39 @@ def test_attention_bwd_kernels_on_qkv_views_nomax(dev, b, l, heads):
 @pytest.mark.gpu
 def test_tensor_map_kernels_run_first_on_a_fresh_thread(dev):
     """A kernel whose wrapper encodes TMA tensor maps may be a thread's first
-    CUDA call (autograd runs a backward on a thread of its own): the
-    attention backward pair and a GEMM of the Hopper family, called first on
-    a new thread, give what they give on this one."""
+    CUDA call (autograd runs a backward, and the backward chains' recompute
+    of the forward, on a thread of its own): the forward attention kernel
+    through both entry points, the attention backward pair and a GEMM of the
+    Hopper family, each called first on a new thread, give what they give on
+    this one."""
     import threading
 
     g = torch.Generator().manual_seed(5)
     q, k, v, do = (_rand(g, dev, 2, 128, 4, 64).bfloat16() for _ in range(4))
+    qkv = _rand(g, dev, 2, 77, 3 * 4 * 64).bfloat16()
     a, w = _rand(g, dev, 300, 256).bfloat16(), _rand(g, dev, 256, 512).bfloat16()
+    calls = [lambda: flash_attention(q, k, v, return_lse=True),
+             lambda: (fe.attention(qkv, 4),),
+             lambda: gk.attention_bwd(q, k, v, o, lse, do, scale=0.125),
+             lambda: (gk.gemm_nn(a, w),)]
     with torch.inference_mode():
         o, lse = flash_attention(q, k, v, return_lse=True)
-        here = (*gk.attention_bwd(q, k, v, o, lse, do, scale=0.125), gk.gemm_nn(a, w))
+        here = [call() for call in calls]
         torch.cuda.synchronize()
-    there = []
+    for call, want in zip(calls, here):
+        there = []
 
-    def run():
-        with torch.inference_mode():
-            there.extend((*gk.attention_bwd(q, k, v, o, lse, do, scale=0.125),
-                          gk.gemm_nn(a, w)))
-            torch.cuda.synchronize()
+        def run():
+            with torch.inference_mode():
+                there.extend(call())
+                torch.cuda.synchronize()
 
-    thread = threading.Thread(target=run)
-    thread.start()
-    thread.join()
-    assert len(there) == 4
-    for x, y in zip(here, there):
-        assert torch.equal(x, y)
+        thread = threading.Thread(target=run)  # a new thread: its first CUDA call is `call`
+        thread.start()
+        thread.join()
+        assert len(there) == len(want)
+        for x, y in zip(want, there):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
@@ -597,7 +681,7 @@ def test_gemm_int8_kernel(dev, m, n, k, gelu, out, res, tile_n):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,l", [(2, 257), (3, 101)])
+@pytest.mark.parametrize("b,l", [(2, 257), (3, 101), (2, 73), (2, 129), (2, 191)])
 def test_attention_kernel_f32_output(dev, b, l):
     g = torch.Generator().manual_seed(b * l)
     qkv = _rand(g, dev, b, l, 3 * 16 * 64).bfloat16()
