@@ -7,10 +7,12 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
 1. torch / CUDA versions, the card's name and power limit, and the nvcc
    build of the kernels in openvision_tpu_torch/csrc (timed; one nvcc per
    source, in parallel). Fails if a GEMM kernel (bf16 or int8, one
-   mainloop), an int8 quantiser or an attention kernel (the forward's
-   instantiations, the two backward kernels) spills registers, or if the
-   build holds no int8 GEMM, no forward attention kernel or not both
-   attention backward kernels; prints ptxas's notes on serialized wgmma.
+   mainloop), an int8 quantiser, an attention kernel (the forward's
+   instantiations, the two backward kernels) or a row-stream LayerNorm
+   kernel (bf16 or int8) spills registers, or if the build holds no int8
+   GEMM, no forward attention kernel, not both attention backward kernels
+   or not both LayerNorm kernels at every chunk count; prints ptxas's notes
+   on serialized wgmma.
 2. Each kernel against its plain PyTorch version at ViT-L/14 shapes
    (B=8, L=257, D=1024, 16 heads, MLP 4096) and at a ragged L=101, with
    nomax on and off for attention. Inputs are bf16; the plain version runs
@@ -131,7 +133,7 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    beside its bound (max(bytes / 3.35 TB/s, int8 ops / 1979 TOPS)), its
    plain version and a library yardstick (torch._int_mm plus the dequant
    as torch ops; the bf16 F.layer_norm + F.linear + SDPA sequence for the
-   sub-blocks). Then the port's server in-process on 127.0.0.1 (port 0,
+   sub-blocks); layernorm_quant's JSON row is one launch (LN1). Then the port's server in-process on 127.0.0.1 (port 0,
    max_batch 48, so the capped bucket is warmed and used), once --int8 and
    once bf16 fused_t with the caption service, driven from 8 client
    threads over http.client on every route (the caption route's 503 and
@@ -197,6 +199,14 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    counts give (24 image + 12 decoder blocks, the forward twice under
    remat), one checkpoint, which the caption tool loads in one process and
    captions the testcat images with. A failure in any rank fails the phase.
+`python3 chip_smoke.py --ln [ROOT]` times the row LayerNorm kernels of the
+checkout at ROOT (csrc/layernorm.cu: the bf16 layernorm at b=64 over the
+ViT-L/14 tower's 16448 x 1024, the decoder's prefix-LM 29632 x 768 and
+causal 8192 x 768, beside F.layer_norm; layernorm_quant at 16448 x 1024)
+by CUDA events and graph replay, beside the bytes bound, the plain version
+and the wrapper's host time a call, then encode img/s at b=64 (int8, bf16
+fused_t, plain eager bf16) on --gemm's export; it checks both kernels at
+B=8 first and, for this checkout, applies phase 1's spill gate.
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 
@@ -446,19 +456,28 @@ def ptxas_summary(log: str) -> dict:
 
 def spill_gate(lib_path) -> None:
     """Phase 1's gate on the build log: the GEMM family (bf16 and int8, one
-    mainloop), the int8 quantisers and the attention kernels (the forward's
-    instantiations and the backward pair) must not spill registers; the
-    build must hold an int8 GEMM, the forward attention kernel and both
-    attention backward kernels. ptxas's notes on serialized wgmma are
-    printed."""
+    mainloop), the int8 quantisers, the attention kernels (the forward's
+    instantiations and the backward pair) and both row-stream LayerNorm
+    kernels (bf16 and int8, one instantiation a chunk count) must not spill
+    registers; the build must hold an int8 GEMM, the forward attention
+    kernel, both attention backward kernels and both LayerNorm kernels.
+    ptxas's notes on serialized wgmma are printed."""
     log = (lib_path.parent / "build.log").read_text()
     spills = ptxas_summary(log)
-    gated = [f for f in spills if "gemm_ws_kernel" in f or "quant" in f or "attention_" in f]
+    gated = [f for f in spills if "gemm_ws_kernel" in f or "quant" in f or "attention_" in f
+             or "ln_rows_kernel" in f]
     int8_gemms = [f for f in gated if "gemm_ws_kernel" in f and "2S8E" in f]
     attn_fwd = [f for f in gated if "attention_fwd" in f]
     attn_bwd = [f for f in gated if "attention_bwd" in f]
+    ln = {epi: [f for f in gated if "ln_rows_kernel" in f and epi in f]
+          for epi in ("LnBf16", "LnQuant")}
     print(f"spill gate: {len(gated)} kernels, {len(int8_gemms)} of them int8 GEMMs, "
-          f"{len(attn_fwd)} attention forward, {len(attn_bwd)} attention backward")
+          f"{len(attn_fwd)} attention forward, {len(attn_bwd)} attention backward, "
+          f"{len(ln['LnBf16'])} + {len(ln['LnQuant'])} LayerNorm (bf16 + int8)")
+    for epi, found in ln.items():
+        if len(found) != 8:  # NC = 1..8
+            raise AssertionError(f"expected the row-stream LayerNorm kernel ({epi}) at 8 chunk "
+                                 f"counts, found {found}")
     for line in log.splitlines():
         if "wgmma" in line and "serializ" in line:
             print(f"  ptxas: {line.strip()[:200]}")
@@ -1976,8 +1995,9 @@ def int8_cases(fe, fe8, device, gen, b: int, l: int, d: int = 1024, heads: int =
 
 def time_int8_kernels(fe, fe8, device, batch: int = 64) -> dict:
     """Phase 11b: one int8 block's launches at `batch`, summed per kernel
-    (time, graph time, bound, plain version and library yardstick); the f32
-    attention and the composed sub-blocks are printed beside them."""
+    (time, graph time, bound, plain version and library yardstick), but
+    layernorm_quant's one launch (LN1; LN2 has its shape); the f32 attention
+    and the composed sub-blocks are printed beside them."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -1987,6 +2007,8 @@ def time_int8_kernels(fe, fe8, device, batch: int = 64) -> dict:
         t = time_case(c)
         if c.name not in ("gemm_int8", "layernorm_quant", "quant_rows"):
             continue
+        if c.name == "layernorm_quant" and c.name in times:
+            continue  # one launch: LN2's is LN1's shape
         acc = times.setdefault(c.name, dict.fromkeys(keys, 0.0))
         for key in keys:  # no library call for one launch: none for the kernel
             acc[key] = None if t[key] is None or acc[key] is None else acc[key] + t[key]
@@ -3326,17 +3348,28 @@ def gemm_only(root: str) -> int:
     device = torch.device("cuda")
     with torch.inference_mode():
         gemm_phase(fe, gk, fe8, device, {}, check=root == REPO)
-        # encode img/s at b=64 on one random export, shared by the checkouts
-        from openvision_tpu_torch.tools.model_io import load_model
-
-        model_dir = os.path.join(REPO, "build", "chip_smoke_export")
-        if not os.path.exists(os.path.join(model_dir, "open_clip_config.json")):
-            os.makedirs(model_dir, exist_ok=True)
-            export_random_model(model_dir, L14_CONFIG, SEED)  # the config is written last
-        model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t", fast_gelu=True,
-                           device=device, int8=True)
-        encode_rates(model, model_dir, device)
+        export_encode_rates(device)
     return 0
+
+
+def export_encode_rates(device) -> dict:
+    """Encode img/s at b=64 (phase 11's encode_rates: int8, bf16 fused_t,
+    plain eager bf16) on one random ViT-L/14 export under build/, written at
+    first use and shared by the checkouts that one call times."""
+    import torch
+
+    from openvision_tpu_torch.tools.model_io import load_model
+
+    model_dir = os.path.join(REPO, "build", "chip_smoke_export")
+    if not os.path.exists(os.path.join(model_dir, "open_clip_config.json")):
+        os.makedirs(model_dir, exist_ok=True)
+        export_random_model(model_dir, L14_CONFIG, SEED)  # the config is written last
+    model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t", fast_gelu=True,
+                       device=device, int8=True)
+    rates = encode_rates(model, model_dir, device)
+    del model
+    torch.cuda.empty_cache()
+    return rates
 
 
 def attn_only(root: str) -> int:
@@ -3390,6 +3423,91 @@ def attn_only(root: str) -> int:
     return 0
 
 
+# The row LayerNorm's shapes at b=64 (--ln): the ViT-L/14 tower (encode and
+# caption), the decoder's prefix-LM L=463 and causal L=128; the int8 LN at
+# the tower's shape.
+LN_SHAPES = [("ViT-L/14 tower", 257, 1024), ("decoder prefix-LM L=463", 463, 768),
+             ("decoder causal L=128", 128, 768)]
+
+
+def ln_cases(fe, fe8, device, gen, b: int):
+    """The row-stream LayerNorm kernels (csrc/layernorm.cu) at batch b: the
+    bf16 layernorm at LN_SHAPES beside F.layer_norm, and layernorm_quant at
+    the tower's shape (no library call computes it)."""
+    import torch
+    import torch.nn.functional as F
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    cases = []
+    for label, l, d in LN_SHAPES:
+        m = b * l
+        x, ln_w, ln_b = rnd(m, d).bfloat16(), rnd(d, scale=0.1) + 1, rnd(d, scale=0.1)
+        w16, b16 = ln_w.bfloat16(), ln_b.bfloat16()
+        cases.append(Case(
+            "layernorm", f"{label} ({m}x{d})",
+            lambda x=x, w=ln_w, bias=ln_b: fe.layernorm(x, w, bias, 1e-6),
+            lambda x=x, w=ln_w, bias=ln_b: fe.layernorm_plain(x.float(), w, bias, 1e-6),
+            lambda x=x, w=w16, bias=b16, d=d: F.layer_norm(x, (d,), w, bias, 1e-6),
+            2 * m * d * 2 + 2 * d * 4, 0, 8 * m * d))
+    _, l, d = LN_SHAPES[0]
+    m = b * l
+    x, ln_w, ln_b = rnd(m, d).bfloat16(), rnd(d, scale=0.1) + 1, rnd(d, scale=0.1)
+    cases.append(Case("layernorm_quant", f"LN + quantise ({m}x{d})",
+                      lambda: fe8.layernorm_quant(x, ln_w, ln_b, 1e-6),
+                      lambda: fe8.layernorm_quant_plain(x, ln_w, ln_b, 1e-6), None,
+                      m * d * 2 + m * d + m * 4 + 2 * d * 4, 0, 10 * m * d, quant=True))
+    return cases
+
+
+def ln_only(root: str) -> int:
+    """``chip_smoke.py --ln [ROOT]``: the row LayerNorm kernels of the
+    checkout at ROOT (this one by default) at b=64 (ln_cases: CUDA events
+    and graph replay, bound, plain, F.layer_norm, the wrapper's host time a
+    call), then encode img/s at b=64 on --gemm's export, so that two
+    checkouts are timed on one card in one call. It first checks both
+    kernels at B=8, and for this checkout applies phase 1's spill gate."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --ln: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from openvision_tpu_torch.ops import fused_encoder as fe
+    from openvision_tpu_torch.ops import fused_encoder_int8 as fe8
+    from openvision_tpu_torch.ops import kernels
+
+    print(f"package {os.path.dirname(kernels.__file__)}")
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    lib_path = kernels.build()
+    kernels.lib()
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    device = torch.device("cuda")
+    with torch.inference_mode():
+        if root == REPO:
+            spill_gate(lib_path)
+        check_cases(ln_cases(fe, fe8, device, torch.Generator(device=device).manual_seed(SEED), 8),
+                    {})
+        gen = torch.Generator(device=device).manual_seed(SEED + 10)
+        print("row LayerNorm kernels (csrc/layernorm.cu) at b=64:")
+        for c in ln_cases(fe, fe8, device, gen, 64):
+            t = time_case(c)
+            t0 = time.perf_counter()
+            for _ in range(50):
+                c.kern()
+            host_us = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+            lib = ("" if c.lib is None else f"kernel / F.layer_norm {t['ms'] / t['library_ms']:.2f}"
+                   f" (graph {t['graph_ms'] / t['library_graph_ms']:.2f})  ")
+            print(f"  {'':15s} {c.label:46s} {lib}graph / bound "
+                  f"{t['graph_ms'] / t['bound_ms']:.2f}  wrapper host {host_us:.1f} us a call")
+        export_encode_rates(device)
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tp-grads"]:  # one rank of phase 18 (torchrun starts it)
         sys.exit(tp_grads_worker(sys.argv[2], "--no-pil" in sys.argv))
@@ -3397,4 +3515,6 @@ if __name__ == "__main__":
         sys.exit(gemm_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     if sys.argv[1:2] == ["--attn"]:
         sys.exit(attn_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
+    if sys.argv[1:2] == ["--ln"]:
+        sys.exit(ln_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     sys.exit(main())

@@ -82,14 +82,17 @@ def layernorm(x, weight, bias, eps: float):
 
     Replaces the LN prologue of ``_mhsa_t_kernel`` and ``_mlp_t_kernel``
     (openvision_tpu/ops/fused_encoder.py:91-95, :525-529). Bound by device
-    memory (one read, one write of x); one warp per row with 16-byte loads,
-    no shared memory.
+    memory (one read, one write of x): a persistent row stream, tiles of 16
+    rows brought into a shared-memory ring by bulk copies, one warp a row
+    computing from registers and storing 16 bytes a lane. Takes a width
+    divisible by 8 and at most 2048.
     """
     if kernels.on_cpu(x, weight, bias):
         return layernorm_plain(x, weight, bias, eps)
     d = x.shape[-1]
-    if d % 8:
-        raise ValueError(f"layernorm: the kernel takes a width divisible by 8, got {d}")
+    if d % 8 or d > 2048:
+        raise ValueError(f"layernorm: the kernel takes a width divisible by 8 and at most 2048, "
+                         f"got {d}")
     kernels.check_operand("layernorm x", x, torch.bfloat16)
     kernels.check_operand("layernorm weight", weight, torch.float32, (d,))
     kernels.check_operand("layernorm bias", bias, torch.float32, (d,))

@@ -101,7 +101,9 @@ def layernorm_quant(x, weight, bias, eps: float):
     Replaces the LN prologue and ``_quant_cols`` of ``_mhsa_t_int8_kernel``
     and ``_mlp_t_int8_kernel`` (openvision_tpu/ops/fused_encoder_int8.py
     :58-64, :144-149). Bound by device memory (x read once, int8 written):
-    one warp per row, the row kept in registers between its passes.
+    the bf16 layernorm's row stream (tiles of 16 rows brought into a
+    shared-memory ring by bulk copies, one warp a row), the row held in
+    registers between its passes, 8-byte int8 stores a lane.
     """
     if kernels.on_cpu(x, weight, bias):
         return layernorm_quant_plain(x, weight, bias, eps)

@@ -74,15 +74,55 @@ def _launches(**nonzero):
     return {**dict.fromkeys(kernels.LAUNCHES, 0), **nonzero}
 
 
+# The row-stream LayerNorm kernels (csrc/layernorm.cu) take tiles of 16 rows,
+# at most two blocks an SM: row counts below a tile, not a multiple of it,
+# with fewer tiles than SMs, and 16448 / 29632 rows (b=64 at L=257 and the
+# decoder's L=463) at every width of the port's tables up to 2048.
+LN_ROWS = (1, 7, 37, 2 * 257, 64 * 257, 64 * 463)
+LN_WIDTHS = (8, 192, 768, 1024, 1152, 1792, 2048)
+
+
+def _ln_input(g, dev, rows, d, kind):
+    """x for a LayerNorm case: "offset" is x * 0.05 + 40, where a two-pass
+    variance and E[x^2] - mean^2 part; "view" is a contiguous view with a
+    nonzero (16-byte aligned) storage offset."""
+    x = _rand(g, dev, rows + (kind == "view"), d)
+    x = x * 0.05 + 40 if kind == "offset" else x * 3 + 1
+    return x.bfloat16()[1:] if kind == "view" else x.bfloat16()
+
+
+def _on_side_stream(fn):
+    """fn() launched on a stream other than the default one."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(side)
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,d", [(2 * 257, 1024), (37, 1152), (1, 8)])
-def test_layernorm_kernel(dev, rows, d):
-    g = torch.Generator().manual_seed(rows)
-    x = (_rand(g, dev, rows, d) * 3 + 1).bfloat16()
+@pytest.mark.parametrize("rows,d,kind", [
+    *[(r, d, "normal") for r in LN_ROWS for d in LN_WIDTHS],
+    *[(2 * 257, d, "offset") for d in LN_WIDTHS],
+    (37, 1024, "stream"), (64 * 257, 1024, "stream"), (37, 768, "view"), (2 * 257, 1024, "view"),
+    (7, 2056, "too wide"),
+])
+def test_layernorm_kernel(dev, rows, d, kind):
+    g = torch.Generator().manual_seed(rows + d)
+    x = _ln_input(g, dev, rows, d, kind)
     w, b = _rand(g, dev, d) + 1, _rand(g, dev, d)
     with torch.inference_mode():
+        if kind == "too wide":
+            with pytest.raises(ValueError, match="at most 2048"):
+                fe.layernorm(x, w, b, 1e-6)
+            return
+        if kind == "view":
+            assert x.storage_offset() > 0 and x.is_contiguous()
+        run = lambda: fe.layernorm(x, w, b, 1e-6)
+        y = _on_side_stream(run) if kind == "stream" else run()
         ref = fe.layernorm_plain(x.float(), w, b, 1e-6)
-        assert _rel_err(fe.layernorm(x, w, b, 1e-6), ref) <= 2**-7
+        assert _rel_err(y, ref) <= 2**-7
 
 
 @pytest.mark.gpu
@@ -619,13 +659,35 @@ def _int8_rows(g, dev, m, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,d", [(2 * 257, 1024), (37, 1152), (1, 8)])
-def test_layernorm_quant_kernel(dev, rows, d):
+@pytest.mark.parametrize("rows,d,kind", [
+    *[(r, d, "normal") for r in LN_ROWS for d in LN_WIDTHS],
+    # At x * 0.05 + 40 the f32 sum of x^2 rounds once it passes 2**20
+    # (d >= 768 here), and E[x^2] - mean^2 then moves with the summation
+    # order by up to twice the variance: no two orders agree to 2**-20. The
+    # offset cases take the widths whose sums are exact and whose mean is a
+    # division by a power of two, where the kernel and the plain version
+    # must agree and the two-pass variance must not.
+    (2 * 257, 256, "offset"), (2 * 257, 512, "offset"),
+    (37, 1024, "stream"), (64 * 257, 1024, "stream"), (37, 768, "view"), (2 * 257, 1024, "view"),
+    (7, 2056, "too wide"),
+])
+def test_layernorm_quant_kernel(dev, rows, d, kind):
     g = torch.Generator().manual_seed(rows + d)
-    x = (_rand(g, dev, rows, d) * 3 + 1).bfloat16()
+    x = _ln_input(g, dev, rows, d, kind)
     w, b = _rand(g, dev, d) * 0.1 + 1, _rand(g, dev, d) * 0.1
     with torch.inference_mode():
-        _check_quant(*fe8.layernorm_quant(x, w, b, 1e-6), *fe8.layernorm_quant_plain(x, w, b, 1e-6))
+        if kind == "too wide":
+            with pytest.raises(ValueError, match="at most 2048"):
+                fe8.layernorm_quant(x, w, b, 1e-6)
+            return
+        if kind == "view":
+            assert x.storage_offset() > 0 and x.is_contiguous()
+        run = lambda: fe8.layernorm_quant(x, w, b, 1e-6)
+        q, scale = _on_side_stream(run) if kind == "stream" else run()
+        _check_quant(q, scale, *fe8.layernorm_quant_plain(x, w, b, 1e-6))
+        if kind == "offset":  # a two-pass variance gives other scales
+            _, two_pass = fe8.quant_plain(fe.layernorm_plain(x.float(), w, b, 1e-6))
+            assert ((two_pass - scale).abs() / scale).max().item() > 2**-20
 
 
 @pytest.mark.gpu
