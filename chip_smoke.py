@@ -8,11 +8,12 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    build of the kernels in openvision_tpu_torch/csrc (timed; one nvcc per
    source, in parallel). Fails if a GEMM kernel (bf16 or int8, one
    mainloop), an int8 quantiser, an attention kernel (the forward's
-   instantiations, the two backward kernels) or a row-stream LayerNorm
-   kernel (bf16 or int8) spills registers, or if the build holds no int8
-   GEMM, no forward attention kernel, not both attention backward kernels
-   or not both LayerNorm kernels at every chunk count; prints ptxas's notes
-   on serialized wgmma.
+   instantiations, the two backward kernels), a row-stream LayerNorm
+   kernel (bf16 or int8) or the LayerNorm backward (and its finish) spills
+   registers, or if the build holds no int8 GEMM, no forward attention
+   kernel, not both attention backward kernels or not all three LayerNorm
+   kernels (bf16, int8, backward) at every chunk count; prints ptxas's
+   notes on serialized wgmma.
 2. Each kernel against its plain PyTorch version at ViT-L/14 shapes
    (B=8, L=257, D=1024, 16 heads, MLP 4096) and at a ragged L=101, with
    nomax on and off for attention. Inputs are bf16; the plain version runs
@@ -100,7 +101,8 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
 9. Each backward kernel at B=64, replayed from a CUDA graph, beside its
    bound, its plain version and one PyTorch library call (the autograd
    backward of scaled_dot_product_attention, torch.matmul in the same
-   layout, the autograd backward of F.layer_norm, a column sum); per flash
+   layout, F.layer_norm's backward (aten.native_layer_norm_backward), a
+   column sum); per flash
    backward shape the pair's sum (attention_bwd_dq + attention_bwd_dkv, by
    events and by graph replay) beside SDPA's autograd backward, which
    computes what the two compute together, and each wrapper's host time a
@@ -205,8 +207,14 @@ ViT-L/14 tower's 16448 x 1024, the decoder's prefix-LM 29632 x 768 and
 causal 8192 x 768, beside F.layer_norm; layernorm_quant at 16448 x 1024)
 by CUDA events and graph replay, beside the bytes bound, the plain version
 and the wrapper's host time a call, then encode img/s at b=64 (int8, bf16
-fused_t, plain eager bf16) on --gemm's export; it checks both kernels at
-B=8 first and, for this checkout, applies phase 1's spill gate.
+fused_t, plain eager bf16) on --gemm's export; then the LayerNorm
+backward (layernorm_bwd) at the same three shapes with and without the
+residual's gradient g, beside F.layer_norm's backward
+(aten.native_layer_norm_backward, by events and graph replay), and the
+composed backward chains that run it, #3 and #4 at L=257 and #10 at L=257,
+by events and graph replay. It checks the forward kernels and the
+backward cases at B=8 first and, for this checkout, applies phase 1's
+spill gate.
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 
@@ -458,26 +466,30 @@ def spill_gate(lib_path) -> None:
     """Phase 1's gate on the build log: the GEMM family (bf16 and int8, one
     mainloop), the int8 quantisers, the attention kernels (the forward's
     instantiations and the backward pair) and both row-stream LayerNorm
-    kernels (bf16 and int8, one instantiation a chunk count) must not spill
+    kernels (bf16 and int8, one instantiation a chunk count) and the
+    LayerNorm backward (one a chunk count) and its finish must not spill
     registers; the build must hold an int8 GEMM, the forward attention
-    kernel, both attention backward kernels and both LayerNorm kernels.
+    kernel, both attention backward kernels and the three LayerNorm kernels
+    at all 8 chunk counts.
     ptxas's notes on serialized wgmma are printed."""
     log = (lib_path.parent / "build.log").read_text()
     spills = ptxas_summary(log)
     gated = [f for f in spills if "gemm_ws_kernel" in f or "quant" in f or "attention_" in f
-             or "ln_rows_kernel" in f]
+             or "ln_rows_kernel" in f or "layernorm_bwd_" in f]
     int8_gemms = [f for f in gated if "gemm_ws_kernel" in f and "2S8E" in f]
     attn_fwd = [f for f in gated if "attention_fwd" in f]
     attn_bwd = [f for f in gated if "attention_bwd" in f]
     ln = {epi: [f for f in gated if "ln_rows_kernel" in f and epi in f]
           for epi in ("LnBf16", "LnQuant")}
+    ln["backward"] = [f for f in gated if "layernorm_bwd_kernel" in f]
     print(f"spill gate: {len(gated)} kernels, {len(int8_gemms)} of them int8 GEMMs, "
           f"{len(attn_fwd)} attention forward, {len(attn_bwd)} attention backward, "
-          f"{len(ln['LnBf16'])} + {len(ln['LnQuant'])} LayerNorm (bf16 + int8)")
+          f"{len(ln['LnBf16'])} + {len(ln['LnQuant'])} + {len(ln['backward'])} LayerNorm "
+          "(bf16 + int8 + backward)")
     for epi, found in ln.items():
         if len(found) != 8:  # NC = 1..8
-            raise AssertionError(f"expected the row-stream LayerNorm kernel ({epi}) at 8 chunk "
-                                 f"counts, found {found}")
+            raise AssertionError(f"expected the LayerNorm kernel ({epi}) at 8 chunk counts, "
+                                 f"found {found}")
     for line in log.splitlines():
         if "wgmma" in line and "serializ" in line:
             print(f"  ptxas: {line.strip()[:200]}")
@@ -1525,13 +1537,28 @@ def attention_bwd_cases(fl, gk, device, gen, b: int, which=None):
     return cases
 
 
+def ln_backward_library(x, gamma, dy):
+    """F.layer_norm's backward as one PyTorch call on the same inputs
+    (bf16, as autograd runs it for a bf16 forward):
+    aten.native_layer_norm_backward for dx, dgamma and dbeta, with the
+    forward's mean and rstd computed here once. A plain call, so a CUDA
+    graph captures it (an autograd.grad does not)."""
+    import torch
+
+    d = x.shape[-1]
+    w, bias = gamma.bfloat16(), torch.zeros(d, device=x.device, dtype=torch.bfloat16)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], w, bias, 1e-6)
+    dy16 = dy.bfloat16()
+    return lambda: torch.ops.aten.native_layer_norm_backward(dy16, x, [d], mean, rstd, w, bias,
+                                                             [True, True, True])
+
+
 def block_bwd_parts(gk, device, gen, b: int, l: int = 257, d: int = 1024):
     """One fused-block backward's GEMM, LayerNorm and column-sum launches at
     the image tower's shapes (M = b * l rows), each a case of its kernel.
-    Library calls: torch.matmul in the same layout, the autograd backward of
-    F.layer_norm, torch.sum over the rows."""
+    Library calls: torch.matmul in the same layout, F.layer_norm's backward
+    (ln_backward_library), torch.sum over the rows."""
     import torch
-    import torch.nn.functional as F
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=device) * scale
@@ -1560,14 +1587,10 @@ def block_bwd_parts(gk, device, gen, b: int, l: int = 257, d: int = 1024):
                           lambda dc=dc, xin=xin: (gk.gemm_tn_plain(dc, xin, torch.float32),),
                           lambda dc=dc, xin=xin, n=n, k=k: dc.reshape(-1, n).t() @ xin.reshape(-1, k),
                           (m * n + m * k + n * k) * 2, 2 * m * n * k))
-    xl, wl, bl = _leaves(x, gamma.bfloat16(), torch.zeros(d, device=device).bfloat16())
-    with torch.enable_grad():
-        ln_out = F.layer_norm(xl, (d,), wl, bl, 1e-6)
     cases.append(Case("layernorm_bwd", f"LN bwd + residual ({m}x{d})",
                       lambda: gk.layernorm_bwd(x, gamma, dy, g, eps=1e-6),
                       lambda: gk.layernorm_bwd_plain(x.float(), gamma, dy, g.float(), eps=1e-6),
-                      lambda: torch.autograd.grad(ln_out, (xl, wl, bl), dy.bfloat16(),
-                                                  retain_graph=True),
+                      ln_backward_library(x, gamma, dy),
                       m * d * (2 + 4 + 2 + 2) + 3 * d * 4, 0, 10 * m * d))
     for label, t, rnd_ in (("db_qkv per image, rounded", dqkv, True), ("db_o", g, False)):
         n = t.shape[-1]
@@ -3461,13 +3484,73 @@ def ln_cases(fe, fe8, device, gen, b: int):
     return cases
 
 
+def ln_bwd_cases(gk, device, gen, b: int):
+    """The LayerNorm backward (csrc/layernorm.cu layernorm_bwd) at batch b
+    over LN_SHAPES, with the residual's gradient g (dx held on dx - g) and
+    without; the library call is F.layer_norm's backward
+    (ln_backward_library). Bytes: x bf16, dy f32, g bf16 read and dx bf16
+    written once; gamma read and dgamma, dbeta written."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    cases = []
+    for label, l, d in LN_SHAPES:
+        m = b * l
+        x = (rnd(m, d) * 3 + 1).bfloat16()
+        gamma, dy, g = rnd(d, scale=0.1) + 1, rnd(m, d), rnd(m, d).bfloat16()
+        for res in (g, None):
+            cases.append(Case(
+                "layernorm_bwd", f"{label} ({m}x{d}){' + g' if res is not None else ''}",
+                lambda x=x, gamma=gamma, dy=dy, res=res: gk.layernorm_bwd(x, gamma, dy, res,
+                                                                           eps=1e-6),
+                lambda x=x, gamma=gamma, dy=dy, res=res: gk.layernorm_bwd_plain(
+                    x.float(), gamma, dy, None if res is None else res.float(), eps=1e-6),
+                ln_backward_library(x, gamma, dy),
+                m * d * (2 + 4 + 2 + (2 if res is not None else 0)) + 3 * d * 4, 0, 10 * m * d,
+                residual=res))
+    return cases
+
+
+def ln_bwd_chain_cases(fe, fa, gk, device, gen, b: int):
+    """The composed backward chains that run the LayerNorm backward, at the
+    image tower's L=257 D=1024: #3 (max-subtracted) and #4 from
+    training_kernel_cases, #10 from fused_block_bwd_cases."""
+    _, bwd = training_kernel_cases(fe, fa, gk, device, gen, b)
+    chains = [c for c in bwd if c.name in ("mhsa_t bwd", "mlp_t bwd") and "L=257" in c.label
+              and "nomax" not in c.label]
+    return chains + fused_block_bwd_cases(fa, device, gen, b, lengths=(257,))
+
+
+def time_ln_case(c) -> None:
+    """time_case, then the kernel against its library call and its bound,
+    and the wrapper's host time a call (50 calls, no synchronize)."""
+    import torch
+
+    t = time_case(c)
+    t0 = time.perf_counter()
+    for _ in range(50):
+        c.kern()
+    host_us = (time.perf_counter() - t0) / 50 * 1e6
+    torch.cuda.synchronize()
+    lib = ("" if c.lib is None else f"kernel / library {t['ms'] / t['library_ms']:.2f}"
+           f" (graph {t['graph_ms'] / t['library_graph_ms']:.2f})  ")
+    print(f"  {'':15s} {c.label:46s} {lib}graph / bound {t['graph_ms'] / t['bound_ms']:.2f}  "
+          f"wrapper host {host_us:.1f} us a call")
+
+
 def ln_only(root: str) -> int:
     """``chip_smoke.py --ln [ROOT]``: the row LayerNorm kernels of the
     checkout at ROOT (this one by default) at b=64 (ln_cases: CUDA events
     and graph replay, bound, plain, F.layer_norm, the wrapper's host time a
-    call), then encode img/s at b=64 on --gemm's export, so that two
-    checkouts are timed on one card in one call. It first checks both
-    kernels at B=8, and for this checkout applies phase 1's spill gate."""
+    call), encode img/s at b=64 on --gemm's export, then the LayerNorm
+    backward (ln_bwd_cases: the same numbers beside F.layer_norm's
+    backward) and the composed chains #3, #4 and #10 at L=257
+    (ln_bwd_chain_cases, events and graph replay), so that two checkouts
+    are timed on one card in one call. It first checks the forward kernels
+    and the backward cases at B=8 (phase 7's bounds), and for this checkout
+    applies phase 1's spill gate."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3475,8 +3558,10 @@ def ln_only(root: str) -> int:
         return 1
     root = os.path.abspath(root)
     sys.path.insert(0, root)
+    from openvision_tpu_torch.ops import fused_attention as fa
     from openvision_tpu_torch.ops import fused_encoder as fe
     from openvision_tpu_torch.ops import fused_encoder_int8 as fe8
+    from openvision_tpu_torch.ops import grad_kernels as gk
     from openvision_tpu_torch.ops import kernels
 
     print(f"package {os.path.dirname(kernels.__file__)}")
@@ -3491,20 +3576,23 @@ def ln_only(root: str) -> int:
             spill_gate(lib_path)
         check_cases(ln_cases(fe, fe8, device, torch.Generator(device=device).manual_seed(SEED), 8),
                     {})
+        check_bwd_cases(ln_bwd_cases(gk, device, torch.Generator(device=device).manual_seed(SEED),
+                                     8), {})
         gen = torch.Generator(device=device).manual_seed(SEED + 10)
         print("row LayerNorm kernels (csrc/layernorm.cu) at b=64:")
         for c in ln_cases(fe, fe8, device, gen, 64):
-            t = time_case(c)
-            t0 = time.perf_counter()
-            for _ in range(50):
-                c.kern()
-            host_us = (time.perf_counter() - t0) / 50 * 1e6
-            torch.cuda.synchronize()
-            lib = ("" if c.lib is None else f"kernel / F.layer_norm {t['ms'] / t['library_ms']:.2f}"
-                   f" (graph {t['graph_ms'] / t['library_graph_ms']:.2f})  ")
-            print(f"  {'':15s} {c.label:46s} {lib}graph / bound "
-                  f"{t['graph_ms'] / t['bound_ms']:.2f}  wrapper host {host_us:.1f} us a call")
+            time_ln_case(c)
         export_encode_rates(device)
+    torch.cuda.empty_cache()
+    with torch.no_grad():  # the chains' library calls run autograd
+        gen = torch.Generator(device=device).manual_seed(SEED + 11)
+        print("LayerNorm backward (csrc/layernorm.cu layernorm_bwd) at b=64:")
+        for c in ln_bwd_cases(gk, device, gen, 64):
+            time_ln_case(c)
+        torch.cuda.empty_cache()
+        print("the composed backward chains that run it, b=64:")
+        for c in ln_bwd_chain_cases(fe, fa, gk, device, gen, 64):
+            time_bwd_case(c)
     return 0
 
 

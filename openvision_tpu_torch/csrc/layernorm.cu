@@ -39,6 +39,7 @@
 // one further down), and so is NC = ceil(d / 256) <= 8: a lane holds NC
 // chunks of 8 values of its row (d <= 2048).
 #include <algorithm>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -47,7 +48,7 @@ namespace {
 namespace hp = ovt::hopper;
 using ovt::bf16;
 
-constexpr int kWarps = 8;  // the LN backward's and quant_rows' blocks
+constexpr int kWarps = 8;  // quant_rows' blocks
 
 constexpr int kRows = 16;                         // consumer warps: the rows of a tile
 constexpr int kStreamThreads = (kRows + 1) * 32;  // + the producer warp
@@ -261,127 +262,258 @@ extern "C" int ovt_layernorm(const void* x, const void* gamma, const void* beta,
 // and the bias gradients dbq/dbk/dbv (over dq/dk/dv) and dbo (over g). The
 // Pallas kernel adds each image's sums into f32 accumulators that live across
 // its grid; here every block (LN) or every image (column sums) writes a
-// partial, and a second pass reduces the partials. Bound on the H100 by
-// device memory: each input is read once.
+// partial, and a second pass reduces the partials in a fixed order (no float
+// atomics: the same bits from run to run).
+//
+// What bounds the LN backward: device-memory bytes. It reads x (bf16), dy
+// (f32) and the residual's gradient g (bf16) once and writes dx (bf16): 10
+// bytes an element with g, 8 without (16448 x 1024 with g: 168.4 MB, 50.3 us
+// at 3.35 TB/s), and does ~25 f32 operations an element. The statistics are
+// recomputed from x with the two-pass variance, as the forward. The design
+// keeps the three input streams in flight ahead of the reductions, touches
+// each byte of device memory once and spills at no chunk count (PERF.md
+// gives its times beside the bound, and those of the designs tried: 8-row
+// tiles, 1 or 2 blocks an SM, rows loaded straight into registers with the
+// next row's loads first, which was 4% faster at d <= 1024 but spills at
+// NC >= 5):
+// - A persistent grid (kBwdBlocksPerSm blocks an SM, fewer where the ring
+//   or the registers do not fit, at most one a tile) walks tiles of
+//   kBwdRows contiguous rows with a grid stride.
+// - One producer thread copies each tile's x, dy and g, three contiguous
+//   spans, with one 1-D bulk copy each (cp.async.bulk) into a ring of
+//   shared-memory stages under full/empty mbarriers, the full barrier
+//   expecting the three copies' bytes; a block's ring holds kBwdRingBytes
+//   (at least two stages), so the next tile arrives while this one's
+//   reductions run.
+// - kBwdRows consumer warps take one row each. A lane owns columns 4 lane +
+//   128 h + 256 c (h < 2, c < NC = ceil(d / 256) <= 8): 8-byte bf16 and
+//   16-byte f32 reads of shared memory, conflict-free, and 8-byte stores of
+//   dx, 256 contiguous bytes a warp. x is read once into registers; mean
+//   and variance are two warp reductions, s1 = sum dxhat and s2 = sum dxhat
+//   xhat one more with two values a step; dy, g and gamma are read from
+//   shared memory where they are used (dxhat formed twice rather than held:
+//   the same time, fewer registers), and the stage is released after dx is
+//   stored.
+// - gamma is staged in shared memory once a block; a lane's four values of
+//   a column group are one 16-byte load.
+// - dgamma/dbeta: each lane sums its columns over its rows in registers; at
+//   the end the block's warps add theirs in shared memory in warp order and
+//   the block writes one partial. layernorm_bwd_finish_kernel adds the
+//   partials over 2d / 8 blocks of 8 columns (256 at d = 1024), every
+//   thread its partial rows in order, then a fixed-order tree (the last
+//   block adding all partials in the same launch measured ~2.8x slower).
 
 namespace {
 
-// Per-block partial column sums, [blocks][2][d] f32 (dgamma, dbeta). Each warp
-// walks rows with a grid stride and keeps its lanes' columns in registers;
-// the block's warps add their partials in shared memory in a fixed order.
+constexpr int kBwdRows = 4;                          // consumer warps: the rows of a tile
+constexpr int kBwdThreads = (kBwdRows + 1) * 32;     // + the producer warp
+constexpr int kBwdRingBytes = 64 * 1024;             // a block's ring, at least two stages
+constexpr int kBwdBlocksPerSm = 3;
+constexpr int kFinishCols = 8;     // the finish: columns of a block (one 32-byte sector)
+constexpr int kFinishGroups = 32;  // and groups of partial rows
+
+// The first of a lane's four columns in column group (c, h).
+__device__ __forceinline__ int bwd_col(int c, int h, int lane) {
+  return c * 256 + h * 128 + 4 * lane;
+}
+
+__device__ __forceinline__ void unpack_bf16x4(uint2 u, float* v) {
+  const float2 a = ovt::unpack_bf16x2(u.x), b = ovt::unpack_bf16x2(u.y);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// One row of the LN backward from shared memory (xs, ds, gs: the row's x,
+// dy and g, gs null without g; sg: gamma): stores dx's row and adds the
+// lane's dy * xhat and dy to pg and pb.
 template <int NC>
-__global__ void __launch_bounds__(kWarps * 32)
+__device__ __forceinline__ void ln_bwd_row(const uint2* xs, const float4* ds, const uint2* gs,
+                                           const float4* sg, bf16* dxr, float (&pg)[NC][8],
+                                           float (&pb)[NC][8], int lane, int d, float eps) {
+  float xv[NC][8];
+  float sum = 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = bwd_col(c, h, lane);
+      if (i >= d) continue;
+      float* v = &xv[c][4 * h];
+      unpack_bf16x4(xs[i / 4], v);
+      sum += (v[0] + v[1]) + (v[2] + v[3]);
+    }
+  const float mean = ovt::warp_sum(sum) / d;
+  float sq = 0.f;  // two-pass variance, as the forward kernel
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (bwd_col(c, h, lane) >= d) continue;
+#pragma unroll
+      for (int j = 4 * h; j < 4 * h + 4; ++j) sq += (xv[c][j] - mean) * (xv[c][j] - mean);
+    }
+  const float rstd = rsqrtf(ovt::warp_sum(sq) / d + eps);
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = bwd_col(c, h, lane);
+      if (i >= d) continue;
+      const float4 dv4 = ds[i / 4], gm4 = sg[i / 4];
+      const float dv[4] = {dv4.x, dv4.y, dv4.z, dv4.w}, gm[4] = {gm4.x, gm4.y, gm4.z, gm4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float& xh = xv[c][4 * h + j];
+        xh = (xh - mean) * rstd;
+        const float dxh = dv[j] * gm[j];
+        s1 += dxh;
+        s2 += dxh * xh;
+        pg[c][4 * h + j] += dv[j] * xh;
+        pb[c][4 * h + j] += dv[j];
+      }
+    }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {  // one tree, two values a step
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  s1 /= d;
+  s2 /= d;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = bwd_col(c, h, lane);
+      if (i >= d) continue;
+      const float4 dv4 = ds[i / 4], gm4 = sg[i / 4];
+      const float dv[4] = {dv4.x, dv4.y, dv4.z, dv4.w}, gm[4] = {gm4.x, gm4.y, gm4.z, gm4.w};
+      float gv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (gs) unpack_bf16x4(gs[i / 4], gv);
+      float r[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r[j] = gv[j] + rstd * (dv[j] * gm[j] - s1 - xv[c][4 * h + j] * s2);
+      *reinterpret_cast<uint2*>(dxr + i) =
+          make_uint2(ovt::pack_bf16x2(r[0], r[1]), ovt::pack_bf16x2(r[2], r[3]));
+    }
+}
+
+// dx and per-block partial column sums part[blocks][2][d] f32 (dgamma,
+// dbeta). x, dy, g: (rows, d); `stages` ring stages of kBwdRows rows, each
+// x, then dy, then g (when given).
+template <int NC>
+__global__ void __launch_bounds__(kBwdThreads, 1)  // up to 255 registers: no spill at any NC
 layernorm_bwd_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
                      const float* __restrict__ dy, const bf16* __restrict__ g,
                      bf16* __restrict__ dx, float* __restrict__ part, int rows, int d,
-                     float eps) {
-  extern __shared__ float red[];  // 2 * d
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                     int stages, float eps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+  float4* sg = reinterpret_cast<float4*>(smem);  // gamma: NC * 64 float4s
+  uint8_t* ring = smem + NC * 64 * 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles = (rows + kBwdRows - 1) / kBwdRows;
+  const int x_bytes = kBwdRows * d * 2;  // dy at x_bytes, g at 3 x_bytes
+  const int stage_bytes = x_bytes * (g ? 4 : 3);
+
+  if (threadIdx.x == kBwdRows * 32) {
+    for (int s = 0; s < stages; ++s) {
+      hp::mbar_init(&full[s], 1);          // the producer's arrive, plus the bytes
+      hp::mbar_init(&empty[s], kBwdRows);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == kBwdRows) {  // the producer: one thread runs the ring ahead
+    if (lane == 0) {
+      for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+        const int s = it % stages;
+        if (it >= stages) hp::mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+        const size_t first = static_cast<size_t>(t) * kBwdRows * d;
+        const uint32_t n = min(kBwdRows, rows - t * kBwdRows) * d;  // elements
+        uint8_t* st = ring + s * stage_bytes;
+        hp::mbar_expect_tx(&full[s], n * (g ? 8 : 6));
+        bulk_load(st, x + first, n * 2, &full[s]);
+        bulk_load(st + x_bytes, dy + first, n * 4, &full[s]);
+        if (g) bulk_load(st + 3 * x_bytes, g + first, n * 2, &full[s]);
+      }
+    }
+    return;
+  }
+
+  for (int k = threadIdx.x; k < d / 4; k += kBwdRows * 32)  // while the first tiles arrive
+    sg[k] = reinterpret_cast<const float4*>(gamma)[k];
+  hp::named_barrier(1, kBwdRows * 32);
+
   float pg[NC][8], pb[NC][8];
 #pragma unroll
   for (int c = 0; c < NC; ++c)
 #pragma unroll
     for (int j = 0; j < 8; ++j) pg[c][j] = pb[c][j] = 0.f;
 
-  for (int row = blockIdx.x * kWarps + warp; row < rows; row += gridDim.x * kWarps) {
-    const size_t base = static_cast<size_t>(row) * d;
-    float xv[NC][8], dv[NC][8];
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int i = lane * 8 + c * 256;
-      if (i >= d) continue;
-      const uint4 v = *reinterpret_cast<const uint4*>(x + base + i);
-      const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = ovt::unpack_bf16x2(w[j]);
-        xv[c][2 * j] = f.x;
-        xv[c][2 * j + 1] = f.y;
-        sum += f.x + f.y;
-      }
-      const float4 a = *reinterpret_cast<const float4*>(dy + base + i);
-      const float4 b = *reinterpret_cast<const float4*>(dy + base + i + 4);
-      dv[c][0] = a.x; dv[c][1] = a.y; dv[c][2] = a.z; dv[c][3] = a.w;
-      dv[c][4] = b.x; dv[c][5] = b.y; dv[c][6] = b.z; dv[c][7] = b.w;
+  for (int t = blockIdx.x, it = 0; t < tiles; t += gridDim.x, ++it) {
+    const int s = it % stages;
+    const int row = t * kBwdRows + warp;
+    hp::mbar_wait(&full[s], (it / stages) & 1);
+    if (row < rows) {
+      const uint8_t* st = ring + s * stage_bytes;
+      ln_bwd_row<NC>(reinterpret_cast<const uint2*>(st + warp * d * 2),
+                     reinterpret_cast<const float4*>(st + x_bytes + warp * d * 4),
+                     g ? reinterpret_cast<const uint2*>(st + 3 * x_bytes + warp * d * 2) : nullptr,
+                     sg, dx + static_cast<size_t>(row) * d, pg, pb, lane, d, eps);
     }
-    const float mean = ovt::warp_sum(sum) / d;
-    float sq = 0.f;  // two-pass variance, as the forward kernel
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (lane * 8 + c * 256 >= d) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sq += (xv[c][j] - mean) * (xv[c][j] - mean);
-    }
-    const float rstd = rsqrtf(ovt::warp_sum(sq) / d + eps);
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int i = lane * 8 + c * 256;
-      if (i >= d) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        xv[c][j] = (xv[c][j] - mean) * rstd;  // xhat
-        const float dxh = dv[c][j] * gamma[i + j];
-        s1 += dxh;
-        s2 += dxh * xv[c][j];
-        pg[c][j] += dv[c][j] * xv[c][j];
-        pb[c][j] += dv[c][j];
-      }
-    }
-    s1 = ovt::warp_sum(s1) / d;
-    s2 = ovt::warp_sum(s2) / d;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int i = lane * 8 + c * 256;
-      if (i >= d) continue;
-      float gv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (g) {
-        const uint4 v = *reinterpret_cast<const uint4*>(g + base + i);
-        const uint32_t* w = reinterpret_cast<const uint32_t*>(&v);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = ovt::unpack_bf16x2(w[j]);
-          gv[2 * j] = f.x;
-          gv[2 * j + 1] = f.y;
-        }
-      }
-      uint4 out;
-      uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float r[2];
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int jj = 2 * j + t;
-          const float dxh = dv[c][jj] * gamma[i + jj];
-          r[t] = gv[jj] + rstd * (dxh - s1 - xv[c][jj] * s2);
-        }
-        o[j] = ovt::pack_bf16x2(r[0], r[1]);
-      }
-      *reinterpret_cast<uint4*>(dx + base + i) = out;
-    }
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[s]);  // the row's reads are done
   }
 
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
+  // the warps' sums into the drained ring, [warp][2][d], then added in warp
+  // order: one partial a block
+  float* red = reinterpret_cast<float*>(ring);
+  hp::named_barrier(1, kBwdRows * 32);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int i = lane * 8 + c * 256;
-        if (i >= d) continue;
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          red[i + j] = w == 0 ? pg[c][j] : red[i + j] + pg[c][j];
-          red[d + i + j] = w == 0 ? pb[c][j] : red[d + i + j] + pb[c][j];
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int i = bwd_col(c, h, lane);
+      if (i >= d) continue;
+      float* r = red + static_cast<size_t>(warp) * 2 * d + i;
+      *reinterpret_cast<float4*>(r) =
+          make_float4(pg[c][4 * h], pg[c][4 * h + 1], pg[c][4 * h + 2], pg[c][4 * h + 3]);
+      *reinterpret_cast<float4*>(r + d) =
+          make_float4(pb[c][4 * h], pb[c][4 * h + 1], pb[c][4 * h + 2], pb[c][4 * h + 3]);
     }
-    __syncthreads();
+  hp::named_barrier(1, kBwdRows * 32);
+  for (int k = threadIdx.x; k < 2 * d; k += kBwdRows * 32) {
+    float s = red[k];
+#pragma unroll
+    for (int w = 1; w < kBwdRows; ++w) s += red[w * 2 * d + k];
+    part[static_cast<size_t>(blockIdx.x) * 2 * d + k] = s;
   }
-  for (int i = threadIdx.x; i < 2 * d; i += kWarps * 32)
-    part[static_cast<size_t>(blockIdx.x) * 2 * d + i] = red[i];
 }
 
+// out[c] = sum over the `blocks` partial rows of part[.][c], c < n: a block
+// takes kFinishCols columns; its thread (column, group) adds rows group,
+// group + kFinishGroups, ... in order, then the groups are added in a fixed
+// tree.
+__global__ void __launch_bounds__(kFinishCols * kFinishGroups)
+layernorm_bwd_finish_kernel(const float* __restrict__ part, float* __restrict__ out, int blocks,
+                            int n) {
+  __shared__ float red[kFinishGroups][kFinishCols];
+  const int col = threadIdx.x % kFinishCols, grp = threadIdx.x / kFinishCols;
+  const int c = blockIdx.x * kFinishCols + col;
+  float s = 0.f;
+  if (c < n)
+    for (int r = grp; r < blocks; r += kFinishGroups) s += part[static_cast<size_t>(r) * n + c];
+  red[grp][col] = s;
+  __syncthreads();
+#pragma unroll
+  for (int half = kFinishGroups / 2; half > 0; half >>= 1) {
+    if (grp < half) red[grp][col] += red[grp + half][col];
+    __syncthreads();
+  }
+  if (grp == 0 && c < n) out[c] = red[0][col];
+}
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
@@ -411,44 +543,101 @@ int colsum(const T* in, float* out, float* work, int rows, int n, int seg_len, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// The LN backward's ring at width d: its stages and dynamic shared bytes
+// (gamma, then the ring).
 template <int NC>
-void launch_ln_bwd(const bf16* x, const float* gamma, const float* dy, const bf16* g, bf16* dx,
-                   float* part, int rows, int d, float eps, int blocks, cudaStream_t st) {
-  layernorm_bwd_kernel<NC><<<blocks, kWarps * 32, 2 * d * sizeof(float), st>>>(
-      x, gamma, dy, g, dx, part, rows, d, eps);
+int bwd_smem(int d, bool has_g, int* stages) {
+  const int stage_bytes = kBwdRows * d * (has_g ? 8 : 6);
+  *stages = std::min(kMaxStages, std::max(2, kBwdRingBytes / stage_bytes));
+  return NC * 64 * 16 + *stages * stage_bytes;
+}
+
+template <int NC>
+cudaError_t bwd_smem_attr() {
+  constexpr int kMaxSmem = NC * 64 * 16 + std::max(kBwdRingBytes, 2 * kBwdRows * NC * 256 * 8);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      layernorm_bwd_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  return attr;
+}
+
+// The most blocks of the persistent grid at width d: kBwdBlocksPerSm an SM,
+// fewer where the ring or the registers do not fit. A negative CUDA error
+// code on failure.
+template <int NC>
+int bwd_blocks(int d, bool has_g) {
+  const cudaError_t attr = bwd_smem_attr<NC>();
+  if (attr != cudaSuccess) return -static_cast<int>(attr);
+  int stages, per_sm = 0;
+  const int smem = bwd_smem<NC>(d, has_g, &stages);
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, layernorm_bwd_kernel<NC>, kBwdThreads, smem);
+  if (occ != cudaSuccess) return -static_cast<int>(occ);
+  return std::max(1, std::min(kBwdBlocksPerSm, per_sm)) * hp::sm_count();
+}
+
+template <int NC>
+int launch_ln_bwd(const bf16* x, const float* gamma, const float* dy, const bf16* g, bf16* dx,
+                  float* part, int rows, int d, float eps, int blocks, cudaStream_t st) {
+  const cudaError_t attr = bwd_smem_attr<NC>();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  int stages;
+  const int smem = bwd_smem<NC>(d, g != nullptr, &stages);
+  layernorm_bwd_kernel<NC><<<blocks, kBwdThreads, smem, st>>>(x, gamma, dy, g, dx, part, rows, d,
+                                                              stages, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// f(std::integral_constant<int, NC>) at d's NC = ceil(d / 256).
+template <class F>
+int with_nc(int d, F&& f) {
+  switch ((d + 255) / 256) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    default: return f(std::integral_constant<int, 8>{});
+  }
 }
 
 }  // namespace
 
+// The most partial rows (blocks of its persistent grid) that
+// ovt_layernorm_bwd writes at width d, with (has_g = 1) or without the
+// residual's gradient: its work buffer holds (blocks, 2, d) f32. A negative
+// CUDA error code for a width it does not take or a failed query.
+extern "C" int ovt_layernorm_bwd_blocks(int d, int has_g) {
+  if (d < 8 || d % 8 || d > kMaxWidth) return -static_cast<int>(cudaErrorInvalidValue);
+  return with_nc(d, [&](auto nc) { return bwd_blocks<decltype(nc)::value>(d, has_g != 0); });
+}
+
 // x, dx: (rows, d) bf16; gamma: (d,) f32; dy: (rows, d) f32; g: (rows, d)
 // bf16 added to dx (the residual's gradient) or null; dvec: (2, d) f32, the
-// dgamma and dbeta sums; work: (blocks, 2, d) f32 partials. All contiguous
-// and 16-byte aligned; d % 8 == 0 and d <= 2048. Returns cudaGetLastError()
-// after the launches.
+// dgamma and dbeta sums; work: (blocks, 2, d) f32 partials, blocks from
+// ovt_layernorm_bwd_blocks for the same d and g (a grid of one block a
+// tile uses the first rows). All contiguous and 16-byte aligned; d % 8 == 0
+// and d <= 2048. Returns cudaGetLastError() after the two launches.
 extern "C" int ovt_layernorm_bwd(const void* x, const void* gamma, const void* dy, const void* g,
                                  void* dx, void* dvec, void* work, int rows, int d, float eps,
                                  int blocks, void* stream) {
-  if (d % 8 || d > 2048 || blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (d < 8 || d % 8 || d > kMaxWidth || rows < 0 || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const float* gm = static_cast<const float*>(gamma);
-  const float* dyf = static_cast<const float*>(dy);
-  const bf16* gb = static_cast<const bf16*>(g);
-  bf16* dxb = static_cast<bf16*>(dx);
   float* part = static_cast<float*>(work);
-  switch ((d + 255) / 256) {
-    case 1: launch_ln_bwd<1>(xb, gm, dyf, gb, dxb, part, rows, d, eps, blocks, st); break;
-    case 2: launch_ln_bwd<2>(xb, gm, dyf, gb, dxb, part, rows, d, eps, blocks, st); break;
-    case 3: launch_ln_bwd<3>(xb, gm, dyf, gb, dxb, part, rows, d, eps, blocks, st); break;
-    case 4: launch_ln_bwd<4>(xb, gm, dyf, gb, dxb, part, rows, d, eps, blocks, st); break;
-    case 5: launch_ln_bwd<5>(xb, gm, dyf, gb, dxb, part, rows, d, eps, blocks, st); break;
-    case 6: launch_ln_bwd<6>(xb, gm, dyf, gb, dxb, part, rows, d, eps, blocks, st); break;
-    case 7: launch_ln_bwd<7>(xb, gm, dyf, gb, dxb, part, rows, d, eps, blocks, st); break;
-    default: launch_ln_bwd<8>(xb, gm, dyf, gb, dxb, part, rows, d, eps, blocks, st); break;
-  }
-  const int rc = static_cast<int>(cudaGetLastError());
+  blocks = std::max(1, std::min(blocks, (rows + kBwdRows - 1) / kBwdRows));
+  const int rc = with_nc(d, [&](auto nc) {
+    return launch_ln_bwd<decltype(nc)::value>(
+        static_cast<const bf16*>(x), static_cast<const float*>(gamma),
+        static_cast<const float*>(dy), static_cast<const bf16*>(g), static_cast<bf16*>(dx), part,
+        rows, d, eps, blocks, st);
+  });
   if (rc != 0) return rc;
-  return colsum<float>(part, static_cast<float*>(dvec), nullptr, blocks, 2 * d, blocks, 0, st);
+  layernorm_bwd_finish_kernel<<<(2 * d + kFinishCols - 1) / kFinishCols,
+                                kFinishCols * kFinishGroups, 0, st>>>(
+      part, static_cast<float*>(dvec), blocks, 2 * d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // in: (rows, n) bf16 (in_f32 = 0) or f32, contiguous; out: (n,) f32, the

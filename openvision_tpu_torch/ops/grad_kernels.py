@@ -27,12 +27,13 @@ launches its kernel or raises, and counts the launch in
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from openvision_tpu_torch.ops import kernels
 
-SMS = 132  # H100 SXM streaming multiprocessors: the split-K and grid targets
+SMS = 132  # H100 SXM streaming multiprocessors: the split-K target
 LOG2E = 1.4426950408889634  # the attention backward's exponent base change: exp(x) = exp2(x log2 e)
 
 
@@ -326,10 +327,22 @@ def layernorm_bwd_plain(x, gamma, dy, g=None, *, eps: float):
     return dx.to(x.dtype), dvec
 
 
+@functools.lru_cache(maxsize=None)
+def _layernorm_bwd_blocks(d: int, has_g: bool) -> int:
+    """The most partial rows (blocks of its persistent grid) the LN backward
+    writes at width d: the card's SMs times the blocks an SM holds
+    (``ovt_layernorm_bwd_blocks``)."""
+    blocks = kernels.lib().ovt_layernorm_bwd_blocks(d, int(has_g))
+    if blocks < 1:
+        raise RuntimeError(f"layernorm_bwd grid query failed: CUDA error {-blocks}")
+    return blocks
+
+
 def layernorm_bwd(x, gamma, dy, g=None, *, eps: float):
     """Kernel ``layernorm_bwd`` (``csrc/layernorm.cu``): x (..., D) bf16,
     gamma (D,) f32, dy (..., D) f32, g (..., D) bf16 (added to dx) or None.
-    Per-block partial column sums, reduced by a second launch."""
+    A persistent row stream writes dx and one partial column sum a block; a
+    second launch adds the partials in a fixed order."""
     if kernels.on_cpu(x, gamma, dy, g):
         return layernorm_bwd_plain(x, gamma, dy, g, eps=eps)
     d = x.shape[-1]
@@ -342,7 +355,7 @@ def layernorm_bwd(x, gamma, dy, g=None, *, eps: float):
     if g is not None:
         kernels.check_operand("layernorm_bwd g", g, torch.bfloat16, x.shape)
     rows = x.numel() // d
-    blocks = max(1, min(-(-rows // 8), 2 * SMS))
+    blocks = _layernorm_bwd_blocks(d, g is not None)
     dx = torch.empty_like(x)
     dvec = torch.empty(2, d, dtype=torch.float32, device=x.device)
     work = torch.empty(blocks, 2, d, dtype=torch.float32, device=x.device)

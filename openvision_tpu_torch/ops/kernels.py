@@ -195,6 +195,7 @@ def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
         "ovt_gemm_grad": [p, p, p, p, i, i, i, i, i, i, i, i, p],
         "ovt_mlp_bwd_dual": [p, p, p, p, p, p, p, p, i, i, i, p],
         "ovt_layernorm_bwd": [p, p, p, p, p, p, p, i, i, f, i, p],
+        "ovt_layernorm_bwd_blocks": [i, i],
         "ovt_colsum": [p, i, p, p, i, i, i, i, p],
         "ovt_gemm_int8": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
         "ovt_layernorm_quant": [p, p, p, p, p, i, i, f, p],

@@ -537,11 +537,48 @@ def test_gemm_tn_kernel(dev, rows, n, k):
     assert _rel_err(got, ref) <= 2**-7
 
 
+# The LN backward (csrc/layernorm.cu layernorm_bwd) streams tiles of a few
+# rows over a persistent grid of up to three blocks an SM: a ragged last tile,
+# fewer rows than one tile, fewer tiles than blocks, and the chunk counts
+# NC = 1, 3, 4, 5, 8 (d = 72, 768, 1024, 1152, 2048), with and without the
+# residual's gradient.
+LN_BWD_CASES = [(2 * 257, 1024, True), (37, 768, False), (5, 72, True),
+                (2 * 257 + 1, 1024, True), (3, 1024, True), (100, 1024, False),
+                (2 * 257, 1024, False),
+                *[(2 * 257, d, res) for d in (72, 768, 1152, 2048) for res in (True, False)]]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,d,residual", [(2 * 257, 1024, True), (37, 768, False), (5, 72, True)])
+@pytest.mark.parametrize("rows,d,residual", LN_BWD_CASES)
 def test_layernorm_bwd_kernel(dev, rows, d, residual):
+    _check_layernorm_bwd(dev, rows, d, residual, "normal")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,residual", [(256, True), (512, False)])
+def test_layernorm_bwd_kernel_offset_rows(dev, d, residual):
+    # x * 0.05 + 40 at widths whose f32 sums are exact (the forward's offset cases)
+    _check_layernorm_bwd(dev, 2 * 257, d, residual, "offset")
+
+
+@pytest.mark.gpu
+def test_layernorm_bwd_kernel_same_bits(dev):
+    # the partial sums are added in a fixed order: two calls, the same bits
+    gen = torch.Generator().manual_seed(7)
+    rows, d = 64 * 257, 1024
+    x = _ln_input(gen, dev, rows, d, "normal")
+    gamma, dy = _rand(gen, dev, d) * 0.1 + 1, _rand(gen, dev, rows, d)
+    g = _rand(gen, dev, rows, d).bfloat16()
+    with torch.inference_mode():
+        first = gk.layernorm_bwd(x, gamma, dy, g, eps=1e-6)
+        second = gk.layernorm_bwd(x, gamma, dy, g, eps=1e-6)
+        torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+def _check_layernorm_bwd(dev, rows, d, residual, kind):
     gen = torch.Generator().manual_seed(rows + d)
-    x = (_rand(gen, dev, rows, d) * 3 + 1).bfloat16()
+    x = _ln_input(gen, dev, rows, d, kind)
     gamma = _rand(gen, dev, d) * 0.1 + 1
     dy = _rand(gen, dev, rows, d)
     g = _rand(gen, dev, rows, d).bfloat16() if residual else None
