@@ -201,6 +201,25 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    counts give (24 image + 12 decoder blocks, the forward twice under
    remat), one checkpoint, which the caption tool loads in one process and
    captions the testcat images with. A failure in any rank fails the phase.
+19. Evaluation at full width on phase 3's export: 1000 PNGs of 224 x 288
+   (testcat images in a wider canvas, each at another offset), one class
+   directory each, turned into TFRecord shards by data/prepare.py, and an
+   npz of the same pixels with 5 captions an image. The disclf evaluator
+   (the config's eval section: IN-1K names x 81 clip_paper prompts, batch
+   256, so the last batch holds 232 real rows, device_norm vgg) in bf16
+   fused_t, in int8 with static scales calibrated on 64 images and in int8
+   with dynamic scales; the retrieval evaluator over the 5000 captions;
+   then main_clip eval_only on a port state npz of the same weights.
+   Checks: ntotal == 1000, the accuracy from the counts equals the one
+   from return_preds, exact launch counts (#1 and #2 24 times an image
+   batch; the int8 kernels per block and per encode, the calibration's two
+   32-image encodes included), zimg and class-embedding cosine >= 0.999
+   against the f32 xla path (int8 zimg >= 0.995), every Recall@k hit equal
+   to the f32 path's where its top-k margin exceeds 1e-3, and eval_only's
+   accuracy and recalls equal to the evaluators'. Prints eval images/s,
+   the host share of the image loop (decode + pp, the copy; PNG decode
+   alone), the class embeddings' host tokenisation and device seconds,
+   and Recall@k.
 `python3 chip_smoke.py --ln [ROOT]` times the row LayerNorm kernels of the
 checkout at ROOT (csrc/layernorm.cu: the bf16 layernorm at b=64 over the
 ViT-L/14 tower's 16448 x 1024, the decoder's prefix-LM 29632 x 768 and
@@ -218,13 +237,14 @@ spill gate.
 The last lines are the card's name and power limit, one JSON object of
 per-kernel results, and {"ok": true, "device": {...}}.
 
-It needs no network and imports no JAX. It decodes the testcat PNGs with
-zlib (the card's machine may lack Pillow).
+It needs no network and imports no JAX. PNGs are decoded by the package's
+own decoder (zlib and numpy: the card's machine may lack Pillow).
 """
 
 from __future__ import annotations
 
 import base64
+import io
 import json
 import os
 import shutil
@@ -369,61 +389,42 @@ def vit_l14_flops_per_image(res: int = 224) -> float:
 
 
 # ---------------------------------------------------------------------------
-# PNG decoding (8-bit, non-interlaced RGB / RGBA) with the standard library
+# PNG writing (8-bit RGB, every row filter 0) with the standard library; the
+# package decodes them (openvision_tpu_torch/data/ops_image.py:decode_png)
 # ---------------------------------------------------------------------------
 
 
-def read_png(path: str) -> np.ndarray:
-    """Decodes a PNG to (H, W, 3) uint8, dropping alpha like PIL's convert("RGB")."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, hdr = 8, [], None
-    while pos < len(data):
-        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
-        chunk = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if ctype == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", chunk)
-        elif ctype == b"IDAT":
-            idat.append(chunk)
-        elif ctype == b"IEND":
-            break
-    w, h, depth, color, _, _, interlace = hdr
-    if depth != 8 or interlace != 0 or color not in (2, 6):
-        raise ValueError(f"{path}: only 8-bit non-interlaced RGB/RGBA PNGs are decoded")
-    bpp = 3 if color == 2 else 4
-    stride = w * bpp
-    raw = zlib.decompress(b"".join(idat))
-    out = bytearray(h * stride)
-    prev = bytearray(stride)
-    for y in range(h):
-        start = y * (stride + 1)
-        ftype, cur = raw[start], bytearray(raw[start + 1:start + 1 + stride])
-        if ftype == 1:  # sub
-            for i in range(bpp, stride):
-                cur[i] = (cur[i] + cur[i - bpp]) & 255
-        elif ftype == 2:  # up
-            for i in range(stride):
-                cur[i] = (cur[i] + prev[i]) & 255
-        elif ftype == 3:  # average
-            for i in range(stride):
-                left = cur[i - bpp] if i >= bpp else 0
-                cur[i] = (cur[i] + ((left + prev[i]) >> 1)) & 255
-        elif ftype == 4:  # paeth
-            for i in range(stride):
-                a = cur[i - bpp] if i >= bpp else 0
-                b = prev[i]
-                c = prev[i - bpp] if i >= bpp else 0
-                p = a + b - c
-                pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-                cur[i] = (cur[i] + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 255
-        elif ftype != 0:
-            raise ValueError(f"{path}: bad PNG filter {ftype}")
-        out[y * stride:(y + 1) * stride] = cur
-        prev = cur
-    return np.frombuffer(bytes(out), np.uint8).reshape(h, w, bpp)[..., :3].copy()
+def adaptive_rows(image: np.ndarray) -> np.ndarray:
+    """(H, W, 3) uint8 -> PNG scanlines, each row's filter chosen as
+    libpng's adaptive heuristic chooses it (the least sum of |residual| over
+    the row's bytes taken as signed), so that the common encoders' mix of
+    None, Sub, Up, Average and Paeth rows occurs."""
+    h, w, _ = image.shape
+    x = image.reshape(h, w * 3).astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, 3:], b[1:], c[1:, 3:] = x[:, :-3], x[:-1], x[:-1, :-3]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    res = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth]) & 255
+    f = np.minimum(res, 256 - res).sum(-1).argmin(0)
+    return np.concatenate([f[:, None], res[f, np.arange(h)]], axis=1).astype(np.uint8)
+
+
+def write_png(path: str, image: np.ndarray, adaptive: bool = False) -> None:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG with filter-0 rows, or with rows
+    filtered as :func:`adaptive_rows` filters them."""
+    h, w, _ = image.shape
+    rows = (adaptive_rows(image) if adaptive else
+            np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
 # ---------------------------------------------------------------------------
@@ -3052,6 +3053,378 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
         "peak_gb": r["peak_gb"]} for r in ranks}
 
 
+# ---------------------------------------------------------------------------
+# Evaluation at full width (phase 19)
+# ---------------------------------------------------------------------------
+
+EVAL_IMAGES, EVAL_H, EVAL_W, EVAL_BATCH, EVAL_CAPTIONS = 1000, 224, 288, 256, 5
+# the trainer's config of phase 3's export (main_clip eval_only): its widths,
+# vocabulary and 80 text tokens
+EVAL_ARG = "res=224,img=L/14,txt_name=L,vocab_size=30522,token_len=80"
+EVAL_CALIB = 64
+EVAL_CLASS_CHECK = 100  # classes whose prompts the f32 text tower also embeds
+RECALL_MARGIN = 1e-3
+# max|sim - f32 sim| over the 1000 x 5000 retrieval similarities, bf16
+# fused_t towers against f32 xla at random weights: 1.46e-3 measured on an
+# H100, bound at about three times that
+SIM_TOL = 5e-3
+
+
+def write_eval_fixture(work: str, images) -> tuple:
+    """EVAL_IMAGES 224 x 288 PNGs (a testcat image in a wider canvas, each
+    at another offset and row roll), one per class directory c0000...,
+    through the port's data/prepare.py into TFRecord shards, and an npz of
+    the same pixels with EVAL_CAPTIONS captions an image (CLIP templates of
+    the image's class name). Returns (TFDS dir, npz path, labels)."""
+    from openvision_tpu_torch.data import prepare
+    from openvision_tpu_torch.evaluators import prompts
+
+    tree, tfds_dir = os.path.join(work, "eval_tree"), os.path.join(work, "eval_tfds")
+    names = prompts.get_class_names()
+    templates = prompts.get_prompt_templates("clip_paper")[:EVAL_CAPTIONS]
+    pixels = np.zeros((EVAL_IMAGES, EVAL_H, EVAL_W, 3), np.uint8)
+    captions = np.empty(EVAL_IMAGES, object)
+    t0 = time.perf_counter()
+    for i in range(EVAL_IMAGES):
+        off = i % (EVAL_W - EVAL_H + 1)
+        pixels[i, :, off:off + EVAL_H] = np.roll(images[i % len(images)], 7 * (i // 5), axis=0)
+        os.makedirs(os.path.join(tree, f"c{i:04d}"))
+        write_png(os.path.join(tree, f"c{i:04d}", f"{i:04d}.png"), pixels[i])
+        captions[i] = [t.format(names[i]) for t in templates]
+    t1 = time.perf_counter()
+    n = prepare.prepare(tree, tfds_dir, split="validation")
+    t2 = time.perf_counter()
+    npz = os.path.join(work, "eval_captions.npz")
+    np.savez(npz, image=pixels, captions=captions)
+    print(f"eval fixture: {EVAL_IMAGES} PNGs {EVAL_H}x{EVAL_W} written in {t1 - t0:.1f} s, "
+          f"data/prepare.py wrote {n} records in {t2 - t1:.1f} s, npz "
+          f"({EVAL_IMAGES * EVAL_CAPTIONS} captions) in {time.perf_counter() - t2:.1f} s")
+    return tfds_dir, npz, np.arange(EVAL_IMAGES)
+
+
+def eval_launches(encodes: int, int8: bool, depth: int) -> dict:
+    """Launches of `encodes` image batches: bf16 fused_t (#1 and #2 each
+    `depth` times a batch) or the int8 kernels (#5 and #6)."""
+    from openvision_tpu_torch.ops import kernels
+
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    per_block = INT8_LAUNCHES_PER_BLOCK if int8 else LAUNCHES_PER_BLOCK
+    for k, v in per_block.items():
+        want[k] += v * depth * encodes
+    for k, v in (INT8_LAUNCHES_PER_ENCODE if int8 else {}).items():
+        want[k] += v * encodes
+    return want
+
+
+def counted(fn, want: dict, label: str, totals: dict):
+    """fn() with the launch counts set to 0 before and read after; raises
+    unless they are `want`."""
+    import torch
+
+    from openvision_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    print(f"{label}: launches {({k: v for k, v in got.items() if v})}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    for k, v in got.items():
+        totals[k] += v
+    return out
+
+
+def recall_hits(sim: np.ndarray, txt2img: np.ndarray, k: int):
+    """Per query hit@k and top-k margin (k-th minus (k+1)-th similarity),
+    text -> image and image -> text."""
+    out = {}
+    for name, s, match in (("txt2img", sim.T, lambda order: order == txt2img[:, None]),
+                           ("img2txt", sim, lambda order: txt2img[order]
+                            == np.arange(sim.shape[0])[:, None])):
+        order = np.argsort(-s, axis=1)
+        top = np.take_along_axis(s, order[:, :k + 1], axis=1)
+        out[name] = (match(order)[:, :k].any(axis=1), top[:, k - 1] - top[:, k])
+    return out
+
+
+def adaptive_png_decode(work: str, pixels: np.ndarray, reps: int = 50) -> dict:
+    """ms an image to decode one fixture image written as a PNG with
+    adaptively filtered rows (what common encoders write; the fixture's own
+    rows are unfiltered), by decode_png and, where it is installed, by
+    Pillow; decode_png must give the pixels back."""
+    from openvision_tpu_torch.data.ops_image import decode_png
+
+    path = os.path.join(work, "adaptive.png")
+    write_png(path, pixels, adaptive=True)
+    with open(path, "rb") as f:
+        data = f.read()
+    if not np.array_equal(decode_png(data), pixels):
+        raise AssertionError("decode_png of an adaptively filtered PNG differs from its pixels")
+    decoders = {"decode_png": decode_png}
+    try:
+        from PIL import Image
+
+        decoders["pillow"] = lambda d: np.asarray(Image.open(io.BytesIO(d)).convert("RGB"))
+    except ImportError:
+        pass
+    out = {}
+    for name, fn in decoders.items():
+        fn(data)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(data)
+        out[name] = 1e3 * (time.perf_counter() - t0) / reps
+    kinds = np.bincount(adaptive_rows(pixels)[:, 0], minlength=5).tolist()
+    print(f"PNG decode of an adaptively filtered {pixels.shape[0]}x{pixels.shape[1]} PNG (rows "
+          f"None/Sub/Up/Average/Paeth {kinds}): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in out.items())
+          + ("" if "pillow" in out else " (Pillow is not installed)"))
+    return out
+
+
+def static_scale_checks(q8: dict, x, scales: dict, geom: dict) -> None:
+    """The static-scale branch of layernorm_quant and quant_rows at the
+    eval's shapes, on block 0's real activations of the image batch `x`
+    with calibrate_vit's scales, each held against its plain version with
+    the same scale (quant_rows bit-equal, layernorm_quant as phase 10 holds
+    it); every row's returned scale must be the calibrated one."""
+    import torch
+
+    from openvision_tpu_torch.ops import fused_encoder as fe
+    from openvision_tpu_torch.ops import fused_encoder_int8 as fe8
+    from openvision_tpu_torch.serving import quant
+
+    qb, site = q8["blocks"][0], scales["blocks"][0]
+
+    def check(name, label, got, ref, s):
+        """quant_rows bit-equal to its plain version, layernorm_quant held
+        as phase 10 holds it; every row's scale the static one."""
+        (q, scale), (q_ref, scale_ref) = got, ref
+        label = f"{label} ({'x'.join(map(str, q.shape))}), static scale {s.item():.4e}"
+        if not bool((scale == s).all()):
+            raise AssertionError(f"{name} {label}: a row's scale is not the static scale")
+        if name == "layernorm_quant":
+            check_quant(Case(name, label, None, None, None, 0, 0, quant=True), got, ref, {})
+            return q, scale
+        ok = torch.equal(q, q_ref) and torch.equal(scale, scale_ref)
+        print(f"  {name:15s} {label}: bit-equal to its plain version {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} {label}: differs from its plain version")
+        return q, scale
+
+    x0 = quant._embed_tokens(q8, x, **geom)
+    yq, ys = check("layernorm_quant", "block 0 LN1", fe8.layernorm_quant(
+        x0, qb["ln1_w"], qb["ln1_b"], qb["eps"], site["attn_in"]), fe8.layernorm_quant_plain(
+        x0, qb["ln1_w"], qb["ln1_b"], qb["eps"], site["attn_in"]), site["attn_in"])
+    o = fe.attention(fe8.gemm_int8(yq, ys, qb["wqkv_q"], qb["wqkv_s"], qb["bqkv"]),
+                     qb["num_heads"]).float()
+    oq, os_ = check("quant_rows", "block 0 attention output", fe8.quant_rows(
+        o, static_scale=site["attn_out"]), fe8.quant_plain(o, static_scale=site["attn_out"]),
+        site["attn_out"])
+    x1 = fe8.gemm_int8(oq, os_, qb["wo_q"], qb["wo_s"], qb["bo"], residual=x0)
+    yq, ys = check("layernorm_quant", "block 0 LN2", fe8.layernorm_quant(
+        x1, qb["ln2_w"], qb["ln2_b"], qb["eps"], site["mlp_in"]), fe8.layernorm_quant_plain(
+        x1, qb["ln2_w"], qb["ln2_b"], qb["eps"], site["mlp_in"]), site["mlp_in"])
+    if qb["gelu_tanh"]:
+        h, hmax = fe8.gemm_int8(yq, ys, qb["w1_q"], qb["w1_s"], qb["b1"], gelu=True,
+                                out_dtype=torch.float32, row_amax=True)
+    else:
+        h = torch.nn.functional.gelu(fe8.gemm_int8(yq, ys, qb["w1_q"], qb["w1_s"], qb["b1"],
+                                                   out_dtype=torch.float32))
+        hmax = None
+    check("quant_rows", "block 0 GELU hidden", fe8.quant_rows(
+        h, hmax, static_scale=site["mlp_hid"]), fe8.quant_plain(
+        h, static_scale=site["mlp_hid"]), site["mlp_hid"])
+
+
+def eval_phase(model_dir: str, work: str, images, device, totals: dict) -> dict:
+    """Phase 19: the zero-shot (bf16, int8 static and dynamic) and retrieval
+    evaluators at full width on a TFRecord fixture of 1000 images, and
+    main_clip eval_only on a port state npz of the same weights."""
+    import torch
+
+    from openvision_tpu_torch import main_clip
+    from openvision_tpu_torch.configs import openvision as cfg_mod
+    from openvision_tpu_torch.convert.openclip import openclip_to_state_dict
+    from openvision_tpu_torch.data import pipeline as pipe
+    from openvision_tpu_torch.data.ops_image import decode_png
+    from openvision_tpu_torch.evaluators import disclf, retrieval
+    from openvision_tpu_torch.serving import quant
+    from openvision_tpu_torch.tools.model_io import load_model
+    from openvision_tpu_torch.train import checkpoint as ckpt_lib
+    from openvision_tpu_torch.train.step import normalize_uint8
+
+    vocab = os.path.join(REPO, "assets", "bert_base_vocab_bos_eos.txt")
+    evals = cfg_mod.get_config(f"{EVAL_ARG},vocab_path={vocab}")["evals"]
+    dcfg, rcfg = dict(evals["disclf"]), dict(evals["retrieval"])
+    for cfg in (dcfg, rcfg):
+        for key in ("type", "prefix", "log_steps"):
+            cfg.pop(key, None)
+    tfds_dir, npz, labels = write_eval_fixture(work, images)
+    src = pipe.TfdsDirectorySource(tfds_dir, "validation")
+    t0 = time.perf_counter()
+    for i in range(len(src)):
+        decode_png(src[i]["image"])
+    decode_s = time.perf_counter() - t0
+    print(f"PNG decode alone: {decode_s:.2f} s for {len(src)} records "
+          f"({1e3 * decode_s / len(src):.2f} ms an image)")
+    png_ms = adaptive_png_decode(work, decode_png(src[0]["image"]))
+
+    t0 = time.perf_counter()
+    model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t", fast_gelu=True,
+                       device=device, int8=True)
+    ref = load_model(model_dir, dtype=torch.float32, attn_impl="xla", fast_gelu=True,
+                     device=device)
+    print(f"load_model bf16 fused_t (+int8) and f32 xla in {time.perf_counter() - t0:.1f} s")
+    depth = len(model.vision.transformer.resblocks)
+    batches = -(-EVAL_IMAGES // EVAL_BATCH)
+    ev = disclf.Evaluator(model, **{**dcfg, "data_dir": tfds_dir, "batch_size": EVAL_BATCH})
+    results = {}
+    accs = {}
+    for mode, int8, calib in (("bf16", False, 0), ("int8 static", True, EVAL_CALIB),
+                              ("int8 dynamic", True, 0)):
+        ev.int8, ev.int8_calibration = int8, calib
+        encodes = batches + (-(-calib // 32) if int8 else 0)
+        t0 = time.perf_counter()
+        metrics, preds, mask = counted(lambda: ev.run(return_preds=True),
+                                       eval_launches(encodes, int8, depth), f"disclf {mode}",
+                                       totals)
+        wall = time.perf_counter() - t0
+        t = dict(ev.timings)
+        ncorrect, ntotal = ev.counts
+        acc = metrics[0][1]
+        acc_preds = float((preds[mask > 0] == labels).mean())
+        print(f"disclf {mode}: {metrics}  ncorrect {ncorrect} ntotal {ntotal}  accuracy from "
+              f"return_preds {acc_preds}  last batch real rows {int(mask[-EVAL_BATCH:].sum())}")
+        print(f"  {wall:.2f} s: prompts tokenized on the host {t['tokenize']:.2f} s "
+              f"({len(ev.class_names) * len(ev.templates)} prompts), class embeddings "
+              f"{t['class_embed']:.2f} s; image loop {t['loop']:.2f} s = "
+              f"{EVAL_IMAGES / t['loop']:.1f} images/s, host share "
+              f"{(t['host'] + t['copy']) / t['loop']:.3f} (decode + pp {t['host']:.2f} s, "
+              f"copy {t['copy']:.2f} s)")
+        if ntotal != EVAL_IMAGES or len(preds) != batches * EVAL_BATCH:
+            raise AssertionError(f"disclf {mode}: ntotal {ntotal}, expected {EVAL_IMAGES}")
+        if int(mask[-EVAL_BATCH:].sum()) != EVAL_IMAGES - (batches - 1) * EVAL_BATCH:
+            raise AssertionError(f"disclf {mode}: the last batch's mask is wrong")
+        if acc != acc_preds:
+            raise AssertionError(f"disclf {mode}: accuracy {acc} from the counts, {acc_preds} "
+                                 "from return_preds")
+        if (calib > 0) != (ev.int8_scales is not None):
+            raise AssertionError(f"disclf {mode}: static scales {ev.int8_scales is not None}")
+        accs[mode] = acc
+        results[mode] = {"images_per_s": EVAL_IMAGES / t["loop"], **t}
+
+    with torch.no_grad():
+        tokens = ev.prompt_tokens()[:EVAL_CLASS_CHECK * len(ev.templates)]
+        names = ev.class_names
+        ev.class_names = names[:EVAL_CLASS_CHECK]
+        ev_ref = disclf.Evaluator(ref, **{**dcfg, "data_dir": tfds_dir})
+        ev_ref.class_names = ev.class_names
+        with ev.towers.evaluating():
+            cls_k = ev.class_embeddings(tokens)
+        with ev_ref.towers.evaluating():
+            cls_f = ev_ref.class_embeddings(tokens)
+        ev.class_names = names
+        cls_cos = (cls_k * cls_f).sum(-1)
+        batch0 = next(pipe.make_for_inference(src, dcfg["pp_img"], EVAL_BATCH)())
+        x = normalize_uint8(torch.from_numpy(batch0["image"]).to(device))
+        z_k = ev.towers.embed_images(x)
+        z_f = ev_ref.towers.embed_images(x)
+        geom = dict(patch_size=model.vision.conv1.kernel_size[0], posemb=model.vision.posemb)
+        scales = quant.calibrate_vit(model.int8, x[:EVAL_CALIB], **geom)
+        z_s = quant.quantized_encode(model.int8, x, act_scales=scales, **geom)
+        z_d = quant.quantized_encode(model.int8, x, **geom)
+        static_scale_checks(model.int8, x, scales, geom)
+    cos = {"bf16": (z_k * z_f).sum(-1), "int8 static": (z_s * z_f).sum(-1),
+           "int8 dynamic": (z_d * z_f).sum(-1)}
+    print(f"class embeddings ({EVAL_CLASS_CHECK} classes x {len(ev.templates)} prompts), bf16 "
+          f"text tower vs f32 xla: min cosine {cls_cos.min().item():.6f}")
+    for mode, c in cos.items():
+        print(f"zimg cosine, {mode} vs f32 xla (first batch of {EVAL_BATCH}): min "
+              f"{c.min().item():.6f} mean {c.mean().item():.6f}")
+    if cls_cos.min().item() < 0.999 or cos["bf16"].min().item() < 0.999:
+        raise AssertionError("bf16 class embedding or zimg cosine below 0.999")
+    if min(cos["int8 static"].min().item(), cos["int8 dynamic"].min().item()) < 0.995:
+        raise AssertionError("int8 zimg cosine below 0.995")
+
+    rv = retrieval.Evaluator(model, **{**rcfg, "data_dir": npz, "batch_size": EVAL_BATCH})
+    t0 = time.perf_counter()
+    zimg, ztxt, txt2img = counted(rv.embeddings, eval_launches(batches, False, depth),
+                                  "retrieval", totals)
+    rwall = time.perf_counter() - t0
+    rv_ref = retrieval.Evaluator(ref, **{**rcfg, "data_dir": npz, "batch_size": EVAL_BATCH})
+    zimg_f, ztxt_f, _ = rv_ref.embeddings()
+    cos_img = torch.nn.functional.cosine_similarity(zimg.float(), zimg_f.float(), dim=-1)
+    cos_txt = torch.nn.functional.cosine_similarity(ztxt.float(), ztxt_f.float(), dim=-1)
+    sim = zimg.cpu().numpy() @ ztxt.cpu().numpy().T
+    sim_f = zimg_f.cpu().numpy() @ ztxt_f.cpu().numpy().T
+    sim_err = float(np.abs(sim - sim_f).max())
+    recalls = retrieval.recall_at_k(sim, txt2img)
+    print(f"retrieval over {len(txt2img)} captions of {EVAL_IMAGES} images in {rwall:.2f} s: "
+          f"{recalls}")
+    print(f"  f32 xla: {retrieval.recall_at_k(sim_f, txt2img)}; max|sim - f32 sim| "
+          f"{sim_err:.2e} (bound {SIM_TOL:g}), similarities of a caption to the images span "
+          f"{np.median(sim_f.max(0) - sim_f.min(0)):.2e} (median); cosine vs f32 xla, min over "
+          f"{len(cos_img)} images {cos_img.min().item():.6f}, over {len(cos_txt)} captions "
+          f"{cos_txt.min().item():.6f}")
+    if not np.array_equal(txt2img, np.repeat(np.arange(EVAL_IMAGES), EVAL_CAPTIONS)):
+        raise AssertionError("retrieval: txt2img is not each image's captions in order")
+    if (zimg.shape, ztxt.shape) != (zimg_f.shape, ztxt_f.shape) or zimg.shape[0] != EVAL_IMAGES \
+            or ztxt.shape[0] != EVAL_IMAGES * EVAL_CAPTIONS:
+        raise AssertionError(f"retrieval: embeddings {tuple(zimg.shape)}, {tuple(ztxt.shape)}")
+    if min(cos_img.min().item(), cos_txt.min().item()) < 0.999:
+        raise AssertionError("retrieval: an image or caption embedding's cosine vs f32 xla is "
+                             "below 0.999")
+    if not sim_err <= SIM_TOL:
+        raise AssertionError(f"retrieval: max|sim - f32 sim| {sim_err} above {SIM_TOL}")
+    for k in retrieval.RECALL_KS:
+        got, want = recall_hits(sim, txt2img, k), recall_hits(sim_f, txt2img, k)
+        for direction in got:
+            sure = want[direction][1] > RECALL_MARGIN
+            bad = int((got[direction][0][sure] != want[direction][0][sure]).sum())
+            print(f"  {direction}@{k}: {int(sure.sum())} queries with a f32 top-k margin above "
+                  f"{RECALL_MARGIN:g}, {bad} disagree; the other {int((~sure).sum())} "
+                  f"(margin below): hit {int(got[direction][0][~sure].sum())} on the kernels, "
+                  f"{int(want[direction][0][~sure].sum())} on f32")
+            if bad:
+                raise AssertionError(f"retrieval {direction}@{k}: {bad} confident queries differ")
+
+    # main_clip eval_only on a port state npz of the same weights
+    state = os.path.join(work, "eval_state.npz")
+    t0 = time.perf_counter()
+    sd = torch.load(os.path.join(model_dir, "open_clip_pytorch_model.bin"), map_location="cpu",
+                    weights_only=True)
+    ckpt_lib.save_npz(state, {"params": openclip_to_state_dict(sd)})
+    del sd
+    print(f"port state npz written in {time.perf_counter() - t0:.1f} s")
+    del model, ref, ev, ev_ref, rv, rv_ref
+    torch.cuda.empty_cache()
+    wd = os.path.join(work, "eval_only")
+    args = ["--config", os.path.join(REPO, "openvision_tpu_torch", "configs", "openvision.py")
+            + f":{EVAL_ARG},vocab_path={vocab},dtype=bfloat16",
+            "--workdir", wd, "--device", torch.device(device).type]
+    for ov in ("eval_only=True", f"ft_from={state}", "model.image.posemb=learn",
+               "model.image.attn_impl=fused_t", "model.text_decoder=none",
+               f"evals.disclf.data_dir={tfds_dir}", f"evals.retrieval.data_dir={npz}"):
+        args += ["--override", ov]
+    t0 = time.perf_counter()
+    counted(lambda: main_clip.main(args), eval_launches(2 * batches, False, depth),
+            "main_clip eval_only", totals)
+    with open(os.path.join(wd, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    print(f"main_clip eval_only in {time.perf_counter() - t0:.1f} s: {rows}")
+    if len(rows) != 1 or rows[0].get("z/0shot/imagenet2012_accuracy") != accs["bf16"]:
+        raise AssertionError(f"eval_only accuracy {rows} differs from disclf's {accs['bf16']}")
+    if any(rows[0].get(f"retrieval/{k}") != v for k, v in recalls.items()):
+        raise AssertionError(f"eval_only recalls {rows} differ from the evaluator's {recalls}")
+    torch.cuda.empty_cache()
+    print(f"card: {smi_line()}")
+    results["recall"] = recalls
+    results["png_decode_ms"] = png_ms
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3080,6 +3453,7 @@ def run(work: str) -> int:
     from openvision_tpu_torch.serving.encode import build_encode_fn
     from openvision_tpu_torch.tools import caption as tcap
     from openvision_tpu_torch.tools import zero_shot
+    from openvision_tpu_torch.data.ops_image import decode_png
     from openvision_tpu_torch.tools.model_io import load_model
 
     t_start = time.perf_counter()
@@ -3117,7 +3491,10 @@ def run(work: str) -> int:
 
         phase("3. zero-shot path: ViT-L/14-224 + text-L, random weights (seed 0)")
         names = sorted(f for f in os.listdir(os.path.join(REPO, "testcat")) if f.endswith(".png"))
-        images = [read_png(os.path.join(REPO, "testcat", f)) for f in names]
+        images = []
+        for f in names:
+            with open(os.path.join(REPO, "testcat", f), "rb") as fh:
+                images.append(decode_png(fh.read()))
         print(f"decoded {len(images)} testcat images {images[0].shape} {images[0].dtype}")
         model_dir = os.path.join(work, "model")
         os.makedirs(model_dir)
@@ -3306,6 +3683,10 @@ def run(work: str) -> int:
     phase(f"18. tensor-parallel training, tensor={TP_SIZE}: torchrun, two ranks on the one card")
     train_results.update(tp_train_phase(device, work, no_pil, cap_batch, totals))
 
+    phase("19. evaluation at full width: zero-shot IN-1K (bf16, int8 static and dynamic) and "
+          "retrieval over a 1000-image TFRecord fixture, then main_clip eval_only")
+    eval_results = eval_phase(model_dir, work, images, device, totals)
+
     phase("summary")
     print(f"card: {smi}")
     print(f"encode b=64 img/s: kernels {rates['kernels']}  plain eager bf16 {rates['plain']}")
@@ -3319,6 +3700,13 @@ def run(work: str) -> int:
     for k, v in train_results.items():
         print(f"train step b={TRAIN_BATCH} {k}: {v['step_ms']:.1f} ms, {v['images_per_s']:.1f} "
               f"images/s, peak {v['peak_gb']:.2f} GB")
+    for k, v in eval_results.items():
+        if k not in ("recall", "png_decode_ms"):
+            print(f"eval {k}: {v['images_per_s']:.1f} images/s, host share "
+                  f"{(v['host'] + v['copy']) / v['loop']:.3f}, class embeddings "
+                  f"{v['class_embed']:.2f} s (tokenize {v['tokenize']:.2f} s)")
+    print(f"eval retrieval: {eval_results['recall']}")
+    print(f"PNG decode ms an image, 224 x 288: {eval_results['png_decode_ms']}")
     print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "
           f"{totals}")
     missing = [k for k, v in totals.items() if v == 0]

@@ -13,8 +13,12 @@ caption, the caption cross-entropy head-fused in ``cap_xent_chunk`` chunks),
 tower dicts carry the port's keyword names (the JAX names, plus
 ``image_size`` and ``context_length``, which flax infers from the first
 input). ``sharding.mesh`` is the JAX section (:81-92): the (data, fsdp,
-tensor) process mesh of ``train/trainer.py`` (seq and pipe > 1 raise); the
-wandb and eval sections are not ported.
+tensor) process mesh of ``train/trainer.py`` (seq and pipe > 1 raise). The
+eval section is JAX's (:272-316): ``eval_only`` and ``evals.disclf`` (zero-shot
+ImageNet-1K, prefix ``z/0shot/``) and ``evals.retrieval`` (COCO captions),
+their data_dir empty until a run names one, the image pp stopping after the
+crop and ``device_norm="vgg"`` normalising uint8 batches on the device; the
+wandb section is not ported.
 """
 
 from __future__ import annotations
@@ -90,6 +94,12 @@ def get_config(arg: str | None = None) -> dict:
     total_samples = IMAGENET_SAMPLES * arg["imagenet_epoch"]
     warmup_samples = IMAGENET_SAMPLES * arg["vitual_warmup_epoch"]
     remat = arg["remat"]
+    sub = "[:4]" if arg["runlocal"] else ""
+    eval_tok = (f'my_eval_bert_tokenize(inkey="texts", max_len={arg["token_len"]}, '
+                f'vocab_path="{arg["vocab_path"]}", add_bos=True, add_eos=True)')
+    eval_img_pp = (f'|resize_small({arg["res"]}, method="bilinear", antialias=True)'
+                   f'|central_crop({arg["res"]})')
+    eval_every = int(2000 // arg["batch_factor"])
     return {
         "res": arg["res"],
         "seed": 0,
@@ -149,4 +159,17 @@ def get_config(arg: str | None = None) -> dict:
         "local_loss": True,
         "cpu_unit8": True,
         "grad_accum": 1,
+        # evals
+        "eval_only": False,
+        "evals": {
+            "disclf": dict(
+                type="discriminative_classifier", dataset_names=["imagenet2012"],
+                split=f"validation{sub}", data_dir="", pp_img=eval_img_pp, pp_txt=eval_tok,
+                device_norm="vgg", canonicalize=True, first_class_name_only=False,
+                prefix="z/0shot/", log_steps=eval_every),
+            "retrieval": dict(
+                type="retrieval", dataset="coco_captions", split="val", data_dir="",
+                txt_name=("captions", "text"), pp_img=eval_img_pp, pp_txt=eval_tok,
+                device_norm="vgg", log_steps=eval_every),
+        },
     }

@@ -675,6 +675,10 @@ extern "C" int ovt_colsum(const void* in, int in_f32, void* out, void* work, int
 // launch gives (gemm_int8.cu), so that the hidden is read once. Bound on the
 // H100 by device memory (the input read once, int8 and one f32 scale per row
 // written): one warp per row, 16-byte loads, no shared memory.
+// Both take an optional static scale instead (one f32 on the device, the
+// calibrated per-tensor scale of openvision_tpu/serving/quant.py:38-50):
+// q = clip(rint(y / s), -127, 127) by the same division, every row's scale
+// written as s; the LayerNorm's output stays f32 before it.
 
 namespace {
 
@@ -720,6 +724,7 @@ __device__ __forceinline__ void store_ln_q8(int8_t* p, const float (&y)[8], floa
 struct LnQuant {
   int8_t* q;
   float* scale;
+  const float* fixed;  // the static scale, or null for the row's own
 
   template <int NC>
   __device__ __forceinline__ void finish(float (&v)[NC][8], const float4* sg, const float4* sb,
@@ -753,7 +758,7 @@ struct LnQuant {
         amax = fmaxf(amax, fabsf(v[c][j]));
       }
     }
-    const float sc = row_scale(warp_max(amax));
+    const float sc = fixed != nullptr ? *fixed : row_scale(warp_max(amax));
     const size_t base = static_cast<size_t>(row) * d;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -768,24 +773,30 @@ struct LnQuant {
 // same max of the same f32 values) the row is read once.
 __global__ void __launch_bounds__(kWarps * 32)
 quant_rows_kernel(const float* __restrict__ x, const float* __restrict__ row_amax,
-                  int8_t* __restrict__ q, float* __restrict__ scale, int rows, int n) {
+                  const float* __restrict__ fixed, int8_t* __restrict__ q,
+                  float* __restrict__ scale, int rows, int n) {
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const float* xr = x + static_cast<size_t>(row) * n;
-  float amax = 0.f;
-  if (row_amax != nullptr) {
-    amax = row_amax[row];
+  float sc;
+  if (fixed != nullptr) {
+    sc = *fixed;
   } else {
-    for (int i = lane * 8; i < n; i += 256) {
-      const float4 a = *reinterpret_cast<const float4*>(xr + i);
-      const float4 b = *reinterpret_cast<const float4*>(xr + i + 4);
-      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
-      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(b.x), fabsf(b.y)), fmaxf(fabsf(b.z), fabsf(b.w))));
+    float amax = 0.f;
+    if (row_amax != nullptr) {
+      amax = row_amax[row];
+    } else {
+      for (int i = lane * 8; i < n; i += 256) {
+        const float4 a = *reinterpret_cast<const float4*>(xr + i);
+        const float4 b = *reinterpret_cast<const float4*>(xr + i + 4);
+        amax = fmaxf(amax, fmaxf(fmaxf(fabsf(a.x), fabsf(a.y)), fmaxf(fabsf(a.z), fabsf(a.w))));
+        amax = fmaxf(amax, fmaxf(fmaxf(fabsf(b.x), fabsf(b.y)), fmaxf(fabsf(b.z), fabsf(b.w))));
+      }
+      amax = warp_max(amax);
     }
-    amax = warp_max(amax);
+    sc = row_scale(amax);
   }
-  const float sc = row_scale(amax);
   for (int i = lane * 8; i < n; i += 256) {  // after a first read, from L1/L2
     const float4 a = *reinterpret_cast<const float4*>(xr + i);
     const float4 b = *reinterpret_cast<const float4*>(xr + i + 4);
@@ -798,24 +809,29 @@ quant_rows_kernel(const float* __restrict__ x, const float* __restrict__ row_ama
 }  // namespace
 
 // x: (rows, d) bf16; gamma, beta: (d,) f32; q: (rows, d) int8; scale: (rows,)
-// f32. All contiguous and 16-byte aligned; d % 8 == 0 and d <= 2048. Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for a width it
-// does not take).
+// f32; fixed: one f32 static scale, or null. All contiguous and 16-byte
+// aligned; d % 8 == 0 and d <= 2048. Returns cudaGetLastError() after the
+// launch (cudaErrorInvalidValue for a width it does not take).
 extern "C" int ovt_layernorm_quant(const void* x, const void* gamma, const void* beta, void* q,
-                                   void* scale, int rows, int d, float eps, void* stream) {
-  return launch_ln(x, gamma, beta, LnQuant{static_cast<int8_t*>(q), static_cast<float*>(scale)},
+                                   void* scale, const void* fixed, int rows, int d, float eps,
+                                   void* stream) {
+  return launch_ln(x, gamma, beta,
+                   LnQuant{static_cast<int8_t*>(q), static_cast<float*>(scale),
+                           static_cast<const float*>(fixed)},
                    rows, d, eps, stream);
 }
 
 // x: (rows, n) f32; row_amax: (rows,) f32 max |x| of each row, or null;
-// q: (rows, n) int8; scale: (rows,) f32. All contiguous and 16-byte aligned;
+// fixed: one f32 static scale, or null (then row_amax is not read); q:
+// (rows, n) int8; scale: (rows,) f32. All contiguous and 16-byte aligned;
 // n % 8 == 0. Returns cudaGetLastError() after the launch.
-extern "C" int ovt_quant_rows(const void* x, const void* row_amax, void* q, void* scale, int rows,
-                              int n, void* stream) {
+extern "C" int ovt_quant_rows(const void* x, const void* row_amax, const void* fixed, void* q,
+                              void* scale, int rows, int n, void* stream) {
   if (n % 8) return static_cast<int>(cudaErrorInvalidValue);
   quant_rows_kernel<<<(rows + kWarps - 1) / kWarps, kWarps * 32, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(row_amax), static_cast<int8_t*>(q),
-      static_cast<float*>(scale), rows, n);
+      static_cast<const float*>(x), static_cast<const float*>(row_amax),
+      static_cast<const float*>(fixed), static_cast<int8_t*>(q), static_cast<float*>(scale),
+      rows, n);
   return static_cast<int>(cudaGetLastError());
 }

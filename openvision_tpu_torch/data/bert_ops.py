@@ -1,6 +1,10 @@
-"""The training tokenize op ``my_bert_tokenize`` (pure-Python WordPiece).
+"""The tokenize ops ``my_bert_tokenize`` and ``my_eval_bert_tokenize``
+(pure-Python WordPiece).
 
-The port's copy of ``openvision_tpu/data/bert_ops.py:94``: it samples a
+The port's copies of ``openvision_tpu/data/bert_ops.py:94, :260``. The eval
+op samples one text from `inkey` and writes its [bos] + tokens + [eos]
+padded to max_len - 1 with [CLS] at the end under `outkey`. The training op
+samples a
 sub-caption from key1 and a [.!]-split sub-caption from key2 and emits
 
 - labels1, labels2: [bos] + tokens + [eos], padded or truncated to
@@ -68,6 +72,20 @@ def get_my_bert_tokenize(max_len, output_token_len, vocab_path, add_bos=True, ad
             padded = padded[:-1] + [tok.eos_id]
         data["labels_for_regress"] = np.asarray(padded, np.int32)
         data["cap_loss_mask"] = np.asarray(mask[1:] + [0] if add_bos else mask, np.float32)
+        return data
+
+    return op
+
+
+@pp_op("my_eval_bert_tokenize")
+def get_my_eval_bert_tokenize(inkey, max_len, vocab_path, add_bos=True, add_eos=True,
+                              sample_if_multi=True, outkey="labels"):
+    tok = get_tokenizer(vocab_path)
+
+    def op(data, rng):
+        txt = _sample_text(_as_text_list(data[inkey]), rng, sample_if_multi)
+        data[outkey] = _finalize_clip_tokens(
+            tok, _encode_special(tok, txt, add_bos, add_eos), max_len, add_eos)
         return data
 
     return op

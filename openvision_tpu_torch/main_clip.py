@@ -11,6 +11,17 @@ value parsed as int, float, bool, or else kept as a string), and
 ``train/trainer.py:train`` runs. ``--device`` defaults to ``cuda`` and raises
 without a card; ``--device cpu`` runs the plain versions of the kernels.
 
+Scoring a checkpoint: ``--override eval_only=True`` runs the config's
+evaluators once and trains nothing, on the workdir's newest checkpoint or
+on ``ft_from`` (a flat-name npz: the port's train state or a JAX param
+tree), each evaluator's data named by an override, e.g. a TFRecord
+directory written by ``python -m openvision_tpu_torch.data.prepare``:
+
+    python -m openvision_tpu_torch.main_clip --config ...:res=224,img=L/14,dtype=bfloat16 \
+        --workdir /tmp/eval --override eval_only=True --override ft_from=/ckpt.npz \
+        --override evals.disclf.data_dir=/data/in1k_val_tfrecord \
+        --override evals.retrieval.data_dir=/data/coco_val.npz
+
 Several processes, one per rank of the config's ``sharding.mesh``
 (``data_parallelism``, ``fsdp_parallelism``, ``tensor_parallelism`` in the
 config arg, or ``--override sharding.mesh.tensor=2``), come from torchrun:

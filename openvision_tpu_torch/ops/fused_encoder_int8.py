@@ -70,23 +70,36 @@ from openvision_tpu_torch.ops import kernels
 # ---------------------------------------------------------------------------
 
 
-def quant_plain(y: torch.Tensor, amax=None):
+def quant_plain(y: torch.Tensor, amax=None, static_scale=None):
     """Per-row symmetric int8 of an f32 (..., N) tensor: (int8, (...) f32
     scale). `amax`, when given, is each row's max |y| (as the fc1 launch
-    gives it), else it is taken from y."""
-    amax = y.abs().amax(-1, keepdim=True) if amax is None else amax[..., None]
-    scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
+    gives it), else it is taken from y. With `static_scale` (one f32, the
+    calibrated per-tensor scale) every row takes that scale instead."""
+    if static_scale is not None:
+        scale = static_scale.float().reshape(1).expand(*y.shape[:-1], 1)
+    else:
+        amax = y.abs().amax(-1, keepdim=True) if amax is None else amax[..., None]
+        scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
     q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
-    return q, scale.squeeze(-1)
+    return q, scale.squeeze(-1).contiguous()
 
 
-def layernorm_quant_plain(x, weight, bias, eps: float):
+def layernorm_quant_plain(x, weight, bias, eps: float, static_scale=None):
     """LN in f32 with var = E[x^2] - mean^2, then :func:`quant_plain`."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     var = (xf * xf).mean(-1, keepdim=True) - mean * mean
     y = (xf - mean) * torch.rsqrt(var + eps)
-    return quant_plain(y * weight.float() + bias.float())
+    return quant_plain(y * weight.float() + bias.float(), static_scale=static_scale)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_static(name: str, static_scale) -> None:
+    if static_scale is not None:
+        kernels.check_operand(f"{name} static_scale", static_scale, torch.float32, (1,))
 
 
 def _quant_out(x, n: int):
@@ -94,9 +107,11 @@ def _quant_out(x, n: int):
     return q, torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
 
 
-def layernorm_quant(x, weight, bias, eps: float):
+def layernorm_quant(x, weight, bias, eps: float, static_scale=None):
     """Kernel ``ovt_layernorm_quant``: bf16 x (..., D), f32 weight and bias ->
-    (int8 (..., D), f32 per-row scale (...)).
+    (int8 (..., D), f32 per-row scale (...)); with `static_scale` (one f32
+    on the device) the f32 LN output is quantised by that scale, which every
+    row's scale repeats (``openvision_tpu/serving/quant.py:38-50``).
 
     Replaces the LN prologue and ``_quant_cols`` of ``_mhsa_t_int8_kernel``
     and ``_mlp_t_int8_kernel`` (openvision_tpu/ops/fused_encoder_int8.py
@@ -105,8 +120,8 @@ def layernorm_quant(x, weight, bias, eps: float):
     shared-memory ring by bulk copies, one warp a row), the row held in
     registers between its passes, 8-byte int8 stores a lane.
     """
-    if kernels.on_cpu(x, weight, bias):
-        return layernorm_quant_plain(x, weight, bias, eps)
+    if kernels.on_cpu(x, weight, bias, static_scale):
+        return layernorm_quant_plain(x, weight, bias, eps, static_scale)
     d = x.shape[-1]
     if d % 8 or d > 2048:
         raise ValueError(f"layernorm_quant: the kernel takes a width divisible by 8 and at most "
@@ -114,19 +129,21 @@ def layernorm_quant(x, weight, bias, eps: float):
     kernels.check_operand("layernorm_quant x", x, torch.bfloat16)
     kernels.check_operand("layernorm_quant weight", weight, torch.float32, (d,))
     kernels.check_operand("layernorm_quant bias", bias, torch.float32, (d,))
+    _check_static("layernorm_quant", static_scale)
     q, scale = _quant_out(x, d)
     rc = kernels.lib().ovt_layernorm_quant(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        x.numel() // d, d, eps, kernels.stream(x))
+        _ptr(static_scale), x.numel() // d, d, eps, kernels.stream(x))
     kernels.raise_on(rc, "layernorm_quant")
     kernels.count("layernorm_quant")
     return q, scale
 
 
-def quant_rows(x, amax=None):
+def quant_rows(x, amax=None, static_scale=None):
     """Kernel ``ovt_quant_rows``: f32 x (..., N) -> (int8 (..., N), f32
     per-row scale (...)); `amax` (...) f32, when given, is each row's max
-    |x| (the fc1 launch's ``row_amax``).
+    |x| (the fc1 launch's ``row_amax``); with `static_scale` (one f32 on the
+    device) every row is quantised by that scale and `amax` is not read.
 
     Replaces ``_quant_cols`` of the f32 attention output and GELU hidden
     (openvision_tpu/ops/fused_encoder_int8.py:126, :155) and the pooled
@@ -134,16 +151,17 @@ def quant_rows(x, amax=None):
     Bound by device memory: one warp per row, int8 written once; the row is
     read once with `amax` given, else twice (the second from cache).
     """
-    if kernels.on_cpu(x, amax):
-        return quant_plain(x, amax)
+    if kernels.on_cpu(x, amax, static_scale):
+        return quant_plain(x, amax, static_scale)
     n = x.shape[-1]
     if n % 8:
         raise ValueError(f"quant_rows: the kernel takes a width divisible by 8, got {n}")
     kernels.check_operand("quant_rows x", x, torch.float32)
     if amax is not None:
         kernels.check_operand("quant_rows amax", amax, torch.float32, x.shape[:-1])
+    _check_static("quant_rows", static_scale)
     q, scale = _quant_out(x, n)
-    rc = kernels.lib().ovt_quant_rows(x.data_ptr(), None if amax is None else amax.data_ptr(),
+    rc = kernels.lib().ovt_quant_rows(x.data_ptr(), _ptr(amax), _ptr(static_scale),
                                       q.data_ptr(), scale.data_ptr(), x.numel() // n, n,
                                       kernels.stream(x))
     kernels.raise_on(rc, "quant_rows")

@@ -198,8 +198,8 @@ def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
         "ovt_layernorm_bwd_blocks": [i, i],
         "ovt_colsum": [p, i, p, p, i, i, i, i, p],
         "ovt_gemm_int8": [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p],
-        "ovt_layernorm_quant": [p, p, p, p, p, i, i, f, p],
-        "ovt_quant_rows": [p, p, p, p, i, i, p],
+        "ovt_layernorm_quant": [p, p, p, p, p, p, i, i, f, p],
+        "ovt_quant_rows": [p, p, p, p, p, i, i, p],
     }
     for name, types in argtypes.items():
         fn = getattr(handle, name)

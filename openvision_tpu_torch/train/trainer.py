@@ -12,6 +12,17 @@ written every ``log_training_steps``, the train state every ``ckpt_steps``
 and at the end (``train/checkpoint.py``). The first batch's token ids are
 checked against the vocabulary sizes (:45-79).
 
+Evaluators (:137, :332-346, :494-504): ``config.evals`` builds them
+(``evaluators/common.py:from_config``; one whose data or options are
+unavailable is noted and left out), each runs every ``log_steps`` and at the
+end (once at the last step, where the JAX loop runs it twice), writing
+``{prefix}{metric}`` and ``z/secs/eval/{name}`` into that step's row;
+``eval_only`` runs them once at the starting step (the resumed or
+fine-tuned weights) and trains nothing. The chronometer times each step
+alone, from its batch request to its synchronize, so an eval between steps
+never enters its rates (the JAX trainer pauses its wall-clock chronometer
+around an eval for the same end).
+
 Each step ends in a device synchronize, so its host time covers its device
 work and the chronometer's host-wait share is the input pipeline's part.
 
@@ -25,10 +36,12 @@ barrier at the run's named points, and process 0 alone writes the metrics,
 the chronometer and the checkpoints (JAX :194, :228, :385), which save the
 whole state.
 
-Left out, and refused by name when a config asks for them: evaluators,
-the seq and pipe mesh axes, the profiler hook, ``steps_per_dispatch``,
-``load_transform`` and ``masked_init``; the SIGTERM hook is not installed (a
-resume loses the steps since the last checkpoint).
+Left out, and refused by name when a config asks for them: evaluators
+with data and ``eval_only`` on a process mesh (the JAX evaluators split the
+classes over processes, disclf.py:201-206), the seq and pipe mesh axes, the
+profiler hook, ``steps_per_dispatch``, ``load_transform`` and
+``masked_init``; the SIGTERM hook is not installed (a resume loses the steps
+since the last checkpoint).
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from openvision_tpu_torch import optim
 from openvision_tpu_torch.data import pipeline
@@ -56,7 +70,7 @@ def _should(step: int, every: Optional[int], total: int) -> bool:
 
 
 def _refuse_unported(config: dict) -> None:
-    for key in ("evals", "load_transform", "masked_init"):
+    for key in ("load_transform", "masked_init"):
         if config.get(key):
             raise NotImplementedError(f"config.{key} is not ported yet")
     if config.get("profile_stop_step"):
@@ -64,6 +78,33 @@ def _refuse_unported(config: dict) -> None:
                                   "not ported yet")
     if int(config.get("steps_per_dispatch", 1) or 1) > 1:
         raise NotImplementedError("steps_per_dispatch > 1 is not ported yet")
+
+
+def refuse_evals_on_a_mesh(config: dict, world: int) -> None:
+    """Raises, naming the evaluator, when several processes would evaluate:
+    an entry of config.evals with data (``data_dir`` or ``source``), or
+    ``eval_only``."""
+    if world <= 1:
+        return
+    for name, cfg in (config.get("evals") or {}).items():
+        if cfg.get("data_dir") or cfg.get("source") is not None:
+            raise NotImplementedError(
+                f"config.evals.{name}: evaluators on a process mesh ({world} processes) are "
+                "not ported yet; evaluate in one process")
+    if config.get("eval_only"):
+        raise NotImplementedError(f"eval_only on a process mesh ({world} processes) is not "
+                                  "ported yet; evaluate in one process")
+
+
+def build_evaluators(config: dict, model, mesh, note=print) -> list:
+    """[(name, evaluator, log_steps, prefix)] of config.evals; an evaluator
+    that fails to build is noted and left out (JAX :137)."""
+    from openvision_tpu_torch.evaluators import common as eval_common
+
+    def on_error(name, e):
+        note(f"evaluator {name!r} disabled: {e}")
+
+    return eval_common.from_config(config, model, mesh, on_error=on_error)
 
 
 def check_token_range(config: dict, batch: dict) -> None:
@@ -84,6 +125,7 @@ def train(config: dict, workdir: Optional[str] = None, device="cuda"):
     step's measurements as floats)."""
     _refuse_unported(config)
     device = maybe_distributed_init(device)
+    refuse_evals_on_a_mesh(config, dist.get_world_size() if dist.is_initialized() else 1)
     mesh = create_mesh(**dict((config.get("sharding") or {}).get("mesh") or {}),
                        device_type=device.type)
     with use_mesh(mesh):
@@ -131,6 +173,28 @@ def _train(config, workdir, device, mesh):
                 chrono.load(json.load(f))
     sync("init")
 
+    evaluators = build_evaluators(config, model, mesh, note) if config.get("evals") else []
+    evaluated = {}  # evaluator name -> the step it last ran at
+
+    def run_evals(step: int, final: bool = False) -> None:
+        for name, evaluator, log_steps, prefix in evaluators:
+            if evaluated.get(name) == step or not (final or _should(step, log_steps,
+                                                                    total_steps)):
+                continue
+            if writer.step != step:
+                writer.step_start(step)
+            t0 = time.monotonic()
+            for metric, value in evaluator.run({"model": model, "step": step}):
+                writer.measure(f"{prefix}{metric}", value)
+            writer.measure(f"z/secs/eval/{name}", time.monotonic() - t0)
+            evaluated[name] = step
+
+    if config.get("eval_only", False):
+        writer.step_start(first_step)
+        run_evals(first_step, final=True)
+        writer.close()
+        return model, opt, {}
+
     update_fn = step_mod.make_update_fn(config, model, opt)
     log_every = config.get("log_training_steps", 50)
     ckpt_every = config.get("ckpt_steps", 1000) if config.get("save_ckpt", True) else 0
@@ -162,6 +226,8 @@ def _train(config, workdir, device, mesh):
                 with open(chrono_path, "w") as f:
                     json.dump(chrono.save(), f)
             sync("checkpoint")
-    writer.close()
+        run_evals(step)
     sync("final")
+    run_evals(total_steps, final=True)
+    writer.close()
     return model, opt, {k: float(v) for k, v in measurements.items()}

@@ -1,5 +1,6 @@
-"""The port imports neither JAX, flax, optax, grain nor Triton, directly or
-through openvision_tpu, and chip_smoke.py refuses to run without a card."""
+"""The port imports neither JAX, flax, optax, grain, Triton, tensorflow,
+tensorflow_datasets nor protobuf, directly or through openvision_tpu, and
+chip_smoke.py refuses to run without a card."""
 
 import os
 import subprocess
@@ -26,14 +27,18 @@ def test_port_imports_no_jax_flax_or_triton():
     for m in ("ops.fused_encoder", "ops.grad_kernels", "losses", "optim", "train.step",
               "train.trainer", "main_clip", "data.pipeline", "data.bert_ops", "utils.registry",
               "ops.fused_encoder_int8", "serving.quant", "serving.server", "parallel",
-              "parallel.mesh", "ops.fused_attention", "train.checkpoint", "convert.openclip"):
+              "parallel.mesh", "ops.fused_attention", "train.checkpoint", "convert.openclip",
+              "data.tfrecord", "data.prepare", "data.ops_image", "evaluators.common",
+              "evaluators.disclf", "evaluators.retrieval", "evaluators.contrastive",
+              "evaluators.prompts", "evaluators.in1k_classes"):
         assert f"openvision_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'grain', 'triton', 'openvision_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'grain', 'triton', 'openvision_tpu', 'tensorflow', "
+        "'tensorflow_datasets') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

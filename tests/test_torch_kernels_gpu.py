@@ -31,7 +31,8 @@ boundary, where they may differ by 1 (at most 0.1% of the values);
 gemm_int8 bit-equal to its plain version without GELU (the int32 sums are
 exact and the epilogue repeats the plain order), within 2**-12 relative
 with GELU (tanh's last bits), its row max bit-equal to that of its own
-output, and quant_rows given that max bit-equal to quant_rows alone; the
+output, and quant_rows given that max bit-equal to quant_rows alone (with
+a static scale bit-equal to its plain version); the
 f32 attention output 2**-8 (summation order,
 and a bf16 rounding of p that can flip); the int8 sub-blocks on out - x,
 2**-6 of its max plus the residual add's rounding (2**-8 of |out|).
@@ -740,6 +741,31 @@ def test_quant_rows_kernel(dev, rows, n):
         q1, scale1 = fe8.quant_rows(x, x.abs().amax(-1))
     assert scale[0].item() == 1.0 and q[0].abs().max().item() == 0
     assert torch.equal(q1, q) and torch.equal(scale1, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,d", [(2 * 257, 1024), (37, 768), (3, 8)])
+def test_quant_kernels_with_a_static_scale(dev, rows, d):
+    """The static per-tensor scale of the int8 eval (serving/quant.py:
+    calibrate_vit): quant_rows bit-equal to clip(rint(x / s)) with every
+    row's scale s, row_amax not read; layernorm_quant on its f32 LN output
+    as the dynamic kernel is held (int8 flips by 1 where an f32 value lies
+    on a rounding boundary)."""
+    g = torch.Generator().manual_seed(rows + d)
+    x = _rand(g, dev, rows, d) * 2
+    s = torch.tensor([x.abs().max().item() / 127 * 0.5], device=dev)  # saturates
+    xb = _ln_input(g, dev, rows, d, "normal")
+    w, b = _rand(g, dev, d) * 0.1 + 1, _rand(g, dev, d) * 0.1
+    with torch.inference_mode():
+        q, scale = fe8.quant_rows(x, static_scale=s)
+        q1, scale1 = fe8.quant_rows(x, torch.zeros(rows, device=dev), static_scale=s)
+        qp, scale_p = fe8.quant_plain(x, static_scale=s)
+        ql, scale_l = fe8.layernorm_quant(xb, w, b, 1e-6, static_scale=s)
+        _check_quant(ql, scale_l, *fe8.layernorm_quant_plain(xb, w, b, 1e-6, static_scale=s))
+    assert torch.equal(q, qp) and torch.equal(scale, scale_p)
+    assert torch.equal(q1, q) and torch.equal(scale1, scale)
+    assert bool((scale == s).all()) and bool((scale_l == s).all())
+    assert q.abs().max().item() == 127
 
 
 @pytest.mark.gpu
