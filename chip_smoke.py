@@ -220,6 +220,31 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    the host share of the image loop (decode + pp, the copy; PNG decode
    alone), the class embeddings' host tokenisation and device seconds,
    and Recall@k.
+20. The interpretability tools at full width: gradient_ascent.main on phase
+   3's L/14 export (catcat.png, batch 8, all 340 iterations,
+   --deterministic, in a temp working directory), feature_viz.main on a
+   new random ViT-S/8-224 export (S8_CONFIG, seed 1; --layer 6 --feature
+   5, all 400 steps), neuron_capture.main (all 24 layers, --topk 3) and
+   adversarial.main on catbat.png (untargeted PGD, targeted towards "a
+   dog", --unsigned, each with --out), every CLI at its defaults (f32 xla)
+   with the loads shared. Then feature viz step 0, one PGD input gradient,
+   the GELU capture, the image embedding and one gradient-ascent step on
+   the same inputs through load_model(bf16, attn_impl="fused") (#9, and
+   #10 under an input gradient), plain xla bf16 and f32. Checks: finite
+   losses; gradient ascent's best loss below its first, a non-empty tokens
+   file, txtembeds (8, 768) f32 on the CPU; feature viz's last loss below
+   step 0's, its PNG (224, 224, 3); 24 captured layers of (257, 4096);
+   PGD within eps (+1e-6) and [0, 1], the untargeted signed attack's loss
+   not below the clean one, the targeted one's p(target) not below the
+   clean one; fused against plain bf16 cosine >= 0.999 for both input
+   gradients, every layer's capture and the image embedding (against f32
+   printed); launches per step: 12 #9 and 7 #10 for feature viz (blocks
+   0-6 only: its loss reads block 6), 24 and 24 for a PGD gradient, 24
+   and 0 for the capture and for a gradient-ascent step; the capture on
+   fused_t raises GeluCaptureError. Prints seconds an iteration of each
+   tool on each route (the profiler's device busy share on fused and f32), #10's chain at the tools' shapes beside the
+   weight- and bias-gradient launches that frozen weights do not need, and
+   the phase's seconds.
 `python3 chip_smoke.py --ln [ROOT]` times the row LayerNorm kernels of the
 checkout at ROOT (csrc/layernorm.cu: the bf16 layernorm at b=64 over the
 ViT-L/14 tower's 16448 x 1024, the decoder's prefix-LM 29632 x 768 and
@@ -3425,6 +3450,425 @@ def eval_phase(model_dir: str, work: str, images, device, totals: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# The interpretability tools at full width (phase 20)
+# ---------------------------------------------------------------------------
+
+# ViT-S/8-224 (BASELINE.json config 2's tower): 12 blocks of width 384, 6
+# heads of 64 (a power-of-two softmax scale for #9/#10), 785 tokens, MLP
+# 1536; phase 3's text tower, embed 384.
+S8_CONFIG = {
+    "model_cfg": {
+        "embed_dim": 384,
+        "vision_cfg": {"layers": 12, "width": 384, "head_width": 64, "patch_size": 8,
+                       "image_size": 224, "pool_type": "avg", "final_ln_after_pool": True,
+                       "no_ln_pre": True},
+        "text_cfg": L14_CONFIG["model_cfg"]["text_cfg"],
+    },
+    "preprocess_cfg": L14_CONFIG["preprocess_cfg"],
+}
+FV_LAYER, FV_FEATURE = 6, 5
+ADV_LABELS = "a cat,a bat,a dog,text"
+# #9's forward and #10's backward of one fused block (ops/fused_attention.py).
+# A step runs #9 in every block and #10 in the blocks its loss reaches back
+# through: all of them for an embedding's loss, blocks 0..layer for a GELU
+# feature of block `layer`, none under no_grad.
+BLOCK_FWD = {"layernorm": 1, "gemm_bias_act": 2, "attention": 1}
+BLOCK_BWD = {"layernorm": 1, "gemm_bias_act": 1, "flash_attention": 1, "gemm_nn": 2,
+             "attention_bwd_dq": 1, "attention_bwd_dkv": 1, "gemm_tn": 2, "layernorm_bwd": 1,
+             "colsum": 2}
+ROUTE_COS = 0.999  # the fused route against plain bf16 (the training gradients' bar)
+TOOL_ITERS = 3  # timed iterations a tool and route, beside the CLIs' full runs
+
+
+def block_launches(fwd: int, bwd: int) -> dict:
+    from openvision_tpu_torch.ops import kernels
+
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for per, n in ((BLOCK_FWD, fwd), (BLOCK_BWD, bwd)):
+        for k, v in per.items():
+            want[k] += v * n
+    return want
+
+
+def flat_cos(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def route_cosines(label: str, got: dict) -> None:
+    """Prints fused / plain bf16 / f32 cosines of one quantity; raises unless
+    fused against plain bf16 reaches ROUTE_COS."""
+    c = {"fused vs plain bf16": flat_cos(got["fused"], got["bf16"]),
+         "fused vs f32": flat_cos(got["fused"], got["f32"]),
+         "plain bf16 vs f32": flat_cos(got["bf16"], got["f32"])}
+    print(f"{label}: " + "  ".join(f"{k} {v:.6f}" for k, v in c.items()))
+    if c["fused vs plain bf16"] < ROUTE_COS:
+        raise AssertionError(f"{label}: fused vs plain bf16 cosine {c['fused vs plain bf16']}")
+
+
+def step_seconds(fn, iters: int = TOOL_ITERS) -> float:
+    """Seconds an iteration of fn() after one warm-up call, synchronized."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+class SharedLoads:
+    """The tools' ``load_model``, loading each (model dir, options) once:
+    the CLIs run their mains in turn on two exports."""
+
+    def __init__(self):
+        self.models = {}
+
+    def __call__(self, model_dir, **kw):
+        from openvision_tpu_torch.tools.model_io import load_model
+
+        key = (model_dir, tuple(sorted((k, str(v)) for k, v in kw.items())))
+        if key not in self.models:
+            self.models[key] = load_model(model_dir, **kw)
+        return self.models[key]
+
+
+def run_cli(module, argv, log: list) -> str:
+    """module.main(argv) with each step's start time and loss appended to
+    `log` (module.build_step wrapped); returns what main printed."""
+    import contextlib
+
+    orig = getattr(module, "build_step", None)
+
+    def build_step(*a, **k):
+        step, opt = orig(*a, **k)
+
+        def timed(*args):
+            t = time.perf_counter()
+            out = step(*args)
+            log.append((t, out[2]))
+            return out
+
+        return timed, opt
+
+    if orig is not None:
+        module.build_step = build_step
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.main(argv)
+    finally:
+        if orig is not None:
+            module.build_step = orig
+    return buf.getvalue()
+
+
+def frozen_weight_cost(fa, gk, device) -> dict:
+    """#10's chain at the tools' shapes by graph replay, beside the part that
+    frozen weights do not need: the two weight-gradient products (gemm_tn)
+    and the two bias sums (colsum)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    out = {}
+    for label, b, l, d, heads in (("feature viz S/8, b=8 L=785", 8, 785, 384, 6),
+                                  ("PGD L/14, b=1 L=257", 1, 257, 1024, 16)):
+        def r(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=device) * scale).bfloat16()
+
+        x, g = r(b, l, d), r(b, l, d)
+        ln_w, ln_b = 1 + r(d, scale=0.02).float(), r(d, scale=0.02).float()
+        w_qkv, b_qkv = r(3 * d, d, scale=d**-0.5), r(3 * d, scale=0.02).float()
+        w_o, b_o = r(d, d, scale=d**-0.5), r(d, scale=0.02).float()
+        kw = dict(num_heads=heads, sm_scale=None, causal=False, prefix_len=0, eps=1e-6)
+        y, o, dqkv = r(b, l, d), r(b, l, d), r(b, l, 3 * d)
+        whole = graph_ms(lambda: fa._backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g,
+                                                      **kw))
+        dw = graph_ms(lambda: (gk.gemm_tn(g, o), gk.gemm_tn(dqkv, y)))
+        db = graph_ms(lambda: (gk.colsum(dqkv, seg_len=l, round_bf16=True),
+                               gk.colsum(g, seg_len=l)))
+        out[label] = {"chain_us": 1e3 * whole, "dw_us": 1e3 * dw, "db_us": 1e3 * db}
+        print(f"#10 {label}: chain {1e3 * whole:.1f} us by graph; the frozen weights' unneeded "
+              f"dW_o + dW_qkv (2 gemm_tn) {1e3 * dw:.1f} us, db_qkv + db_o (2 colsum) "
+              f"{1e3 * db:.1f} us: {100 * (dw + db) / whole:.1f}% of the chain")
+    return out
+
+
+def interp_phase(model_dir: str, work: str, device, totals: dict) -> dict:
+    """Phase 20: the interpretability tools at full width. The CLIs' mains
+    (f32 xla, their defaults) on phase 3's L/14 export and a new S/8 export,
+    their outputs checked; then feature viz step 0, one PGD gradient, the
+    GELU capture, the image embedding and a gradient-ascent step through
+    ``fused`` bf16 (#9, and #10 under an input gradient), plain xla bf16 and
+    f32 on the same inputs, with launch counts; the named capture error on
+    ``fused_t``; each tool's seconds an iteration on each route, with the
+    profiler's device busy share on ``fused`` and f32 (a ratio to the
+    synchronized wall time of an iteration: below 0.5 the step is
+    host-bound, whatever the flag says); #10's cost for frozen weights."""
+    import torch
+
+    from openvision_tpu_torch.data.ops_image import decode_png
+    from openvision_tpu_torch.ops import fused_attention as fa
+    from openvision_tpu_torch.ops import grad_kernels as gk
+    from openvision_tpu_torch.tools import adversarial as advm
+    from openvision_tpu_torch.tools import feature_viz as fv
+    from openvision_tpu_torch.tools import gradient_ascent as ga
+    from openvision_tpu_torch.tools import neuron_capture as nc
+    from openvision_tpu_torch.tools.capture import GeluCaptureError
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device).type
+    s8_dir = os.path.join(work, "s8")
+    os.makedirs(s8_dir)
+    t0 = time.perf_counter()
+    export_random_model(s8_dir, S8_CONFIG, SEED + 1)
+    print(f"wrote the random ViT-S/8-224 export in {time.perf_counter() - t0:.1f} s")
+    cat = os.path.join(REPO, "testcat", "catcat.png")
+    bat = os.path.join(REPO, "testcat", "catbat.png")
+    loads = SharedLoads()
+    tools = (ga, fv, nc, advm)
+    originals = [m.load_model for m in tools]
+    for m in tools:
+        m.load_model = loads
+    cwd = os.getcwd()
+    results, secs = {}, {}
+    try:
+        # -- the CLIs at their defaults (f32 xla) --
+        ga_dir = os.path.join(work, "ga")
+        os.makedirs(ga_dir)
+        os.chdir(ga_dir)  # the tool writes opinion-tokens/ and txtembeds/ here
+        log = []
+        t0 = time.perf_counter()
+        out = run_cli(ga, ["--use_model", model_dir, "--use_image", cat, "--deterministic",
+                           "--device", dev], log)
+        wall = time.perf_counter() - t0
+        os.chdir(cwd)
+        losses = [float(v) for _, v in log]
+        secs["gradient ascent f32 xla (CLI)"] = (log[-1][0] - log[1][0]) / (len(log) - 2)
+        print("\n".join(l for l in out.splitlines() if l.startswith(("Iteration", "Done"))))
+        with open(os.path.join(ga_dir, "opinion-tokens", "tokens_catcat.txt")) as f:
+            tokens_txt = f.read()
+        emb = torch.load(os.path.join(ga_dir, "txtembeds", "catcat_text_embedding.pt"))
+        print(f"gradient_ascent.main: {len(log)} iterations in {wall:.1f} s; first loss "
+              f"{losses[0]:.4f}, best {min(losses):.4f}; tokens {tokens_txt!r}; txtembeds "
+              f"{tuple(emb.shape)} {emb.dtype} {emb.device}")
+        if len(log) != ga.ITERATIONS or not all(np.isfinite(losses)):
+            raise AssertionError(f"gradient ascent: {len(log)} iterations, losses {losses[:5]}")
+        if not min(losses) < losses[0]:
+            raise AssertionError("gradient ascent: no iteration beat the first")
+        if not tokens_txt.strip():
+            raise AssertionError("gradient ascent: empty tokens file")
+        embed_dim = loads(model_dir, device=dev).text.num_classes
+        if emb.shape != (8, embed_dim) or emb.dtype != torch.float32 or emb.device.type != "cpu":
+            raise AssertionError(f"gradient ascent: txtembeds {emb.shape} {emb.dtype}")
+        results["gradient_ascent"] = {"first": losses[0], "best": min(losses)}
+
+        log = []
+        fv_out = os.path.join(work, "fv")
+        t0 = time.perf_counter()
+        out = run_cli(fv, ["--use_model", s8_dir, "--layer", str(FV_LAYER), "--feature",
+                           str(FV_FEATURE), "--out", fv_out, "--deterministic",
+                           "--device", dev], log)
+        wall = time.perf_counter() - t0
+        losses = [float(v) for _, v in log]
+        secs["feature viz S/8 f32 xla (CLI)"] = (log[-1][0] - log[1][0]) / (len(log) - 2)
+        print(out.strip())
+        png = os.path.join(fv_out, f"s8_L{FV_LAYER}_F{FV_FEATURE}.png")
+        with open(png, "rb") as f:
+            img = decode_png(f.read())
+        print(f"feature_viz.main: {len(log)} steps in {wall:.1f} s; loss step 0 "
+              f"{losses[0]:.4f}, step {len(log) - 1} {losses[-1]:.4f}; PNG {img.shape}")
+        if len(log) != fv.STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"feature viz: {len(log)} steps, losses {losses[:5]}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("feature viz: the last step's loss is not below step 0's")
+        if img.shape != (224, 224, 3):
+            raise AssertionError(f"feature viz: PNG {img.shape}")
+        results["feature_viz"] = {"step0": losses[0], "last": losses[-1]}
+
+        t0 = time.perf_counter()
+        out = run_cli(nc, ["--use_model", model_dir, "--image", cat, "--topk", "3",
+                           "--device", dev], [])
+        print(out.strip())
+        print(f"neuron_capture.main in {time.perf_counter() - t0:.1f} s")
+        f32 = loads(model_dir, device=dev)
+        lines = [l for l in out.splitlines() if l.startswith("layer ")]
+        if len(lines) != len(f32.vision.transformer.resblocks) or "top neuron" not in out:
+            raise AssertionError("neuron capture: not every layer reported")
+
+        labels = [t.strip() for t in ADV_LABELS.split(",")]
+        ztxt = f32.encode_text(f32.tokenize(labels)).clone()
+        image01 = torch.as_tensor(advm._load_image01(f32, bat), device=device)
+        probs0 = advm.classify(f32, image01, ztxt)
+        pred, dog = int(probs0.argmax()), labels.index("a dog")
+        mean = torch.tensor(f32.mean, device=device)
+        std = torch.tensor(f32.std, device=device)
+
+        def zs_loss(model, img, label):
+            with torch.no_grad():
+                return float(advm._zero_shot_loss(model.vision, img, mean, std, ztxt,
+                                                  model.logit_scale, label))
+
+        for mode, extra in (("untargeted", []), ("targeted", ["--target", "a dog"]),
+                            ("unsigned", ["--unsigned"])):
+            out_png = os.path.join(work, f"adv_{mode}.png")
+            out = run_cli(advm, ["--use_model", model_dir, "--image", bat, "--labels",
+                                 ADV_LABELS, "--out", out_png, "--device", dev] + extra, [])
+            print(f"adversarial.main ({mode}):\n{out.strip()}")
+            with open(out_png, "rb") as f:
+                if decode_png(f.read()).shape != (224, 224, 3):
+                    raise AssertionError(f"adversarial {mode}: PNG shape")
+        eps = 8 / 255
+        for mode in ("untargeted", "targeted", "unsigned"):
+            if mode == "unsigned":
+                adv_img = advm.adv(f32, image01, ztxt, pred, eps=eps)
+            else:
+                adv_img = advm.pgd(f32, image01, ztxt, dog if mode == "targeted" else pred,
+                                   eps=eps, targeted=mode == "targeted")
+            linf = float((adv_img - image01).abs().max())
+            lo, hi = float(adv_img.min()), float(adv_img.max())
+            probs1 = advm.classify(f32, adv_img, ztxt)
+            clean_l, adv_l = zs_loss(f32, image01, pred), zs_loss(f32, adv_img, pred)
+            print(f"{mode}: L-inf {linf:.6f} (eps {eps:.6f}), pixels in [{lo:.4f}, {hi:.4f}], "
+                  f"loss at the clean prediction {clean_l:.4f} -> {adv_l:.4f}, p(a dog) "
+                  f"{probs0[dog]:.4f} -> {probs1[dog]:.4f}")
+            if linf > eps + 1e-6 or lo < 0.0 or hi > 1.0 or not np.isfinite(adv_l):
+                raise AssertionError(f"adversarial {mode}: out of the eps ball or [0, 1]")
+            # the unsigned attack moves by lr * |gradient|, which can leave the
+            # f32 loss within rounding of the clean one: checked on eps only
+            if mode == "untargeted" and adv_l < clean_l:
+                raise AssertionError(f"adversarial {mode}: the loss went down")
+            if mode == "targeted" and probs1[dog] < probs0[dog]:
+                raise AssertionError("adversarial targeted: p(target) went down")
+        results["adversarial"] = {"clean_prob_target": float(probs0[dog])}
+    finally:
+        os.chdir(cwd)
+        for m, orig in zip(tools, originals):
+            m.load_model = orig
+
+    # -- the kernel route against the plain ones, on the same inputs --
+    routes = {"fused": dict(dtype=torch.bfloat16, attn_impl="fused"),
+              "bf16": dict(dtype=torch.bfloat16), "f32": {}}
+    l14 = {r: loads(model_dir, device=dev, **kw) for r, kw in routes.items()}
+    s8 = {r: loads(s8_dir, device=dev, **kw) for r, kw in routes.items()}
+    depth_l = len(l14["f32"].vision.transformer.resblocks)
+    depth_s = len(s8["f32"].vision.transformer.resblocks)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    fv_img = fv.new_init(gen, 224)
+    fv_draws = fv.draw_augs(gen, 224)
+    grads, losses, profiles = {}, {}, {}
+    for r, m in s8.items():
+        step, opt = fv.build_step(m, FV_LAYER, FV_FEATURE)
+        run = lambda: step(fv_img, opt.init(fv_img), fv_draws)  # noqa: E731
+        if r == "fused":
+            counted(run, block_launches(depth_s, FV_LAYER + 1),
+                    f"feature viz step on fused bf16 (S/8, layer {FV_LAYER})", totals)
+        loss_fn = fv.build_loss(m, FV_LAYER, FV_FEATURE)
+        x = fv_img.clone().requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_fn(x, fv_draws)
+            (grads[r],) = torch.autograd.grad(loss, x)
+        losses[r] = float(loss.detach())
+        secs[f"feature viz S/8 {r}"] = step_seconds(run)
+        if r != "bf16":
+            profiles[f"feature viz S/8 {r}"] = device_profile(run,
+                                                              1e3 * secs[f"feature viz S/8 {r}"])
+    print(f"feature viz step 0 loss: {losses}")
+    route_cosines("feature viz step 0 input gradient (S/8)", grads)
+
+    img01 = torch.as_tensor(advm._load_image01(l14["f32"], bat), device=device)
+    grads = {}
+    for r, m in l14.items():
+        def pgd_grad(m=m):
+            x = img01.clone().requires_grad_(True)
+            with torch.enable_grad():
+                loss = advm._zero_shot_loss(m.vision, x, mean, std, ztxt, m.logit_scale, pred)
+                return torch.autograd.grad(loss, x)[0]
+        if r == "fused":
+            grads[r] = counted(pgd_grad, block_launches(depth_l, depth_l),
+                               "PGD input gradient on fused bf16 (L/14)", totals)
+        else:
+            grads[r] = pgd_grad()
+        secs[f"PGD L/14 {r}"] = step_seconds(
+            lambda m=m: advm.pgd(m, img01, ztxt, pred, iters=10), iters=1) / 10
+        if r != "bf16":
+            profiles[f"PGD L/14 {r}"] = device_profile(
+                lambda m=m: advm.pgd(m, img01, ztxt, pred, iters=1), 1e3 * secs[f"PGD L/14 {r}"])
+    route_cosines("PGD input gradient (L/14)", grads)
+
+    with open(cat, "rb") as f:
+        cat_img = decode_png(f.read())
+    acts, zimg = {}, {}
+    for r, m in l14.items():
+        if r == "fused":
+            acts[r] = counted(lambda m=m: nc.capture_gelu(m, cat_img), block_launches(depth_l, 0),
+                              "GELU capture on fused bf16 (L/14)", totals)
+        else:
+            acts[r] = nc.capture_gelu(m, cat_img)
+        secs[f"capture L/14 {r}"] = step_seconds(lambda m=m: nc.capture_gelu(m, cat_img))
+        if r != "bf16":
+            profiles[f"capture L/14 {r}"] = device_profile(
+                lambda m=m: nc.capture_gelu(m, cat_img), 1e3 * secs[f"capture L/14 {r}"])
+        zimg[r] = m.encode_image(m.preprocess(cat_img)[None].astype(np.float32))
+    shapes = {a.shape for a in acts["f32"].values()}
+    vis = l14["f32"].vision
+    want_shape = ((l14["f32"].image_size // vis.conv1.stride[0]) ** 2 + 1,
+                  vis.transformer.resblocks[0].mlp.c_fc.out_features)
+    print(f"capture: {len(acts['f32'])} layers of {shapes}")
+    if sorted(acts["f32"]) != list(range(depth_l)) or shapes != {want_shape}:
+        raise AssertionError(f"capture: {sorted(acts['f32'])} {shapes}")
+    worst = min(range(depth_l), key=lambda i: flat_cos(torch.from_numpy(acts["fused"][i]),
+                                                       torch.from_numpy(acts["bf16"][i])))
+    for i in sorted({0, worst, depth_l - 1}):
+        route_cosines(f"GELU capture layer {i}", {r: torch.from_numpy(a[i]) for r, a in acts.items()})
+    for i in range(depth_l):
+        if flat_cos(torch.from_numpy(acts["fused"][i]), torch.from_numpy(acts["bf16"][i])) < ROUTE_COS:
+            raise AssertionError(f"capture layer {i}: fused vs plain bf16 below {ROUTE_COS}")
+    route_cosines("image embedding (L/14)", zimg)
+
+    image = ga.load_normalized(l14["f32"], cat)
+    for r, m in l14.items():
+        step, opt = ga.build_step(m, m.context_length, ga.N_TOKENS, pad_id=0)
+        gen = torch.Generator(device=device).manual_seed(SEED + 11)
+        normu = torch.randn((8, ga.N_TOKENS, m.vocab_size), generator=gen, device=device)
+        draws = ga.draw_step(gen, 8, ga.N_TOKENS, m.vocab_size)
+        run = lambda step=step, opt=opt, normu=normu, draws=draws: step(  # noqa: E731
+            normu, opt.init(normu), image, draws)
+        if r == "fused":
+            out = counted(run, block_launches(depth_l, 0),
+                          "gradient ascent step on fused bf16 (L/14)", totals)
+            if not torch.isfinite(out[2]):
+                raise AssertionError("gradient ascent on fused: loss not finite")
+        secs[f"gradient ascent L/14 {r}"] = step_seconds(run)
+        if r != "bf16":
+            profiles[f"gradient ascent L/14 {r}"] = device_profile(
+                run, 1e3 * secs[f"gradient ascent L/14 {r}"])
+
+    fused_t = loads(s8_dir, device=dev, dtype=torch.bfloat16, attn_impl="fused_t",
+                    fast_gelu=True)
+    try:
+        nc.capture_gelu(fused_t, cat_img)
+    except GeluCaptureError as e:
+        print(f"capture on fused_t raises by name: {e}")
+    else:
+        raise AssertionError("capture on fused_t returned without GELU outputs")
+
+    for k, v in secs.items():
+        print(f"seconds an iteration, {k}: {v:.6f}; {profiles.get(k, 'not profiled')}")
+    results["seconds"] = secs
+    with torch.no_grad():
+        results["frozen_weight_cost"] = frozen_weight_cost(fa, gk, device)
+    loads.models.clear()
+    torch.cuda.empty_cache()
+    results["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 20 in {results['phase_s']:.1f} s")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3686,6 +4130,11 @@ def run(work: str) -> int:
     phase("19. evaluation at full width: zero-shot IN-1K (bf16, int8 static and dynamic) and "
           "retrieval over a 1000-image TFRecord fixture, then main_clip eval_only")
     eval_results = eval_phase(model_dir, work, images, device, totals)
+    torch.cuda.empty_cache()
+
+    phase("20. interpretability tools at full width: gradient ascent (L/14), feature viz (S/8), "
+          "neuron capture and PGD (L/14); fused bf16 against plain bf16 and f32")
+    interp = interp_phase(model_dir, work, device, totals)
 
     phase("summary")
     print(f"card: {smi}")
@@ -3707,6 +4156,9 @@ def run(work: str) -> int:
                   f"{v['class_embed']:.2f} s (tokenize {v['tokenize']:.2f} s)")
     print(f"eval retrieval: {eval_results['recall']}")
     print(f"PNG decode ms an image, 224 x 288: {eval_results['png_decode_ms']}")
+    for k, v in interp["seconds"].items():
+        print(f"tools: seconds an iteration, {k}: {v:.6f}")
+    print(f"tools: phase 20 in {interp['phase_s']:.1f} s")
     print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "
           f"{totals}")
     missing = [k for k, v in totals.items() if v == 0]

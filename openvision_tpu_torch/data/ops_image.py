@@ -11,6 +11,10 @@ well, and the training ops the base config names, ``inception_crop``
 the same crop and jitter in both packages. The other random ops are not
 ported yet.
 
+Encoding: :func:`encode_png` writes (H, W, 3) uint8 as an 8-bit RGB PNG
+with unfiltered rows (zlib and struct), the inverse of :func:`decode_png`;
+the interpretability tools save their images with it.
+
 Decoding: an 8-bit non-interlaced RGB or RGBA PNG is always decoded by
 :func:`decode_png` (zlib and numpy, no Pillow: the card's machine may lack
 it), bit-equal to PIL's ``convert("RGB")``; every other image goes through
@@ -88,6 +92,22 @@ def _unfilter_wavefront(filters: np.ndarray, x: np.ndarray) -> np.ndarray:
                 + paeth[y0:y1] * near)
         s[k + 2, y0 + 1:y1 + 1] = (skewed[k + 2, y0 + 1:y1 + 1] + pred) & 255
     return s[ys + xs + 2, ys + 1].astype(np.uint8)
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG, every row filter 0 (None)."""
+    image = np.ascontiguousarray(image)
+    if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
+        raise ValueError(f"encode_png takes (H, W, 3) uint8, got {image.shape} {image.dtype}")
+    h, w, _ = image.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), image.reshape(h, w * 3)], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (_PNG_MAGIC + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
 
 
 def decode_png(data: bytes) -> np.ndarray:

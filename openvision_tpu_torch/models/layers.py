@@ -101,6 +101,9 @@ class MlpBlock(nn.Module):
     """Transformer feed-forward block: Linear -> GELU -> Linear.
 
     OpenCLIP names: ``c_fc`` (flax Dense_0) and ``c_proj`` (flax Dense_1).
+    The GELU is the parameterless submodule ``act``, so a forward hook on it
+    sees the activation the JAX block sows as ``intermediates/.../gelu``
+    (openvision_tpu/models/layers.py:164-168); the state dict is unchanged.
     """
 
     def __init__(self, width: int, mlp_dim: Optional[int] = None, gelu_approx: bool = False,
@@ -109,6 +112,7 @@ class MlpBlock(nn.Module):
         mlp_dim = mlp_dim or 4 * width
         self.c_fc = zero_init(nn.Linear, width, mlp_dim)
         self.c_proj = zero_init(nn.Linear, mlp_dim, width)
+        self.act = nn.GELU(approximate="tanh" if gelu_approx else "none")
         self.gelu_approx = gelu_approx
         self.dtype = dtype
         self.tensor_parallel = 1  # the tensor axis size its weights are sharded over
@@ -118,7 +122,7 @@ class MlpBlock(nn.Module):
         if mesh is not None:  # the input's gradient sums over the shards
             x = copy_to_tensor(x, mesh)
         h = linear(x, self.c_fc, self.dtype)
-        h = F.gelu(h, approximate="tanh" if self.gelu_approx else "none")
+        h = self.act(h)
         if mesh is None:
             return linear(h, self.c_proj, self.dtype)
         part = F.linear(h.to(self.dtype), self.c_proj.weight.to(self.dtype))

@@ -11,8 +11,12 @@ Parameters carry OpenCLIP's names: ``token_embedding``,
 returns the caption decoder's token features, taken BEFORE the final
 LayerNorm: ``x[:, :-1]`` for ``last`` pooling, ``x[:, 1:]`` for ``first``
 (openvision_tpu/models/text.py:144-154). ``remat_policy`` passes to the
-Encoder (training). Soft one-hot token input, dropout and drop-path (a rate
-> 0 raises) are not ported yet.
+Encoder (training). A float (N, L, V) ``text`` is a soft one-hot sequence
+(the gradient-ascent tool's), embedded as ``text @ token_embedding.weight``
+in f32 (:100-104); pooling ``last`` and ``first`` read no ids, and
+``argmax`` on soft tokens raises (the JAX pool would take its argmax over
+the vocab axis). Dropout and drop-path (a rate > 0 raises) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -92,9 +96,16 @@ class TextTransformer(nn.Module):
         self.dtype = dtype
 
     def forward(self, text: torch.Tensor):
-        """text: (N, L) int token ids -> (N, num_classes) f32; with
-        ``output_tokens``, (pooled, pre-norm token features)."""
-        x = self.token_embedding(text.long()).float()
+        """text: (N, L) int token ids, or (N, L, V) soft one-hot tokens ->
+        (N, num_classes) f32; with ``output_tokens``, (pooled, pre-norm
+        token features)."""
+        if text.ndim == 3:
+            if self.pool_type == "argmax":
+                raise ValueError("pool_type='argmax' needs integer token ids: it cannot find the "
+                                 "eot position in soft one-hot (N, L, V) tokens")
+            x = text.float() @ self.token_embedding.weight.float()
+        else:
+            x = self.token_embedding(text.long()).float()
         _, l, d = x.shape
         if self.posemb == "learn":
             x = x + self.positional_embedding.float()

@@ -1,4 +1,5 @@
-"""Model loading for the zero-shot tool and the encode CLI.
+"""Model loading for the local tools: zero-shot, the encode CLI, gradient
+ascent, feature visualization, neuron capture and the adversarial probes.
 
 Counterpart of ``openvision_tpu/tools/model_io.py``: loads a converted
 OpenVision checkpoint directory (``open_clip_config.json`` +
@@ -49,7 +50,8 @@ class LoadedModel:
 
     @torch.inference_mode()
     def encode_image(self, images) -> torch.Tensor:
-        """(N, H, W, 3) images (numpy or tensor) -> L2-normalized f32 (N, E)."""
+        """(N, H, W, 3) images (numpy or tensor) -> L2-normalized f32 (N, E).
+        Inference tensors: clone them before autograd may save them."""
         z = self.vision(torch.as_tensor(images, device=self.device)).float()
         return z / (torch.linalg.norm(z, dim=-1, keepdim=True) + 1e-8)
 

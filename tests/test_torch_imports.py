@@ -1,5 +1,6 @@
 """The port imports neither JAX, flax, optax, grain, Triton, tensorflow,
-tensorflow_datasets nor protobuf, directly or through openvision_tpu, and
+tensorflow_datasets nor protobuf, directly or through openvision_tpu, nor
+Pillow when its modules are imported (the card's machine may lack it), and
 chip_smoke.py refuses to run without a card."""
 
 import os
@@ -30,7 +31,9 @@ def test_port_imports_no_jax_flax_or_triton():
               "parallel.mesh", "ops.fused_attention", "train.checkpoint", "convert.openclip",
               "data.tfrecord", "data.prepare", "data.ops_image", "evaluators.common",
               "evaluators.disclf", "evaluators.retrieval", "evaluators.contrastive",
-              "evaluators.prompts", "evaluators.in1k_classes"):
+              "evaluators.prompts", "evaluators.in1k_classes", "tools.augment", "tools.capture",
+              "tools.optimizers", "tools.feature_viz", "tools.gradient_ascent",
+              "tools.neuron_capture", "tools.adversarial"):
         assert f"openvision_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -38,7 +41,7 @@ def test_port_imports_no_jax_flax_or_triton():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'grain', 'triton', 'openvision_tpu', 'tensorflow', "
-        "'tensorflow_datasets') or m.startswith('google.protobuf'))\n"
+        "'tensorflow_datasets', 'PIL') or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
