@@ -191,14 +191,16 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
 18. Tensor-parallel training through the normal entry point: torchrun
    (python -m torch.distributed.run --nproc_per_node 2) runs this script's
    --tp-grads mode, two ranks on the one card over gloo at tensor 2 (phase
-   8's model, config, params and batch), whose loss and gathered gradients
+   8's model and config at a third of its depth: 8 image, 4 text and 4
+   decoder blocks at the full widths; its params and batch), whose loss and
+   gathered gradients
    are held against the one-process kernel path (loss within 2**-7
    relative, global cosine >= 0.999), and which prints each rank's step
    time, peak memory and the all-reduce's share of a step; then
    python -m torch.distributed.run --nproc_per_node 2 -m
    openvision_tpu_torch.main_clip with sharding.mesh tensor=2 trains 3
    steps: finite losses, every TP block's #11/#12 launches as the block
-   counts give (24 image + 12 decoder blocks, the forward twice under
+   counts give (8 image + 4 decoder blocks, the forward twice under
    remat), one checkpoint, which the caption tool loads in one process and
    captions the testcat images with. A failure in any rank fails the phase.
 19. Evaluation at full width on phase 3's export: 1000 PNGs of 224 x 288
@@ -245,6 +247,37 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    tool on each route (the profiler's device busy share on fused and f32), #10's chain at the tools' shapes beside the
    weight- and bias-gradient launches that frozen weights do not need, and
    the phase's seconds.
+21. Webdataset pretraining and the resolution curriculum (BASELINE.json
+   configs 4 and 5) through python -m openvision_tpu_torch.main_clip in
+   subprocesses: ViT-B/16 + text B + decoder L (the JAX default config:
+   coca, concat, image tower and decoder on fused, text tower on xla,
+   remat=full), bf16 on f32 master weights, on 4 webdataset tar shards of
+   512 records (a 256 x 320 PNG of a testcat image at an offset of its
+   own, a .txt caption, a .json with llava_caption) written by the script.
+   First the pp's records/s with 0 and 8 worker processes; #9 and #10
+   against their plain twins at B=8, D=768, 12 heads, L = 25 (112
+   masked), 50, 197, 577 and the concat decoder's prefix-LM L=231 (prefix
+   103); GradCache on the card on stage 1's model and a batch of 256
+   (grad_accum 4 against 1 with masking off, L=50; the kernel route
+   against plain bf16 at grad_accum 4, mask 0.5, on the same draws: loss
+   within 2**-7, gradient cosine >= 0.999). Then stage 1 (res 112,
+   mask_ratio 0.5, batch 1024, grad_accum 4, 8 input workers, 3 steps, a
+   checkpoint), stage 2 (ft_from stage 1 at 224, batch 512, grad_accum 2,
+   3 steps: SIGTERM after step 1's log line must leave a checkpoint at the
+   step reached and exit 0; the rerun must resume from it and finish),
+   stage 3 (ft_from stage 2 at 384, batch 256, grad_accum 4, 2 steps) and
+   a load_transform start (a learned-posemb B/16 state written at 224,
+   started at 384: posemb 1+196 -> 1+576, 1 step). Checks: finite losses,
+   every run's #9/#10 launches as a GradCache step gives them (pass 1: the
+   image tower's 12 blocks forward, #9 and the MLP kernels; pass 2: the
+   image tower's and decoder's 12 blocks each forward twice and backward
+   once; times grad_accum), the checkpoints. Prints each stage's step ms,
+   images/s, data-wait share and peak memory (stage 1's last step also
+   through the trainer's profiler hook: device busy ms from the trace's
+   kernels), and #9/#10 at the slice's shapes (b=256 at L=25, 197 and the decoder's 231; b=64 at L=577) by
+   events and graph replay beside bound, plain and library.
+   `python3 chip_smoke.py --curriculum` builds the kernels and runs this
+   phase alone (~250 s).
 `python3 chip_smoke.py --ln [ROOT]` times the row LayerNorm kernels of the
 checkout at ROOT (csrc/layernorm.cu: the bf16 layernorm at b=64 over the
 ViT-L/14 tower's 16448 x 1024, the decoder's prefix-LM 29632 x 768 and
@@ -457,8 +490,11 @@ def write_png(path: str, image: np.ndarray, adaptive: bool = False) -> None:
 # ---------------------------------------------------------------------------
 
 
+_T0 = time.perf_counter()
+
+
 def phase(title: str) -> None:
-    print(f"\n== {title} ==", flush=True)
+    print(f"\n== {title} == [{time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 def smi_line() -> str:
@@ -806,10 +842,14 @@ def caption_attention_cases(fe, fl, device, gen, b: int):
     return cases
 
 
-def block_cases(fa, device, gen, b: int):
-    """The composed fused block (#9) at the caption path's three shapes: the
-    image tower, the concat decoder and the cross_attn decoder's
-    self-attention. Its bound counts x, the weights and the output once (the
+# (L, D, heads, causal, prefix) of the fused block: the caption path's image
+# tower, concat decoder and cross_attn decoder self-attention
+BLOCK_SHAPES = ((257, 1024, 16, False, 0), (463, 768, 12, True, 335), (128, 768, 12, True, 0))
+
+
+def block_cases(fa, device, gen, b: int, shapes=BLOCK_SHAPES):
+    """The composed fused block (#9) at `shapes` (default: the caption
+    path's three). Its bound counts x, the weights and the output once (the
     Pallas kernel keeps every intermediate on chip); its library time is the
     sequence of library calls of :func:`_library_block`."""
     import torch
@@ -818,8 +858,7 @@ def block_cases(fa, device, gen, b: int):
         return torch.randn(*shape, generator=gen, device=device) * scale
 
     out = []
-    for l, d, heads, causal, prefix in ((257, 1024, 16, False, 0), (463, 768, 12, True, 335),
-                                        (128, 768, 12, True, 0)):
+    for l, d, heads, causal, prefix in shapes:
         x = rnd(b, l, d).bfloat16()
         w = (rnd(d, scale=0.1) + 1, rnd(d, scale=0.1), rnd(3 * d, d, scale=d**-0.5).bfloat16(),
              rnd(3 * d, scale=0.1), rnd(d, d, scale=d**-0.5).bfloat16(), rnd(d, scale=0.1))
@@ -1628,20 +1667,20 @@ def block_bwd_parts(gk, device, gen, b: int, l: int = 257, d: int = 1024):
     return cases
 
 
-def fused_block_bwd_cases(fa, device, gen, b: int, lengths=(257, 463, 128)):
-    """The fused block's whole backward (#10's 12 launches) at the three
-    training shapes (those of `lengths`), against the plain Pallas-order
-    backward; its library call is the autograd backward of the block as
-    library calls."""
+def fused_block_bwd_cases(fa, device, gen, b: int, lengths=(257, 463, 128),
+                          shapes=BLOCK_SHAPES):
+    """The fused block's whole backward (#10's 12 launches) at those of
+    `shapes` (default: the three training shapes) whose length is in
+    `lengths`, against the plain Pallas-order backward; its library call is
+    the autograd backward of the block as library calls."""
     import torch
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=device) * scale
 
     cases = []
-    for l, d, heads, causal, prefix in ((257, 1024, 16, False, 0), (463, 768, 12, True, 335),
-                                        (128, 768, 12, True, 0)):
-        if l not in lengths:
+    for l, d, heads, causal, prefix in shapes:
+        if lengths is not None and l not in lengths:
             continue
         x, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
         w = (rnd(d, scale=0.1) + 1, rnd(d, scale=0.1), rnd(3 * d, d, scale=d**-0.5).bfloat16(),
@@ -2740,6 +2779,17 @@ TP_PARTIAL_BWD_LAUNCHES = {"layernorm": 1, "gemm_bias_act": 1, "flash_attention"
                            "gemm_tn": 2, "layernorm_bwd": 1, "colsum": 1}
 TP_SIZE = 2  # phase 18's tensor axis: two ranks share the one card
 TP_TIMEOUT_S = 420  # each torchrun launch of phase 18
+# Phase 18's depth, cut from phase 8's 24 image, 12 text and 12 decoder
+# blocks (the full widths kept): two ranks on one card spend ~90% of a step
+# in gloo's host-staged all-reduces, which scale with the blocks
+TP_DEPTH = {"image": 8, "text": 4, "text_decoder_config": 4}
+
+
+def tp_config(cfg: dict) -> dict:
+    """`cfg` at phase 18's depth (TP_DEPTH)."""
+    for tower, depth in TP_DEPTH.items():
+        cfg["model"][tower]["depth"] = depth
+    return cfg
 
 
 def _library_partial(x, ln_w, ln_b, w_qkv, b_qkv, w_o, heads: int, sdpa_kw: dict):
@@ -2897,7 +2947,8 @@ def tp_train_overrides(no_pil: bool) -> list:
     for key, value in (("input.batch_size", TRAIN_BATCH), ("input.data.num_examples", 1024),
                        ("input.data.res", RES), ("total_steps", TRAIN_STEPS),
                        ("log_training_steps", 1), ("schedule.0.1.warmup_steps", 1),
-                       ("model.image.fast_gelu", True), ("input.pp", c["input"]["pp"])):
+                       ("model.image.fast_gelu", True), ("input.pp", c["input"]["pp"]),
+                       *((f"model.{t}.depth", d) for t, d in TP_DEPTH.items())):
         args += ["--override", f"{key}={value}"]
     return args
 
@@ -2948,7 +2999,7 @@ def tp_grads_worker(out_dir: str, no_pil: bool) -> int:
     device = parallel.maybe_distributed_init("cuda")
     mesh = parallel.create_mesh(data=1, fsdp=1, tensor=TP_SIZE, device_type="cuda")
     rank = parallel.rank()
-    cfg = train_config("concat", "fused", no_pil=no_pil)
+    cfg = tp_config(train_config("concat", "fused", no_pil=no_pil))
     with parallel.use_mesh(mesh):
         model = tstep.build_model(cfg).to(device)
         opt = tstep.init_train_state(cfg, model, total_steps=TRAIN_STEPS, mesh=mesh)
@@ -2995,7 +3046,7 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
     from openvision_tpu_torch.train import step as tstep
 
     # the one-process kernel path on the params and batch the ranks see
-    cfg = train_config("concat", "fused", no_pil=no_pil)
+    cfg = tp_config(train_config("concat", "fused", no_pil=no_pil))
     loader, _ = pipeline.training(cfg["input"], seed=SEED)
     model = init_params(tstep.build_model(cfg).to(device), SEED)
     loss, _ = tstep.make_loss_fn(cfg, model)(tstep.to_device(next(loader), device))
@@ -3023,7 +3074,7 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
     del tp, ref, got
     torch.cuda.empty_cache()
     ranks = [json.load(open(os.path.join(out_dir, f"tp_rank{r}.json"))) for r in range(TP_SIZE)]
-    blocks = IMG_BLOCKS + DEC_BLOCKS
+    blocks = TP_DEPTH["image"] + TP_DEPTH["text_decoder_config"]
     grad_want = {k: v * blocks for k, v in TP_BLOCK_STEP.items()}  # fwd, recompute, bwd
     for r in ranks:
         print(f"[tensor={TP_SIZE}] rank {r['rank']}: step {r['step_ms']:.1f} ms (CUDA events; two "
@@ -3062,7 +3113,7 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
     if ckpts != [f"ckpt-{TRAIN_STEPS}.npz"]:
         raise AssertionError(f"tensor parallel training wrote {ckpts}")
     with torch.inference_mode():
-        cap, tok = build_captioner(get_config(caption_arg("concat", "fused")),
+        cap, tok = build_captioner(tp_config(get_config(caption_arg("concat", "fused"))),
                                    os.path.join(wd, "checkpoints", ckpts[0]), device=device)
         ids = cap(cap_batch)
         logits = cap.logits(cap_batch)
@@ -3869,6 +3920,436 @@ def interp_phase(model_dir: str, work: str, device, totals: dict) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# Webdataset pretraining and the resolution curriculum (phase 21)
+# ---------------------------------------------------------------------------
+
+# BASELINE.json configs 4 and 5 through main_clip: ViT-B/16 + text B +
+# decoder L (the JAX default config, coca, concat, remat=full), bf16 on f32
+# master weights, on webdataset tar shards written by the script.
+CUR_ARG = "img=B/16,txt_name=B,dtype=bfloat16"
+CUR_SHARDS, CUR_RECORDS, CUR_H, CUR_W = 4, 512, 256, 320
+CUR_WORKERS = 8
+CUR_TIMEOUT_S = 420  # each main_clip run
+CUR_IMG_BLOCKS = CUR_DEC_BLOCKS = 12
+# (name, res, batch, grad_accum, steps, mask_ratio): pretraining at 112 with
+# half the patch tokens masked, then the 224 and 384 finetunes
+CUR_STAGES = (("stage 1", 112, 1024, 4, 3, 0.5), ("stage 2", 224, 512, 2, 3, 0.0),
+              ("stage 3", 384, 256, 4, 2, 0.0))
+CUR_LOAD_TRANSFORM = ("load_transform", 384, 256, 4, 1, 0.0)  # from a learned-posemb 224 state
+CUR_CHECK_BATCH = 256  # GradCache and the kernel route on the card
+# #9 (L, D, heads, causal, prefix) at the slice's lengths: the image tower at
+# 112 masked (1 + 24), 112 (1 + 49), 224 (1 + 196) and 384 (1 + 576), and the
+# concat decoder at the masked stage (24 image + 79 text tokens + 128 queries)
+CUR_BLOCK_SHAPES = ((25, 768, 12, False, 0), (50, 768, 12, False, 0), (197, 768, 12, False, 0),
+                    (577, 768, 12, False, 0), (231, 768, 12, True, 103))
+# the main path's batch at each of them (a microbatch of its stage)
+CUR_TIMED = ((256, (25, 768, 12, False, 0)), (256, (197, 768, 12, False, 0)),
+             (64, (577, 768, 12, False, 0)), (256, (231, 768, 12, True, 103)))
+
+
+def curriculum_step_launches(accum: int) -> dict:
+    """Launches of one GradCache step: pass 1 runs the image tower's 12
+    fused blocks forward without autograd (#9 and the tanh-GELU MLP on its
+    kernels), no decoder; pass 2 runs the image tower's and the concat
+    decoder's 12 fused blocks each forward twice and backward once
+    (remat=full); `accum` microbatches each; the text tower is on xla."""
+    from openvision_tpu_torch.ops import kernels
+
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for per, n in ((LAUNCHES_PER_BLOCK, CUR_IMG_BLOCKS),
+                   (FUSED_BLOCK_STEP, CUR_IMG_BLOCKS + CUR_DEC_BLOCKS)):
+        for k, v in per.items():
+            want[k] += v * n * accum
+    return want
+
+
+def write_curriculum_shards(work: str, images) -> str:
+    """CUR_SHARDS webdataset tars of CUR_RECORDS records each: a PNG of
+    CUR_H x CUR_W (a testcat image at an offset of its own, rows rolled),
+    a .txt caption and a .json with llava_caption. Returns the glob."""
+    import tarfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from openvision_tpu_torch.data.ops_image import encode_png
+
+    words = ("cat", "dog", "bat", "car", "tree", "house", "boat", "bird", "flower", "chair")
+    n = CUR_SHARDS * CUR_RECORDS
+    ih, iw = images[0].shape[:2]
+
+    def record(i):
+        canvas = np.full((CUR_H, CUR_W, 3), (37 * i) % 256, np.uint8)
+        y, x = (5 * i) % (CUR_H - ih + 1), (11 * i) % (CUR_W - iw + 1)
+        canvas[y:y + ih, x:x + iw] = np.roll(images[i % len(images)], 3 * (i // 9), axis=0)
+        a, b = words[i % 10], words[(i // 10) % 10]
+        return (encode_png(canvas), f"a photo of a {a} next to a {b}",
+                f"a detailed picture: a {a} stands beside a {b}, seen from angle {i % 360}.")
+
+    out = os.path.join(work, "shards")
+    os.makedirs(out)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        records = list(pool.map(record, range(n)))
+    for s in range(CUR_SHARDS):
+        with tarfile.open(os.path.join(out, f"train-{s:05d}.tar"), "w") as tf:
+            for i in range(s * CUR_RECORDS, (s + 1) * CUR_RECORDS):
+                png, txt, llava = records[i]
+                for ext, data in (("png", png), ("txt", txt.encode()),
+                                  ("json", json.dumps({"llava_caption": llava}).encode())):
+                    info = tarfile.TarInfo(f"{i:07d}.{ext}")
+                    info.size = len(data)
+                    tf.addfile(info, io.BytesIO(data))
+    mb = sum(len(r[0]) for r in records) / 1e6
+    print(f"webdataset fixture: {CUR_SHARDS} shards x {CUR_RECORDS} records ({CUR_H}x{CUR_W} "
+          f"PNG + txt + json, {mb:.0f} MB of PNG) in {time.perf_counter() - t0:.1f} s")
+    return os.path.join(out, "*.tar")
+
+
+def curriculum_config(res: int, batch: int, accum: int, steps: int, mask: float,
+                      pattern: str, workers: int = CUR_WORKERS, **extra) -> tuple:
+    """(the config arg, the --override list) of one curriculum run, and the
+    config dict they give."""
+    from openvision_tpu_torch.configs.openvision import get_config
+    from openvision_tpu_torch.main_clip import apply_override
+
+    arg = f"res={res},{CUR_ARG},mask_ratio={mask}"
+    overrides = [f"{k}={v}" for k, v in (
+        ("input.data.name", "webdataset"), ("input.data.pattern", pattern),
+        ("input.batch_size", batch), ("input.num_workers", workers), ("grad_accum", accum),
+        ("total_steps", steps), ("log_training_steps", 1), ("ckpt_steps", steps),
+        ("schedule.0.1.warmup_steps", min(1, steps - 1)), *extra.items())]
+    config = get_config(arg)
+    for ov in overrides:
+        apply_override(config, ov)
+    return arg, overrides, config
+
+
+def main_clip_run(arg: str, overrides, workdir: str, log_path: str, sigterm_after: str = "",
+                  device: str = "cuda"):
+    """python -m openvision_tpu_torch.main_clip in a session of its own
+    (killed at CUR_TIMEOUT_S); with `sigterm_after`, SIGTERM is sent once a
+    line of its output starts with it. Returns (exit code, seconds, the
+    metrics rows)."""
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-u", "-m", "openvision_tpu_torch.main_clip", "--config",
+           f"openvision_tpu_torch/configs/openvision.py:{arg}", "--workdir", workdir,
+           "--device", device]
+    for ov in overrides:
+        cmd += ["--override", ov]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        timer = threading.Timer(CUR_TIMEOUT_S, os.killpg, (proc.pid, signal.SIGKILL))
+        timer.start()  # the run and every process it starts end by the timeout
+        try:
+            for line in proc.stdout:
+                log.write(line)
+                if line.startswith("NOTE"):
+                    print(f"    {line.rstrip()}")
+                if sigterm_after and line.startswith(sigterm_after):
+                    proc.send_signal(signal.SIGTERM)
+                    sigterm_after = ""
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    if rc == -signal.SIGKILL:
+        rc = "timeout"
+    took = time.perf_counter() - t0
+    if rc != 0:
+        print(open(log_path).read()[-8000:])
+        raise AssertionError(f"main_clip {arg}: exit {rc}")
+    rows = [json.loads(line) for line in open(os.path.join(workdir, "metrics.jsonl"))]
+    return rc, took, rows
+
+
+def stage_report(tag: str, rows, steps_run: int, accum: int, batch: int, took: float,
+                 totals: dict, profiled: int = 0) -> dict:
+    """Checks a run's losses and launch counts (the last row's, this
+    process's since it started) and prints its numbers (those of the
+    `profiled` step apart)."""
+    losses = [r["training_loss"] for r in rows if "training_loss" in r]
+    launches = {k.split("/", 1)[1]: int(v) for k, v in rows[-1].items()
+                if k.startswith("launches/")}
+    want = {k: v * steps_run for k, v in curriculum_step_launches(accum).items() if v}
+    timed = [r for r in rows if "step_ms" in r and r["step"] != profiled]
+    step_ms = [r["step_ms"] for r in timed]
+    wait = [r["host_wait_share"] for r in timed]
+    peak = max(r.get("peak_gb", 0.0) for r in rows)
+    print(f"{tag}: {len(losses)} steps in {took:.1f} s (start-up, shards index, init, workers, "
+          f"steps, checkpoint); losses {[round(x, 4) for x in losses]}; launches {launches}")
+    print(f"{tag}: step ms {[round(x, 1) for x in step_ms]}, images/s "
+          f"{[round(batch / (x / 1e3), 1) for x in step_ms]}, data-wait share "
+          f"{[round(x, 4) for x in wait]}, peak {peak:.2f} GB  [{smi_line()}]")
+    if len(losses) != steps_run or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    for k, v in launches.items():
+        totals[k] += v
+    return {"step_ms": step_ms, "images_per_s": [batch / (x / 1e3) for x in step_ms],
+            "wait_share": wait, "peak_gb": peak, "losses": losses}
+
+
+def pp_rates(pattern: str) -> dict:
+    """Records/s of stage 1's input pipeline (webdataset read, PNG decode,
+    inception crop to 112, color jitter, two tokenizations) with 0 and
+    CUR_WORKERS worker processes: a batch of 1024 after a warm-up batch."""
+    from openvision_tpu_torch.data import pipeline
+
+    rates = {}
+    for workers in (0, CUR_WORKERS):
+        _, _, cfg = curriculum_config(112, 1024, 4, 3, 0.5, pattern, workers=workers)
+        loader, _ = pipeline.training(cfg["input"], seed=SEED)
+        try:
+            t0 = time.perf_counter()
+            next(loader)
+            t1 = time.perf_counter()
+            next(loader)  # the pool works on it only once the first is returned
+            t2 = time.perf_counter()
+        finally:
+            loader.close()
+        rates[workers] = 1024 / (t2 - t1)
+        print(f"pp, {workers} workers: {rates[workers]:.1f} records/s (first batch, with the "
+              f"start-up: {t1 - t0:.2f} s)  [{smi_line()}]")
+    return rates
+
+
+def gradcache_checks(pattern: str, device) -> None:
+    """GradCache and the kernel route on the card, on stage 1's model (seed 0)
+    and one batch of CUR_CHECK_BATCH: grad_accum=4 against grad_accum=1 with
+    masking off (the two paths draw their masks differently: accum=1 from the
+    step's generator, accum=4 from one per microbatch, as the JAX step folds
+    the microbatch index into its key), L = 50; then at mask_ratio 0.5 (L =
+    25) the kernel route against plain bf16 (attn_impl and dec_attn_impl
+    xla), both at grad_accum=4 on the same draws. Loss within 2**-7
+    relative, global gradient cosine >= 0.999. Last, at mask_ratio 0.5 with
+    drop-path 0.1 in every tower and the step's generator, pass 2 must
+    replay pass 1's draws: each microbatch's embeddings in pass 2 against
+    the ones pass 1 cached, cosine >= 0.999 per row (the image tower's
+    blocks take fused_qkv_attention, #7/#8, under drop-path)."""
+    import torch
+
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.train import step as tstep
+
+    _, _, cfg = curriculum_config(112, CUR_CHECK_BATCH, 4, 1, 0.5, pattern, workers=0)
+    loader, _ = pipeline.training(cfg["input"], seed=SEED)
+    batch = tstep.to_device(next(loader), device)
+    model = init_params(tstep.build_model(cfg).to(device), SEED)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+
+    def grads(accum: int, mask: float, plain: bool = False, drop_path: float = 0.0):
+        c = curriculum_config(112, CUR_CHECK_BATCH, accum, 1, mask, pattern, workers=0)[2]
+        for tower in ("image", "text", "text_decoder_config"):
+            if plain:
+                c["model"][tower]["attn_impl"] = "xla"
+            if drop_path:
+                c["model"][tower]["drop_path"] = drop_path
+        m = tstep.build_model(c).to(device)
+        opt = tstep.init_train_state(c, m, total_steps=10, params=state)
+        t0 = time.perf_counter()
+        meas, g = tstep.make_grad_fn(c, m, opt)(batch, rng=tstep.step_generator(SEED, 0))
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        out = float(meas["training_loss"]), {n: t.detach().float().clone() for n, t in g.items()}
+        del m, opt, g
+        torch.cuda.empty_cache()
+        return out, took
+
+    for label, (a, b) in (
+            ("grad_accum=4 vs grad_accum=1, kernels, L=50", ((4, 0.0), (1, 0.0))),
+            ("kernels vs plain bf16, grad_accum=4, mask 0.5 (L=25)", ((4, 0.5), (4, 0.5, True)))):
+        (la, ga_), ta = grads(*a)
+        (lb, gb), tb = grads(*b)
+        glob, (worst, name) = grad_cosines(ga_, gb)
+        print(f"  {label}: losses {la:.6f} vs {lb:.6f} (rel {abs(la - lb) / abs(lb):.3e}), "
+              f"gradient cosine global {glob:.6f}, min per-tensor {worst:.6f} ({name}); "
+              f"{ta:.2f} s and {tb:.2f} s a gradient (first call)")
+        if abs(la - lb) > 2**-7 * abs(lb) or glob < 0.999:
+            raise AssertionError(f"{label}: loss {la} vs {lb}, gradient cosine {glob}")
+        del ga_, gb
+
+    seen = []
+    forward = tstep.forward
+
+    def recording(config, model, mb, rng=None, caption=True):
+        zimg, ztxt, out = forward(config, model, mb, rng, caption)
+        seen.append(torch.cat([zimg, ztxt]).detach().float())
+        return zimg, ztxt, out
+
+    tstep.forward = recording
+    try:
+        (loss, g), took = grads(4, 0.5, drop_path=0.1)
+    finally:
+        tstep.forward = forward
+    del g
+    if len(seen) != 8:
+        raise AssertionError(f"GradCache ran {len(seen)} tower forwards, not 2 x 4")
+    cos = min(torch.nn.functional.cosine_similarity(a, b, dim=-1).min().item()
+              for a, b in zip(seen[:4], seen[4:]))
+    print(f"  pass 2 replays pass 1's draws (grad_accum=4, mask 0.5, drop-path 0.1, kernels): "
+          f"min row cosine of the embeddings {cos:.6f}, loss {loss:.6f}; {took:.2f} s a gradient")
+    if not cos >= 0.999 or not np.isfinite(loss):
+        raise AssertionError(f"GradCache pass 2 drew other masks than pass 1: cosine {cos}, "
+                             f"loss {loss}")
+
+
+def trace_busy(path: str) -> tuple:
+    """(device busy ms, traced ms) of a torch.profiler Chrome trace: the
+    union of its GPU kernels' intervals, and the span from its first event
+    to its last."""
+    events = json.load(open(path))["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "kernel")
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    timed = [e for e in events if e.get("ph") == "X" and "ts" in e]
+    wall = max(e["ts"] + e.get("dur", 0) for e in timed) - min(e["ts"] for e in timed)
+    return busy / 1e3, wall / 1e3
+
+
+def curriculum_phase(images, work: str, device, totals: dict, worst: dict) -> dict:
+    """Phase 21: webdataset pretraining and the resolution curriculum."""
+    import torch
+
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.ops import fused_attention as fa
+    from openvision_tpu_torch.train import checkpoint as ckpt_lib
+    from openvision_tpu_torch.train import step as tstep
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device).type
+    pattern = write_curriculum_shards(work, images)
+    rates = pp_rates(pattern)
+
+    print("#9 and #10 against their plain twins at the slice's lengths (B=8, D=768, 12 heads):")
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    with torch.no_grad():
+        check_cases(block_cases(fa, device, gen, 8, CUR_BLOCK_SHAPES), worst)
+        check_bwd_cases(fused_block_bwd_cases(fa, device, gen, 8, None, CUR_BLOCK_SHAPES), worst)
+    torch.cuda.empty_cache()
+
+    print("GradCache and the kernel route on the card:")
+    gradcache_checks(pattern, device)
+
+    results, ckpt = {}, None
+    for name, res, batch, accum, steps, mask in CUR_STAGES:
+        wd = os.path.join(work, name.replace(" ", ""))
+        extra = {"ft_from": ckpt} if ckpt else {}
+        if name == "stage 1":  # the profiler hook traces the last step (step 2 runs without)
+            extra.update(profile_start_step=steps, profile_stop_step=steps)
+        arg, ovs, _ = curriculum_config(res, batch, accum, steps, mask, pattern, **extra)
+        tag = f"[{name}: res {res}, batch {batch}, grad_accum {accum}, mask {mask}]"
+        if name == "stage 2":  # preempted after its first step, then resumed
+            _, took, rows = main_clip_run(arg, ovs, wd, wd + ".log", "NOTE: step 1/", dev)
+            saved = ckpt_lib.saved_steps(os.path.join(wd, "checkpoints"))
+            log = open(wd + ".log").read()
+            if len(saved) != 1 or not 1 <= saved[0] < steps or "preemption signal" not in log:
+                raise AssertionError(f"{tag}: SIGTERM left checkpoints {saved}")
+            print(f"{tag}: SIGTERM after step 1's log line: checkpoint at step {saved[0]}, exit 0")
+            first = stage_report(f"{tag} before SIGTERM", rows, saved[0], accum, batch, took,
+                                 totals)
+            _, took, rows = main_clip_run(arg, ovs, wd, wd + "-resumed.log", device=dev)
+            if f"resuming from step {saved[0]}" not in open(wd + "-resumed.log").read():
+                raise AssertionError(f"{tag}: the rerun did not resume from step {saved[0]}")
+            rows = [r for r in rows if r["step"] > saved[0]]
+            second = stage_report(f"{tag} resumed", rows, steps - saved[0], accum, batch, took,
+                                  totals)
+            results[name] = {k: first[k] + second[k] if isinstance(first[k], list)
+                             else max(first[k], second[k]) for k in first}
+        else:
+            profiled = steps if name == "stage 1" else 0
+            _, took, rows = main_clip_run(arg, ovs, wd, wd + ".log", device=dev)
+            results[name] = stage_report(tag, rows, steps, accum, batch, took, totals, profiled)
+        if name == "stage 1":
+            busy, wall = trace_busy(os.path.join(wd, "profile", f"trace-{steps}-{steps}.json"))
+            results[name]["busy_ms"], results[name]["traced_ms"] = busy, wall
+            step_ms = next(r["step_ms"] for r in rows if r["step"] == steps)
+            print(f"{tag}: the profiler hook's trace of step {steps}: device busy {busy:.1f} ms "
+                  f"of {wall:.1f} traced ({100 * (1 - busy / wall):.1f}% idle); the step under "
+                  f"the profiler {step_ms:.1f} ms")
+        ckpt = os.path.join(wd, "checkpoints", f"ckpt-{steps}.npz")
+        if not os.path.exists(ckpt):
+            raise AssertionError(f"{tag}: no checkpoint at step {steps}")
+
+    # load_transform: a learned-posemb B/16 state written at 224, started at 384
+    name, res, batch, accum, steps, mask = CUR_LOAD_TRANSFORM
+    src_cfg = curriculum_config(224, batch, accum, steps, mask, pattern,
+                                **{"model.image.posemb": "learn"})[2]
+    src = init_params(tstep.build_model(src_cfg).to(device), SEED + 5)
+    pe = src.visual.positional_embedding.shape
+    src_path = os.path.join(work, "posemb_learn_224.npz")
+    ckpt_lib.save_npz(src_path, {"params": dict(src.state_dict())})
+    del src
+    wd = os.path.join(work, "load_transform")
+    arg, ovs, _ = curriculum_config(res, batch, accum, steps, mask, pattern,
+                                    **{"model.image.posemb": "learn", "load_transform": src_path})
+    _, took, rows = main_clip_run(arg, ovs, wd, wd + ".log", device=dev)
+    tag = f"[load_transform: posemb {tuple(pe)} at 224 -> res {res}, batch {batch}]"
+    results[name] = stage_report(tag, rows, steps, accum, batch, took, totals)
+    loaded = ckpt_lib.load_npz(os.path.join(wd, "checkpoints", f"ckpt-{steps}.npz"))["params"]
+    got = tuple(np.asarray(loaded["visual.positional_embedding"]).shape)
+    if got != (1 + (res // 16) ** 2, pe[1]):
+        raise AssertionError(f"{tag}: position embedding {got}")
+    print(f"{tag}: the trained state's position embedding {got}")
+
+    print("#9 and #10 at the slice's shapes (CUDA events, graph replay, bound, plain, library):")
+    times = {}
+    with torch.no_grad():
+        for b, shape in CUR_TIMED:
+            for c in block_cases(fa, device, gen, b, (shape,)):
+                times[c.label] = time_case(c)
+            for c in fused_block_bwd_cases(fa, device, gen, b, None, (shape,)):
+                times[c.label] = time_bwd_case(c)
+            torch.cuda.empty_cache()
+    results["pp_records_per_s"] = rates
+    results["block_times"] = times
+    results["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 21 in {results['phase_s']:.1f} s  [{smi_line()}]")
+    return results
+
+
+def curriculum_only() -> int:
+    """``chip_smoke.py --curriculum``: the kernel build and phase 21 alone."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from openvision_tpu_torch.data.ops_image import decode_png
+    from openvision_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    kernels.lib()
+    print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    images = [decode_png(open(os.path.join(REPO, "testcat", f), "rb").read())
+              for f in sorted(os.listdir(os.path.join(REPO, "testcat"))) if f.endswith(".png")]
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        curriculum_phase(images, work, torch.device("cuda"), totals, {})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 21 launches: { {k: v for k, v in totals.items() if v} }")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4135,6 +4616,11 @@ def run(work: str) -> int:
     phase("20. interpretability tools at full width: gradient ascent (L/14), feature viz (S/8), "
           "neuron capture and PGD (L/14); fused bf16 against plain bf16 and f32")
     interp = interp_phase(model_dir, work, device, totals)
+    torch.cuda.empty_cache()
+
+    phase("21. webdataset pretraining and the resolution curriculum: ViT-B/16 + text B + "
+          "decoder L, bf16, GradCache, through main_clip on tar shards")
+    curriculum = curriculum_phase(images, work, device, totals, worst)
 
     phase("summary")
     print(f"card: {smi}")
@@ -4159,6 +4645,15 @@ def run(work: str) -> int:
     for k, v in interp["seconds"].items():
         print(f"tools: seconds an iteration, {k}: {v:.6f}")
     print(f"tools: phase 20 in {interp['phase_s']:.1f} s")
+    for k in ("stage 1", "stage 2", "stage 3", "load_transform"):
+        v = curriculum[k]
+        print(f"curriculum {k}: step ms {[round(x, 1) for x in v['step_ms']]}, images/s "
+              f"{[round(x, 1) for x in v['images_per_s']]}, data-wait share "
+              f"{[round(x, 4) for x in v['wait_share']]}, peak {v['peak_gb']:.2f} GB"
+              + (f", device busy {v['busy_ms']:.1f} of {v['traced_ms']:.1f} ms traced"
+                 if "busy_ms" in v else ""))
+    print(f"curriculum pp records/s (0 and {CUR_WORKERS} workers): "
+          f"{curriculum['pp_records_per_s']}; phase 21 in {curriculum['phase_s']:.1f} s")
     print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "
           f"{totals}")
     missing = [k for k, v in totals.items() if v == 0]
@@ -4445,4 +4940,6 @@ if __name__ == "__main__":
         sys.exit(attn_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     if sys.argv[1:2] == ["--ln"]:
         sys.exit(ln_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
+    if sys.argv[1:2] == ["--curriculum"]:
+        sys.exit(curriculum_only())
     sys.exit(main())

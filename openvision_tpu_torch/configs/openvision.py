@@ -117,6 +117,9 @@ def get_config(arg: str | None = None) -> dict:
             "shuffle_buffer_size": 250_000 if not arg["runlocal"] else 50,
             "txt_token_length": arg["token_len"],
             "batch_size": batch_size,
+            # batch-level mixup/cutmix after batching (JAX :107-112); off for CLIP
+            "mixup": dict(enabled=False, mixup_alpha=0.8, cutmix_alpha=1.0, switch_prob=0.5,
+                          image_key="image", label_key="labels"),
             "pp": img_pp + text_pp,
         },
         "vocab_path": arg["vocab_path"],

@@ -19,7 +19,7 @@ Name map (flat JAX name <-> OpenCLIP key), vision tower:
 Text tower: txt/Embed_0/embedding <-> token_embedding.weight, txt/pos_embedding
 <-> positional_embedding, txt/encoder_norm <-> ln_final, txt/head/kernel <->
 text_projection (no transpose), blocks <-> transformer.resblocks.N.*; and
-t <-> logit_scale.
+t <-> logit_scale, b <-> logit_bias.
 
 Caption decoder (no OpenCLIP counterpart; port names under ``txt_decoder.``,
 JAX names under ``txt_decoder/``):
@@ -256,8 +256,10 @@ def openclip_to_jax(state_dict: Dict[str, Any], *, num_heads_vision: int,
 def openclip_to_state_dict(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """OpenCLIP state_dict -> the port's CLIPModel state dict (f32 tensors).
 
-    The text tower's keys move under ``text.``; ``logit_bias`` has no place
-    in the port's CLIPModel yet and is dropped, as the JAX tools ignore it.
+    The text tower's keys move under ``text.``; ``logit_bias`` is dropped,
+    as the JAX tools ignore it (an exported two-tower model holds none; a
+    JAX param tree's ``b`` reaches the trainer through
+    :func:`jax_params_to_state_dict`).
     """
     out = {}
     for k, v in state_dict.items():
@@ -366,8 +368,11 @@ def jax_params_to_state_dict(params: Any) -> Dict[str, torch.Tensor]:
     """JAX param tree (nested dict of arrays: towers, and the caption
     decoder under ``txt_decoder`` if present) -> port state dict (f32).
 
-    This is how weights cross from the JAX package to the port."""
+    This is how weights cross from the JAX package to the port; a SigLIP
+    logit bias ``b`` becomes ``logit_bias``."""
     sd = openclip_to_state_dict(jax_to_openclip(params))
+    if "b" in params:
+        sd["logit_bias"] = torch.from_numpy(np.array(params["b"], dtype=np.float32).reshape(()))
     if "txt_decoder" in params:
         for k, v in jax_decoder_to_state_dict(params["txt_decoder"]).items():
             sd[k] = torch.from_numpy(np.array(v, dtype=np.float32))
@@ -402,6 +407,7 @@ _TOWER_LEAVES = {
     "text.ln_final.bias": "txt/encoder_norm/bias",
     "text.text_projection": "txt/head/kernel",
     "logit_scale": "t",
+    "logit_bias": "b",
     "txt_decoder.image_projection_layer.weight": "txt_decoder/image_projection_layer/kernel",
     "txt_decoder.text_projection_layer.weight": "txt_decoder/text_projection_layer/kernel",
     "txt_decoder.learnable_tokens": "txt_decoder/learnable_tokens",

@@ -14,7 +14,17 @@ own shuffle and per-record seeds are not reproduced. On a process mesh each
 process reads only its rows of every global batch (``rows``, its (data,
 fsdp) shard: ``parallel.Mesh.batch_rows``): the same records, with the same
 generators, that the one-process loader puts there; the position still
-counts the global batch's records.
+counts the global batch's records. ``input.num_workers`` (grain's
+``worker_count``, JAX trainer :211-213) runs the pp in that many spawned
+worker processes, a batch's rows cut into contiguous chunks, and prepares
+the next batch while the caller trains on this one; the records and their
+generators are those of the synchronous loader, so a batch is the same with
+0 workers or N. ``input.mixup.enabled`` applies :class:`MixupCutmixTransform`
+(:178-205, ``data/ops_aug.py:mixup_cutmix``) to each batch (this process's
+rows) after stacking, with a generator of the seed and the batch's first
+position. :func:`training_mixture` (:245-269) draws each batch from one of
+several pipelines, in the order ``default_rng(seed).choice`` gives over the
+normalized weights, component i seeded with seed + i.
 
 Inference (``make_for_inference`` :271-349): one epoch in order, the last
 batch zero-padded and a ``_mask`` key marking the real rows; with
@@ -22,13 +32,15 @@ batch zero-padded and a ``_mask`` key marking the real rows; with
 ``torch.utils.data.DataLoader``, in order. One process only: a batch holds
 ``batch_size`` rows (the evaluators refuse a process mesh).
 
-Sources: ``synthetic``, ``DictSource`` (:73), ``JsonlImageSource`` (:92) and
-``TfdsDirectorySource`` (:567), which serves a TFDS-format directory of
-TFRecord shards (``data/tfrecord.py``: no tensorflow, no
-tensorflow_datasets), with the ``split[a:b]`` sub-split syntax and
-``label.labels.txt``; its shards are indexed in Python (the JAX package's
-native indexer is not ported). ``arrayrecord`` needs grain and
-``webdataset`` is not ported: both raise by name.
+Sources: ``synthetic``, ``DictSource`` (:73), ``JsonlImageSource`` (:92),
+``WebdatasetTarSource`` (:489-565: webdataset tar shards, ``paths`` or the
+sorted glob of ``pattern``; each shard indexed once with Python's tarfile,
+the native indexer not ported) and ``TfdsDirectorySource`` (:567), which
+serves a TFDS-format directory of TFRecord shards (``data/tfrecord.py``: no
+tensorflow, no tensorflow_datasets), with the ``split[a:b]`` sub-split
+syntax and ``label.labels.txt``; its shards are indexed in Python (the JAX
+package's native indexer is not ported). ``arrayrecord`` needs grain and
+raises by name.
 """
 
 from __future__ import annotations
@@ -192,6 +204,63 @@ def _tfds_label_names(data_dir: str):
     return None
 
 
+class WebdatasetTarSource:
+    """Random access over webdataset-style tar shards.
+
+    Each shard is scanned once with tarfile, its members grouped by key
+    prefix (``<key>.jpg``, ``<key>.txt``, ``<key>.json``, ...), the keys of a
+    shard in sorted order; a record is read back with ``os.pread`` at its
+    members' offsets. Image members (jpg, jpeg, png, webp) stay encoded
+    under ``"jpg"`` (the pp ``decode`` and crop ops decode them: PNG with
+    ``decode_png``, anything else with Pillow); ``txt`` is decoded as UTF-8;
+    a ``json`` member's keys are merged in without overwriting;
+    ``llava_caption`` defaults to ``txt``, ``txt`` to "".
+    """
+
+    def __init__(self, paths: Sequence[str], text_keys=("txt", "json")):
+        import tarfile
+
+        self._shards: list[str] = list(paths)
+        self._text_keys = text_keys
+        self._index: list[tuple[int, dict[str, tuple[int, int]]]] = []
+        for si, path in enumerate(self._shards):
+            groups: dict[str, dict[str, tuple[int, int]]] = {}
+            with tarfile.open(path) as tf:
+                for m in tf:
+                    if m.isfile():
+                        key, _, ext = os.path.basename(m.name).rpartition(".")
+                        groups.setdefault(key, {})[ext.lower()] = (m.offset_data, m.size)
+            self._index.extend((si, groups[key]) for key in sorted(groups))
+        self._fds: dict[int, int] = {}
+
+    def __repr__(self):
+        return (f"WebdatasetTarSource(shards={self._shards!r}, "
+                f"text_keys={tuple(self._text_keys)!r})")
+
+    def __len__(self):
+        return len(self._index)
+
+    def __getstate__(self):
+        return {**self.__dict__, "_fds": {}}
+
+    def __getitem__(self, i: int):
+        shard, members = self._index[i]
+        fd = _shard_fd(self._fds, self._shards, shard)
+        out: dict[str, Any] = {}
+        for ext, (offset, size) in members.items():
+            raw = os.pread(fd, size, offset)
+            if ext in ("jpg", "jpeg", "png", "webp"):
+                out["jpg"] = raw
+            elif ext == "txt":
+                out["txt"] = raw.decode("utf-8")
+            elif ext == "json":
+                for k, v in json.loads(raw).items():
+                    out.setdefault(k, v)
+        out.setdefault("txt", "")
+        out.setdefault("llava_caption", out["txt"])
+        return out
+
+
 def get_source(data_cfg: dict):
     """The source a config's input.data names."""
     name = data_cfg.get("name", "synthetic")
@@ -203,22 +272,76 @@ def get_source(data_cfg: dict):
                                 data_cfg.get("image_key", "image"))
     if name == "tfds":
         return TfdsDirectorySource(data_cfg["data_dir"], data_cfg.get("split", "train"))
+    if name == "webdataset":
+        return WebdatasetTarSource(data_cfg.get("paths") or sorted(glob.glob(data_cfg["pattern"])))
     if name == "arrayrecord":
         raise NotImplementedError("data source 'arrayrecord' needs grain, which the port does "
                                   "not use; convert the records with data/prepare.py")
-    raise NotImplementedError(f"data source {name!r} is not ported yet")
+    raise ValueError(f"Unknown data source: {name!r}")
+
+
+class MixupCutmixTransform:
+    """Batch-level mixup / cutmix after batching (JAX :178-205): the batch
+    mixed with its reversal by ``ops_aug.mixup_cutmix``."""
+
+    def __init__(self, image_key: str = "image", label_key: str = "labels",
+                 mixup_alpha: float = 0.8, cutmix_alpha: float = 1.0, switch_prob: float = 0.5,
+                 num_classes: int | None = None):
+        self.image_key, self.label_key = image_key, label_key
+        self.kw = dict(mixup_alpha=mixup_alpha, cutmix_alpha=cutmix_alpha,
+                       switch_prob=switch_prob, num_classes=num_classes)
+
+    def __call__(self, batch: dict, rng: np.random.Generator) -> dict:
+        from openvision_tpu_torch.data.ops_aug import mixup_cutmix
+
+        batch = dict(batch)
+        batch[self.image_key], batch[self.label_key] = mixup_cutmix(
+            batch[self.image_key], batch[self.label_key], rng, **self.kw)
+        return batch
+
+
+_WORKER: dict = {}  # a pp worker process's source, pp fn and seed
+
+
+def _init_worker(source, pp_string: str, seed: int) -> None:
+    import_pp_modules()
+    _WORKER.update(source=source, pp_fn=build_pp_fn(pp_string), seed=seed)
+
+
+def _preprocess_chunk(jobs) -> dict:
+    """[(record index, stream position)] -> their stacked examples."""
+    src, pp_fn, seed = _WORKER["source"], _WORKER["pp_fn"], _WORKER["seed"]
+    return _stack([pp_fn(dict(src[i]), np.random.default_rng([seed, pos])) for i, pos in jobs])
 
 
 class TrainIterator:
-    """Batches of preprocessed records, forever, with a resumable position."""
+    """Batches of preprocessed records, forever, with a resumable position.
 
-    def __init__(self, source, pp_fn, batch_size: int, seed: int, position: int = 0,
-                 rows: slice = slice(None)):
-        self.source, self.pp_fn = source, pp_fn
+    With ``num_workers > 0`` a pool of that many spawned processes runs the
+    pp; the next batch is submitted as soon as one is returned, so its
+    preparation overlaps the caller's step. :meth:`close` stops the pool.
+    """
+
+    def __init__(self, source, pp_string: str, batch_size: int, seed: int, position: int = 0,
+                 rows: slice = slice(None), num_workers: int = 0, mixup: dict | None = None):
+        self.source, self.pp_string = source, pp_string
+        self.pp_fn = build_pp_fn(pp_string)  # an unknown op raises here, in this process
         self.batch_size, self.seed = batch_size, seed
         self.rows = rows  # this process's rows of each global batch
-        self.position = position  # records read so far
+        self.num_workers = num_workers
+        self.mixup = MixupCutmixTransform(**mixup) if mixup else None
+        self._position = position  # records returned so far
         self._order_epoch, self._order = None, None
+        self._pool, self._pending = None, None  # pending: (position, futures)
+
+    @property
+    def position(self) -> int:
+        return self._position
+
+    @position.setter
+    def position(self, value: int) -> None:
+        self._pending = None  # a prefetched batch of another position is dropped
+        self._position = value
 
     def _index(self, pos: int) -> int:
         n = len(self.source)
@@ -228,29 +351,88 @@ class TrainIterator:
             self._order_epoch = epoch
         return int(self._order[pos % n])
 
+    def _jobs(self, start: int) -> list:
+        return [(self._index(pos), pos)
+                for pos in range(start, start + self.batch_size)[self.rows]]
+
+    def _submit(self, start: int):
+        if self._pool is None:
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+
+            self._pool = ProcessPoolExecutor(
+                self.num_workers, mp_context=multiprocessing.get_context("spawn"),
+                initializer=_init_worker, initargs=(self.source, self.pp_string, self.seed))
+        jobs = self._jobs(start)
+        per = -(-len(jobs) // (2 * self.num_workers))  # two chunks a worker
+        return start, [self._pool.submit(_preprocess_chunk, jobs[i:i + per])
+                       for i in range(0, len(jobs), per)]
+
     def __iter__(self):
         return self
 
     def __next__(self) -> dict:
-        examples = []
-        for pos in range(self.position, self.position + self.batch_size)[self.rows]:
-            rng = np.random.default_rng([self.seed, pos])
-            examples.append(self.pp_fn(dict(self.source[self._index(pos)]), rng))
-        self.position += self.batch_size
-        return {k: np.stack([np.asarray(e[k]) for e in examples]) for k in examples[0]}
+        start = self._position
+        if self.num_workers > 0:
+            if self._pending is None or self._pending[0] != start:
+                self._pending = self._submit(start)
+            chunks = [f.result() for f in self._pending[1]]
+            batch = {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+            self._pending = self._submit(start + self.batch_size)
+        else:
+            batch = _stack([self.pp_fn(dict(self.source[i]), np.random.default_rng([self.seed, pos]))
+                            for i, pos in self._jobs(start)])
+        if self.mixup is not None:
+            batch = self.mixup(batch, np.random.default_rng([self.seed, start, 1]))
+        self._position = start + self.batch_size
+        return batch
 
     def get_state(self) -> int:
-        return self.position
+        return self._position
+
+    def close(self) -> None:
+        """Stops the worker processes (a later batch starts them again)."""
+        self._pending = None
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
 
 
 def training(input_cfg: dict, *, seed: int = 0, position: int = 0,
-             rows: slice = slice(None)):
+             rows: slice = slice(None), num_workers: int | None = None):
     """(batch iterator, number of examples) for the config's input section;
-    the iterator yields `rows` of each global batch."""
+    the iterator yields `rows` of each global batch, its pp in
+    `num_workers` processes (default ``input_cfg["num_workers"]``, else 0)."""
     import_pp_modules()
     source = get_source(input_cfg["data"])
-    return (TrainIterator(source, build_pp_fn(input_cfg["pp"]), input_cfg["batch_size"], seed,
-                          position, rows), len(source))
+    if num_workers is None:
+        num_workers = int(input_cfg.get("num_workers", 0) or 0)
+    mixup = dict(input_cfg.get("mixup") or {})
+    mixup = mixup if mixup.pop("enabled", False) else None
+    return (TrainIterator(source, input_cfg["pp"], input_cfg["batch_size"], seed, position, rows,
+                          num_workers=num_workers, mixup=mixup), len(source))
+
+
+class _Mixture:
+    def __init__(self, loaders, probs, seed: int):
+        self.loaders, self.probs, self.seed = loaders, probs, seed
+
+    def __iter__(self):
+        rng = np.random.default_rng(self.seed)
+        while True:
+            yield next(self.loaders[rng.choice(len(self.loaders), p=self.probs)])
+
+
+def training_mixture(input_cfgs: Sequence[dict], weights: Sequence[float], *, seed: int = 0,
+                     num_workers: int | None = None):
+    """A weighted mixture of training pipelines (JAX :245-269): each batch
+    comes from component i with probability weights[i], in the order
+    ``default_rng(seed)`` draws; component i is :func:`training` seeded with
+    seed + i. Returns (iterable of batches, total examples)."""
+    loaders, sizes = zip(*(training(c, seed=seed + i, num_workers=num_workers)
+                           for i, c in enumerate(input_cfgs)))
+    probs = np.asarray(weights, np.float64)
+    return _Mixture(loaders, probs / probs.sum(), seed), int(sum(sizes))
 
 
 # ---------------------------------------------------------------------------

@@ -78,9 +78,10 @@ def build_pp_fn(pp_string: str) -> Callable:
 
 
 def import_pp_modules(names=("ops_general", "ops_image", "ops_text", "bert_ops")):
-    """Imports the port's op modules so their registrations run (the JAX
-    package's augmentation modules, ops_aug and ops_autoaugment, are not
-    ported)."""
+    """Imports the port's op modules so their registrations run (the
+    per-image augmentation ops of the JAX package's ops_aug and
+    ops_autoaugment are not ported; ops_aug's batch mixup/cutmix is, in
+    ``data/ops_aug.py``, applied by the training pipeline)."""
     import importlib
 
     for n in names:

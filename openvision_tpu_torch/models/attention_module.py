@@ -15,10 +15,10 @@ Dispatch follows the JAX module (:97-105, :212-214):
   then the out-projection. Encoder blocks reach it where the whole-sub-block
   path is not eligible (openvision_tpu/models/encoder.py:134-145): with
   LayerScale, or in training with drop-path > 0 and dropout 0. Active
-  dropout turns off both fused paths in the JAX package
-  (models/encoder.py:141, models/attention_module.py:103) and runs plain
-  attention; the port refuses a dropout rate > 0 by name, so no block with
-  dropout reaches #7. DenseGeneral self-attention, which the JAX module
+  dropout (``dropout_rate > 0`` and a generator given in training) turns
+  off both fused paths, as in the JAX package (models/encoder.py:141,
+  models/attention_module.py:103), and runs the plain ``xla`` attention
+  with its probability dropout (:208-224). DenseGeneral self-attention, which the JAX module
   sends to ``xla`` instead, has no caller in the port.
 - otherwise ``fused`` falls to ``xla`` (cross-attention, an external mask),
   and a mask forces ``xla``;
@@ -50,7 +50,7 @@ from openvision_tpu_torch.parallel import copy_to_tensor, reduce_from_tensor, sh
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, width: int, num_heads: int, attn_impl: str = "xla",
-                 dtype: torch.dtype = torch.float32):
+                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         if width % num_heads:
             raise ValueError(f"width {width} is not divisible by {num_heads} heads")
@@ -59,21 +59,25 @@ class MultiHeadAttention(nn.Module):
         self.out_proj = zero_init(nn.Linear, width, width)
         self.num_heads = num_heads
         self.attn_impl = attn_impl
+        self.dropout_rate = float(dropout_rate)
         self.dtype = dtype
         self.tensor_parallel = 1  # the tensor axis size its heads are sharded over
 
     def forward(self, inputs_q: torch.Tensor, inputs_kv: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, *, causal: bool = False,
-                prefix_len: int = 0) -> torch.Tensor:
+                prefix_len: int = 0,
+                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
         """inputs_kv=None is self-attention; `mask` broadcasts to (B, H, Lq,
-        Lk); `causal` with `prefix_len > 0` is the prefix-LM mask."""
+        Lk); `causal` with `prefix_len > 0` is the prefix-LM mask;
+        `dropout_gen` (training) draws the probabilities' dropout mask."""
         self_attn = inputs_kv is None or inputs_kv is inputs_q
+        dropping = self.dropout_rate > 0.0 and dropout_gen is not None
         b, lq, _ = inputs_q.shape
         dt = self.dtype
         mesh = sharded_mesh(self.tensor_parallel)
         num_heads = self.num_heads // self.tensor_parallel
         d = self.in_proj_weight.shape[0] // 3  # D, or D/t on a tensor shard
-        if self.attn_impl == "fused" and self_attn and mask is None:
+        if self.attn_impl == "fused" and self_attn and mask is None and not dropping:
             # the JAX module's fused route (:97-134): q/k/v weights in the
             # compute dtype, their biases f32 (the param dtype)
             args = (inputs_q.to(dt).contiguous(), self.in_proj_weight.to(dt),
@@ -100,7 +104,8 @@ class MultiHeadAttention(nn.Module):
         # a mask, or fused with its preconditions unmet: the unfused xla path
         impl = "xla" if mask is not None or self.attn_impl == "fused" else self.attn_impl
         o = dispatch_attention(impl, q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
-                               dtype=dt)
+                               dtype=dt, dropout_rate=self.dropout_rate if dropping else 0.0,
+                               dropout_gen=dropout_gen)
         return self._out_proj(o.reshape(b, lq, d), mesh)
 
     def _out_proj(self, o: torch.Tensor, mesh) -> torch.Tensor:

@@ -37,8 +37,13 @@ Training: ``remat_policy`` wraps every block (self- and cross-attention) as
 the towers do, and with ``return_prelogits`` a ``train`` call returns
 ``decoder_norm``'s output through :meth:`TextDecoder.prelogits` for the
 head-fused caption loss (``losses.linear_softmax_xent``; :246-253), so the
-(N, Q, vocab) logits are never built. Dropout and drop-path (a rate > 0
-raises) and the scanned MLP are not ported.
+(N, Q, vocab) logits are never built. ``train`` with a generator turns on
+the dropout and drop-path (:71-131, :276-308): the concat stack's as the
+towers' Encoder, and under ``cross_attn`` each causal self-attention block's
+drop-path (linspace(0, drop_path, depth // 2)) and dropout and each
+cross-attention block's dropout (attention probabilities, the attention
+output, the MLP hidden, the MLP output; it takes no drop-path, as in the JAX
+block). The scanned MLP is not ported.
 """
 
 from __future__ import annotations
@@ -49,9 +54,11 @@ import torch
 from torch import nn
 
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
+import numpy as np
+
 from openvision_tpu_torch.models.encoder import (
-    Encoder, EncoderBlock, check_not_ported, check_remat_policy, remat)
-from openvision_tpu_torch.models.layers import LayerNorm, MlpBlock, zero_init
+    Encoder, EncoderBlock, check_remat_policy, drop_seeds, remat)
+from openvision_tpu_torch.models.layers import Dropout, LayerNorm, MlpBlock, zero_init
 
 # Decoder variant table (H/g differ from the text tower).
 VARIANTS = {
@@ -79,21 +86,29 @@ class CrossAttnBlock(nn.Module):
     """Pre-LN cross-attention + MLP residual block (queries <- context)."""
 
     def __init__(self, width: int, num_heads: int, mlp_dim: Optional[int] = None,
-                 attn_impl: str = "xla", dtype: torch.dtype = torch.float32):
+                 attn_impl: str = "xla", dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.ln_1 = LayerNorm(width, dtype)     # flax LayerNorm_0, the queries
         self.ln_1_kv = LayerNorm(width, dtype)  # flax LayerNorm_1, the context
-        self.attn = MultiHeadAttention(width, num_heads, attn_impl=attn_impl, dtype=dtype)
+        self.attn = MultiHeadAttention(width, num_heads, attn_impl=attn_impl,
+                                       dropout_rate=dropout, dtype=dtype)
         self.ln_2 = LayerNorm(width, dtype)     # flax LayerNorm_2
-        self.mlp = MlpBlock(width, mlp_dim, gelu_approx=True, dtype=dtype)
+        self.mlp = MlpBlock(width, mlp_dim, gelu_approx=True, dropout=dropout, dtype=dtype)
+        self.dropout = Dropout(dropout)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                drop_seed: Optional[int] = None) -> torch.Tensor:
+        """`drop_seed` (training with dropout) seeds the generator of the
+        block's dropout masks."""
+        gen = None if drop_seed is None else torch.Generator(device=x.device).manual_seed(
+            drop_seed)
         x = x.to(self.dtype)
         y = self.ln_1(x)
         ctx = self.ln_1_kv(context.to(self.dtype))
-        x = x + self.attn(y, ctx)
-        return x + self.mlp(self.ln_2(x))
+        x = x + self.dropout(self.attn(y, ctx, dropout_gen=gen), gen)
+        return x + self.dropout(self.mlp(self.ln_2(x), gen), gen)
 
 
 class CrossAttnStack(nn.Module):
@@ -101,22 +116,32 @@ class CrossAttnStack(nn.Module):
 
     def __init__(self, width: int, depth: int, num_heads: int, mlp_dim: Optional[int] = None,
                  causal: bool = True, attn_impl: str = "xla", remat_policy: str = "none",
+                 dropout: float = 0.0, drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.remat_policy = check_remat_policy(remat_policy)
         self.depth = depth
+        self.drop_rates = [float(r) for r in np.linspace(0.0, drop_path, depth)]
+        self.dropout = float(dropout)
         self.resblocks = nn.ModuleList(
             EncoderBlock(width, num_heads, mlp_dim, init_style="scaled", causal=causal,
-                         attn_impl=attn_impl, dtype=dtype)
-            for _ in range(depth))
+                         attn_impl=attn_impl, dropout=dropout, drop_path=rate, dtype=dtype)
+            for rate in self.drop_rates)
         self.cross_resblocks = nn.ModuleList(
-            CrossAttnBlock(width, num_heads, mlp_dim, attn_impl=attn_impl, dtype=dtype)
+            CrossAttnBlock(width, num_heads, mlp_dim, attn_impl=attn_impl, dropout=dropout,
+                           dtype=dtype)
             for _ in range(depth))
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
-        for block, cross in zip(self.resblocks, self.cross_resblocks):
-            x = remat(block, x, policy=self.remat_policy)
-            x = remat(cross, x, context, policy=self.remat_policy)
+    def forward(self, x: torch.Tensor, context: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """With ``train``, the self-attention blocks' seeds, then the
+        cross-attention blocks', come from `rng`."""
+        seeds = drop_seeds(self.drop_rates, self.dropout, train, rng)
+        cross_seeds = drop_seeds([0.0] * self.depth, self.dropout, train, rng)
+        for block, cross, seed, cseed in zip(self.resblocks, self.cross_resblocks, seeds,
+                                             cross_seeds):
+            x = remat(block, x, policy=self.remat_policy, drop_seed=seed)
+            x = remat(cross, x, context, policy=self.remat_policy, drop_seed=cseed)
         return x
 
 
@@ -136,20 +161,21 @@ class TextDecoder(nn.Module):
                  dropout: float = 0.0, drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_not_ported(dropout=dropout, drop_path=drop_path)
         self.image_projection_layer = zero_init(nn.Linear, image_width, width, bias=False)
         self.text_projection_layer = zero_init(nn.Linear, text_width, width, bias=False)
         self.learnable_tokens = nn.Parameter(torch.zeros(num_learnable_tokens, width))
         if fusion_style == "concat":
             self.transformer = Encoder(
                 width, depth, num_heads, mlp_dim, init_style="scaled", causal=causal,
-                attn_impl=attn_impl, remat_policy=remat_policy, dtype=dtype)
+                attn_impl=attn_impl, remat_policy=remat_policy, dropout=dropout,
+                drop_path=drop_path, dtype=dtype)
         elif fusion_style == "cross_attn":
             if depth % 2:
                 raise ValueError("cross_attn fusion needs even depth")
             self.transformer = CrossAttnStack(width, depth // 2, num_heads, mlp_dim,
                                               causal=causal, attn_impl=attn_impl,
-                                              remat_policy=remat_policy, dtype=dtype)
+                                              remat_policy=remat_policy, dropout=dropout,
+                                              drop_path=drop_path, dtype=dtype)
         else:
             raise ValueError(f"Unknown fusion_style: {fusion_style!r}")
         self.decoder_norm = LayerNorm(width)  # f32 out, like flax's default dtype
@@ -160,13 +186,16 @@ class TextDecoder(nn.Module):
         self.width, self.depth = width, depth
         self.dtype = dtype
 
-    def forward(self, image_embeds: torch.Tensor, text_embeds: torch.Tensor) -> torch.Tensor:
+    def forward(self, image_embeds: torch.Tensor, text_embeds: torch.Tensor,
+                train: bool = False, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """(N, Li, Di) image tokens, (N, Lt, Dt) text tokens -> (N, Q, vocab) f32."""
-        x = self.prelogits(image_embeds, text_embeds)
+        x = self.prelogits(image_embeds, text_embeds, train=train, rng=rng)
         return x @ self.head.weight.float().t()
 
-    def prelogits(self, image_embeds: torch.Tensor, text_embeds: torch.Tensor) -> torch.Tensor:
-        """``decoder_norm``'s output (N, Q, D) f32: what the head reads."""
+    def prelogits(self, image_embeds: torch.Tensor, text_embeds: torch.Tensor,
+                  train: bool = False, rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``decoder_norm``'s output (N, Q, D) f32: what the head reads. With
+        ``train`` the dropout and drop-path draws come from `rng`."""
         if self.drop_token > 0:
             image_embeds = image_embeds[:, : image_embeds.shape[1] - self.drop_token + 1]
         n = image_embeds.shape[0]
@@ -176,9 +205,10 @@ class TextDecoder(nn.Module):
         prefix = torch.cat([image_embeds, text_embeds], dim=1)
         li = prefix.shape[1]
         if self.fusion_style == "concat":
-            x = self.transformer(torch.cat([prefix, queries], dim=1), prefix_len=li)[:, li:]
+            x = self.transformer(torch.cat([prefix, queries], dim=1), prefix_len=li, train=train,
+                                 rng=rng)[:, li:]
         else:
-            x = self.transformer(queries, prefix)
+            x = self.transformer(queries, prefix, train=train, rng=rng)
         return self.decoder_norm(x).float()
 
 

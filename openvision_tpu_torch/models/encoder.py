@@ -10,8 +10,8 @@ Counterpart of ``openvision_tpu/models/encoder.py``: ``EncoderBlock`` and
 - ``fused``: the attention sub-block on the natural-layout block kernels
   (``ops/fused_attention.py``, the JAX package's ``_block_kernel``), under
   the JAX block's eligibility rule (:134-145): no LayerScale and, in
-  training, no active drop-path (the port's blocks have no external mask,
-  DenseGeneral params, dropout or KV cache). Otherwise the block runs LN ->
+  training, no active drop-path or dropout (the port's blocks have no
+  external mask, DenseGeneral params or KV cache). Otherwise the block runs LN ->
   MultiHeadAttention, whose ``fused`` route is ``fused_qkv_attention``
   (the JAX package's ``_kernel`` / ``_qkv_bwd_kernel``), -> out-proj ->
   LayerScale ``ls_1`` -> DropPath -> residual (:171-196), and the MLP half
@@ -21,7 +21,8 @@ Counterpart of ``openvision_tpu/models/encoder.py``: ``EncoderBlock`` and
   LayerScale, and in plain PyTorch otherwise;
 - ``fused_t``: both sub-blocks on the kernels of ``ops/fused_encoder.py``,
   taken when ``Encoder._fused_t_eligible`` holds (self-attention, no mask,
-  tanh GELU, no LayerScale, and in training no drop-path: :556-584). The
+  tanh GELU, no LayerScale, and in training no drop-path or dropout:
+  :556-584). The
   JAX package runs this on its transposed patch stream;
   here the stream keeps the natural (B, 1+P, D) layout. Where ``fused_t``
   is not eligible the stack runs ``fused`` blocks, as the JAX Encoder
@@ -40,9 +41,13 @@ keeps the MLP kernels. A ``fused_t`` block runs both sub-blocks' autograd
 Functions (the backwards of ``_mhsa_t_bwd_kernel`` and
 ``_mlp_t_bwd_kernel``). The stack's drop-path rates run linspace(0,
 drop_path, depth) (:590); in training the stack draws one seed per block
-with a rate > 0 from the generator it is given, and the block draws its two
-masks (attention, then MLP) from a generator of that seed, so the recompute
-under remat draws the same masks. The remat
+with a drop-path rate > 0 or a dropout rate > 0 from the generator it is
+given, and the block draws its masks from a generator of that seed, so the
+recompute under remat draws the same masks. Dropout (:160-194) takes the
+attention probabilities (``xla`` attention, one (Lq, Lk) mask), the
+attention branch's output, the MLP's hidden after its GELU and the MLP
+branch's output, each before LayerScale and drop-path; the block's draws
+run in that order, drop-path's mask after each branch's dropout. The remat
 policies (:395-408, :619-626) wrap each block in
 ``torch.utils.checkpoint(use_reentrant=False)``: ``full`` saves the block's
 input only; ``minimal`` (JAX ``checkpoint_dots_with_no_batch_dims``) saves
@@ -63,9 +68,8 @@ Megatron-sharded ``MlpBlock``. ``fused_t`` under tensor > 1 runs TP
 593-616``.
 
 Parameters carry OpenCLIP's names (``transformer.resblocks.N.{ln_1, attn,
-ln_2, mlp}``, and ``ls_1.gamma`` / ``ls_2.gamma`` with LayerScale). Dropout
-(a rate > 0 raises), the scanned MLP, pipelining and the KV cache are not
-ported yet.
+ln_2, mlp}``, and ``ls_1.gamma`` / ``ls_2.gamma`` with LayerScale). The
+scanned MLP, pipelining and the KV cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
-from openvision_tpu_torch.models.layers import DropPath, LayerNorm, LayerScale, MlpBlock
+from openvision_tpu_torch.models.layers import DropPath, Dropout, LayerNorm, LayerScale, MlpBlock
 from openvision_tpu_torch.ops.attention import prefix_lm_mask
 from openvision_tpu_torch.ops.fused_attention import fused_mhsa_block, fused_mhsa_block_tp
 from openvision_tpu_torch.ops.fused_encoder import mhsa_block, mlp_block
@@ -123,13 +127,6 @@ def remat(fn, *args, policy: str, **kwargs):
     return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
-def check_not_ported(**rates) -> None:
-    """Raises for a dropout, drop-path or masking rate > 0 (not ported yet)."""
-    for name, rate in rates.items():
-        if rate:
-            raise NotImplementedError(f"{name}={rate} is not ported yet (only 0 is)")
-
-
 class EncoderBlock(nn.Module):
     """Pre-LN MHSA + MLP residual block."""
 
@@ -141,12 +138,14 @@ class EncoderBlock(nn.Module):
         super().__init__()
         if init_style not in _GELU_APPROX:
             raise ValueError(f"Unknown init_style: {init_style!r}")
-        check_not_ported(dropout=dropout)
         self.gelu_approx = _GELU_APPROX[init_style] or fast_gelu
         self.ln_1 = LayerNorm(width, dtype)
-        self.attn = MultiHeadAttention(width, num_heads, attn_impl=attn_impl, dtype=dtype)
+        self.attn = MultiHeadAttention(width, num_heads, attn_impl=attn_impl,
+                                       dropout_rate=dropout, dtype=dtype)
         self.ln_2 = LayerNorm(width, dtype)
-        self.mlp = MlpBlock(width, mlp_dim, gelu_approx=self.gelu_approx, dtype=dtype)
+        self.mlp = MlpBlock(width, mlp_dim, gelu_approx=self.gelu_approx, dropout=dropout,
+                            dtype=dtype)
+        self.dropout = Dropout(dropout)
         if init_values is not None:  # flax ls1 / ls2
             self.ls_1 = LayerScale(width, init_values)
             self.ls_2 = LayerScale(width, init_values)
@@ -162,8 +161,8 @@ class EncoderBlock(nn.Module):
                 drop_seed: Optional[int] = None) -> torch.Tensor:
         """`prefix_len > 0` on a causal block is the prefix-LM mask (the
         caption decoder knows its prefix only from its inputs). `drop_seed`
-        (training with a drop-path rate > 0) seeds the generator of this
-        block's two drop-path masks."""
+        (training with a drop-path or dropout rate > 0) seeds the generator
+        of this block's dropout and drop-path masks."""
         x = x.to(self.dtype)
         if fused_t:
             return self._fused_t_block(x)
@@ -177,14 +176,17 @@ class EncoderBlock(nn.Module):
                 mask = prefix_lm_mask(x.shape[0], x.shape[1], prefix_len, x.device)
                 causal = False
         # whole-sub-block fusion (:134-145): no LayerScale, no active drop-path
+        # or dropout
         if self.attn_impl == "fused" and not self.layer_scale and gen is None:
             x = self._fused_attn_subblock(x, causal, native_prefix)
             if self.gelu_approx and not recording(self) and self.mlp.tensor_parallel == 1:
                 return self._mlp_subblock_kernels(x)
             return x + self.mlp(self.ln_2(x))
-        y = self.attn(self.ln_1(x), mask=mask, causal=causal, prefix_len=native_prefix)
+        y = self.attn(self.ln_1(x), mask=mask, causal=causal, prefix_len=native_prefix,
+                      dropout_gen=gen)
+        y = self.dropout(y, gen)
         x = x + self.drop_path(self.ls_1(y) if self.layer_scale else y, gen)
-        y = self.mlp(self.ln_2(x))
+        y = self.dropout(self.mlp(self.ln_2(x), gen), gen)
         return x + self.drop_path(self.ls_2(y) if self.layer_scale else y, gen)
 
     def _fused_attn_subblock(self, x, causal: bool, prefix_len: int):
@@ -237,7 +239,6 @@ class Encoder(nn.Module):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"Unknown attention impl: {attn_impl!r}")
-        check_not_ported(dropout=dropout)
         self.remat_policy = check_remat_policy(remat_policy)
         # an ineligible fused_t stack runs natural-layout fused blocks
         block_impl = "fused" if attn_impl == "fused_t" else attn_impl
@@ -245,9 +246,10 @@ class Encoder(nn.Module):
         self.resblocks = nn.ModuleList(
             EncoderBlock(width, num_heads, mlp_dim, init_style=init_style, causal=causal,
                          attn_impl=block_impl, fast_gelu=fast_gelu,
-                         nomax_softmax=nomax_softmax, drop_path=rate,
+                         nomax_softmax=nomax_softmax, dropout=dropout, drop_path=rate,
                          init_values=init_values, dtype=dtype)
             for rate in self.drop_rates)
+        self.dropout = float(dropout)
         self.init_values = init_values
         self.attn_impl = attn_impl
         self.causal = causal
@@ -273,19 +275,13 @@ class Encoder(nn.Module):
             and prefix_len == 0
             and self.gelu_approx
             and self.init_values is None
-            and not (train and any(self.drop_rates))
+            and not (train and (any(self.drop_rates) or self.dropout))
         )
 
     def _drop_seeds(self, train: bool, rng: Optional[torch.Generator]) -> list:
-        """One seed per block with a drop-path rate > 0 (None elsewhere) in
-        training, drawn from `rng`."""
-        if not train or not any(self.drop_rates):
-            return [None] * len(self.drop_rates)
-        if rng is None:
-            raise ValueError("drop-path in training needs a torch.Generator (rng=...)")
-        seeds = torch.randint(0, 2**62, (len(self.drop_rates),), generator=rng,
-                              device=rng.device).tolist()
-        return [s if rate else None for s, rate in zip(seeds, self.drop_rates)]
+        """One seed per block with a drop-path or dropout rate > 0 (None
+        elsewhere) in training, drawn from `rng`."""
+        return drop_seeds(self.drop_rates, self.dropout, train, rng)
 
     def forward(self, x: torch.Tensor, prefix_len: int = 0, train: bool = False,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -297,6 +293,18 @@ class Encoder(nn.Module):
             x = remat(block, x, policy=self.remat_policy, fused_t=fused_t, prefix_len=prefix_len,
                       drop_seed=seed)
         return x
+
+
+def drop_seeds(rates, dropout: float, train: bool, rng: Optional[torch.Generator]) -> list:
+    """One seed per block (drop-path `rates`, one a block) whose drop-path
+    rate or `dropout` is > 0, None elsewhere or outside training; the seeds
+    of all blocks are drawn from `rng` at once."""
+    if not train or not (any(rates) or dropout):
+        return [None] * len(rates)
+    if rng is None:
+        raise ValueError("drop-path or dropout in training needs a torch.Generator (rng=...)")
+    seeds = torch.randint(0, 2**62, (len(rates),), generator=rng, device=rng.device).tolist()
+    return [s if rate or dropout else None for s, rate in zip(seeds, rates)]
 
 
 def cast_block_matrices(module: nn.Module, dtype: torch.dtype) -> None:

@@ -5,7 +5,8 @@ Counterpart of the flax initializers the JAX package's modules declare:
 blocks, the towers' embeddings and heads (models/vit.py:220-355,
 models/text.py:92-170), the caption decoder's projections, queries and head
 (models/decoder.py:165-242, its cross-attention blocks :98-105) and the
-temperature (models/clip.py:99-107, set by ``CLIPModel`` itself). The draws
+temperature and the logit bias (models/clip.py:99-116, set by ``CLIPModel``
+itself). The draws
 come from a ``torch.Generator`` seeded with `seed`, so they match the JAX
 distributions, not its bits (the two RNGs differ).
 
@@ -96,8 +97,8 @@ def init_params(model: CLIPModel, seed: int) -> CLIPModel:
         block = next((s for prefix, s in styles.items() if name.startswith(prefix)), None)
         if block is not None:
             _fill_block(name, p, block, gen)
-        elif name == "logit_scale":
-            continue  # CLIPModel sets log(temperature_init)
+        elif name in ("logit_scale", "logit_bias"):
+            continue  # CLIPModel sets log(temperature_init) and init_logit_bias
         elif name.endswith("bias") or name.endswith(("ln_post.weight", "ln_final.weight",
                                                        "decoder_norm.weight")):
             p.fill_(1.0 if name.endswith("weight") else 0.0)

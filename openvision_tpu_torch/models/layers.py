@@ -12,7 +12,7 @@ Parameters use OpenCLIP's names and torch's (out, in) weight layout, so an
 ``open_clip_pytorch_model.bin`` loads with ``load_state_dict``. They start
 at zero (LayerNorm scales at one, LayerScale at its init value) and draw
 nothing from the global RNG: the weights come from a checkpoint or
-``models/init.py``. ``DropPath`` draws from an explicit
+``models/init.py``. ``DropPath`` and ``Dropout`` draw from an explicit
 ``torch.Generator``.
 
 Under tensor parallelism (``train/step.py:shard_model``) the MLP is
@@ -107,22 +107,26 @@ class MlpBlock(nn.Module):
     """
 
     def __init__(self, width: int, mlp_dim: Optional[int] = None, gelu_approx: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         mlp_dim = mlp_dim or 4 * width
         self.c_fc = zero_init(nn.Linear, width, mlp_dim)
         self.c_proj = zero_init(nn.Linear, mlp_dim, width)
         self.act = nn.GELU(approximate="tanh" if gelu_approx else "none")
         self.gelu_approx = gelu_approx
+        self.dropout = Dropout(dropout)
         self.dtype = dtype
         self.tensor_parallel = 1  # the tensor axis size its weights are sharded over
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` (training) draws the dropout mask of the hidden, after
+        the GELU (JAX :170)."""
         mesh = sharded_mesh(self.tensor_parallel)
         if mesh is not None:  # the input's gradient sums over the shards
             x = copy_to_tensor(x, mesh)
         h = linear(x, self.c_fc, self.dtype)
-        h = self.act(h)
+        h = self.dropout(self.act(h), generator)
         if mesh is None:
             return linear(h, self.c_proj, self.dtype)
         part = F.linear(h.to(self.dtype), self.c_proj.weight.to(self.dtype))
@@ -143,6 +147,27 @@ class LayerScale(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x * self.gamma
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout``: each element kept with probability keep = 1 -
+    rate (a U[0, 1) draw in f32 below keep) and scaled by 1 / keep, else 0;
+    the draws come from the `generator` given (never the global RNG), one a
+    value of `x`. The identity when no generator is given (not training) or
+    the rate is 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if generator is None or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand(x.shape, generator=generator, device=generator.device,
+                       dtype=torch.float32)
+        return torch.where((u < keep).to(x.device), x / keep, torch.zeros_like(x))
 
 
 class DropPath(nn.Module):

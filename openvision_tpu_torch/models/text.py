@@ -15,8 +15,9 @@ Encoder (training). A float (N, L, V) ``text`` is a soft one-hot sequence
 (the gradient-ascent tool's), embedded as ``text @ token_embedding.weight``
 in f32 (:100-104); pooling ``last`` and ``first`` read no ids, and
 ``argmax`` on soft tokens raises (the JAX pool would take its argmax over
-the vocab axis). Dropout and drop-path (a rate > 0 raises) are not ported
-yet.
+the vocab axis). In training (``train=True`` with a generator) the
+embedded tokens take the dropout (:124) and the Encoder its dropout and
+drop-path (:125-131), the draws in that order.
 """
 
 from __future__ import annotations
@@ -26,8 +27,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from openvision_tpu_torch.models.encoder import Encoder, check_not_ported
-from openvision_tpu_torch.models.layers import LayerNorm, posemb_sincos_1d, zero_init
+from openvision_tpu_torch.models.encoder import Encoder
+from openvision_tpu_torch.models.layers import Dropout, LayerNorm, posemb_sincos_1d, zero_init
 
 # The text variant table differs from the vision one.
 VARIANTS = {
@@ -76,7 +77,6 @@ class TextTransformer(nn.Module):
         super().__init__()
         if posemb not in ("learn", "sincos1d"):
             raise ValueError(f"Unknown posemb type: {posemb!r}")
-        check_not_ported(drop_path=drop_path)  # no generator reaches this tower's stack
         self.token_embedding = zero_init(nn.Embedding, vocab_size, width)
         if posemb == "learn":
             self.positional_embedding = nn.Parameter(torch.zeros(context_length, width))
@@ -84,6 +84,7 @@ class TextTransformer(nn.Module):
             width, depth, num_heads, mlp_dim, init_style="scaled", causal=causal,
             attn_impl=attn_impl, remat_policy=remat_policy, dropout=dropout,
             drop_path=drop_path, dtype=dtype)
+        self.dropout = Dropout(dropout)
         self.ln_final = LayerNorm(width)  # f32 out, like flax's default dtype
         if num_classes:
             self.text_projection = nn.Parameter(torch.zeros(width, num_classes))
@@ -95,10 +96,12 @@ class TextTransformer(nn.Module):
         self.head_zeroinit = head_zeroinit
         self.dtype = dtype
 
-    def forward(self, text: torch.Tensor):
+    def forward(self, text: torch.Tensor, train: bool = False,
+                rng: Optional[torch.Generator] = None):
         """text: (N, L) int token ids, or (N, L, V) soft one-hot tokens ->
         (N, num_classes) f32; with ``output_tokens``, (pooled, pre-norm
-        token features)."""
+        token features). With ``train`` the dropout and drop-path draws come
+        from `rng`."""
         if text.ndim == 3:
             if self.pool_type == "argmax":
                 raise ValueError("pool_type='argmax' needs integer token ids: it cannot find the "
@@ -111,7 +114,10 @@ class TextTransformer(nn.Module):
             x = x + self.positional_embedding.float()
         else:
             x = x + posemb_sincos_1d(l, d, device=x.device)
-        x = self.transformer(x.to(self.dtype))
+        x = x.to(self.dtype)
+        if train:
+            x = self.dropout(x, rng)
+        x = self.transformer(x, train=train, rng=rng)
         tokens = {"last": x[:, :-1], "first": x[:, 1:]}.get(self.pool_type, x)
         pooled = text_global_pool(self.ln_final(x), text, self.pool_type)
         if self.num_classes:

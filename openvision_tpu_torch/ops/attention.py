@@ -10,7 +10,9 @@ Counterpart of ``openvision_tpu/ops/attention.py``:
   online-softmax scan, the same function) runs ``flash`` too. ``ring``
   (sequence-parallel attention) is not ported yet and raises.
 
-Inference only, so the dropout arguments of the JAX functions are left out.
+:func:`xla_attention` takes the JAX function's attention dropout (:50-54):
+one (Lq, Lk) keep mask, broadcast over batch and heads, drawn from a given
+``torch.Generator``; the flash route takes none, as in the JAX dispatcher.
 :func:`prefix_lm_mask` is the port's copy of
 ``openvision_tpu/models/encoder.py:prefix_lm_mask``.
 """
@@ -45,11 +47,14 @@ def xla_attention(
     prefix_len: int = 0,
     sm_scale: float | None = None,
     dtype: torch.dtype | None = None,
+    dropout_rate: float = 0.0,
+    dropout_gen: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Einsum attention. `mask` broadcasts to (B, H, Lq, Lk); True = keep.
 
     ``causal`` with ``prefix_len > 0`` is the prefix-LM mask (the JAX
-    dispatcher builds it with ``prefix_lm_mask`` for this path).
+    dispatcher builds it with ``prefix_lm_mask`` for this path). With
+    `dropout_gen` and a rate > 0 the probabilities take a dropout mask.
     """
     if causal and prefix_len > 0:
         pmask = prefix_lm_mask(q.shape[0], q.shape[1], prefix_len, q.device)
@@ -67,6 +72,9 @@ def xla_attention(
     if mask is not None:
         s = torch.where(mask, s, torch.finfo(s.dtype).min)
     p = torch.softmax(s.float(), dim=-1).to(q.dtype)
+    if dropout_rate > 0.0 and dropout_gen is not None:
+        u = torch.rand(p.shape[-2:], generator=dropout_gen, device=dropout_gen.device)
+        p = p * (u < 1.0 - dropout_rate).to(p.device, p.dtype) / (1.0 - dropout_rate)
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
@@ -81,13 +89,16 @@ def dispatch_attention(
     prefix_len: int = 0,
     sm_scale: float | None = None,
     dtype: torch.dtype | None = None,
+    dropout_rate: float = 0.0,
+    dropout_gen: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Routes to an attention implementation by name: "xla" | "flash" |
-    "scan" (runs flash). Arbitrary masks only on "xla"; "flash" takes the
-    causal and prefix-LM masks natively."""
+    "scan" (runs flash). Arbitrary masks and the dropout only on "xla";
+    "flash" takes the causal and prefix-LM masks natively."""
     if impl == "xla":
         return xla_attention(q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
-                             sm_scale=sm_scale, dtype=dtype)
+                             sm_scale=sm_scale, dtype=dtype, dropout_rate=dropout_rate,
+                             dropout_gen=dropout_gen)
     if impl == "ring":
         raise NotImplementedError(
             "attention impl 'ring' (sequence-parallel ring attention) is not ported yet")

@@ -35,9 +35,10 @@ class Chrono:
         self.total_steps = total_steps or self.total_steps
         self.global_bs = global_bs or self.global_bs
 
-    def step_done(self, step_time: float, wait_time: float) -> None:
-        """Adds one step: its host time, of which `wait_time` waited for data."""
-        self.window_steps += 1
+    def step_done(self, step_time: float, wait_time: float, steps: int = 1) -> None:
+        """Adds `steps` steps: their host time, of which `wait_time` waited
+        for data."""
+        self.window_steps += steps
         self.window_time += step_time
         self.window_wait += wait_time
 

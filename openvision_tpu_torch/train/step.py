@@ -3,17 +3,19 @@
 Counterpart of ``openvision_tpu/train/step.py``:
 :func:`normalize_uint8` (:53), :func:`build_model` (:59),
 :func:`init_train_state` (:73; the model from a seed, placed on the process
-mesh, and the optimizer of ``optim.py``) and :func:`make_update_fn` at
-``grad_accum=1`` (:131-264):
+mesh, and the optimizer of ``optim.py``) and :func:`make_update_fn`
+(:131-264):
 the device-side uint8 normalize, both towers and the caption decoder with
 ``train=True``, the loss of the config's ``loss_type`` (``coca``: the CLIP
 loss over the two caption views plus the head-fused caption cross-entropy,
-its chunk capped at ~32Mi f32 logits, :215-229; ``clip``; ``siglip`` needs
-a logit bias and is not ported), backward, the optimizer update, and the
+its chunk capped at ~32Mi f32 logits, :215-229; ``clip``; ``siglip``, the
+sigmoid pairing loss with the model's logit bias, the mean over the two
+views), backward, the optimizer update, and the
 measurements: t, t/parameter, nimg, ntxt, the loss terms, and ``l2_grads``
 (over the parameters that are not frozen), ``l2_params`` and
 ``l2_updates`` with f32 accumulation (:39-50, :255-261). ``grad_accum > 1``
-raises (not ported yet). The image tower's drop-path masks come from
+takes :func:`make_accum_grad_fn`, the GradCache step (:267-515), exact to
+the big-batch one. The dropout, token-masking and drop-path masks come from
 :func:`step_generator`, seeded from the config seed and the optimizer's step
 count, as the JAX step folds the count into its rng (:175-183): a resumed
 run draws the masks an uninterrupted one draws.
@@ -45,8 +47,8 @@ On a process mesh (``parallel/mesh.py``; the JAX ``sharding.mesh``
   ``Optimizer.global_norm``.
 
 Under one process (no mesh, or a mesh of one) the step is the one-device
-step. The one-device assumptions it checks: the global batch divides by
-data x fsdp; ``grad_accum`` 1; ``loss_type`` coca or clip.
+step. What a process mesh refuses by name: ``grad_accum > 1`` and
+``loss_type`` siglip (one process only).
 """
 
 from __future__ import annotations
@@ -88,11 +90,14 @@ def build_model(config: dict) -> CLIPModel:
     def typed(cfg):
         return {**cfg, "dtype": DTYPES[cfg["dtype"]]}
 
+    out_dim = m["out_dim"]
     return CLIPModel(
-        out_dim=tuple(m["out_dim"]), image=typed(m["image"]), text=typed(m["text"]),
+        out_dim=tuple(out_dim) if isinstance(out_dim, (list, tuple)) else out_dim,
+        image=typed(m["image"]), text=typed(m["text"]),
         text_decoder=m.get("text_decoder", "text_decoder"),
         text_decoder_config=typed(m["text_decoder_config"]),
-        temperature_init=m.get("temperature_init", 10.0))
+        temperature_init=m.get("temperature_init", 10.0),
+        init_logit_bias=m.get("init_logit_bias"))
 
 
 def tensor_plan(model: torch.nn.Module, size: int) -> dict:
@@ -177,10 +182,25 @@ def init_train_state(config: dict, model: CLIPModel, *, total_steps: int,
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
-    """The generator of one step's random draws (drop-path), a function of
-    (seed, step) only."""
+    """The generator of one step's random draws (dropout, token masking,
+    drop-path), a function of (seed, step) only."""
     state = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
     return torch.Generator().manual_seed(int(state >> np.uint64(1)))
+
+
+def micro_seeds(rng: torch.Generator | None, accum: int) -> list:
+    """One seed a microbatch, drawn from the step's `rng` (the JAX step
+    folds the microbatch index into its key); Nones without one."""
+    if rng is None:
+        return [None] * accum
+    return torch.randint(0, 2**62, (accum,), generator=rng, device=rng.device).tolist()
+
+
+def micro_generator(seed: int | None) -> torch.Generator | None:
+    """A fresh generator of one microbatch's draws. Both GradCache passes
+    build their own from the same seed, so pass 2 replays pass 1's masking,
+    dropout and drop-path draws (the towers draw before the decoder)."""
+    return None if seed is None else torch.Generator().manual_seed(seed)
 
 
 def to_device(batch: dict, device) -> dict:
@@ -188,21 +208,67 @@ def to_device(batch: dict, device) -> dict:
             for k, v in batch.items()}
 
 
+def _loss_type(config: dict) -> str:
+    loss_type = config.get("loss_type", "coca")
+    if loss_type not in ("coca", "clip", "siglip"):
+        raise ValueError(f"Unknown loss_type: {loss_type!r}")
+    if loss_type == "siglip" and config["model"].get("init_logit_bias") is None:
+        raise ValueError("loss_type siglip needs model.init_logit_bias")
+    return loss_type
+
+
+def _refuse_siglip_on_a_mesh(loss_type: str, mesh) -> None:
+    if loss_type == "siglip" and mesh is not None and mesh.batch_shards > 1:
+        raise NotImplementedError(f"loss_type siglip on a process mesh ({mesh.batch_shards} "
+                                  "batch shards) is not ported yet; train it in one process")
+
+
+def contrastive_loss(loss_type: str, zimg, views, t, b, *, mode: str, mesh=None):
+    """The image-text loss of `loss_type` over the text views (the mean
+    over views): (loss, extras)."""
+    if loss_type == "siglip":
+        _refuse_siglip_on_a_mesh(loss_type, mesh)
+        return sum(losses.siglip_loss(zimg, v, t, b, mode=mode)[0] for v in views) / len(views), {}
+    return losses.bidirectional_contrastive_loss(zimg, views, t, mode=mode, mesh=mesh)
+
+
+def caption_sum(config: dict, model: CLIPModel, out: dict, batch: dict) -> torch.Tensor:
+    """The masked sum of the caption cross-entropy over `batch`'s rows
+    (head-fused, its chunk capped at ~32Mi f32 logits, when the decoder
+    returns prelogits)."""
+    mask = batch["cap_loss_mask"]
+    if out.get("cap_prelogits") is not None:
+        kernel = model.txt_decoder.head.weight  # (V, D)
+        rows = batch["autoreg_labels"].shape[0]
+        chunk = max(1, min(config.get("cap_xent_chunk", 16), (32 << 20) // (rows * kernel.shape[0])))
+        return losses.linear_softmax_xent(prelogits=out["cap_prelogits"], kernel=kernel,
+                                          labels=batch["autoreg_labels"], mask=mask, chunk=chunk,
+                                          normalize=False)
+    return (losses.softmax_xent(logits=out["logits"], labels=batch["autoreg_labels"],
+                                reduction=False) * mask).sum()
+
+
+def forward(config: dict, model: CLIPModel, batch: dict, rng=None, caption: bool = True):
+    """The training forward on `batch` (on the device): (zimg, ztxt, out),
+    ztxt the two caption views stacked."""
+    images = normalize_uint8(batch["image"]) if config.get("cpu_unit8", False) \
+        else batch["image"].float()
+    labels = torch.cat([batch["labels1"], batch["labels2"]], dim=0)
+    return model(images, labels, train=True, rng=rng, caption=caption)
+
+
+def _aux(out: dict) -> dict:
+    return {"t": out["t"], "t/parameter": out["t/parameter"], "nimg": out["img/norm"].mean(),
+            "ntxt": out["txt/norm"].mean()}
+
+
 def make_loss_fn(config: dict, model: CLIPModel) -> Callable:
     """loss_fn(batch on the device, rng=None) -> (loss, measurements),
-    differentiable; `rng` draws the drop-path masks."""
-    if int(config.get("grad_accum", 1) or 1) > 1:
-        raise NotImplementedError("grad_accum > 1 (the embedding-cached microbatched step) is "
-                                  "not ported yet")
-    loss_type = config.get("loss_type", "coca")
-    if loss_type not in ("coca", "clip"):
-        raise NotImplementedError(f"loss_type {loss_type!r} is not ported yet (siglip needs the "
-                                  "logit bias)")
+    differentiable; `rng` draws the dropout, masking and drop-path masks."""
+    loss_type = _loss_type(config)
     mode = "local" if config.get("local_loss", True) else "global"
     clip_w = config.get("clip_loss_weight", 1.0)
     cap_w = config.get("coca_caption_loss_weight", 2.0)
-    cap_chunk = config.get("cap_xent_chunk", 16)
-    cpu_uint8 = config.get("cpu_unit8", False)
 
     def loss_fn(batch: dict, rng: torch.Generator | None = None):
         """This process's share of the loss (the loss itself in one process)."""
@@ -210,34 +276,20 @@ def make_loss_fn(config: dict, model: CLIPModel) -> Callable:
         if mode == "global" and mesh is not None and mesh.batch_shards > 1:
             raise NotImplementedError("local_loss=False (the global contrastive mode) runs on one "
                                       "process only; the mesh takes the local mode")
-        images = normalize_uint8(batch["image"]) if cpu_uint8 else batch["image"].float()
-        labels = torch.cat([batch["labels1"], batch["labels2"]], dim=0)
-        zimg, ztxt, out = model(images, labels, train=True, rng=rng)
+        zimg, ztxt, out = forward(config, model, batch, rng, caption=loss_type == "coca")
         half = ztxt.shape[0] // 2
-        loss, extras = losses.bidirectional_contrastive_loss(
-            zimg, [ztxt[:half], ztxt[half:]], out["t"], mode=mode, mesh=mesh)
+        loss, extras = contrastive_loss(loss_type, zimg, [ztxt[:half], ztxt[half:]], out["t"],
+                                        out.get("b"), mode=mode, mesh=mesh)
         if loss_type == "coca":
             clip_loss = loss
             mask = batch["cap_loss_mask"]
             # the global batch's mask count (JAX normalizes the whole batch)
             count = mask.float().sum() if mesh is None else all_reduce(
                 mask.float().sum(), mesh.batch_group)
-            if out.get("cap_prelogits") is not None:
-                kernel = model.txt_decoder.head.weight  # (V, D)
-                rows = batch["autoreg_labels"].shape[0]
-                chunk = max(1, min(cap_chunk, (32 << 20) // (rows * kernel.shape[0])))
-                cap_loss = losses.linear_softmax_xent(
-                    prelogits=out["cap_prelogits"], kernel=kernel,
-                    labels=batch["autoreg_labels"], mask=mask, chunk=chunk, normalize=False)
-            else:
-                cap_loss = (losses.softmax_xent(logits=out["logits"],
-                                                labels=batch["autoreg_labels"],
-                                                reduction=False) * mask).sum()
-            cap_loss = cap_loss / (count + 1e-8)
+            cap_loss = caption_sum(config, model, out, batch) / (count + 1e-8)
             extras = dict(extras, clip_loss=clip_loss, caption_loss=cap_loss)
             loss = clip_w * clip_loss + cap_w * cap_loss
-        return loss, {"t": out["t"], "t/parameter": out["t/parameter"],
-                      "nimg": out["img/norm"].mean(), "ntxt": out["txt/norm"].mean(), **extras}
+        return loss, {**_aux(out), **extras}
 
     return loss_fn
 
@@ -255,12 +307,21 @@ def sum_over_batch(grads: dict, mesh: Mesh) -> None:
         offset += g.numel()
 
 
+def _grads(params: dict, opt: optim.Optimizer) -> dict:
+    return {n: (local(p.grad) if p.grad is not None else torch.zeros_like(opt.params[n]))
+            for n, p in params.items()}
+
+
 def make_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer) -> Callable:
     """grad_fn(batch, rng=None) -> (measurements, grads): the loss and its
     gradients on `batch` (on the device; this process's rows), the
     gradients summed over data x fsdp, as this process's pieces (name ->
     tensor, laid out as ``opt.params``); the measurements (0-d tensors)
-    the global ones, ``training_loss`` the loss."""
+    the global ones, ``training_loss`` the loss. With ``grad_accum > 1``,
+    :func:`make_accum_grad_fn`."""
+    accum = int(config.get("grad_accum", 1) or 1)
+    if accum > 1:
+        return make_accum_grad_fn(config, model, opt, accum)
     loss_fn = make_loss_fn(config, model)
     params = dict(model.named_parameters())
 
@@ -270,8 +331,7 @@ def make_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer) -> Callab
             p.grad = None
         loss, measurements = loss_fn(batch, rng=rng)
         loss.backward()
-        grads = {n: (local(p.grad) if p.grad is not None else torch.zeros_like(opt.params[n]))
-                 for n, p in params.items()}
+        grads = _grads(params, opt)
         measurements = {k: v.detach().reshape(()) for k, v in measurements.items()}
         measurements["training_loss"] = loss.detach()
         if mesh is not None and mesh.batch_shards > 1:
@@ -280,6 +340,110 @@ def make_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer) -> Callab
             for k in measurements:  # loss shares sum; per-shard means average
                 total = all_reduce(measurements[k], mesh.batch_group)
                 measurements[k] = total if k in SHARES else total / mesh.batch_shards
+        return measurements, grads
+
+    return grad_fn
+
+
+def make_accum_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer,
+                       accum: int) -> Callable:
+    """The ``grad_accum > 1`` gradient, exact to the big-batch one
+    (GradCache, arXiv:2101.06983; JAX ``_make_update_fn_accum`` :267-515).
+
+    The batch splits into `accum` strided microbatches (microbatch i holds
+    rows i::accum, JAX ``_microbatch`` :117-129), each with a seed of its
+    own (:func:`micro_seeds`), from which both passes build a fresh
+    generator, so the embeddings pass 2 differentiates are pass 1's:
+
+    - pass 1: the towers forward only, without autograd, the normalized
+      embeddings kept (the decoder does not run);
+    - the bridge: the contrastive (or SigLIP) loss of the whole batch on
+      those embeddings, and its gradient with respect to them, to the
+      log-temperature and to the logit bias;
+    - pass 2: per microbatch, the forward again with autograd (towers,
+      decoder and the caption cross-entropy's masked sum), then one
+      backward with the bridge's embedding gradients (times the CLIP
+      weight) and cap_w / (the global mask count) as the cotangents,
+      accumulating into the parameters' f32 gradients.
+
+    The caption sum splits exactly and the contrastive term factors through
+    the embeddings, so the gradients are the accum=1 step's up to summation
+    order. One process only: a process mesh raises by name.
+    """
+    loss_type = _loss_type(config)
+    mode = "local" if config.get("local_loss", True) else "global"
+    clip_w = config.get("clip_loss_weight", 1.0)
+    cap_w = config.get("coca_caption_loss_weight", 2.0)
+    coca = loss_type == "coca"
+    w_clip = clip_w if coca else 1.0
+    params = dict(model.named_parameters())
+    world = 1 if opt.mesh is None else opt.mesh.batch_shards * opt.mesh.tensor
+    if world > 1:
+        raise NotImplementedError(f"grad_accum={accum} on a process mesh ({world} processes) is "
+                                  "not ported yet; train it in one process")
+
+    def grad_fn(batch: dict, rng: torch.Generator | None = None):
+        b = batch["image"].shape[0]
+        if b % accum:
+            raise ValueError(f"grad_accum={accum} must divide the batch {b}")
+        m = b // accum
+        keys = ["image", "labels1", "labels2"] + (["autoreg_labels", "cap_loss_mask"] if coca
+                                                  else [])
+        micro = [{k: batch[k][i::accum] for k in keys} for i in range(accum)]
+        seeds = micro_seeds(rng, accum)
+
+        # pass 1: the embeddings, no autograd, no decoder
+        zimgs, v1s, v2s, auxs = [], [], [], []
+        with torch.no_grad():
+            for mb, seed in zip(micro, seeds):
+                zimg, ztxt, out = forward(config, model, mb, micro_generator(seed), caption=False)
+                zimgs.append(zimg)
+                v1s.append(ztxt[:m])
+                v2s.append(ztxt[m:])
+                auxs.append(_aux(out))
+        measurements = {k: torch.stack([a[k].detach().reshape(()) for a in auxs]).mean()
+                        for k in auxs[0]}
+
+        # the bridge: the whole batch's loss on the embeddings
+        leaves = [torch.cat(z).requires_grad_(True) for z in (zimgs, v1s, v2s)]
+        t_param = model.logit_scale.detach().float().reshape(1).requires_grad_(True)
+        b_param = None if model.logit_bias is None else \
+            model.logit_bias.detach().float().reshape(1).requires_grad_(True)
+        with torch.enable_grad():
+            l_clip, extras = contrastive_loss(loss_type, leaves[0], leaves[1:], t_param.exp(),
+                                              b_param, mode=mode)
+            wrt = leaves + [t_param] + ([b_param] if b_param is not None else [])
+            g_zi, g_v1, g_v2, g_t, *g_b = torch.autograd.grad(l_clip, wrt)
+        mask_sum = batch["cap_loss_mask"].float().sum() + 1e-8 if coca else None
+
+        # pass 2: per microbatch, the backward of the forward with the bridge's cotangents
+        for p in params.values():
+            p.grad = None
+        cap_sums = []
+        for i, (mb, seed) in enumerate(zip(micro, seeds)):
+            rows = slice(i * m, (i + 1) * m)
+            zimg, ztxt, out = forward(config, model, mb, micro_generator(seed), caption=coca)
+            outs = [zimg, ztxt]
+            cots = [w_clip * g_zi[rows], w_clip * torch.cat([g_v1[rows], g_v2[rows]])]
+            if coca:
+                cap = caption_sum(config, model, out, mb)
+                outs.append(cap)
+                cots.append((cap_w / mask_sum).to(cap.dtype))
+                cap_sums.append(cap.detach())
+            torch.autograd.backward(outs, cots)
+        grads = _grads(params, opt)
+        # the temperature's and the bias's gradients come through the bridge
+        grads["logit_scale"] = grads["logit_scale"] + w_clip * g_t.reshape(())
+        if g_b:
+            grads["logit_bias"] = grads["logit_bias"] + w_clip * g_b[0].reshape(())
+
+        measurements.update({k: v.detach().reshape(()) for k, v in extras.items()})
+        if coca:
+            cap_l = torch.stack(cap_sums).sum() / mask_sum
+            measurements.update(clip_loss=l_clip.detach(), caption_loss=cap_l)
+            measurements["training_loss"] = clip_w * l_clip.detach() + cap_w * cap_l
+        else:
+            measurements["training_loss"] = l_clip.detach()
         return measurements, grads
 
     return grad_fn

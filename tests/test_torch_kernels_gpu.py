@@ -228,6 +228,9 @@ def test_attention_kernel_causal_and_prefix_masks(dev, b, l, h, prefix):
 @pytest.mark.gpu
 @pytest.mark.parametrize("l,d,h,causal,prefix", [
     (257, 1024, 16, False, 0), (463, 768, 12, True, 335), (128, 768, 12, True, 0),
+    # the curriculum's ViT-B/16 tower at 112 masked (1 + 24 tokens, less than
+    # one 64-row tile) and at 384, and its concat decoder at the masked stage
+    (25, 768, 12, False, 0), (577, 768, 12, False, 0), (231, 768, 12, True, 103),
 ])
 def test_fused_mhsa_block_counts_launches(dev, l, d, h, causal, prefix):
     g = torch.Generator().manual_seed(l)
@@ -618,7 +621,11 @@ def _block_inputs(g, dev, b, l, d):
 
 
 BLOCK_CASES = [(2, 257, 256, 4, False, 0), (2, 463, 256, 4, True, 335),
-               (2, 128, 256, 4, True, 0), (3, 101, 128, 2, True, 37)]
+               (2, 128, 256, 4, True, 0), (3, 101, 128, 2, True, 37),
+               # the curriculum's B/16 shapes: L=25 (112 masked), 577 (384), the
+               # concat decoder's prefix-LM L=231 at the masked stage
+               (3, 25, 768, 12, False, 0), (2, 577, 768, 12, False, 0),
+               (2, 231, 768, 12, True, 103)]
 
 
 @pytest.mark.gpu
@@ -646,7 +653,7 @@ def test_fused_block_backward_kernels(dev, b, l, d, h, causal, prefix):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,l,d,h,causal,prefix", BLOCK_CASES[:3])
+@pytest.mark.parametrize("b,l,d,h,causal,prefix", BLOCK_CASES[:3] + BLOCK_CASES[4:5])
 def test_fused_block_function_matches_autograd_of_the_plain_forward(dev, b, l, d, h, causal,
                                                                     prefix):
     g = torch.Generator().manual_seed(l * d)

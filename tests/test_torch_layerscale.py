@@ -14,7 +14,9 @@ against the JAX package, on the CPU.
 - ``DropPath``'s masks from a fixed generator, the identity when not
   training, the stack's linspace rates and the block routes they pick,
   the same masks under remat and on a resumed step;
-- dropout is refused by name and never reaches ``fused_qkv_attention``;
+- dropout trains (no refusal is left) and never reaches
+  ``fused_qkv_attention``: a block with active dropout runs the plain
+  attention, as the JAX package sends it;
 - a LayerScale train state saves and resumes, its names map to the JAX
   ``ls1/ls1`` paths and back, and the optimizer's masks on those paths are
   the JAX package's.
@@ -185,16 +187,30 @@ def test_drop_path_rates_routes_and_remat():
 
 def test_dropout_is_refused_by_name_and_never_reaches_kernel_7(monkeypatch):
     """Active dropout turns off both fused paths in the JAX package
-    (openvision_tpu/models/encoder.py:141, models/attention_module.py:103);
-    the port refuses it by name before any block runs."""
+    (openvision_tpu/models/encoder.py:141, models/attention_module.py:103).
+    The name is from when the port refused dropout by name; now dropout
+    trains (no refusal is left), and a block with
+    active dropout still never reaches ``fused_qkv_attention`` (#7) or the
+    whole-sub-block kernel (#9): it runs the plain attention. Without a
+    generator (not training) the fused routes run as before."""
     monkeypatch.setattr(attention_module, "fused_qkv_attention",
                         lambda *a, **k: pytest.fail("dropout reached fused_qkv_attention"))
-    with pytest.raises(NotImplementedError, match="dropout=0.1"):
-        Encoder(D, 2, HEADS, attn_impl="fused", dropout=0.1, drop_path=0.1, init_values=1e-5)
-    with pytest.raises(NotImplementedError, match="dropout=0.1"):
-        EncoderBlock(D, HEADS, attn_impl="fused", dropout=0.1, init_values=1e-5)
-    with pytest.raises(NotImplementedError, match="dropout=0.1"):
-        tvit.Model(16, image_size=32, **_vit_cfg("fused", dropout=0.1))
+    monkeypatch.setattr(EncoderBlock, "_fused_attn_subblock",
+                        lambda *a, **k: pytest.fail("dropout reached the fused block"))
+    torch.manual_seed(0)
+    enc = Encoder(D, 2, HEADS, attn_impl="fused", dropout=0.1, drop_path=0.1, init_values=1e-5)
+    for p in enc.parameters():
+        p.data.normal_(0.0, 0.1)
+    x = torch.randn(2, 9, D)
+    a = enc(x, train=True, rng=torch.Generator().manual_seed(3))
+    b = enc(x, train=True, rng=torch.Generator().manual_seed(3))
+    torch.testing.assert_close(a, b)  # the same generator, the same masks
+    assert not torch.equal(a, enc(x, train=True, rng=torch.Generator().manual_seed(4)))
+    block = EncoderBlock(D, HEADS, attn_impl="fused", dropout=0.1, init_values=1e-5)
+    assert block(x, drop_seed=7).shape == x.shape
+    vit = tvit.Model(16, image_size=32, **_vit_cfg("fused", dropout=0.1))
+    assert vit(torch.randn(2, 32, 32, 3), train=True,
+               rng=torch.Generator().manual_seed(0)).shape == (2, 16)
 
 
 def test_step_generator_redraws_the_same_masks_on_resume():
