@@ -278,6 +278,24 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    events and graph replay beside bound, plain and library.
    `python3 chip_smoke.py --curriculum` builds the kernels and runs this
    phase alone (~250 s).
+22. Checkpoints and the OpenCLIP export at full width: phase 5's concat
+   CoCa weights (the JAX param tree of its npz) written as an Orbax train
+   state by train/checkpoint.py:save_orbax (params, and an opt subtree of
+   the same shapes) and read back by restore_params, every leaf bit-equal;
+   bytes, seconds and GB/s of the write, the read and the npz load.
+   convert.export on that directory (the sincos2d posemb materialized; the
+   parity probe's max |delta| on the card), then the zero-shot path on the
+   export (load_model bf16 fused_t: #1/#2, launch counts) against the same
+   weights from the npz through load_state_dict into the port's CLIP on
+   fused_t: zimg cosine >= 0.99999 and the same ranking. The caption CLI
+   (--checkpoint <orbax dir> --step, concat / flash: #14) and the daemon's
+   CaptionService(step=) (concat / fused: #9; then its batcher route on one
+   burst of the PNGs) give phase 5's greedy ids exactly. Then the committed
+   fixtures (tests/fixtures: a JAX-written Orbax state with the
+   ocdbt.process_0 merge and a 4-chunk sharded leaf, and a legacy
+   blosc/lz4 directory) equal their npz exactly. `python3 chip_smoke.py
+   --checkpoints` builds the kernels and runs this phase alone, on phase
+   5's concat checkpoint written by the script (~140 s).
 `python3 chip_smoke.py --ln [ROOT]` times the row LayerNorm kernels of the
 checkout at ROOT (csrc/layernorm.cu: the bf16 layernorm at b=64 over the
 ViT-L/14 tower's 16448 x 1024, the decoder's prefix-LM 29632 x 768 and
@@ -1374,7 +1392,9 @@ def cosine_rows(a, b):
 
 def caption_phase(device, tmp: str, batch: np.ndarray, names, totals: dict) -> dict:
     """Phase 5: drives the caption path and checks it. Returns the loaded
-    kernel captioners by (fusion, dec_impl) and the checkpoint paths."""
+    kernel captioners by (fusion, dec_impl), the checkpoint paths, and the
+    greedy ids by (fusion, dec_impl) (on the CPU; phase 22 holds the Orbax
+    path to them)."""
     import torch
 
     from openvision_tpu_torch.configs.openvision import get_config
@@ -1382,7 +1402,7 @@ def caption_phase(device, tmp: str, batch: np.ndarray, names, totals: dict) -> d
     from openvision_tpu_torch.ops import kernels
     from openvision_tpu_torch.tools.caption import build_captioner
 
-    loaded, ckpts = {}, {}
+    loaded, ckpts, greedy = {}, {}, {}
     for fusion in ("concat", "cross_attn"):
         ckpts[fusion] = os.path.join(tmp, f"caption_{fusion}.npz")
         t0 = time.perf_counter()
@@ -1447,7 +1467,8 @@ def caption_phase(device, tmp: str, batch: np.ndarray, names, totals: dict) -> d
             for name, row in list(zip(names, runs["greedy"].tolist()))[:2]:
                 print(f"{tag} {name}\tgreedy: {tok.decode(row)[:70]!r}")
             loaded[(fusion, dec_impl)] = cap
-    return loaded, ckpts
+            greedy[(fusion, dec_impl)] = runs["greedy"].cpu()
+    return loaded, ckpts, greedy
 
 
 def device_profile(fn, event_ms: float, iters: int = 3) -> str:
@@ -4350,6 +4371,262 @@ def curriculum_only() -> int:
     return 0
 
 
+CKPT_STEP = 1000  # phase 22's Orbax step
+CKPT_EXPORT = {"img": "L/14", "txt": "L"}  # CAPTION_ARG's towers, as convert.export names them
+CKPT_COS = 0.99999  # the export's zimg against the npz path's, same weights and kernels
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
+
+
+def _tree_leaves(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _tree_leaves(v, f"{prefix}/{k}" if prefix else str(k))
+    else:
+        yield prefix, tree
+
+
+def same_leaves(got, want, label: str) -> int:
+    """Raises unless the two trees have the same leaf names and every leaf
+    the same type, dtype, shape and bytes; returns the bytes compared."""
+    import torch
+
+    g, w = dict(_tree_leaves(got)), dict(_tree_leaves(want))
+    if g.keys() != w.keys():
+        raise AssertionError(f"{label}: leaf names differ: {sorted(g.keys() ^ w.keys())[:8]}")
+    total = 0
+    for k, b in w.items():
+        a = g[k]
+        if isinstance(a, torch.Tensor) != isinstance(b, torch.Tensor):
+            raise AssertionError(f"{label}: {k} is {type(a).__name__}, expected "
+                                 f"{type(b).__name__}")
+        if isinstance(b, torch.Tensor):  # bf16 leaves: compare their bits
+            a, b = a.view(torch.int16).numpy(), b.view(torch.int16).numpy()
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        if (a.dtype != b.dtype or a.shape != b.shape
+                or not np.array_equal(a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8))):
+            raise AssertionError(f"{label}: {k} differs ({a.dtype}{a.shape} against "
+                                 f"{b.dtype}{b.shape})")
+        total += b.nbytes
+    return total
+
+
+def _du(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def checkpoint_phase(ckpt: str, images, names, work: str, device, totals: dict,
+                     want_ids: dict | None = None) -> dict:
+    """Phase 22: phase 5's concat CoCa weights (the npz `ckpt`) through the
+    Orbax writer and reader, the OpenCLIP export, the zero-shot path on
+    fused_t, the caption CLI's --step and the daemon's caption_step, and the
+    committed fixtures. `want_ids`: phase 5's greedy ids by (fusion,
+    dec_impl); None: computed here from the npz as phase 5 does."""
+    import contextlib
+    import ctypes.util
+    import dataclasses
+
+    import torch
+
+    from openvision_tpu_torch.configs.openvision import get_config
+    from openvision_tpu_torch.convert import export as texport
+    from openvision_tpu_torch.models.encoder import cast_block_matrices
+    from openvision_tpu_torch.serving import server as srv
+    from openvision_tpu_torch.tools import caption as tcap
+    from openvision_tpu_torch.tools import zero_shot
+    from openvision_tpu_torch.tools.model_io import load_model
+    from openvision_tpu_torch.train import checkpoint as ck
+    from openvision_tpu_torch.train.step import build_model
+
+    t_phase = time.perf_counter()
+    res = {}
+    print(f"codec libraries: zstd {ctypes.util.find_library('zstd')}, "
+          f"lz4 {ctypes.util.find_library('lz4')}")
+
+    # (a) the full-width train state written as Orbax and read back
+    t0 = time.perf_counter()
+    params = ck.load_npz(ckpt)["params"]
+    res["npz_s"] = time.perf_counter() - t0
+    nbytes = sum(np.asarray(v).nbytes for _, v in _tree_leaves(params))
+    root = os.path.join(work, "orbax")
+    state = {"params": params, "opt": {"count": np.asarray(CKPT_STEP, np.int32), "mu": params}}
+    t0 = time.perf_counter()
+    ck.save_orbax(root, CKPT_STEP, state)
+    res["write_s"] = time.perf_counter() - t0
+    res["disk_bytes"] = _du(root)
+    t0 = time.perf_counter()
+    back = ck.restore_params(root)
+    res["read_s"] = time.perf_counter() - t0
+    read = same_leaves(back, params, "[22a] restore_params against phase 5's npz")
+    del back
+    res["write_bytes"], res["read_bytes"] = 2 * nbytes, read
+    print(f"[22a] {len(dict(_tree_leaves(params)))} leaves, {nbytes / 1e9:.3f} GB of params; "
+          f"npz load {res['npz_s']:.2f} s ({nbytes / res['npz_s'] / 1e9:.2f} GB/s)")
+    print(f"[22a] save_orbax (params + opt.mu, {2 * nbytes / 1e9:.3f} GB of arrays, "
+          f"{res['disk_bytes'] / 1e9:.3f} GB on disk): {res['write_s']:.2f} s "
+          f"({2 * nbytes / res['write_s'] / 1e9:.2f} GB/s)")
+    print(f"[22a] restore_params ({read / 1e9:.3f} GB): {res['read_s']:.2f} s "
+          f"({read / res['read_s'] / 1e9:.2f} GB/s); every leaf bit-equal")
+
+    # (b) export, then the zero-shot path on the export against the npz path
+    export_dir = os.path.join(work, "orbax_export")
+    t0 = time.perf_counter()
+    res["probe"] = texport.export(root, export_dir, **CKPT_EXPORT, res=RES,
+                                  out_dim=int(params["img"]["head"]["kernel"].shape[1]),
+                                  context_length=TOKEN_LEN, vocab_size=VOCAB, device=device)
+    print(f"[22b] convert.export in {time.perf_counter() - t0:.1f} s; parity probe max|delta| "
+          f"{res['probe']:.3e}")
+    del params, state
+    em = load_model(export_dir, dtype=torch.bfloat16, attn_impl="fused_t", fast_gelu=True,
+                    device=device)
+    cfg = get_config(caption_arg("concat", "fused") + ",attn_impl=fused_t")
+    cfg["model"]["text"]["attn_impl"] = "xla"  # load_model's text tower
+    cfg["model"]["image"]["output_tokens"] = cfg["model"]["text"]["output_tokens"] = False
+    clip = build_model(cfg)
+    clip.load_state_dict(ck.load_state_dict(ckpt))
+    clip = clip.to(device).eval().requires_grad_(False)
+    cast_block_matrices(clip, torch.bfloat16)
+    nm = dataclasses.replace(em, vision=clip.visual, text=clip.text)
+    batch = np.stack([em.preprocess(im) for im in images]).astype(np.float32)
+    per_encode = {k: v * IMG_BLOCKS for k, v in LAUNCHES_PER_BLOCK.items()}
+
+    def zero_shot_path(m):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return m.encode_image(batch), zero_shot.rank(m, names, images)
+
+    z_e, rank_e = counted(lambda: zero_shot_path(em),
+                          {k: v * (1 + len(images)) for k, v in per_encode.items()},
+                          "[22b] export on fused_t: one batch encode + the zero-shot ranking",
+                          totals)
+    z_n, rank_n = zero_shot_path(nm)
+    cos = (z_e * z_n).sum(-1)
+    order = [[np.argsort(-np.asarray(r[3])).tolist() for r in ranks] for ranks in (rank_e, rank_n)]
+    res["zimg_cos"] = cos.min().item()
+    print(f"[22b] zimg cosine, export against the npz path (fused_t, bf16): min "
+          f"{res['zimg_cos']:.7f}, max|delta| {(z_e - z_n).abs().max().item():.3e}; "
+          f"best labels {[r[1] for r in rank_e]}")
+    if res["zimg_cos"] < CKPT_COS or not torch.isfinite(z_e).all():
+        raise AssertionError(f"[22b] zimg cosine {res['zimg_cos']} < {CKPT_COS}")
+    if order[0] != order[1]:
+        raise AssertionError(f"[22b] the rankings differ: {order[0]} against {order[1]}")
+    del em, nm, clip, z_e, z_n
+    torch.cuda.empty_cache()
+
+    # (c) the caption CLI's --step and the daemon's caption_step on the Orbax directory
+    cli_arg, daemon_arg = caption_arg("concat", "flash"), caption_arg("concat", "fused")
+    cap_batch = np.stack([tcap.preprocess(im, RES) for im in images]).astype(np.float32)
+    if want_ids is None:
+        want_ids = {}
+        for key in (("concat", "flash"), ("concat", "fused")):
+            cap, _ = tcap.build_captioner(get_config(caption_arg(*key)), ckpt, device=device)
+            want_ids[key] = cap(cap_batch).cpu()
+            del cap
+    built, build = {}, tcap.build_captioner
+
+    def keep(*a, **kw):
+        built["cap"] = build(*a, **kw)
+        return built["cap"]
+
+    testcat, out = os.path.join(REPO, "testcat"), io.StringIO()
+
+    def cli():
+        with contextlib.redirect_stdout(out):
+            tcap.main(["--checkpoint", root, "--step", str(CKPT_STEP), "--config", cli_arg,
+                       "--image_folder", testcat, "--device", torch.device(device).type])
+
+    tcap.build_captioner = keep
+    try:
+        t0 = time.perf_counter()
+        counted(cli, expected_caption_launches("concat", "flash"), "[22c] caption CLI", totals)
+    finally:
+        tcap.build_captioner = build
+    print(out.getvalue().splitlines()[0])
+    cap, tok = built["cap"]
+    want = [f"{os.path.join(testcat, n)}\t{tok.decode(row)}"
+            for n, row in zip(names, want_ids[("concat", "flash")].tolist())]
+    if out.getvalue().strip().splitlines() != want:
+        raise AssertionError(f"[22c] the CLI's captions differ from phase 5's: "
+                             f"{out.getvalue()[-2000:]}")
+    if not torch.equal(cap(cap_batch).cpu(), want_ids[("concat", "flash")]):
+        raise AssertionError("[22c] the CLI's captioner gives other ids than phase 5's")
+    print(f"[22c] caption CLI --checkpoint <orbax> --step {CKPT_STEP} (concat / flash): "
+          f"{len(want)} captions, ids equal to phase 5's, in {time.perf_counter() - t0:.1f} s")
+    del cap, built
+    t0 = time.perf_counter()
+    capsvc = srv.CaptionService(get_config(daemon_arg), root, step=CKPT_STEP,
+                                max_batch=DAEMON_MAX_BATCH, max_wait_ms=100.0, device=device)
+    try:
+        ids = counted(lambda: capsvc.captioner(torch.from_numpy(cap_batch).to(device)),
+                      expected_caption_launches("concat", "fused"),
+                      "[22c] CaptionService(step) captioner", totals)
+        if not torch.equal(ids.cpu(), want_ids[("concat", "fused")]):
+            raise AssertionError("[22c] the daemon's captioner gives other ids than phase 5's")
+        # the route's preprocessing (caption_image_bytes) first, then one burst of submits
+        rows = [tcap.preprocess(open(os.path.join(testcat, n), "rb").read(), RES)
+                .astype(np.float32) for n in names]
+        futures = [capsvc.batcher.submit(r) for r in rows]
+        got = [f.result(timeout=300) for f in futures]
+        padded = np.zeros((srv.bucket_size(len(images), DAEMON_MAX_BATCH),) + cap_batch.shape[1:],
+                          np.float32)
+        padded[:len(images)] = cap_batch
+        rows = capsvc.captioner(torch.from_numpy(padded).to(device))[:len(images)].tolist()
+        if capsvc.stats()["batches"] != 1 or got != [capsvc.tok.decode(r) for r in rows]:
+            raise AssertionError(f"[22c] the caption route's batch {capsvc.stats()} gave {got}")
+    finally:
+        capsvc.stop()
+    print(f"[22c] CaptionService(<orbax>, step={CKPT_STEP}) (concat / fused): ids equal to "
+          f"phase 5's; the route's one batch of {len(rows)} PNGs captioned as its padded "
+          f"forward, in {time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.rmtree(export_dir, ignore_errors=True)
+
+    # (d) the committed fixtures: JAX-written Orbax (ocdbt.process_0, sharded chunks) and legacy
+    orbax = os.path.join(FIXTURES, "orbax_train_state")
+    n = same_leaves(ck.restore_params(orbax, subtree=None), ck.load_npz(orbax + ".npz"),
+                    "[22d] the Orbax fixture")
+    legacy = os.path.join(FIXTURES, "legacy_ts")
+    m = same_leaves(ck.load_legacy_ts(legacy), ck.load_npz(legacy + ".npz"),
+                    "[22d] the legacy fixture")
+    print(f"[22d] the Orbax fixture ({n} bytes) and the legacy blosc/lz4 fixture ({m} bytes) "
+          "equal their npz")
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 22 in {res['phase_s']:.1f} s  [{smi_line()}]")
+    return res
+
+
+def checkpoints_only() -> int:
+    """``chip_smoke.py --checkpoints``: the kernel build and phase 22 alone,
+    on phase 5's concat checkpoint written here."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from openvision_tpu_torch.data.ops_image import decode_png
+    from openvision_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    kernels.lib()
+    print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    names = sorted(f for f in os.listdir(os.path.join(REPO, "testcat")) if f.endswith(".png"))
+    images = [decode_png(open(os.path.join(REPO, "testcat", f), "rb").read()) for f in names]
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        ckpt = os.path.join(work, "caption_concat.npz")
+        write_random_caption_checkpoint(ckpt, "concat", SEED)
+        with torch.inference_mode():
+            checkpoint_phase(ckpt, images, names, work, torch.device("cuda"), totals)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 22 launches: { {k: v for k, v in totals.items() if v} }")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4497,7 +4774,7 @@ def run(work: str) -> int:
     phase("5. caption path: ViT-L/14-224 + text-L + decoder-L, bf16, random weights (seed 0)")
     cap_batch = np.stack([tcap.preprocess(im, RES) for im in images]).astype(np.float32)
     with torch.inference_mode():
-        loaded, ckpts = caption_phase(device, work, cap_batch, names, totals)
+        loaded, ckpts, greedy = caption_phase(device, work, cap_batch, names, totals)
 
         phase("6. caption throughput at batch 64, and the new kernels' time at caption shapes")
         cap_rates = caption_throughput(device, loaded, ckpts)
@@ -4622,6 +4899,12 @@ def run(work: str) -> int:
           "decoder L, bf16, GradCache, through main_clip on tar shards")
     curriculum = curriculum_phase(images, work, device, totals, worst)
 
+    phase("22. checkpoints and export at full width: phase 5's concat CoCa as an Orbax train "
+          "state, convert.export, zero-shot on fused_t, the caption CLI's --step and the "
+          "daemon's caption_step, the committed fixtures")
+    with torch.inference_mode():
+        ckpt_res = checkpoint_phase(ckpts["concat"], images, names, work, device, totals, greedy)
+
     phase("summary")
     print(f"card: {smi}")
     print(f"encode b=64 img/s: kernels {rates['kernels']}  plain eager bf16 {rates['plain']}")
@@ -4652,6 +4935,11 @@ def run(work: str) -> int:
               f"{[round(x, 4) for x in v['wait_share']]}, peak {v['peak_gb']:.2f} GB"
               + (f", device busy {v['busy_ms']:.1f} of {v['traced_ms']:.1f} ms traced"
                  if "busy_ms" in v else ""))
+    print(f"checkpoints: npz load {ckpt_res['npz_s']:.2f} s, save_orbax {ckpt_res['write_s']:.2f} s "
+          f"({ckpt_res['write_bytes'] / ckpt_res['write_s'] / 1e9:.2f} GB/s), restore_params "
+          f"{ckpt_res['read_s']:.2f} s ({ckpt_res['read_bytes'] / ckpt_res['read_s'] / 1e9:.2f} "
+          f"GB/s); export zimg cosine {ckpt_res['zimg_cos']:.7f}; phase 22 in "
+          f"{ckpt_res['phase_s']:.1f} s")
     print(f"curriculum pp records/s (0 and {CUR_WORKERS} workers): "
           f"{curriculum['pp_records_per_s']}; phase 21 in {curriculum['phase_s']:.1f} s")
     print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "
@@ -4942,4 +5230,6 @@ if __name__ == "__main__":
         sys.exit(ln_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     if sys.argv[1:2] == ["--curriculum"]:
         sys.exit(curriculum_only())
+    if sys.argv[1:2] == ["--checkpoints"]:
+        sys.exit(checkpoints_only())
     sys.exit(main())

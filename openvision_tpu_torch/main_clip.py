@@ -14,8 +14,9 @@ without a card; ``--device cpu`` runs the plain versions of the kernels.
 Scoring a checkpoint: ``--override eval_only=True`` runs the config's
 evaluators once and trains nothing, on the workdir's newest checkpoint or
 on ``ft_from`` (a flat-name npz: the port's train state or a JAX param
-tree), each evaluator's data named by an override, e.g. a TFRecord
-directory written by ``python -m openvision_tpu_torch.data.prepare``:
+tree; or a JAX run's Orbax or legacy tensorstore directory), each
+evaluator's data named by an override, e.g. a TFRecord directory written by
+``python -m openvision_tpu_torch.data.prepare``:
 
     python -m openvision_tpu_torch.main_clip --config ...:res=224,img=L/14,dtype=bfloat16 \
         --workdir /tmp/eval --override eval_only=True --override ft_from=/ckpt.npz \

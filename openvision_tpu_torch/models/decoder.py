@@ -213,7 +213,11 @@ class TextDecoder(nn.Module):
 
 
 def Model(num_classes=None, *, variant=None, **kw):
-    """Factory mirroring the JAX package's ``Model(variant="L", ...)``."""
+    """Factory mirroring the JAX package's ``Model(variant="L", ...)``,
+    reference-config keys translated (``models/compat.py``)."""
+    from openvision_tpu_torch.models.compat import translate_model_kwargs
+
+    kw = translate_model_kwargs(kw)
     if num_classes is not None:
         kw["num_classes"] = num_classes
     return TextDecoder(**{**decode_variant(variant), **kw})

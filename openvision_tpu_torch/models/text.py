@@ -128,5 +128,9 @@ class TextTransformer(nn.Module):
 
 
 def Model(num_classes=None, *, variant=None, **kw):
-    """Factory mirroring the JAX package's ``Model(variant="L", ...)``."""
+    """Factory mirroring the JAX package's ``Model(variant="L", ...)``,
+    reference-config keys translated (``models/compat.py``)."""
+    from openvision_tpu_torch.models.compat import translate_model_kwargs
+
+    kw = translate_model_kwargs(kw)
     return TextTransformer(num_classes=num_classes, **{**decode_variant(variant), **kw})

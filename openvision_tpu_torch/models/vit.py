@@ -261,7 +261,11 @@ class ViT(nn.Module):
 
 
 def Model(num_classes=None, *, variant=None, **kw):
-    """Factory mirroring the JAX package's ``Model(variant="L/14", ...)``."""
+    """Factory mirroring the JAX package's ``Model(variant="L/14", ...)``,
+    reference-config keys translated (``models/compat.py``)."""
+    from openvision_tpu_torch.models.compat import translate_model_kwargs
+
+    kw = translate_model_kwargs(kw)
     return ViT(num_classes=num_classes, **{**decode_variant(variant), **kw})
 
 

@@ -24,8 +24,9 @@ in place there):
   raises instead of queueing work nobody will run, and the caption service
   stops with the daemon.
 ``--data_parallel`` (batch-parallel serving over several GPUs) raises: it
-waits for the multi-GPU slice. The caption route reads the port's flat npz
-train state; ``--caption_step`` (an Orbax step) raises.
+waits for the multi-GPU slice. The caption route reads an npz (the port's
+train state or a JAX param tree), an Orbax directory (``--caption_step``
+picks a step, the newest by default) or a legacy tensorstore directory.
 
 HTTP API (JSON unless noted), as the JAX daemon's:
   GET  /healthz, GET /stats
@@ -354,7 +355,8 @@ class EmbedService:
 
 
 class CaptionService:
-    """Dynamic-batched greedy captioning over a CoCa train state (flat npz).
+    """Dynamic-batched greedy captioning over a CoCa checkpoint (an npz, an
+    Orbax directory at `step`, the newest by default, or a legacy one).
 
     The OpenCLIP export has no generative head, so the caption route loads
     the framework's own train state with ``tools/caption.build_captioner``
@@ -370,12 +372,9 @@ class CaptionService:
         from openvision_tpu_torch.tools.caption import build_captioner
         from openvision_tpu_torch.tools.model_io import DEFAULT_VOCAB
 
-        if step is not None:
-            raise NotImplementedError(
-                "--caption_step picks a step of an Orbax checkpoint directory; Orbax "
-                "checkpoints are not ported yet: pass the flat npz train state")
         self.captioner, self.tok = build_captioner(config, checkpoint,
-                                                   vocab_path or DEFAULT_VOCAB, device=device)
+                                                   vocab_path or DEFAULT_VOCAB, device=device,
+                                                   step=step)
         self.image_size = int(config["res"])
         self.max_batch = int(max_batch)
         self._runner = _DeviceRunner(self.captioner.device)
@@ -552,14 +551,14 @@ def main(argv=None):
     parser.add_argument("--data_parallel", action="store_true",
                         help="batch-parallel serving over all local GPUs (not ported yet)")
     parser.add_argument("--caption_checkpoint", default=None,
-                        help="CoCa train state (flat npz) with the caption decoder; enables "
-                             "POST /v1/caption")
+                        help="CoCa checkpoint with the caption decoder (npz, Orbax or legacy "
+                             "directory); enables POST /v1/caption")
     parser.add_argument("--caption_config", default="res=224,img=L/14,txt_name=L,"
                                                     "txt_decoder_name=L",
                         help="config arg string the caption checkpoint was trained with "
                              "(configs/openvision.py)")
     parser.add_argument("--caption_step", type=int, default=None,
-                        help="a step of an Orbax checkpoint (not ported yet)")
+                        help="step of an Orbax caption checkpoint (default: the newest)")
     parser.add_argument("--caption_vocab", default=DEFAULT_VOCAB)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)

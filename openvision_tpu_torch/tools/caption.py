@@ -14,10 +14,10 @@ Usage:
       --config "res=224,img=L/14,txt_name=L,txt_decoder_name=L,dtype=bfloat16" \
       --image_folder testcat [--temperature 0.7 --top_k 40] [--device cuda]
 
-The checkpoint is a flat npz: the JAX package's ``save_npz``, or the port
-trainer's own train state (one process or a process mesh: the save gathers
-it whole); Orbax and legacy tensorstore checkpoints are not ported yet and
-raise. With
+The checkpoint is a flat npz (the JAX package's ``save_npz``, or the port
+trainer's own train state: one process or a process mesh, the save gathers
+it whole), an Orbax train-state directory (the newest committed step, or
+``--step``) or a legacy tensorstore one (``train/checkpoint.py``). With
 ``--device cuda`` the ``fused``, ``fused_t`` and ``flash`` attention picks run
 the hand-written kernels, which take bf16: a float32 config with such a pick
 on CUDA raises rather than running the plain path. ``--device cpu`` runs the
@@ -95,8 +95,9 @@ class Captioner:
 
 
 def build_captioner(config: dict, checkpoint: str, vocab_path: str = DEFAULT_VOCAB, *,
-                    device="cuda"):
-    """Returns (Captioner, tokenizer) for `checkpoint` (a flat npz)."""
+                    device="cuda", step: int | None = None):
+    """Returns (Captioner, tokenizer) for `checkpoint` (an npz, or an Orbax
+    directory at `step`, the newest by default, or a legacy one)."""
     m = config["model"]
     dtype = DTYPES[m["image"]["dtype"]]
     impls = {m["image"]["attn_impl"], m["text"]["attn_impl"],
@@ -109,7 +110,7 @@ def build_captioner(config: dict, checkpoint: str, vocab_path: str = DEFAULT_VOC
             "dtype=bfloat16, or attn_impl=xla,dec_attn_impl=xla for the plain path")
     device = resolve_device(device)
     model = build_model(config)
-    model.load_state_dict(load_state_dict(checkpoint))
+    model.load_state_dict(load_state_dict(checkpoint, step))
     model = model.to(device).eval().requires_grad_(False)
     cast_block_matrices(model, dtype)
     tok = get_tokenizer(vocab_path)
@@ -119,11 +120,14 @@ def build_captioner(config: dict, checkpoint: str, vocab_path: str = DEFAULT_VOC
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--checkpoint", required=True, help="flat npz checkpoint")
+    p.add_argument("--checkpoint", required=True,
+                   help="npz file, Orbax checkpoint directory or legacy tensorstore directory")
     p.add_argument("--config", default="res=224,img=L/14,txt_name=L,txt_decoder_name=L",
                    help="config arg string (configs/openvision.py)")
     p.add_argument("--image", action="append", default=[])
     p.add_argument("--image_folder", default=None)
+    p.add_argument("--step", type=int, default=None,
+                   help="step of an Orbax checkpoint directory (default: the newest)")
     p.add_argument("--temperature", type=float, default=0.0, help="0 = greedy; >0 = sampled")
     p.add_argument("--top_k", type=int, default=0,
                    help="sample from the k most probable tokens (0 = off; implies "
@@ -146,7 +150,8 @@ def main(argv=None):
     if not paths:
         p.error("no images given (--image / --image_folder)")
 
-    captioner, tok = build_captioner(config, args.checkpoint, args.vocab, device=args.device)
+    captioner, tok = build_captioner(config, args.checkpoint, args.vocab, device=args.device,
+                                     step=args.step)
     images = np.stack([load_image(f, config["res"]) for f in paths])
     gen = torch.Generator(device=captioner.device).manual_seed(args.seed)
     ids = captioner(images, args.temperature, args.top_k, args.top_p, generator=gen)

@@ -86,16 +86,12 @@ def build_model(config: dict) -> CLIPModel:
     if config.get("param_dtype", "float32") != "float32":
         raise NotImplementedError("param_dtype other than float32 is not ported yet")
     m = config["model"]
-
-    def typed(cfg):
-        return {**cfg, "dtype": DTYPES[cfg["dtype"]]}
-
     out_dim = m["out_dim"]
-    return CLIPModel(
+    return CLIPModel(  # the towers' factories take the string dtypes (models/compat.py)
         out_dim=tuple(out_dim) if isinstance(out_dim, (list, tuple)) else out_dim,
-        image=typed(m["image"]), text=typed(m["text"]),
+        image=m["image"], text=m["text"],
         text_decoder=m.get("text_decoder", "text_decoder"),
-        text_decoder_config=typed(m["text_decoder_config"]),
+        text_decoder_config=m["text_decoder_config"],
         temperature_init=m.get("temperature_init", 10.0),
         init_logit_bias=m.get("init_logit_bias"))
 

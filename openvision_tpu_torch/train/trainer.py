@@ -4,8 +4,9 @@ Counterpart of ``openvision_tpu/train/trainer.py:train`` (:180-506): the
 input pipeline (``data/pipeline.py``), the model and optimizer from the
 config's seed (``train/step.py``), the init decision chain (resume from the
 workdir's own newest checkpoint, with the data position it was saved at;
-else ``ft_from``, a flat-name npz: a JAX param tree or the port's own train
-state; else the fresh init), then the loop: one update per batch,
+else ``ft_from``: a flat-name npz, a JAX param tree or the port's own train
+state, or an Orbax or legacy tensorstore directory of a JAX run; else the
+fresh init), then the loop: one update per batch,
 measurements, :class:`~openvision_tpu_torch.train.chrono.Chrono` timing,
 the process's peak device memory (``peak_gb``) and its CUDA kernel launch
 counts so far (``launches/<kernel>``)
@@ -155,8 +156,9 @@ def transform_geometry(loaded: dict, inited: dict) -> dict:
 
 def initial_params(config: dict, model, note) -> Optional[dict]:
     """The state dict a fresh run starts from: ``ft_from``, else
-    ``load_transform``, else ``masked_init`` (each a flat-name npz), else
-    None (the seed's init)."""
+    ``load_transform``, else ``masked_init`` (each an npz, an Orbax
+    directory's newest step or a legacy tensorstore directory), else None
+    (the seed's init)."""
     from openvision_tpu_torch.models.init import init_params
 
     if config.get("ft_from"):

@@ -103,12 +103,23 @@ def test_npz_round_trips_bfloat16(tmp_path):
 
 
 def test_unported_checkpoint_formats_raise(tmp_path):
-    (tmp_path / "orbax" / "1000").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="Orbax"):
+    # Orbax and legacy tensorstore checkpoints load (tests/test_torch_checkpoint_formats.py);
+    # an uncommitted Orbax step, zarr v3 and blosc's zlib blocks raise by name
+    (tmp_path / "orbax" / "1000" / "default").mkdir(parents=True)
+    with pytest.raises(FileNotFoundError, match="committed"):
+        tck.load_checkpoint(str(tmp_path / "orbax"))
+    (tmp_path / "orbax" / "1000" / "_CHECKPOINT_METADATA").write_text("{}")
+    (tmp_path / "orbax" / "1000" / "default" / "_METADATA").write_text(
+        '{"tree_metadata": {}, "use_zarr3": true}')
+    with pytest.raises(NotImplementedError, match="zarr v3"):
         tck.load_checkpoint(str(tmp_path / "orbax"))
     (tmp_path / "ts" / "img~cls").mkdir(parents=True)
-    (tmp_path / "ts" / "img~cls" / ".zarray").write_text("{}")
-    with pytest.raises(NotImplementedError, match="tensorstore"):
+    (tmp_path / "ts" / "img~cls" / ".zarray").write_text(
+        '{"chunks": [2], "compressor": {"id": "blosc"}, "dtype": "<f4", "fill_value": null, '
+        '"filters": null, "order": "C", "shape": [2], "zarr_format": 2}')
+    blosc = bytes([2, 1, 0x1 | 3 << 5, 4]) + np.array([8, 8, 24], "<u4").tobytes() + bytes(8)
+    (tmp_path / "ts" / "img~cls" / "0").write_bytes(blosc)
+    with pytest.raises(NotImplementedError, match="compressor code 3"):
         tck.load_checkpoint(str(tmp_path / "ts"))
 
 

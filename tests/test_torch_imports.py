@@ -1,7 +1,8 @@
 """The port imports neither JAX, flax, optax, grain, Triton, tensorflow,
-tensorflow_datasets nor protobuf, directly or through openvision_tpu, nor
-Pillow when its modules are imported (the card's machine may lack it), and
-chip_smoke.py refuses to run without a card."""
+tensorflow_datasets, protobuf, tensorstore nor orbax, directly or through
+openvision_tpu, nor Pillow when its modules are imported (the card's machine
+may lack it); no line of chip_smoke.py imports JAX, tensorstore, orbax or
+openvision_tpu; and chip_smoke.py refuses to run without a card."""
 
 import os
 import subprocess
@@ -33,7 +34,8 @@ def test_port_imports_no_jax_flax_or_triton():
               "evaluators.disclf", "evaluators.retrieval", "evaluators.contrastive",
               "evaluators.prompts", "evaluators.in1k_classes", "tools.augment", "tools.capture",
               "tools.optimizers", "tools.feature_viz", "tools.gradient_ascent",
-              "tools.neuron_capture", "tools.adversarial"):
+              "tools.neuron_capture", "tools.adversarial", "train.codecs", "train.zarr",
+              "train.ocdbt", "models.compat", "models.loading", "convert.export"):
         assert f"openvision_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -41,7 +43,8 @@ def test_port_imports_no_jax_flax_or_triton():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'grain', 'triton', 'openvision_tpu', 'tensorflow', "
-        "'tensorflow_datasets', 'PIL') or m.startswith('google.protobuf'))\n"
+        "'tensorflow_datasets', 'PIL', 'tensorstore', 'orbax') "
+        "or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -49,6 +52,32 @@ def test_port_imports_no_jax_flax_or_triton():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_chip_smoke_imports_no_jax_tensorstore_orbax_or_the_jax_package():
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    bad = sorted(n for n in names if n.split(".")[0] in
+                 ("jax", "jaxlib", "tensorstore", "orbax", "openvision_tpu"))
+    assert not bad, bad
+    assert "openvision_tpu_torch.train.checkpoint" in names
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    import ast
+
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    assert sorted({n for n in names if names.count(n) > 1}) == []
 
 
 def test_chip_smoke_refuses_without_cuda():

@@ -310,8 +310,6 @@ def test_caption_warmup_and_captions_match_the_tool(captioner, caption_ckpt):
     cap, tok = tcap.build_captioner(get_config(CAPTION_ARG), caption_ckpt, device="cpu")
     ids = cap(np.stack([tcap.preprocess(_decode(b), 32) for b in blobs]))
     assert got == [tok.decode(row) for row in ids.tolist()]
-    with pytest.raises(NotImplementedError, match="Orbax"):
-        srv.CaptionService(get_config(CAPTION_ARG), caption_ckpt, step=3, device="cpu")
 
 
 def test_http_routes(http_servers, service, model, captioner):

@@ -11,6 +11,8 @@
 - the trainer: 3 steps on the CPU write metrics and checkpoints, and a run
   resumed at step 2 ends on the parameters of an uninterrupted one; the CLI
   refuses ``--device cuda`` without a card and trains on ``--device cpu``.
+Torch runs one intra-op thread here, as the suite runs this file beside
+others on a shared CPU.
 """
 
 import json
@@ -33,6 +35,14 @@ from openvision_tpu_torch.convert.openclip import (
 from openvision_tpu_torch.main_clip import apply_override, main
 from openvision_tpu_torch.train import step as tstep
 from openvision_tpu_torch.train import trainer
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _rel(a, b):
