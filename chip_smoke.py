@@ -191,8 +191,9 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
 18. Tensor-parallel training through the normal entry point: torchrun
    (python -m torch.distributed.run --nproc_per_node 2) runs this script's
    --tp-grads mode, two ranks on the one card over gloo at tensor 2 (phase
-   8's model and config at a third of its depth: 8 image, 4 text and 4
-   decoder blocks at the full widths; its params and batch), whose loss and
+   8's model and config at a sixth of its depth since phase 23 came: 4
+   image, 2 text and 2 decoder blocks at the full widths; its params and
+   batch), whose loss and
    gathered gradients
    are held against the one-process kernel path (loss within 2**-7
    relative, global cosine >= 0.999), and which prints each rank's step
@@ -200,7 +201,7 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    python -m torch.distributed.run --nproc_per_node 2 -m
    openvision_tpu_torch.main_clip with sharding.mesh tensor=2 trains 3
    steps: finite losses, every TP block's #11/#12 launches as the block
-   counts give (8 image + 4 decoder blocks, the forward twice under
+   counts give (4 image + 2 decoder blocks, the forward twice under
    remat), one checkpoint, which the caption tool loads in one process and
    captions the testcat images with. A failure in any rank fails the phase.
 19. Evaluation at full width on phase 3's export: 1000 PNGs of 224 x 288
@@ -248,10 +249,12 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    weight- and bias-gradient launches that frozen weights do not need, and
    the phase's seconds.
 21. Webdataset pretraining and the resolution curriculum (BASELINE.json
-   configs 4 and 5) through python -m openvision_tpu_torch.main_clip in
-   subprocesses: ViT-B/16 + text B + decoder L (the JAX default config:
+   configs 4 and 5) through main_clip's main in this process (since phase
+   23 came; a subprocess each before): ViT-B/16 + text B + decoder L (the JAX default config:
    coca, concat, image tower and decoder on fused, text tower on xla,
-   remat=full), bf16 on f32 master weights, on 4 webdataset tar shards of
+   remat=full) at the full widths and a third of the depth since phase 23
+   came (4 blocks a tower, CUR_DEPTH), bf16 on f32 master weights, on 4
+   webdataset tar shards of
    512 records (a 256 x 320 PNG of a testcat image at an offset of its
    own, a .txt caption, a .json with llava_caption) written by the script.
    First the pp's records/s with 0 and 8 worker processes; #9 and #10
@@ -263,14 +266,15 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    within 2**-7, gradient cosine >= 0.999). Then stage 1 (res 112,
    mask_ratio 0.5, batch 1024, grad_accum 4, 8 input workers, 3 steps, a
    checkpoint), stage 2 (ft_from stage 1 at 224, batch 512, grad_accum 2,
-   3 steps: SIGTERM after step 1's log line must leave a checkpoint at the
-   step reached and exit 0; the rerun must resume from it and finish),
+   3 steps: SIGTERM, which the script sends itself once step 1's update is
+   done, must leave a checkpoint at step 1 and return; the rerun must
+   resume from it and finish),
    stage 3 (ft_from stage 2 at 384, batch 256, grad_accum 4, 2 steps) and
    a load_transform start (a learned-posemb B/16 state written at 224,
    started at 384: posemb 1+196 -> 1+576, 1 step). Checks: finite losses,
    every run's #9/#10 launches as a GradCache step gives them (pass 1: the
-   image tower's 12 blocks forward, #9 and the MLP kernels; pass 2: the
-   image tower's and decoder's 12 blocks each forward twice and backward
+   image tower's blocks forward, #9 and the MLP kernels; pass 2: the
+   image tower's and decoder's blocks each forward twice and backward
    once; times grad_accum), the checkpoints. Prints each stage's step ms,
    images/s, data-wait share and peak memory (stage 1's last step also
    through the trainer's profiler hook: device busy ms from the trace's
@@ -296,6 +300,40 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    blosc/lz4 directory) equal their npz exactly. `python3 chip_smoke.py
    --checkpoints` builds the kernels and runs this phase alone, on phase
    5's concat checkpoint written by the script (~140 s).
+23. The recipe on a process mesh (BASELINE.json config 5 at the full
+   widths: ViT-L/14 + text L + decoder L, the JAX default CoCa config
+   otherwise, learned position embeddings, bf16 on f32 masters; at a third
+   of the depth, 8 image, 4 text and 4 decoder blocks, MR_DEPTH), two ranks
+   of a data=2 mesh on the one card over gloo (NCCL takes one card a
+   process), so its times are not comparable with one process's. One
+   torchrun of this script's --mesh-worker mode runs the whole phase in two
+   processes (one start-up, as a job that trains, resumes and evaluates in
+   turn): (a) one global batch of 128 at 160 with mask 0.5 from phase 21's
+   shards, three gradients (coca with GradCache 2 and drop-path 0.1 on the
+   image tower, siglip with GradCache 2, coca in the global contrastive
+   mode at accum 1), process 0 writing each, and each rank's step ms at 160
+   and 224, images/s, peak memory and the collectives' share of a timed
+   step; this process computes the same three gradients on the whole batch
+   from the same seed: loss within 2**-7 relative, global gradient cosine
+   >= 0.999, the smallest per-tensor cosine printed. (b) main_clip's main
+   in the same processes: 160 at batch 128, GradCache 2, mask 0.5, 2 steps,
+   SIGTERM to rank 1 alone during step 1 (both ranks stop at step 1 and
+   write one checkpoint), the rerun resumes to step 2; then a
+   load_transform start at 224 from that checkpoint (position embedding 1 +
+   121 -> 1 + 256), batch 64, GradCache 2, one step, then disclf bf16,
+   disclf int8 with static scales and retrieval on phase 19's fixture (1000
+   IN-1K classes x 7 clip_best prompts; 1000 images; 5000 captions).
+   Checks: finite losses, process 0's launches of each run as a GradCache
+   step gives them. (c) main_clip eval_only on the mesh from that
+   checkpoint, its evaluators recording what they computed: the metrics
+   equal the run's evals, each rank's launches exact; then the same
+   evaluators in this process on the same checkpoint: class embeddings per
+   row cosine >= 0.999, predictions agree on >= 99% of the images, accuracy
+   within 0.5 points, retrieval similarities within SIM_TOL, the int8
+   static scales equal on both ranks and to this process's; the eval
+   seconds on two ranks and on one.
+   `python3 chip_smoke.py --mesh-recipe` builds the kernels and runs this
+   phase alone (it writes the shards and the fixture itself).
 `python3 chip_smoke.py --ln [ROOT]` times the row LayerNorm kernels of the
 checkout at ROOT (csrc/layernorm.cu: the bf16 layernorm at b=64 over the
 ViT-L/14 tower's 16448 x 1024, the decoder's prefix-LM 29632 x 768 and
@@ -2801,9 +2839,10 @@ TP_PARTIAL_BWD_LAUNCHES = {"layernorm": 1, "gemm_bias_act": 1, "flash_attention"
 TP_SIZE = 2  # phase 18's tensor axis: two ranks share the one card
 TP_TIMEOUT_S = 420  # each torchrun launch of phase 18
 # Phase 18's depth, cut from phase 8's 24 image, 12 text and 12 decoder
-# blocks (the full widths kept): two ranks on one card spend ~90% of a step
-# in gloo's host-staged all-reduces, which scale with the blocks
-TP_DEPTH = {"image": 8, "text": 4, "text_decoder_config": 4}
+# blocks (the full widths kept; a third until phase 23 needed the room): two
+# ranks on one card spend ~90% of a step in gloo's host-staged all-reduces,
+# which scale with the blocks
+TP_DEPTH = {"image": 4, "text": 2, "text_decoder_config": 2}
 
 
 def tp_config(cfg: dict) -> dict:
@@ -2977,8 +3016,7 @@ def tp_train_overrides(no_pil: bool) -> list:
 def torchrun(args, log_path: str) -> None:
     """python -m torch.distributed.run --nproc_per_node TP_SIZE `args`, in a
     session of its own (every process it starts ends with it, or is killed
-    at TP_TIMEOUT_S); raises unless every rank exits 0."""
-    import signal
+    at TP_TIMEOUT_S, :func:`kill_tree`); raises unless every rank exits 0."""
     import socket
 
     with socket.socket() as s:
@@ -2992,7 +3030,7 @@ def torchrun(args, log_path: str) -> None:
         try:
             rc = proc.wait(timeout=TP_TIMEOUT_S)
         except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, signal.SIGKILL)
+            kill_tree(proc.pid)
             proc.wait()
             rc = "timeout"
     text = open(log_path).read()
@@ -3951,8 +3989,11 @@ def interp_phase(model_dir: str, work: str, device, totals: dict) -> dict:
 CUR_ARG = "img=B/16,txt_name=B,dtype=bfloat16"
 CUR_SHARDS, CUR_RECORDS, CUR_H, CUR_W = 4, 512, 256, 320
 CUR_WORKERS = 8
-CUR_TIMEOUT_S = 420  # each main_clip run
-CUR_IMG_BLOCKS = CUR_DEC_BLOCKS = 12
+# Phase 21's depth, cut from the 12 blocks of every tower (the full widths
+# kept) to make room for phase 23: a run's start-up, init and 3 GB train
+# state scale with it
+CUR_DEPTH = {"image": 4, "text": 4, "text_decoder_config": 4}
+CUR_IMG_BLOCKS, CUR_DEC_BLOCKS = CUR_DEPTH["image"], CUR_DEPTH["text_decoder_config"]
 # (name, res, batch, grad_accum, steps, mask_ratio): pretraining at 112 with
 # half the patch tokens masked, then the 224 and 384 finetunes
 CUR_STAGES = (("stage 1", 112, 1024, 4, 3, 0.5), ("stage 2", 224, 512, 2, 3, 0.0),
@@ -3970,10 +4011,11 @@ CUR_TIMED = ((256, (25, 768, 12, False, 0)), (256, (197, 768, 12, False, 0)),
 
 
 def curriculum_step_launches(accum: int) -> dict:
-    """Launches of one GradCache step: pass 1 runs the image tower's 12
-    fused blocks forward without autograd (#9 and the tanh-GELU MLP on its
-    kernels), no decoder; pass 2 runs the image tower's and the concat
-    decoder's 12 fused blocks each forward twice and backward once
+    """Launches of one GradCache step: pass 1 runs the image tower's
+    CUR_IMG_BLOCKS fused blocks forward without autograd (#9 and the
+    tanh-GELU MLP on its kernels), no decoder; pass 2 runs the image
+    tower's and the concat decoder's fused blocks (CUR_DEC_BLOCKS) each
+    forward twice and backward once
     (remat=full); `accum` microbatches each; the text tower is on xla."""
     from openvision_tpu_torch.ops import kernels
 
@@ -4027,66 +4069,83 @@ def write_curriculum_shards(work: str, images) -> str:
 
 
 def curriculum_config(res: int, batch: int, accum: int, steps: int, mask: float,
-                      pattern: str, workers: int = CUR_WORKERS, **extra) -> tuple:
-    """(the config arg, the --override list) of one curriculum run, and the
+                      pattern: str, workers: int = CUR_WORKERS, base: str = CUR_ARG,
+                      depth: dict | None = CUR_DEPTH, **extra) -> tuple:
+    """(the config arg, the --override list) of one curriculum run (the
+    model and dtype of `base`, each tower's blocks cut to `depth`), and the
     config dict they give."""
     from openvision_tpu_torch.configs.openvision import get_config
     from openvision_tpu_torch.main_clip import apply_override
 
-    arg = f"res={res},{CUR_ARG},mask_ratio={mask}"
+    arg = f"res={res},{base},mask_ratio={mask}"
     overrides = [f"{k}={v}" for k, v in (
         ("input.data.name", "webdataset"), ("input.data.pattern", pattern),
         ("input.batch_size", batch), ("input.num_workers", workers), ("grad_accum", accum),
         ("total_steps", steps), ("log_training_steps", 1), ("ckpt_steps", steps),
-        ("schedule.0.1.warmup_steps", min(1, steps - 1)), *extra.items())]
+        ("schedule.0.1.warmup_steps", min(1, steps - 1)),
+        *((f"model.{t}.depth", d) for t, d in (depth or {}).items()), *extra.items())]
     config = get_config(arg)
     for ov in overrides:
         apply_override(config, ov)
     return arg, overrides, config
 
 
-def main_clip_run(arg: str, overrides, workdir: str, log_path: str, sigterm_after: str = "",
-                  device: str = "cuda"):
-    """python -m openvision_tpu_torch.main_clip in a session of its own
-    (killed at CUR_TIMEOUT_S); with `sigterm_after`, SIGTERM is sent once a
-    line of its output starts with it. Returns (exit code, seconds, the
-    metrics rows)."""
-    import signal
-    import threading
+class _Tee(io.TextIOBase):
+    """A text stream writing to a file and echoing main_clip's notes."""
 
-    cmd = [sys.executable, "-u", "-m", "openvision_tpu_torch.main_clip", "--config",
-           f"openvision_tpu_torch/configs/openvision.py:{arg}", "--workdir", workdir,
-           "--device", device]
+    def __init__(self, log):
+        self.log = log
+
+    def write(self, text):
+        self.log.write(text)
+        for line in text.splitlines():
+            if line.startswith("NOTE"):
+                sys.__stdout__.write(f"    {line}\n")
+        return len(text)
+
+
+def main_clip_run(arg: str, overrides, workdir: str, log_path: str, sigterm_after_step: int = 0,
+                  device: str = "cuda"):
+    """main_clip's main in this process (its output to `log_path`, its
+    notes echoed), the launch counts set to 0 first; with
+    `sigterm_after_step`, this process sends itself SIGTERM once that
+    step's update is done, which the trainer's handler takes. Returns
+    (0, seconds, the metrics rows)."""
+    import contextlib
+    import signal
+
+    from openvision_tpu_torch import main_clip
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.train import step as tstep
+
+    argv = ["--config", os.path.join(REPO, "openvision_tpu_torch", "configs", "openvision.py")
+            + f":{arg}", "--workdir", workdir, "--device", device]
     for ov in overrides:
-        cmd += ["--override", ov]
+        argv += ["--override", ov]
+    make_update_fn = tstep.make_update_fn
+
+    def signalling(config, model, opt):
+        update = make_update_fn(config, model, opt)
+
+        def step(batch):
+            out = update(batch)
+            if opt.state["count"] == sigterm_after_step:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return out
+        return step
+
+    if sigterm_after_step:
+        tstep.make_update_fn = signalling
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True, start_new_session=True)
-        timer = threading.Timer(CUR_TIMEOUT_S, os.killpg, (proc.pid, signal.SIGKILL))
-        timer.start()  # the run and every process it starts end by the timeout
-        try:
-            for line in proc.stdout:
-                log.write(line)
-                if line.startswith("NOTE"):
-                    print(f"    {line.rstrip()}")
-                if sigterm_after and line.startswith(sigterm_after):
-                    proc.send_signal(signal.SIGTERM)
-                    sigterm_after = ""
-            rc = proc.wait()
-        finally:
-            timer.cancel()
-            if proc.poll() is None:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.wait()
-    if rc == -signal.SIGKILL:
-        rc = "timeout"
+    try:
+        with open(log_path, "w") as log, contextlib.redirect_stdout(_Tee(log)):
+            main_clip.main(argv)
+    finally:
+        tstep.make_update_fn = make_update_fn
     took = time.perf_counter() - t0
-    if rc != 0:
-        print(open(log_path).read()[-8000:])
-        raise AssertionError(f"main_clip {arg}: exit {rc}")
     rows = [json.loads(line) for line in open(os.path.join(workdir, "metrics.jsonl"))]
-    return rc, took, rows
+    return 0, took, rows
 
 
 def stage_report(tag: str, rows, steps_run: int, accum: int, batch: int, took: float,
@@ -4102,8 +4161,9 @@ def stage_report(tag: str, rows, steps_run: int, accum: int, batch: int, took: f
     step_ms = [r["step_ms"] for r in timed]
     wait = [r["host_wait_share"] for r in timed]
     peak = max(r.get("peak_gb", 0.0) for r in rows)
-    print(f"{tag}: {len(losses)} steps in {took:.1f} s (start-up, shards index, init, workers, "
-          f"steps, checkpoint); losses {[round(x, 4) for x in losses]}; launches {launches}")
+    print(f"{tag}: {len(losses)} steps in {took:.1f} s (in this process: shards index, init, "
+          f"workers, steps, checkpoint); losses {[round(x, 4) for x in losses]}; launches "
+          f"{launches}")
     print(f"{tag}: step ms {[round(x, 1) for x in step_ms]}, images/s "
           f"{[round(batch / (x / 1e3), 1) for x in step_ms]}, data-wait share "
           f"{[round(x, 4) for x in wait]}, peak {peak:.2f} GB  [{smi_line()}]")
@@ -4273,12 +4333,12 @@ def curriculum_phase(images, work: str, device, totals: dict, worst: dict) -> di
         arg, ovs, _ = curriculum_config(res, batch, accum, steps, mask, pattern, **extra)
         tag = f"[{name}: res {res}, batch {batch}, grad_accum {accum}, mask {mask}]"
         if name == "stage 2":  # preempted after its first step, then resumed
-            _, took, rows = main_clip_run(arg, ovs, wd, wd + ".log", "NOTE: step 1/", dev)
+            _, took, rows = main_clip_run(arg, ovs, wd, wd + ".log", 1, dev)
             saved = ckpt_lib.saved_steps(os.path.join(wd, "checkpoints"))
             log = open(wd + ".log").read()
             if len(saved) != 1 or not 1 <= saved[0] < steps or "preemption signal" not in log:
                 raise AssertionError(f"{tag}: SIGTERM left checkpoints {saved}")
-            print(f"{tag}: SIGTERM after step 1's log line: checkpoint at step {saved[0]}, exit 0")
+            print(f"{tag}: SIGTERM after step 1's update: checkpoint at step {saved[0]}, returned")
             first = stage_report(f"{tag} before SIGTERM", rows, saved[0], accum, batch, took,
                                  totals)
             _, took, rows = main_clip_run(arg, ovs, wd, wd + "-resumed.log", device=dev)
@@ -4627,6 +4687,681 @@ def checkpoints_only() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# The recipe on a process mesh (phase 23)
+# ---------------------------------------------------------------------------
+
+# BASELINE.json config 5 (ViT-L/14 at 160 -> 224) at the full widths, the JAX
+# default CoCa config otherwise (concat, `fused` image tower and decoder, `xla`
+# text, remat=full), bf16 on f32 masters, learned position embeddings (the
+# load_transform start resamples them), on phase 21's webdataset shards, two
+# ranks of a data=2 mesh on the one card over gloo.
+MR_ARG = "img=L/14,txt_name=L,txt_decoder_name=L,dtype=bfloat16"
+MR_RANKS = 2  # torchrun's processes: data=2
+MR_TIMEOUT_S = 600  # the phase's torchrun launch
+MR_WORKERS = 0  # input workers a rank: phase 21 measures them; here their start-up outweighs
+# the pp of one or two steps
+# The depth, cut to a third (8 image, 4 text and 4 decoder blocks of the 24,
+# 12 and 12; the widths kept): at the full depth the phase took 342-360 s
+# on the card (five torchrun launches, three 6.3 GB train states written and
+# two read), which the script's 1200 s could not hold beside phases 1-22
+MR_DEPTH = {"image": 8, "text": 4, "text_decoder_config": 4}
+MR_IMG_BLOCKS, MR_DEC_BLOCKS = MR_DEPTH["image"], MR_DEPTH["text_decoder_config"]
+# (res, global batch, grad_accum, steps, mask_ratio)
+MR_STAGE = (160, 128, 2, 2, 0.5)  # SIGTERM to rank 1 in step 1, then the resume to step 2
+MR_LOAD_TRANSFORM = (224, 64, 2, 1, 0.0)  # from the stage's checkpoint, evals after its step
+# (a): three gradients of one global batch of 128 at 160 (mask 0.5), each on the mesh
+# and in one process on the same params and batch
+MR_GRAD_CASES = (
+    ("coca, GradCache 2, drop-path 0.1", {"grad_accum": 2, "model.image.drop_path": 0.1}),
+    ("siglip, GradCache 2", {"grad_accum": 2, "loss_type": "siglip",
+                             "model.init_logit_bias": -10.0}),
+    ("coca, global mode, accum 1", {"grad_accum": 1, "local_loss": False}))
+MR_PROMPTS = "clip_best"  # 7 templates an IN-1K class (phase 19 runs the 81 of clip_paper)
+MR_PRED_AGREE, MR_ACC_POINTS = 0.99, 0.5
+# The runs' config file: the repo's config with a second zero-shot evaluator
+# on the int8 encode (static scales from 64 images)
+MR_CONFIG_PY = '''"""The repo's config with a second zero-shot evaluator on the int8 encode."""
+
+from openvision_tpu_torch.configs.openvision import get_config as repo_config
+
+
+def get_config(arg=None):
+    c = repo_config(arg)
+    c["evals"]["disclf_int8"] = dict(c["evals"]["disclf"], int8=True, int8_calibration=64,
+                                     prefix="z/0shot_int8/")
+    return c
+'''
+
+
+def recipe_config(res: int, batch: int, accum: int, steps: int, mask: float, pattern: str,
+                  **extra) -> tuple:
+    """(arg, overrides, config dict) of one phase-23 run or gradient."""
+    return curriculum_config(res, batch, accum, steps, mask, pattern, workers=MR_WORKERS,
+                             base=MR_ARG, depth=MR_DEPTH,
+                             **{"model.image.posemb": "learn", **extra})
+
+
+def mesh_step_launches(accum: int, decoder: bool = True) -> dict:
+    """Launches of one GradCache step on a rank: as curriculum_step_launches,
+    at the image tower's MR_IMG_BLOCKS blocks and the decoder's
+    MR_DEC_BLOCKS (which pass 2 runs for coca only)."""
+    from openvision_tpu_torch.ops import kernels
+
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for per, n in ((LAUNCHES_PER_BLOCK, MR_IMG_BLOCKS),
+                   (FUSED_BLOCK_STEP, MR_IMG_BLOCKS + MR_DEC_BLOCKS * decoder)):
+        for k, v in per.items():
+            want[k] += v * n * accum
+    return {k: v for k, v in want.items() if v}
+
+
+def mesh_grads(out_dir: str, pattern: str, device, report: dict) -> None:
+    """Phase 23 (a) in one rank: the three MR_GRAD_CASES gradients of one
+    global batch on a data=2 mesh (process 0 writes each one's loss and
+    gradients), then this rank's step time at each stage, its peak memory
+    and the collectives' share of a step, into `report`."""
+    import torch
+
+    from openvision_tpu_torch import parallel
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.parallel import mesh as mesh_mod
+    from openvision_tpu_torch.train import checkpoint as ckpt
+    from openvision_tpu_torch.train import step as tstep
+
+    mesh = parallel.create_mesh(data=MR_RANKS, device_type="cuda")
+    rank = parallel.rank()
+    res, batch_size, accum, _, mask = MR_STAGE
+    with parallel.use_mesh(mesh):
+        batch = None
+        for i, (label, extra) in enumerate(MR_GRAD_CASES):
+            cfg = recipe_config(res, batch_size, extra.get("grad_accum", accum), 1, mask,
+                                pattern, **{"input.num_workers": 0, **extra})[2]
+            if batch is None:
+                loader, _ = pipeline.training(cfg["input"], seed=SEED,
+                                              rows=mesh.batch_rows(batch_size))
+                batch = tstep.to_device(next(loader), device)
+                loader.close()
+            model = tstep.build_model(cfg).to(device)
+            opt = tstep.init_train_state(cfg, model, total_steps=10, mesh=mesh)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            meas, grads = tstep.make_grad_fn(cfg, model, opt)(
+                batch, rng=tstep.step_generator(SEED, 0))
+            torch.cuda.synchronize()
+            report["grads"][label] = {"s": time.perf_counter() - t0,
+                                      "launches": {k: v for k, v in kernels.LAUNCHES.items() if v}}
+            whole = ckpt.gather_leaves(grads, model, opt)
+            if rank == 0:
+                torch.save({"loss": float(meas["training_loss"]), "grads": whole},
+                           os.path.join(out_dir, f"mesh_grads_{i}.pt"))
+            del model, opt, grads, whole
+            torch.cuda.empty_cache()
+        for res_s, batch_s, accum_s, _, mask_s in (MR_STAGE, MR_LOAD_TRANSFORM):
+            cfg = recipe_config(res_s, batch_s, accum_s, 1, mask_s, pattern,
+                                **{"input.num_workers": 0})[2]
+            loader, _ = pipeline.training(cfg["input"], seed=SEED, rows=mesh.batch_rows(batch_s))
+            step_batch = next(loader)
+            loader.close()
+            model = tstep.build_model(cfg).to(device)
+            opt = tstep.init_train_state(cfg, model, total_steps=10, mesh=mesh)
+            update = tstep.make_update_fn(cfg, model, opt)
+            torch.cuda.reset_peak_memory_stats()
+            mesh_mod.COMM.update(timing=True, seconds=0.0, calls=0)
+            t0 = time.perf_counter()
+            update(step_batch)  # the first step, its collectives synchronized and timed
+            torch.cuda.synchronize()
+            timed_ms = (time.perf_counter() - t0) * 1e3
+            mesh_mod.COMM["timing"] = False
+            ms = cuda_ms(lambda: update(step_batch), iters=1, warmup=0)
+            report["stages"][res_s] = {
+                "batch": batch_s, "step_ms": ms, "images_per_s": batch_s / (ms / 1e3),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "timed_step_ms": timed_ms,
+                "comm_ms": mesh_mod.COMM["seconds"] * 1e3, "comm_calls": mesh_mod.COMM["calls"]}
+            del model, opt, update
+            torch.cuda.empty_cache()
+
+
+def _keep(rec: dict, key: str, value):
+    rec[key] = value
+    return value
+
+
+def instrument_evaluators(evaluators, store: dict):
+    """The trainer's evaluators, each run recording into store[name] what
+    it computed: disclf's class embeddings and every image batch's zimg
+    (padded rows included), its static int8 scales, counts and timings;
+    retrieval's embeddings; each run's metrics and seconds."""
+    import torch
+
+    for name, ev, _, _ in evaluators:
+        rec = store.setdefault(name, {})
+
+        def run(train_state=None, ev=ev, rec=rec, orig=ev.run, **kw):
+            zs = []
+            if hasattr(ev, "class_matrix"):
+                cm, embed, int8 = ev.class_matrix, ev.towers.embed_images, ev._int8_encoder
+                ev.class_matrix = lambda tokens: _keep(rec, "classes", cm(tokens))
+                ev.towers.embed_images = lambda x: zs.append(embed(x)) or zs[-1]
+                ev._int8_encoder = lambda images, opt=None: (
+                    lambda f: lambda im: zs.append(f(im)) or zs[-1])(int8(images, opt))
+            else:
+                emb = ev.embeddings
+                ev.embeddings = lambda: _keep(rec, "embeddings", emb())
+            t0 = time.perf_counter()
+            try:
+                out = orig(train_state, **kw)
+            finally:
+                for attr in ("class_matrix", "_int8_encoder", "embeddings"):
+                    ev.__dict__.pop(attr, None)
+                ev.towers.__dict__.pop("embed_images", None)
+            rec.update(metrics=out, seconds=time.perf_counter() - t0,
+                       scales=getattr(ev, "int8_scales", None), counts=getattr(ev, "counts", None),
+                       timings=dict(getattr(ev, "timings", {})),
+                       zimg=torch.cat(zs).float().cpu() if zs else None)
+            if "classes" in rec:
+                rec["classes"] = rec["classes"].float().cpu()
+            if "embeddings" in rec:
+                rec["embeddings"] = tuple(t.float().cpu() if torch.is_tensor(t) else t
+                                          for t in rec["embeddings"])
+            return out
+
+        ev.run = run
+    return evaluators
+
+
+def mesh_recipe_worker(run_dir: str) -> int:
+    """One rank of phase 23 (``chip_smoke.py --mesh-worker RUN_DIR``;
+    torchrun starts it): (a)'s gradients and step times, then every
+    main_clip run that RUN_DIR/runs.json lists, in turn, in this process,
+    through main_clip's main. This rank's pid goes to RUN_DIR first, and
+    again once the trainer has installed its SIGTERM handler (so the phase
+    can signal one rank inside step 1 and kill every rank at its timeout);
+    the launch counts start at 0 before each run; in a run marked
+    ``capture`` the evaluators are instrumented and what they computed is
+    written with this rank's launches."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from openvision_tpu_torch import main_clip, parallel
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.train import trainer
+
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(run_dir, f"pid_rank{rank}"), "w") as f:
+        f.write(str(os.getpid()))
+    install = trainer.install_preemption_flag
+
+    def installed():
+        flag = install()
+        with open(os.path.join(run_dir, f"ready_rank{rank}"), "w") as f:
+            f.write(str(os.getpid()))
+        return flag
+
+    trainer.install_preemption_flag = installed
+    spec = json.load(open(os.path.join(run_dir, "runs.json")))
+    device = parallel.maybe_distributed_init("cuda")
+    report = {"rank": rank, "grads": {}, "stages": {}, "runs": {}}
+    mesh_grads(run_dir, spec["pattern"], device, report)
+    build = trainer.build_evaluators
+    for run in spec["runs"]:
+        store = {}
+        trainer.build_evaluators = build if not run["capture"] else (
+            lambda *a, store=store, **k: instrument_evaluators(build(*a, **k), store))
+        if rank == 0:
+            print(f"RUN {run['name']}", flush=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        main_clip.main(run["argv"])
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        report["runs"][run["name"]] = {"s": time.perf_counter() - t0, "launches": launches}
+        if run["capture"]:
+            torch.save({"rank": rank, "store": store, "launches": launches},
+                       os.path.join(run_dir, f"evals_rank{rank}.pt"))
+    trainer.build_evaluators = build
+    with open(os.path.join(run_dir, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    parallel.sync("done")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _descendants(root: int) -> list:
+    """The pids of every process `root` started, and theirs (from /proc)."""
+    parents = {}
+    for d in os.listdir("/proc"):
+        if d.isdigit():
+            try:
+                with open(f"/proc/{d}/stat") as f:
+                    parents[int(d)] = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                pass
+    found, frontier = [], [root]
+    while frontier:
+        frontier = [p for p, pp in parents.items() if pp in frontier]
+        found += frontier
+    return found
+
+
+def kill_tree(root: int) -> None:
+    """SIGKILL to `root`'s process group and to every process it started,
+    each in its own session too (torchrun starts each worker in a session of
+    its own, so killing torchrun's group alone would orphan them)."""
+    import signal
+
+    for pid in [root] + _descendants(root):
+        for kill in (os.killpg, os.kill):
+            try:
+                kill(pid, signal.SIGKILL)
+            except (OSError, ProcessLookupError):
+                pass
+
+
+def _run_pids(run_dir: str) -> list:
+    pids = []
+    for name in os.listdir(run_dir):
+        if name.startswith("pid_rank"):
+            with open(os.path.join(run_dir, name)) as f:
+                pids.append(int(f.read()))
+    return pids
+
+
+def mesh_launch(run_dir: str, log_path: str) -> tuple:
+    """torchrun (MR_RANKS processes) of this script's --mesh-worker mode on
+    RUN_DIR, in a session of its own; torchrun, the ranks and all they start
+    are killed at MR_TIMEOUT_S. Once the first main_clip run has noted the
+    model's size and rank 1 has installed its SIGTERM handler (its training
+    loop is starting: step 1 is under way), rank 1 alone gets SIGTERM.
+    Returns (seconds, the second at which SIGTERM was sent)."""
+    import signal
+    import socket
+    import threading
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-u", "-m", "torch.distributed.run", "--nproc_per_node",
+           str(MR_RANKS), "--master_port", str(port), os.path.abspath(__file__), "--mesh-worker",
+           run_dir]
+
+    def kill_all(proc):
+        for pid in _run_pids(run_dir):
+            kill_tree(pid)
+        kill_tree(proc.pid)
+
+    t0 = time.perf_counter()
+    sent = None
+    ready = os.path.join(run_dir, "ready_rank1")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+        timer = threading.Timer(MR_TIMEOUT_S, kill_all, (proc,))
+        timer.start()  # the launch and every process it starts end by the timeout
+        try:
+            for line in proc.stdout:
+                log.write(line)
+                if line.startswith(("NOTE", "RUN")):
+                    print(f"    [{time.perf_counter() - t0:.1f} s] {line.rstrip()}")
+                if sent is None and line.startswith("NOTE") and "M params" in line:
+                    while not os.path.exists(ready) and proc.poll() is None \
+                            and time.perf_counter() - t0 < MR_TIMEOUT_S:
+                        time.sleep(0.01)
+                    if os.path.exists(ready):
+                        time.sleep(0.05)  # the file's content is written
+                        os.kill(int(open(ready).read()), signal.SIGTERM)
+                        sent = time.perf_counter() - t0
+                        print(f"    SIGTERM to rank 1 alone at {sent:.1f} s")
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+            if proc.poll() is None:
+                kill_all(proc)
+                proc.wait()
+    took = time.perf_counter() - t0
+    if rc != 0:
+        print(open(log_path).read()[-8000:])
+        raise AssertionError(f"phase 23's torchrun: exit {'timeout' if rc < 0 else rc}")
+    if sent is None:
+        raise AssertionError("rank 1 never installed its SIGTERM handler")
+    return took, sent
+
+
+def mesh_stage_report(tag: str, rows, steps_run: int, accum: int, batch: int, took: float,
+                      totals: dict) -> dict:
+    """Checks a mesh run's losses and process 0's launches (the last logged
+    row's) and prints process 0's step ms, images/s and peak memory."""
+    losses = [r["training_loss"] for r in rows if "training_loss" in r]
+    last = [r for r in rows if "training_loss" in r][-1]  # the log row: launches so far
+    launches = {k.split("/", 1)[1]: int(v) for k, v in last.items() if k.startswith("launches/")}
+    want = {k: v * steps_run for k, v in mesh_step_launches(accum).items()}
+    step_ms = [r["step_ms"] for r in rows if "step_ms" in r]
+    peak = max(r.get("peak_gb", 0.0) for r in rows)
+    print(f"{tag}: {len(losses)} steps in {took:.1f} s (main_clip in the ranks: init, steps, "
+          f"checkpoint); losses {[round(x, 4) for x in losses]}; process 0's launches "
+          f"{launches}")
+    print(f"{tag}: process 0's step ms {[round(x, 1) for x in step_ms]}, images/s "
+          f"{[round(batch / (x / 1e3), 1) for x in step_ms]}, peak {peak:.2f} GB (two ranks "
+          f"share the card over gloo)  [{smi_line()}]")
+    if len(losses) != steps_run or not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: losses {losses}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    for k, v in launches.items():
+        totals[k] += v
+    return {"step_ms": step_ms, "peak_gb": peak, "losses": losses}
+
+
+def mesh_grad_checks(out_dir: str, pattern: str, device) -> None:
+    """Phase 23 (a) in this process: each MR_GRAD_CASES gradient on the
+    whole batch, held against the mesh's (loss within 2**-7 relative,
+    global gradient cosine >= 0.999; the smallest per-tensor cosine
+    printed)."""
+    import torch
+
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.train import step as tstep
+
+    res, batch_size, accum, _, mask = MR_STAGE
+    batch = None
+    for i, (label, extra) in enumerate(MR_GRAD_CASES):
+        cfg = recipe_config(res, batch_size, extra.get("grad_accum", accum), 1, mask, pattern,
+                            **{"input.num_workers": 0, **extra})[2]
+        if batch is None:
+            loader, _ = pipeline.training(cfg["input"], seed=SEED)
+            batch = tstep.to_device(next(loader), device)
+            loader.close()
+        model = tstep.build_model(cfg).to(device)
+        opt = tstep.init_train_state(cfg, model, total_steps=10)  # the mesh's init (seed 0)
+        t0 = time.perf_counter()
+        meas, grads = tstep.make_grad_fn(cfg, model, opt)(batch,
+                                                          rng=tstep.step_generator(SEED, 0))
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        ref = {n: g.detach().float() for n, g in grads.items()}
+        loss = float(meas["training_loss"])
+        del model, opt, grads
+        got = torch.load(os.path.join(out_dir, f"mesh_grads_{i}.pt"))
+        mesh = {n: g.to(device) for n, g in got["grads"].items()}
+        glob = grad_cosines(mesh, ref)[0]
+        live = [n for n in ref if ref[n].abs().max() > 0]  # siglip leaves the decoder at zero
+        worst, name = grad_cosines({n: mesh[n] for n in live}, {n: ref[n] for n in live})[1]
+        rel = abs(got["loss"] - loss) / abs(loss)
+        print(f"  [{label}] mesh loss {got['loss']:.6f} vs one process {loss:.6f} (rel "
+              f"{rel:.3e}, bound {2**-7:.3e}); gradient cosine global {glob:.6f}, min "
+              f"per-tensor {worst:.6f} ({name}); one process {took:.2f} s a gradient")
+        if rel > 2**-7 or glob < 0.999 or set(mesh) != set(ref):
+            raise AssertionError(f"{label}: mesh vs one process: loss {got['loss']} vs {loss}, "
+                                 f"gradient cosine {glob}")
+        del mesh, ref, got
+        torch.cuda.empty_cache()
+
+
+def _preds(zimg, classes, real: int):
+    return (zimg[:real].float() @ classes.float().T).argmax(-1)
+
+
+def _flat_scales(scales) -> list:
+    if isinstance(scales, dict):
+        return [t for k in sorted(scales) for t in _flat_scales(scales[k])]
+    if isinstance(scales, (list, tuple)):
+        return [t for v in scales for t in _flat_scales(v)]
+    import torch
+
+    return [torch.as_tensor(scales).float().cpu()]
+
+
+def mesh_eval_checks(ranks: list, one: dict, n_images: int) -> dict:
+    """The mesh's evaluators (each rank's store) against one process's on
+    the same checkpoint: class embeddings per row cosine >= 0.999,
+    predictions agree on >= MR_PRED_AGREE of the images, accuracy within
+    MR_ACC_POINTS points, retrieval similarities within SIM_TOL, the int8
+    static scales equal on every rank and to one process's. Returns the
+    eval seconds, mesh and one process."""
+    import torch
+
+    shares = [len(a) for a in np.array_split(np.arange(n_images), len(ranks))]
+    seconds = {}
+    for name, want in one.items():
+        got = [r["store"][name] for r in ranks]
+        seconds[name] = {"mesh": [g["seconds"] for g in got], "one": want["seconds"]}
+        if "classes" in want:
+            cos = torch.nn.functional.cosine_similarity(got[0]["classes"], want["classes"], dim=-1)
+            preds = torch.cat([_preds(g["zimg"], g["classes"], k) for g, k in zip(got, shares)])
+            ref = _preds(want["zimg"], want["classes"], n_images)
+            agree = float((preds == ref).float().mean())
+            acc, acc1 = got[0]["metrics"][0][1], want["metrics"][0][1]
+            print(f"  {name}: class embeddings ({len(cos)} classes) min row cosine "
+                  f"{cos.min().item():.6f}; predictions agree on {100 * agree:.2f}% of "
+                  f"{n_images} images; accuracy mesh {acc:.4f} vs one process {acc1:.4f}; "
+                  f"counts {got[0]['counts']} vs {want['counts']}")
+            if cos.min().item() < 0.999 or agree < MR_PRED_AGREE \
+                    or abs(acc - acc1) * 100 > MR_ACC_POINTS or got[0]["counts"][1] != n_images:
+                raise AssertionError(f"{name} on the mesh vs one process: cosine "
+                                     f"{cos.min().item()}, agreement {agree}, accuracy {acc} vs "
+                                     f"{acc1}")
+            if want["scales"] is not None:
+                flat = [_flat_scales(g["scales"]) for g in got]
+                ref_s = _flat_scales(want["scales"])
+                same_ranks = all(torch.equal(a, b) for f in flat[1:] for a, b in zip(flat[0], f))
+                same_one = all(torch.equal(a, b) for a, b in zip(flat[0], ref_s))
+                print(f"  {name}: {len(ref_s)} static scales, equal on every rank {same_ranks}, "
+                      f"equal to one process's {same_one}")
+                if not (same_ranks and same_one and len(flat[0]) == len(ref_s)):
+                    raise AssertionError(f"{name}: int8 static scales differ")
+        else:
+            zimg, ztxt, _ = got[0]["embeddings"]
+            zimg1, ztxt1, _ = want["embeddings"]
+            err = float((zimg @ ztxt.T - zimg1 @ ztxt1.T).abs().max())
+            print(f"  {name}: max|sim mesh - sim one process| {err:.2e} (bound {SIM_TOL:g}); "
+                  f"{dict(got[0]['metrics'])}")
+            if not err <= SIM_TOL or zimg.shape != zimg1.shape:
+                raise AssertionError(f"{name}: similarities differ by {err}")
+    return seconds
+
+
+def mesh_recipe_phase(work: str, images, device, totals: dict) -> dict:
+    """Phase 23: the recipe on a process mesh (see the module doc)."""
+    import torch
+
+    from openvision_tpu_torch.main_clip import apply_override, load_config
+    from openvision_tpu_torch.train import checkpoint as ckpt_lib
+    from openvision_tpu_torch.train import step as tstep
+    from openvision_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    print("two ranks share the one card over gloo (NCCL takes one card a process): their times "
+          "are not comparable with one process's")
+    pattern = os.path.join(work, "shards", "*.tar")
+    if not os.path.isdir(os.path.join(work, "shards")):
+        pattern = write_curriculum_shards(work, images)
+    tfds_dir, npz = os.path.join(work, "eval_tfds"), os.path.join(work, "eval_captions.npz")
+    if not os.path.exists(npz):
+        tfds_dir, npz, _ = write_eval_fixture(work, images)
+    out_dir = os.path.join(work, "mesh")
+    os.makedirs(out_dir)
+    config_py = os.path.join(out_dir, "recipe_config.py")
+    with open(config_py, "w") as f:
+        f.write(MR_CONFIG_PY)
+
+    def argv(arg, overrides, workdir):
+        out = ["--config", f"{config_py}:{arg}", "--workdir", workdir, "--device", "cuda"]
+        for ov in overrides:
+            out += ["--override", ov]
+        return out
+
+    # (b): the stage at 160 (SIGTERM to rank 1 in step 1, then the rerun), the
+    # load_transform start at 224 with the evals; (c): eval_only from its checkpoint
+    stage_wd = os.path.join(out_dir, "stage160")
+    res, batch, accum, steps, mask = MR_STAGE
+    stage_arg, stage_ovs, _ = recipe_config(res, batch, accum, steps, mask, pattern)
+    lt_res, lt_batch, lt_accum, lt_steps, lt_mask = MR_LOAD_TRANSFORM
+    lt_wd, eval_wd = os.path.join(out_dir, "load_transform224"), os.path.join(out_dir, "eval_only")
+    evals = {"evals.disclf.data_dir": tfds_dir, "evals.disclf.batch_size": EVAL_BATCH,
+             "evals.disclf.prompt_templates": MR_PROMPTS, "evals.disclf.log_steps": lt_steps,
+             "evals.retrieval.data_dir": npz, "evals.retrieval.batch_size": EVAL_BATCH,
+             "evals.retrieval.log_steps": lt_steps}
+    lt_arg, lt_ovs, _ = recipe_config(lt_res, lt_batch, lt_accum, lt_steps, lt_mask, pattern,
+                                      **evals, **{"load_transform": os.path.join(
+                                          stage_wd, "checkpoints", f"ckpt-{steps}.npz")})
+    lt_ovs += [f"evals.disclf_int8.{k.split('.', 2)[2]}={v}" for k, v in evals.items()
+               if k.startswith("evals.disclf.")]
+    final = os.path.join(lt_wd, "checkpoints", f"ckpt-{lt_steps}.npz")
+    eval_ovs = [o for o in lt_ovs if not o.startswith("load_transform=")] + [
+        "eval_only=True", f"ft_from={final}"]
+    runs = [("stage 160", stage_arg, stage_ovs, stage_wd, False),
+            ("stage 160 resumed", stage_arg, stage_ovs, stage_wd, False),
+            ("load_transform 224", lt_arg, lt_ovs, lt_wd, False),
+            ("eval_only", lt_arg, eval_ovs, eval_wd, True)]
+    with open(os.path.join(out_dir, "runs.json"), "w") as f:
+        json.dump({"pattern": pattern, "runs": [
+            {"name": n, "argv": argv(a, o, w), "capture": c} for n, a, o, w, c in runs]}, f)
+    torch.cuda.empty_cache()
+
+    print("one torchrun of two ranks: (a) three gradients of one global batch of 128 at 160 "
+          "(mask 0.5) and each rank's step times, then main_clip's runs in the same processes")
+    took, sent = mesh_launch(out_dir, os.path.join(out_dir, "ranks.log"))
+    ranks = [json.load(open(os.path.join(out_dir, f"mesh_rank{r}.json")))
+             for r in range(MR_RANKS)]
+    print(f"  the ranks done in {took:.1f} s; main_clip runs (rank 0, in-process seconds) "
+          f"{ {n: round(r['s'], 1) for n, r in ranks[0]['runs'].items()} }")
+
+    print("(a) the mesh's gradients against one process:")
+    mesh_grad_checks(out_dir, pattern, device)
+    results = {"ranks": {}}
+    for r in ranks:
+        for label, g in r["grads"].items():
+            print(f"  rank {r['rank']} [{label}]: {g['s']:.2f} s a gradient (first call); "
+                  f"launches {g['launches']}")
+        for res_s, st in r["stages"].items():
+            print(f"  rank {r['rank']} at {res_s} (b={st['batch']} global, GradCache 2): step "
+                  f"{st['step_ms']:.1f} ms (CUDA events), {st['images_per_s']:.1f} images/s, "
+                  f"peak {st['peak_gb']:.2f} GB; collectives {st['comm_ms']:.1f} ms over "
+                  f"{st['comm_calls']} calls = {100 * st['comm_ms'] / st['timed_step_ms']:.1f}% "
+                  f"of a timed step of {st['timed_step_ms']:.1f} ms (each synchronized)  "
+                  f"[{smi_line()}]")
+        results["ranks"][r["rank"]] = r["stages"]
+    want_a = mesh_step_launches(2, decoder=False)  # siglip: no caption, no decoder
+    for r in ranks:
+        got_a = r["grads"][MR_GRAD_CASES[1][0]]["launches"]
+        if got_a != want_a:
+            raise AssertionError(f"(a) rank {r['rank']}, siglip GradCache: launches {got_a}, "
+                                 f"expected {want_a}")
+
+    print("(b) config 5 through main_clip on the mesh (process 0 writes the metrics):")
+    log = open(os.path.join(out_dir, "ranks.log")).read()
+    runs_s = {n: r["s"] for n, r in ranks[0]["runs"].items()}
+    tag = f"[stage: res {res}, batch {batch}, grad_accum {accum}, mask {mask}]"
+    if "preemption signal at step 1" not in log or "resuming from step 1" not in log:
+        raise AssertionError(f"{tag}: SIGTERM to rank 1 did not stop the ranks at step 1, or "
+                             "the rerun did not resume from it")
+    print(f"{tag}: SIGTERM to rank 1 alone at {sent:.1f} s: both ranks stopped at step 1 and "
+          "checkpointed; the rerun resumed from step 1")
+    rows = [json.loads(line) for line in open(os.path.join(stage_wd, "metrics.jsonl"))]
+    first = mesh_stage_report(f"{tag} before SIGTERM", [r for r in rows if r["step"] == 1], 1,
+                              accum, batch, runs_s["stage 160"], totals)
+    second = mesh_stage_report(f"{tag} resumed", [r for r in rows if r["step"] > 1], steps - 1,
+                               accum, batch, runs_s["stage 160 resumed"], totals)
+    results["stage 160"] = {k: first[k] + second[k] if isinstance(first[k], list)
+                            else max(first[k], second[k]) for k in first}
+    tag = f"[load_transform: {res} -> {lt_res}, batch {lt_batch}, grad_accum {lt_accum}, evals]"
+    rows = [json.loads(line) for line in open(os.path.join(lt_wd, "metrics.jsonl"))]
+    results["load_transform 224"] = mesh_stage_report(tag, rows, lt_steps, lt_accum, lt_batch,
+                                                      runs_s["load_transform 224"], totals)
+    params = ckpt_lib.load_state_dict(final)
+    posemb = tuple(params["visual.positional_embedding"].shape)
+    patch = params["visual.conv1.weight"].shape[-1]
+    if posemb[0] != 1 + (lt_res // patch) ** 2:
+        raise AssertionError(f"{tag}: position embedding {posemb}")
+    in_run = {k: v for k, v in rows[-1].items() if k.startswith(("z/0shot", "retrieval/"))}
+    print(f"{tag}: position embedding 1 + {(res // patch) ** 2} -> {posemb}; evals in the run "
+          f"{in_run}")
+    if len(in_run) != 8 or not all(np.isfinite(list(in_run.values()))):
+        raise AssertionError(f"{tag}: evals in the run {in_run}")
+
+    print("(c) eval_only on the mesh, then the same evaluators in one process:")
+    mesh_ranks = [torch.load(os.path.join(out_dir, f"evals_rank{r}.pt"), weights_only=False)
+                  for r in range(MR_RANKS)]
+    eval_rows = [json.loads(line) for line in open(os.path.join(eval_wd, "metrics.jsonl"))]
+    metrics = {k: v for k, v in eval_rows[0].items() if k.startswith(("z/0shot", "retrieval/"))}
+    print(f"  eval_only on the mesh in {runs_s['eval_only']:.1f} s (main_clip in the ranks: "
+          f"the checkpoint's params, three evaluators): {metrics}")
+    if len(eval_rows) != 1 or metrics != in_run:
+        raise AssertionError(f"eval_only's metrics {metrics} differ from the run's {in_run}")
+    n_img = len(np.load(npz, allow_pickle=True)["image"])
+    per_rank = -(-n_img // EVAL_BATCH)  # image batches a rank: EVAL_BATCH / 2 rows each
+    calib = -(-64 // 32)
+    want_ev = eval_launches(per_rank, False, MR_IMG_BLOCKS)
+    for k, v in eval_launches(per_rank + calib, True, MR_IMG_BLOCKS).items():
+        want_ev[k] += v
+    for k, v in eval_launches(-(-n_img // (EVAL_BATCH // MR_RANKS)), False,
+                              MR_IMG_BLOCKS).items():  # retrieval: every rank every image
+        want_ev[k] += v
+    want_ev = {k: v for k, v in want_ev.items() if v}
+    for r in mesh_ranks:
+        print(f"  rank {r['rank']}: eval_only launches {r['launches']}")
+        if r["launches"] != want_ev:
+            raise AssertionError(f"rank {r['rank']}: eval_only launches {r['launches']}, "
+                                 f"expected {want_ev}")
+    for k, v in mesh_ranks[0]["launches"].items():
+        totals[k] += v
+
+    cfg = load_config(f"{config_py}:{lt_arg}")
+    for ov in eval_ovs:
+        apply_override(cfg, ov)
+    model = tstep.build_model(cfg).to(device)
+    model.load_state_dict({k: v.to(device) for k, v in params.items()})
+    del params
+    one = {}
+    with torch.no_grad():
+        for name, ev, _, _ in instrument_evaluators(trainer.build_evaluators(cfg, model, None),
+                                                    one):
+            ev.run({"model": model})
+    seconds = mesh_eval_checks(mesh_ranks, one, n_img)
+    for name, s in seconds.items():
+        print(f"  {name}: seconds on the mesh {[round(x, 2) for x in s['mesh']]} (each rank), "
+              f"in one process {s['one']:.2f}  [{smi_line()}]")
+    del model
+    torch.cuda.empty_cache()
+    results["eval_seconds"] = seconds
+    results["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 23 in {results['phase_s']:.1f} s  [{smi_line()}]")
+    return results
+
+
+def mesh_recipe_only() -> int:
+    """``chip_smoke.py --mesh-recipe``: the kernel build and phase 23 alone
+    (it writes phase 21's shards and phase 19's fixture itself)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from openvision_tpu_torch.data.ops_image import decode_png
+    from openvision_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    kernels.lib()
+    print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    images = [decode_png(open(os.path.join(REPO, "testcat", f), "rb").read())
+              for f in sorted(os.listdir(os.path.join(REPO, "testcat"))) if f.endswith(".png")]
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        mesh_recipe_phase(work, images, torch.device("cuda"), totals)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 23 launches: { {k: v for k, v in totals.items() if v} }")
+    print(smi_line())
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4905,6 +5640,12 @@ def run(work: str) -> int:
     with torch.inference_mode():
         ckpt_res = checkpoint_phase(ckpts["concat"], images, names, work, device, totals, greedy)
 
+    phase("23. the recipe on a process mesh: ViT-L/14 + text L + decoder L at a third of the depth, "
+          "two ranks of a data=2 mesh on the one card (gloo); GradCache, siglip and the global mode against one "
+          "process, config 5 through main_clip with SIGTERM and load_transform, evals and "
+          "eval_only")
+    mesh_res = mesh_recipe_phase(work, images, device, totals)
+
     phase("summary")
     print(f"card: {smi}")
     print(f"encode b=64 img/s: kernels {rates['kernels']}  plain eager bf16 {rates['plain']}")
@@ -4940,6 +5681,13 @@ def run(work: str) -> int:
           f"{ckpt_res['read_s']:.2f} s ({ckpt_res['read_bytes'] / ckpt_res['read_s'] / 1e9:.2f} "
           f"GB/s); export zimg cosine {ckpt_res['zimg_cos']:.7f}; phase 22 in "
           f"{ckpt_res['phase_s']:.1f} s")
+    for r, stages in mesh_res["ranks"].items():
+        for res, st in stages.items():
+            print(f"mesh recipe rank {r} at {res}: step {st['step_ms']:.1f} ms, "
+                  f"{st['images_per_s']:.1f} images/s, peak {st['peak_gb']:.2f} GB, collectives "
+                  f"{100 * st['comm_ms'] / st['timed_step_ms']:.1f}% of a timed step")
+    print(f"mesh recipe: eval seconds {mesh_res['eval_seconds']}; phase 23 in "
+          f"{mesh_res['phase_s']:.1f} s")
     print(f"curriculum pp records/s (0 and {CUR_WORKERS} workers): "
           f"{curriculum['pp_records_per_s']}; phase 21 in {curriculum['phase_s']:.1f} s")
     print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "
@@ -5232,4 +5980,8 @@ if __name__ == "__main__":
         sys.exit(curriculum_only())
     if sys.argv[1:2] == ["--checkpoints"]:
         sys.exit(checkpoints_only())
+    if sys.argv[1:2] == ["--mesh-worker"]:  # one rank of phase 23 (torchrun starts it)
+        sys.exit(mesh_recipe_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mesh-recipe"]:
+        sys.exit(mesh_recipe_only())
     sys.exit(main())

@@ -29,8 +29,9 @@ normalized weights, component i seeded with seed + i.
 Inference (``make_for_inference`` :271-349): one epoch in order, the last
 batch zero-padded and a ``_mask`` key marking the real rows; with
 ``num_workers > 0`` the pp runs in worker processes of a
-``torch.utils.data.DataLoader``, in order. One process only: a batch holds
-``batch_size`` rows (the evaluators refuse a process mesh).
+``torch.utils.data.DataLoader``, in order. On a process mesh a batch holds
+``batch_size / batch_shards`` rows, each batch shard reading its
+contiguous part of the source (``shard=True``) or the whole of it.
 
 Sources: ``synthetic``, ``DictSource`` (:73), ``JsonlImageSource`` (:92),
 ``WebdatasetTarSource`` (:489-565: webdataset tar shards, ``paths`` or the
@@ -441,12 +442,14 @@ def training_mixture(input_cfgs: Sequence[dict], weights: Sequence[float], *, se
 
 
 class _Preprocessed:
-    """source[i] through the pp string with record i's generator: a
-    DataLoader dataset of plain data (the pp fn is built in each process
-    from its string), so spawned worker processes can take it."""
+    """The source's `records` (default all), record r through the pp string
+    with record r's generator: a DataLoader dataset of plain data (the pp
+    fn is built in each process from its string), so spawned worker
+    processes can take it."""
 
-    def __init__(self, source, pp_string: str, seed: int):
+    def __init__(self, source, pp_string: str, seed: int, records=None):
         self.source, self.pp_string, self.seed = source, pp_string, seed
+        self.records = range(len(source)) if records is None else records
         self._pp_fn = self._build()  # an unknown op raises here, in the caller's process
 
     def _build(self):
@@ -457,12 +460,13 @@ class _Preprocessed:
         return {**self.__dict__, "_pp_fn": None}
 
     def __len__(self):
-        return len(self.source)
+        return len(self.records)
 
     def __getitem__(self, i: int) -> dict:
         if self._pp_fn is None:
             self._pp_fn = self._build()
-        return self._pp_fn(dict(self.source[i]), np.random.default_rng([self.seed, i]))
+        r = int(self.records[i])
+        return self._pp_fn(dict(self.source[r]), np.random.default_rng([self.seed, r]))
 
 
 def _as_is(example):
@@ -475,17 +479,33 @@ def _stack(examples: Sequence[dict]) -> dict:
 
 
 def make_for_inference(source, pp_string: str, batch_size: int, *, seed: int = 0,
-                       num_workers: int = 0):
+                       num_workers: int = 0, shard: bool = True, mesh=None):
     """Eval pipeline: a function giving one epoch's iterator of batches, the
     last one zero-padded, a ``_mask`` key (1 for real rows) on every batch.
-    One process reads the whole source.
+
+    On a process `mesh` (``parallel.Mesh``) of several batch shards each
+    batch holds ``batch_size / batch_shards`` rows. With `shard` each batch
+    shard (not each process: the processes of a tensor group read the same
+    rows) reads its contiguous part of the source, the first ``len % shards``
+    parts one record longer (grain's ``ShardByJaxProcess``); without it every
+    process reads the whole source, as retrieval needs (JAX
+    ``evaluators/retrieval.py:124-133``). Every process yields the same
+    number of batches, computed from global quantities only (a shard that
+    runs out pads), so the collectives of an eval loop stay in lockstep.
 
     With ``num_workers > 0`` the pp runs in that many spawned worker
     processes of a ``torch.utils.data.DataLoader`` (spawned, not forked: the
     caller may hold threads), the records in order.
     """
-    n_steps = -(-len(source) // batch_size)
-    data = _Preprocessed(source, pp_string, seed)
+    shards = 1 if mesh is None else mesh.batch_shards
+    if batch_size % shards:
+        raise ValueError(f"eval batch {batch_size} does not split over {shards} batch shards")
+    local_bs = batch_size // shards
+    n_steps = -(-len(source) // (batch_size if shard else local_bs))
+    records = range(len(source))
+    if shard and shards > 1:  # contiguous parts, the first len % shards one longer
+        records = np.array_split(records, shards)[mesh.batch_index]
+    data = _Preprocessed(source, pp_string, seed, records)
 
     def examples() -> Iterator[dict]:
         if num_workers <= 0:
@@ -502,15 +522,19 @@ def make_for_inference(source, pp_string: str, batch_size: int, *, seed: int = 0
         for ex in examples():
             ex["_mask"] = np.ones((), np.float32)
             buf.append(ex)
-            if len(buf) == batch_size:
+            if len(buf) == local_bs:
                 yield _stack(buf)
                 yielded += 1
                 pad = pad or {k: np.zeros_like(v) for k, v in buf[-1].items()}
                 buf = []
         if buf:
             pad = {k: np.zeros_like(v) for k, v in buf[-1].items()}
+        if pad is None and yielded < n_steps:  # an empty shard: record 0's structure
+            ex = _Preprocessed(source, pp_string, seed, range(1))[0]
+            pad = {k: np.zeros_like(np.asarray(v)) for k, v in ex.items()}
+            pad["_mask"] = np.zeros((), np.float32)
         while yielded < n_steps:
-            while len(buf) < batch_size:
+            while len(buf) < local_bs:
                 buf.append(dict(pad))
             yield _stack(buf)
             yielded += 1

@@ -10,7 +10,17 @@ view of the two kinds of model the port has: the trainer's ``CLIPModel``
 ``LoadedModel`` (``vision`` and ``text``, block matrices in the compute
 dtype, int8 weights when loaded with ``int8=True``). The port's
 ``train_state`` carries no parameters of its own (they live in the model),
-so ``run`` reads the model it was built with.
+so ``run`` reads the model it was built with; the trainer passes
+``{"model", "opt", "step"}``, the optimizer placing the model's leaves on a
+process mesh.
+
+On a process mesh every process runs every evaluator, in lockstep (each
+collective of the towers, and each of the evaluators' own, is called the
+same number of times everywhere): the processes of a tensor group see the
+same rows, as in training, and :func:`gather_rows` puts the batch shards'
+rows back together (JAX ``local_batch_to_global``). A ``CLIPModel``'s
+towers run through its own forward, so FSDP2 gathers the leaves it does
+not give a block of their own.
 """
 
 from __future__ import annotations
@@ -72,6 +82,21 @@ def device_norm_fn(spec: str):
     return lambda image: image.float() * ((hi - lo) / 255.0) + lo
 
 
+def batch_mesh(mesh):
+    """`mesh` when it has several batch shards, else None."""
+    return mesh if mesh is not None and mesh.batch_shards > 1 else None
+
+
+def gather_rows(z: torch.Tensor, mesh) -> torch.Tensor:
+    """Every batch shard's rows of `z`, in batch order (an all-gather over
+    data x fsdp); `z` without a mesh of several batch shards."""
+    if batch_mesh(mesh) is None:
+        return z
+    from openvision_tpu_torch.parallel import gather_batch
+
+    return gather_batch(z.contiguous(), mesh)
+
+
 def _normalized(z) -> torch.Tensor:
     z = (z[0] if isinstance(z, tuple) else z).float()
     return z / (torch.linalg.norm(z, dim=-1, keepdim=True) + 1e-8)
@@ -91,9 +116,13 @@ class Towers:
         self.device = next(self.vision.parameters()).device
 
     def embed_images(self, images: torch.Tensor) -> torch.Tensor:
+        if hasattr(self.model, "visual"):  # the CLIPModel's forward: the same normalisation
+            return self.model(images, None)[0]
         return _normalized(self.vision(images))
 
     def embed_texts(self, tokens: torch.Tensor) -> torch.Tensor:
+        if hasattr(self.model, "visual"):
+            return self.model(None, tokens)[1]
         return _normalized(self.text(tokens))
 
     def temperature(self) -> torch.Tensor:

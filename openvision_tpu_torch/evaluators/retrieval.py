@@ -7,7 +7,10 @@ honoured: uint8 across to the card), captions through the text tower in
 ``batch_size`` chunks, the full similarity matrix of the L2-normalised
 (``+ 1e-8``) embeddings, and Recall@{1,5,10} both ways
 (:func:`recall_at_k`, :25). The towers run in eval mode under
-``torch.no_grad()`` and go back to the mode they had.
+``torch.no_grad()`` and go back to the mode they had. On a process mesh
+every process embeds every image (``make_for_inference(shard=False)``,
+batches of ``batch_size / batch_shards`` rows) and every caption, in
+lockstep, and scores the whole matrix itself (JAX :110-140).
 
 Data: ``source`` giving {"image", "captions"} (a list or array of strings,
 or one string of lines), or ``data_dir``: "synthetic" (16 random 64x64
@@ -60,6 +63,7 @@ class Evaluator:
                  txt_name=("captions", "text"), pp_img="", pp_txt="", batch_size: int = 256,
                  source=None, device_norm: str = "", num_workers: int = 0, **unused):
         self.towers = eval_common.Towers(model)
+        self.mesh = mesh
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = num_workers
@@ -101,7 +105,8 @@ class Evaluator:
         """(n_img, D) f32 on the device, the pp in the eval pipeline."""
         dev = self.towers.device
         it = pipe.make_for_inference(_ImagesOnly(self.source), self.pp_img_string,
-                                     self.batch_size, num_workers=self.num_workers)()
+                                     self.batch_size, num_workers=self.num_workers,
+                                     shard=False, mesh=eval_common.batch_mesh(self.mesh))()
         outs = []
         for batch in it:
             images = torch.from_numpy(np.asarray(

@@ -4,8 +4,11 @@ Counterpart of ``openvision_tpu/losses.py``:
 
 - :func:`bidirectional_contrastive_loss` in the ``global``, ``efficient``
   and ``local`` modes, over one or two text views per image (the loss is the
-  mean over views). ``local`` (:93-124) takes a process's rows against the
-  columns of every batch shard, gathered over the mesh's (data, fsdp) axes
+  mean over views). ``global`` (:69-78) and ``efficient`` form the whole
+  batch's B x B logits: on a process mesh both sides are gathered first, as
+  the JAX modes run over the global arrays, and the loss returned is the
+  whole batch's over the shard count, this process's share. ``local``
+  (:93-124) takes a process's rows against the columns of every batch shard, gathered over the mesh's (data, fsdp) axes
   with a gather that carries gradients (``parallel.gather_batch``), the
   positives on the diagonal shifted by the shard's offset in the global
   batch (its (data, fsdp) coordinate, not its global rank). It returns
@@ -14,7 +17,11 @@ Counterpart of ``openvision_tpu/losses.py``:
   gradients, summed over data x fsdp by the train step, are the loss's (the
   JAX psum of one global-mean loss). In one process that is the global math
   with the positives on the diagonal;
-- :func:`siglip_loss` (:129), its ``local`` mode likewise the global math;
+- :func:`siglip_loss` (:129-175): ``local`` takes a process's image rows
+  against the text rows of every batch shard (only the text side is
+  gathered), the positives on the diagonal shifted by the shard's offset;
+  ``global`` gathers both sides; each returns this process's share, and in
+  one process both are the global math;
 - :func:`softmax_xent` (:177) and :func:`linear_softmax_xent` (:200-253),
   the caption cross-entropy fused with the vocab head: the f32 head product
   and log-softmax run per chunk of `chunk` positions under
@@ -47,30 +54,33 @@ def bidirectional_contrastive_loss(zimg, ztxt, t, *, mode: str = "local",
     """Bidirectional contrastive loss over L2-normalized embeddings.
 
     zimg: (B, D); ztxt: (B, D) or a list of per-view (B, D); t: the exp'd
-    temperature; `mesh` (``local`` mode): the process mesh whose batch
-    shard these rows are (None: one process). Returns (loss, extras), extras
-    holding "ncorrect" (the global mode's top-1 accuracy, zero in the
-    others, as in the JAX package); ``local``'s loss is this shard's share.
+    temperature; `mesh`: the process mesh whose batch shard these rows are
+    (None: one process). Returns (loss, extras), extras holding "ncorrect"
+    (the global mode's top-1 accuracy over the whole batch, zero in the
+    others, as in the JAX package); the loss is this shard's share.
     """
     views = list(ztxt) if isinstance(ztxt, (list, tuple)) else [ztxt]
-    if mode == "global":
-        per_view = [_pair_loss_global(zimg, z, t) for z in views]
+    shards, index, gather = _batch_axes(mesh)
+    if mode == "global":  # the whole batch's logits on every process
+        gimg = gather(zimg)
+        per_view = [_pair_loss_global(gimg, gather(z), t) for z in views]
         loss = sum(pl for pl, _ in per_view) / len(per_view)
         logits = per_view[0][1]
         ncorrect = (logits.argmax(1) == torch.arange(logits.shape[0], device=logits.device)
                     ).float().mean()
-        return loss.mean(), {"ncorrect": ncorrect}
+        return loss.mean() / shards, {"ncorrect": ncorrect}
     if mode == "efficient":
+        gimg = gather(zimg)
+
         def one(z):
-            logits = (zimg @ z.t()) * t
-            pos = (zimg * z).sum(-1) * t
+            logits = (gimg @ z.t()) * t
+            pos = (gimg * z).sum(-1) * t
             return 0.5 * ((torch.logsumexp(logits, -1) - pos).mean()
                           + (torch.logsumexp(logits, 0) - pos).mean())
 
-        return sum(one(z) for z in views) / len(views), {"ncorrect": zimg.new_zeros(())}
+        loss = sum(one(gather(z)) for z in views) / len(views)
+        return loss / shards, {"ncorrect": zimg.new_zeros(())}
     if mode == "local":  # this shard's rows against every shard's columns
-        shards, index = (1, 0) if mesh is None else (mesh.batch_shards, mesh.batch_index)
-        gather = (lambda z: z) if mesh is None else (lambda z: gather_batch(z, mesh))
         bl = zimg.shape[0]
         diag = index * bl + torch.arange(bl, device=zimg.device)[:, None]
         gimg = gather(zimg)
@@ -85,16 +95,31 @@ def bidirectional_contrastive_loss(zimg, ztxt, t, *, mode: str = "local",
     raise ValueError(f"Unknown contrastive mode: {mode!r}")
 
 
-def siglip_loss(zimg, ztxt, t, b, *, mode: str = "local"):
+def _batch_axes(mesh: Mesh | None):
+    """(shard count, this shard's index, a gather of every shard's rows that
+    carries gradients) of the mesh's batch axes; one shard without one."""
+    if mesh is None:
+        return 1, 0, lambda z: z
+    return mesh.batch_shards, mesh.batch_index, lambda z: gather_batch(z, mesh)
+
+
+def siglip_loss(zimg, ztxt, t, b, *, mode: str = "local", mesh: Mesh | None = None):
     """Pairwise sigmoid contrastive loss (SigLIP): every (image, text) pair
-    is classified matched or not; (loss, {})."""
+    is classified matched or not; (loss, {}). `mesh`: the process mesh whose
+    batch shard these rows are (None: one process); the loss is this
+    shard's share of the global one."""
     if mode not in ("local", "global"):
         raise ValueError(f"Unknown siglip mode: {mode!r}")
+    shards, index, gather = _batch_axes(mesh)
+    if mode == "global":
+        zimg, ztxt, offset = gather(zimg), gather(ztxt), 0
+    else:  # this shard's images against every shard's texts
+        ztxt, offset = gather(ztxt), index * zimg.shape[0]
     logits = (zimg @ ztxt.t()) * t + b
     n, m = logits.shape
-    labels = torch.arange(n, device=logits.device)[:, None] == torch.arange(m, device=logits.device)
-    z = torch.where(labels, logits, -logits)
-    return -F.logsigmoid(z).sum() / n, {}
+    rows = torch.arange(n, device=logits.device)[:, None] + offset
+    z = torch.where(rows == torch.arange(m, device=logits.device), logits, -logits)
+    return -F.logsigmoid(z).sum() / n / shards, {}
 
 
 def softmax_xent(*, logits, labels, mask=None, reduction: bool = True):

@@ -58,7 +58,7 @@ import numpy as np
 
 from openvision_tpu_torch.models.encoder import (
     Encoder, EncoderBlock, check_remat_policy, drop_seeds, remat)
-from openvision_tpu_torch.models.layers import Dropout, LayerNorm, MlpBlock, zero_init
+from openvision_tpu_torch.models.layers import Dropout, LayerNorm, MlpBlock, shard_seed, zero_init
 
 # Decoder variant table (H/g differ from the text tower).
 VARIANTS = {
@@ -100,10 +100,10 @@ class CrossAttnBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 drop_seed: Optional[int] = None) -> torch.Tensor:
-        """`drop_seed` (training with dropout) seeds the generator of the
-        block's dropout masks."""
+        """`drop_seed` (training with dropout), with the batch shard folded
+        in, seeds the generator of the block's dropout masks."""
         gen = None if drop_seed is None else torch.Generator(device=x.device).manual_seed(
-            drop_seed)
+            shard_seed(drop_seed))
         x = x.to(self.dtype)
         y = self.ln_1(x)
         ctx = self.ln_1_kv(context.to(self.dtype))

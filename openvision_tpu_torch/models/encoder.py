@@ -42,12 +42,13 @@ Functions (the backwards of ``_mhsa_t_bwd_kernel`` and
 ``_mlp_t_bwd_kernel``). The stack's drop-path rates run linspace(0,
 drop_path, depth) (:590); in training the stack draws one seed per block
 with a drop-path rate > 0 or a dropout rate > 0 from the generator it is
-given, and the block draws its masks from a generator of that seed, so the
-recompute under remat draws the same masks. Dropout (:160-194) takes the
-attention probabilities (``xla`` attention, one (Lq, Lk) mask), the
-attention branch's output, the MLP's hidden after its GELU and the MLP
-branch's output, each before LayerScale and drop-path; the block's draws
-run in that order, drop-path's mask after each branch's dropout. The remat
+given, and the block draws its drop-path masks from a generator of that
+seed (for the global batch on a process mesh) and its dropout masks from
+one of that seed with the batch shard folded in (``layers.shard_seed``),
+so the recompute under remat draws the same masks. Dropout (:160-194)
+takes the attention probabilities (``xla`` attention, one (Lq, Lk) mask),
+the attention branch's output, the MLP's hidden after its GELU and the MLP
+branch's output, each before LayerScale and drop-path, in that order. The remat
 policies (:395-408, :619-626) wrap each block in
 ``torch.utils.checkpoint(use_reentrant=False)``: ``full`` saves the block's
 input only; ``minimal`` (JAX ``checkpoint_dots_with_no_batch_dims``) saves
@@ -84,7 +85,8 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
-from openvision_tpu_torch.models.layers import DropPath, Dropout, LayerNorm, LayerScale, MlpBlock
+from openvision_tpu_torch.models.layers import (DropPath, Dropout, LayerNorm, LayerScale, MlpBlock,
+                                               shard_seed)
 from openvision_tpu_torch.ops.attention import prefix_lm_mask
 from openvision_tpu_torch.ops.fused_attention import fused_mhsa_block, fused_mhsa_block_tp
 from openvision_tpu_torch.ops.fused_encoder import mhsa_block, mlp_block
@@ -166,8 +168,10 @@ class EncoderBlock(nn.Module):
         x = x.to(self.dtype)
         if fused_t:
             return self._fused_t_block(x)
-        gen = None if drop_seed is None else torch.Generator(device=x.device).manual_seed(
-            drop_seed)
+        gen = dgen = None
+        if drop_seed is not None:  # drop-path's per-sample draws; dropout's per-element ones
+            gen = torch.Generator(device=x.device).manual_seed(drop_seed)
+            dgen = torch.Generator(device=x.device).manual_seed(shard_seed(drop_seed))
         mask, causal, native_prefix = None, self.causal, 0
         if self.causal and prefix_len > 0:
             if self.attn_impl in ("flash", "scan", "fused"):
@@ -183,10 +187,10 @@ class EncoderBlock(nn.Module):
                 return self._mlp_subblock_kernels(x)
             return x + self.mlp(self.ln_2(x))
         y = self.attn(self.ln_1(x), mask=mask, causal=causal, prefix_len=native_prefix,
-                      dropout_gen=gen)
-        y = self.dropout(y, gen)
+                      dropout_gen=dgen)
+        y = self.dropout(y, dgen)
         x = x + self.drop_path(self.ls_1(y) if self.layer_scale else y, gen)
-        y = self.dropout(self.mlp(self.ln_2(x), gen), gen)
+        y = self.dropout(self.mlp(self.ln_2(x), dgen), dgen)
         return x + self.drop_path(self.ls_2(y) if self.layer_scale else y, gen)
 
     def _fused_attn_subblock(self, x, causal: bool, prefix_len: int):

@@ -13,7 +13,14 @@ Parameters use OpenCLIP's names and torch's (out, in) weight layout, so an
 at zero (LayerNorm scales at one, LayerScale at its init value) and draw
 nothing from the global RNG: the weights come from a checkpoint or
 ``models/init.py``. ``DropPath`` and ``Dropout`` draw from an explicit
-``torch.Generator``.
+``torch.Generator``. On a process mesh (``parallel/mesh.py``) each global
+row gets a draw of its own, as the JAX step draws over the global batch:
+the per-sample draws (drop-path here, token masking in ``models/vit.py``)
+are drawn for the global batch and each process keeps its rows
+(:func:`global_rows`), so a mesh draws for a row what one process draws
+for it; dropout's per-element draws come from a generator with the batch
+shard's index folded in (:func:`shard_seed`, :func:`dropout_generator`),
+so they differ by batch shard and agree within a tensor group.
 
 Under tensor parallelism (``train/step.py:shard_model``) the MLP is
 Megatron-sharded, as the JAX logical rules shard ``mlp`` over ``tensor``
@@ -32,9 +39,45 @@ import torch.nn.functional as F
 from torch import nn
 
 from openvision_tpu_torch.ops.fused_encoder import layernorm_plain
-from openvision_tpu_torch.parallel import copy_to_tensor, reduce_from_tensor, sharded_mesh
+from openvision_tpu_torch.parallel import (active_mesh, copy_to_tensor, reduce_from_tensor,
+                                           sharded_mesh)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+def shard_seed(seed: int) -> int:
+    """`seed` with this process's batch shard folded in (the active mesh's
+    ``batch_index``, 0 without one): the seed of per-element draws, which
+    differ by batch shard and are equal within a tensor group."""
+    mesh = active_mesh()
+    index = 0 if mesh is None else mesh.batch_index
+    state = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0]
+    return int(state >> np.uint64(1))
+
+
+def dropout_generator(generator: Optional[torch.Generator],
+                      rate: float) -> Optional[torch.Generator]:
+    """The generator of one dropout call's masks: a seed drawn from
+    `generator` (one draw, whatever the shape of the masks) with the batch
+    shard folded in (:func:`shard_seed`); None without a generator or at
+    rate 0, where nothing is drawn."""
+    if generator is None or rate == 0.0:
+        return None
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=generator.device))
+    return torch.Generator(device=generator.device).manual_seed(shard_seed(seed))
+
+
+def global_rows(draw, n: int):
+    """``draw(rows)`` (a tensor, or a dict of them, with a leading row axis)
+    for the global batch of the active mesh, then this process's `n` rows of
+    it (``Mesh.batch_rows``): a mesh draws for each row what one process
+    draws for it. ``draw(n)`` without a mesh of several batch shards."""
+    mesh = active_mesh()
+    if mesh is None or mesh.batch_shards == 1:
+        return draw(n)
+    rows = mesh.batch_rows(n * mesh.batch_shards)
+    out = draw(n * mesh.batch_shards)
+    return {k: v[rows] for k, v in out.items()} if isinstance(out, dict) else out[rows]
 
 
 def posemb_sincos_2d(h: int, w: int, width: int, temperature: float = 10_000.0,
@@ -174,8 +217,9 @@ class DropPath(nn.Module):
     """Stochastic depth, the JAX package's ``DropPath`` (:199-212): drops
     whole residual branches per sample, x / keep * floor(keep + U) with
     keep = 1 - rate and U ~ U[0, 1) in f32, one per sample, drawn from the
-    `generator` given (never the global RNG). The identity when no generator
-    is given (not training) or the rate is 0."""
+    `generator` given (never the global RNG), for the global batch on a
+    process mesh (:func:`global_rows`). The identity when no generator is
+    given (not training) or the rate is 0."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -186,6 +230,8 @@ class DropPath(nn.Module):
         if generator is None or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
+        tail = (1,) * (x.ndim - 1)
+        u = global_rows(lambda rows: torch.rand((rows,) + tail, generator=generator,
+                                                device=generator.device, dtype=torch.float32),
+                        x.shape[0])
         return x / keep * torch.floor(keep + u).to(x.device)

@@ -28,7 +28,8 @@ import torch
 from torch import nn
 
 from openvision_tpu_torch.models.encoder import Encoder
-from openvision_tpu_torch.models.layers import Dropout, LayerNorm, posemb_sincos_1d, zero_init
+from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, dropout_generator,
+                                               posemb_sincos_1d, zero_init)
 
 # The text variant table differs from the vision one.
 VARIANTS = {
@@ -116,7 +117,7 @@ class TextTransformer(nn.Module):
             x = x + posemb_sincos_1d(l, d, device=x.device)
         x = x.to(self.dtype)
         if train:
-            x = self.dropout(x, rng)
+            x = self.dropout(x, dropout_generator(rng, self.dropout.rate))
         x = self.transformer(x, train=train, rng=rng)
         tokens = {"last": x[:, :-1], "first": x[:, 1:]}.get(self.pool_type, x)
         pooled = text_global_pool(self.ln_final(x), text, self.pool_type)

@@ -21,7 +21,8 @@ token masking: the cls token is kept and the patch tokens are cut to
 ``int(P * (1 - mask_ratio))`` by :func:`random_token_masking` (modes
 ``random``, ``square`` and ``per2x2_random_grid``, :88-173), so the encoder
 and the caption decoder see the kept tokens only. The draws
-(:func:`draw_masking`) come from the generator; the masking itself is a
+(:func:`draw_masking`) come from the generator, on a process mesh for the
+global batch with this process's rows kept; the masking itself is a
 function of given draws, the same function as the JAX one on the same draws.
 
 :func:`resample_posemb` (:373-385) and :func:`resize_patch_kernel` (the
@@ -41,7 +42,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from openvision_tpu_torch.models.encoder import Encoder
-from openvision_tpu_torch.models.layers import Dropout, LayerNorm, posemb_sincos_2d, zero_init
+from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, dropout_generator, global_rows,
+                                               posemb_sincos_2d, zero_init)
 
 # Width/depth/mlp/heads per variant, Table 2 of arXiv:2106.04560.
 VARIANTS = {
@@ -155,10 +157,12 @@ def random_token_masking(x: torch.Tensor, mask_ratio: float,
                          draws: Optional[dict] = None):
     """MAE-style masking of (n, L, d) tokens on an (height, width) grid;
     returns (kept tokens (n, int(L (1 - mask_ratio)), d), mask, ids_restore).
-    The draws are `draws`, or drawn from `generator`."""
+    The draws are `draws`, or drawn from `generator` (for the global batch
+    on a process mesh, this process's rows kept: ``layers.global_rows``)."""
     n, l, _ = x.shape
-    if draws is None:
-        draws = draw_masking(mask_mode, mask_ratio, n, height, width, generator)
+    if draws is None:  # on a process mesh, the global batch's draws, then this shard's rows
+        draws = global_rows(
+            lambda rows: draw_masking(mask_mode, mask_ratio, rows, height, width, generator), n)
     noise = masking_noise(mask_mode, mask_ratio, height, width, draws).to(x.device)
     return _keep_by_noise(x, noise, int(l * (1.0 - mask_ratio)))
 
@@ -231,7 +235,7 @@ class ViT(nn.Module):
             x = x + posemb_sincos_2d(h, wd, c, cls_token=True, device=x.device)
         x = x.to(self.dtype)
         if train:
-            x = self.dropout(x, rng)
+            x = self.dropout(x, dropout_generator(rng, self.dropout.rate))
             if self.mask_ratio > 0:
                 if rng is None:
                     raise ValueError("token masking in training needs a torch.Generator (rng=...)")

@@ -66,8 +66,10 @@ def _f32(t):
 
 
 @torch.no_grad()
-def quantize_vit_params(vision) -> dict:
-    """The int8 tower of a port ``ViT`` with f32 weights.
+def quantize_vit_params(vision, whole: dict | None = None) -> dict:
+    """The int8 tower of a port ``ViT`` with f32 weights; `whole` (the
+    tower's state dict, names within the tower) takes the leaves' place
+    where a process mesh holds the tower's leaves in pieces.
 
     Returns {"_fp": float tensors (conv embed, cls, position embedding,
     encoder_norm), "head": {"q", "s", "b"}, "blocks": one dict a block with
@@ -81,31 +83,38 @@ def quantize_vit_params(vision) -> dict:
             "the int8 encode computes GAP + encoder_norm + an int8 head "
             f"(quantized_encode_fused); got pool_type={vision.pool_type!r}, "
             f"num_classes={vision.num_classes}")
-    conv = vision.conv1
-    fp = {"conv_w": _f32(conv.weight), "conv_b": _f32(conv.bias),
-          "cls": _f32(vision.class_embedding),
-          "pos_embedding": _f32(getattr(vision, "positional_embedding", None)),
-          "ln_post_w": _f32(vision.ln_post.weight), "ln_post_b": _f32(vision.ln_post.bias)}
-    hq, hs = quant_w(vision.proj.detach().t().contiguous())
-    head = {"q": hq, "s": hs, "b": _f32(vision.proj_bias)}
+
+    def leaf(name: str):
+        if whole is not None:
+            return whole.get(name)
+        owner, _, attr = name.rpartition(".")
+        return getattr(vision.get_submodule(owner) if owner else vision, attr, None)
+
+    fp = {"conv_w": _f32(leaf("conv1.weight")), "conv_b": _f32(leaf("conv1.bias")),
+          "cls": _f32(leaf("class_embedding")),
+          "pos_embedding": _f32(leaf("positional_embedding")),
+          "ln_post_w": _f32(leaf("ln_post.weight")), "ln_post_b": _f32(leaf("ln_post.bias"))}
+    hq, hs = quant_w(leaf("proj").detach().t().contiguous())
+    head = {"q": hq, "s": hs, "b": _f32(leaf("proj_bias"))}
 
     def bias(t, n):
-        return torch.zeros(n, device=conv.weight.device) if t is None else _f32(t)
+        return torch.zeros(n, device=fp["conv_w"].device) if t is None else _f32(t)
 
     blocks = []
-    for blk in vision.transformer.resblocks:
-        attn, mlp = blk.attn, blk.mlp
-        qb = {"ln1_w": _f32(blk.ln_1.weight), "ln1_b": _f32(blk.ln_1.bias),
-              "ln2_w": _f32(blk.ln_2.weight), "ln2_b": _f32(blk.ln_2.bias),
+    for i, blk in enumerate(vision.transformer.resblocks):
+        pre = f"transformer.resblocks.{i}."
+        qb = {"ln1_w": _f32(leaf(pre + "ln_1.weight")), "ln1_b": _f32(leaf(pre + "ln_1.bias")),
+              "ln2_w": _f32(leaf(pre + "ln_2.weight")), "ln2_b": _f32(leaf(pre + "ln_2.bias")),
               "eps": blk.ln_1.eps}
-        for name, w, b in (("wqkv", attn.in_proj_weight, attn.in_proj_bias),
-                           ("wo", attn.out_proj.weight, attn.out_proj.bias),
-                           ("w1", mlp.c_fc.weight, mlp.c_fc.bias),
-                           ("w2", mlp.c_proj.weight, mlp.c_proj.bias)):
+        for name, w, b in (("wqkv", "attn.in_proj_weight", "attn.in_proj_bias"),
+                           ("wo", "attn.out_proj.weight", "attn.out_proj.bias"),
+                           ("w1", "mlp.c_fc.weight", "mlp.c_fc.bias"),
+                           ("w2", "mlp.c_proj.weight", "mlp.c_proj.bias")):
+            w = leaf(pre + w)
             qb[f"{name}_q"], qb[f"{name}_s"] = quant_w(w.detach())
-            qb[f"b{name[1:]}"] = bias(b, w.shape[0])
+            qb[f"b{name[1:]}"] = bias(leaf(pre + b), w.shape[0])
         qb["num_heads"] = blk.num_heads
-        qb["gelu_tanh"] = bool(mlp.gelu_approx)
+        qb["gelu_tanh"] = bool(blk.mlp.gelu_approx)
         blocks.append(qb)
     return {"_fp": fp, "head": head, "blocks": blocks}
 

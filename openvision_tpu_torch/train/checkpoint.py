@@ -113,12 +113,14 @@ def save_npz(path: str, tree: Any) -> None:
 
 def load_npz(path: str, tree_key: Optional[str] = None) -> Dict[str, Any]:
     """Loads a flat-named npz back into a nested dict. `path` may carry a
-    ``:subtree`` suffix ("ckpt.npz:img") selecting a subtree."""
+    ``:subtree`` suffix ("ckpt.npz:img") selecting a subtree, of which
+    alone the arrays are read."""
     if tree_key is None and ":" in os.path.basename(path):
         path, tree_key = path.rsplit(":", 1)
     with open(path, "rb") as f:
         data = np.load(f, allow_pickle=False)
-        flat = {k: recover_dtype(data[k]) for k in data.files}
+        flat = {k: recover_dtype(data[k]) for k in data.files
+                if tree_key is None or k == tree_key or k.startswith(tree_key + "/")}
     tree = recover_tree(list(flat), list(flat.values()))
     return tree[tree_key] if tree_key else tree
 
@@ -285,8 +287,9 @@ def load_checkpoint(path: str, step: Optional[int] = None) -> Dict[str, Any]:
     steps), else an Orbax or legacy tensorstore directory
     (:func:`restore_params`, at `step` or the newest)."""
     if os.path.isfile(path) and path.endswith(".npz"):
-        tree = load_npz(path)
-        return tree.get("params", tree)
+        with np.load(path, allow_pickle=False) as data:  # a train state: read its params alone
+            state = any(k.startswith("params/") for k in data.files)
+        return load_npz(path, "params" if state else None)
     return restore_params(path, step)
 
 
@@ -349,6 +352,8 @@ def gather_leaves(pieces: dict, model: torch.nn.Module, opt) -> dict:
     process's parts; a collective on a process mesh (every process calls it)."""
     if opt.mesh is None:
         return {n: t.detach().cpu() for n, t in pieces.items()}
+    if opt.fsdp_chunked and hasattr(model, "reshard"):
+        model.reshard()  # FSDP2's root keeps its leaves gathered after a forward alone
     params = dict(model.named_parameters())
     return {n: _whole(t.detach(), n, params[n], opt).cpu() for n, t in pieces.items()}
 

@@ -46,9 +46,14 @@ On a process mesh (``parallel/mesh.py``; the JAX ``sharding.mesh``
   batch shards, the embedding norms averaged, and the l2 norms of
   ``Optimizer.global_norm``.
 
-Under one process (no mesh, or a mesh of one) the step is the one-device
-step. What a process mesh refuses by name: ``grad_accum > 1`` and
-``loss_type`` siglip (one process only).
+Every loss type and mode runs on a mesh: siglip and the global
+contrastive mode return this process's share too (``losses.py``), and
+``grad_accum > 1`` is GradCache over the batch shards
+(:func:`make_accum_grad_fn`). The per-sample draws (token masking,
+drop-path) are drawn for the global batch, each process keeping its rows,
+so a mesh step draws for a row what one process draws for it; dropout's
+per-element draws fold in the batch shard (``models/layers.py``). Under
+one process (no mesh, or a mesh of one) the step is the one-device step.
 """
 
 from __future__ import annotations
@@ -213,18 +218,12 @@ def _loss_type(config: dict) -> str:
     return loss_type
 
 
-def _refuse_siglip_on_a_mesh(loss_type: str, mesh) -> None:
-    if loss_type == "siglip" and mesh is not None and mesh.batch_shards > 1:
-        raise NotImplementedError(f"loss_type siglip on a process mesh ({mesh.batch_shards} "
-                                  "batch shards) is not ported yet; train it in one process")
-
-
 def contrastive_loss(loss_type: str, zimg, views, t, b, *, mode: str, mesh=None):
     """The image-text loss of `loss_type` over the text views (the mean
-    over views): (loss, extras)."""
+    over views): (this process's share of the loss, extras)."""
     if loss_type == "siglip":
-        _refuse_siglip_on_a_mesh(loss_type, mesh)
-        return sum(losses.siglip_loss(zimg, v, t, b, mode=mode)[0] for v in views) / len(views), {}
+        return sum(losses.siglip_loss(zimg, v, t, b, mode=mode, mesh=mesh)[0]
+                   for v in views) / len(views), {}
     return losses.bidirectional_contrastive_loss(zimg, views, t, mode=mode, mesh=mesh)
 
 
@@ -258,6 +257,13 @@ def _aux(out: dict) -> dict:
             "ntxt": out["txt/norm"].mean()}
 
 
+def mask_count(batch: dict, mesh) -> torch.Tensor:
+    """The global batch's caption mask count (JAX normalizes the whole
+    batch): this process's, summed over data x fsdp on a mesh."""
+    count = batch["cap_loss_mask"].float().sum()
+    return count if mesh is None else all_reduce(count, mesh.batch_group)
+
+
 def make_loss_fn(config: dict, model: CLIPModel) -> Callable:
     """loss_fn(batch on the device, rng=None) -> (loss, measurements),
     differentiable; `rng` draws the dropout, masking and drop-path masks."""
@@ -269,19 +275,13 @@ def make_loss_fn(config: dict, model: CLIPModel) -> Callable:
     def loss_fn(batch: dict, rng: torch.Generator | None = None):
         """This process's share of the loss (the loss itself in one process)."""
         mesh = active_mesh()
-        if mode == "global" and mesh is not None and mesh.batch_shards > 1:
-            raise NotImplementedError("local_loss=False (the global contrastive mode) runs on one "
-                                      "process only; the mesh takes the local mode")
         zimg, ztxt, out = forward(config, model, batch, rng, caption=loss_type == "coca")
         half = ztxt.shape[0] // 2
         loss, extras = contrastive_loss(loss_type, zimg, [ztxt[:half], ztxt[half:]], out["t"],
                                         out.get("b"), mode=mode, mesh=mesh)
         if loss_type == "coca":
             clip_loss = loss
-            mask = batch["cap_loss_mask"]
-            # the global batch's mask count (JAX normalizes the whole batch)
-            count = mask.float().sum() if mesh is None else all_reduce(
-                mask.float().sum(), mesh.batch_group)
+            count = mask_count(batch, mesh)
             cap_loss = caption_sum(config, model, out, batch) / (count + 1e-8)
             extras = dict(extras, clip_loss=clip_loss, caption_loss=cap_loss)
             loss = clip_w * clip_loss + cap_w * cap_loss
@@ -303,6 +303,19 @@ def sum_over_batch(grads: dict, mesh: Mesh) -> None:
         offset += g.numel()
 
 
+def reduce_over_batch(measurements: dict, grads: dict, opt: optim.Optimizer) -> None:
+    """On a mesh of several batch shards, in place: the gradients summed over
+    data x fsdp (FSDP2 summed the leaves it chunks), the loss shares summed
+    and the per-shard means averaged."""
+    mesh = opt.mesh
+    if mesh is None or mesh.batch_shards == 1:
+        return
+    sum_over_batch({n: g for n, g in grads.items() if n not in opt.fsdp_chunked}, mesh)
+    for k in measurements:
+        total = all_reduce(measurements[k], mesh.batch_group)
+        measurements[k] = total if k in SHARES else total / mesh.batch_shards
+
+
 def _grads(params: dict, opt: optim.Optimizer) -> dict:
     return {n: (local(p.grad) if p.grad is not None else torch.zeros_like(opt.params[n]))
             for n, p in params.items()}
@@ -322,7 +335,6 @@ def make_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer) -> Callab
     params = dict(model.named_parameters())
 
     def grad_fn(batch: dict, rng: torch.Generator | None = None):
-        mesh = opt.mesh
         for p in params.values():
             p.grad = None
         loss, measurements = loss_fn(batch, rng=rng)
@@ -330,12 +342,7 @@ def make_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer) -> Callab
         grads = _grads(params, opt)
         measurements = {k: v.detach().reshape(()) for k, v in measurements.items()}
         measurements["training_loss"] = loss.detach()
-        if mesh is not None and mesh.batch_shards > 1:
-            # FSDP2 summed the leaves it chunks
-            sum_over_batch({n: g for n, g in grads.items() if n not in opt.fsdp_chunked}, mesh)
-            for k in measurements:  # loss shares sum; per-shard means average
-                total = all_reduce(measurements[k], mesh.batch_group)
-                measurements[k] = total if k in SHARES else total / mesh.batch_shards
+        reduce_over_batch(measurements, grads, opt)
         return measurements, grads
 
     return grad_fn
@@ -364,7 +371,20 @@ def make_accum_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer,
 
     The caption sum splits exactly and the contrastive term factors through
     the embeddings, so the gradients are the accum=1 step's up to summation
-    order. One process only: a process mesh raises by name.
+    order.
+
+    On a process mesh `batch` is this process's rows and microbatch i its
+    rows i::accum: the JAX strided global microbatch, sharded over (data,
+    fsdp), gives each shard exactly those rows when `accum` divides the
+    local batch (else this raises). The microbatch seeds are the same on
+    every process, and the towers draw a microbatch's masks for the global
+    microbatch (``models/layers.py:global_rows``). The bridge runs the local
+    or global loss on the local embeddings through ``parallel.gather_batch``,
+    so its gradients with respect to them are the whole loss's; the mask
+    count is the global one. Pass 2's backwards leave FSDP2's reduce-scatter
+    to the last microbatch, and the other leaves' gradients (the bridge's
+    temperature and bias terms included) are summed over data x fsdp once a
+    step, as in :func:`make_grad_fn`.
     """
     loss_type = _loss_type(config)
     mode = "local" if config.get("local_loss", True) else "global"
@@ -373,15 +393,16 @@ def make_accum_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer,
     coca = loss_type == "coca"
     w_clip = clip_w if coca else 1.0
     params = dict(model.named_parameters())
-    world = 1 if opt.mesh is None else opt.mesh.batch_shards * opt.mesh.tensor
-    if world > 1:
-        raise NotImplementedError(f"grad_accum={accum} on a process mesh ({world} processes) is "
-                                  "not ported yet; train it in one process")
+    mesh = opt.mesh
+    batch_mesh = mesh if mesh is not None and mesh.batch_shards > 1 else None
+    fsdp = bool(opt.fsdp_chunked)
 
     def grad_fn(batch: dict, rng: torch.Generator | None = None):
         b = batch["image"].shape[0]
         if b % accum:
-            raise ValueError(f"grad_accum={accum} must divide the batch {b}")
+            raise ValueError(f"grad_accum={accum} must divide the batch {b}" + (
+                "" if batch_mesh is None else
+                f" that this process holds (the global batch over {mesh.batch_shards} shards)"))
         m = b // accum
         keys = ["image", "labels1", "labels2"] + (["autoreg_labels", "cap_loss_mask"] if coca
                                                   else [])
@@ -407,16 +428,18 @@ def make_accum_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer,
             model.logit_bias.detach().float().reshape(1).requires_grad_(True)
         with torch.enable_grad():
             l_clip, extras = contrastive_loss(loss_type, leaves[0], leaves[1:], t_param.exp(),
-                                              b_param, mode=mode)
+                                              b_param, mode=mode, mesh=batch_mesh)
             wrt = leaves + [t_param] + ([b_param] if b_param is not None else [])
             g_zi, g_v1, g_v2, g_t, *g_b = torch.autograd.grad(l_clip, wrt)
-        mask_sum = batch["cap_loss_mask"].float().sum() + 1e-8 if coca else None
+        mask_sum = mask_count(batch, batch_mesh) + 1e-8 if coca else None
 
         # pass 2: per microbatch, the backward of the forward with the bridge's cotangents
         for p in params.values():
             p.grad = None
         cap_sums = []
         for i, (mb, seed) in enumerate(zip(micro, seeds)):
+            if fsdp:  # FSDP2 reduce-scatters the accumulated gradients once, after the last
+                model.set_requires_gradient_sync(i == accum - 1)
             rows = slice(i * m, (i + 1) * m)
             zimg, ztxt, out = forward(config, model, mb, micro_generator(seed), caption=coca)
             outs = [zimg, ztxt]
@@ -440,6 +463,7 @@ def make_accum_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer,
             measurements["training_loss"] = clip_w * l_clip.detach() + cap_w * cap_l
         else:
             measurements["training_loss"] = l_clip.detach()
+        reduce_over_batch(measurements, grads, opt)
         return measurements, grads
 
     return grad_fn

@@ -29,7 +29,9 @@ into ``workdir/profile/trace-<start>-<stop>.json`` (process 0). SIGTERM
 sets a flag that the loop reads at each chunk's end: it writes the
 checkpoint of that step and returns, so the process exits 0 and the next
 run resumes on the next batch; on a process mesh the processes' flags are
-summed by one all-reduce a chunk, so every process stops at the same step.
+summed by one all-reduce a chunk, so every process stops at the same step
+(a signal to one process alone stops them all), and the chunks there do not
+shorten on one process's flag.
 
 Evaluators (:137, :332-346, :494-504): ``config.evals`` builds them
 (``evaluators/common.py:from_config``; one whose data or options are
@@ -37,7 +39,10 @@ unavailable is noted and left out), each runs every ``log_steps`` and at the
 end (once at the last step, where the JAX loop runs it twice), writing
 ``{prefix}{metric}`` and ``z/secs/eval/{name}`` into that step's row;
 ``eval_only`` runs them once at the starting step (the resumed or
-fine-tuned weights) and trains nothing. The chronometer times each step
+fine-tuned weights) and trains nothing. On a process mesh every process
+runs every evaluator, in lockstep (JAX :342-344: the classes and the images
+split over the batch shards, ``evaluators/disclf.py``), and process 0
+writes the metrics. The chronometer times each step
 alone, from its batch request to its synchronize, so an eval between steps
 never enters its rates (the JAX trainer pauses its wall-clock chronometer
 around an eval for the same end).
@@ -55,11 +60,8 @@ barrier at the run's named points, and process 0 alone writes the metrics,
 the chronometer and the checkpoints (JAX :194, :228, :385), which save the
 whole state.
 
-Left out, and refused by name when a config asks for them: evaluators
-with data and ``eval_only`` on a process mesh (the JAX evaluators split the
-classes over processes, disclf.py:201-206), the seq and pipe mesh axes, and
-``grad_accum > 1`` or ``loss_type`` siglip on a process mesh
-(``train/step.py``).
+Left out, and refused by name when a config asks for them: the seq and
+pipe mesh axes (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -176,22 +178,6 @@ def initial_params(config: dict, model, note) -> Optional[dict]:
     return None
 
 
-def refuse_evals_on_a_mesh(config: dict, world: int) -> None:
-    """Raises, naming the evaluator, when several processes would evaluate:
-    an entry of config.evals with data (``data_dir`` or ``source``), or
-    ``eval_only``."""
-    if world <= 1:
-        return
-    for name, cfg in (config.get("evals") or {}).items():
-        if cfg.get("data_dir") or cfg.get("source") is not None:
-            raise NotImplementedError(
-                f"config.evals.{name}: evaluators on a process mesh ({world} processes) are "
-                "not ported yet; evaluate in one process")
-    if config.get("eval_only"):
-        raise NotImplementedError(f"eval_only on a process mesh ({world} processes) is not "
-                                  "ported yet; evaluate in one process")
-
-
 def build_evaluators(config: dict, model, mesh, note=print) -> list:
     """[(name, evaluator, log_steps, prefix)] of config.evals; an evaluator
     that fails to build is noted and left out (JAX :137)."""
@@ -239,7 +225,6 @@ def train(config: dict, workdir: Optional[str] = None, device="cuda"):
     """Trains for config["total_steps"]; returns (model, optimizer, the last
     step's measurements as floats)."""
     device = maybe_distributed_init(device)
-    refuse_evals_on_a_mesh(config, dist.get_world_size() if dist.is_initialized() else 1)
     mesh = create_mesh(**dict((config.get("sharding") or {}).get("mesh") or {}),
                        device_type=device.type)
     with use_mesh(mesh):
@@ -295,7 +280,7 @@ def _train(config, workdir, device, mesh):
             if writer.step != step:
                 writer.step_start(step)
             t0 = time.monotonic()
-            for metric, value in evaluator.run({"model": model, "step": step}):
+            for metric, value in evaluator.run({"model": model, "opt": opt, "step": step}):
                 writer.measure(f"{prefix}{metric}", value)
             writer.measure(f"z/secs/eval/{name}", time.monotonic() - t0)
             evaluated[name] = step
@@ -346,7 +331,10 @@ def _train(config, workdir, device, mesh):
         while step < total_steps:
             s0 = step + 1
             chunk = 1
-            if (k_dispatch > 1 and not preempt["hit"] and s0 + k_dispatch - 1 <= total_steps
+            # on a mesh the chunks never follow one process's flag: every process must
+            # reach the agreement's all-reduce after the same steps
+            if (k_dispatch > 1 and not (preempt["hit"] and world == 1)
+                    and s0 + k_dispatch - 1 <= total_steps
                     and not any(has_event(s) for s in range(s0, s0 + k_dispatch - 1))):
                 chunk = k_dispatch
             step = s0 + chunk - 1

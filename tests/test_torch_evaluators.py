@@ -13,8 +13,10 @@ evaluate the same seeded numpy data. Bounds:
 - the contrastive monitor: loss within 1e-5, ncorrect equal;
 - ``device_norm_fn`` within 1e-6 of JAX's;
 - the trainer: ``eval_only`` and the in-loop evals write the JAX metric
-  names, each evaluator once a step; evaluators with data and
-  ``eval_only`` are refused by name on a process mesh.
+  names, each evaluator once a step; on a process mesh the trainer no
+  longer refuses evaluators with data or ``eval_only`` (they run there,
+  tests/test_torch_mesh_recipe.py), and disclf refuses ``return_preds``
+  on several processes by name.
 """
 
 import json
@@ -331,14 +333,22 @@ def test_evals_run_in_the_loop_once_a_step(tmp_path):
     assert all("training_loss" in r for r in rows)
 
 
-def test_evals_are_refused_by_name_on_a_process_mesh():
-    c = tcfg.get_config(TRAIN_ARG.partition(":")[2])
-    trainer.refuse_evals_on_a_mesh(c, 4)  # no evaluator has data: nothing would run
-    trainer.refuse_evals_on_a_mesh({**c, "eval_only": True}, 1)
-    c["evals"]["retrieval"]["data_dir"] = "synthetic"
-    with pytest.raises(NotImplementedError, match="config.evals.retrieval"):
-        trainer.refuse_evals_on_a_mesh(c, 2)
-    trainer.refuse_evals_on_a_mesh(c, 1)
-    c["evals"]["retrieval"]["data_dir"] = ""
-    with pytest.raises(NotImplementedError, match="eval_only"):
-        trainer.refuse_evals_on_a_mesh({**c, "eval_only": True}, 2)
+def test_evals_are_refused_by_name_on_a_process_mesh(models):
+    """The name is from when a process mesh refused evaluators with data and
+    eval_only; the trainer has no such refusal now. What a mesh still
+    refuses by name: disclf's return_preds, a one-process probe, before any
+    collective runs."""
+    from openvision_tpu_torch.parallel import Mesh
+
+    assert not hasattr(trainer, "refuse_evals_on_a_mesh")
+    kw = dict(data_dir="synthetic", pp_img=CROP, pp_txt=TOK, device_norm="vgg",
+              class_names=NAMES, prompt_templates="none", batch_size=16)
+    for shape in (dict(data=2, fsdp=1, tensor=1), dict(data=1, fsdp=1, tensor=2)):
+        mesh = Mesh(shape, dict(data=0, fsdp=0, tensor=0))
+        tev = tdisclf.Evaluator(models[0], mesh, **kw)
+        with pytest.raises(ValueError, match="return_preds is a single-process probe"):
+            tev.run(return_preds=True)
+    one = tdisclf.Evaluator(models[0], Mesh(dict(data=1, fsdp=1, tensor=1),
+                                            dict(data=0, fsdp=0, tensor=0)), **kw)
+    metrics, preds, masks = one.run(return_preds=True)  # a mesh of one process is one process
+    assert metrics == tdisclf.Evaluator(models[0], **kw).run() and len(preds) == len(masks)

@@ -22,7 +22,11 @@ beside others on a shared CPU.
   norm), for ``coca``, ``clip`` and ``siglip``;
 - one accumulated update through ``make_update_fn`` reports the big-batch
   update's loss, gradient norm and parameter norm (within 1e-5 relative);
-- a process mesh refuses grad_accum > 1 and siglip by name.
+- on a process mesh grad_accum > 1 and siglip build and run (the name of
+  the test is from when the mesh refused them; tests/test_torch_mesh_recipe.py
+  holds them across processes against one process): siglip returns this
+  shard's share of the loss, and a microbatch count that does not divide
+  this process's batch is refused by name.
 """
 
 import jax
@@ -260,13 +264,24 @@ def test_accumulated_update_reports_the_big_batch_update():
 
 
 def test_a_process_mesh_refuses_accum_and_siglip():
+    """A mesh of two batch shards (this process shard 0; groups of one
+    process, so the gathers are the identity): the GradCache step builds,
+    refuses a local batch that 4 microbatches do not divide, and siglip
+    returns this shard's share, its rows' loss over the shard count."""
     mesh = Mesh(dict(data=2, fsdp=1, tensor=1), dict(data=0, fsdp=0, tensor=0))
     c = _config("coca", 4)
     model = tstep.build_model(c)
     opt = tstep.init_train_state(c, model, total_steps=10, seed=0)
     opt.mesh = mesh
-    with pytest.raises(NotImplementedError, match="grad_accum=4 on a process mesh"):
-        tstep.make_grad_fn(c, model, opt)
-    with pytest.raises(NotImplementedError, match="siglip on a process mesh"):
-        tstep.contrastive_loss("siglip", torch.ones(2, 4), [torch.ones(2, 4)], torch.ones(1),
-                               torch.zeros(1), mode="local", mesh=mesh)
+    grad_fn = tstep.make_grad_fn(c, model, opt)
+    local = {k: torch.from_numpy(v[:6]) for k, v in _batch().items()}
+    with pytest.raises(ValueError, match="grad_accum=4 must divide the batch 6 that this "
+                                         "process holds"):
+        grad_fn(local)
+    r = np.random.default_rng(3)
+    zimg, ztxt = (torch.nn.functional.normalize(torch.from_numpy(
+        r.standard_normal((4, 8)).astype(np.float32)), dim=-1) for _ in range(2))
+    t, b = torch.full((1,), 10.0), torch.full((1,), -5.0)
+    share, _ = tstep.contrastive_loss("siglip", zimg, [ztxt], t, b, mode="local", mesh=mesh)
+    whole, _ = tstep.contrastive_loss("siglip", zimg, [ztxt], t, b, mode="local")
+    torch.testing.assert_close(share, whole / 2)
