@@ -146,6 +146,13 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    Without Pillow on the machine the routes that decode PNG bytes
    (/v1/rank, /v1/caption with an image) are not driven, and the script
    says so; the caption service is then driven through its batcher.
+   Then --data_parallel's mechanism (11d): the bf16 EmbedService and the
+   caption service over two replicas of cuda:0 (the card's machine has one
+   GPU; each replica its own stream), every bucket floored at 2 and split
+   by rows: a burst of the testcat rows against the direct encode (cosine
+   >= 0.99999), one caption batch against the caption tool's greedy ids on
+   each replica's rows, and 11c's load over HTTP (requests/s, p50/p95)
+   beside the one-replica figures.
 12. The training paths' kernels against their plain twins at B=8: the
    _mhsa_t_bwd_kernel chain (#3: the fused block's backward with the nomax
    recompute and f32 bias sums) at the image tower's L=257 D=1024 and the
@@ -202,8 +209,13 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    openvision_tpu_torch.main_clip with sharding.mesh tensor=2 trains 3
    steps: finite losses, every TP block's #11/#12 launches as the block
    counts give (4 image + 2 decoder blocks, the forward twice under
-   remat), one checkpoint, which the caption tool loads in one process and
-   captions the testcat images with. A failure in any rank fails the phase.
+   remat), one checkpoint (an Orbax step directory; its save's GB/s from
+   the trainer's note), which the caption tool loads in one process and
+   captions the testcat images with. The vocab axis is over tensor (the
+   token embedding and the decoder head by vocab rows, the towers' heads by
+   output features): each rank's peak memory is printed beside the one
+   measured when those leaves were whole on each rank. A failure in any rank fails
+   the phase.
 19. Evaluation at full width on phase 3's export: 1000 PNGs of 224 x 288
    (testcat images in a wider canvas, each at another offset), one class
    directory each, turned into TFRecord shards by data/prepare.py, and an
@@ -275,7 +287,9 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    every run's #9/#10 launches as a GradCache step gives them (pass 1: the
    image tower's blocks forward, #9 and the MLP kernels; pass 2: the
    image tower's and decoder's blocks each forward twice and backward
-   once; times grad_accum), the checkpoints. Prints each stage's step ms,
+   once; times grad_accum), the checkpoints (Orbax step directories, each
+   save's bytes, seconds and GB/s from the trainer's note; the next stage's
+   ft_from is the last one's checkpoints directory). Prints each stage's step ms,
    images/s, data-wait share and peak memory (stage 1's last step also
    through the trainer's profiler hook: device busy ms from the trace's
    kernels), and #9/#10 at the slice's shapes (b=256 at L=25, 197 and the decoder's 231; b=64 at L=577) by
@@ -297,9 +311,17 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    burst of the PNGs) give phase 5's greedy ids exactly. Then the committed
    fixtures (tests/fixtures: a JAX-written Orbax state with the
    ocdbt.process_0 merge and a 4-chunk sharded leaf, and a legacy
-   blosc/lz4 directory) equal their npz exactly. `python3 chip_smoke.py
-   --checkpoints` builds the kernels and runs this phase alone, on phase
-   5's concat checkpoint written by the script (~140 s).
+   blosc/lz4 directory; Orbax's zarr v3 arrays, the numbered OCDBT
+   manifest and a two-process save) equal their npz exactly. 22e: the
+   committed JAX train state whose opt is the real optim.make chain (frozen
+   params, two schedules, an lr multiplier, clipping; after 3 JAX updates)
+   restored into the port's optimizer on the card, which applies the
+   fixture's next gradients: params, mu and nu against JAX's result (mu
+   within one bf16 rounding, 2**-7 of its largest value: JAX's jitted
+   update keeps b1 * mu in f32; nu within 1e-6; each param within 2**-7 of
+   its update), the count equal. `python3 chip_smoke.py --checkpoints`
+   builds the kernels and runs this phase alone, on phase 5's concat
+   checkpoint written by the script (~140 s).
 23. The recipe on a process mesh (BASELINE.json config 5 at the full
    widths: ViT-L/14 + text L + decoder L, the JAX default CoCa config
    otherwise, learned position embeddings, bf16 on f32 masters; at a third
@@ -324,7 +346,7 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    disclf int8 with static scales and retrieval on phase 19's fixture (1000
    IN-1K classes x 7 clip_best prompts; 1000 images; 5000 captions).
    Checks: finite losses, process 0's launches of each run as a GradCache
-   step gives them. (c) main_clip eval_only on the mesh from that
+   step gives them; each Orbax save's GB/s (the trainer's note). (c) main_clip eval_only on the mesh from that
    checkpoint, its evaluators recording what they computed: the metrics
    equal the run's evals, each rank's launches exact; then the same
    evaluators in this process on the same checkpoint: class embeddings per
@@ -358,9 +380,11 @@ own decoder (zlib and numpy: the card's machine may lack Pillow).
 from __future__ import annotations
 
 import base64
+import glob
 import io
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -2026,6 +2050,9 @@ def train_phase(device, no_pil: bool, totals: dict) -> dict:
 UINT8_TOL = 1e-3
 DAEMON_MAX_BATCH = 48  # not a power of two: the capped bucket is formed and warmed
 DAEMON_CLIENTS, DAEMON_LOAD_REQUESTS = 8, 40  # client threads; tensor requests each under load
+# --data_parallel's replicas in phase 11d: the card's machine has one GPU, so two replicas
+# of cuda:0 (two streams) drive the mechanism; the burst repeats the images this often
+DP_REPLICAS, DP_BURST = 2, 6
 
 
 def int8_cases(fe, fe8, device, gen, b: int, l: int, d: int = 1024, heads: int = 16,
@@ -2501,6 +2528,121 @@ def daemon_phase(model, ckpt: str, images, names, totals: dict, device) -> dict:
     return results
 
 
+def data_parallel_phase(model, ckpt: str, images, totals: dict, device, one: dict) -> dict:
+    """Phase 11d: ``--data_parallel``'s mechanism on the one card: the bf16
+    EmbedService and the caption service over DP_DEVICES (two replicas of
+    cuda:0, each on its own stream, sharing the weights). Every bucket's
+    rows split over the replicas: embeddings against the direct encode
+    (cosine >= 0.99999), captions of one burst against the caption tool's
+    greedy ids on the rows each replica took, then the load of phase 11c
+    over HTTP beside its one-replica figures (`one`)."""
+    import http.client
+    import threading
+
+    import torch
+
+    from openvision_tpu_torch.configs.openvision import get_config
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.serving import server as srv
+    from openvision_tpu_torch.serving.encode import build_encode_fn
+    from openvision_tpu_torch.tools import caption as tcap
+
+    devices = [torch.device(device)] * DP_REPLICAS
+    raw = np.stack(images)
+    cap_rows = np.stack([tcap.preprocess(im, RES) for im in images]).astype(np.float32)
+    t0 = time.perf_counter()
+    svc = srv.EmbedService(model, int8=False, max_batch=DAEMON_MAX_BATCH, devices=devices)
+    capsvc = srv.CaptionService(get_config(caption_arg("concat", "fused")), ckpt,
+                                max_batch=DAEMON_MAX_BATCH, max_wait_ms=100.0, devices=devices)
+    buckets = svc.warmup(), capsvc.warmup()
+    print(f"[11d] {DP_REPLICAS} replicas on {device}: services up and every bucket {buckets[0]} "
+          f"warmed on each in {time.perf_counter() - t0:.1f} s; /stats devices "
+          f"{svc.stats()['devices']}, caption {capsvc.stats()['devices']}")
+    if buckets[0][0] != DP_REPLICAS or buckets[1][0] != DP_REPLICAS:
+        raise AssertionError(f"[11d] buckets not floored at {DP_REPLICAS}: {buckets}")
+    server = srv.make_server(svc, "127.0.0.1", 0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    res = {}
+    try:
+        with torch.inference_mode():
+            direct = build_encode_fn(model, int8=False, uint8_input=True)(
+                torch.from_numpy(raw).to(device)).cpu().numpy()
+        kernels.reset_launch_counts()
+        rows = np.concatenate([raw] * DP_BURST)
+        order = np.arange(len(rows)) % len(raw)
+        old_wait, svc.images.max_wait = svc.images.max_wait, 0.05
+        try:  # bursts of 1, 3, 7 and the rest: buckets of 2, 4, 8 and more
+            z, start = [], 0
+            for k in (1, 3, 7, len(rows) - 11):
+                z += [f.result(timeout=300) for f in svc.embed_image_tensor(rows[start:start + k])]
+                start += k
+            z = np.stack(z)
+        finally:
+            svc.images.max_wait = old_wait
+        ref = direct[order]
+        cos = float(((z * ref).sum(-1) / (np.linalg.norm(z, axis=-1)
+                                           * np.linalg.norm(ref, axis=-1))).min())
+        print(f"[11d] {len(rows)} rows in {svc.images.stats()['batches']} batches over the "
+              f"replicas: embeddings against the direct encode, min cosine {cos:.7f}")
+        if cos < 0.99999:
+            raise AssertionError(f"[11d] replica embeddings differ from the direct encode: {cos}")
+        # the images in one caption batch: each replica captions its half of the bucket
+        futs = [capsvc.batcher.submit(r) for r in cap_rows]
+        got = [f.result(timeout=300) for f in futs]
+        n = len(cap_rows)
+        padded = np.zeros((srv.bucket_size(n, DAEMON_MAX_BATCH, DP_REPLICAS),)
+                          + cap_rows.shape[1:], np.float32)
+        padded[:n] = cap_rows
+        with torch.inference_mode():
+            ids = torch.cat([capsvc.captioners[0](torch.from_numpy(part).to(device)).cpu()
+                             for part in np.array_split(padded, DP_REPLICAS)])[:n]
+        want = [capsvc.tok.decode(r) for r in ids.tolist()]
+        if capsvc.stats()["batches"] != 1 or got != want:
+            raise AssertionError(f"[11d] replica captions {got} against the tool's {want}")
+        print(f"[11d] captions of the {n} images in one batch over {DP_REPLICAS} replicas equal "
+              f"the caption tool's greedy ids on each replica's rows")
+        lat, lock = [], threading.Lock()
+
+        def load(i):
+            conn = http.client.HTTPConnection(*server.server_address, timeout=300)
+            for r in range(DAEMON_LOAD_REQUESTS):
+                rows1 = raw[(i + r) % len(images)][None]
+                st, _, dt = _http(conn, "POST", "/v1/embed/tensor", rows1.tobytes(),
+                                  _tensor_headers(rows1))
+                if st != 200:
+                    raise AssertionError(f"[11d] /v1/embed/tensor under load: {st}")
+                with lock:
+                    lat.append(dt)
+            conn.close()
+
+        before = svc.images.stats()
+        t0 = time.perf_counter()
+        _run_clients(load, DAEMON_CLIENTS)
+        wall = time.perf_counter() - t0
+        st = svc.images.stats()
+        lat.sort()
+        p50, p95 = lat[len(lat) // 2], lat[min(len(lat) - 1, int(0.95 * len(lat)))]
+        batches = st["batches"] - before["batches"]
+        res = {"requests_per_s": len(lat) / wall, "p50_ms": p50 * 1e3, "p95_ms": p95 * 1e3,
+               "mean_batch": (st["requests"] - before["requests"]) / max(batches, 1)}
+        print(f"[11d] bf16 /v1/embed/tensor under phase 11c's load over {DP_REPLICAS} replicas: "
+              f"{res['requests_per_s']:.1f} requests/s, p50 {res['p50_ms']:.1f} ms, p95 "
+              f"{res['p95_ms']:.1f} ms, mean batch {res['mean_batch']:.2f}; one replica (11c): "
+              f"{one['requests_per_s']:.1f} requests/s, p50 {one['p50_ms']:.1f} ms, p95 "
+              f"{one['p95_ms']:.1f} ms  [{smi_line()}]")
+        torch.cuda.synchronize()
+        got_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        print(f"[11d] the replicas' launches (burst, captions, load): {got_launches}")
+        for k, v in got_launches.items():
+            totals[k] += v
+    finally:
+        server.shutdown()
+        server.server_close()
+        svc.stop()
+        capsvc.stop()
+    return res
+
+
 # ---------------------------------------------------------------------------
 # Training on fused_t and on LayerScale / drop-path blocks (phases 12-15)
 # ---------------------------------------------------------------------------
@@ -2837,6 +2979,10 @@ TP_PARTIAL_BWD_LAUNCHES = {"layernorm": 1, "gemm_bias_act": 1, "flash_attention"
                            "gemm_nn": 2, "attention_bwd_dq": 1, "attention_bwd_dkv": 1,
                            "gemm_tn": 2, "layernorm_bwd": 1, "colsum": 1}
 TP_SIZE = 2  # phase 18's tensor axis: two ranks share the one card
+# each rank's peak in this phase with the vocab axis (the token embedding, the towers'
+# heads, the decoder head) whole on each rank, before it was split over tensor (H100 80GB
+# HBM3, 700 W)
+TP_PEAK_GB_WHOLE_VOCAB = 2.28
 TP_TIMEOUT_S = 420  # each torchrun launch of phase 18
 # Phase 18's depth, cut from phase 8's 24 image, 12 text and 12 decoder
 # blocks (the full widths kept; a third until phase 23 needed the room): two
@@ -3138,7 +3284,8 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
     for r in ranks:
         print(f"[tensor={TP_SIZE}] rank {r['rank']}: step {r['step_ms']:.1f} ms (CUDA events; two "
               f"ranks share one card over gloo, so not comparable with phase 8), peak memory "
-              f"{r['peak_gb']:.2f} GB, all-reduce {r['comm_ms']:.1f} ms over {r['comm_calls']} "
+              f"{r['peak_gb']:.2f} GB (the vocab leaves whole on each rank: "
+              f"{TP_PEAK_GB_WHOLE_VOCAB} GB), all-reduce {r['comm_ms']:.1f} ms over {r['comm_calls']} "
               f"calls = {100 * r['comm_ms'] / r['timed_step_ms']:.1f}% of a timed step of "
               f"{r['timed_step_ms']:.1f} ms (each collective synchronized); launches of the "
               f"gradient step {r['launches']}")
@@ -3169,11 +3316,13 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
         totals[k] += v
 
     ckpts = sorted(os.listdir(os.path.join(wd, "checkpoints")))
-    if ckpts != [f"ckpt-{TRAIN_STEPS}.npz"]:
+    if ckpts != [str(TRAIN_STEPS), f"data_position-{TRAIN_STEPS}.json"]:
         raise AssertionError(f"tensor parallel training wrote {ckpts}")
+    print_saves(f"[tensor={TP_SIZE}]", log)
     with torch.inference_mode():
         cap, tok = build_captioner(tp_config(get_config(caption_arg("concat", "fused"))),
-                                   os.path.join(wd, "checkpoints", ckpts[0]), device=device)
+                                   os.path.join(wd, "checkpoints"), device=device,
+                                   step=TRAIN_STEPS)
         ids = cap(cap_batch)
         logits = cap.logits(cap_batch)
     if (tuple(ids.shape) != (len(cap_batch), QUERIES) or not torch.isfinite(logits).all()
@@ -4104,6 +4253,22 @@ class _Tee(io.TextIOBase):
         return len(text)
 
 
+SAVE_NOTE = re.compile(r"(checkpoint of|restored) step (\d+): (\d+) bytes in ([0-9.]+) s")
+SAVES = []  # (tag, "save" or "restore", step, bytes, seconds) of the trainer's train states
+
+
+def print_saves(tag: str, log: str) -> list:
+    """The trainer's Orbax saves and restores that `log` notes (step, bytes,
+    seconds), printed with their rate and kept in SAVES."""
+    found = [("save" if w == "checkpoint of" else "restore", int(a), int(b), float(c))
+             for w, a, b, c in SAVE_NOTE.findall(log)]
+    for what, step, nbytes, secs in found:
+        print(f"{tag}: Orbax train state {what} of step {step}: {nbytes / 1e9:.3f} GB in "
+              f"{secs:.2f} s ({nbytes / secs / 1e9:.3f} GB/s)")
+        SAVES.append((tag, what, step, nbytes, secs))
+    return found
+
+
 def main_clip_run(arg: str, overrides, workdir: str, log_path: str, sigterm_after_step: int = 0,
                   device: str = "cuda"):
     """main_clip's main in this process (its output to `log_path`, its
@@ -4360,9 +4525,11 @@ def curriculum_phase(images, work: str, device, totals: dict, worst: dict) -> di
             print(f"{tag}: the profiler hook's trace of step {steps}: device busy {busy:.1f} ms "
                   f"of {wall:.1f} traced ({100 * (1 - busy / wall):.1f}% idle); the step under "
                   f"the profiler {step_ms:.1f} ms")
-        ckpt = os.path.join(wd, "checkpoints", f"ckpt-{steps}.npz")
-        if not os.path.exists(ckpt):
+        ckpt = os.path.join(wd, "checkpoints")  # the next stage's ft_from: its newest step
+        if ckpt_lib.saved_steps(ckpt)[-1:] != [steps]:
             raise AssertionError(f"{tag}: no checkpoint at step {steps}")
+        for log in sorted(glob.glob(wd + "*.log")):
+            print_saves(tag, open(log).read())
 
     # load_transform: a learned-posemb B/16 state written at 224, started at 384
     name, res, batch, accum, steps, mask = CUR_LOAD_TRANSFORM
@@ -4379,7 +4546,8 @@ def curriculum_phase(images, work: str, device, totals: dict, worst: dict) -> di
     _, took, rows = main_clip_run(arg, ovs, wd, wd + ".log", device=dev)
     tag = f"[load_transform: posemb {tuple(pe)} at 224 -> res {res}, batch {batch}]"
     results[name] = stage_report(tag, rows, steps, accum, batch, took, totals)
-    loaded = ckpt_lib.load_npz(os.path.join(wd, "checkpoints", f"ckpt-{steps}.npz"))["params"]
+    print_saves(tag, open(wd + ".log").read())
+    loaded = ckpt_lib.load_state_dict(os.path.join(wd, "checkpoints"), steps)
     got = tuple(np.asarray(loaded["visual.positional_embedding"]).shape)
     if got != (1 + (res // 16) ** 2, pe[1]):
         raise AssertionError(f"{tag}: position embedding {got}")
@@ -4648,9 +4816,76 @@ def checkpoint_phase(ckpt: str, images, names, work: str, device, totals: dict,
                     "[22d] the legacy fixture")
     print(f"[22d] the Orbax fixture ({n} bytes) and the legacy blosc/lz4 fixture ({m} bytes) "
           "equal their npz")
+    for name in ("orbax_zarr3", "orbax_numbered", "orbax_two_process"):
+        root = os.path.join(FIXTURES, name)
+        n = same_leaves(ck.restore_params(root, subtree=None), ck.load_npz(root + ".npz"),
+                        f"[22d] the {name} fixture")
+        print(f"[22d] {name} (Orbax's zarr v3 / numbered OCDBT manifest / two-process save, "
+              f"written by JAX's Orbax): {n} bytes equal its npz")
+    res["chain"] = chain_step(device)
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 22 in {res['phase_s']:.1f} s  [{smi_line()}]")
     return res
+
+
+def chain_step(device) -> dict:
+    """Phase 22e: the committed JAX train state whose ``opt`` is the real
+    ``optim.make`` chain (tests/fixtures/orbax_chain: frozen params, two
+    schedules, an lr multiplier, clipping; after 3 JAX updates) restored
+    into the port's optimizer on the card, which applies the fixture's next
+    gradients: params, mu and nu against JAX's result (mu within one bf16
+    rounding, 2**-7 of its largest value, as JAX's jitted update keeps
+    b1 * mu in f32; nu within 1e-6 of its largest value; each param within
+    2**-7 of its update) and the count equal."""
+    import torch
+
+    from openvision_tpu_torch import optim
+    from openvision_tpu_torch.convert.openclip import jax_params_to_state_dict, recover_tree
+    from openvision_tpu_torch.train import checkpoint as ck
+
+    root = os.path.join(FIXTURES, "orbax_chain")
+    with open(root + ".json") as f:
+        meta = json.load(f)
+    config = dict(meta["optimizer"], schedule=[tuple(x) for x in meta["optimizer"]["schedule"]])
+    tree = ck.restore_params(root, subtree=None)
+    params = {n: v.to(device) for n, v in jax_params_to_state_dict(tree["params"]).items()}
+    before = {n: v.clone() for n, v in params.items()}
+    opt = optim.Optimizer(config, params, sched_kw=meta["sched_kw"])
+    opt.load_state_dict(optim.chain_to_state_dict(tree["opt"], opt.chain,
+                                                  from_jax=jax_params_to_state_dict))
+    with np.load(root + ".npz") as data:
+        def part(prefix):
+            return jax_params_to_state_dict(recover_tree(
+                {k[len(prefix):]: data[k] for k in data.files if k.startswith(prefix)}))
+
+        grads = {n: g.to(device) for n, g in part("grads/").items()}
+        want = {w: part(f"want/{w}/") for w in ("params", "mu", "nu")}
+        count = int(data["want/count"])
+    opt.step(grads)
+    torch.cuda.synchronize()
+    worst = {"params": 0.0, "mu": 0.0, "nu": 0.0}
+    for n, w in want["params"].items():
+        step = (w - before[n].cpu()).abs().max().item()
+        err = (params[n].cpu() - w).abs().max().item()
+        worst["params"] = max(worst["params"], err / max(step, 1e-30))
+        if err > 2**-7 * step + 1e-7:
+            raise AssertionError(f"[22e] {n}: |param - JAX's| {err} over its update {step}")
+    for what, tol in (("mu", 2**-7), ("nu", 1e-6)):
+        if set(want[what]) != set(opt.live):
+            raise AssertionError(f"[22e] {what}'s leaves differ from the live params")
+        for n, w in want[what].items():
+            err = (opt.state[what][n].float().cpu() - w).abs().max().item()
+            rel = err / max(w.abs().max().item(), 1e-30)
+            worst[what] = max(worst[what], rel)
+            if rel > tol:
+                raise AssertionError(f"[22e] {what} {n}: {rel} of its largest value")
+    if opt.state["count"] != count:
+        raise AssertionError(f"[22e] count {opt.state['count']}, JAX's {count}")
+    print(f"[22e] the JAX optax chain (orbax_chain: {len(params)} params, {len(opt.frozen)} "
+          f"frozen, layout {opt.chain}) restored on {device} and stepped: count {count} as "
+          f"JAX's; worst params / update {worst['params']:.2e}, mu {worst['mu']:.2e}, nu "
+          f"{worst['nu']:.2e} of their largest values")
+    return worst
 
 
 def checkpoints_only() -> int:
@@ -5204,10 +5439,10 @@ def mesh_recipe_phase(work: str, images, device, totals: dict) -> dict:
              "evals.retrieval.log_steps": lt_steps}
     lt_arg, lt_ovs, _ = recipe_config(lt_res, lt_batch, lt_accum, lt_steps, lt_mask, pattern,
                                       **evals, **{"load_transform": os.path.join(
-                                          stage_wd, "checkpoints", f"ckpt-{steps}.npz")})
+                                          stage_wd, "checkpoints")})
     lt_ovs += [f"evals.disclf_int8.{k.split('.', 2)[2]}={v}" for k, v in evals.items()
                if k.startswith("evals.disclf.")]
-    final = os.path.join(lt_wd, "checkpoints", f"ckpt-{lt_steps}.npz")
+    final = os.path.join(lt_wd, "checkpoints")  # its newest (Orbax) step
     eval_ovs = [o for o in lt_ovs if not o.startswith("load_transform=")] + [
         "eval_only=True", f"ft_from={final}"]
     runs = [("stage 160", stage_arg, stage_ovs, stage_wd, False),
@@ -5251,6 +5486,7 @@ def mesh_recipe_phase(work: str, images, device, totals: dict) -> dict:
 
     print("(b) config 5 through main_clip on the mesh (process 0 writes the metrics):")
     log = open(os.path.join(out_dir, "ranks.log")).read()
+    print_saves("[mesh recipe, process 0]", log)
     runs_s = {n: r["s"] for n, r in ranks[0]["runs"].items()}
     tag = f"[stage: res {res}, batch {batch}, grad_accum {accum}, mask {mask}]"
     if "preemption signal at step 1" not in log or "resuming from step 1" not in log:
@@ -5576,6 +5812,8 @@ def run(work: str) -> int:
         times.update(time_int8_kernels(fe, fe8, device))
     torch.cuda.empty_cache()
     daemon = daemon_phase(model8, ckpts["concat"], images, names, totals, device)
+    daemon["bf16 x2 replicas"] = data_parallel_phase(model8, ckpts["concat"], images, totals,
+                                                     device, daemon["bf16"])
     del model8
     torch.cuda.empty_cache()
 
@@ -5688,6 +5926,10 @@ def run(work: str) -> int:
                   f"{100 * st['comm_ms'] / st['timed_step_ms']:.1f}% of a timed step")
     print(f"mesh recipe: eval seconds {mesh_res['eval_seconds']}; phase 23 in "
           f"{mesh_res['phase_s']:.1f} s")
+    for tag, what, step, nbytes, secs in SAVES:
+        print(f"Orbax train state {what} {tag} step {step}: {nbytes / 1e9:.3f} GB in {secs:.2f} "
+              f"s ({nbytes / secs / 1e9:.3f} GB/s)")
+    print(f"optax chain step on the card (22e): worst {ckpt_res['chain']}")
     print(f"curriculum pp records/s (0 and {CUR_WORKERS} workers): "
           f"{curriculum['pp_records_per_s']}; phase 21 in {curriculum['phase_s']:.1f} s")
     print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "

@@ -49,6 +49,11 @@ k and of v, stacked), ``rows`` (``mlp.c_fc.weight`` / ``c_fc.bias``) or
 ``cols`` (``attn.out_proj.weight``, ``mlp.c_proj.weight``) --
 and :func:`shard_state_dict` cuts one rank's shard, :func:`unshard_state_dict`
 joins the shards of every rank back, bit for bit (numpy or torch leaves).
+The JAX rules' ``vocab`` axis over tensor takes the same kinds
+(``train/step.py:tensor_plan``): ``rows`` for ``text.token_embedding.weight``
+and ``txt_decoder.head.weight`` (vocab rows), ``cols`` for ``visual.proj``
+and ``text.text_projection`` (output features; ``rows`` for
+``visual.proj_bias``).
 """
 
 from __future__ import annotations
@@ -390,6 +395,32 @@ def state_dict_to_jax_params(sd: Dict[str, Any], *, num_heads_vision: int,
         dec = recover_tree(state_dict_to_jax_decoder(sd, num_heads_decoder))
         params["txt_decoder"] = dec["txt_decoder"]
     return params
+
+
+def _numpy32(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().float().cpu().numpy()
+    return np.asarray(v)
+
+
+def partial_state_dict_to_jax_params(sd: Dict[str, Any], shapes: Dict[str, tuple],
+                                     **heads) -> Dict[str, Any]:
+    """:func:`state_dict_to_jax_params` of a state dict holding some of the
+    model's names (`shapes`: every name's shape), such as an optimizer's
+    moments, which only the live params have: the JAX leaves of the names
+    it lacks are ``None``. Leaves come back as f32 numpy arrays (a bf16
+    moment converts exactly; the caller casts it back)."""
+    full = {n: _numpy32(sd[n]) if n in sd else np.zeros(shape, np.float32)
+            for n, shape in shapes.items()}
+    tree = state_dict_to_jax_params(full, **heads)
+    for name in shapes.keys() - sd.keys():
+        for path in flax_paths(name):
+            *parents, leaf = path.split("/")
+            node = tree
+            for p in parents:
+                node = node[p]
+            node[leaf] = None
+    return tree
 
 
 _TOWER_LEAVES = {

@@ -34,11 +34,14 @@ Inputs are f32 tensors; temperatures arrive exp'd, as the model's ``out["t"]``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from openvision_tpu_torch.parallel import Mesh, gather_batch
+from openvision_tpu_torch.parallel import (Mesh, all_reduce_max, copy_to_tensor, gather_batch,
+                                           reduce_from_tensor)
 
 
 def _pair_loss_global(zimg, ztxt, t):
@@ -141,28 +144,55 @@ def _chunk_nll(h, kernel_t, labels, mask):
     return (nll * mask).sum()
 
 
+def _chunk_nll_vocab(h, kernel_t, labels, mask, mesh: Mesh, offset: int):
+    """:func:`_chunk_nll` over this tensor rank's vocab columns
+    ``[offset, offset + V_r)``: the row max and the sum of exponentials are
+    combined over ``tensor``, and the target's logit is its owner's."""
+    logits = h.float() @ kernel_t  # (B, chunk, V_r)
+    m = all_reduce_max(logits.max(dim=-1).values, mesh.tensor_group)
+    sumexp = reduce_from_tensor((logits - m[..., None]).exp().sum(dim=-1), mesh)
+    local = labels - offset
+    inside = (local >= 0) & (local < logits.shape[-1])
+    target = logits.gather(-1, torch.where(inside, local, 0)[..., None])[..., 0]
+    target = reduce_from_tensor(torch.where(inside, target, torch.zeros_like(target)), mesh)
+    nll = torch.log(sumexp) + m - target
+    return (nll * mask).sum()
+
+
 def linear_softmax_xent(*, prelogits, kernel, labels, mask=None, chunk: int = 16,
-                        normalize: bool = True):
+                        normalize: bool = True, mesh: Mesh | None = None):
     """Caption cross-entropy fused with the vocab head.
 
     prelogits: (B, L, D) decoder_norm output; kernel: the head weight in
     torch's (V, D) layout (the JAX (D, V) kernel transposed), used in f32;
     labels: (B, L) int; mask: (B, L). Equal to ``softmax_xent`` of the f32
     logits up to summation order, with at most (B, chunk, V) logits alive.
+
+    `mesh`: the kernel is this tensor rank's block of vocab rows (the JAX
+    rules' ``vocab`` over ``tensor``): the row max, the sum of exponentials
+    and the target logit (on the rank that owns it) are combined over
+    ``tensor``, each rank's head gradient is its own rows', the prelogits'
+    gradient sums the ranks' parts, and at most (B, chunk, V / tensor)
+    logits are alive on each rank. The loss is the same on every tensor rank.
     """
     b, l, _ = prelogits.shape
     if mask is None:
         mask = prelogits.new_ones(b, l)
     kernel_t = kernel.float().t()
     labels = labels.long()
+    nll = _chunk_nll
+    if mesh is not None:
+        prelogits = copy_to_tensor(prelogits, mesh)
+        nll = functools.partial(_chunk_nll_vocab, mesh=mesh,
+                                offset=mesh.coords["tensor"] * kernel.shape[0])
     total = prelogits.new_zeros((), dtype=torch.float32)
     for s in range(0, l, chunk):
         sl = slice(s, s + chunk)
         part = (prelogits[:, sl], kernel_t, labels[:, sl], mask[:, sl].float())
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, *part, use_reentrant=False)
+            total = total + checkpoint(nll, *part, use_reentrant=False)
         else:
-            total = total + _chunk_nll(*part)
+            total = total + nll(*part)
     if not normalize:
         return total
     return total / (mask.sum() + 1e-8)

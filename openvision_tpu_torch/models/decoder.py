@@ -58,7 +58,8 @@ import numpy as np
 
 from openvision_tpu_torch.models.encoder import (
     Encoder, EncoderBlock, check_remat_policy, drop_seeds, remat)
-from openvision_tpu_torch.models.layers import Dropout, LayerNorm, MlpBlock, shard_seed, zero_init
+from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, MlpBlock, shard_seed,
+                                                sharded_head, zero_init)
 
 # Decoder variant table (H/g differ from the text tower).
 VARIANTS = {
@@ -180,6 +181,7 @@ class TextDecoder(nn.Module):
             raise ValueError(f"Unknown fusion_style: {fusion_style!r}")
         self.decoder_norm = LayerNorm(width)  # f32 out, like flax's default dtype
         self.head = zero_init(nn.Linear, width, num_classes, bias=False)
+        self.vocab_parallel = 1  # the tensor axis size head's vocab rows are sharded over
         self.fusion_style = fusion_style
         self.drop_token = drop_token
         self.return_prelogits = return_prelogits
@@ -190,7 +192,7 @@ class TextDecoder(nn.Module):
                 train: bool = False, rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """(N, Li, Di) image tokens, (N, Lt, Dt) text tokens -> (N, Q, vocab) f32."""
         x = self.prelogits(image_embeds, text_embeds, train=train, rng=rng)
-        return x @ self.head.weight.float().t()
+        return sharded_head(x, self.head.weight, None, self.vocab_parallel, transposed=True)
 
     def prelogits(self, image_embeds: torch.Tensor, text_embeds: torch.Tensor,
                   train: bool = False, rng: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -39,8 +39,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from openvision_tpu_torch.ops.fused_encoder import layernorm_plain
-from openvision_tpu_torch.parallel import (active_mesh, copy_to_tensor, reduce_from_tensor,
-                                           sharded_mesh)
+from openvision_tpu_torch.parallel import (active_mesh, copy_to_tensor, gather_from_tensor,
+                                           reduce_from_tensor, sharded_mesh)
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -174,6 +174,24 @@ class MlpBlock(nn.Module):
             return linear(h, self.c_proj, self.dtype)
         part = F.linear(h.to(self.dtype), self.c_proj.weight.to(self.dtype))
         return reduce_from_tensor(part, mesh) + self.c_proj.bias.to(self.dtype)
+
+
+def sharded_head(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                 tensor_parallel: int = 1, transposed: bool = False) -> torch.Tensor:
+    """``x @ weight (+ bias)`` in f32 (``weight.t()`` with `transposed`,
+    torch's (out, in) layout). With `tensor_parallel` > 1 the weight (and
+    bias) hold this rank's block of the output features (the JAX rules'
+    ``vocab`` axis over ``tensor``): each rank computes its block, the
+    blocks are joined over the tensor axis, and the input's gradient sums
+    the ranks' parts."""
+    mesh = sharded_mesh(tensor_parallel)
+    if mesh is not None:
+        x = copy_to_tensor(x, mesh)
+    w = weight.float()
+    y = x.float() @ (w.t() if transposed else w)
+    if bias is not None:
+        y = y + bias.float()
+    return y if mesh is None else gather_from_tensor(y, mesh)
 
 
 class LayerScale(nn.Module):

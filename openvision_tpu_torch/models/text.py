@@ -29,7 +29,8 @@ from torch import nn
 
 from openvision_tpu_torch.models.encoder import Encoder
 from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, dropout_generator,
-                                               posemb_sincos_1d, zero_init)
+                                                posemb_sincos_1d, sharded_head, zero_init)
+from openvision_tpu_torch.parallel import sharded_mesh, vocab_parallel_embedding
 
 # The text variant table differs from the vision one.
 VARIANTS = {
@@ -90,6 +91,9 @@ class TextTransformer(nn.Module):
         if num_classes:
             self.text_projection = nn.Parameter(torch.zeros(width, num_classes))
         self.num_classes = num_classes
+        # the tensor axis sizes token_embedding's vocab rows and text_projection's output
+        # features are sharded over
+        self.vocab_parallel = self.head_parallel = 1
         self.width = width
         self.posemb = posemb
         self.pool_type = pool_type
@@ -103,11 +107,17 @@ class TextTransformer(nn.Module):
         (N, num_classes) f32; with ``output_tokens``, (pooled, pre-norm
         token features). With ``train`` the dropout and drop-path draws come
         from `rng`."""
+        mesh = sharded_mesh(self.vocab_parallel)
         if text.ndim == 3:
             if self.pool_type == "argmax":
                 raise ValueError("pool_type='argmax' needs integer token ids: it cannot find the "
                                  "eot position in soft one-hot (N, L, V) tokens")
+            if mesh is not None:
+                raise NotImplementedError("soft one-hot (N, L, V) tokens on a tower whose "
+                                          "vocab is sharded over tensor")
             x = text.float() @ self.token_embedding.weight.float()
+        elif mesh is not None:
+            x = vocab_parallel_embedding(text, self.token_embedding.weight, mesh).float()
         else:
             x = self.token_embedding(text.long()).float()
         _, l, d = x.shape
@@ -122,7 +132,7 @@ class TextTransformer(nn.Module):
         tokens = {"last": x[:, :-1], "first": x[:, 1:]}.get(self.pool_type, x)
         pooled = text_global_pool(self.ln_final(x), text, self.pool_type)
         if self.num_classes:
-            pooled = pooled.float() @ self.text_projection.float()
+            pooled = sharded_head(pooled, self.text_projection, None, self.head_parallel)
         if self.output_tokens:
             return pooled, tokens
         return pooled

@@ -43,7 +43,7 @@ from torch import nn
 
 from openvision_tpu_torch.models.encoder import Encoder
 from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, dropout_generator, global_rows,
-                                               posemb_sincos_2d, zero_init)
+                                                posemb_sincos_2d, sharded_head, zero_init)
 
 # Width/depth/mlp/heads per variant, Table 2 of arXiv:2106.04560.
 VARIANTS = {
@@ -206,6 +206,7 @@ class ViT(nn.Module):
         if num_classes:
             self.proj = nn.Parameter(torch.zeros(width, num_classes))
             self.proj_bias = nn.Parameter(torch.zeros(num_classes)) if emb_head_bias else None
+        self.head_parallel = 1  # the tensor axis size proj's output features are sharded over
         self.num_classes = num_classes
         self.width = width
         self.posemb = posemb
@@ -256,9 +257,7 @@ class ViT(nn.Module):
             pooled = self.ln_post(x)[:, 0]
 
         if self.num_classes:
-            pooled = pooled.float() @ self.proj.float()
-            if self.proj_bias is not None:
-                pooled = pooled + self.proj_bias.float()
+            pooled = sharded_head(pooled, self.proj, self.proj_bias, self.head_parallel)
         if self.output_tokens:
             return pooled, patches
         return pooled

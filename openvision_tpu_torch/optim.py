@@ -28,6 +28,17 @@ norm of ``clip_by_global_norm`` (JAX :182) and of the telemetry (JAX
 squares over the tensor axis and every chunk's over fsdp, counting each
 replicated leaf once (:meth:`Optimizer.global_norm`): the one-process norm
 up to f32 summation order.
+
+The optimizer state crosses to and from the JAX train state's ``opt``
+subtree, the optax chain state that Orbax stores (:func:`chain_layout`,
+:func:`chain_to_state_dict`, :func:`state_dict_to_chain`): a dict keyed by
+the chain's indices ("0", "1", ...), the masked Adam at index 1 as
+``{"inner_state": {"count", "mu", "nu"}}``, each schedule's
+``ScaleByScheduleState`` as ``{"inner_state": {"count"}}``, and ``None``
+for every state without arrays (``EmptyState``, and ``optax.MaskedNode``
+where a frozen parameter's moments would be), which Orbax keeps as a leaf
+of value type ``None`` that it never reads. The step is the schedules'
+count, which must be one value (JAX :146-154).
 """
 
 from __future__ import annotations
@@ -176,6 +187,7 @@ class Optimizer:
             mu_dtype or torch.float32)
         self.clip_norm = config.get("grad_clip_norm")
         self.lr = config.get("lr", 1.0)
+        self.chain = chain_layout(config)
 
         self.scales = []  # (names, multiplier): lr_mults, then lwd
         if config.get("lr_mults"):
@@ -278,6 +290,78 @@ class Optimizer:
             "mu": {n: torch.as_tensor(state["mu"][n]).to(dev[n], self.mu_dtype) for n in self.live},
             "nu": {n: torch.as_tensor(state["nu"][n]).to(dev[n], torch.float32) for n in self.live},
         }
+
+
+def chain_layout(config: dict) -> list[str]:
+    """The state of each transformation of ``make``'s chain (JAX :206-208),
+    in order: ``empty`` (an ``EmptyState``), ``masked`` (a ``MaskedState``
+    of one), ``adam`` (the masked ``ScaleByAdamState``) or ``schedule`` (a
+    masked ``ScaleByScheduleState``)."""
+    schedule = config.get("schedule")
+    if not isinstance(schedule, (list, tuple)):
+        schedule = [(".*", schedule)]
+    layout = ["masked" if config.get("grad_clip_norm") else "empty", "adam"]
+    if config.get("wd", 0.0):
+        layout += ["masked"] * len(config.get("wd_mults", [(r".*/kernel$", 1.0)]))
+    layout += ["empty"] + ["masked"] * len(config.get("lr_mults") or ())
+    if config.get("lwd"):
+        layout += ["masked"] * (config["lwd_depth"] + 5)
+    layout += ["schedule"] * sum(s is not None for _, s in schedule)
+    return layout + ["masked", "empty"]
+
+
+def chain_count(chain: dict, layout: Sequence[str]) -> int:
+    """The step of a chain state: the one value of its schedules' counts
+    (``optim.get_count``); counts that disagree raise."""
+    counts = {int(np.asarray(chain[str(i)]["inner_state"]["count"]))
+              for i, kind in enumerate(layout) if kind == "schedule"}
+    if len(counts) != 1:
+        raise ValueError(f"the optimizer chain's schedule counts disagree: {sorted(counts)} "
+                         "(one step count expected)")
+    return counts.pop()
+
+
+def chain_to_state_dict(chain: dict, layout: Sequence[str], from_jax: Callable) -> dict:
+    """The port's :meth:`Optimizer.state_dict` of a JAX chain state.
+
+    `chain` as Orbax restores it (its ``None`` leaves absent or ``None``),
+    `from_jax` a JAX param tree (leaves of frozen params absent) -> the
+    port's names. The chain's indices must be the config's `layout`."""
+    arrays = {k for k, v in chain.items() if _has_array(v)}
+    want = {str(i) for i, kind in enumerate(layout) if kind in ("adam", "schedule")}
+    if arrays != want:
+        raise ValueError(f"the optimizer chain holds state at indices {sorted(arrays)}, this "
+                         f"config's chain at {sorted(want)} ({list(layout)})")
+    adam = chain[str(layout.index("adam"))]["inner_state"]
+    count = chain_count(chain, layout)
+    if int(np.asarray(adam["count"])) != count:
+        raise ValueError(f"the optimizer chain's Adam count {int(np.asarray(adam['count']))} "
+                         f"is not its schedules' {count}")
+    return {"count": count, "mu": from_jax(adam["mu"]), "nu": from_jax(adam["nu"])}
+
+
+def _has_array(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(_has_array(v) for v in tree.values())
+    return tree is not None
+
+
+def state_dict_to_chain(state: dict, layout: Sequence[str], to_jax: Callable) -> dict:
+    """The JAX chain state of the port's :meth:`Optimizer.state_dict`, the
+    inverse of :func:`chain_to_state_dict`: `to_jax` the port's names (the
+    live params') -> a JAX param tree with ``None`` at the frozen params'
+    leaves. Counts are int32, as optax keeps them."""
+    count = np.asarray(state["count"], np.int32)
+    chain = {}
+    for i, kind in enumerate(layout):
+        if kind == "adam":
+            chain[str(i)] = {"inner_state": {"count": count, "mu": to_jax(state["mu"]),
+                                             "nu": to_jax(state["nu"])}}
+        elif kind == "schedule":
+            chain[str(i)] = {"inner_state": {"count": count}}
+        else:
+            chain[str(i)] = None if kind == "empty" else {"inner_state": None}
+    return chain
 
 
 def l2_norm(tensors) -> torch.Tensor:

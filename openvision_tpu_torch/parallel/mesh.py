@@ -23,10 +23,14 @@ processes share a card or run on the CPU. The ``seq`` and ``pipe`` axes
 The collectives the model runs under autograd are explicit, as the JAX
 package's shard_maps make them: :func:`copy_to_tensor` (identity forward,
 sum of the input gradients over ``tensor`` backward), :func:`reduce_from_tensor`
-(sum over ``tensor`` forward, identity backward) and
-:func:`gather_batch` (the rows of every batch shard, its backward summing
-each rank's gradients into the owner's rows). A group of one process
-skips its collective. With ``COMM["timing"]`` on, each collective
+(sum over ``tensor`` forward, identity backward), :func:`gather_from_tensor`
+(the shards' last axes joined forward, this rank's slice of the gradient
+backward: a product split by output features, whose consumer is the same
+on every tensor rank), :func:`vocab_parallel_embedding` (a lookup in this
+rank's vocab rows, ids outside them masked to zero, summed over
+``tensor``) and :func:`gather_batch` (the rows of every batch shard, its
+backward summing each rank's gradients into the owner's rows). A group of
+one process skips its collective. With ``COMM["timing"]`` on, each collective
 synchronizes the device before and after itself and adds its host time to
 ``COMM["seconds"]`` (the step's collective share; off by default, as it
 costs two synchronizations a call).
@@ -43,6 +47,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 MESH_AXES = ("data", "fsdp", "tensor")
 
@@ -233,6 +238,14 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `t` over `group` (no gradient); a new tensor."""
+    out = t.detach().contiguous().clone()
+    if _size(group) > 1:
+        _timed(lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group), out)
+    return out
+
+
 class _CopyToTensor(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -263,6 +276,39 @@ def copy_to_tensor(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 def reduce_from_tensor(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum of the tensor axis's partials; the gradient passes unchanged."""
     return _ReduceFromTensor.apply(x, mesh.tensor_group)
+
+
+class _GatherFromTensor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.index, ctx.width = index, x.shape[-1]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        _timed(lambda: dist.all_gather(parts, x.contiguous(), group=group), x)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.index * ctx.width:(ctx.index + 1) * ctx.width], None, None
+
+
+def gather_from_tensor(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The last axes of every tensor rank's `x`, joined in rank order; the
+    gradient of the whole (the same on every rank) back to this rank's
+    slice."""
+    return _GatherFromTensor.apply(x, mesh.tensor_group, mesh.coords["tensor"])
+
+
+def vocab_parallel_embedding(ids: torch.Tensor, weight: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The rows of the whole embedding that `ids` name, from `weight`, this
+    rank's contiguous block of the vocab: ids outside it look up zeros and
+    the ranks' lookups are summed over ``tensor`` (one rank holds each
+    row, so the sum is exact); each rank's weight gradient lands in its own
+    rows."""
+    rows = weight.shape[0]
+    local = ids.long() - mesh.coords["tensor"] * rows
+    inside = (local >= 0) & (local < rows)
+    emb = F.embedding(torch.where(inside, local, 0), weight)
+    return reduce_from_tensor(emb * inside[..., None].to(emb.dtype), mesh)
 
 
 class _GatherBatch(torch.autograd.Function):

@@ -23,8 +23,18 @@ in place there):
 - ``stop`` fails every queued future, a ``submit`` racing with ``stop``
   raises instead of queueing work nobody will run, and the caption service
   stops with the daemon.
-``--data_parallel`` (batch-parallel serving over several GPUs) raises: it
-waits for the multi-GPU slice. The caption route reads an npz (the port's
+``--data_parallel`` serves on every visible CUDA device (JAX l.276-287,
+l.688): each device holds one replica of the model (the int8 weights are
+quantised once and copied to each) and a :class:`_DeviceRunner` of its
+own; every bucket is cut by rows into one contiguous part a replica, each
+part enqueued on its replica's stream, and the parts' results are joined in
+request order. Buckets are floored at the number of replicas (doubling from
+it, as JAX's), so every replica gets rows, and a ``max_batch`` below that
+raises. The caption service is sharded the same way (JAX's ignores the
+flag, l.696). A replica that fails fails the requests of its batch.
+``devices=[...]`` gives the services any list of devices (the same one
+twice runs two replicas on one card, each on its own stream, sharing its
+weights). The caption route reads an npz (the port's
 train state or a JAX param tree), an Orbax directory (``--caption_step``
 picks a step, the newest by default) or a legacy tensorstore directory.
 
@@ -44,7 +54,7 @@ Usage:
   python -m openvision_tpu_torch.serving.server --use_model <converted dir> \\
       [--port 8000] [--max_batch 64] [--max_wait_ms 5] [--int8] [--warmup] \\
       [--caption_checkpoint ckpt.npz --caption_config "res=224,img=L/14,..."] \\
-      [--device cuda]
+      [--device cuda] [--data_parallel]
 """
 
 from __future__ import annotations
@@ -67,19 +77,19 @@ import torch
 from openvision_tpu_torch.serving.encode import build_encode_fn
 
 
-def bucket_size(n: int, cap: int) -> int:
-    """Next power of two >= n, capped at `cap` (the JAX daemon's `minimum`
-    floor exists for its multi-chip mesh, which this one-GPU daemon lacks)."""
-    b = 1
+def bucket_size(n: int, cap: int, minimum: int = 1) -> int:
+    """`minimum` doubled until it holds n, capped at `cap` (JAX l.84-93: the
+    floor is the number of replicas, so that each one gets rows)."""
+    b = minimum
     while b < n:
         b *= 2
     return min(b, cap)
 
 
-def bucket_sizes(cap: int) -> list[int]:
-    """Every bucket a batcher with ``max_batch=cap`` can form: the powers of
-    two below `cap`, and `cap`."""
-    return sorted({bucket_size(n, cap) for n in range(1, cap + 1)})
+def bucket_sizes(cap: int, minimum: int = 1) -> list[int]:
+    """Every bucket a batcher with ``max_batch=cap`` can form: `minimum`
+    times the powers of two below `cap`, and `cap`."""
+    return sorted({bucket_size(n, cap, minimum) for n in range(1, cap + 1)})
 
 
 @dataclasses.dataclass
@@ -103,7 +113,8 @@ class DynamicBatcher:
     """
 
     def __init__(self, run_batch=None, *, max_batch: int = 64, max_wait_ms: float = 5.0,
-                 name: str = "batch", dispatch=None, finalize=None, pipeline_depth: int = 2):
+                 name: str = "batch", dispatch=None, finalize=None, pipeline_depth: int = 2,
+                 min_bucket: int = 1):
         if (run_batch is None) == (dispatch is None) or (dispatch is None) != (finalize is None):
             raise ValueError("give run_batch, or dispatch and finalize")
         self.run_batch = run_batch
@@ -111,6 +122,7 @@ class DynamicBatcher:
         self.finalize = finalize
         self.pipeline_depth = max(1, int(pipeline_depth))
         self.max_batch = int(max_batch)
+        self.min_bucket = int(min_bucket)  # the padding floor, for the stats
         self.max_wait = float(max_wait_ms) / 1e3
         self.name = name
         self._q: queue.Queue[_Work] = queue.Queue()
@@ -167,7 +179,8 @@ class DynamicBatcher:
         with self._lock:
             self._n_requests += len(batch)
             self._n_batches += 1
-            self._n_padded += bucket_size(len(batch), self.max_batch) - len(batch)
+            self._n_padded += (bucket_size(len(batch), self.max_batch, self.min_bucket)
+                               - len(batch))
             self._latencies.extend(now - w.t_enqueue for w in batch)
         for w, r in zip(batch, results):
             w.future.set_result(r)
@@ -246,32 +259,108 @@ class _DeviceRunner:
         return host, host.to(self.device, non_blocking=True)
 
 
+def replicate(model, device: torch.device):
+    """`model` (a ``LoadedModel``) on `device`: itself on its own device,
+    else a copy of its towers and its int8 weights moved there."""
+    import copy
+
+    device = torch.device(device)
+    if device == model.device:
+        return model
+    int8 = None if model.int8 is None else _tree_to(model.int8, device)
+    return dataclasses.replace(model, vision=copy.deepcopy(model.vision).to(device),
+                               text=copy.deepcopy(model.text).to(device), device=device,
+                               int8=int8)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+def data_parallel_devices(device: torch.device) -> list[torch.device]:
+    """``--data_parallel``'s devices: every visible CUDA device for a CUDA
+    `device` (raises without one), else `device` alone."""
+    if device.type != "cuda":
+        return [device]
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if not n:
+        raise RuntimeError("--data_parallel serves on the visible CUDA devices and there are "
+                           "none; pass --device cpu to serve on the CPU")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+class _Replicas:
+    """One runner a device and the rows of a bucket split over them: each
+    replica takes one contiguous part, enqueued on its runner's stream, and
+    :meth:`gather` joins the parts' results in row order."""
+
+    def __init__(self, devices, max_batch: int):
+        self.runners = [_DeviceRunner(torch.device(d)) for d in devices]
+        self.min_bucket = len(self.runners)
+        if self.min_bucket > max_batch:
+            raise ValueError(f"max_batch={max_batch} < the {self.min_bucket} replicas: every "
+                             "replica needs a row of each bucket")
+
+    def bucket(self, n: int, cap: int) -> int:
+        return bucket_size(n, cap, self.min_bucket)
+
+    def scatter(self, x: np.ndarray, fns) -> list:
+        """[(runner, host buffer, fn_i(its rows on its device))], enqueued
+        without waiting."""
+        out = []
+        for runner, part, fn in zip(self.runners, np.array_split(x, len(self.runners)), fns):
+            with runner.stream():
+                host, dev = runner.to_device(np.ascontiguousarray(part))
+                out.append((runner, host, fn(dev)))
+        return out
+
+    @staticmethod
+    def gather(parts: list) -> torch.Tensor:
+        """The parts' results on the host, in row order (the copies wait)."""
+        outs = []
+        for runner, _, z in parts:
+            with runner.stream(), torch.inference_mode():
+                outs.append(z.cpu())
+        return torch.cat(outs)
+
+
 class EmbedService:
-    """Dynamic-batched image and text embedding over a loaded two-tower model."""
+    """Dynamic-batched image and text embedding over a loaded two-tower
+    model, on `devices` (default: the model's), one replica each."""
 
     def __init__(self, model, *, int8: bool = False, max_batch: int = 64,
-                 max_wait_ms: float = 5.0):
+                 max_wait_ms: float = 5.0, devices=None):
         self.model = model
         self.max_batch = int(max_batch)
-        self._encode_img = build_encode_fn(model, int8=int8)
+        self._replicas = _Replicas(devices or [model.device], self.max_batch)
+        self.replicas = [replicate(model, r.device) for r in self._replicas.runners]
+        self._encode_img = [build_encode_fn(m, int8=int8) for m in self.replicas]
         # raw-tensor path: uint8 pixels in, /255 - mean / std on the device
-        self._encode_img_u8 = build_encode_fn(model, int8=int8, uint8_input=True)
+        self._encode_img_u8 = [build_encode_fn(m, int8=int8, uint8_input=True)
+                               for m in self.replicas]
+        self._encode_text = [m.encode_text for m in self.replicas]
         self._mean = np.asarray(model.mean, np.float32)
         self._std = np.asarray(model.std, np.float32)
-        self._runner = _DeviceRunner(model.device)
+        min_bucket = self._replicas.min_bucket
         self.images = DynamicBatcher(dispatch=self._dispatch_images,
                                      finalize=self._finalize_batch, max_batch=max_batch,
-                                     max_wait_ms=max_wait_ms, name="image")
+                                     max_wait_ms=max_wait_ms, name="image",
+                                     min_bucket=min_bucket)
         self.texts = DynamicBatcher(dispatch=self._dispatch_texts, finalize=self._finalize_batch,
-                                    max_batch=max_batch, max_wait_ms=max_wait_ms, name="text")
+                                    max_batch=max_batch, max_wait_ms=max_wait_ms, name="text",
+                                    min_bucket=min_bucket)
 
     # --- batch runners (dispatcher threads only) ---
 
     def _dispatch_images(self, items: list[np.ndarray]):
-        """Enqueues one image batch; returns (n, host buffer, embeddings)
-        without waiting for the device."""
+        """Enqueues one image batch over the replicas; returns (n, parts)
+        without waiting for the devices."""
         n, s = len(items), self.model.image_size
-        b = bucket_size(n, self.max_batch)
+        b = self._replicas.bucket(n, self.max_batch)
         if all(it.dtype == np.uint8 for it in items):
             # all-raw batch (the tensor route's steady state): ship uint8
             x = np.zeros((b, s, s, 3), np.uint8)
@@ -283,22 +372,18 @@ class EmbedService:
                 x[i] = ((it.astype(np.float32) / 255.0 - self._mean) / self._std
                         if it.dtype == np.uint8 else it)
             enc = self._encode_img
-        with self._runner.stream():
-            host, dev = self._runner.to_device(x)
-            return n, host, enc(dev)
+        return n, self._replicas.scatter(x, enc)
 
     def _dispatch_texts(self, items: list[np.ndarray]):
         n = len(items)
-        toks = np.zeros((bucket_size(n, self.max_batch), self.model.context_length), np.int64)
+        toks = np.zeros((self._replicas.bucket(n, self.max_batch), self.model.context_length),
+                        np.int64)
         toks[:n] = np.stack(items)
-        with self._runner.stream():
-            host, dev = self._runner.to_device(toks)
-            return n, host, self.model.encode_text(dev)
+        return n, self._replicas.scatter(toks, self._encode_text)
 
     def _finalize_batch(self, handle) -> list[np.ndarray]:
-        n, _, z = handle
-        with self._runner.stream(), torch.inference_mode():
-            return list(z[:n].cpu().numpy())  # the copy to the host waits
+        n, parts = handle
+        return list(self._replicas.gather(parts)[:n].numpy())
 
     # --- request-thread API (decode and preprocess here, then enqueue) ---
 
@@ -339,15 +424,16 @@ class EmbedService:
         build and the allocator holds each shape's memory before the first
         request. Returns the buckets."""
         s, ctx = self.model.image_size, self.model.context_length
-        buckets = bucket_sizes(self.max_batch)
-        for b in buckets:
+        buckets = bucket_sizes(self.max_batch, self._replicas.min_bucket)
+        for b in buckets:  # each bucket's rows split over every replica: all of them warm
             self._finalize_batch(self._dispatch_images([np.zeros((s, s, 3), np.float32)] * b))
             self._finalize_batch(self._dispatch_images([np.zeros((s, s, 3), np.uint8)] * b))
             self._finalize_batch(self._dispatch_texts([np.zeros((ctx,), np.int64)] * b))
         return buckets
 
     def stats(self) -> dict:
-        return {"image": self.images.stats(), "text": self.texts.stats()}
+        return {"image": self.images.stats(), "text": self.texts.stats(),
+                "devices": len(self.replicas)}
 
     def stop(self):
         self.images.stop()
@@ -368,32 +454,35 @@ class CaptionService:
 
     def __init__(self, config: dict, checkpoint: str, *, step: int | None = None,
                  vocab_path: str | None = None, max_batch: int = 64, max_wait_ms: float = 5.0,
-                 device="cuda"):
+                 device="cuda", devices=None):
         from openvision_tpu_torch.tools.caption import build_captioner
         from openvision_tpu_torch.tools.model_io import DEFAULT_VOCAB
 
-        self.captioner, self.tok = build_captioner(config, checkpoint,
-                                                   vocab_path or DEFAULT_VOCAB, device=device,
-                                                   step=step)
-        self.image_size = int(config["res"])
+        devices = [torch.device(d) for d in (devices or [device])]
         self.max_batch = int(max_batch)
-        self._runner = _DeviceRunner(self.captioner.device)
+        self._replicas = _Replicas(devices, self.max_batch)
+        self.captioners, loaded = [], {}
+        for d in devices:  # one load a device; the same device twice shares its weights
+            if d not in loaded:
+                loaded[d], self.tok = build_captioner(config, checkpoint,
+                                                      vocab_path or DEFAULT_VOCAB, device=d,
+                                                      step=step)
+            self.captioners.append(loaded[d])
+        self.captioner = self.captioners[0]
+        self.image_size = int(config["res"])
         self.batcher = DynamicBatcher(dispatch=self._dispatch, finalize=self._finalize,
                                       max_batch=self.max_batch, max_wait_ms=max_wait_ms,
-                                      name="caption")
+                                      name="caption", min_bucket=self._replicas.min_bucket)
 
     def _dispatch(self, items: list[np.ndarray]):
         n, s = len(items), self.image_size
-        x = np.zeros((bucket_size(n, self.max_batch), s, s, 3), np.float32)
+        x = np.zeros((self._replicas.bucket(n, self.max_batch), s, s, 3), np.float32)
         x[:n] = np.stack(items)
-        with self._runner.stream():
-            host, dev = self._runner.to_device(x)
-            return n, host, self.captioner(dev)
+        return n, self._replicas.scatter(x, self.captioners)
 
     def _finalize(self, handle) -> list[str]:
-        n, _, ids = handle
-        with self._runner.stream(), torch.inference_mode():
-            ids = ids[:n].cpu().tolist()
+        n, parts = handle
+        ids = self._replicas.gather(parts)[:n].tolist()
         return [self.tok.decode(row) for row in ids]
 
     def caption_image_bytes(self, data: bytes) -> Future:
@@ -403,13 +492,13 @@ class CaptionService:
 
     def warmup(self) -> list[int]:
         s = self.image_size
-        buckets = bucket_sizes(self.max_batch)
+        buckets = bucket_sizes(self.max_batch, self._replicas.min_bucket)
         for b in buckets:
             self._finalize(self._dispatch([np.zeros((s, s, 3), np.float32)] * b))
         return buckets
 
     def stats(self) -> dict:
-        return self.batcher.stats()
+        return {**self.batcher.stats(), "devices": len(self.captioners)}
 
     def stop(self):
         self.batcher.stop()
@@ -549,7 +638,7 @@ def main(argv=None):
     parser.add_argument("--warmup", action="store_true",
                         help="run every batch bucket once before listening")
     parser.add_argument("--data_parallel", action="store_true",
-                        help="batch-parallel serving over all local GPUs (not ported yet)")
+                        help="batch-parallel serving: one replica on every visible GPU")
     parser.add_argument("--caption_checkpoint", default=None,
                         help="CoCa checkpoint with the caption decoder (npz, Orbax or legacy "
                              "directory); enables POST /v1/caption")
@@ -563,22 +652,21 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    if args.data_parallel:
-        raise NotImplementedError(
-            "--data_parallel (batch-parallel serving over several GPUs) waits for the "
-            "multi-GPU slice of the port; serve on one GPU")
     device = torch.device(args.device)
+    devices = data_parallel_devices(device) if args.data_parallel else [device]
+    if args.data_parallel:
+        device = devices[0]
     attn_impl = args.attn_impl or ("fused_t" if device.type == "cuda" else "xla")
     model = load_model(args.use_model, dtype=getattr(torch, args.dtype), attn_impl=attn_impl,
                        fast_gelu=attn_impl == "fused_t", device=device, int8=args.int8)
     service = EmbedService(model, int8=args.int8, max_batch=args.max_batch,
-                           max_wait_ms=args.max_wait_ms)
+                           max_wait_ms=args.max_wait_ms, devices=devices)
     caption_service = None
     if args.caption_checkpoint:
         caption_service = CaptionService(
             cfg_mod.get_config(args.caption_config), args.caption_checkpoint,
             step=args.caption_step, vocab_path=args.caption_vocab, max_batch=args.max_batch,
-            max_wait_ms=args.max_wait_ms, device=device)
+            max_wait_ms=args.max_wait_ms, devices=devices)
     server = None
     try:
         if args.warmup:
@@ -590,7 +678,7 @@ def main(argv=None):
         server = make_server(service, args.host, args.port, caption_service=caption_service)
         print(f"serving on http://{args.host}:{args.port} (max_batch={args.max_batch}, "
               f"max_wait={args.max_wait_ms}ms, {'int8' if args.int8 else args.dtype}, "
-              f"attn={attn_impl}, device={device})")
+              f"attn={attn_impl}, devices={[str(d) for d in devices]})")
         server.serve_forever()
     except KeyboardInterrupt:
         pass

@@ -31,16 +31,24 @@ Counterpart of ``openvision_tpu/train/checkpoint.py`` with its own
 Leaves come back as numpy arrays, bfloat16 ones as ``torch.bfloat16``
 tensors.
 
-The trainer's own train state (:func:`save_train_state`,
-:func:`restore_train_state`) is one npz per step in the npz format, under
-the port's parameter names: ``params/<name>``, the optimizer's
-``opt/count``, ``opt/mu/<name>`` (bf16) and ``opt/nu/<name>``, ``step``
-and ``data_position`` (records the input pipeline has read), written
-atomically; the newest `keep` files are kept. On a process mesh the save
-gathers every leaf whole (FSDP2 chunks over data x fsdp, tensor shards over
-tensor, ``convert/openclip.py:unshard_tensor``) and process 0 alone writes
-the one-process file, which the caption tool and the daemon load unchanged;
-the restore cuts each process's pieces from it again.
+The trainer's train state (:func:`save_train_state`,
+:func:`restore_train_state`) is the JAX trainer's: an Orbax step directory
+``<workdir>/checkpoints/<step>/`` holding ``{"params": <the JAX param
+tree>, "opt": <the optax chain state>}`` (``convert/openclip.py``,
+``optim.py:state_dict_to_chain``), so either trainer resumes the other's
+run. The port keeps the records its input pipeline has read in
+``data_position-<step>.json`` beside the step (JAX keeps grain's iterator
+state in ``data_state-<step>-p<i>.bin``, which the port reads where it
+maps onto a record count, :func:`grain_position`, and never writes). The
+newest `keep` steps are kept. :func:`saved_steps` also lists the port's
+earlier format, one npz a step (``ckpt-<step>.npz``: ``params/<name>``,
+``opt/count``, ``opt/mu/<name>``, ``opt/nu/<name>``, ``step``,
+``data_position``), which :func:`restore_train_state` still reads. On a
+process mesh the save gathers every leaf whole (FSDP2 chunks over data x
+fsdp, tensor shards over tensor, ``convert/openclip.py:unshard_tensor``)
+and process 0 alone writes the one-process state, which the caption tool
+and the daemon load unchanged; the restore cuts each process's pieces from
+it again.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ import glob
 import json
 import os
 import re
+import shutil
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -57,7 +66,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from openvision_tpu_torch.convert.openclip import shard_tensor, unshard_tensor
+from openvision_tpu_torch import optim
+from openvision_tpu_torch.convert.openclip import (
+    jax_params_to_state_dict, partial_state_dict_to_jax_params, shard_tensor,
+    state_dict_to_jax_params, unshard_tensor)
 from openvision_tpu_torch.train import codecs, ocdbt, zarr
 
 
@@ -194,8 +206,6 @@ def _orbax_leaves(item: str) -> list[tuple]:
     ``_METADATA``'s tree."""
     with open(os.path.join(item, "_METADATA")) as f:
         meta = json.load(f)
-    if meta.get("use_zarr3"):
-        raise NotImplementedError(f"{item}: zarr v3 Orbax checkpoints are not supported")
     if not meta.get("use_ocdbt", True) or not os.path.exists(os.path.join(item, "manifest.ocdbt")):
         raise NotImplementedError(f"{item}: Orbax checkpoints without an OCDBT store are not "
                                   "supported")
@@ -236,10 +246,18 @@ def restore_params(directory: str, step: Optional[int] = None,
     return recover_tree(["/".join(p[1:] if subtree else p) for p in leaves], arrays)
 
 
+def _key_metadata(path: tuple) -> list:
+    """Orbax's keys of a leaf's path: a sequence index (an optax chain's
+    position) is of key type 1, a dict key of 2."""
+    return [{"key": k, "key_type": 1 if k.isdigit() else 2} for k in path]
+
+
 def save_orbax(directory: str, step: int, tree: Dict[str, Any]) -> str:
     """Writes `tree` (a train state: ``{"params": ..., "opt": ...}``, numpy
-    or torch leaves) as step `step` of the Orbax checkpoint `directory`, as
-    JAX's ``save_train_state`` lays out one process's save: into an
+    or torch leaves; ``None`` for a node without arrays, an optax
+    ``EmptyState`` or ``MaskedNode``, which Orbax records and never reads)
+    as step `step` of the Orbax checkpoint `directory`, as JAX's
+    ``save_train_state`` lays out one process's save: into an
     ``*.orbax-checkpoint-tmp-*`` directory, renamed when complete. Returns
     the step's directory."""
     final = os.path.join(os.path.abspath(directory), str(step))
@@ -249,8 +267,10 @@ def save_orbax(directory: str, step: int, tree: Dict[str, Any]) -> str:
     item = os.path.join(tmp, "default")
     os.makedirs(item)
     t0 = time.time_ns()
+    flat = _flatten(tree)
+    empty = [tuple(name.split("/")) for name, v in flat.items() if v is None]
     leaves = [(tuple(name.split("/")), v if isinstance(v, torch.Tensor) else np.asarray(v))
-              for name, v in _flatten(tree).items()]
+              for name, v in flat.items() if v is not None]
 
     def encode(leaf):
         path, value = leaf
@@ -263,10 +283,13 @@ def save_orbax(directory: str, step: int, tree: Dict[str, Any]) -> str:
 
     items = [kv for pair in codecs.parallel_map(encode, leaves) for kv in pair]
     ocdbt.write_orbax_store(item, items)
-    tree_meta = {str(path): {
-        "key_metadata": [{"key": k, "key_type": 2} for k in path],
-        "value_metadata": {"value_type": "jax.Array", "skip_deserialize": False,
-                           "write_shape": list(value.shape)}} for path, value in leaves}
+    values = {path: {"value_type": "jax.Array", "skip_deserialize": False,
+                     "write_shape": list(value.shape)} for path, value in leaves}
+    values.update({path: {"value_type": "None", "skip_deserialize": True} for path in empty})
+    # in the tree's flattened order: Orbax rebuilds a sequence's entries in it
+    tree_meta = {str(path): {"key_metadata": _key_metadata(path), "value_metadata": values[path]}
+                 for path in sorted(values, key=lambda p: [(0, int(k), "") if k.isdigit()
+                                                           else (1, 0, k) for k in p])}
     with open(os.path.join(item, "_sharding"), "w") as f:
         json.dump({base64.b64encode(".".join(path).encode()).decode(): _REPLICATED
                    for path, _ in leaves}, f)
@@ -309,13 +332,120 @@ def _ckpt_path(directory: str, step: int) -> str:
     return os.path.join(directory, f"ckpt-{step}.npz")
 
 
-def saved_steps(directory: str) -> list[int]:
+def _npz_steps(directory: str) -> list[int]:
     steps = []
     for path in glob.glob(os.path.join(directory, "ckpt-*.npz")):
         m = re.fullmatch(r"ckpt-(\d+)\.npz", os.path.basename(path))
         if m:
             steps.append(int(m.group(1)))
     return sorted(steps)
+
+
+def saved_steps(directory: str) -> list[int]:
+    """The steps of a workdir's ``checkpoints`` directory, oldest first: its
+    committed Orbax step directories (either trainer's) and the port's
+    earlier ``ckpt-<step>.npz`` files."""
+    return sorted(set(orbax_steps(directory)) | set(_npz_steps(directory)))
+
+
+def step_format(directory: str, step: int) -> str:
+    """``orbax`` or ``npz``: the format step `step` of `directory` is in
+    (an Orbax step directory wins over an npz of the same step)."""
+    return "orbax" if step in orbax_steps(directory) else "npz"
+
+
+def step_bytes(directory: str, step: int) -> int:
+    """The bytes on disk of step `step` of `directory` (its Orbax step
+    directory, or its npz)."""
+    if step_format(directory, step) == "npz":
+        return os.path.getsize(_ckpt_path(directory, step))
+    root = os.path.join(directory, str(step))
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
+def _position_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"data_position-{step}.json")
+
+
+def _grain_path(directory: str, step: int) -> str:
+    return os.path.join(directory, f"data_state-{step}-p0.bin")
+
+
+def grain_position(raw: bytes) -> Optional[int]:
+    """The records every process has read, from the grain iterator state
+    JAX's trainer saves (process 0's ``data_state-<step>-p0.bin``), or
+    None where it does not map onto one count. Without grain workers the
+    sampler of shard i of n hands out records i, i + n, ..., so ``k``
+    records read end at ``last_seen = i + (k - 1) n`` and the processes
+    together read ``k n``."""
+    try:
+        state = json.loads(raw)
+    except ValueError:
+        return None
+    seen = state.get("last_seen_indices")
+    if state.get("version") != 2 or state.get("worker_count", 0) != 0 or not isinstance(
+            seen, dict) or set(seen) != {"0"}:
+        return None
+    sampler = str(state.get("sampler", ""))
+    index = re.search(r"shard_index=(\d+)", sampler)
+    count = re.search(r"shard_count=(\d+)", sampler)
+    i, n = int(index.group(1)) if index else 0, int(count.group(1)) if count else 1
+    return int(seen["0"]) - i + n
+
+
+def data_position(directory: str, step: int) -> tuple[Optional[int], str]:
+    """(the records read at `step`, where it came from); None where the
+    workdir holds no position of that step that the port can use."""
+    path = _position_path(directory, step)
+    if os.path.exists(path):
+        with open(path) as f:
+            return int(json.load(f)["data_position"]), "data_position"
+    path = _grain_path(directory, step)
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            position = grain_position(f.read())
+        return position, "grain" if position is not None else "grain (not mapped)"
+    return None, "none"
+
+
+def jax_heads(model: torch.nn.Module) -> dict:
+    """The head counts :func:`state_dict_to_jax_params` needs, from the
+    model's first attention of each tower."""
+    from openvision_tpu_torch.models.attention_module import MultiHeadAttention
+
+    heads = {}
+    for key, tower in (("num_heads_vision", "visual"), ("num_heads_text", "text"),
+                       ("num_heads_decoder", "txt_decoder")):
+        module = getattr(model, tower, None)
+        first = next((m for m in module.modules() if isinstance(m, MultiHeadAttention)),
+                     None) if module is not None else None
+        if first is not None:
+            heads[key] = first.num_heads
+    return heads
+
+
+def _jax_train_state(state: dict, heads: dict, opt) -> dict:
+    """The JAX train state (params, the optax chain) of a gathered one."""
+    params = {n: t.detach().float().cpu().numpy() for n, t in state["params"].items()}
+    shapes = {n: v.shape for n, v in params.items()}
+    chain = optim.state_dict_to_chain(
+        state, opt.chain, to_jax=lambda m: partial_state_dict_to_jax_params(m, shapes, **heads))
+    adam = chain[str(opt.chain.index("adam"))]["inner_state"]
+    adam["mu"] = _map_leaves(adam["mu"], lambda v: torch.from_numpy(v).to(opt.mu_dtype))
+    return {"params": state_dict_to_jax_params(params, **heads), "opt": chain}
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    return None if tree is None else fn(tree)
+
+
+def _remove_step(directory: str, step: int) -> None:
+    shutil.rmtree(os.path.join(directory, str(step)), ignore_errors=True)
+    for path in (_ckpt_path(directory, step), _position_path(directory, step)):
+        if os.path.exists(path):
+            os.remove(path)
 
 
 def _whole(piece: torch.Tensor, name: str, param, opt) -> torch.Tensor:
@@ -370,41 +500,71 @@ def gather_train_state(model: torch.nn.Module, opt) -> dict:
 
 
 def save_train_state(directory: str, step: int, model: torch.nn.Module, opt,
-                     data_position: int, keep: int = 1) -> Optional[str]:
-    """Writes the train state of `step`; deletes all but the newest `keep`.
-    On a process mesh every process calls it, process 0 writes."""
+                     data_position: int, keep: int = 1) -> Optional[dict]:
+    """Writes the train state of `step` as an Orbax step directory and its
+    data position beside it; deletes all but the newest `keep` steps. On a
+    process mesh every process calls it, process 0 writes. Returns the
+    save's bytes and seconds (process 0)."""
     state = gather_train_state(model, opt)
     if dist.is_initialized() and dist.get_rank() != 0:
         return None
+    t0 = time.perf_counter()
     os.makedirs(directory, exist_ok=True)
-    path = _ckpt_path(directory, step)
-    save_npz(path, {
-        "params": state["params"],
-        "opt": {"count": np.asarray(state["count"]), "mu": state["mu"], "nu": state["nu"]},
-        "step": np.asarray(step), "data_position": np.asarray(data_position)})
+    tree = _jax_train_state(state, jax_heads(model), opt)
+    step_dir = save_orbax(directory, step, tree)
+    path = _position_path(directory, step)
+    with open(path + "-TEMPORARY", "w") as f:
+        json.dump({"data_position": int(data_position)}, f)
+    os.replace(path + "-TEMPORARY", path)
     for old in saved_steps(directory)[:-max(keep, 1)]:
-        os.remove(_ckpt_path(directory, old))
-    return path
+        _remove_step(directory, old)
+    return {"path": step_dir, "bytes": step_bytes(directory, step),
+            "seconds": time.perf_counter() - t0}
+
+
+def _check_names(got, want, what: str, where: str) -> None:
+    if set(got) != set(want):
+        raise ValueError(f"{where}: the {what} names do not match the model's "
+                         f"(missing {sorted(set(want) - set(got))[:5]}, "
+                         f"extra {sorted(set(got) - set(want))[:5]})")
 
 
 @torch.no_grad()
-def restore_train_state(directory: str, step: int, model: torch.nn.Module, opt) -> int:
-    """Loads the train state of `step` into `model` and `opt` (this
-    process's pieces of it on a process mesh); returns the data position it
-    was saved at."""
-    tree = load_npz(_ckpt_path(directory, step))
-    opt_tree = tree["opt"]
-    if opt.mesh is None:
-        model.load_state_dict({k: torch.as_tensor(v) for k, v in tree["params"].items()})
-        mu, nu = opt_tree["mu"], opt_tree["nu"]
+def restore_train_state(directory: str, step: int, model: torch.nn.Module,
+                        opt) -> tuple[Optional[int], str]:
+    """Loads the train state of `step` (an Orbax step directory of either
+    trainer, or the port's earlier npz) into `model` and `opt` (this
+    process's pieces of it on a process mesh); returns (the data position
+    it was saved at, or None where the workdir has none the port can use;
+    where the position came from)."""
+    where = os.path.join(directory, str(step))
+    if step_format(directory, step) == "npz":
+        tree = load_npz(_ckpt_path(directory, step))
+        params, opt_tree = tree["params"], tree["opt"]
+        moments = {"count": int(opt_tree["count"]), "mu": opt_tree["mu"], "nu": opt_tree["nu"]}
+        position = (int(tree["data_position"]), "npz")
     else:
-        params = dict(model.named_parameters())
+        tree = restore_params(directory, step, subtree=None)
+        if set(tree) != {"params", "opt"}:
+            raise ValueError(f"{where}: a train state holds params and opt, this one "
+                             f"{sorted(tree)}")
+        params = jax_params_to_state_dict(tree["params"])
+        moments = optim.chain_to_state_dict(tree["opt"], opt.chain,
+                                            from_jax=jax_params_to_state_dict)
+        position = data_position(directory, step)
+    names = dict(model.named_parameters())
+    _check_names(params, names, "parameter", where)
+    for what in ("mu", "nu"):
+        _check_names(moments[what], opt.live, f"optimizer {what}", where)
+    if opt.mesh is None:
+        model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
+        mu, nu = moments["mu"], moments["nu"]
+    else:
+        def pieces(leaves, keys):
+            return {n: _piece(torch.as_tensor(leaves[n]), n, names[n], opt) for n in keys}
 
-        def pieces(leaves, names):
-            return {n: _piece(torch.as_tensor(leaves[n]), n, params[n], opt) for n in names}
-
-        for n, t in pieces(tree["params"], opt.params).items():
+        for n, t in pieces(params, opt.params).items():
             opt.params[n].copy_(t)
-        mu, nu = pieces(opt_tree["mu"], opt.live), pieces(opt_tree["nu"], opt.live)
-    opt.load_state_dict({"count": int(opt_tree["count"]), "mu": mu, "nu": nu})
-    return int(tree["data_position"])
+        mu, nu = pieces(moments["mu"], opt.live), pieces(moments["nu"], opt.live)
+    opt.load_state_dict({"count": int(moments["count"]), "mu": mu, "nu": nu})
+    return position

@@ -29,8 +29,14 @@ its zarr arrays in. What this module reads and writes:
   node has its children's data files, offsets and lengths and three counts
   each; a child's keys omit the common prefix its entry names.
 
-:class:`Database` reads the newest version's keys and values (manifests of
-the "numbered" kind raise by name). :func:`write_orbax_store` writes what
+:class:`Database` reads the newest version's keys and values. A manifest
+of the "numbered" kind (config kind 1) holds the config alone; the versions
+are in ``manifest.<generation as 16 hex digits>`` files beside it, of which
+the newest (the highest generation, as tensorstore reads them) is read as a
+single manifest is. A save of several processes (``ocdbt.process_<i>/``
+stores under one merged top-level manifest) is read through the base paths
+of its nodes' data-file tables: the top-level tree reaches, and reuses, the
+nodes each process wrote. :func:`write_orbax_store` writes what
 one process of an Orbax save leaves: the values (those over 1024 bytes in
 a data file) and one leaf node in ``ocdbt.process_0/``, its manifest, and
 the top-level manifest and node that reach the same values through the
@@ -40,6 +46,7 @@ the top-level manifest and node that reach the same values through the
 from __future__ import annotations
 
 import os
+import re
 import struct
 import threading
 import time
@@ -53,13 +60,14 @@ MANIFEST_MAGIC, NODE_MAGIC = 0x0CDB3A2A, 0x0CDB20DE
 MAX_INLINE_VALUE_BYTES = 1024  # Orbax's setting
 MAX_DECODED_NODE_BYTES = 100_000_000
 _EMPTY = 2**64 - 1  # the length of an empty tree's root
+_NUMBERED = re.compile(r"manifest\.[0-9a-f]{16}")
 FileId = Tuple[str, str]  # (base path, relative path)
 Ref = Tuple[str, int, int]  # (path under the database, offset, length)
 
 
 class _Cursor:
     def __init__(self, data):
-        self.data, self.pos = memoryview(data), 0
+        self.data, self.pos, self.kind = memoryview(data), 0, 0
 
     def varint(self) -> int:
         value = shift = 0
@@ -166,16 +174,16 @@ class Database:
         self.entries: Dict[bytes, Union[bytes, Ref]] = {}
         self._fds: Dict[str, int] = {}
         self._lock = threading.Lock()
-        with open(os.path.join(root, "manifest.ocdbt"), "rb") as f:
-            c = _Cursor(decode_file(f.read(), MANIFEST_MAGIC, "manifest"))
-        c.take(16)  # uuid
-        kind = c.varint()
-        if kind != 0:
-            raise NotImplementedError(
-                f"{root}: an OCDBT manifest of the numbered kind ({kind}) is not supported")
-        c.varint(), c.varint(), c.take(1)  # max inline / decoded node bytes, arity
-        if c.varint() == 1:
-            c.take(4)  # zstd level
+        c = self._manifest("manifest.ocdbt")
+        if c.kind == 1:  # numbered: the versions are in the newest manifest.<16 hex digits>
+            numbered = [n for n in os.listdir(root) if _NUMBERED.fullmatch(n)]
+            if not numbered:
+                raise FileNotFoundError(f"{root}: a numbered OCDBT manifest kind without any "
+                                        "manifest.<number> file")
+            c = self._manifest(max(numbered, key=lambda n: int(n[9:], 16)))
+        elif c.kind != 0:
+            raise NotImplementedError(f"{root}: OCDBT manifest kind {c.kind} (single 0 or "
+                                      "numbered 1)")
         table = _read_table(c)
         n = c.varint()
         if not n:
@@ -185,6 +193,18 @@ class Database:
         fid, off, length = c.varints(n), c.varints(n), c.varints(n)
         if length[-1] != _EMPTY:
             self._walk(table[fid[-1]], off[-1], length[-1], heights[-1], b"")
+
+    def _manifest(self, name: str) -> "_Cursor":
+        """A cursor past the config of the manifest file `name`; its ``kind``
+        set to the config's manifest kind."""
+        with open(os.path.join(self.root, name), "rb") as f:
+            c = _Cursor(decode_file(f.read(), MANIFEST_MAGIC, "manifest"))
+        c.take(16)  # uuid
+        c.kind = c.varint()
+        c.varint(), c.varint(), c.take(1)  # max inline / decoded node bytes, arity
+        if c.varint() == 1:
+            c.take(4)  # zstd level
+        return c
 
     def _walk(self, fid: FileId, offset: int, length: int, height: int, prefix: bytes):
         body = decode_file(self._pread(fid[0] + fid[1], offset, length), NODE_MAGIC, "node")

@@ -67,11 +67,13 @@ from openvision_tpu_torch import losses, optim
 from openvision_tpu_torch.convert.openclip import shard_tensor
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
 from openvision_tpu_torch.models.clip import CLIPModel
-from openvision_tpu_torch.models.decoder import CrossAttnBlock
+from openvision_tpu_torch.models.decoder import CrossAttnBlock, TextDecoder
 from openvision_tpu_torch.models.encoder import EncoderBlock
 from openvision_tpu_torch.models.init import init_params
 from openvision_tpu_torch.models.layers import MlpBlock
-from openvision_tpu_torch.parallel import Mesh, active_mesh, all_reduce
+from openvision_tpu_torch.models.text import TextTransformer
+from openvision_tpu_torch.models.vit import ViT
+from openvision_tpu_torch.parallel import Mesh, active_mesh, all_reduce, sharded_mesh
 
 # ImageNet mean/std x 255: the device-side uint8 prologue.
 IMAGENET_MEAN = (0.485 * 255, 0.456 * 255, 0.406 * 255)
@@ -101,20 +103,44 @@ def build_model(config: dict) -> CLIPModel:
         init_logit_bias=m.get("init_logit_bias"))
 
 
+def _divides(name: str, n: int, size: int, what: str) -> None:
+    if n % size:
+        raise ValueError(f"{name}: its {what} ({n}) does not divide over tensor={size} (the "
+                         "JAX rules shard it over tensor and refuse it too)")
+
+
 def tensor_plan(model: torch.nn.Module, size: int) -> dict:
     """The leaves a tensor axis of `size` shards (name -> kind, see
     ``convert/openclip.py``): each attention whose heads divide by it (the
-    JAX ``_tp_info`` rule) and each MLP whose hidden width does."""
+    JAX ``_tp_info`` rule), each MLP whose hidden width does, and the
+    ``vocab`` axis of the JAX rules: the text tower's token embedding and
+    the decoder's head by vocab rows, the two towers' heads by output
+    features (one that the axis does not divide raises, as in JAX)."""
     plan = {}
     if size == 1:
         return plan
     for name, m in model.named_modules():
+        pre = f"{name}." if name else ""
         if isinstance(m, MultiHeadAttention) and m.num_heads % size == 0:
-            plan.update({f"{name}.in_proj_weight": "qkv", f"{name}.in_proj_bias": "qkv",
-                         f"{name}.out_proj.weight": "cols"})
+            plan.update({f"{pre}in_proj_weight": "qkv", f"{pre}in_proj_bias": "qkv",
+                         f"{pre}out_proj.weight": "cols"})
         elif isinstance(m, MlpBlock) and m.c_fc.out_features % size == 0:
-            plan.update({f"{name}.c_fc.weight": "rows", f"{name}.c_fc.bias": "rows",
-                         f"{name}.c_proj.weight": "cols"})
+            plan.update({f"{pre}c_fc.weight": "rows", f"{pre}c_fc.bias": "rows",
+                         f"{pre}c_proj.weight": "cols"})
+        elif isinstance(m, TextTransformer):
+            _divides(f"{pre}token_embedding", m.token_embedding.num_embeddings, size, "vocab")
+            plan[f"{pre}token_embedding.weight"] = "rows"
+            if m.num_classes:
+                _divides(f"{pre}text_projection", m.num_classes, size, "output width")
+                plan[f"{pre}text_projection"] = "cols"
+        elif isinstance(m, ViT) and m.num_classes:
+            _divides(f"{pre}proj", m.num_classes, size, "output width")
+            plan[f"{pre}proj"] = "cols"
+            if m.proj_bias is not None:
+                plan[f"{pre}proj_bias"] = "rows"
+        elif isinstance(m, TextDecoder):
+            _divides(f"{pre}head", m.head.out_features, size, "vocab")
+            plan[f"{pre}head.weight"] = "rows"
     return plan
 
 
@@ -132,8 +158,13 @@ def shard_model(model: torch.nn.Module, mesh: Mesh) -> dict:
         setattr(module, leaf, torch.nn.Parameter(
             shard_tensor(p.data, kind, rank, mesh.tensor).clone(), requires_grad=p.requires_grad))
     for name, m in model.named_modules():
-        if f"{name}.in_proj_weight" in plan or f"{name}.c_fc.weight" in plan:
+        pre = f"{name}." if name else ""
+        if f"{pre}in_proj_weight" in plan or f"{pre}c_fc.weight" in plan:
             m.tensor_parallel = mesh.tensor
+        if f"{pre}token_embedding.weight" in plan or f"{pre}head.weight" in plan:
+            m.vocab_parallel = mesh.tensor
+        if f"{pre}text_projection" in plan or f"{pre}proj" in plan:
+            m.head_parallel = mesh.tensor
     return plan
 
 
@@ -233,12 +264,13 @@ def caption_sum(config: dict, model: CLIPModel, out: dict, batch: dict) -> torch
     returns prelogits)."""
     mask = batch["cap_loss_mask"]
     if out.get("cap_prelogits") is not None:
-        kernel = model.txt_decoder.head.weight  # (V, D)
+        kernel = model.txt_decoder.head.weight  # (V, D), or this tensor rank's (V / t, D)
         rows = batch["autoreg_labels"].shape[0]
         chunk = max(1, min(config.get("cap_xent_chunk", 16), (32 << 20) // (rows * kernel.shape[0])))
         return losses.linear_softmax_xent(prelogits=out["cap_prelogits"], kernel=kernel,
                                           labels=batch["autoreg_labels"], mask=mask, chunk=chunk,
-                                          normalize=False)
+                                          normalize=False,
+                                          mesh=sharded_mesh(model.txt_decoder.vocab_parallel))
     return (losses.softmax_xent(logits=out["logits"], labels=batch["autoreg_labels"],
                                 reduction=False) * mask).sum()
 

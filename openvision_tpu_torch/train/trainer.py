@@ -261,9 +261,19 @@ def _train(config, workdir, device, mesh):
 
     first_step = 0
     if saved:
-        first_step = saved[-1]
-        loader.position = ckpt_lib.restore_train_state(ckpt_dir, first_step, model, opt)
-        note(f"resuming from step {first_step} at data position {loader.position}")
+        kind = {"orbax": "an Orbax step directory",
+                "npz": "the port's npz"}[ckpt_lib.step_format(ckpt_dir, saved[-1])]
+        note(f"resuming from step {saved[-1]} ({kind})")
+        t0 = time.perf_counter()
+        position, source = ckpt_lib.restore_train_state(ckpt_dir, saved[-1], model, opt)
+        note(f"restored step {saved[-1]}: {ckpt_lib.step_bytes(ckpt_dir, saved[-1])} bytes in "
+             f"{time.perf_counter() - t0:.3f} s")
+        first_step = opt.state["count"]  # the optimizer's count, as JAX's get_count
+        if position is None:
+            note(f"no data-iterator state for this step ({source}): data restarts")
+        else:
+            loader.position = position
+            note(f"resuming data at position {position} ({source})")
         if os.path.exists(chrono_path):
             with open(chrono_path) as f:
                 chrono.load(json.load(f))
@@ -318,7 +328,10 @@ def _train(config, workdir, device, mesh):
         return bool(hit.item())
 
     def save(step: int) -> None:
-        ckpt_lib.save_train_state(ckpt_dir, step, model, opt, loader.get_state(), keep)
+        saved = ckpt_lib.save_train_state(ckpt_dir, step, model, opt, loader.get_state(), keep)
+        if saved:
+            note(f"checkpoint of step {step}: {saved['bytes']} bytes in "
+                 f"{saved['seconds']:.3f} s ({saved['bytes'] / saved['seconds'] / 1e9:.3f} GB/s)")
         if main:
             with open(chrono_path, "w") as f:
                 json.dump(chrono.save(), f)

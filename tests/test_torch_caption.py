@@ -9,6 +9,7 @@ interpret mode). Greedy ids must be identical and the f32 logits within
 atol 1e-5 of the largest logit, rtol 1e-5.
 """
 
+import json
 import os
 
 import jax
@@ -25,6 +26,7 @@ from openvision_tpu.train import step as jstep
 from openvision_tpu_torch.configs import openvision as tcfg
 from openvision_tpu_torch.tools import caption as tcap
 from openvision_tpu_torch.train import checkpoint as tck
+from openvision_tpu_torch.train import ocdbt
 
 CFG = ("res=32,img=mu/16,txt_name=Ti,txt_decoder_name=Ti,token_len=16,"
        "output_token_len=8,vocab_size=30522")
@@ -103,15 +105,25 @@ def test_npz_round_trips_bfloat16(tmp_path):
 
 
 def test_unported_checkpoint_formats_raise(tmp_path):
-    # Orbax and legacy tensorstore checkpoints load (tests/test_torch_checkpoint_formats.py);
-    # an uncommitted Orbax step, zarr v3 and blosc's zlib blocks raise by name
-    (tmp_path / "orbax" / "1000" / "default").mkdir(parents=True)
+    # Orbax (zarr v2 and v3) and legacy tensorstore checkpoints load
+    # (tests/test_torch_checkpoint_formats.py); an uncommitted Orbax step, a zarr v3 codec
+    # the reader does not know and blosc's zlib blocks raise by name
+    item = tmp_path / "orbax" / "1000" / "default"
+    item.mkdir(parents=True)
     with pytest.raises(FileNotFoundError, match="committed"):
         tck.load_checkpoint(str(tmp_path / "orbax"))
     (tmp_path / "orbax" / "1000" / "_CHECKPOINT_METADATA").write_text("{}")
-    (tmp_path / "orbax" / "1000" / "default" / "_METADATA").write_text(
-        '{"tree_metadata": {}, "use_zarr3": true}')
-    with pytest.raises(NotImplementedError, match="zarr v3"):
+    v3 = {"zarr_format": 3, "node_type": "array", "shape": [2], "data_type": "float32",
+          "chunk_grid": {"name": "regular", "configuration": {"chunk_shape": [2]}},
+          "chunk_key_encoding": {"name": "default"}, "fill_value": 0,
+          "codecs": [{"name": "transpose", "configuration": {"order": [0]}}, {"name": "bytes"}]}
+    ocdbt.write_orbax_store(str(item), [("params.img.cls/zarr.json", json.dumps(v3).encode()),
+                                        ("params.img.cls/c/0", bytes(8))])
+    path = ("params", "img", "cls")
+    (item / "_METADATA").write_text(json.dumps({"use_zarr3": True, "tree_metadata": {
+        str(path): {"key_metadata": [{"key": k, "key_type": 2} for k in path],
+                    "value_metadata": {"value_type": "jax.Array", "skip_deserialize": False}}}}))
+    with pytest.raises(NotImplementedError, match="zarr v3 codec 'transpose'"):
         tck.load_checkpoint(str(tmp_path / "orbax"))
     (tmp_path / "ts" / "img~cls").mkdir(parents=True)
     (tmp_path / "ts" / "img~cls" / ".zarray").write_text(

@@ -20,11 +20,19 @@ and tensorstore, on the CPU.
   JAX's through the ``-LAST`` pointer, a step directory and a regex, and
   ``_is_legacy_ts`` agrees with JAX's on tests/test_legacy_ts.py's cases;
 - the committed fixtures (tests/fixtures/make_checkpoint_fixtures.py) still
-  equal a fresh JAX read of them, and the port reads them as their npz.
+  equal a fresh JAX read of them, and the port reads them as their npz;
+- Orbax's other layouts, each a fixture written by Orbax here: zarr v3
+  arrays in ``sharding_indexed`` shards, the numbered OCDBT manifest, and
+  the save of two JAX processes (two ``ocdbt.process_<i>/`` stores under a
+  merged manifest), each read bit-equal to the npz of JAX's restore;
+- the zarr v3 reader on tensorstore's arrays (chunk grids, big-endian
+  bytes, zstd, crc32c, shards with the index at the start, a 0-d array,
+  fill values), and a codec Orbax does not write raised by name.
 Torch runs one intra-op thread here, as the suite runs this file beside
 others on a shared CPU.
 """
 
+import json
 import os
 import shutil
 
@@ -294,9 +302,64 @@ def test_zarr_reader_matches_tensorstore(tmp_path, shape, dtype, meta, region):
 
 
 def test_zarr_v3_raises(tmp_path):
-    (tmp_path / "zarr.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="zarr v3"):
+    """A zarr v3 array reads (test_zarr3_reader_matches_tensorstore); a codec
+    the reader does not know still raises by name."""
+    arr = np.arange(12, dtype=np.float32).reshape(3, 4)
+    spec = {"driver": "zarr3", "kvstore": {"driver": "file", "path": str(tmp_path)},
+            "metadata": {"codecs": [{"name": "transpose", "configuration": {"order": [1, 0]}},
+                                    {"name": "bytes"}]}}
+    ts.open(spec, create=True, dtype=ts.float32, shape=arr.shape).result()[...] = arr
+    with pytest.raises(NotImplementedError, match="zarr v3 codec 'transpose'"):
         zarr.read_array(tck._file_getter(str(tmp_path)))
+
+
+ZARR3_CASES = [  # (shape, dtype, metadata)
+    ((7, 5), "float32", {"chunk_grid": {"name": "regular", "configuration": {
+        "chunk_shape": [3, 2]}}}),
+    ((9, 4), "bfloat16", {"data_type": "bfloat16", "fill_value": 1.5, "codecs": [
+        {"name": "bytes", "configuration": {"endian": "big"}}, {"name": "zstd"}]}),
+    ((8, 6), "int32", {"codecs": [{"name": "sharding_indexed", "configuration": {
+        "chunk_shape": [4, 3], "codecs": [{"name": "bytes"}, {"name": "zstd"}],
+        "index_codecs": [{"name": "bytes"}, {"name": "crc32c"}], "index_location": "start"}}]}),
+    ((), "int64", {}),
+    ((30, 20), "float64", {"codecs": [{"name": "bytes"}, {"name": "zstd"}, {"name": "crc32c"}]}),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,meta", ZARR3_CASES)
+def test_zarr3_reader_matches_tensorstore(tmp_path, shape, dtype, meta):
+    arr = (np.random.default_rng(1).standard_normal(shape) * 100).astype(jnp.dtype(dtype))
+    spec = {"driver": "zarr3", "kvstore": {"driver": "file", "path": str(tmp_path / "a")},
+            "metadata": meta}
+    t = ts.open(spec, create=True, dtype=ts.dtype(dtype), shape=arr.shape).result()
+    if dtype == "bfloat16":  # half written: the rest is the fill value
+        t[:5] = arr[:5]
+    else:
+        t[...] = arr
+    want = ts.open({"driver": "zarr3", "kvstore": {"driver": "file", "path": str(tmp_path / "a")}},
+                   open=True).result().read().result()
+    got = zarr.read_array(tck._file_getter(str(tmp_path / "a")))
+    assert_same_tree({"a": got}, {"a": want})
+
+
+@pytest.mark.parametrize("name", ["orbax_zarr3", "orbax_numbered", "orbax_two_process"])
+def test_orbax_layouts_read_bit_equal(name):
+    """Orbax's zarr v3 arrays, the numbered OCDBT manifest and a save of two
+    processes (tests/fixtures/make_checkpoint_fixtures.py) read as the npz
+    of JAX's restore of them."""
+    root = os.path.join(FIXTURES, name)
+    assert_same_tree(tck.restore_params(root, subtree=None), tck.load_npz(root + ".npz"))
+    item = os.path.join(root, "3", "default")
+    with open(os.path.join(item, "_METADATA")) as f:
+        assert json.load(f)["use_zarr3"] == (name == "orbax_zarr3")
+    if name == "orbax_numbered":
+        assert any(n.startswith("manifest.0") for n in os.listdir(item))
+    if name == "orbax_two_process":
+        assert {d for d in os.listdir(item) if d.startswith("ocdbt.process_")} == {
+            "ocdbt.process_0", "ocdbt.process_1"}
+        with ocdbt.Database(item) as db:  # the merged tree reaches both processes' files
+            files = {v[0].split("/")[0] for v in db.entries.values() if isinstance(v, tuple)}
+        assert files == {"ocdbt.process_0", "ocdbt.process_1"}
 
 
 @pytest.fixture()

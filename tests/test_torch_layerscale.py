@@ -268,7 +268,7 @@ def test_layerscale_state_saves_resumes_and_maps_to_jax(tmp_path):
     fresh = _ls_clip()
     opt2 = optim.Optimizer(OPT_CONFIG, dict(fresh.named_parameters()),
                            sched_kw=dict(total_steps=4, batch_size=2))
-    assert ckpt.restore_train_state(str(tmp_path), 1, fresh, opt2) == 3
+    assert ckpt.restore_train_state(str(tmp_path), 1, fresh, opt2) == (3, "data_position")
     for k in ls:
         torch.testing.assert_close(fresh.state_dict()[k], model.state_dict()[k])
         torch.testing.assert_close(opt2.state["nu"][k], opt.state["nu"][k])

@@ -13,10 +13,15 @@ gradients. Checks and tolerances:
   between the batch shards, are equal within a tensor group and equal, row
   for row, one process's draws on the whole batch; dropout's differ between
   the shards and are equal within a tensor group;
+- the vocab axis over tensor (the JAX rules): on (data 2, tensor 2) each
+  rank holds half of the token embedding, of the decoder head and of the
+  towers' heads, and ``unshard_state_dict`` joins them back bit for bit; a
+  vocab that tensor does not divide raises, as JAX refuses it;
 - GradCache (coca with masking 0.5 and drop-path 0.1, clip, siglip; accum 2),
   siglip's local mode and the global contrastive mode (accum 1 and 2) on
-  both meshes against the port's one process on the whole batch, f32: loss
-  within 1e-5 relative, every gradient within 1e-5 of its norm;
+  both meshes against the port's one process on the whole batch, f32, the
+  vocab-axis leaves sharded (the vocab-parallel lookup and caption loss):
+  loss within 1e-5 relative, every gradient within 1e-5 of its norm;
 - the mesh losses (siglip local and global, the global contrastive mode):
   the shares summed and the gathered embedding gradients against JAX's
   within 1e-5 relative (atol 1e-5 of the largest value), f32 on both sides,
@@ -145,6 +150,30 @@ def test_gradcache_and_losses_on_a_mesh_match_one_process(world, mesh, case):
     assert e["leaves"] == e["want_leaves"] and e["tensor_sharded"] > 0, e
     assert (e["fsdp_chunked"] > 0) == mesh.startswith("fsdp"), e
     assert e["loss"] <= 1e-5 and e["grad"] <= 1e-5, e
+
+
+def test_vocab_leaves_split_over_tensor(world):
+    """On (data 2, tensor 2) each rank holds half of the token embedding and
+    of the decoder head (vocab rows) and half of each tower's head (output
+    features), and the ranks' shards join back to the one-process leaves
+    bit for bit; test_gradcache_and_losses_on_a_mesh_match_one_process holds
+    the vocab-sharded coca step (GradCache 2 with masking and drop-path, and
+    accum 1) to one process."""
+    e = _errors(world, "vocab")
+    assert e["kinds"] == {"text.token_embedding.weight": "rows", "visual.proj": "cols",
+                          "text.text_projection": "cols", "txt_decoder.head.weight": "rows"}, e
+    assert set(e["fractions"].values()) == {0.5} and e["flags"] == [2, 2, 2, 2], e
+    assert e["unshard_equal"] == 1, e
+
+
+def test_a_vocab_tensor_does_not_divide_raises():
+    from openvision_tpu_torch.train import step as tstep
+
+    c = worker.grad_config(*worker.GRAD_CASES[0])
+    c["model"]["text"]["vocab_size"] = c["model"]["text_decoder_config"]["num_classes"] = 63
+    with pytest.raises(ValueError, match=r"token_embedding: its vocab \(63\) does not divide "
+                                         r"over tensor=2"):
+        tstep.tensor_plan(tstep.build_model(c), 2)
 
 
 @pytest.mark.parametrize("label", LOSSES)

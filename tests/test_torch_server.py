@@ -10,6 +10,11 @@ JAX package's bound), and
 image and text embeddings within 1e-5 of the JAX EmbedService. The caption
 route must return the caption tool's greedy captions for the same images,
 from a tiny CoCa checkpoint (ViT mu/16 at 32 px, text and decoder Ti).
+Over two replicas (``devices=["cpu", "cpu"]``) the services return one
+device's embeddings (1e-5) and greedy captions, in request order, over
+bursts that fill several buckets; buckets are floored at the replica count
+and a ``max_batch`` below it raises; warmup runs every replica; the CLI's
+``--data_parallel`` serves.
 """
 
 import base64
@@ -286,18 +291,86 @@ def test_int8_service_matches_int8_encode(model):
     assert (got * _direct(model, pre)).sum(-1).min() >= 0.995
 
 
+def _recording(svc, seen):
+    """Wraps every replica's image encodes to note (replica, dtype, rows)."""
+    for name in ("_encode_img", "_encode_img_u8"):
+        setattr(svc, name, [lambda x, fn=fn, i=i: seen.append((i, x.dtype, x.shape[0])) or fn(x)
+                            for i, fn in enumerate(getattr(svc, name))])
+
+
 def test_warmup_covers_capped_bucket(model):
     svc = srv.EmbedService(model, max_batch=6, max_wait_ms=5.0)
     seen = []
-    for name in ("_encode_img", "_encode_img_u8"):
-        fn = getattr(svc, name)
-        setattr(svc, name, lambda x, fn=fn: seen.append((x.dtype, x.shape[0])) or fn(x))
+    _recording(svc, seen)
     try:
         assert svc.warmup() == [1, 2, 4, 6]
     finally:
         svc.stop()
     for dt in (torch.float32, torch.uint8):
-        assert [b for d, b in seen if d == dt] == [1, 2, 4, 6]
+        assert [b for _, d, b in seen if d == dt] == [1, 2, 4, 6]
+
+
+def test_data_parallel_warmup_warms_every_replica(model):
+    svc = srv.EmbedService(model, max_batch=6, max_wait_ms=5.0, devices=["cpu", "cpu"])
+    seen = []
+    _recording(svc, seen)
+    try:
+        assert svc.warmup() == [2, 4, 6]  # floored at the 2 replicas
+        assert svc.stats()["devices"] == 2
+    finally:
+        svc.stop()
+    for dt in (torch.float32, torch.uint8):
+        assert [(i, b) for i, d, b in seen if d == dt] == [(0, 1), (1, 1), (0, 2), (1, 2),
+                                                           (0, 3), (1, 3)]
+
+
+def test_bucket_floor_and_max_batch_below_the_replicas(model):
+    assert [srv.bucket_size(n, 8, 2) for n in (1, 2, 3, 5, 8, 9)] == [2, 2, 4, 8, 8, 8]
+    assert srv.bucket_sizes(8, 3) == [3, 6, 8]
+    assert srv.bucket_sizes(6, 2) == [2, 4, 6]
+    with pytest.raises(ValueError, match=r"max_batch=3 < the 4 replicas"):
+        srv.EmbedService(model, max_batch=3, devices=["cpu"] * 4)
+
+
+def test_data_parallel_embeds_equal_one_device(model, service):
+    """A burst over two replicas (max_batch 6: buckets of 2, 4 and 6 rows cut
+    in halves) returns one device's embeddings, in request order."""
+    rng = np.random.default_rng(7)
+    raw = rng.integers(0, 256, (20, RES, RES, 3), dtype=np.uint8)
+    pre = np.stack([model.preprocess(r) for r in raw]).astype(np.float32)
+    texts = [f"a photo of thing {i}" for i in range(9)]
+    svc = srv.EmbedService(model, max_batch=6, max_wait_ms=25.0, devices=["cpu", "cpu"])
+    try:
+        futures = svc.embed_image_tensor(raw) + svc.embed_image_tensor(pre)
+        tfutures = [svc.embed_text(t) for t in texts]
+        got = np.stack([f.result(timeout=60) for f in futures])
+        gtxt = np.stack([f.result(timeout=60) for f in tfutures])
+        assert svc.images.stats()["batches"] >= 7  # 40 rows in buckets of at most 6
+        assert svc.images.stats()["requests"] == 40
+    finally:
+        svc.stop()
+    want = np.stack([f.result(timeout=60) for f in service.embed_image_tensor(raw)
+                     + service.embed_image_tensor(pre)])
+    wtxt = np.stack([service.embed_text(t).result(timeout=60) for t in texts])
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    np.testing.assert_allclose(gtxt, wtxt, atol=1e-5)
+    np.testing.assert_allclose(got[20:], _direct(model, pre), atol=1e-5)
+
+
+def test_data_parallel_captions_equal_one_device(captioner, caption_ckpt):
+    from openvision_tpu_torch.configs.openvision import get_config
+
+    blobs = [_png_bytes(s, 48) for s in range(7)]
+    svc = srv.CaptionService(get_config(CAPTION_ARG), caption_ckpt, max_batch=4,
+                             max_wait_ms=25.0, devices=["cpu", "cpu"])
+    try:
+        assert len(svc.captioners) == 2 and svc.captioners[0] is svc.captioners[1]
+        got = [f.result(timeout=60) for f in map(svc.caption_image_bytes, blobs)]
+        assert svc.stats()["devices"] == 2 and svc.stats()["requests"] == 7
+    finally:
+        svc.stop()
+    want = [f.result(timeout=60) for f in map(captioner.caption_image_bytes, blobs)]
+    assert got == want
 
 
 def test_caption_warmup_and_captions_match_the_tool(captioner, caption_ckpt):
@@ -317,7 +390,8 @@ def test_http_routes(http_servers, service, model, captioner):
     status, out = _request(addr, "GET", "/healthz")
     assert status == 200 and out["status"] == "ok" and out["caption"] is True
     status, out = _request(addr, "GET", "/stats")
-    assert status == 200 and set(out) == {"image", "text", "caption"}
+    assert status == 200 and set(out) == {"image", "text", "caption", "devices"}
+    assert out["devices"] == out["caption"]["devices"] == 1
 
     blob = _png_bytes(7)
     want = _direct(model, model.preprocess(_decode(blob)).astype(np.float32)[None])
@@ -422,9 +496,23 @@ def test_http_concurrent_requests_coalesce(http_servers, service):
     assert after["batches"] - before["batches"] < 8  # at least one multi-row batch
 
 
-def test_main_refuses_data_parallel(model_dir):
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        srv.main(["--use_model", model_dir, "--data_parallel", "--device", "cpu"])
+def test_main_refuses_data_parallel(model_dir, monkeypatch):
+    """``--data_parallel`` serves (it raised before the replicas existed):
+    on the CPU its devices are the one CPU."""
+    made = []
+
+    class Stub:
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            pass
+
+    monkeypatch.setattr(srv, "make_server",
+                        lambda service, *a, **k: made.append(service) or Stub())
+    srv.main(["--use_model", model_dir, "--data_parallel", "--device", "cpu"])
+    assert made[0].stats()["devices"] == 1
+    assert srv.data_parallel_devices(torch.device("cpu")) == [torch.device("cpu")]
 
 
 def test_kernel_library_builds_once_across_threads(monkeypatch):

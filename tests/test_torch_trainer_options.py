@@ -76,8 +76,10 @@ def _cli(workdir: str, total: int) -> list:
     return args
 
 
-def _params(path: str) -> dict:
-    return tckpt.load_npz(path)["params"]
+def _params(workdir: str, step: int) -> dict:
+    """The params of a workdir's step (an Orbax step directory), by the
+    port's names."""
+    return tckpt.load_state_dict(os.path.join(workdir, "checkpoints"), step)
 
 
 def test_sigterm_checkpoints_the_current_step_and_resumes(tmp_path):
@@ -107,8 +109,7 @@ def test_sigterm_checkpoints_the_current_step_and_resumes(tmp_path):
     resumed = subprocess.run(_cli(cut, 5), cwd=REPO, env=env, check=True, capture_output=True,
                              text=True, timeout=600)
     assert f"resuming from step {saved[0]}" in resumed.stdout
-    want = _params(os.path.join(full, "checkpoints", "ckpt-5.npz"))
-    got = _params(os.path.join(cut, "checkpoints", "ckpt-5.npz"))
+    want, got = _params(full, 5), _params(cut, 5)
     assert want.keys() == got.keys()
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)

@@ -141,6 +141,43 @@ def gradcache(world, meshes):
     world.save("gradcache", errors=out)
 
 
+VOCAB_LEAVES = {"text.token_embedding.weight": 0, "visual.proj": 1, "text.text_projection": 1,
+                "txt_decoder.head.weight": 0}  # the leaf -> the axis tensor splits
+
+
+def vocab_shards(world, mesh):
+    """The coca GradCache config's model on (data 2, tensor 2): the shard
+    of each vocab-axis leaf (the token embedding and the decoder head by
+    vocab rows, the towers' heads by output features) this rank holds, and
+    the tensor ranks' parameters joined by ``unshard_state_dict`` against
+    the one-process leaves, bit for bit."""
+    from openvision_tpu_torch.convert.openclip import unshard_state_dict
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.train import step as tstep
+
+    c = grad_config(*GRAD_CASES[0])
+    state = {k: v.detach().clone() for k, v in
+             init_params(tstep.build_model(c), 0).state_dict().items()}
+    model = tstep.build_model(c)
+    with parallel.use_mesh(mesh):
+        opt = tstep.init_train_state(c, model, total_steps=10, mesh=mesh, params=state)
+    mine = {n: p.detach() for n, p in model.named_parameters()}
+    parts = []
+    for n in sorted(mine):
+        gathered = [torch.empty_like(mine[n]) for _ in range(mesh.tensor)]
+        dist.all_gather(gathered, mine[n].contiguous(), group=mesh.tensor_group)
+        parts.append(gathered)
+    ranks = [{n: parts[i][r] for i, n in enumerate(sorted(mine))} for r in range(mesh.tensor)]
+    joined = unshard_state_dict(ranks, opt.tensor_plan)
+    world.save("vocab", errors={
+        "kinds": {n: opt.tensor_plan.get(n) for n in VOCAB_LEAVES},
+        "fractions": {n: mine[n].shape[a] / state[n].shape[a] for n, a in VOCAB_LEAVES.items()},
+        "flags": [model.text.vocab_parallel, model.text.head_parallel,
+                  model.visual.head_parallel, model.txt_decoder.vocab_parallel],
+        "unshard_equal": int(joined.keys() == state.keys()
+                             and all(torch.equal(joined[n], state[n]) for n in state))})
+
+
 def mesh_losses(world, meshes):
     """siglip local and global and the global contrastive mode on each
     mesh: the shares summed and the embeddings' gradients gathered, for the
@@ -382,6 +419,7 @@ def main(out_dir: str) -> None:
     for name, mesh in meshes.items():
         draws(world, mesh, name)
     mesh_losses(world, meshes)
+    vocab_shards(world, meshes["data2_tensor2"])
     gradcache(world, meshes)
     evaluators(world, meshes)
     eval_only(world, out_dir)

@@ -301,17 +301,16 @@ def trainer_run(world, out_dir):
     if world.rank != 0:
         return
     rows = [json.loads(line) for line in open(os.path.join(wd, "metrics.jsonl"))]
-    saved = ckpt.saved_steps(os.path.join(wd, "checkpoints"))
-    tree = ckpt.load_npz(os.path.join(wd, "checkpoints", f"ckpt-{saved[-1]}.npz"))
+    saved = ckpt.saved_steps(os.path.join(wd, "checkpoints"))  # an Orbax step directory
     config = arg_config(arg)
     config["model"]["text"]["depth"] = config["model"]["text_decoder_config"]["depth"] = 2
     one = tstep.build_model(config)
-    one.load_state_dict({k: torch.as_tensor(v) for k, v in tree["params"].items()})
+    one.load_state_dict(ckpt.load_state_dict(os.path.join(wd, "checkpoints"), saved[-1]))
     equal = all(torch.equal(one.state_dict()[n], params[n]) for n in params)
     from openvision_tpu_torch.tools.caption import build_captioner
 
-    cap, _ = build_captioner(config, os.path.join(wd, "checkpoints", f"ckpt-{saved[-1]}.npz"),
-                             device="cpu")
+    cap, _ = build_captioner(config, os.path.join(wd, "checkpoints"), device="cpu",
+                             step=saved[-1])
     ids = cap(np.random.default_rng(0).random((2, 32, 32, 3), np.float32))
     world.save("trainer", errors={
         "losses": [r["training_loss"] for r in rows if "training_loss" in r],
