@@ -7,8 +7,9 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
 1. torch / CUDA versions, the card's name and power limit, and the nvcc
    build of the kernels in openvision_tpu_torch/csrc (timed; one nvcc per
    source, in parallel). Fails if a GEMM kernel (bf16 or int8, one
-   mainloop), an int8 quantiser, an attention kernel (the forward's
-   instantiations, the two backward kernels), a row-stream LayerNorm
+   mainloop), an int8 quantiser, an attention kernel (the forward's three
+   variants and the two backward kernels, each at every padded head_dim
+   16, 32, ..., 128), a row-stream LayerNorm
    kernel (bf16 or int8) or the LayerNorm backward (and its finish) spills
    registers, or if the build holds no int8 GEMM, no forward attention
    kernel, not both attention backward kernels or not all three LayerNorm
@@ -356,6 +357,33 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    seconds on two ranks and on one.
    `python3 chip_smoke.py --mesh-recipe` builds the kernels and runs this
    phase alone (it writes the shards and the fixture itself).
+24. The wide-head towers and the model options (random weights, seed 0;
+   bf16 on the kernels). (a) The attention kernels at head_dims the Pallas
+   kernels take beside 64 (csrc/attention.cuh: a multiple of 8 from 16 to
+   128) against their plain versions at B=8, with phase 2/7's bounds
+   (2**-6): the packed attention at L=257 over 16 heads of 72 and of 80,
+   max and nomax, and the int8 block's f32 output; the causal and
+   prefix-LM masks and flash (single-k, multi-k) at 80; attention_bwd at
+   72 and 80 (L=257 and cross-attention); one case each at 96 and 128; then
+   the forward and attention_bwd at b=64, L=257 for 72 and 80 by events and
+   graph replay beside their bound and SDPA. (b) ViT-H/14-224 (32 blocks,
+   1280 wide, 16 heads of 80) + text H (1024 wide; depth cut to
+   H14_TXT_DEPTH) as a random export through tools/model_io.load_model:
+   zero-shot on fused_t with phase 3's launch counts, zimg cosine >= 0.999
+   (bf16) and >= 0.995 (int8) against the f32 plain path, encode img/s at
+   b=64 (bf16 fused_t, int8, plain eager bf16). (c) One step of ViT-H/14 +
+   text H at full depth (0.96B parameters, CLIP loss, remat full) through
+   train/step.py on fused (#9/#10) against plain bf16 at b=8 (loss within
+   2**-7, gradient cosine >= 0.999, launches exact), then 3 update steps at
+   b=64: step ms, images/s, peak memory. (d) So400m/14-224 (27 blocks, 1152
+   wide, 16 heads of 72, mlp 4304) with the map pool on fused_t against the
+   f32 plain path (cosine >= 0.999, launches exact); the same tower on an
+   ignore_cls input (256 tokens) with scan_mlp at chunk 128 (fused blocks,
+   the MLP kernels a chunk) against it without; the KV-cache decode of a
+   text-L stack (12 x 768) over 80 tokens, each step against the full
+   causal forward (within DECODE_TOL of max|full|, f32). It prints its own
+   time. `python3 chip_smoke.py --wide` builds the kernels, applies phase
+   1's spill gate and runs this phase alone.
 `python3 chip_smoke.py --ln [ROOT]` times the row LayerNorm kernels of the
 checkout at ROOT (csrc/layernorm.cu: the bf16 layernorm at b=64 over the
 ViT-L/14 tower's 16448 x 1024, the decoder's prefix-LM 29632 x 768 and
@@ -637,12 +665,19 @@ def spill_gate(lib_path) -> None:
             print(f"  ptxas: {line.strip()[:200]}")
     if not int8_gemms:
         raise AssertionError("no int8 instantiation of gemm_ws_kernel in the build")
-    if not attn_fwd:
-        raise AssertionError("no forward attention kernel (attention_fwd_kernel) in the build")
-    if len(attn_bwd) != 2:
-        raise AssertionError(f"expected the two attention backward kernels, found {attn_bwd}")
+    if len(attn_fwd) != 3 * len(HEAD_DIMS_PADDED):
+        raise AssertionError(f"expected the forward attention kernel's 3 variants at each padded "
+                             f"head_dim {HEAD_DIMS_PADDED}, found {attn_fwd}")
+    if len(attn_bwd) != 2 * len(HEAD_DIMS_PADDED):
+        raise AssertionError(f"expected the two attention backward kernels at each padded "
+                             f"head_dim {HEAD_DIMS_PADDED}, found {attn_bwd}")
     if any(spills[f] for f in gated):
         raise AssertionError(f"kernels that spill registers: {[f for f in gated if spills[f]]}")
+
+
+# The attention kernels' instantiations: head_dim (a multiple of 8 from 16
+# to 128) rounded up to 16 (csrc/attention.cuh).
+HEAD_DIMS_PADDED = (16, 32, 48, 64, 80, 96, 112, 128)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -705,12 +740,15 @@ def kernel_ms(fn, iters: int) -> dict:
     return per_kernel
 
 
-def export_random_model(out_dir: str, cfg: dict, seed: int) -> None:
+def export_random_model(out_dir: str, cfg: dict, seed: int, device=None) -> None:
     """Writes a random-init OpenCLIP export (config + .bin) of `cfg`.
 
     Block matrices ~ N(0, 0.02) (the flax "vit" init's scale), LayerNorm
     scales 1 + N(0, 0.02), biases and embeddings N(0, 0.02), heads and the
-    patch conv N(0, fan_in**-0.5), logit scale log(1/0.07).
+    patch conv N(0, fan_in**-0.5), logit scale log(1/0.07). The draws come
+    from numpy's generator of `seed`, or with `device` from a torch one on
+    that device (the same distributions, drawn faster for a 1B-parameter
+    model).
     """
     import torch
 
@@ -729,6 +767,13 @@ def export_random_model(out_dir: str, cfg: dict, seed: int) -> None:
                   context_length=t["context_length"]),
     ).state_dict()
     rng = np.random.default_rng(seed)
+    gen = None if device is None else torch.Generator(device=device).manual_seed(seed)
+
+    def normal(shape):
+        if gen is None:
+            return rng.standard_normal(shape, dtype=np.float32)
+        return torch.randn(shape, generator=gen, device=device).cpu().numpy()
+
     sd = {}
     for name, p in shapes.items():
         shape = tuple(p.shape)
@@ -736,9 +781,9 @@ def export_random_model(out_dir: str, cfg: dict, seed: int) -> None:
             arr = np.full(shape, np.log(1 / 0.07), np.float32)
         elif name.endswith(("proj", "projection", "conv1.weight")):
             fan_in = int(np.prod(shape[1:])) if name.endswith("conv1.weight") else shape[0]
-            arr = rng.standard_normal(shape, dtype=np.float32) * fan_in**-0.5
+            arr = normal(shape) * np.float32(fan_in**-0.5)
         else:
-            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+            arr = normal(shape) * np.float32(0.02)
             if ".ln_" in name and name.endswith("weight"):
                 arr += 1.0
         sd[name] = torch.from_numpy(arr)
@@ -815,16 +860,18 @@ def _library_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, heads: int, sdpa_kw: d
 def attention_case(fe, qkv, heads: int, *, causal=False, prefix=0, nomax=False) -> Case:
     b, l, d3 = qkv.shape
     d = d3 // 3
-    q, k, v = (t.reshape(b, l, heads, 64).transpose(1, 2).contiguous()
+    hd = d // heads
+    q, k, v = (t.reshape(b, l, heads, hd).transpose(1, 2).contiguous()
                for t in qkv.split(d, dim=-1))
     mask = f" prefix={prefix}" if prefix else " causal" if causal else ""
     return Case(
-        "attention", f"attn b={b} L={l} H={heads}{mask}{' nomax' if nomax else ''}",
+        "attention", f"attn b={b} L={l} H={heads}{'' if hd == 64 else f' hd={hd}'}{mask}"
+        f"{' nomax' if nomax else ''}",
         lambda: fe.attention(qkv, heads, nomax=nomax, causal=causal, prefix_len=prefix),
         lambda: fe.attention_plain(qkv.float(), heads, nomax=nomax, causal=causal,
                                    prefix_len=prefix),
         _sdpa(q, k, v, causal, prefix),
-        (3 * b * l * d + b * l * d) * 2, 4 * b * heads * 64 * visible_pairs(l, l, causal, prefix))
+        (3 * b * l * d + b * l * d) * 2, 4 * b * heads * hd * visible_pairs(l, l, causal, prefix))
 
 
 def f32_attention_case(fe, qkv, heads: int) -> Case:
@@ -833,13 +880,15 @@ def f32_attention_case(fe, qkv, heads: int) -> Case:
 
     b, l, d3 = qkv.shape
     d = d3 // 3
-    q, k, v = (t.reshape(b, l, heads, 64).transpose(1, 2).contiguous()
+    hd = d // heads
+    q, k, v = (t.reshape(b, l, heads, hd).transpose(1, 2).contiguous()
                for t in qkv.split(d, dim=-1))
-    return Case("attention", f"attn f32 out b={b} L={l} H={heads} nomax",
+    return Case("attention", f"attn f32 out b={b} L={l} H={heads}"
+                f"{'' if hd == 64 else f' hd={hd}'} nomax",
                 lambda: fe.attention(qkv, heads, nomax=True, out_dtype=torch.float32),
                 lambda: fe.attention_plain(qkv, heads, nomax=True, out_dtype=torch.float32),
                 _sdpa(q, k, v, False, 0), 3 * b * l * d * 2 + b * l * d * 4,
-                4 * b * heads * 64 * l * l)
+                4 * b * heads * hd * l * l)
 
 
 def flash_case(fl, q, k, v, label, *, causal=False, prefix=0) -> Case:
@@ -847,7 +896,8 @@ def flash_case(fl, q, k, v, label, *, causal=False, prefix=0) -> Case:
     lk = k.shape[1]
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     return Case(
-        "flash_attention", f"flash {label} b={b} Lq={lq} Lk={lk} H={h}",
+        "flash_attention", f"flash {label} b={b} Lq={lq} Lk={lk} H={h}"
+        + ("" if hd == 64 else f" hd={hd}"),
         lambda: fl.flash_attention(q, k, v, causal=causal, prefix_len=prefix),
         lambda: fl.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
                                          prefix_len=prefix)[0],
@@ -953,7 +1003,7 @@ def block_cases(fa, device, gen, b: int, shapes=BLOCK_SHAPES):
                 x.float(), w[0], w[1], w[2].float(), w[3], w[4].float(), w[5], **kw),
             lambda x=x, w16=w16, h=heads, skw=sdpa_kw: _library_block(x, *w16, h, skw),
             (2 * b * l * d + 4 * d * d) * 2 + 6 * d * 4,
-            2 * b * l * 4 * d * d + 4 * b * heads * 64 * visible_pairs(l, l, causal, prefix),
+            2 * b * l * 4 * d * d + 4 * b * d * visible_pairs(l, l, causal, prefix),
             residual=x))
     return out
 
@@ -1636,28 +1686,30 @@ def _leaves(*tensors):
     return [t.detach().clone().requires_grad_(True) for t in tensors]
 
 
-def attention_bwd_cases(fl, gk, device, gen, b: int, which=None):
+def attention_bwd_cases(fl, gk, device, gen, b: int, which=None, hd: int = 64, shapes=None):
     """The flash backward kernels (#15/#16, #10's attention) at the caption
     and training shapes: per shape one case for each kernel, on the o and
     logsumexp of the flash forward kernel. Their library call is the
-    autograd backward of scaled_dot_product_attention (all of dq, dk, dv)."""
+    autograd backward of scaled_dot_product_attention (all of dq, dk, dv).
+    `hd`: the head_dim; `shapes`: (label, Lq, Lk, heads, causal, prefix)
+    rows in place of the default ones."""
     import torch
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=device).bfloat16()
 
-    shapes = [("cross", 128, 335, 12, False, 0), ("causal", 128, 128, 12, True, 0),
+    shapes = shapes or [("cross", 128, 335, 12, False, 0), ("causal", 128, 128, 12, True, 0),
               ("multi-k", 64, 900, 12, False, 0), ("#10 image", 257, 257, 16, False, 0),
               ("#10 prefix=335", 463, 463, 12, True, 335)]
     cases = []
     for label, lq, lk, h, causal, prefix in shapes:
         if which is not None and label not in which:
             continue
-        q, do = rnd(b, lq, h, 64), rnd(b, lq, h, 64)
-        kv = rnd(b, lk, 2, h, 64)
+        q, do = rnd(b, lq, h, hd), rnd(b, lq, h, hd)
+        kv = rnd(b, lk, 2, h, hd)
         k, v = kv[:, :, 0], kv[:, :, 1]
         o, lse = fl.flash_attention(q, k, v, causal=causal, prefix_len=prefix, return_lse=True)
-        kw = dict(scale=0.125, causal=causal, prefix_len=prefix)
+        kw = dict(scale=hd**-0.5, causal=causal, prefix_len=prefix)
         _, delta = gk.attention_bwd_dq(q, k, v, o, lse, do, **kw)
         plain = (lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw: gk.attention_bwd_plain(
             q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw))
@@ -1668,20 +1720,20 @@ def attention_bwd_cases(fl, gk, device, gen, b: int, which=None):
         lib = (lambda out=out, leaves=(qt, kt, vt), g=do.transpose(1, 2): torch.autograd.grad(
             out, leaves, g, retain_graph=True))
         pairs = b * h * visible_pairs(lq, lk, causal, prefix)
-        tag = f"{label} b={b} Lq={lq} Lk={lk} H={h}"
+        tag = f"{label} b={b} Lq={lq} Lk={lk} H={h}" + ("" if hd == 64 else f" hd={hd}")
         cases.append(Case(
             "attention_bwd_dq", tag,
             lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw: (
                 gk.attention_bwd_dq(q, k, v, o, lse, do, **kw)[0],),
             lambda plain=plain: plain()[:1], lib,
-            (4 * b * lq * h * 64 + 2 * b * lk * h * 64) * 2 + b * h * lq * 4, 3 * 2 * 64 * pairs))
+            (4 * b * lq * h * hd + 2 * b * lk * h * hd) * 2 + b * h * lq * 4, 3 * 2 * hd * pairs))
         cases.append(Case(
             "attention_bwd_dkv", tag,
             lambda q=q, k=k, v=v, lse=lse, delta=delta, do=do, kw=kw: gk.attention_bwd_dkv(
                 q, k, v, lse, delta, do, **kw),
             lambda plain=plain: plain()[1:], lib,
-            (2 * b * lq * h * 64 + 4 * b * lk * h * 64) * 2 + 2 * b * h * lq * 4,
-            4 * 2 * 64 * pairs))
+            (2 * b * lq * h * hd + 4 * b * lk * h * hd) * 2 + 2 * b * h * lq * 4,
+            4 * 2 * hd * pairs))
     return cases
 
 
@@ -1781,7 +1833,7 @@ def fused_block_bwd_cases(fa, device, gen, b: int, lengths=(257, 463, 128),
             lambda out=out, leaves=leaves, g=g: torch.autograd.grad(out, leaves, g,
                                                                     retain_graph=True),
             (3 * m * d + 4 * d * d + 4 * d * d) * 2 + 12 * d * 4,
-            3 * 6 * m * d * d + 2 * 2 * m * d * d + 6 * 2 * 64 * pairs, residual=g))
+            3 * 6 * m * d * d + 2 * 2 * m * d * d + 6 * 2 * (d // heads) * pairs, residual=g))
     return cases
 
 
@@ -2692,6 +2744,34 @@ def _library_qkv(y, w_qkv, b_qkv, heads: int, sdpa_kw: dict):
     return F.scaled_dot_product_attention(q, k, v, **sdpa_kw).transpose(1, 2).reshape(b, l, d)
 
 
+def mhsa_t_bwd_case(fe, fa, device, gen, b: int, l: int, d: int, heads: int,
+                    nomax: bool) -> Case:
+    """The #3 chain (the fused block's backward with the _mhsa_t orders of
+    scaling q and dq, the nomax recompute and f32 bias sums) against its
+    plain twin; the library call is the autograd backward of the block as
+    library calls."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    x, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
+    w = _block_params(rnd, d)
+    kw = dict(num_heads=heads, eps=1e-6, nomax=nomax)
+    leaves = _leaves(x, *(t.bfloat16() for t in w))
+    with torch.enable_grad():
+        out = _library_block(*leaves, heads, {})
+    m, pairs = b * l, b * heads * l * l
+    return Case(
+        "mhsa_t bwd", f"#3 b={b} L={l} D={d} H={heads}{' nomax' if nomax else ''}",
+        lambda: fa._backward_kernels(x, *w, g, sm_scale=None, causal=False, prefix_len=0,
+                                     mhsa_t=True, **kw),
+        lambda: fe.mhsa_block_bwd_plain(x, *w, g, **kw),
+        lambda: torch.autograd.grad(out, leaves, g, retain_graph=True),
+        (3 * m * d + 4 * d * d + 4 * d * d) * 2 + 12 * d * 4,
+        22 * m * d * d + 12 * (d // heads) * pairs, residual=g)
+
+
 def training_kernel_cases(fe, fa, gk, device, gen, b: int):
     """The new training kernels at B=`b`: the #3 chain (image and text
     shapes, nomax off and on), the #4 chain, #7's forward and the #8 chain
@@ -2708,23 +2788,7 @@ def training_kernel_cases(fe, fa, gk, device, gen, b: int):
                                (80, 768, 12, False), (80, 768, 12, True)):
         if b > 8 and (nomax or d != 1024):
             continue  # the timings run the image tower's shapes, max-subtracted
-        x, g = rnd(b, l, d).bfloat16(), rnd(b, l, d).bfloat16()
-        w = _block_params(rnd, d)
-        kw = dict(num_heads=heads, eps=1e-6, nomax=nomax)
-        leaves = _leaves(x, *(t.bfloat16() for t in w))
-        with torch.enable_grad():
-            out = _library_block(*leaves, heads, {})
-        m, pairs = b * l, b * heads * l * l
-        bwd.append(Case(
-            "mhsa_t bwd", f"#3 b={b} L={l} D={d} H={heads}{' nomax' if nomax else ''}",
-            lambda x=x, w=w, g=g, kw=kw: fa._backward_kernels(
-                x, *w, g, sm_scale=None, causal=False, prefix_len=0, bias_sum_per_image=False,
-                **kw),
-            lambda x=x, w=w, g=g, kw=kw: fe.mhsa_block_bwd_plain(x, *w, g, **kw),
-            lambda out=out, leaves=leaves, g=g: torch.autograd.grad(out, leaves, g,
-                                                                    retain_graph=True),
-            (3 * m * d + 4 * d * d + 4 * d * d) * 2 + 12 * d * 4,
-            22 * m * d * d + 12 * 64 * pairs, residual=g))
+        bwd.append(mhsa_t_bwd_case(fe, fa, device, gen, b, l, d, heads, nomax))
     for l, d in ((257, 1024), (80, 768)):
         if b > 8 and d != 1024:
             continue
@@ -3714,8 +3778,7 @@ def eval_phase(model_dir: str, work: str, images, device, totals: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 # ViT-S/8-224 (BASELINE.json config 2's tower): 12 blocks of width 384, 6
-# heads of 64 (a power-of-two softmax scale for #9/#10), 785 tokens, MLP
-# 1536; phase 3's text tower, embed 384.
+# heads of 64, 785 tokens, MLP 1536; phase 3's text tower, embed 384.
 S8_CONFIG = {
     "model_cfg": {
         "embed_dim": 384,
@@ -5597,6 +5660,466 @@ def mesh_recipe_only() -> int:
     print(smi_line())
     return 0
 
+# ---------------------------------------------------------------------------
+# Phase 24: the attention kernels at the wide head_dims, the wide-head towers
+# and the model options
+# ---------------------------------------------------------------------------
+
+WIDE_HEAD_DIMS = (72, 80)  # So400m's and H/14's head_dim (convert/export.py:34-35)
+# ViT-H/14-224 (32 blocks, 1280 wide, 16 heads of 80, mlp 5120) + text H (1024
+# wide, 16 heads; its depth cut from 24 to H14_TXT_DEPTH: the zero-shot
+# ranking runs it end to end, the checks hold the image tower), embed 1024:
+# the config's own pairing (openvision_tpu/configs/openvision.py:234)
+H14_TXT_DEPTH = 2
+H14_CONFIG = {
+    "model_cfg": {
+        "embed_dim": 1024,
+        "vision_cfg": {"layers": 32, "width": 1280, "head_width": 80, "patch_size": 14,
+                       "image_size": 224, "pool_type": "avg", "final_ln_after_pool": True,
+                       "no_ln_pre": True},
+        "text_cfg": {"layers": H14_TXT_DEPTH, "width": 1024, "heads": 16, "context_length": 80,
+                     "vocab_size": 30522, "pool_type": "last", "no_causal_mask": True,
+                     "act_kwargs": {"approximate": "tanh"}},
+    },
+    "preprocess_cfg": {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]},
+}
+H14_BLOCKS = 32
+# phase 24c: the trainer's step on ViT-H/14 + text H at full depth (~0.96B
+# parameters), CLIP loss (no decoder), image tower on fused (#9/#10)
+H14_TRAIN_ARG = "res=224,img=H/14,txt_name=H,dtype=bfloat16"
+H14_TRAIN_BATCH, H14_CHECK_BATCH, H14_STEPS = 64, 8, 3
+# phase 24d: So400m/14-224 (27 blocks, 1152 wide, 16 heads of 72, mlp 4304)
+SO400M = dict(variant="So400m/14", image_size=224, posemb="learn", fast_gelu=True)
+SO400M_BLOCKS, SCAN_CHUNK = 27, 128
+# a fused block with the MLP in two chunks (256 tokens, chunk 128): the
+# attention sub-block's 4 launches (#9), then LN + fc1 + fc2 a chunk
+SCAN_MLP_BLOCK = {"layernorm": 3, "gemm_bias_act": 6, "attention": 1}
+# text L (12 blocks, 768 wide, 12 heads): the KV-cache decode over 80 tokens
+DECODE_WIDTH, DECODE_DEPTH, DECODE_HEADS, DECODE_LEN = 768, 12, 12, 80
+DECODE_TOL = 1e-4  # each step against the full causal forward, of max|full| (f32)
+
+
+def wide_kernel_cases(fe, fa, fl, gk, device, gen, b: int = 8):
+    """Phase 24a: the attention kernels at the new head_dims against their
+    plain versions. Forward: the packed attention (#1, #5, #7, #9, #11) at
+    L=257 over 16 heads of 72 and of 80, with and without nomax, and the
+    int8 block's f32 output; the causal and prefix-LM masks and flash (#13,
+    #14: single-k, multi-k) at 80; one case at 96 and at 128; #1 composed
+    and #9 at 72 and 80 (widths 1152, 1280). Backward (#15/#16):
+    attention_bwd at 72 and 80 (L=257 and cross-attention) and at 96 and
+    128; the #10 chain at 80 and the #3 chain at 72."""
+    def rnd(*shape):
+        return torch_randn(gen, device, *shape)
+
+    fwd = []
+    for hd in WIDE_HEAD_DIMS:
+        qkv = rnd(b, 257, 3 * 16 * hd)
+        fwd += [attention_case(fe, qkv, 16), attention_case(fe, qkv, 16, nomax=True),
+                f32_attention_case(fe, qkv, 16)]
+    fwd += [attention_case(fe, rnd(b, 128, 3 * 16 * 80), 16, causal=True),
+            attention_case(fe, rnd(b, 463, 3 * 16 * 80), 16, causal=True, prefix=335)]
+    for label, lq, lk in (("single-k cross", 128, 335), ("multi-k", 64, 900)):
+        kv = rnd(b, lk, 2, 16, 80)
+        fwd.append(flash_case(fl, rnd(b, lq, 16, 80), kv[:, :, 0], kv[:, :, 1], label))
+    for hd in (96, 128):
+        fwd.append(attention_case(fe, rnd(b, 257, 3 * 16 * hd), 16))
+    for hd in WIDE_HEAD_DIMS:
+        fwd.append(mhsa_case(fe, device, gen, b, 257, 16 * hd, 16))
+        fwd += block_cases(fa, device, gen, b, shapes=((257, 16 * hd, 16, False, 0),))
+    bwd = fused_block_bwd_cases(fa, device, gen, b, lengths=None,
+                                shapes=((257, 16 * 80, 16, False, 0),))
+    bwd.append(mhsa_t_bwd_case(fe, fa, device, gen, b, 257, 16 * 72, 16, nomax=True))
+    for hd in WIDE_HEAD_DIMS:
+        bwd += attention_bwd_cases(fl, gk, device, gen, b, hd=hd, shapes=[
+            ("#10 image", 257, 257, 16, False, 0), ("cross", 128, 335, 16, False, 0)])
+    for hd in (96, 128):
+        bwd += attention_bwd_cases(fl, gk, device, gen, b, hd=hd,
+                                   shapes=[("#10 image", 257, 257, 16, False, 0)])
+    return fwd, bwd
+
+
+def mhsa_case(fe, device, gen, b: int, l: int, d: int, heads: int) -> Case:
+    """#1 composed (``mhsa_block``: layernorm, QKV, attention, out-proj +
+    residual) on a (b, l, d) stream; its bound counts x, the weights and the
+    output once, its library time the block as library calls."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=device) * scale
+
+    x = rnd(b, l, d).bfloat16()
+    w = (rnd(d, scale=0.1) + 1, rnd(d, scale=0.1), rnd(3 * d, d, scale=d**-0.5).bfloat16(),
+         rnd(3 * d, scale=0.1), rnd(d, d, scale=d**-0.5).bfloat16(), rnd(d, scale=0.1))
+    w16 = tuple(t.bfloat16() for t in w)
+    return Case("fused block", f"#1 mhsa_block b={b} L={l} D={d} H={heads}",
+                lambda: fe.mhsa_block(x, *w, num_heads=heads),
+                lambda: fe.mhsa_block_plain(x.float(), w[0], w[1], w[2].float(), w[3],
+                                            w[4].float(), w[5], num_heads=heads),
+                lambda: _library_block(x, *w16, heads, {}),
+                (2 * b * l * d + 4 * d * d) * 2 + 6 * d * 4,
+                2 * b * l * 4 * d * d + 4 * b * d * l * l, residual=x)
+
+
+def time_wide_kernels(fe, fa, fl, gk, device, gen) -> dict:
+    """Phase 24a's times at b=64 for 16 heads of 72 and of 80 (widths 1152
+    and 1280): #1 composed and #9 (the fused block) at L=257, the packed
+    attention they run, flash single-k (#14, 128 x 335) and multi-k (#13,
+    64 x 900), and attention_bwd (#15/#16) at L=257; each by events and
+    graph replay beside its bound, plain version and library call (SDPA,
+    its autograd backward, or the block as library calls)."""
+    out = {}
+    b = 64
+    for hd in WIDE_HEAD_DIMS:
+        d = 16 * hd
+        cases = [mhsa_case(fe, device, gen, b, 257, d, 16),
+                 *block_cases(fa, device, gen, b, shapes=((257, d, 16, False, 0),)),
+                 attention_case(fe, torch_randn(gen, device, b, 257, 3 * d), 16)]
+        for label, lq, lk in (("single-k cross", 128, 335), ("multi-k", 64, 900)):
+            kv = torch_randn(gen, device, b, lk, 2, 16, hd)
+            cases.append(flash_case(fl, torch_randn(gen, device, b, lq, 16, hd), kv[:, :, 0],
+                                    kv[:, :, 1], label))
+        for c in cases:
+            out[c.label] = time_case(c)
+        for c in attention_bwd_cases(fl, gk, device, gen, b, hd=hd,
+                                     shapes=[("#10 image", 257, 257, 16, False, 0)]):
+            out[f"{c.name} {c.label}"] = time_bwd_case(c)
+    return out
+
+
+def torch_randn(gen, device, *shape):
+    import torch
+
+    return torch.randn(*shape, generator=gen, device=device).bfloat16()
+
+
+def count_path(fn, totals: dict) -> dict:
+    """Runs fn() with every launch count at 0 just before it, reads the
+    counts just after, adds them to `totals`; returns (fn's result, counts)."""
+    import torch
+
+    from openvision_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = dict(kernels.LAUNCHES)
+    for k, v in got.items():
+        totals[k] += v
+    return out, got
+
+
+def h14_zero_shot(work: str, images, names, device, totals: dict) -> dict:
+    """Phase 24b: a random ViT-H/14 export through tools/model_io.load_model:
+    zero-shot on fused_t (launch counts as phase 3's), zimg against the f32
+    plain path (cosine >= 0.999 bf16, >= 0.995 int8), encode img/s at b=64
+    for bf16 fused_t, int8 and plain eager bf16."""
+    import torch
+
+    from openvision_tpu_torch.serving.encode import build_encode_fn
+    from openvision_tpu_torch.tools import zero_shot
+    from openvision_tpu_torch.tools.model_io import load_model
+
+    model_dir = os.path.join(work, "h14")
+    os.makedirs(model_dir)
+    t0 = time.perf_counter()
+    export_random_model(model_dir, H14_CONFIG, SEED, device=device)
+    print(f"wrote the random ViT-H/14 export in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t", fast_gelu=True,
+                       device=device, int8=True)
+    print(f"load_model(bf16, fused_t, int8=True) in {time.perf_counter() - t0:.1f} s")
+    per_encode = {k: v * H14_BLOCKS for k, v in LAUNCHES_PER_BLOCK.items()}
+    batch = np.stack([model.preprocess(im) for im in images]).astype(np.float32)
+    n = len(images)
+    padded = torch.from_numpy(np.pad(batch, ((0, 8 - n), (0, 0), (0, 0), (0, 0)))).to(device)
+    encode, encode8 = build_encode_fn(model, int8=False), build_encode_fn(model, int8=True)
+    z, got = count_path(lambda: encode(padded.bfloat16())[:n], totals)
+    if got != per_encode:
+        raise AssertionError(f"H/14 encode launches {got}, expected {per_encode}")
+    results, got = count_path(lambda: zero_shot.rank(model, names, images), totals)
+    if got != {k: v * n for k, v in per_encode.items()} or len(results) != n:
+        raise AssertionError(f"H/14 zero-shot ranking: launches {got}, {len(results)} results")
+    z8, got = count_path(lambda: encode8(padded)[:n], totals)
+    print(f"H/14 launches: bf16 encode {per_encode}; int8 encode {got}")
+    ref = load_model(model_dir, dtype=torch.float32, attn_impl="xla", fast_gelu=True,
+                     device=device)
+    z_ref = ref.encode_image(torch.from_numpy(batch).to(device))
+    cos = {"bf16": (z * z_ref).sum(-1), "int8": (z8 * z_ref).sum(-1)}
+    for k, c in cos.items():
+        print(f"H/14 zimg cosine, {k} kernels vs plain f32 xla: min {c.min().item():.6f}  per "
+              f"image {[round(x, 6) for x in c.tolist()]}")
+    if z.shape != (n, 1024) or not torch.isfinite(z).all() or not torch.isfinite(z8).all():
+        raise AssertionError("H/14 embeddings are not finite or misshapen")
+    if cos["bf16"].min().item() < 0.999 or cos["int8"].min().item() < 0.995:
+        raise AssertionError("H/14 zimg cosine below 0.999 (bf16) or 0.995 (int8)")
+    del ref
+    plain = load_model(model_dir, dtype=torch.bfloat16, attn_impl="xla", fast_gelu=True,
+                       device=device)
+    fns = {"bf16 fused_t kernels": encode, "int8 kernels": encode8,
+           "plain eager bf16": build_encode_fn(plain, int8=False)}
+    x = torch.randn(64, 224, 224, 3, generator=torch.Generator(device=device).manual_seed(3),
+                    device=device)
+    rates = {}
+    for which in list(fns) + list(fns)[::-1]:
+        ms = cuda_ms(lambda: fns[which](x), iters=3, warmup=1)
+        rates.setdefault(which, []).append(64 / (ms / 1e3))
+        print(f"  H/14 {which:22s} encode b=64: {ms:8.2f} ms/batch  {rates[which][-1]:8.1f} "
+              "img/s")
+    del plain, fns, model, encode, encode8
+    torch.cuda.empty_cache()
+    return {"cos": {k: c.min().item() for k, c in cos.items()}, "rates": rates}
+
+
+def h14_train_config(attn_impl: str, batch: int, no_pil: bool) -> dict:
+    """ViT-H/14 + text H on the trainer's step: CLIP loss, remat full, the
+    synthetic source at 224, `attn_impl` for the image tower (``fused``, or
+    ``xla`` for the plain bf16 reference)."""
+    from openvision_tpu_torch.configs.openvision import get_config
+
+    c = get_config(f"{H14_TRAIN_ARG},attn_impl={attn_impl}" if attn_impl == "xla"
+                   else H14_TRAIN_ARG)
+    c["model"]["text_decoder"], c["loss_type"] = "none", "clip"
+    c["input"]["batch_size"] = batch
+    c["input"]["data"] = {"name": "synthetic", "num_examples": 1024, "res": RES}
+    c["total_steps"], c["log_training_steps"], c["save_ckpt"] = H14_STEPS, 1, False
+    c["schedule"][0][1]["warmup_steps"] = 1
+    if no_pil:
+        c["input"]["pp"] = c["input"]["pp"].split("|", 1)[1]
+    return c
+
+
+def h14_train_step(device, no_pil: bool, totals: dict) -> dict:
+    """Phase 24c: one H/14 step's loss and gradients on fused (#9/#10)
+    against plain bf16 at b=8 (loss within 2**-7, gradient cosine >= 0.999),
+    then H14_STEPS update steps at b=64: step ms and peak GB."""
+    import torch
+
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.train import step as tstep
+
+    cfg = h14_train_config("fused", H14_CHECK_BATCH, no_pil)
+    loader, _ = pipeline.training(cfg["input"], seed=SEED)
+    batch = tstep.to_device(next(loader), device)
+    model = tstep.build_model(cfg).to(device)
+    init_params(model, SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    print(f"H/14 + text H: {n_params / 1e9:.3f}B parameters")
+
+    def grads_for(c, m):
+        m.load_state_dict(state)
+        loss, _ = tstep.make_loss_fn(c, m)(batch)
+        loss.backward()
+        g = {n: p.grad.detach().float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.item(), g
+
+    (lk, gk_), got = count_path(lambda: grads_for(cfg, model), totals)
+    print(f"H/14 kernel-path forward/backward (b={H14_CHECK_BATCH}) launches: {got}")
+    want = {k: v * H14_BLOCKS for k, v in FUSED_BLOCK_STEP.items() if v}
+    if {k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"H/14 step launches {got}, expected {want}")
+    del model
+    plain_cfg = h14_train_config("xla", H14_CHECK_BATCH, no_pil)
+    plain = tstep.build_model(plain_cfg).to(device)
+    lp, gp = grads_for(plain_cfg, plain)
+    del plain
+    glob, (worst, name) = grad_cosines(gk_, gp)
+    print(f"H/14 loss kernels {lk:.6f} vs plain bf16 {lp:.6f}; gradient global cosine "
+          f"{glob:.6f}, min per-tensor {worst:.6f} ({name})")
+    del gk_, gp
+    torch.cuda.empty_cache()
+    if abs(lk - lp) > 2**-7 * abs(lp) or glob < 0.999:
+        raise AssertionError(f"H/14 kernel path vs plain bf16: loss {lk} vs {lp}, cosine {glob}")
+    del state
+    torch.cuda.empty_cache()
+    cfg = h14_train_config("fused", H14_TRAIN_BATCH, no_pil)
+    model = tstep.build_model(cfg).to(device)
+    torch.cuda.reset_peak_memory_stats()
+    opt = tstep.init_train_state(cfg, model, total_steps=H14_STEPS)  # the same draws (seed 0)
+    update = tstep.make_update_fn(cfg, model, opt)
+    step_batch = next(pipeline.training(cfg["input"], seed=SEED)[0])
+    ms, got = count_path(lambda: cuda_ms(lambda: update(step_batch), iters=H14_STEPS - 1,
+                                         warmup=1), totals)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"H/14 step b={H14_TRAIN_BATCH}: {ms:.1f} ms (CUDA events, {H14_STEPS - 1} steps after "
+          f"1)  {H14_TRAIN_BATCH / (ms / 1e3):.1f} images/s  peak {peak:.2f} GB; launches of "
+          f"{H14_STEPS} steps {got}")
+    want = {k: v * H14_BLOCKS * H14_STEPS for k, v in FUSED_BLOCK_STEP.items() if v}
+    if {k: v for k, v in got.items() if v} != want:
+        raise AssertionError(f"H/14 update steps: launches {got}, expected {want}")
+    del model, opt, update
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "images_per_s": H14_TRAIN_BATCH / (ms / 1e3), "peak_gb": peak,
+            "loss": (lk, lp), "grad_cos": glob}
+
+
+def so400m_tower(device, state, impl: str, dtype, **opts):
+    """The So400m/14 tower with `opts`, `impl` and `dtype` (block matrices
+    cast as load_model casts them) and random weights: drawn from seed 0, or
+    loaded from `state` (a CLIPModel state dict) when given."""
+    import torch
+
+    from openvision_tpu_torch.models.clip import CLIPModel
+    from openvision_tpu_torch.models.encoder import cast_block_matrices
+    from openvision_tpu_torch.models.init import init_params
+
+    m = CLIPModel(out_dim=1152, image=dict(SO400M, attn_impl=impl, dtype=dtype, **opts),
+                  text=dict(width=64, depth=1, num_heads=1, vocab_size=8,
+                            context_length=8)).to(device)
+    if state is None:
+        init_params(m, SEED)
+    else:
+        m.load_state_dict(state)
+    cast_block_matrices(m, dtype)
+    return m
+
+
+def model_options_phase(device, totals: dict) -> dict:
+    """Phase 24d: So400m/14 with the map pool on fused_t against the plain
+    path (cosine >= 0.999), the same tower with scan_mlp on an ignore_cls
+    input (256 tokens, chunk 128: two chunks) against it without, and the
+    KV-cache decode of a text-L stack over 80 tokens against its full causal
+    forward."""
+    import torch
+
+    from openvision_tpu_torch.models.encoder import Encoder
+
+    out = {}
+    x = torch.randn(8, 224, 224, 3, generator=torch.Generator(device=device).manual_seed(4),
+                    device=device)
+    ref = so400m_tower(device, None, "xla", torch.float32, pool_type="map")
+    state = ref.state_dict()
+    ref, kern = ref.visual.eval(), so400m_tower(device, state, "fused_t", torch.bfloat16,
+                                                pool_type="map").visual.eval()
+    z, got = count_path(lambda: kern(x.bfloat16()), totals)
+    want = {k: v * SO400M_BLOCKS for k, v in LAUNCHES_PER_BLOCK.items()}
+    if got != want:
+        raise AssertionError(f"So400m map encode launches {got}, expected {want}")
+    z_ref = ref(x)
+    cos = torch.nn.functional.cosine_similarity(z.float(), z_ref, dim=-1)
+    print(f"So400m/14 map pool, fused_t bf16 vs plain f32: min cosine {cos.min().item():.6f}")
+    if cos.min().item() < 0.999 or not torch.isfinite(z).all():
+        raise AssertionError("So400m map pool: cosine against the plain path below 0.999")
+    out["map_cos"] = cos.min().item()
+    del kern, ref
+    opts = dict(pool_type="map", ignore_cls=True)
+    scanned = so400m_tower(device, state, "fused_t", torch.bfloat16, scan_mlp=True,
+                           chunk=SCAN_CHUNK, **opts).visual.eval()
+    whole = so400m_tower(device, state, "fused_t", torch.bfloat16, **opts).visual.eval()
+    del state
+    zs, got = count_path(lambda: scanned(x.bfloat16()), totals)
+    want = dict.fromkeys(got, 0)
+    want.update({k: v * SO400M_BLOCKS for k, v in SCAN_MLP_BLOCK.items()})
+    if got != want:
+        raise AssertionError(f"So400m scan_mlp launches {got}, expected {want}")
+    zw, _ = count_path(lambda: whole(x.bfloat16()), totals)
+    cos = torch.nn.functional.cosine_similarity(zs.float(), zw.float(), dim=-1)
+    print(f"So400m/14 ignore_cls, scan_mlp (chunk {SCAN_CHUNK}, fused blocks) vs whole MLP "
+          f"(fused_t): min cosine {cos.min().item():.6f}, max|diff| "
+          f"{(zs.float() - zw.float()).abs().max().item():.3e}")
+    if cos.min().item() < 0.999:
+        raise AssertionError("So400m scan_mlp: cosine against the whole MLP below 0.999")
+    out["scan_cos"] = cos.min().item()
+    del scanned, whole
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    enc = Encoder(DECODE_WIDTH, DECODE_DEPTH, DECODE_HEADS, init_style="scaled", causal=True,
+                  decode=True).to(device)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if p.ndim == 2:
+                p.normal_(0.0, 0.02, generator=gen)
+    full = Encoder(DECODE_WIDTH, DECODE_DEPTH, DECODE_HEADS, init_style="scaled",
+                   causal=True).to(device)
+    full.load_state_dict(enc.state_dict())
+    xt = torch.randn(4, DECODE_LEN, DECODE_WIDTH, generator=gen, device=device)
+    want = full(xt)
+    enc.init_cache(4, DECODE_LEN)
+    t0 = time.perf_counter()
+    steps = torch.cat([enc(xt[:, t:t + 1]) for t in range(DECODE_LEN)], dim=1)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    err = (steps - want).abs().max().item() / want.abs().max().item()
+    print(f"KV-cache decode, text L ({DECODE_DEPTH} x {DECODE_WIDTH}), {DECODE_LEN} steps in "
+          f"{took:.2f} s: max|step - full causal| / max|full| = {err:.3e} (bound "
+          f"{DECODE_TOL:.0e})")
+    if err > DECODE_TOL:
+        raise AssertionError(f"KV-cache decode differs from the causal forward: {err}")
+    out["decode_err"] = err
+    return out
+
+
+def wide_phase(work: str, images, names, device, no_pil: bool, totals: dict,
+               worst: dict) -> dict:
+    """Phase 24 (a-d); prints its own time."""
+    import torch
+
+    from openvision_tpu_torch.ops import flash_attention as fl
+    from openvision_tpu_torch.ops import fused_attention as fa
+    from openvision_tpu_torch.ops import fused_encoder as fe
+    from openvision_tpu_torch.ops import grad_kernels as gk
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    with torch.no_grad():
+        fwd, bwd = wide_kernel_cases(fe, fa, fl, gk, device, gen)
+        check_cases(fwd, worst)
+        check_bwd_cases(bwd, worst)
+        del fwd, bwd
+        times = time_wide_kernels(fe, fa, fl, gk, device, gen)
+    torch.cuda.empty_cache()
+    print(f"24a in {time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        zs = h14_zero_shot(work, images, names, device, totals)
+    print(f"24b in {time.perf_counter() - t0:.1f} s")
+    train = h14_train_step(device, no_pil, totals)
+    print(f"24c in {time.perf_counter() - t0:.1f} s")
+    with torch.inference_mode():
+        opts = model_options_phase(device, totals)
+    took = time.perf_counter() - t0
+    print(f"phase 24 in {took:.1f} s")
+    return {"times": times, "zero_shot": zs, "train": train, "options": opts, "phase_s": took}
+
+
+def wide_only() -> int:
+    """``chip_smoke.py --wide``: the kernel build, phase 1's spill gate and
+    phase 24 alone."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from openvision_tpu_torch.data.ops_image import decode_png
+    from openvision_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    lib_path = kernels.build()
+    kernels.lib()
+    print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    spill_gate(lib_path)
+    names = sorted(f for f in os.listdir(os.path.join(REPO, "testcat")) if f.endswith(".png"))
+    images = [decode_png(open(os.path.join(REPO, "testcat", f), "rb").read()) for f in names]
+    try:
+        import PIL  # noqa: F401
+        no_pil = False
+    except ImportError:
+        no_pil = True
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        wide_phase(work, images, names, torch.device("cuda"), no_pil, totals, {})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 24 launches: { {k: v for k, v in totals.items() if v} }")
+    return 0
+
 
 def main() -> int:
     import torch
@@ -5884,6 +6407,11 @@ def run(work: str) -> int:
           "eval_only")
     mesh_res = mesh_recipe_phase(work, images, device, totals)
 
+    phase("24. the wide-head towers and the model options: the attention kernels at head_dims "
+          "72, 80, 96, 128; ViT-H/14 zero-shot (bf16, int8) and its training step; So400m/14's "
+          "map pool, scan_mlp and the KV-cache decode")
+    wide = wide_phase(work, images, names, device, no_pil, totals, worst)
+
     phase("summary")
     print(f"card: {smi}")
     print(f"encode b=64 img/s: kernels {rates['kernels']}  plain eager bf16 {rates['plain']}")
@@ -5932,6 +6460,17 @@ def run(work: str) -> int:
     print(f"optax chain step on the card (22e): worst {ckpt_res['chain']}")
     print(f"curriculum pp records/s (0 and {CUR_WORKERS} workers): "
           f"{curriculum['pp_records_per_s']}; phase 21 in {curriculum['phase_s']:.1f} s")
+    for k, v in wide["zero_shot"]["rates"].items():
+        print(f"H/14 encode b=64 img/s {k}: {[round(r, 1) for r in v]}")
+    print(f"H/14 zimg cosine min {wide['zero_shot']['cos']}; H/14 + text H train step b="
+          f"{H14_TRAIN_BATCH}: {wide['train']['step_ms']:.1f} ms, "
+          f"{wide['train']['images_per_s']:.1f} images/s, peak {wide['train']['peak_gb']:.2f} GB, "
+          f"gradient cosine {wide['train']['grad_cos']:.6f}")
+    for k, t in wide["times"].items():
+        print(f"{k}: {t['ms'] * 1e3:.1f} us (graph {t['graph_ms'] * 1e3:.1f}), bound "
+              f"{t['bound_ms'] * 1e3:.1f}, plain {t['plain_ms'] * 1e3:.1f}, library "
+              f"{t['library_ms'] * 1e3:.1f}")
+    print(f"model options: {wide['options']}; phase 24 in {wide['phase_s']:.1f} s")
     print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "
           f"{totals}")
     missing = [k for k, v in totals.items() if v == 0]
@@ -6226,4 +6765,6 @@ if __name__ == "__main__":
         sys.exit(mesh_recipe_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-recipe"]:
         sys.exit(mesh_recipe_only())
+    if sys.argv[1:2] == ["--wide"]:
+        sys.exit(wide_only())
     sys.exit(main())

@@ -129,17 +129,19 @@ def get_config(arg: str | None = None) -> dict:
                 variant=arg["img"], posemb="sincos2d", pool_type="gap", attn_impl=img_attn,
                 remat_policy=remat, mask_ratio=arg["mask_ratio"],
                 fast_gelu=dtype == "bfloat16", emb_head_bias=False, head_zeroinit=False,
-                dtype=dtype, output_tokens=True, image_size=arg["res"]),
+                dtype=dtype, param_dtype=arg["param_dtype"], output_tokens=True,
+                image_size=arg["res"]),
             "text": dict(
                 variant=arg["txt_name"], pool_type="last", causal=False, attn_impl=txt_attn,
                 remat_policy=remat, head_zeroinit=False, dtype=dtype,
-                vocab_size=arg["vocab_size"], output_tokens=True,
-                context_length=arg["token_len"]),
+                param_dtype=arg["param_dtype"], vocab_size=arg["vocab_size"], embed_cls=True,
+                output_tokens=True, context_length=arg["token_len"]),
             "text_decoder": "text_decoder",
             "text_decoder_config": dict(
                 variant=arg["txt_decoder_name"], num_classes=arg["vocab_size"], dtype=dtype,
-                remat_policy=remat, fusion_style=arg["dec_fusion"], causal=True,
-                attn_impl=dec_attn, num_learnable_tokens=arg["output_token_len"], drop_token=0,
+                param_dtype=arg["param_dtype"], remat_policy=remat,
+                fusion_style=arg["dec_fusion"], causal=True, attn_impl=dec_attn,
+                num_learnable_tokens=arg["output_token_len"], drop_token=0,
                 return_prelogits=arg["cap_xent_chunk"] > 0),
             "out_dim": (dim if arg["img_head"] else None, dim),
             "temperature_init": 1 / 0.07,

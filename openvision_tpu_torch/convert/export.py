@@ -10,7 +10,11 @@ fixed sincos2d image position embedding when the source has none, saves
 the port's ViT on the source params against the export reloaded through
 ``tools/model_io.load_model`` (f32 ``xla``, on the card when there is one),
 max |delta| of the image embedding. The Hugging Face upload
-(``--repo``/``--token``) needs the network and raises.
+(``--repo``/``--token``) needs the network and raises. A tree with the
+``map`` pool or the ``stem`` or ``linear`` patch embed raises, as the JAX
+export raises on it (its OpenCLIP config has an ``avg`` pool and a conv
+patch embed: JAX fails in ``jax_to_openclip`` on a linear embed and in the
+parity probe on the other two); the port raises before it writes.
 
 Usage:
   python -m openvision_tpu_torch.convert.export \\
@@ -69,6 +73,20 @@ def load_params_any(path: str, step: int | None = None):
     return load_checkpoint(path, step)
 
 
+def check_exportable(params) -> None:
+    """Raises on an image tower the OpenCLIP config cannot describe."""
+    img = params["img"]
+    kernel = img.get("embedding", {}).get("kernel")
+    found = [what for what, hit in (
+        ("the map pool (MAPHead_0)", "MAPHead_0" in img),
+        ("the stem patch embed (stem_0)", "stem_0" in img),
+        ("the linear patch embed (a 2-D embedding kernel)",
+         kernel is not None and len(kernel.shape) == 2)) if hit]
+    if found:
+        raise ValueError(f"the OpenCLIP export takes a conv patch embed and the gap/avg pools; "
+                         f"this tree has {' and '.join(found)}")
+
+
 def parity_probe(params, cfg: dict, out_dir: str, device=None) -> float:
     """Max |delta| between the port's ViT on the source params and the
     export's vision tower loaded by ``tools/model_io.load_model``, f32
@@ -106,6 +124,7 @@ def export(checkpoint: str, out_dir: str, *, img: str, txt: str, res: int, out_d
     from openvision_tpu_torch.tools.model_io import DEFAULT_VOCAB
 
     params = load_params_any(checkpoint, step)
+    check_exportable(params)
     state_np = jax_to_openclip(params)
     cfg = synthesize_config(img, txt, res=res, out_dim=out_dim, context_length=context_length,
                             vocab_size=vocab_size)

@@ -16,6 +16,17 @@ Name map (flat JAX name <-> OpenCLIP key), vision tower:
   .../out/kernel                                     <-> attn.out_proj.weight (T)
   .../MlpBlock_0/Dense_{0,1}/kernel                  <-> mlp.{c_fc,c_proj}.weight (T)
   .../ls1/ls1, .../ls2/ls2 (LayerScale)              <-> ls_1.gamma, ls_2.gamma
+The vision options with no OpenCLIP counterpart (port names under ``visual.``):
+  img/MAPHead_0/probe                   <-> visual.map_head.probe      (1, 1, D)
+  img/MAPHead_0/MultiHeadDotProductAttention_0 (DenseGeneral (D, H, hd) q/k/v
+  kernels, (H, hd) biases, (H, hd, D) out) <-> visual.map_head.attn.in_proj_weight
+                                           (concat, T), .attn.out_proj
+  img/MAPHead_0/LayerNorm_0, /MlpBlock_0 <-> visual.map_head.ln_1, .mlp
+  img/stem_N/{kernel,bias}              <-> visual.stem.N.{weight,bias}  (HWIO<->OIHW)
+  img/stem_norm_N/{scale,bias}          <-> visual.stem_norm.N.{weight,bias}
+  img/embedding/kernel (p*p*3, D), a ``linear`` patch embed's Dense
+                                        <-> visual.embedding.weight      (T)
+  (the ``stem``'s 1x1 embedding conv is visual.conv1, as the patch conv).
 Text tower: txt/Embed_0/embedding <-> token_embedding.weight, txt/pos_embedding
 <-> positional_embedding, txt/encoder_norm <-> ln_final, txt/head/kernel <->
 text_projection (no transpose), blocks <-> transformer.resblocks.N.*; and
@@ -126,7 +137,21 @@ def jax_to_openclip(params: Any) -> Dict[str, np.ndarray]:
             continue
         tower, rest = key.split("/", 1) if "/" in key else (key, "")
         if tower == "img":
-            if rest == "cls":
+            if rest.startswith("MAPHead_0/"):
+                _convert_map_head(out, rest.split("/", 1)[1], val, attn_qkv)
+            elif rest.startswith(("stem_", "stem_norm_")):
+                module, leaf = rest.split("/")
+                i = module.rsplit("_", 1)[1]
+                if module.startswith("stem_norm_"):
+                    out[f"visual.stem_norm.{i}.{'weight' if leaf == 'scale' else 'bias'}"] = val
+                else:
+                    out[f"visual.stem.{i}.{leaf if leaf == 'bias' else 'weight'}"] = (
+                        val.transpose(3, 2, 0, 1) if leaf == "kernel" else val)
+            elif rest == "embedding/kernel" and val.ndim == 2:  # the linear patch embed
+                out["visual.embedding.weight"] = val.T
+            elif rest == "embedding/bias" and flat["img/embedding/kernel"].ndim == 2:
+                out["visual.embedding.bias"] = val
+            elif rest == "cls":
                 out["visual.class_embedding"] = val[0, 0]
             elif rest == "embedding/kernel":
                 out["visual.conv1.weight"] = val.transpose(3, 2, 0, 1)
@@ -165,6 +190,15 @@ def jax_to_openclip(params: Any) -> Dict[str, np.ndarray]:
         # txt_decoder params have no OpenCLIP counterpart (CoCa head):
         # jax_decoder_to_state_dict maps them to the port's names.
     return out
+
+
+def _convert_map_head(out, sub: str, val, attn_qkv) -> None:
+    """One leaf of the JAX ``MAPHead_0`` subtree into ``visual.map_head.*``."""
+    if sub == "probe":
+        out["visual.map_head.probe"] = val
+    else:
+        _convert_block(out, "img/MAPHead_0", "visual.map_head", sub, val, ("img", "map"),
+                       attn_qkv)
 
 
 def _convert_block(out, jax_prefix, torch_prefix, sub, val, block_id, attn_qkv):
@@ -232,13 +266,28 @@ def openclip_to_jax(state_dict: Dict[str, Any], *, num_heads_vision: int,
             flat[f"{jb}/MultiHeadDotProductAttention_0/out/bias"] = sd[f"{tb}.attn.out_proj.bias"]
 
     flat["img/cls"] = sd["visual.class_embedding"][None, None, :]
-    flat["img/embedding/kernel"] = sd["visual.conv1.weight"].transpose(2, 3, 1, 0)
+    if "visual.embedding.weight" in sd:  # the linear patch embed
+        flat["img/embedding/kernel"] = sd["visual.embedding.weight"].T
+        flat["img/embedding/bias"] = sd["visual.embedding.bias"]
+    else:
+        flat["img/embedding/kernel"] = sd["visual.conv1.weight"].transpose(2, 3, 1, 0)
     if "visual.conv1.bias" in sd:
         flat["img/embedding/bias"] = sd["visual.conv1.bias"]
+    for key in sd:
+        m = re.fullmatch(r"visual\.(stem|stem_norm)\.(\d)\.(weight|bias)", key)
+        if m is None:
+            continue
+        mod, i, kind = m.groups()
+        leaf = {"weight": "scale" if mod == "stem_norm" else "kernel", "bias": "bias"}[kind]
+        flat[f"img/{mod}_{i}/{leaf}"] = (sd[key].transpose(2, 3, 1, 0) if leaf == "kernel"
+                                         else sd[key])
     if "visual.positional_embedding" in sd:
         flat["img/pos_embedding"] = sd["visual.positional_embedding"][None]
-    flat["img/encoder_norm/scale"] = sd["visual.ln_post.weight"]
-    flat["img/encoder_norm/bias"] = sd["visual.ln_post.bias"]
+    if "visual.ln_post.weight" in sd:  # no encoder_norm under the map, 0 and avg pools
+        flat["img/encoder_norm/scale"] = sd["visual.ln_post.weight"]
+        flat["img/encoder_norm/bias"] = sd["visual.ln_post.bias"]
+    if "visual.map_head.probe" in sd:
+        _put_map_head(flat, sd, num_heads_vision)
     if "visual.proj" in sd:
         flat["img/head/kernel"] = sd["visual.proj"]
     if "visual.proj_bias" in sd:
@@ -256,6 +305,26 @@ def openclip_to_jax(state_dict: Dict[str, Any], *, num_heads_vision: int,
     if "logit_bias" in sd:
         flat["b"] = sd["logit_bias"].reshape(1)
     return recover_tree(flat)
+
+
+def _put_map_head(flat: dict, sd: dict, num_heads: int) -> None:
+    """The port's ``visual.map_head.*`` into the JAX ``img/MAPHead_0`` leaves
+    (flax MultiHeadDotProductAttention: DenseGeneral kernels)."""
+    p, jp = "visual.map_head", "img/MAPHead_0"
+    flat[f"{jp}/probe"] = sd[f"{p}.probe"]
+    flat[f"{jp}/LayerNorm_0/scale"] = sd[f"{p}.ln_1.weight"]
+    flat[f"{jp}/LayerNorm_0/bias"] = sd[f"{p}.ln_1.bias"]
+    for j, lin in enumerate(("c_fc", "c_proj")):
+        flat[f"{jp}/MlpBlock_0/Dense_{j}/kernel"] = sd[f"{p}.mlp.{lin}.weight"].T
+        flat[f"{jp}/MlpBlock_0/Dense_{j}/bias"] = sd[f"{p}.mlp.{lin}.bias"]
+    w, b = sd[f"{p}.attn.in_proj_weight"], sd[f"{p}.attn.in_proj_bias"]
+    d = w.shape[1]
+    attn = f"{jp}/MultiHeadDotProductAttention_0"
+    for j, name in enumerate(("query", "key", "value")):
+        flat[f"{attn}/{name}/kernel"] = w[j * d:(j + 1) * d].T.reshape(d, num_heads, -1)
+        flat[f"{attn}/{name}/bias"] = b[j * d:(j + 1) * d].reshape(num_heads, -1)
+    flat[f"{attn}/out/kernel"] = sd[f"{p}.attn.out_proj.weight"].T.reshape(num_heads, -1, d)
+    flat[f"{attn}/out/bias"] = sd[f"{p}.attn.out_proj.bias"]
 
 
 def openclip_to_state_dict(state_dict: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -432,6 +501,8 @@ _TOWER_LEAVES = {
     "visual.ln_post.bias": "img/encoder_norm/bias",
     "visual.proj": "img/head/kernel",
     "visual.proj_bias": "img/head/bias",
+    "visual.embedding.weight": "img/embedding/kernel",
+    "visual.embedding.bias": "img/embedding/bias",
     "text.token_embedding.weight": "txt/Embed_0/embedding",
     "text.positional_embedding": "txt/pos_embedding",
     "text.ln_final.weight": "txt/encoder_norm/scale",
@@ -473,6 +544,18 @@ def flax_paths(name: str) -> list[str]:
     (``.*/kernel$``, ``img/.*``) keep their meaning in the port."""
     if name in _TOWER_LEAVES:
         return [_TOWER_LEAVES[name]]
+    m = re.fullmatch(r"visual\.(stem|stem_norm)\.(\d)\.(weight|bias)", name)
+    if m:
+        mod, i, kind = m.groups()
+        leaf = {"weight": "scale" if mod == "stem_norm" else "kernel", "bias": "bias"}[kind]
+        return [f"img/{mod}_{i}/{leaf}"]
+    if name.startswith("visual.map_head."):
+        leaf = name.removeprefix("visual.map_head.")
+        if leaf == "probe":
+            return ["img/MAPHead_0/probe"]
+        if leaf.startswith("ln_1."):
+            return [f"img/MAPHead_0/LayerNorm_0/{'scale' if leaf.endswith('weight') else 'bias'}"]
+        return ["img/MAPHead_0/" + p for p in _BLOCK_LEAVES[leaf]]
     m = re.fullmatch(r"(.*)\.(\d+)\.(ln_\w+\.\w+|ls_\d\.gamma|attn\.\w+(?:\.\w+)?|mlp\.\w+\.\w+)",
                      name)
     if m is None or m.group(1) not in _STACKS:

@@ -1,21 +1,34 @@
 // The pieces the attention kernels share (attention.cu's forward,
-// attention_bwd.cu's backward pair): head_dim-64 operands read by TMA in
-// 64-row boxes of one head, 128-byte swizzled, and wgmma on them.
+// attention_bwd.cu's backward pair): operands of one head read by TMA in
+// 64-row boxes, swizzled, and wgmma on them, at every head_dim that is a
+// multiple of 8 from 16 to 128.
 //
-// Every operand is a (batch, rows, heads, 64) bf16 view at element strides
+// Every operand is a (batch, rows, heads, hd) bf16 view at element strides
 // (batch, row, head) with unit stride in head_dim: the flash path's tensors,
-// or q, k and v as strided views of the (B, L, 3D) QKV buffer. Its tensor
-// map is the (64, heads, rows, batch) view read in (64, 1, 64, 1) boxes:
-// one head's 64 rows of 128 bytes, one swizzle span each, zero-filled past
-// the last row, so ragged tiles need no predicates on load.
+// or q, k and v as strided views of the (B, L, 3D) QKV buffer. The kernels
+// are templated on HDP, hd rounded up to wgmma's k16 (72 -> 80, 88 -> 96,
+// 104 -> 112), and a 64-row tile of an operand is HDP columns cut into
+// chunks of 64, 32 and 16 columns (Hd<HDP> below: 80 = 64 + 16, 112 =
+// 64 + 32 + 16, 128 = 64 + 64), each chunk one TMA box of 64 rows swizzled
+// by its own row width (128, 64 or 32 bytes: one swizzle span a row), laid
+// one after the other. A chunk's tensor map is the (hd, heads, rows, batch)
+// view read in (width, 1, 64, 1) boxes at the chunk's first column: TMA
+// zero-fills the columns past hd and the rows past the last, so the pad
+// columns add nothing to q.k^T, P.V never writes them, and ragged tiles
+// need no predicates on load. hd * 2 bytes must be a multiple of 16 (TMA's
+// stride rule), hence hd % 8 == 0.
 //
 // The fragments are wgmma's: a 64 x N f32 accumulator d over the
 // warpgroup's 128 threads holds d[4j + e] = row 16 w + lane / 4 + 8 (e >> 1),
-// column 8 j + 2 (lane % 4) + (e & 1) (w: the warp). Rounded to bf16 in
-// place, k16 columns of it are wgmma's register A operand (pack_a), so a
-// score tile becomes the next product's A without going through shared
-// memory.
+// column 8 j + 2 (lane % 4) + (e & 1) (w: the warp). A head_dim-wide
+// accumulator is the chunks' accumulators end to end (HDP / 2 floats), so a
+// row's entries keep that pattern. Rounded to bf16 in place, k16 columns of
+// a score accumulator are wgmma's register A operand (pack_a), so a score
+// tile becomes the next product's A without going through shared memory.
 #pragma once
+
+#include <type_traits>
+#include <utility>
 
 #include "hopper.cuh"
 
@@ -24,10 +37,37 @@ namespace attn {
 
 namespace hp = ovt::hopper;
 
-constexpr int HD = 64;                   // head_dim the kernels take
-constexpr int BT = 64;                   // rows of a box
-constexpr int kTileBytes = BT * HD * 2;  // 8 KB: 64 rows of 128 bytes
+constexpr int BT = 64;  // rows of a box
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The chunks of a padded head_dim HDP (a multiple of 16, 16..128): full
+// 64-column chunks, then 32 and 16 for the rest.
+template <int HDP>
+struct Hd {
+  static_assert(HDP % 16 == 0 && HDP >= 16 && HDP <= 128, "padded head_dim: 16..128, step 16");
+  static constexpr int kFull = HDP / 64, kRem = HDP % 64;
+  static constexpr int kChunks = kFull + (kRem >= 32 ? 1 : 0) + (kRem % 32 ? 1 : 0);
+  static constexpr int kTileBytes = BT * HDP * 2;  // 64 rows of every chunk
+  __host__ __device__ static constexpr int width(int c) {
+    return c < kFull ? 64 : (c == kFull && kRem >= 32) ? 32 : 16;
+  }
+  __host__ __device__ static constexpr int col(int c) { return c <= kFull ? 64 * c : 64 * kFull + 32; }
+  // byte offset of chunk c in a tile, plus `row` rows into it
+  __host__ __device__ static constexpr uint32_t off(int c, int row = 0) {
+    return static_cast<uint32_t>(BT * col(c) * 2 + row * width(c) * 2);
+  }
+};
+
+// Calls f(std::integral_constant<int, c>) for each chunk c of Hd<HDP>, so
+// that a chunk's width is a constant expression in f.
+template <class F, int... C>
+__device__ __forceinline__ void for_chunks_(F&& f, std::integer_sequence<int, C...>) {
+  (f(std::integral_constant<int, C>{}), ...);
+}
+template <int HDP, class F>
+__device__ __forceinline__ void for_chunks(F&& f) {
+  for_chunks_(f, std::make_integer_sequence<int, Hd<HDP>::kChunks>{});
+}
 
 struct Strides {  // in elements: batch, row (sequence position), head
   long long b;
@@ -44,26 +84,65 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// A 64-row box of one head (TMA, 128-byte swizzled) into shared memory.
-__device__ __forceinline__ void load_tile(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                          int h, int row, int b) {
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// A 64-row box of one head's columns col.. (TMA, swizzled by the map) into
+// shared memory.
+__device__ __forceinline__ void load_box(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
+                                         int col, int h, int row, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(ovt::smem_u32(bar)), "r"(0),
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(ovt::smem_u32(bar)), "r"(col),
          "r"(h), "r"(row), "r"(b)
       : "memory");
 }
 
-// Descriptors of a swizzled tile of 64-row boxes laid end to end: as a
-// K-major operand (the reduction along its 128-byte rows, k16 step kk), or
-// as an MN-major B operand (the reduction down its rows: 16 rows a k16
-// step; N = the 64 values of a row).
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return hp::desc_sw128(tile + kk * 32, 16, 1024);
+// One operand's tensor maps, one a chunk.
+template <int HDP>
+struct OpMaps {
+  CUtensorMap m[Hd<HDP>::kChunks];
+};
+
+// A whole 64-row tile of one head (every chunk) into shared memory at dst;
+// the barrier expects Hd<HDP>::kTileBytes for it.
+template <int HDP>
+__device__ __forceinline__ void load_tile(uint32_t dst, const OpMaps<HDP>& maps, uint64_t* bar,
+                                          int h, int row, int b) {
+  using H = Hd<HDP>;
+  for_chunks<HDP>([&](auto cc) {
+    constexpr int c = decltype(cc)::value;
+    load_box(dst + H::off(c), &maps.m[c], bar, H::col(c), h, row, b);
+  });
 }
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return hp::desc_sw128(tile + kk * 2048, hp::kChunkBytes, 1024);
+
+template <int HDP>
+__device__ __forceinline__ void prefetch_maps(const OpMaps<HDP>& maps) {
+#pragma unroll
+  for (int c = 0; c < Hd<HDP>::kChunks; ++c) hp::tma_prefetch_map(&maps.m[c]);
+}
+
+// A shared-memory matrix descriptor of a chunk W columns wide, swizzled by
+// its row of 2 W bytes (layout type 1: 128 B, 2: 64 B, 3: 32 B), as a
+// K-major operand (the reduction along its rows, k16 step kk: 32 bytes) or
+// as an MN-major B (the reduction down its rows, 16 rows a k16 step; N = the
+// W values of a row). The stride offset steps 8 rows.
+template <int W>
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead) {
+  static_assert(W == 64 || W == 32 || W == 16, "a chunk is 64, 32 or 16 columns");
+  constexpr uint64_t type = W == 64 ? 1 : W == 32 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lead >> 4) << 16) |
+         (static_cast<uint64_t>(16 * W >> 4) << 32) | (type << 62);
+}
+template <int W>
+__device__ __forceinline__ uint64_t desc_k(uint32_t chunk, int kk) {
+  return desc<W>(chunk + kk * 32, 16);
+}
+template <int W>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t chunk, int kk) {
+  return desc<W>(chunk + kk * 32 * W, BT * 2 * W);
 }
 
 #define OVT_F4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
@@ -111,17 +190,36 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
   }
 }
 
-// d (64 x 64 f32) += A (64 x 16 bf16, registers: mma.m16n8k16's A fragment
-// per warp) B (16 x 64, MN-major in shared memory).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : OVT_F32(0)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// d (64 x N f32) += A (64 x 16 bf16, registers: mma.m16n8k16's A fragment
+// per warp) B (16 x N, MN-major in shared memory): N is a chunk's width.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : OVT_F8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : OVT_F16(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 64, "a chunk is 16, 32 or 64 wide");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : OVT_F32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
 }
 
 #undef OVT_F32
@@ -130,11 +228,18 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 #undef OVT_F4
 
 // Starts x (64 x N) = A . B^T over the head dim as one wgmma group, A and B
-// K-major tiles.
-template <int N>
-__device__ __forceinline__ void start_ss(float (&x)[N / 2], uint32_t a, uint32_t b) {
+// 64-row tiles of HDP columns (K-major), `ra` and `rb` rows into them.
+template <int HDP, int N>
+__device__ __forceinline__ void start_ss(float (&x)[N / 2], uint32_t a, uint32_t b, int ra = 0,
+                                         int rb = 0) {
+  using H = Hd<HDP>;
+  for_chunks<HDP>([&](auto cc) {
+    constexpr int c = decltype(cc)::value, W = H::width(c);
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) wgmma_ss<N>(x, desc_k(a, kk), desc_k(b, kk), kk);
+    for (int kk = 0; kk < W / 16; ++kk)
+      wgmma_ss<N>(x, desc_k<W>(a + H::off(c, ra), kk), desc_k<W>(b + H::off(c, rb), kk),
+                  c > 0 || kk > 0);
+  });
   hp::wgmma_commit();
 }
 
@@ -167,65 +272,129 @@ __device__ __forceinline__ void fence_frag(uint32_t (&f)[K][4]) {
     for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f[kk][i]) :: "memory");
 }
 
-// Starts acc (64 x 64) += X . T for the first K k16 steps of X, X given as
-// its A fragments, T the streamed tile's rows (MN-major): the reduction runs
-// over X's columns rounded up to k16.
-template <int K, int KF>
-__device__ __forceinline__ void start_rs(float (&acc)[32], const uint32_t (&f)[KF][4],
-                                         uint32_t tile) {
+// Starts acc (64 x HDP) += X . T for the first K k16 steps of X, X given as
+// its A fragments, T a streamed tile of HDP columns (MN-major), `rt` rows
+// into it: the reduction runs over X's columns rounded up to k16, one
+// product a chunk of T and a step.
+template <int HDP, int K, int KF>
+__device__ __forceinline__ void start_rs(float (&acc)[HDP / 2], const uint32_t (&f)[KF][4],
+                                         uint32_t tile, int rt = 0) {
   static_assert(K <= KF, "more k16 steps than fragments");
+  using H = Hd<HDP>;
   hp::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < K; ++kk) wgmma_rs(acc, f[kk], desc_mn(tile, kk));
+  for (int kk = 0; kk < K; ++kk)
+    for_chunks<HDP>([&](auto cc) {
+      constexpr int c = decltype(cc)::value, W = H::width(c);
+      wgmma_rs<W>(acc + H::col(c) / 2, f[kk], desc_mn<W>(tile + H::off(c, rt), kk));
+    });
   hp::wgmma_commit();
 }
 
-// Writes the warpgroup's 64 x 64 f32 fragment as bf16 rows r0.. (those
-// below `rows`), row r0 + 16 w + lane / 4 times sa and the row 8 below it
-// times sb, 16 bytes a lane: each row's four lanes swap their column pairs
-// (hopper.cuh's transpose_quad) so that a lane holds 8 columns.
-__device__ __forceinline__ void store_tile(bf16* base, long long stride, int r0, int rows,
-                                           const float (&acc)[32], int warp, int lane,
+// Writes the warpgroup's 64 x HDP f32 fragment as bf16 rows r0.. (those
+// below `rows`), columns below hd, row r0 + 16 w + lane / 4 times sa and
+// the row 8 below it times sb. A 64- or 32-column chunk goes 16 bytes a lane
+// (each row's four lanes swap their column pairs, hopper.cuh's
+// transpose_quad, so that a lane holds 8 columns), a 16-column chunk 4
+// bytes a lane.
+template <int HDP>
+__device__ __forceinline__ void store_tile(bf16* base, long long stride, int r0, int rows, int hd,
+                                           const float (&acc)[HDP / 2], int warp, int lane,
                                            float sa = 1.f, float sb = 1.f) {
+  using H = Hd<HDP>;
   const int t4 = lane & 3;
   const int ra = r0 + warp * 16 + (lane >> 2), rb = ra + 8;
+  for_chunks<HDP>([&](auto cc) {
+    constexpr int c = decltype(cc)::value, W = H::width(c);
+    const float* d = acc + H::col(c) / 2;
+    if constexpr (W >= 32) {
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint32_t wa[4], wb[4];
+      for (int half = 0; half < W / 32; ++half) {
+        uint32_t wa[4], wb[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = 4 * half + c;
-      wa[c] = ovt::pack_bf16x2(acc[4 * j] * sa, acc[4 * j + 1] * sa);
-      wb[c] = ovt::pack_bf16x2(acc[4 * j + 2] * sb, acc[4 * j + 3] * sb);
+        for (int q = 0; q < 4; ++q) {
+          const int j = 4 * half + q;
+          wa[q] = ovt::pack_bf16x2(d[4 * j] * sa, d[4 * j + 1] * sa);
+          wb[q] = ovt::pack_bf16x2(d[4 * j + 2] * sb, d[4 * j + 3] * sb);
+        }
+        hp::transpose_quad(wa, t4);
+        hp::transpose_quad(wb, t4);
+        const int col = H::col(c) + 8 * (4 * half + t4);
+        if (col < hd) {
+          if (ra < rows)
+            *reinterpret_cast<uint4*>(base + (ra * stride + col)) = make_uint4(wa[0], wa[1], wa[2], wa[3]);
+          if (rb < rows)
+            *reinterpret_cast<uint4*>(base + (rb * stride + col)) = make_uint4(wb[0], wb[1], wb[2], wb[3]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = H::col(c) + 8 * j;
+        if (col < hd) {
+          if (ra < rows)
+            *reinterpret_cast<uint32_t*>(base + (ra * stride + col + 2 * t4)) =
+                ovt::pack_bf16x2(d[4 * j] * sa, d[4 * j + 1] * sa);
+          if (rb < rows)
+            *reinterpret_cast<uint32_t*>(base + (rb * stride + col + 2 * t4)) =
+                ovt::pack_bf16x2(d[4 * j + 2] * sb, d[4 * j + 3] * sb);
+        }
+      }
     }
-    hp::transpose_quad(wa, t4);
-    hp::transpose_quad(wb, t4);
-    const int col = 8 * (4 * half + t4);
-    if (ra < rows)
-      *reinterpret_cast<uint4*>(base + (ra * stride + col)) = make_uint4(wa[0], wa[1], wa[2], wa[3]);
-    if (rb < rows)
-      *reinterpret_cast<uint4*>(base + (rb * stride + col)) = make_uint4(wb[0], wb[1], wb[2], wb[3]);
-  }
+  });
 }
 
-// The (64, heads, rows, batch) tensor map of a (batch, rows, heads, 64) bf16
-// operand at element strides `st`, read in 64-row boxes of one head. A
-// dimension of size 1 takes a stride that TMA accepts (its own is never
-// used). False if cuTensorMapEncodeTiled refuses the view.
-inline bool head_map(CUtensorMap* map, const void* ptr, const Strides& st, int heads, int rows,
-                     int batch) {
+// The 16-byte unit u of row r of a chunk W columns wide, as the swizzle
+// (address bits 7.. XOR'd into bits 4..) places it: a byte offset in the
+// chunk.
+template <int W>
+__device__ __forceinline__ int swizzled(int r, int u) {
+  return r * 2 * W + ((u ^ ((r * 2 * W >> 7) & (W / 8 - 1))) << 4);
+}
+
+// The tensor maps of a (batch, rows, heads, hd) bf16 operand at element
+// strides `st`, one a chunk of Hd<HDP>: the (hd, heads, rows, batch) view
+// read in (width, 1, 64, 1) boxes, swizzled by the chunk's row. A dimension
+// of size 1 takes a stride that TMA accepts (its own is never used). False
+// if cuTensorMapEncodeTiled refuses the view.
+template <int HDP>
+inline bool head_maps(OpMaps<HDP>* maps, const void* ptr, const Strides& st, int hd, int heads,
+                      int rows, int batch) {
+  using H = Hd<HDP>;
   const hp::EncodeTiledFn fn = hp::encode_tiled();
   if (fn == nullptr || !hp::bind_context()) return false;
   const cuuint64_t row = static_cast<cuuint64_t>(st.l) * 2;
-  const cuuint64_t dims[4] = {HD, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {heads > 1 ? static_cast<cuuint64_t>(st.h) * 2 : HD * 2, row,
-                                 batch > 1 ? static_cast<cuuint64_t>(st.b) * 2 : row * rows};
-  const cuuint32_t box[4] = {HD, 1, BT, 1};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {heads > 1 ? static_cast<cuuint64_t>(st.h) * 2
+                                           : static_cast<cuuint64_t>(hd) * 2,
+                                 row, batch > 1 ? static_cast<cuuint64_t>(st.b) * 2 : row * rows};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  for (int c = 0; c < H::kChunks; ++c) {
+    const int w = H::width(c);
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), 1, BT, 1};
+    const CUtensorMapSwizzle sw = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+    if (fn(&maps->m[c], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+           box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+  }
+  return true;
+}
+
+// Whether the kernels take head_dim hd: a multiple of 8 from 16 to 128.
+inline bool head_dim_ok(int hd) { return hd % 8 == 0 && hd >= 16 && hd <= 128; }
+
+// Calls f(std::integral_constant<int, HDP>) for the padded head_dim of hd
+// (hd rounded up to 16) if it is one of kHdps; cudaErrorInvalidValue else.
+template <int... kHdps, class F>
+inline int by_head_dim(int hd, F&& f) {
+  const int hdp = (hd + 15) / 16 * 16;
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  (void)((hdp == kHdps && (rc = f(std::integral_constant<int, kHdps>{}), true)) || ...);
+  return rc;
 }
 
 }  // namespace attn

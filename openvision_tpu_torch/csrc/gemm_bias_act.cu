@@ -25,7 +25,12 @@
 // the H100. GELU and the residual are template flags: a runtime branch in
 // the unrolled epilogue would cut it into one basic block per element pair.
 // Ragged M, N and K: TMA's zero fill and masked stores; N and K must be
-// multiples of 8.
+// multiples of 8. The backward chains' QKV recompute scales its first nq
+// columns (q) by the softmax scale in the epilogue, as the Pallas backward
+// kernels scale q after the bias: bf16((acc + b) * s) (_block_bwd_kernel,
+// _qkv_bwd_kernel), or with `qround` bf16(bf16(acc + b) * s)
+// (_mhsa_t_bwd_kernel rounds the projection first); a third flag, so the
+// other instantiations carry none of it.
 #include "hopper.cuh"
 
 namespace {
@@ -33,12 +38,14 @@ namespace {
 using ovt::bf16;
 namespace hp = ovt::hopper;
 
-template <bool kGelu, bool kResidual>
+template <bool kGelu, bool kResidual, bool kScaleQ = false>
 struct BiasActEpilogue {
   const float* bias;
   const bf16* residual;
   bf16* out;
   int m, n;
+  float qscale;  // kScaleQ: the factor of columns below nq
+  int nq, qround;
 
   __device__ __forceinline__ void operator()(float (&acc)[64], const hp::TileCtx& t) const {
     const int q = t.lane & 3;
@@ -75,6 +82,15 @@ struct BiasActEpilogue {
         for (int c = 0; c < 4; ++c) {
           float v0 = acc[16 * g + 4 * c + 2 * h] + b[4 * g + c].x;
           float v1 = acc[16 * g + 4 * c + 2 * h + 1] + b[4 * g + c].y;
+          if constexpr (kScaleQ) {  // rounding first leaves the other columns as they were
+            const float sc = t.nt * hp::BN + 8 * (4 * g + c) < nq ? qscale : 1.f;
+            if (qround) {
+              v0 = __bfloat162float(__float2bfloat16(v0));
+              v1 = __bfloat162float(__float2bfloat16(v1));
+            }
+            v0 *= sc;
+            v1 *= sc;
+          }
           if constexpr (kGelu) {
             v0 = ovt::gelu_tanh(v0);
             v1 = ovt::gelu_tanh(v1);
@@ -102,12 +118,13 @@ struct BiasActEpilogue {
   }
 };
 
-template <bool kGelu, bool kResidual>
+template <bool kGelu, bool kResidual, bool kScaleQ = false>
 int launch_bias_act(const hp::Maps& maps, const void* bias, const void* residual, void* c, int m,
-                    int n, int k, cudaStream_t stream) {
-  const BiasActEpilogue<kGelu, kResidual> epi{static_cast<const float*>(bias),
-                                              static_cast<const bf16*>(residual),
-                                              static_cast<bf16*>(c), m, n};
+                    int n, int k, cudaStream_t stream, float qscale = 1.f, int nq = 0,
+                    int qround = 0) {
+  const BiasActEpilogue<kGelu, kResidual, kScaleQ> epi{
+      static_cast<const float*>(bias), static_cast<const bf16*>(residual), static_cast<bf16*>(c),
+      m, n, qscale, nq, qround};
   // GELU's epilogue outlasts the next tile's products: both warpgroups
   // share it (cooperative) rather than overlap it with them (pingpong)
   return hp::launch<hp::Bf16Cfg, 1, !kGelu, false, false, false, false>(
@@ -118,11 +135,15 @@ int launch_bias_act(const hp::Maps& maps, const void* bias, const void* residual
 
 // a: (m, k) bf16; w: (n, k) bf16; bias: (n,) f32 or null; residual: (m, n)
 // bf16 or null; c: (m, n) bf16. All contiguous and 16-byte aligned; n % 8 ==
-// 0 and k % 8 == 0. Returns cudaGetLastError() after the launch, or
+// 0 and k % 8 == 0. nq > 0 (a multiple of 8; no GELU, no residual) scales
+// columns below nq by qscale after the bias, rounding to bf16 first when
+// qround. Returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue if the driver refuses an operand's tensor map.
 extern "C" int ovt_gemm_bias_act(const void* a, const void* w, const void* bias,
                                  const void* residual, void* c, int m, int n, int k, int gelu,
-                                 void* stream) {
+                                 float qscale, int nq, int qround, void* stream) {
+  if (nq > 0 && (gelu || residual != nullptr || nq % 8))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (m == 0 || n == 0) return 0;
   hp::Maps maps;
   if (!hp::operand_map(&maps.a[0], a, false, m, k) || !hp::operand_map(&maps.b[0], w, false, n, k))
@@ -130,6 +151,9 @@ extern "C" int ovt_gemm_bias_act(const void* a, const void* w, const void* bias,
   maps.a[1] = maps.a[0];
   maps.b[1] = maps.b[0];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nq > 0)
+    return launch_bias_act<false, false, true>(maps, bias, residual, c, m, n, k, st, qscale, nq,
+                                               qround);
   if (gelu)
     return residual ? launch_bias_act<true, true>(maps, bias, residual, c, m, n, k, st)
                     : launch_bias_act<true, false>(maps, bias, residual, c, m, n, k, st);

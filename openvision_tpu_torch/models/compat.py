@@ -4,9 +4,9 @@ Counterpart of ``openvision_tpu/models/compat.py``: configs written for the
 reference use ``use_flash_attn``, ``scan_attn``, ``mlp_chunck``, string
 dtypes and a ``mesh`` argument. This maps them onto the port's fields, with
 torch dtypes. ``scan_attn`` (JAX: the blockwise "scan" path) maps to
-``flash``, the port's memory-efficient attention. A key that reaches an
-option the port does not have (``chunk``, ``patch_embedding``) is passed on,
-and the tower refuses it as it refuses any unknown option.
+``flash``, the port's memory-efficient attention. ``mlp_chunck`` becomes
+the towers' ``chunk`` (the ``scan_mlp`` chunk) and ``patch_embeding`` the
+ViT's ``patch_embedding``, as in JAX.
 """
 
 from __future__ import annotations

@@ -58,6 +58,7 @@ import numpy as np
 
 from openvision_tpu_torch.models.encoder import (
     Encoder, EncoderBlock, check_remat_policy, drop_seeds, remat)
+from openvision_tpu_torch.models.vit import check_param_dtype
 from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, MlpBlock, shard_seed,
                                                 sharded_head, zero_init)
 
@@ -159,9 +160,11 @@ class TextDecoder(nn.Module):
                  num_learnable_tokens: int = 80, drop_token: int = 0,
                  attn_impl: str = "xla", image_width: int = 512, text_width: int = 512,
                  remat_policy: str = "none", return_prelogits: bool = False,
-                 dropout: float = 0.0, drop_path: float = 0.0,
+                 dropout: float = 0.0, drop_path: float = 0.0, scan_mlp: bool = False,
+                 chunk: int = 128, use_dense_general: bool = False, param_dtype=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_param_dtype(param_dtype)
         self.image_projection_layer = zero_init(nn.Linear, image_width, width, bias=False)
         self.text_projection_layer = zero_init(nn.Linear, text_width, width, bias=False)
         self.learnable_tokens = nn.Parameter(torch.zeros(num_learnable_tokens, width))
@@ -169,8 +172,9 @@ class TextDecoder(nn.Module):
             self.transformer = Encoder(
                 width, depth, num_heads, mlp_dim, init_style="scaled", causal=causal,
                 attn_impl=attn_impl, remat_policy=remat_policy, dropout=dropout,
-                drop_path=drop_path, dtype=dtype)
-        elif fusion_style == "cross_attn":
+                drop_path=drop_path, scan_mlp=scan_mlp, chunk=chunk,
+                use_dense_general=use_dense_general, dtype=dtype)
+        elif fusion_style == "cross_attn":  # JAX's cross stack takes no scan_mlp (:217-231)
             if depth % 2:
                 raise ValueError("cross_attn fusion needs even depth")
             self.transformer = CrossAttnStack(width, depth // 2, num_heads, mlp_dim,

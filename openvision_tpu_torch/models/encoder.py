@@ -68,9 +68,27 @@ Megatron-sharded ``MlpBlock``. ``fused_t`` under tensor > 1 runs TP
 ``fused`` blocks and logs a warning, as JAX ``models/encoder.py:564,
 593-616``.
 
+The model options (:77-99, :411-432):
+
+- ``scan_mlp`` with ``chunk``: the MLP half over sequence chunks of
+  ``chunk`` tokens, JAX's ``_blockwise_mlp`` (:371-388), which chunks only
+  when ``chunk`` divides the length and is not all of it (so a 257-token
+  tower runs whole); ``fused_t`` is not eligible under it (:581) and the
+  stack runs ``fused`` blocks, whose MLP kernels (``mlp_block``) take the
+  chunks one after the other. Each chunk's dropout draws come from the
+  block's generator in turn (the JAX scan splits its key per chunk: other
+  numbers, the same function of given draws);
+- ``decode``: the KV cache of every block's attention
+  (``attention_module.py``), sized and zeroed by :meth:`Encoder.init_cache`;
+  the fused routes and the prefix-LM mask are off under it (:113, :138,
+  :578), the cache mask takes causality's place;
+- ``use_dense_general``: the JAX attention's DenseGeneral kernels hold the
+  same numbers in another layout (``convert/openclip.py`` reshapes them);
+  as in JAX, the fused routes are off under it (:139, :577).
+
 Parameters carry OpenCLIP's names (``transformer.resblocks.N.{ln_1, attn,
-ln_2, mlp}``, and ``ls_1.gamma`` / ``ls_2.gamma`` with LayerScale). The
-scanned MLP, pipelining and the KV cache are not ported yet.
+ln_2, mlp}``, and ``ls_1.gamma`` / ``ls_2.gamma`` with LayerScale).
+Pipelining is not ported yet.
 """
 
 from __future__ import annotations
@@ -114,6 +132,16 @@ def check_remat_policy(policy: str) -> str:
     return policy
 
 
+def blockwise(fn, x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """fn over (B, L, D) x in sequence chunks of `chunk` tokens, JAX's
+    ``_blockwise_mlp`` (openvision_tpu/models/encoder.py:371-388): whole when
+    `chunk` does not divide L or is all of it."""
+    length = x.shape[1]
+    if length % chunk or length == chunk:
+        return fn(x)
+    return torch.cat([fn(c.contiguous()) for c in x.split(chunk, dim=1)], dim=1)
+
+
 def recording(module: nn.Module) -> bool:
     """Whether autograd records this call: grad enabled and a parameter needs it."""
     return torch.is_grad_enabled() and any(p.requires_grad for p in module.parameters())
@@ -136,14 +164,15 @@ class EncoderBlock(nn.Module):
                  init_style: str = "vit", causal: bool = False, attn_impl: str = "xla",
                  fast_gelu: bool = False, nomax_softmax: bool = False, dropout: float = 0.0,
                  drop_path: float = 0.0, init_values: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32):
+                 scan_mlp: bool = False, chunk: int = 128, decode: bool = False,
+                 use_dense_general: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if init_style not in _GELU_APPROX:
             raise ValueError(f"Unknown init_style: {init_style!r}")
         self.gelu_approx = _GELU_APPROX[init_style] or fast_gelu
         self.ln_1 = LayerNorm(width, dtype)
         self.attn = MultiHeadAttention(width, num_heads, attn_impl=attn_impl,
-                                       dropout_rate=dropout, dtype=dtype)
+                                       dropout_rate=dropout, dtype=dtype, decode=decode)
         self.ln_2 = LayerNorm(width, dtype)
         self.mlp = MlpBlock(width, mlp_dim, gelu_approx=self.gelu_approx, dropout=dropout,
                             dtype=dtype)
@@ -157,7 +186,14 @@ class EncoderBlock(nn.Module):
         self.causal = causal
         self.attn_impl = attn_impl
         self.nomax_softmax = nomax_softmax
+        self.scan_mlp, self.chunk = scan_mlp, int(chunk)
+        self.decode = decode
+        self.use_dense_general = use_dense_general
         self.dtype = dtype
+
+    def _mlp(self, fn, x: torch.Tensor) -> torch.Tensor:
+        """fn over x, in sequence chunks under ``scan_mlp``."""
+        return blockwise(fn, x, self.chunk) if self.scan_mlp else fn(x)
 
     def forward(self, x: torch.Tensor, fused_t: bool = False, prefix_len: int = 0,
                 drop_seed: Optional[int] = None) -> torch.Tensor:
@@ -173,24 +209,25 @@ class EncoderBlock(nn.Module):
             gen = torch.Generator(device=x.device).manual_seed(drop_seed)
             dgen = torch.Generator(device=x.device).manual_seed(shard_seed(drop_seed))
         mask, causal, native_prefix = None, self.causal, 0
-        if self.causal and prefix_len > 0:
+        if self.causal and prefix_len > 0 and not self.decode:
             if self.attn_impl in ("flash", "scan", "fused"):
                 native_prefix = prefix_len  # these kernels mask natively
             else:
                 mask = prefix_lm_mask(x.shape[0], x.shape[1], prefix_len, x.device)
                 causal = False
         # whole-sub-block fusion (:134-145): no LayerScale, no active drop-path
-        # or dropout
-        if self.attn_impl == "fused" and not self.layer_scale and gen is None:
+        # or dropout, no KV cache, no DenseGeneral params
+        if (self.attn_impl == "fused" and not self.layer_scale and gen is None
+                and not self.decode and not self.use_dense_general):
             x = self._fused_attn_subblock(x, causal, native_prefix)
             if self.gelu_approx and not recording(self) and self.mlp.tensor_parallel == 1:
-                return self._mlp_subblock_kernels(x)
-            return x + self.mlp(self.ln_2(x))
+                return self._mlp(self._mlp_subblock_kernels, x)
+            return x + self._mlp(self.mlp, self.ln_2(x))
         y = self.attn(self.ln_1(x), mask=mask, causal=causal, prefix_len=native_prefix,
                       dropout_gen=dgen)
         y = self.dropout(y, dgen)
         x = x + self.drop_path(self.ls_1(y) if self.layer_scale else y, gen)
-        y = self.dropout(self.mlp(self.ln_2(x), dgen), dgen)
+        y = self.dropout(self._mlp(lambda t: self.mlp(t, dgen), self.ln_2(x)), dgen)
         return x + self.drop_path(self.ls_2(y) if self.layer_scale else y, gen)
 
     def _fused_attn_subblock(self, x, causal: bool, prefix_len: int):
@@ -239,7 +276,9 @@ class Encoder(nn.Module):
                  init_style: str = "vit", causal: bool = False, attn_impl: str = "xla",
                  fast_gelu: bool = False, nomax_softmax: bool = False,
                  remat_policy: str = "none", dropout: float = 0.0, drop_path: float = 0.0,
-                 init_values: Optional[float] = None, dtype: torch.dtype = torch.float32):
+                 init_values: Optional[float] = None, scan_mlp: bool = False, chunk: int = 128,
+                 decode: bool = False, use_dense_general: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"Unknown attention impl: {attn_impl!r}")
@@ -251,11 +290,13 @@ class Encoder(nn.Module):
             EncoderBlock(width, num_heads, mlp_dim, init_style=init_style, causal=causal,
                          attn_impl=block_impl, fast_gelu=fast_gelu,
                          nomax_softmax=nomax_softmax, dropout=dropout, drop_path=rate,
-                         init_values=init_values, dtype=dtype)
+                         init_values=init_values, scan_mlp=scan_mlp, chunk=chunk, decode=decode,
+                         use_dense_general=use_dense_general, dtype=dtype)
             for rate in self.drop_rates)
         self.dropout = float(dropout)
         self.init_values = init_values
         self.attn_impl = attn_impl
+        self.scan_mlp, self.decode, self.use_dense_general = scan_mlp, decode, use_dense_general
         self.causal = causal
         self.gelu_approx = _GELU_APPROX[init_style] or fast_gelu
         self.dtype = dtype
@@ -263,7 +304,8 @@ class Encoder(nn.Module):
     def _fused_t_eligible(self, x: torch.Tensor, prefix_len: int, train: bool = False) -> bool:
         """The fused_t kernels take the plain CLIP-vision-encode shape:
         cls-first self-attention with no mask, tanh GELU (the in-kernel
-        activation), no LayerScale, and in training no drop-path, as
+        activation), no LayerScale, no scanned MLP, KV cache or DenseGeneral
+        params, and in training no drop-path, as
         ``openvision_tpu/models/encoder.py:556-584``; batch-sharded only (no
         tensor > 1 mesh)."""
         if self.attn_impl == "fused_t" and tensor_size() > 1:
@@ -279,8 +321,18 @@ class Encoder(nn.Module):
             and prefix_len == 0
             and self.gelu_approx
             and self.init_values is None
+            and not self.scan_mlp
+            and not self.decode
+            and not self.use_dense_general
             and not (train and (any(self.drop_rates) or self.dropout))
         )
+
+    def init_cache(self, batch: int, max_len: int) -> None:
+        """Zeroes every block's KV cache (``decode``) for `batch` sequences
+        of up to `max_len` positions; each forward call then takes the next
+        position."""
+        for block in self.resblocks:
+            block.attn.init_cache(batch, max_len)
 
     def _drop_seeds(self, train: bool, rng: Optional[torch.Generator]) -> list:
         """One seed per block with a drop-path or dropout rate > 0 (None

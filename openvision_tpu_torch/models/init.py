@@ -22,7 +22,11 @@ Per parameter (OpenCLIP names):
   N(0, w**-0.5), out and the MLP's second kernel N(0, w**-0.5 (2 depth)**-0.5),
   fc N(0, (2 w)**-0.5); the decoder's cross-attention blocks the same with
   the cross stack's depth;
-- patch conv kaiming_uniform, cls N(0, 1e-6), learned image position
+- patch conv kaiming_uniform (so the ``stem`` convs and its 1x1 conv),
+  the ``linear`` patch embed lecun_normal (flax Dense's default), the
+  ``map`` pool's probe and attention kernels xavier_uniform (the DenseGeneral
+  kernels over their flat (D, D) shape) and its MLP as a ``vit`` block's
+  (models/vit.py:65-83, :238-265), cls N(0, 1e-6), learned image position
   embedding N(0, 0.02), token embedding N(0, 0.02), text position embedding
   N(0, 0.01), image head N(0, 0.02), text head N(0, w**-0.5) (zero with
   ``head_zeroinit``), decoder projections N(0, fan_in**-0.5), queries N(0, 1),
@@ -74,6 +78,20 @@ def _fill_block(name: str, p: torch.Tensor, inits: dict, gen: torch.Generator) -
         raise KeyError(f"no initializer for block parameter {name!r}")
 
 
+def _fill_map_head(name: str, p: torch.Tensor, gen: torch.Generator) -> None:
+    """The map pool's parameters: the probe (1, 1, D) and the attention's
+    kernels xavier_uniform, the MLP and LayerNorm as a vit block's."""
+    d = p.shape[-1]
+    if name.endswith("probe"):  # fan_in 1, fan_out D
+        limit = math.sqrt(6.0 / (1 + d))
+        p.uniform_(-limit, limit, generator=gen)
+    elif name.endswith(("attn.in_proj_weight", "out_proj.weight")):  # each (D, D) kernel
+        limit = math.sqrt(6.0 / (2 * d))
+        p.uniform_(-limit, limit, generator=gen)
+    else:
+        _fill_block(name, p, _block_inits("vit", d, 0), gen)
+
+
 @torch.no_grad()
 def init_params(model: CLIPModel, seed: int) -> CLIPModel:
     """Draws every parameter of `model` in place from `seed`; returns it."""
@@ -102,9 +120,17 @@ def init_params(model: CLIPModel, seed: int) -> CLIPModel:
         elif name.endswith("bias") or name.endswith(("ln_post.weight", "ln_final.weight",
                                                        "decoder_norm.weight")):
             p.fill_(1.0 if name.endswith("weight") else 0.0)
-        elif name == "visual.conv1.weight":  # kaiming_uniform over fan_in = kh * kw * in
+        elif name.startswith("visual.map_head."):
+            _fill_map_head(name, p, gen)
+        elif name == "visual.conv1.weight" or re.fullmatch(r"visual\.stem\.\d\.weight", name):
+            # kaiming_uniform over fan_in = kh * kw * in
             limit = math.sqrt(6.0 / (p.shape[1] * p.shape[2] * p.shape[3]))
             p.uniform_(-limit, limit, generator=gen)
+        elif name == "visual.embedding.weight":  # lecun_normal: truncated, fan_in
+            std = p.shape[1] ** -0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(p, 0.0, std, -2 * std, 2 * std, generator=gen)
+        elif re.fullmatch(r"visual\.stem_norm\.\d\.weight", name):
+            p.fill_(1.0)
         elif name == "visual.class_embedding":
             p.normal_(0.0, 1e-6, generator=gen)
         elif name in ("visual.positional_embedding", "text.token_embedding.weight"):

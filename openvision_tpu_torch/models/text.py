@@ -17,7 +17,10 @@ in f32 (:100-104); pooling ``last`` and ``first`` read no ids, and
 ``argmax`` on soft tokens raises (the JAX pool would take its argmax over
 the vocab axis). In training (``train=True`` with a generator) the
 embedded tokens take the dropout (:124) and the Encoder its dropout and
-drop-path (:125-131), the draws in that order.
+drop-path (:125-131), the draws in that order. ``scan_mlp``, ``chunk`` and
+``use_dense_general`` pass to the Encoder; ``embed_cls`` is accepted and
+unused, as in JAX (kept for config compat, :83); ``param_dtype`` other
+than f32 raises.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import torch
 from torch import nn
 
 from openvision_tpu_torch.models.encoder import Encoder
+from openvision_tpu_torch.models.vit import check_param_dtype
 from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, dropout_generator,
                                                 posemb_sincos_1d, sharded_head, zero_init)
 from openvision_tpu_torch.parallel import sharded_mesh, vocab_parallel_embedding
@@ -75,8 +79,11 @@ class TextTransformer(nn.Module):
                  causal: bool = False, attn_impl: str = "xla",
                  output_tokens: bool = False, remat_policy: str = "none", dropout: float = 0.0,
                  drop_path: float = 0.0, head_zeroinit: bool = False,
+                 scan_mlp: bool = False, chunk: int = 128, embed_cls: bool = False,
+                 use_dense_general: bool = False, param_dtype=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        check_param_dtype(param_dtype)
         if posemb not in ("learn", "sincos1d"):
             raise ValueError(f"Unknown posemb type: {posemb!r}")
         self.token_embedding = zero_init(nn.Embedding, vocab_size, width)
@@ -85,7 +92,8 @@ class TextTransformer(nn.Module):
         self.transformer = Encoder(
             width, depth, num_heads, mlp_dim, init_style="scaled", causal=causal,
             attn_impl=attn_impl, remat_policy=remat_policy, dropout=dropout,
-            drop_path=drop_path, dtype=dtype)
+            drop_path=drop_path, scan_mlp=scan_mlp, chunk=chunk,
+            use_dense_general=use_dense_general, dtype=dtype)
         self.dropout = Dropout(dropout)
         self.ln_final = LayerNorm(width)  # f32 out, like flax's default dtype
         if num_classes:

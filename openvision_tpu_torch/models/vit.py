@@ -28,8 +28,19 @@ function of given draws, the same function as the JAX one on the same draws.
 :func:`resample_posemb` (:373-385) and :func:`resize_patch_kernel` (the
 patch-kernel resize of the trainer's ``load_transform``) resize as
 ``jax.image.resize(..., "bilinear")`` does: a triangle filter that
-antialiases when it shrinks (:func:`resize_bilinear_aa`). The ``map`` pool
-and the ``stem`` and ``linear`` patch embeds are not ported yet.
+antialiases when it shrinks (:func:`resize_bilinear_aa`).
+
+The model options (:192-210): ``patch_embedding`` ``stem`` (three 3x3 convs
+of 96, 192 and 384 channels at strides 1, 2, 2 with SAME padding, each
+followed by a LayerNorm and flax's default tanh GELU, then a 1x1 conv of
+``width`` channels: ``stem.N``, ``stem_norm.N`` and ``conv1``; the grid is
+the image over 4) or ``linear`` (the ``nhpwqc`` patch order into one Dense,
+``embedding``), both in f32 as flax runs them on f32 parameters;
+``post_norm`` (the image normalized by ``mean`` and ``std`` in its own
+dtype first); ``final_drop`` (dropout on the pooled row before the head,
+in training); ``pool_type="map"`` (:class:`MAPHead`); and ``scan_mlp``,
+``chunk`` and ``use_dense_general``, which pass to the Encoder.
+``param_dtype`` other than f32 is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -41,9 +52,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from openvision_tpu_torch.models.attention_module import MultiHeadAttention
 from openvision_tpu_torch.models.encoder import Encoder
-from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, dropout_generator, global_rows,
-                                                posemb_sincos_2d, sharded_head, zero_init)
+from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, MlpBlock, dropout_generator,
+                                                global_rows, posemb_sincos_2d, sharded_head,
+                                                zero_init)
 
 # Width/depth/mlp/heads per variant, Table 2 of arXiv:2106.04560.
 VARIANTS = {
@@ -73,6 +86,47 @@ def decode_variant(variant: str | None) -> dict:
     if patch is not None:
         out["patch_size"] = (int(patch), int(patch))
     return out
+
+
+PATCH_EMBEDDINGS = ("conv", "stem", "linear")
+STEM_WIDTHS, STEM_STRIDES = (96, 192, 384), (1, 2, 2)  # JAX :238-250
+
+
+def check_param_dtype(param_dtype) -> None:
+    """The towers keep f32 parameters; another param_dtype is not ported yet."""
+    if param_dtype not in (None, torch.float32, "float32"):
+        raise NotImplementedError(f"param_dtype={param_dtype!r}: the port keeps f32 parameters "
+                                  "(param_dtype other than float32 is not ported yet)")
+
+
+class MAPHead(nn.Module):
+    """Multihead attention pooling, the JAX ``MAPHead`` (:65-83): a learned
+    probe token attends over all tokens (flax ``MultiHeadDotProductAttention``,
+    XLA attention with biases), then a LayerNorm and an exact-GELU
+    ``MlpBlock`` with a residual; the probe's row. The probe is rounded to
+    the tokens' dtype (flax creates it in ``x.dtype``); the rest runs in f32,
+    flax's promotion of those tokens with f32 parameters. Names: ``probe``
+    (1, 1, D), ``attn`` (flax MultiHeadDotProductAttention_0, DenseGeneral
+    kernels reshaped), ``ln_1`` (LayerNorm_0), ``mlp`` (MlpBlock_0)."""
+
+    def __init__(self, width: int, num_heads: int, mlp_dim: Optional[int] = None):
+        super().__init__()
+        self.probe = nn.Parameter(torch.zeros(1, 1, width))
+        self.attn = MultiHeadAttention(width, num_heads)
+        self.ln_1 = LayerNorm(width)
+        self.mlp = MlpBlock(width, mlp_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        probe = self.probe.to(x.dtype).float().expand(x.shape[0], 1, -1)
+        y = self.attn(probe, x.float())
+        y = y + self.mlp(self.ln_1(y))
+        return y[:, 0]
+
+
+def _same_pad(size: int, kernel: int, stride: int) -> tuple:
+    """XLA's SAME padding of one axis: (low, high) for ceil(size / stride) outputs."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
 
 
 # (mask_ratio -> candidate window heights, widths) of the 'square' mode on a
@@ -183,26 +237,50 @@ class ViT(nn.Module):
                  remat_policy: str = "none", mask_ratio: float = 0.0,
                  mask_mode: str = "random", dropout: float = 0.0,
                  drop_path: float = 0.0, init_values: Optional[float] = None,
-                 head_zeroinit: bool = False, dtype: torch.dtype = torch.float32):
+                 head_zeroinit: bool = False, patch_embedding: str = "conv",
+                 post_norm: bool = False, mean: Sequence[float] = (0.485, 0.456, 0.406),
+                 std: Sequence[float] = (0.229, 0.224, 0.225), final_drop: float = 0.0,
+                 scan_mlp: bool = False, chunk: int = 128, use_dense_general: bool = False,
+                 param_dtype=None, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pool_type not in ("gap", "tok", "0", "avg"):
-            raise NotImplementedError(f"pool_type={pool_type!r} is not ported yet")
+        if pool_type not in ("gap", "tok", "map", "0", "avg"):
+            raise ValueError(f"Unknown pool_type: {pool_type!r}")
         if posemb not in ("learn", "sincos2d"):
             raise ValueError(f"Unknown posemb type: {posemb!r}")
         if mask_mode not in MASK_MODES:
             raise ValueError(f"Unknown mask_mode: {mask_mode!r}")
+        if patch_embedding not in PATCH_EMBEDDINGS:
+            raise ValueError(f"Unknown patch_embedding: {patch_embedding!r}")
+        check_param_dtype(param_dtype)
         p = tuple(patch_size)
-        self.conv1 = zero_init(nn.Conv2d, 3, width, p, stride=p, bias=emb_head_bias)
+        if patch_embedding == "conv":
+            self.conv1 = zero_init(nn.Conv2d, 3, width, p, stride=p, bias=emb_head_bias)
+            grid = (image_size // p[0]) * (image_size // p[1])
+        elif patch_embedding == "stem":
+            chans = (3,) + STEM_WIDTHS
+            self.stem = nn.ModuleList(zero_init(nn.Conv2d, chans[i], chans[i + 1], 3,
+                                                stride=STEM_STRIDES[i]) for i in range(3))
+            self.stem_norm = nn.ModuleList(LayerNorm(c) for c in STEM_WIDTHS)
+            self.conv1 = zero_init(nn.Conv2d, STEM_WIDTHS[-1], width, 1)  # flax "embedding"
+            side = image_size
+            for st in STEM_STRIDES:
+                side = -(-side // st)
+            grid = side * side
+        else:  # "linear"
+            self.embedding = zero_init(nn.Linear, p[0] * p[0] * 3, width)
+            grid = (image_size // p[0]) ** 2
         self.class_embedding = nn.Parameter(torch.zeros(width))
         if posemb == "learn":
-            grid = (image_size // p[0]) * (image_size // p[1])
             self.positional_embedding = nn.Parameter(torch.zeros(1 + grid, width))
         self.transformer = Encoder(
             width, depth, num_heads, mlp_dim, init_style="vit", attn_impl=attn_impl,
             fast_gelu=fast_gelu, nomax_softmax=nomax_softmax, remat_policy=remat_policy,
-            dropout=dropout, drop_path=drop_path, init_values=init_values, dtype=dtype)
+            dropout=dropout, drop_path=drop_path, init_values=init_values, scan_mlp=scan_mlp,
+            chunk=chunk, use_dense_general=use_dense_general, dtype=dtype)
         if pool_type in ("gap", "tok"):
             self.ln_post = LayerNorm(width, dtype)
+        if pool_type == "map":
+            self.map_head = MAPHead(width, num_heads, mlp_dim)
         if num_classes:
             self.proj = nn.Parameter(torch.zeros(width, num_classes))
             self.proj_bias = nn.Parameter(torch.zeros(num_classes)) if emb_head_bias else None
@@ -214,6 +292,9 @@ class ViT(nn.Module):
         self.ignore_cls = ignore_cls
         self.output_tokens = output_tokens
         self.mask_ratio, self.mask_mode = mask_ratio, mask_mode
+        self.patch_embedding, self.patch_size = patch_embedding, p
+        self.post_norm, self.mean, self.std = post_norm, tuple(mean), tuple(std)
+        self.final_drop = Dropout(final_drop)
         self.dropout = Dropout(dropout)
         self.head_zeroinit = head_zeroinit
         self.dtype = dtype
@@ -223,12 +304,12 @@ class ViT(nn.Module):
         """image: (N, H, W, 3) -> (N, num_classes) f32 (or (N, width) without a
         head); with ``output_tokens``, (pooled, tokens (N, P, width)). With
         ``train``, the dropout, token-masking and drop-path draws come from
-        `rng` (in that order)."""
-        w = self.conv1
-        x = F.conv2d(image.float().permute(0, 3, 1, 2), w.weight.float(),
-                     None if w.bias is None else w.bias.float(), stride=w.stride)
-        n, c, h, wd = x.shape
-        x = x.flatten(2).transpose(1, 2)  # (n, h*w, c), row-major patches
+        `rng` (in that order; then the final dropout's)."""
+        if self.post_norm:  # in the image's dtype (:203-205)
+            image = ((image - torch.tensor(self.mean, dtype=image.dtype, device=image.device))
+                     / torch.tensor(self.std, dtype=image.dtype, device=image.device))
+        x, h, wd = self._embed(image)
+        n, _, c = x.shape
         x = torch.cat([self.class_embedding.float().expand(n, 1, c), x], dim=1)
         if self.posemb == "learn":
             x = x + self.positional_embedding.float()
@@ -247,7 +328,9 @@ class ViT(nn.Module):
         x = self.transformer(x, train=train, rng=rng)
         patches = x if self.ignore_cls else x[:, 1:]
 
-        if self.pool_type == "gap":
+        if self.pool_type == "map":
+            pooled = self.map_head(x)
+        elif self.pool_type == "gap":
             pooled = self.ln_post(patches.mean(dim=1))
         elif self.pool_type == "avg":
             pooled = patches.mean(dim=1)
@@ -257,10 +340,34 @@ class ViT(nn.Module):
             pooled = self.ln_post(x)[:, 0]
 
         if self.num_classes:
+            if train:
+                pooled = self.final_drop(pooled, dropout_generator(rng, self.final_drop.rate))
             pooled = sharded_head(pooled, self.proj, self.proj_bias, self.head_parallel)
         if self.output_tokens:
             return pooled, patches
         return pooled
+
+    def _embed(self, image: torch.Tensor):
+        """The patch embedding in f32: (tokens (n, h*w, width), h, w)."""
+        if self.patch_embedding == "linear":  # (:259-265)
+            p = self.patch_size[0]
+            n, side = image.shape[0], image.shape[2] // p
+            x = image.float().reshape(n, side, p, side, p, 3).permute(0, 1, 3, 2, 4, 5)
+            x = x.reshape(n, side * side, p * p * 3)
+            w = self.embedding
+            return F.linear(x, w.weight.float(), w.bias.float()), side, side
+        x = image.float().permute(0, 3, 1, 2)
+        if self.patch_embedding == "stem":  # (:238-258)
+            for conv, norm in zip(self.stem, self.stem_norm):
+                ph, pw = (_same_pad(s, 3, conv.stride[0]) for s in x.shape[2:])
+                x = F.conv2d(F.pad(x, (*pw, *ph)), conv.weight.float(), conv.bias.float(),
+                             stride=conv.stride)
+                x = F.gelu(norm(x.permute(0, 2, 3, 1)), approximate="tanh").permute(0, 3, 1, 2)
+        w = self.conv1
+        x = F.conv2d(x, w.weight.float(), None if w.bias is None else w.bias.float(),
+                     stride=w.stride)
+        n, c, h, wd = x.shape
+        return x.flatten(2).transpose(1, 2), h, wd  # (n, h*w, c), row-major patches
 
 
 def Model(num_classes=None, *, variant=None, **kw):

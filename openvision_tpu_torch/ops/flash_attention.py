@@ -14,7 +14,9 @@ plan (``_plan`` :294): with a single k block (Lk padded to 128 is at most
 768) q is scaled in the input dtype before q.k^T (:335-337); with several
 the f32 scores are scaled (:155). The CUDA kernel tiles keys by 64 either
 way and follows the order that plan takes for Lk; at head_dim 64 the two
-agree exactly (the scale is 2**-3).
+agree exactly (the scale is 2**-3), at 72 or 80 they differ in the last
+bits. The kernels take every head_dim that is a multiple of 8 from 16 to
+128 (``kernels.check_head_dim``).
 
 :func:`flash_attention_plain` is the f32 counterpart (o and lse).
 
@@ -31,7 +33,6 @@ the forward. On the CPU both passes run their plain versions.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -52,18 +53,13 @@ def single_k(lk: int) -> bool:
     return _ceil_to(lk, LANES) <= 768
 
 
-@functools.lru_cache(maxsize=64)
-def _cast(x: float, dtype: torch.dtype) -> float:
-    return float(torch.tensor(x, dtype=dtype))
-
-
 def _order(q, lk, sm_scale):
     """(scale, prescale) in the Pallas order: the single-k path multiplies q
     by the scale cast to q's dtype."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if single_k(lk):
-        return _cast(float(sm_scale), q.dtype), True
+        return kernels.cast_scalar(float(sm_scale), q.dtype), True
     return float(sm_scale), False
 
 
@@ -102,12 +98,12 @@ def flash_attention(q, k, v, *, causal: bool = False, prefix_len: int = 0,
                     sm_scale: float | None = None, return_lse: bool = False):
     """Flash attention over (batch, length, heads, head_dim) inputs.
 
-    q: (B, Lq, H, 64), k and v: (B, Lk, H, 64), bf16 on CUDA with unit
-    stride in head_dim (any other strides that are multiples of 8); returns
-    o (B, Lq, H, 64) bf16, and lse (B, H, Lq) f32 with ``return_lse``. On the
-    CPU the plain version runs. When autograd records (grad enabled and an
-    input requires grad) the call is differentiable through the backward
-    kernels; it then returns o only.
+    q: (B, Lq, H, hd), k and v: (B, Lk, H, hd), bf16 on CUDA with unit
+    stride in head_dim (any other strides that are multiples of 8), hd a
+    multiple of 8 from 16 to 128; returns o (B, Lq, H, hd) bf16, and lse
+    (B, H, Lq) f32 with ``return_lse``. On the CPU the plain version runs.
+    When autograd records (grad enabled and an input requires grad) the call
+    is differentiable through the backward kernels; it then returns o only.
     """
     if q.ndim != 4 or k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
         raise ValueError(
@@ -132,8 +128,7 @@ def _forward(q, k, v, *, causal: bool, prefix_len: int, sm_scale, return_lse: bo
         return (o, lse) if return_lse else o
     b, lq, h, hd = q.shape
     lk = k.shape[1]
-    if hd != 64:
-        raise ValueError(f"flash_attention: the kernel takes head_dim 64, got {hd}")
+    kernels.check_head_dim("flash_attention", hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
         kernels.check_operand(f"flash_attention {name}", t, torch.bfloat16, contiguous=False)
         if t.shape[1] * t.stride(1) + t.shape[2] * t.stride(2) >= 2**31:

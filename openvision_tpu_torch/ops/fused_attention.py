@@ -13,12 +13,13 @@ j <= max(i, prefix_len - 1)). The port composes it from the kernels of
 and keeps the numerics of ``_block_kernel`` / ``_block_fwd_impl``:
 
 - the softmax scale: the Pallas wrapper folds it into wq (rounded to the
-  compute dtype, ``(wq * sm_scale).astype(x.dtype)`` at :541) and into bq
-  in f32 (:542). The kernels take head_dim 64, where the scale is 2**-3, and
-  scaling by a power of two commutes with every rounding on the way, so the
-  kernel path leaves the weights as they are and has the attention kernel
-  scale q (rounded to the compute dtype) by it instead: the same bits, and
-  no copy of the QKV weight per call. The plain version folds, as Pallas;
+  compute dtype, ``(wq * sm_scale).astype(x.dtype)`` at :541, the bf16 wq
+  times the scale cast to bf16) and into bq in f32 (:542). Scaling by a
+  power of two (2**-3 at head_dim 64, 2**-2 at 16) commutes with every
+  rounding on the way, so there the kernel path leaves the weights as they
+  are and has the attention kernel scale q instead: the same bits, and no
+  copy of the QKV weight per call. At any other scale (head_dim 72, 80, ...)
+  it folds, as Pallas, into a copy of wq a call. The plain version folds;
 - f32 scores, the max-subtracted softmax with masked keys dropped and a row
   sum of 0 taken as 1, p rounded to the compute dtype for p.v, and
   o = (p.v) / l rounded to the compute dtype;
@@ -59,9 +60,11 @@ package's ``jax.custom_vjp`` ``_fused_block`` (:569-592): the forward saves
 x and the parameters only, and the backward computes what the Pallas
 backward ``_block_bwd_kernel`` (:698-855) computes, recomputing the forward
 from x. On the card that is a sequence of launches: layernorm, QKV
-gemm_bias_act and the flash forward (o and its logsumexp) recompute the
-forward; ``gemm_nn`` gives do = g . Wo; ``attention_bwd`` writes dq (times
-the softmax scale), dk and dv into one (B, L, 3D) dqkv buffer; ``gemm_tn``
+gemm_bias_act (q scaled after the bias in its epilogue, as Pallas scales
+it) and the flash forward at scale 1 (o and its logsumexp) recompute the
+forward; ``gemm_nn`` gives do = g . Wo; ``attention_bwd`` writes dq (its
+rounded sum times the softmax scale), dk and dv into one (B, L, 3D) dqkv
+buffer; ``gemm_tn``
 gives dWo = g^T o and dW_qkv = dqkv^T y; ``gemm_nn`` gives dy = dqkv . W_qkv
 in f32; ``layernorm_bwd`` gives dx (plus the residual g) and the LayerNorm
 grads; ``colsum`` the bias grads (ops/grad_kernels.py). As the Pallas
@@ -89,11 +92,11 @@ from openvision_tpu_torch.parallel import active_mesh, all_reduce, copy_to_tenso
 
 
 def _folded(w_qkv, b_qkv, sm_scale: float):
-    """The Pallas wrapper's fold of the softmax scale into wq (rounded to the
-    weight's dtype) and bq (f32), :157-162 (:1005-1006 for a shard's
-    (3 D/t, D) weight)."""
+    """The Pallas wrapper's fold of the softmax scale into wq (times the
+    scale cast to the weight's dtype, rounded to it) and bq (f32), :157-162
+    (:1005-1006 for a shard's (3 D/t, D) weight)."""
     d = w_qkv.shape[0] // 3
-    return (torch.cat([w_qkv[:d] * sm_scale, w_qkv[d:]]),
+    return (torch.cat([w_qkv[:d] * kernels.cast_scalar(sm_scale, w_qkv.dtype), w_qkv[d:]]),
             torch.cat([b_qkv[:d].float() * sm_scale, b_qkv[d:].float()]))
 
 
@@ -134,39 +137,69 @@ def fused_mhsa_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_
                                    prefix_len=prefix_len, eps=eps)
 
 
-def _check_scale(w_qkv, num_heads: int, sm_scale):
-    """The kernel path's softmax scale: a power of two (see the module doc)."""
-    if sm_scale is None:
-        sm_scale = _head_dim(w_qkv, num_heads) ** -0.5
-    if math.frexp(sm_scale)[0] != 0.5:
-        raise ValueError(f"fused_mhsa_block: the kernel path takes a power-of-two softmax "
-                         f"scale, got {sm_scale}")
-    return sm_scale
+def _qkv_scaled(y, w_qkv, b_qkv, num_heads: int, sm_scale, causal: bool, prefix_len: int):
+    """The forward's QKV projection and attention with the softmax scale as
+    the Pallas kernels fold it (see the module doc): a power of two scales q
+    in the attention kernel, any other is folded into a copy of wq and bq."""
+    sm_scale = _scale(w_qkv, num_heads, sm_scale)
+    if math.frexp(sm_scale)[0] == 0.5:
+        w, b, scale = w_qkv, b_qkv, sm_scale
+    else:
+        (w, b), scale = _folded(w_qkv, b_qkv, sm_scale), 1.0
+    qkv = fe.gemm_bias_act(y, w, b)
+    return fe.attention(qkv, num_heads, causal=causal, prefix_len=prefix_len if causal else 0,
+                        scale=scale)
+
+
+def _scale(w_qkv, num_heads: int, sm_scale):
+    return _head_dim(w_qkv, num_heads) ** -0.5 if sm_scale is None else float(sm_scale)
+
+
+def _recompute_qkv(y, w_qkv, b_qkv, sm_scale: float, mhsa_t: bool):
+    """The backward recompute's QKV with q scaled as the Pallas backwards
+    scale it after the bias: in f32 (``_block_bwd_kernel`` :742,
+    ``_qkv_bwd_kernel`` :248), or on the rounded projection by the scale
+    cast to bf16 (``_mhsa_t_bwd_kernel``, fused_encoder.py:278)."""
+    d = w_qkv.shape[0] // 3
+    if mhsa_t:
+        scale_bf16 = kernels.cast_scalar(sm_scale, torch.bfloat16)
+        return fe.gemm_bias_act(y, w_qkv, b_qkv, q_scale=scale_bf16, q_cols=d, q_round=True)
+    return fe.gemm_bias_act(y, w_qkv, b_qkv, q_scale=sm_scale, q_cols=d)
+
+
+def _dq_factor(sm_scale: float, mhsa_t: bool) -> dict:
+    """dq's scale in the Pallas backwards: on the f32 sum (``_mhsa_t_bwd_kernel``
+    :356) or on its bf16 rounding, by the scale cast to bf16
+    (``_block_bwd_kernel`` :802, ``_qkv_bwd_kernel`` :295)."""
+    if mhsa_t:
+        return dict(dq_scale=sm_scale)
+    return dict(dq_scale=kernels.cast_scalar(sm_scale, torch.bfloat16), dq_round=True)
 
 
 def _forward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads, sm_scale, causal,
                      prefix_len, eps, partial=False):
     """``_block_kernel`` as 4 launches: layernorm, QKV, attention (masked, q
-    scaled by `sm_scale`), out-proj + residual; ``partial`` (a shard's
-    weights, b_o None) ends in the out-proj alone, ``_block_partial_kernel``."""
-    sm_scale = _check_scale(w_qkv, num_heads, sm_scale)
+    scaled by `sm_scale` or the scale folded), out-proj + residual;
+    ``partial`` (a shard's weights, b_o None) ends in the out-proj alone,
+    ``_block_partial_kernel``."""
     y = fe.layernorm(x, ln_w, ln_b, eps)
-    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
-    o = fe.attention(qkv, num_heads, causal=causal, prefix_len=prefix_len if causal else 0,
-                     scale=sm_scale)
+    o = _qkv_scaled(y, w_qkv, b_qkv, num_heads, sm_scale, causal, prefix_len)
     return fe.gemm_bias_act(o, w_o, b_o, residual=None if partial else x)
 
 
 def _backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads, sm_scale, causal,
-                      prefix_len, eps, nomax=False, bias_sum_per_image=True, partial=False):
-    """The backward on the card (see the module doc): 12 launches. It also
-    serves ``_mhsa_t_bwd_kernel`` (``fused_encoder.mhsa_block``'s backward):
-    ``nomax`` recomputes the probabilities as exp(min(s, 80)) / l, and the
-    QKV bias gradient is then summed in f32 over every row
-    (``bias_sum_per_image=False``); and ``_block_partial_bwd_kernel`` with
-    ``partial`` (a shard's rectangular weights): the LayerNorm backward
-    adds no g and no db_o is summed, 11 launches."""
-    sm_scale = _check_scale(w_qkv, num_heads, sm_scale)
+                      prefix_len, eps, nomax=False, mhsa_t=False, partial=False):
+    """The backward on the card (see the module doc): 12 launches. The QKV
+    recompute scales q (:func:`_recompute_qkv`), so the flash forward and
+    ``attention_bwd`` run at scale 1 and dq takes the scale at its store. It
+    also serves ``_mhsa_t_bwd_kernel`` (``fused_encoder.mhsa_block``'s
+    backward, ``mhsa_t``: its orders of scaling q and dq, ``nomax``
+    recomputes the probabilities as exp(min(s, 80)) / l, and the QKV bias
+    gradient is summed in f32 over every row); and
+    ``_block_partial_bwd_kernel`` with ``partial`` (a shard's rectangular
+    weights): the LayerNorm backward adds no g and no db_o is summed, 11
+    launches."""
+    sm_scale = _scale(w_qkv, num_heads, sm_scale)
     b, l, _ = x.shape
     d = w_qkv.shape[0] // 3
     hd = d // num_heads
@@ -174,22 +207,23 @@ def _backward_kernels(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads, sm
     if w_qkv.dtype != torch.bfloat16 or w_o.dtype != torch.bfloat16:
         raise TypeError("fused_mhsa_block backward: the kernels take bf16 weights")
     y = fe.layernorm(x, ln_w, ln_b, eps)
-    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)  # q unscaled: the kernels scale s
+    qkv = _recompute_qkv(y, w_qkv, b_qkv, sm_scale, mhsa_t)
     heads = [qkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3)]
-    o, lse = fl._forward(*heads, causal=causal, prefix_len=prefix, sm_scale=sm_scale,
+    o, lse = fl._forward(*heads, causal=causal, prefix_len=prefix, sm_scale=1.0,
                          return_lse=True, nomax=nomax)
     do = gk.gemm_nn(g, w_o)
     dqkv = torch.empty(b, l, 3 * d, dtype=torch.bfloat16, device=x.device)
     dq, dk, dv = (dqkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3))
-    gk.attention_bwd(*heads, o, lse, do.view(b, l, num_heads, hd), scale=sm_scale,
-                     causal=causal, prefix_len=prefix, nomax=nomax, dq=dq, dk=dk, dv=dv)
+    gk.attention_bwd(*heads, o, lse, do.view(b, l, num_heads, hd), scale=1.0,
+                     causal=causal, prefix_len=prefix, nomax=nomax, dq=dq, dk=dk, dv=dv,
+                     **_dq_factor(sm_scale, mhsa_t))
     o = o.reshape(b, l, d)
     dw_o = gk.gemm_tn(g, o)
     dw_qkv = gk.gemm_tn(dqkv, y)
     dy = gk.gemm_nn(dqkv, w_qkv, torch.float32)
     dx, dvec = gk.layernorm_bwd(x, ln_w, dy, None if partial else g, eps=eps)
     # per-image sums (rounded to bf16 for #10 and #12), then their f32 sum
-    db_qkv = gk.colsum(dqkv, seg_len=l, round_bf16=bias_sum_per_image)
+    db_qkv = gk.colsum(dqkv, seg_len=l, round_bf16=not mhsa_t)
     if partial:
         return dx, dvec[0], dvec[1], dw_qkv, db_qkv, dw_o
     db_o = gk.colsum(g, seg_len=l)
@@ -228,7 +262,7 @@ def fused_mhsa_block(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, *, num_heads: int,
     """``_block_kernel`` as 4 launches: layernorm, QKV, attention (masked,
     q scaled by `sm_scale`), out-proj + residual. x: (B, L, D) bf16 on CUDA;
     on the CPU the plain version runs. A scale that is not a power of two
-    raises on CUDA: only a power of two gives the folded weights' bits. When
+    is folded into a copy of the q weights, as Pallas folds it. When
     autograd records (grad enabled and an input requires grad) the call is
     differentiable through the backward of ``_block_bwd_kernel``."""
     kw = dict(num_heads=num_heads, sm_scale=sm_scale, causal=causal, prefix_len=prefix_len,
@@ -287,7 +321,8 @@ def fused_qkv_attention_bwd_plain(y, w_qkv, b_qkv, g, *, num_heads: int,
     q = heads(r(qkv[..., :d] * scale))
     k, v = heads(r(qkv[..., d:2 * d])), heads(r(qkv[..., 2 * d:]))
     _, dq, dk, dv = fe.attention_grads_plain(q, k, v, heads(g.to(cdt)), scale=scale,
-                                             causal=causal, prefix_len=prefix_len)
+                                             causal=causal, prefix_len=prefix_len,
+                                             dq_round=True)
     dqkv = torch.cat([t.reshape(b, l, d) for t in (dq, dk, dv)], dim=-1)
     dy = (dqkv @ w_qkv.float()).to(cdt)
     dw_qkv = (dqkv.reshape(-1, 3 * d).t() @ yf.reshape(-1, y.shape[-1])).to(w_qkv.dtype)
@@ -296,12 +331,10 @@ def fused_qkv_attention_bwd_plain(y, w_qkv, b_qkv, g, *, num_heads: int,
 
 def _qkv_forward_kernels(y, w_qkv, b_qkv, *, num_heads, sm_scale, causal, prefix_len):
     """``_kernel`` as 2 launches: the QKV gemm_bias_act and the attention
-    kernel (masked, q scaled by the power-of-two `sm_scale`: the bits of the
-    folded weights, as the module doc argues)."""
-    sm_scale = _check_scale(w_qkv, num_heads, sm_scale)
-    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
-    return fe.attention(qkv, num_heads, causal=causal, prefix_len=prefix_len if causal else 0,
-                        scale=sm_scale)
+    kernel (masked; a power-of-two `sm_scale` scales q in the kernel, the
+    bits of the folded weights, as the module doc argues; any other is
+    folded)."""
+    return _qkv_scaled(y, w_qkv, b_qkv, num_heads, sm_scale, causal, prefix_len)
 
 
 def _qkv_backward_kernels(y, w_qkv, b_qkv, g, *, num_heads, sm_scale, causal, prefix_len):
@@ -310,21 +343,22 @@ def _qkv_backward_kernels(y, w_qkv, b_qkv, g, *, num_heads, sm_scale, causal, pr
     ``attention_bwd`` writes dq (times the scale), dk and dv into one dqkv
     buffer; ``gemm_tn`` gives dW_qkv = dqkv^T y, ``gemm_nn`` dy = dqkv . W_qkv
     in y's dtype, ``colsum`` each image's bias sums, rounded, then f32."""
-    sm_scale = _check_scale(w_qkv, num_heads, sm_scale)
+    sm_scale = _scale(w_qkv, num_heads, sm_scale)
     b, l, _ = y.shape
     d = w_qkv.shape[0] // 3
     hd = d // num_heads
     prefix = prefix_len if causal else 0
     if w_qkv.dtype != torch.bfloat16:
         raise TypeError("fused_qkv_attention backward: the kernels take bf16 weights")
-    qkv = fe.gemm_bias_act(y, w_qkv, b_qkv)
+    qkv = _recompute_qkv(y, w_qkv, b_qkv, sm_scale, False)
     heads = [qkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3)]
-    o, lse = fl._forward(*heads, causal=causal, prefix_len=prefix, sm_scale=sm_scale,
+    o, lse = fl._forward(*heads, causal=causal, prefix_len=prefix, sm_scale=1.0,
                          return_lse=True)
     dqkv = torch.empty(b, l, 3 * d, dtype=torch.bfloat16, device=y.device)
     dq, dk, dv = (dqkv[..., i * d:(i + 1) * d].view(b, l, num_heads, hd) for i in range(3))
-    gk.attention_bwd(*heads, o, lse, g.view(b, l, num_heads, hd), scale=sm_scale,
-                     causal=causal, prefix_len=prefix, dq=dq, dk=dk, dv=dv)
+    gk.attention_bwd(*heads, o, lse, g.view(b, l, num_heads, hd), scale=1.0,
+                     causal=causal, prefix_len=prefix, dq=dq, dk=dk, dv=dv,
+                     **_dq_factor(sm_scale, False))
     dw_qkv = gk.gemm_tn(dqkv, y)
     dy = gk.gemm_nn(dqkv, w_qkv)
     return dy, dw_qkv, gk.colsum(dqkv, seg_len=l, round_bf16=True)
@@ -363,8 +397,8 @@ def fused_qkv_attention(y, w_qkv, b_qkv, *, num_heads: int, sm_scale: float | No
     causal, prefix-LM (key j visible to query i iff j <= max(i, prefix - 1)).
     On CUDA (bf16) 2 launches; on the CPU the plain version. When autograd
     records, the call is differentiable through the backward of
-    ``_qkv_bwd_kernel`` (:215). A scale that is not a power of two raises on
-    CUDA, as for :func:`fused_mhsa_block`."""
+    ``_qkv_bwd_kernel`` (:215). A scale that is not a power of two is
+    folded, as for :func:`fused_mhsa_block`."""
     kw = dict(num_heads=num_heads, sm_scale=sm_scale, causal=causal, prefix_len=prefix_len)
     args = (y, w_qkv, b_qkv)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):

@@ -110,34 +110,47 @@ def layernorm(x, weight, bias, eps: float):
 # ---------------------------------------------------------------------------
 
 
-def linear_plain(x, weight, bias=None, *, gelu: bool = False, residual=None):
+def linear_plain(x, weight, bias=None, *, gelu: bool = False, residual=None,
+                 q_scale: float = 1.0, q_cols: int = 0, q_round: bool = False):
     """``x . weight^T + bias`` in f32 math, optional tanh-GELU, rounded to
     x.dtype, then optional ``+ residual`` rounded again (the Pallas kernels
-    add the residual to the rounded projection)."""
+    add the residual to the rounded projection). The first ``q_cols``
+    columns are multiplied by ``q_scale`` after the bias (rounded to x.dtype
+    first with ``q_round``), as the Pallas backwards scale q."""
     h = x.float() @ weight.float().t()
     if bias is not None:
         h = h + bias.float()
+    if q_cols:
+        hq = h[..., :q_cols].to(x.dtype).float() if q_round else h[..., :q_cols]
+        h = torch.cat([hq * q_scale, h[..., q_cols:]], dim=-1)
     y = (_gelu_tanh(h) if gelu else h).to(x.dtype)
     if residual is not None:
         y = (y.float() + residual.float()).to(x.dtype)
     return y
 
 
-def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
+def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None,
+                  q_scale: float = 1.0, q_cols: int = 0, q_round: bool = False):
     """Kernel ``csrc/gemm_bias_act.cu``: the projections of both sub-blocks.
 
     x: (..., K) bf16; weight: (N, K) bf16 in torch's (out, in) layout;
-    bias: (N,) f32 or None; residual: x-shaped (..., N) bf16 or None.
+    bias: (N,) f32 or None; residual: x-shaped (..., N) bf16 or None;
+    ``q_cols`` (a multiple of 8, no GELU or residual): the backward
+    recompute's QKV with q scaled as :func:`linear_plain` scales it.
     Replaces the in-kernel products of ``_mhsa_t_kernel`` (QKV :98-101,
     out-proj :162-168) and ``_mlp_t_kernel`` (fc1 :535-542, fc2 :543-550).
     Bound by the tensor cores at ViT shapes: the warp-specialised,
     persistent TMA + wgmma mainloop of ``csrc/hopper.cuh``, epilogue fused.
     """
     if kernels.on_cpu(x, weight, bias, residual):
-        return linear_plain(x, weight, bias, gelu=gelu, residual=residual)
+        return linear_plain(x, weight, bias, gelu=gelu, residual=residual, q_scale=q_scale,
+                            q_cols=q_cols, q_round=q_round)
     n, k = weight.shape
     if n % 8 or k % 8:
         raise ValueError(f"gemm_bias_act: N and K must be multiples of 8, got N={n} K={k}")
+    if q_cols and (gelu or residual is not None or q_cols % 8 or q_cols > n):
+        raise ValueError("gemm_bias_act: q_cols takes a multiple of 8 up to N, without GELU or "
+                         "residual")
     if x.shape[-1] != k:
         raise ValueError(f"gemm_bias_act: x has K={x.shape[-1]}, weight has K={k}")
     m = x.numel() // k
@@ -152,7 +165,7 @@ def gemm_bias_act(x, weight, bias=None, *, gelu: bool = False, residual=None):
         x.data_ptr(), weight.data_ptr(),
         None if bias is None else bias.data_ptr(),
         None if residual is None else residual.data_ptr(),
-        out.data_ptr(), m, n, k, int(gelu), kernels.stream(x))
+        out.data_ptr(), m, n, k, int(gelu), q_scale, q_cols, int(q_round), kernels.stream(x))
     kernels.raise_on(rc, "gemm_bias_act")
     kernels.count("gemm_bias_act")
     return out
@@ -212,8 +225,9 @@ def attention_plain(qkv, num_heads: int, *, nomax: bool = False, causal: bool = 
                     prefix_len: int = 0, scale: float | None = None, out_dtype=None):
     """softmax(q k^T) v from a (B, L, 3D) QKV buffer -> (B, L, D).
 
-    As the Pallas kernels: q scaled (by head_dim**-0.5 unless `scale` is
-    given) and rounded to the input dtype, f32 scores, the causal or
+    As the Pallas kernels: q scaled (by head_dim**-0.5 cast to the input
+    dtype, as ``_mhsa_t_kernel`` multiplies its bf16 q by the Python scale,
+    unless `scale` is given) and rounded to the input dtype, f32 scores, the causal or
     prefix-LM mask, unnormalized probabilities rounded to the input dtype
     for p.v, then divided by their f32 row sum; ``nomax`` takes
     exp(min(s, 80)) with no max subtraction. The output comes in
@@ -222,7 +236,7 @@ def attention_plain(qkv, num_heads: int, *, nomax: bool = False, causal: bool = 
     b, l, d3 = qkv.shape
     q, k, v = _split_qkv(qkv, num_heads)
     if scale is None:
-        scale = q.shape[-1] ** -0.5
+        scale = kernels.cast_scalar(q.shape[-1] ** -0.5, qkv.dtype)
     o, _ = attend_plain(q, k, v, scale=scale, causal=causal, prefix_len=prefix_len,
                         nomax=nomax, out_dtype=out_dtype)
     return o.reshape(b, l, d3 // 3)
@@ -242,8 +256,8 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
     prefix-LM masks of ``_tvalid`` (fused_attention.py:64). One block per
     (batch, head, 64-query tile), online softmax over 64-key tiles in
     registers, keys past L and masked keys dropped, key tiles no query of the
-    block sees skipped; reads q, k, v by stride, no permutes. head_dim must
-    be 64.
+    block sees skipped; reads q, k, v by stride, no permutes. head_dim: a
+    multiple of 8 from 16 to 128.
     """
     if kernels.on_cpu(qkv):
         return attention_plain(qkv, num_heads, nomax=nomax, causal=causal,
@@ -251,9 +265,9 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
     b, l, d3 = qkv.shape
     d = d3 // 3
     hd = d // num_heads
-    if d3 % 3 or d % num_heads or hd != 64:
-        raise ValueError(
-            f"attention: the kernel takes head_dim 64, got width {d} over {num_heads} heads")
+    if d3 % 3 or d % num_heads:
+        raise ValueError(f"attention: width {d} does not split over {num_heads} heads")
+    kernels.check_head_dim("attention", hd)
     kernels.check_operand("attention qkv", qkv, torch.bfloat16)
     if l * d3 >= 2**31:
         raise ValueError("attention: one batch item must hold fewer than 2**31 elements")
@@ -264,7 +278,8 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
     out = torch.empty(b, l, d, dtype=out_dtype, device=qkv.device)
     rc = kernels.lib().ovt_attention(
         qkv.data_ptr(), out.data_ptr(), b, l, num_heads, hd,
-        hd ** -0.5 if scale is None else scale, int(nomax), int(causal),
+        kernels.cast_scalar(hd ** -0.5, qkv.dtype) if scale is None else scale, int(nomax),
+        int(causal),
         int(prefix_len) if causal else 0, int(out_dtype == torch.float32), kernels.stream(qkv))
     kernels.raise_on(rc, "attention")
     kernels.count("attention")
@@ -293,7 +308,7 @@ def mlp_block_plain(x, ln_w, ln_b, w1, b1, w2, b2, *, eps: float = 1e-6):
 
 
 def attention_grads_plain(q, k, v, do, *, scale: float, causal: bool = False,
-                          prefix_len: int = 0, nomax: bool = False):
+                          prefix_len: int = 0, nomax: bool = False, dq_round: bool = False):
     """(o, dq, dk, dv) of softmax attention over (B, L, H, hd) tensors whose
     values are those of the compute dtype, do's dtype, in the order of the
     Pallas backward kernels (``_mhsa_t_bwd_kernel``
@@ -301,8 +316,11 @@ def attention_grads_plain(q, k, v, do, *, scale: float, causal: bool = False,
     804, ``_qkv_bwd_kernel`` :270-300): q arrives scaled, f32 scores, the
     max-subtracted (or ``nomax``: exp(min(s, 80))) softmax a = p / l, its
     rounding ab for o = ab v and dv = ab^T do, ds = a (dp - rowsum(dp a))
-    rounded for dq = ds k (rounded, then times `scale`) and dk = ds^T q.
-    Every output is rounded to do's dtype and returned in f32."""
+    rounded for dq = ds k and dk = ds^T q. dq is the f32 sum times `scale`
+    (``_mhsa_t_bwd_kernel`` :356), or with ``dq_round`` the sum rounded,
+    then times the scale cast to do's dtype (``_block_bwd_kernel`` :802,
+    ``_qkv_bwd_kernel`` :295). Every output is rounded to do's dtype and
+    returned in f32."""
     dt = do.dtype
 
     def r(t):
@@ -327,7 +345,8 @@ def attention_grads_plain(q, k, v, do, *, scale: float, causal: bool = False,
     dv = r(torch.einsum("bhqk,bqhd->bkhd", ab, do))
     dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
     ds = r(a * (dp - (dp * a).sum(-1, keepdim=True)))
-    dq = r(torch.einsum("bhqk,bkhd->bqhd", ds, k)) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    dq = r(r(dq) * kernels.cast_scalar(scale, dt)) if dq_round else r(dq * scale)
     dk = r(torch.einsum("bhqk,bqhd->bkhd", ds, q))
     return o, dq, dk, dv
 
@@ -335,15 +354,18 @@ def attention_grads_plain(q, k, v, do, *, scale: float, causal: bool = False,
 def attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads: int,
                          sm_scale: float | None = None, causal: bool = False,
                          prefix_len: int = 0, eps: float = 1e-6, nomax: bool = False,
-                         bias_sum_per_image: bool = True, partial: bool = False):
+                         mhsa_t: bool = False, partial: bool = False):
     """(dx, dln_w, dln_b, dw_qkv, db_qkv, dw_o, db_o) of x + OutProj(MHA(LN(x)))
     for the output gradient g, in f32 math with the Pallas backwards'
-    roundings to x's dtype (the compute dtype): y; q (scaled after the bias),
-    k and v; do = g . Wo; then :func:`attention_grads_plain`. The QKV bias
-    gradient sums the rounded dq, dk, dv per image in the compute dtype,
-    then in f32 (``_block_bwd_kernel``, ``bias_sum_per_image``), or in f32
-    over every row (``_mhsa_t_bwd_kernel`` :388-389). dx is in x's dtype, the
-    weight grads in their weights' dtype, the rest f32.
+    roundings to x's dtype (the compute dtype): y; q scaled after the bias
+    (in f32, ``_block_bwd_kernel`` :742, or with ``mhsa_t`` the rounded
+    projection times the scale cast to the compute dtype,
+    ``_mhsa_t_bwd_kernel`` :278), k and v; do = g . Wo; then
+    :func:`attention_grads_plain` (dq's scale in the same kernel's order).
+    The QKV bias gradient sums the rounded dq, dk, dv per image in the
+    compute dtype, then in f32 (``_block_bwd_kernel``), or with ``mhsa_t``
+    in f32 over every row (``_mhsa_t_bwd_kernel`` :388-389). dx is in x's
+    dtype, the weight grads in their weights' dtype, the rest f32.
 
     The weights may be one tensor shard's (``w_qkv`` (3 D/t, D) over
     num_heads/t heads, ``w_o`` (D, D/t)). ``partial`` is the backward of
@@ -366,12 +388,16 @@ def attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads:
     y = r(xhat * ln_w.float() + ln_b.float())
     qkv = y @ w_qkv.float().t() + b_qkv.float()
     heads = lambda t: t.reshape(b, l, num_heads, hd)
-    q = heads(r(qkv[..., :d] * scale))
+    if mhsa_t:
+        q = heads(r(r(qkv[..., :d]) * kernels.cast_scalar(scale, cdt)))
+    else:
+        q = heads(r(qkv[..., :d] * scale))
     k, v = heads(r(qkv[..., d:2 * d])), heads(r(qkv[..., 2 * d:]))
     gf = g.float()
     do = heads((gf @ w_o.float()).to(cdt))
     o, dq, dk, dv = attention_grads_plain(q, k, v, do, scale=scale, causal=causal,
-                                          prefix_len=prefix_len, nomax=nomax)
+                                          prefix_len=prefix_len, nomax=nomax,
+                                          dq_round=not mhsa_t)
     o = o.reshape(b, l, d)
     dqkv = torch.cat([t.reshape(b, l, d) for t in (dq, dk, dv)], dim=-1)
 
@@ -382,7 +408,7 @@ def attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads:
     dxhat = dy * ln_w.float()
     dx = rstd * (dxhat - dxhat.mean(-1, keepdim=True)
                  - xhat * (dxhat * xhat).mean(-1, keepdim=True))
-    db_qkv = r(dqkv.sum(1)).sum(0) if bias_sum_per_image else dqkv.sum((0, 1))
+    db_qkv = dqkv.sum((0, 1)) if mhsa_t else r(dqkv.sum(1)).sum(0)
     grads = ((dx if partial else gf + dx).to(x.dtype), (dy * xhat).sum((0, 1)), dy.sum((0, 1)),
              dw_qkv, db_qkv, dw_o)
     return grads if partial else (*grads, gf.sum((0, 1)))
@@ -397,7 +423,7 @@ def mhsa_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, *, num_heads:
     f32. Under ``nomax`` the probabilities are exp(min(s, 80)) / l and the
     softmax backward is the plain one (:337-338, no derivative of the clamp)."""
     return attn_block_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_o, b_o, g, num_heads=num_heads,
-                                eps=eps, nomax=nomax, bias_sum_per_image=False)
+                                eps=eps, nomax=nomax, mhsa_t=True)
 
 
 def mlp_block_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, g, *, eps: float = 1e-6):
@@ -475,7 +501,7 @@ class _MhsaBlock(torch.autograd.Function):
             from openvision_tpu_torch.ops import fused_attention  # it imports this module
 
             grads = fused_attention._backward_kernels(
-                *saved, g, sm_scale=None, causal=False, prefix_len=0, bias_sum_per_image=False,
+                *saved, g, sm_scale=None, causal=False, prefix_len=0, mhsa_t=True,
                 **ctx.kw)
         return (*grads, None, None, None)
 

@@ -52,7 +52,8 @@ def visible_mask(lq: int, lk: int, causal: bool, prefix_len: int, device) -> tor
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
-                        prefix_len: int = 0, nomax: bool = False):
+                        prefix_len: int = 0, nomax: bool = False, dq_scale: float = 1.0,
+                        dq_round: bool = False):
     """(dq, dk, dv) of softmax(q k^T * scale) v over (B, L, H, hd) tensors,
     the arithmetic of ``csrc/attention_bwd.cu`` in f32: P = exp(s - lse)
     from the forward's logsumexp lse (B, H, Lq), taken as the kernels take
@@ -62,7 +63,9 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, scale: float, causal: bool = Fal
     ``nomax`` takes P = exp(min(s, 80) - lse), lse = log(l) of the nomax
     forward (the scaled score clamped at 80 log2 e), with the plain softmax
     backward (no derivative of the clamp), as ``_mhsa_t_bwd_kernel``
-    (openvision_tpu/ops/fused_encoder.py:337-338)."""
+    (openvision_tpu/ops/fused_encoder.py:337-338). dq's f32 sum is then
+    multiplied by ``dq_scale`` (after its rounding with ``dq_round``), the
+    fused blocks' dq (q arriving scaled and `scale` 1)."""
     dt = q.dtype
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     s2 = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * (scale * LOG2E)
@@ -74,17 +77,18 @@ def attention_bwd_plain(q, k, v, o, lse, do, *, scale: float, causal: bool = Fal
     delta = (dof * o.float()).sum(-1).transpose(1, 2)  # (B, H, Lq)
     ds = (p * (dp - delta[..., None]) * scale).to(dt).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    if dq_round:
+        dq = dq.to(dt).float()
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dt).float(), dof)
-    return dq.to(dt), dk.to(dt), dv.to(dt)
+    return (dq * dq_scale).to(dt), dk.to(dt), dv.to(dt)
 
 
 def _attention_bwd_args(q, k, v, lse, tensors):
     """Checks the operands of the two attention backward kernels; returns
     the (batch, row, head) strides of `tensors` (name, tensor, length)."""
     b, lq, h, hd = q.shape
-    if hd != 64:
-        raise ValueError(f"attention_bwd: the kernels take head_dim 64, got {hd}")
+    kernels.check_head_dim("attention_bwd", hd)
     for name, t, length in tensors:
         kernels.check_operand(f"attention_bwd {name}", t, torch.bfloat16,
                               (b, length, h, hd), contiguous=False)
@@ -100,7 +104,8 @@ def _strides(q, k, v, o, do, dq, dk, dv):
 
 
 def attention_bwd_dq(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
-                     prefix_len: int = 0, nomax: bool = False, dq=None):
+                     prefix_len: int = 0, nomax: bool = False, dq=None, dq_scale: float = 1.0,
+                     dq_round: bool = False):
     """Kernel ``attention_bwd_dq``: (dq, delta), delta = rowsum(do * o)
     (B, H, Lq) f32 for :func:`attention_bwd_dkv`. CUDA tensors only."""
     b, lq, h, hd = q.shape
@@ -113,7 +118,8 @@ def attention_bwd_dq(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
     rc = kernels.lib().ovt_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, o, do, dq, k, v), b, lq, lk, h, hd,
-        scale, int(causal), int(prefix_len) if causal else 0, int(nomax), kernels.stream(q))
+        scale, int(causal), int(prefix_len) if causal else 0, int(nomax), dq_scale,
+        int(dq_round), kernels.stream(q))
     kernels.raise_on(rc, "attention_bwd_dq")
     kernels.count("attention_bwd_dq")
     return dq, delta
@@ -143,26 +149,31 @@ def attention_bwd_dkv(q, k, v, lse, delta, do, *, scale: float, causal: bool = F
 
 
 def attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
-                  prefix_len: int = 0, nomax: bool = False, dq=None, dk=None, dv=None):
+                  prefix_len: int = 0, nomax: bool = False, dq=None, dk=None, dv=None,
+                  dq_scale: float = 1.0, dq_round: bool = False):
     """Kernels ``attention_bwd_dq`` then ``attention_bwd_dkv``.
 
-    q, o, do: (B, Lq, H, 64); k, v: (B, Lk, H, 64); bf16 with unit stride in
-    head_dim and other strides multiples of 8 (views of a QKV buffer work);
-    lse: (B, H, Lq) f32 from the forward. dq, dk and dv may be given as such
-    views (the fused block writes them into one dqkv buffer); else they are
-    allocated. ``nomax`` recomputes P as the nomax forward's (lse = log(l)).
+    q, o, do: (B, Lq, H, hd); k, v: (B, Lk, H, hd); bf16 with unit stride in
+    head_dim and other strides multiples of 8 (views of a QKV buffer work),
+    hd a multiple of 8 from 16 to 128; lse: (B, H, Lq) f32 from the
+    forward. dq, dk and dv may be given as such views (the fused block
+    writes them into one dqkv buffer); else they are allocated. ``nomax``
+    recomputes P as the nomax forward's (lse = log(l)). dq's f32 sum is
+    multiplied by ``dq_scale``, after rounding it to bf16 with ``dq_round``.
     Returns (dq, dk, dv). On the CPU the plain version runs.
     """
     if kernels.on_cpu(q, k, v, o, lse, do):
         grads = attention_bwd_plain(q, k, v, o, lse, do, scale=scale, causal=causal,
-                                    prefix_len=prefix_len, nomax=nomax)
+                                    prefix_len=prefix_len, nomax=nomax, dq_scale=dq_scale,
+                                    dq_round=dq_round)
         outs = (dq, dk, dv)
         for out, grad in zip(outs, grads):
             if out is not None:
                 out.copy_(grad)
         return tuple(grad if out is None else out for out, grad in zip(outs, grads))
     kw = dict(scale=scale, causal=causal, prefix_len=prefix_len, nomax=nomax)
-    dq, delta = attention_bwd_dq(q, k, v, o, lse, do, dq=dq, **kw)
+    dq, delta = attention_bwd_dq(q, k, v, o, lse, do, dq=dq, dq_scale=dq_scale,
+                                 dq_round=dq_round, **kw)
     dk, dv = attention_bwd_dkv(q, k, v, lse, delta, do, dk=dk, dv=dv, **kw)
     return dq, dk, dv
 

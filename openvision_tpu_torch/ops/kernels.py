@@ -26,6 +26,7 @@ and :func:`count` raises a count under a lock, so the counts stay exact.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -36,9 +37,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu", "attention_bwd.cu", "gemm_grad.cu",
-           "gemm_int8.cu")
-HEADERS = ("common.cuh", "hopper.cuh", "attention.cuh")
+SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu", "attention_wide.cu",
+           "attention_bwd.cu", "attention_bwd_wide.cu", "gemm_grad.cu", "gemm_int8.cu")
+HEADERS = ("common.cuh", "hopper.cuh", "attention.cuh", "attention_fwd.cuh", "attention_bwd.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "openvision_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -103,6 +104,22 @@ def check_operand(name: str, t, dtype, shape=None, contiguous: bool = True) -> N
             f"{name}: this wrapper has no backward kernel of its own; train through the "
             "sub-blocks (fused_encoder.mhsa_block / mlp_block, fused_attention."
             "fused_mhsa_block / fused_qkv_attention) or run under torch.inference_mode()")
+
+
+def check_head_dim(name: str, hd: int) -> None:
+    """Raises unless the attention kernels take head_dim `hd`: a multiple of 8
+    (a row of hd bf16 values must be a whole number of 16-byte units for
+    TMA) from 16 to 128."""
+    if hd % 8 or not 16 <= hd <= 128:
+        raise ValueError(f"{name}: the kernels take a head_dim that is a multiple of 8 from 16 "
+                         f"to 128, got {hd}")
+
+
+@functools.lru_cache(maxsize=64)
+def cast_scalar(x: float, dtype: torch.dtype) -> float:
+    """`x` rounded to `dtype`: JAX's weak-typed Python scalar times an array
+    of that dtype (``bf16_array * 0.1178`` multiplies by bf16(0.1178))."""
+    return float(torch.tensor(x, dtype=dtype))
 
 
 def stream(t) -> ctypes.c_void_p:
@@ -187,10 +204,10 @@ def _bind(handle: ctypes.CDLL) -> ctypes.CDLL:
     ll = ctypes.POINTER(ctypes.c_longlong)
     argtypes = {
         "ovt_layernorm": [p, p, p, p, i, i, f, p],
-        "ovt_gemm_bias_act": [p, p, p, p, p, i, i, i, i, p],
+        "ovt_gemm_bias_act": [p, p, p, p, p, i, i, i, i, f, i, i, p],
         "ovt_attention": [p, p, i, i, i, i, f, i, i, i, i, p],
         "ovt_flash_attention": [p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, i, p],
-        "ovt_attention_bwd_dq": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, p],
+        "ovt_attention_bwd_dq": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, f, i, p],
         "ovt_attention_bwd_dkv": [p, p, p, p, p, p, p, p, ll, i, i, i, i, i, f, i, i, i, p],
         "ovt_gemm_grad": [p, p, p, p, i, i, i, i, i, i, i, i, p],
         "ovt_mlp_bwd_dual": [p, p, p, p, p, p, p, p, i, i, i, p],

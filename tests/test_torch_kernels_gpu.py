@@ -193,18 +193,26 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fe.gemm_bias_act(x, torch.zeros(12, 16, device=dev, dtype=torch.bfloat16))
     with pytest.raises(TypeError, match="bfloat16"):
         fe.gemm_bias_act(x.float(), torch.zeros(8, 16, device=dev))
-    with pytest.raises(ValueError, match="head_dim 64"):
-        fe.attention(torch.zeros(1, 4, 3 * 96, device=dev, dtype=torch.bfloat16), 3)
+    for hd in (36, 136):  # not a multiple of 8, or past 128
+        with pytest.raises(ValueError, match="multiple of 8 from 16 to 128"):
+            fe.attention(torch.zeros(1, 4, 3 * 3 * hd, device=dev, dtype=torch.bfloat16), 3)
     w = torch.ones(16, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward kernel"):
         fe.layernorm(x, w, torch.zeros(16, device=dev), 1e-6)
-    d, f32 = 128, dict(device=dev)
-    with pytest.raises(ValueError, match="power-of-two"):
-        fa.fused_mhsa_block(
-            torch.zeros(1, 4, d, device=dev, dtype=torch.bfloat16), torch.ones(d, **f32),
-            torch.zeros(d, **f32), torch.zeros(3 * d, d, device=dev, dtype=torch.bfloat16),
-            torch.zeros(3 * d, **f32), torch.zeros(d, d, device=dev, dtype=torch.bfloat16),
-            torch.zeros(d, **f32), num_heads=2, sm_scale=0.1)
+
+
+@pytest.mark.gpu
+def test_fused_block_folds_a_scale_that_is_no_power_of_two(dev):
+    """A softmax scale that is not a power of two is folded into a copy of
+    wq and bq, as the Pallas wrapper folds it, and the block holds its plain
+    version, which folds the same way."""
+    g = torch.Generator().manual_seed(11)
+    x, w, _ = _block_inputs(g, dev, 2, 101, 128)
+    with torch.inference_mode():
+        got = fa.fused_mhsa_block(x, *w, num_heads=2, sm_scale=0.1)
+        ref = fa.fused_mhsa_block_plain(x.float(), w[0], w[1], w[2].float(), w[3], w[4].float(),
+                                        w[5], num_heads=2, sm_scale=0.1)
+    assert _rel_err(got.float() - x.float(), ref - x.float()) <= 2**-6
 
 
 @pytest.mark.gpu
@@ -348,8 +356,8 @@ def test_forward_attention_kernels_are_deterministic(dev):
 @pytest.mark.gpu
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 64"):
-        flash_attention(*(torch.zeros(1, 8, 2, 96, device=dev, dtype=torch.bfloat16),) * 3)
+    with pytest.raises(ValueError, match="multiple of 8 from 16 to 128"):
+        flash_attention(*(torch.zeros(1, 8, 2, 136, device=dev, dtype=torch.bfloat16),) * 3)
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q.float(), q.float(), q.float())
     with pytest.raises(ValueError, match="unit stride"):
@@ -680,9 +688,82 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gk.gemm_tn(a.float(), a.float())
     with pytest.raises(ValueError, match="whole segments"):
         gk.colsum(a, seg_len=3)
-    with pytest.raises(ValueError, match="head_dim 64"):
-        q = torch.zeros(1, 8, 2, 32, device=dev, dtype=torch.bfloat16)
-        gk.attention_bwd(q, q, q, q, torch.zeros(1, 2, 8, device=dev), q, scale=0.125)
+    with pytest.raises(ValueError, match="multiple of 8 from 16 to 128"):
+        q = torch.zeros(1, 8, 2, 36, device=dev, dtype=torch.bfloat16)
+        gk.attention_bwd(q, q, q, q, torch.zeros(1, 2, 8, device=dev), q, scale=36**-0.5)
+
+
+# The head_dims the attention kernels take beside 64: So400m's 72, H/14's
+# 80 (softmax scales that are no power of two) and the largest, 128.
+WIDE_HEAD_DIMS = (72, 80, 128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
+def test_attention_kernels_at_wide_head_dims(dev, hd):
+    """The forward kernel over the QKV buffer (max and nomax, the f32 output,
+    a prefix-LM mask), flash (single-k and multi-k) and attention_bwd at
+    head_dim `hd`, each within the bound of its plain version that phases
+    2/2b/7 use (2**-6)."""
+    g = torch.Generator().manual_seed(hd)
+    qkv = _rand(g, dev, 2, 257, 3 * 4 * hd).bfloat16()
+    with torch.inference_mode():
+        for kw in (dict(), dict(nomax=True), dict(nomax=True, out_dtype=torch.float32),
+                   dict(causal=True, prefix_len=100)):
+            got = fe.attention(qkv, 4, **kw)
+            ref = fe.attention_plain(qkv.float(), 4, **kw)
+            assert _rel_err(got, ref) <= 2**-6, kw
+        for lq, lk in ((128, 335), (64, 900)):  # single-k, multi-k
+            q = _rand(g, dev, 2, lq, 4, hd).bfloat16()
+            kv = _rand(g, dev, 2, lk, 2, 4, hd).bfloat16()
+            got = flash_attention(q, kv[:, :, 0], kv[:, :, 1])
+            ref = flash_attention_plain(q.float(), kv[:, :, 0].float(), kv[:, :, 1].float())[0]
+            assert _rel_err(got, ref) <= 2**-6, (lq, lk)
+    q, k, v, do = (_rand(g, dev, 2, 101, 4, hd).bfloat16() for _ in range(4))
+    with torch.no_grad():
+        o, lse = flash_attention(q, k, v, causal=True, prefix_len=37, return_lse=True)
+        kw = dict(scale=hd**-0.5, causal=True, prefix_len=37)
+        got = gk.attention_bwd(q, k, v, o, lse, do, **kw)
+        ref = gk.attention_bwd_plain(q.float(), k.float(), v.float(), o.float(), lse,
+                                     do.float(), **kw)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        assert _rel_err(a, r.float()) <= 2**-6, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS[:2])
+def test_fused_chains_at_wide_head_dims(dev, hd):
+    """At a scale that is no power of two: #1/#3 (mhsa_block, q * scale
+    rounded; its backward's q and dq orders), #9/#10 (fused_mhsa_block, the
+    scale folded; q scaled after the bias) and #7/#8 (fused_qkv_attention)
+    against their plain versions, forwards on out - x within 2**-6 and
+    gradients within 2**-5 (dx on dx - g)."""
+    g = torch.Generator().manual_seed(hd + 1)
+    d = 2 * hd
+    x, w, dout = _block_inputs(g, dev, 2, 257, d)
+    for fn, plain in ((fe.mhsa_block, fe.mhsa_block_plain),
+                      (fa.fused_mhsa_block, fa.fused_mhsa_block_plain)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, *w)]
+        out = fn(*leaves, num_heads=2)
+        got = torch.autograd.grad(out, leaves, dout)
+        ref_leaves = [t.float().requires_grad_(True) for t in (x, *w)]
+        ref_out = plain(*ref_leaves, num_heads=2)
+        ref = torch.autograd.grad(ref_out, ref_leaves, dout.float())
+        assert _rel_err(out.float() - x.float(), ref_out.detach() - x.float()) <= 2**-6
+        for i, (a, r) in enumerate(zip(got, ref)):
+            if i == 0:
+                a, r = a.float() - dout.float(), r - dout.float()
+            assert _rel_err(a, r) <= 2**-5, (fn.__name__, i)
+    y = x.clone().requires_grad_(True)
+    wq = w[2].clone().requires_grad_(True)
+    out = fa.fused_qkv_attention(y, wq, w[3], num_heads=2)
+    got = torch.autograd.grad(out, (y, wq), dout)
+    ref_leaves = (x.float().requires_grad_(True), w[2].float().requires_grad_(True))
+    ref_out = fa.fused_qkv_attention_plain(*ref_leaves, w[3], num_heads=2)
+    ref = torch.autograd.grad(ref_out, ref_leaves, dout.float())
+    assert _rel_err(out, ref_out.detach()) <= 2**-6
+    for name, a, r in zip(("dy", "dw_qkv"), got, ref):
+        assert _rel_err(a, r) <= 2**-5, name
 
 
 # ---------------------------------------------------------------------------
@@ -1044,7 +1125,7 @@ def test_mhsa_t_backward_kernels(dev, b, l, d, h, nomax):
     with torch.inference_mode():
         kernels.reset_launch_counts()
         got = _backward_kernels(x, *w, dout, num_heads=h, sm_scale=None, causal=False,
-                                prefix_len=0, eps=1e-6, nomax=nomax, bias_sum_per_image=False)
+                                prefix_len=0, eps=1e-6, nomax=nomax, mhsa_t=True)
         torch.cuda.synchronize()
         ref = fe.mhsa_block_bwd_plain(x, *w, dout, num_heads=h, nomax=nomax)
     assert kernels.LAUNCHES == _launches(**MHSA_T_LAUNCHES)

@@ -89,8 +89,8 @@ def test_factories_translate_reference_keys():
     assert txt.transformer.causal and txt.transformer.attn_impl == "flash"
     dec = tdecoder.Model(16, variant="Ti", use_flash_attn=True, image_width=64, text_width=192)
     assert dec.transformer.attn_impl == "flash"
-    with pytest.raises(TypeError, match="chunk"):  # no chunked MLP in the port
-        tvit.Model(8, variant="mu/16", mlp_chunck=4)
+    chunked = tvit.Model(8, variant="mu/16", mlp_chunck=4, scan_mlp=True, image_size=32)
+    assert chunked.transformer.resblocks[0].chunk == 4 and chunked.transformer.scan_mlp
 
 
 def _draw(shapes, seed: int):
