@@ -325,8 +325,9 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    checkpoint written by the script (~140 s).
 23. The recipe on a process mesh (BASELINE.json config 5 at the full
    widths: ViT-L/14 + text L + decoder L, the JAX default CoCa config
-   otherwise, learned position embeddings, bf16 on f32 masters; at a third
-   of the depth, 8 image, 4 text and 4 decoder blocks, MR_DEPTH), two ranks
+   otherwise, learned position embeddings, bf16 on f32 masters; at a sixth
+   of the depth since phases 24e and 25 came (a third before), 4 image, 2
+   text and 2 decoder blocks, MR_DEPTH), two ranks
    of a data=2 mesh on the one card over gloo (NCCL takes one card a
    process), so its times are not comparable with one process's. One
    torchrun of this script's --mesh-worker mode runs the whole phase in two
@@ -408,7 +409,9 @@ own decoder (zlib and numpy: the card's machine may lack Pillow).
 from __future__ import annotations
 
 import base64
+import functools
 import glob
+import importlib.util
 import io
 import json
 import os
@@ -665,19 +668,21 @@ def spill_gate(lib_path) -> None:
             print(f"  ptxas: {line.strip()[:200]}")
     if not int8_gemms:
         raise AssertionError("no int8 instantiation of gemm_ws_kernel in the build")
-    if len(attn_fwd) != 3 * len(HEAD_DIMS_PADDED):
+    parts = sum(1 if hdp <= 128 else 2 for hdp in HEAD_DIMS_PADDED)
+    if len(attn_fwd) != 3 * parts:
         raise AssertionError(f"expected the forward attention kernel's 3 variants at each padded "
-                             f"head_dim {HEAD_DIMS_PADDED}, found {attn_fwd}")
-    if len(attn_bwd) != 2 * len(HEAD_DIMS_PADDED):
+                             f"head_dim {HEAD_DIMS_PADDED} and column part, found {attn_fwd}")
+    if len(attn_bwd) != 2 * parts:
         raise AssertionError(f"expected the two attention backward kernels at each padded "
-                             f"head_dim {HEAD_DIMS_PADDED}, found {attn_bwd}")
+                             f"head_dim {HEAD_DIMS_PADDED} and column part, found {attn_bwd}")
     if any(spills[f] for f in gated):
         raise AssertionError(f"kernels that spill registers: {[f for f in gated if spills[f]]}")
 
 
 # The attention kernels' instantiations: head_dim (a multiple of 8 from 16
-# to 128) rounded up to 16 (csrc/attention.cuh).
-HEAD_DIMS_PADDED = (16, 32, 48, 64, 80, 96, 112, 128)
+# to 256; the wrappers pad any other) rounded up to 16, above 128 to 64, in
+# two column parts each (csrc/attention.cuh).
+HEAD_DIMS_PADDED = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1710,7 +1715,6 @@ def attention_bwd_cases(fl, gk, device, gen, b: int, which=None, hd: int = 64, s
         k, v = kv[:, :, 0], kv[:, :, 1]
         o, lse = fl.flash_attention(q, k, v, causal=causal, prefix_len=prefix, return_lse=True)
         kw = dict(scale=hd**-0.5, causal=causal, prefix_len=prefix)
-        _, delta = gk.attention_bwd_dq(q, k, v, o, lse, do, **kw)
         plain = (lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw: gk.attention_bwd_plain(
             q.float(), k.float(), v.float(), o.float(), lse, do.float(), **kw))
         qt, kt, vt = _leaves(*(t.transpose(1, 2) for t in (q, k, v)))
@@ -1721,6 +1725,15 @@ def attention_bwd_cases(fl, gk, device, gen, b: int, which=None, hd: int = 64, s
             out, leaves, g, retain_graph=True))
         pairs = b * h * visible_pairs(lq, lk, causal, prefix)
         tag = f"{label} b={b} Lq={lq} Lk={lk} H={h}" + ("" if hd == 64 else f" hd={hd}")
+        if hd % 8 or hd < 16:  # the pair's wrapper zero-pads: one case of both kernels
+            cases.append(Case(
+                "attention_bwd", f"{tag} (padded)",
+                lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw: gk.attention_bwd(
+                    q, k, v, o, lse, do, **kw),
+                plain, lib, (4 * b * lq * h * hd + 4 * b * lk * h * hd) * 2 + b * h * lq * 4,
+                5 * 2 * hd * pairs))
+            continue
+        _, delta = gk.attention_bwd_dq(q, k, v, o, lse, do, **kw)
         cases.append(Case(
             "attention_bwd_dq", tag,
             lambda q=q, k=k, v=v, o=o, lse=lse, do=do, kw=kw: (
@@ -1839,6 +1852,7 @@ def fused_block_bwd_cases(fa, device, gen, b: int, lengths=(257, 463, 128),
 
 BWD_OUTPUTS = {"fused block bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o", "db_o"),
                "attention_bwd_dq": ("dq",), "attention_bwd_dkv": ("dk", "dv"),
+               "attention_bwd": ("dq", "dk", "dv"),
                "gemm_nn": ("out",), "gemm_tn": ("dW",), "layernorm_bwd": ("dx", "dvec"),
                "colsum": ("sums",),
                "mhsa_t bwd": ("dx", "dln_w", "dln_b", "dw_qkv", "db_qkv", "dw_o", "db_o"),
@@ -2008,9 +2022,7 @@ def train_phase(device, no_pil: bool, totals: dict) -> dict:
 
     from openvision_tpu_torch.data import pipeline
     from openvision_tpu_torch.models.init import init_params
-    from openvision_tpu_torch.ops import kernels
     from openvision_tpu_torch.train import step as tstep
-    from openvision_tpu_torch.train import trainer
 
     # gradients on identical params and batch: kernels, plain bf16, plain f32
     cfg_k = train_config("concat", "fused", no_pil=no_pil)
@@ -2048,11 +2060,33 @@ def train_phase(device, no_pil: bool, totals: dict) -> dict:
                              f"{glob}")
     del runs, gk_, gp, gf, state
     torch.cuda.empty_cache()
+    return train_step_times(device, no_pil, totals, loader)
 
+
+def train_step_times(device, no_pil: bool, totals: dict, loader, check: bool = True,
+                     iters: int = 2, fused_t: bool = False) -> dict:
+    """Phase 8's timed part: 3 trainer steps each of concat/fused,
+    cross_attn/flash and plain bf16 (and phase 14's path (a), fused_t, when
+    `fused_t`; launch counts checked when `check`), then one update step's
+    ms by CUDA events over `iters` on a batch of `loader`. Returns per
+    configuration its step ms, images/s and peak GB."""
+    import torch
+
+    from openvision_tpu_torch.ops import kernels
+    from openvision_tpu_torch.train import step as tstep
+    from openvision_tpu_torch.train import trainer
+
+    plans = [(f"[{fusion} / dec_attn_impl={dec_impl}]" + (" plain bf16" if dec_impl == "xla"
+                                                           else ""),
+              train_config(fusion, dec_impl, no_pil=no_pil),
+              functools.partial(expected_train_launches, fusion, dec_impl))
+             for fusion, dec_impl in (("concat", "fused"), ("cross_attn", "flash"),
+                                      ("concat", "xla"))]
+    if fused_t:
+        plans.insert(0, ("[a: attn_impl=fused_t]", training_config("a", no_pil=no_pil),
+                         functools.partial(expected_path_launches, "a")))
     results = {}
-    for fusion, dec_impl in (("concat", "fused"), ("cross_attn", "flash"), ("concat", "xla")):
-        tag = f"[{fusion} / dec_attn_impl={dec_impl}]" + (" plain bf16" if dec_impl == "xla" else "")
-        cfg = train_config(fusion, dec_impl, no_pil=no_pil)
+    for tag, cfg, expected in plans:
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         with tempfile.TemporaryDirectory() as wd:
@@ -2062,23 +2096,23 @@ def train_phase(device, no_pil: bool, totals: dict) -> dict:
             took = time.perf_counter() - t0
             got = dict(kernels.LAUNCHES)
             rows = [json.loads(line) for line in open(os.path.join(wd, "metrics.jsonl"))]
-        want = expected_train_launches(fusion, dec_impl, TRAIN_STEPS, kernels.LAUNCHES)
+        want = expected(TRAIN_STEPS, kernels.LAUNCHES)
         losses = [r["training_loss"] for r in rows]
         print(f"{tag} trainer: {TRAIN_STEPS} steps in {took:.1f} s (build, init, data and "
               f"steps); losses {losses}; launches {got}")
-        if got != want:
+        if check and got != want:
             raise AssertionError(f"{tag}: launches {got}, expected {want}")
         if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
             raise AssertionError(f"{tag}: losses {losses}")
         for k, v in got.items():
-            totals[k] += v
+            totals[k] = totals.get(k, 0) + v
         last = rows[-1]
         print(f"{tag} trainer's last step: step_ms {last.get('step_ms')}, img/sec "
               f"{last.get('img/sec')}, host_wait_share {last.get('host_wait_share')}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         update = tstep.make_update_fn(cfg, model, opt)
         step_batch = next(loader)
-        ms = cuda_ms(lambda: update(step_batch), iters=2, warmup=1)
+        ms = cuda_ms(lambda: update(step_batch), iters=iters, warmup=1)
         prof = device_profile(lambda: update(step_batch), ms, iters=1)
         print(f"{tag} step b={TRAIN_BATCH}: {ms:.1f} ms (CUDA events)  "
               f"{TRAIN_BATCH / (ms / 1e3):.1f} images/s  peak memory {peak:.2f} GB")
@@ -4999,11 +5033,12 @@ MR_RANKS = 2  # torchrun's processes: data=2
 MR_TIMEOUT_S = 600  # the phase's torchrun launch
 MR_WORKERS = 0  # input workers a rank: phase 21 measures them; here their start-up outweighs
 # the pp of one or two steps
-# The depth, cut to a third (8 image, 4 text and 4 decoder blocks of the 24,
+# The depth, cut to a sixth (4 image, 2 text and 2 decoder blocks of the 24,
 # 12 and 12; the widths kept): at the full depth the phase took 342-360 s
 # on the card (five torchrun launches, three 6.3 GB train states written and
-# two read), which the script's 1200 s could not hold beside phases 1-22
-MR_DEPTH = {"image": 8, "text": 4, "text_decoder_config": 4}
+# two read), which the script's 1200 s could not hold beside phases 1-22; a
+# third (8/4/4) until phases 24e and 25 needed the room
+MR_DEPTH = {"image": 4, "text": 2, "text_decoder_config": 2}
 MR_IMG_BLOCKS, MR_DEC_BLOCKS = MR_DEPTH["image"], MR_DEPTH["text_decoder_config"]
 # (res, global batch, grad_accum, steps, mask_ratio)
 MR_STAGE = (160, 128, 2, 2, 0.5)  # SIGTERM to rank 1 in step 1, then the resume to step 2
@@ -5738,6 +5773,58 @@ def wide_kernel_cases(fe, fa, fl, gk, device, gen, b: int = 8):
     return fwd, bwd
 
 
+# Phase 24a's head_dims that the kernels take padded (36, 100: the wrappers
+# zero-pad to 40 and 104) or in two column parts (136 and 192: instances 192
+# and 256... 136 rounds up to 192, 192 is its own), 16 heads each
+PADDED_HEAD_DIMS = (36, 100, 136, 192)
+
+
+def padded_head_dim_cases(fe, fl, gk, device, gen, b: int = 8, head_dims=PADDED_HEAD_DIMS):
+    """Phase 24a at the head_dims the kernels took only since the padded
+    wrappers and the column parts: per head_dim the packed attention (#1,
+    #9) at L=257, nomax and the int8 block's f32 output (#5), the prefix-LM
+    mask at L=463, flash single-k (#14, 128 x 335) and multi-k (#13, 64 x
+    900), and the backward pair (#15/#16) at L=257 and the prefix-LM
+    shape, each against its plain version."""
+    def rnd(*shape):
+        return torch_randn(gen, device, *shape)
+
+    fwd, bwd = [], []
+    for hd in head_dims:
+        qkv = rnd(b, 257, 3 * 16 * hd)
+        fwd += [attention_case(fe, qkv, 16), attention_case(fe, qkv, 16, nomax=True),
+                f32_attention_case(fe, qkv, 16),
+                attention_case(fe, rnd(b, 463, 3 * 16 * hd), 16, causal=True, prefix=335)]
+        for label, lq, lk in (("single-k cross", 128, 335), ("multi-k", 64, 900)):
+            kv = rnd(b, lk, 2, 16, hd)
+            fwd.append(flash_case(fl, rnd(b, lq, 16, hd), kv[:, :, 0], kv[:, :, 1], label))
+        bwd += attention_bwd_cases(fl, gk, device, gen, b, hd=hd, shapes=[
+            ("#10 image", 257, 257, 16, False, 0), ("#10 prefix=335", 463, 463, 16, True, 335)])
+    return fwd, bwd
+
+
+def time_padded_head_dims(fe, fl, gk, device, gen, head_dims=PADDED_HEAD_DIMS) -> dict:
+    """Phase 24a's times at b=64 for 16 heads of each of PADDED_HEAD_DIMS:
+    the packed attention at L=257 (#1/#9's), flash single-k (#14, 128 x 335)
+    and multi-k (#13, 64 x 900), the backward pair at L=257 (#15/#16), each
+    by events and graph replay beside its bound, plain version and SDPA (or
+    SDPA's autograd backward)."""
+    out = {}
+    b = 64
+    for hd in head_dims:
+        cases = [attention_case(fe, torch_randn(gen, device, b, 257, 3 * 16 * hd), 16)]
+        for label, lq, lk in (("single-k cross", 128, 335), ("multi-k", 64, 900)):
+            kv = torch_randn(gen, device, b, lk, 2, 16, hd)
+            cases.append(flash_case(fl, torch_randn(gen, device, b, lq, 16, hd), kv[:, :, 0],
+                                    kv[:, :, 1], label))
+        for c in cases:
+            out[c.label] = time_case(c)
+        for c in attention_bwd_cases(fl, gk, device, gen, b, hd=hd,
+                                     shapes=[("#10 image", 257, 257, 16, False, 0)]):
+            out[f"{c.name} {c.label}"] = time_bwd_case(c)
+    return out
+
+
 def mhsa_case(fe, device, gen, b: int, l: int, d: int, heads: int) -> Case:
     """#1 composed (``mhsa_block``: layernorm, QKV, attention, out-proj +
     residual) on a (b, l, d) stream; its bound counts x, the weights and the
@@ -6051,6 +6138,120 @@ def model_options_phase(device, totals: dict) -> dict:
     return out
 
 
+# phase 24e: a tower of a custom width whose head_dim (136) the kernels take
+# in two column parts: 8 heads of 136 (width 1088, mlp 4352), patch 14 at
+# 224, depth cut to HD136_DEPTH; text tower S-wide (512, 8 heads), 2 blocks
+HD136_DEPTH = 4
+HD136_CONFIG = {
+    "model_cfg": {
+        "embed_dim": 512,
+        "vision_cfg": {"layers": HD136_DEPTH, "width": 1088, "head_width": 136,
+                       "patch_size": 14, "image_size": 224, "pool_type": "avg",
+                       "final_ln_after_pool": True, "no_ln_pre": True},
+        "text_cfg": {"layers": 2, "width": 512, "heads": 8, "context_length": 80,
+                     "vocab_size": 30522, "pool_type": "last", "no_causal_mask": True,
+                     "act_kwargs": {"approximate": "tanh"}},
+    },
+    "preprocess_cfg": {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]},
+}
+HD136_IMAGE = dict(width=1088, num_heads=8, depth=HD136_DEPTH, mlp_dim=4352, patch_size=(14, 14))
+
+
+ATTENTION_KERNELS = ("attention", "flash_attention", "attention_bwd_dq", "attention_bwd_dkv")
+
+
+def in_parts(counts: dict, hd: int) -> dict:
+    """`counts` (launches of calls) as device launches at head_dim `hd`: an
+    attention kernel's call launches once per column part above 128."""
+    from openvision_tpu_torch.ops import kernels
+
+    return {k: v * kernels.attention_parts(hd) if k in ATTENTION_KERNELS else v
+            for k, v in counts.items()}
+
+
+def hd136_phase(work: str, images, names, device, no_pil: bool, totals: dict) -> dict:
+    """Phase 24e: the head_dim 136 tower through zero-shot (a random export,
+    load_model on fused_t bf16: launch counts, zimg cosine >= 0.999 against
+    f32 xla) and one training step on fused (#9/#10 at 136, two column parts)
+    against plain bf16 at b=8 (loss within 2**-7, gradient cosine >= 0.999)."""
+    import torch
+
+    from openvision_tpu_torch.configs.openvision import get_config
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.tools import zero_shot
+    from openvision_tpu_torch.tools.model_io import load_model
+    from openvision_tpu_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    model_dir = os.path.join(work, "hd136")
+    os.makedirs(model_dir)
+    export_random_model(model_dir, HD136_CONFIG, SEED, device=device)
+    with torch.inference_mode():
+        model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t",
+                           fast_gelu=True, device=device)
+        n = len(images)
+        results, got = count_path(lambda: zero_shot.rank(model, names, images), totals)
+        want = in_parts({k: v * HD136_DEPTH * n for k, v in LAUNCHES_PER_BLOCK.items()}, 136)
+        if got != want or len(results) != n:
+            raise AssertionError(f"head_dim 136 zero-shot: launches {got}, expected {want}")
+        batch = torch.from_numpy(np.stack([model.preprocess(im) for im in images]).astype(
+            np.float32)).to(device)
+        z = model.encode_image(batch.bfloat16())
+        ref = load_model(model_dir, dtype=torch.float32, attn_impl="xla", fast_gelu=True,
+                         device=device)
+        cos = (z * ref.encode_image(batch)).sum(-1)
+    print(f"head_dim 136 tower (8 x 136, {HD136_DEPTH} blocks): zero-shot launches {got}; zimg "
+          f"cosine fused_t bf16 vs f32 xla: min {cos.min().item():.6f}")
+    if not torch.isfinite(z).all() or cos.min().item() < 0.999:
+        raise AssertionError("head_dim 136 zimg not finite or cosine below 0.999")
+    del model, ref
+
+    def config(impl):
+        c = get_config("res=224,img=B/16,txt_name=S,dtype=bfloat16"
+                       + (",attn_impl=xla" if impl == "xla" else ""))
+        c["model"]["image"].update(HD136_IMAGE)
+        c["model"]["text_decoder"], c["loss_type"] = "none", "clip"
+        c["input"]["batch_size"] = 8
+        c["input"]["data"] = {"name": "synthetic", "num_examples": 64, "res": RES}
+        if no_pil:
+            c["input"]["pp"] = c["input"]["pp"].split("|", 1)[1]
+        return c
+
+    cfg = config("fused")
+    step_batch = tstep.to_device(next(pipeline.training(cfg["input"], seed=SEED)[0]), device)
+    state = None
+    runs = {}
+    for impl in ("fused", "xla"):
+        c = config(impl)
+        m = tstep.build_model(c).to(device)
+        if state is None:
+            init_params(m, SEED)
+            state = {k: v.detach().clone() for k, v in m.state_dict().items()}
+        m.load_state_dict(state)
+
+        def grads(c=c, m=m):
+            loss, _ = tstep.make_loss_fn(c, m)(step_batch)
+            loss.backward()
+            return loss.item(), {k: p.grad.detach().float() for k, p in m.named_parameters()}
+
+        runs[impl], got = count_path(grads, totals)
+        if impl == "fused":
+            want = in_parts({k: v * HD136_DEPTH for k, v in FUSED_BLOCK_STEP.items() if v}, 136)
+            if {k: v for k, v in got.items() if v} != want:
+                raise AssertionError(f"head_dim 136 step launches {got}, expected {want}")
+        del m
+    (lk, gk_), (lp, gp) = runs["fused"], runs["xla"]
+    glob, (worst, name) = grad_cosines(gk_, gp)
+    print(f"head_dim 136 step b=8: loss fused {lk:.6f} vs plain bf16 {lp:.6f}; gradient global "
+          f"cosine {glob:.6f}, min per-tensor {worst:.6f} ({name}); phase 24e in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if abs(lk - lp) > 2**-7 * abs(lp) or glob < 0.999:
+        raise AssertionError(f"head_dim 136 step vs plain bf16: loss {lk} vs {lp}, cosine {glob}")
+    torch.cuda.empty_cache()
+    return {"zimg_cos": cos.min().item(), "loss": (lk, lp), "grad_cos": glob}
+
+
 def wide_phase(work: str, images, names, device, no_pil: bool, totals: dict,
                worst: dict) -> dict:
     """Phase 24 (a-d); prints its own time."""
@@ -6068,7 +6269,14 @@ def wide_phase(work: str, images, names, device, no_pil: bool, totals: dict,
         check_cases(fwd, worst)
         check_bwd_cases(bwd, worst)
         del fwd, bwd
+        print(f"head_dims {PADDED_HEAD_DIMS}: zero-padded (36, 100) or two column parts "
+              "(136, 192) in the kernels")
+        fwd, bwd = padded_head_dim_cases(fe, fl, gk, device, gen)
+        check_cases(fwd, worst)
+        check_bwd_cases(bwd, worst)
+        del fwd, bwd
         times = time_wide_kernels(fe, fa, fl, gk, device, gen)
+        times.update(time_padded_head_dims(fe, fl, gk, device, gen))
     torch.cuda.empty_cache()
     print(f"24a in {time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
@@ -6078,9 +6286,281 @@ def wide_phase(work: str, images, names, device, no_pil: bool, totals: dict,
     print(f"24c in {time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
         opts = model_options_phase(device, totals)
+    print(f"24d in {time.perf_counter() - t0:.1f} s")
+    hd136 = hd136_phase(work, images, names, device, no_pil, totals)
     took = time.perf_counter() - t0
     print(f"phase 24 in {took:.1f} s")
-    return {"times": times, "zero_shot": zs, "train": train, "options": opts, "phase_s": took}
+    return {"times": times, "zero_shot": zs, "train": train, "options": opts, "hd136": hd136,
+            "phase_s": took}
+
+
+# ---------------------------------------------------------------------------
+# Phase 25: the native host code, the sources and the training options
+# ---------------------------------------------------------------------------
+
+# the L/14 + text L steps of 25e-g, depth cut to these blocks (image, text);
+# CLIP loss, no decoder, batch OPT_BATCH
+OPT_DEPTH, OPT_BATCH = (12, 6), 64
+AUG_PP = "randaug(2, 10)|random_erasing()"  # 25d: inserted after the crop
+AUG_BATCH = 64
+
+
+def opt_config(remat: str = "full", impl: str = "fused", no_pil: bool = False,
+               param_dtype: str = "float32", optax_name: str | None = None) -> dict:
+    """L/14 + text L at OPT_DEPTH, bf16, CLIP loss, synthetic 224 source."""
+    from openvision_tpu_torch.configs.openvision import get_config
+
+    c = get_config(f"res=224,img=L/14,txt_name=L,dtype=bfloat16,remat={remat},"
+                   f"param_dtype={param_dtype}" + (",attn_impl=xla" if impl == "xla" else ""))
+    c["model"]["image"]["depth"], c["model"]["text"]["depth"] = OPT_DEPTH
+    c["model"]["text_decoder"], c["loss_type"] = "none", "clip"
+    c["input"]["batch_size"] = OPT_BATCH
+    c["input"]["data"] = {"name": "synthetic", "num_examples": 256, "res": RES}
+    if no_pil:  # the crop resizes with PIL; the source is already 224x224
+        c["input"]["pp"] = c["input"]["pp"].split("|", 1)[1]
+    c["total_steps"], c["schedule"][0][1]["warmup_steps"] = 10, 1
+    if optax_name is not None:
+        c["optax_name"], c["optax"] = optax_name, {"b1": 0.9, "b2": 0.99}
+    return c
+
+
+def native_phase(work: str, images, device, no_pil: bool, totals: dict) -> dict:
+    """Phase 25 (a-g); prints its own time."""
+    import torch
+
+    from openvision_tpu_torch.data import pipeline, tfrecord
+    from openvision_tpu_torch.data.arrayrecord import ArrayRecordSource
+    from openvision_tpu_torch.data.tokenizer import get_tokenizer
+    from openvision_tpu_torch.evaluators import prompts
+    from openvision_tpu_torch.models.init import init_params
+    from openvision_tpu_torch.native import build, indexer
+    from openvision_tpu_torch.train import step as tstep
+
+    t_phase = time.perf_counter()
+    out = {}
+    # 25a: the native libraries from the checkout's sources, the disclf prompts
+    for name in ("wordpiece", "indexer"):
+        t0 = time.perf_counter()
+        path = build.library(name)
+        print(f"native {name}: {path} ({time.perf_counter() - t0:.2f} s to build or find)")
+    tok = get_tokenizer(os.path.join(REPO, "assets", "bert_base_vocab_bos_eos.txt"))
+    if tok._native is None:
+        raise AssertionError("the tokenizer did not take its native path")
+    texts = [t.format(c) if "{}" in t else f"{t} {c}" for c in prompts.get_class_names()
+             for t in prompts.get_prompt_templates("clip_paper")]
+    t0 = time.perf_counter()
+    native = [tok.encode(t) for t in texts]
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = [tok._encode_py(t) for t in texts]
+    t_python = time.perf_counter() - t0
+    same = sum(a == b for a, b in zip(native, python))
+    print(f"25a WordPiece of the {len(texts)} disclf prompts: native {t_native:.3f} s, Python "
+          f"{t_python:.3f} s ({t_python / t_native:.1f}x); ids equal on {same} of {len(texts)}")
+    if same != len(texts):
+        raise AssertionError("the native WordPiece's ids differ from the Python path's")
+    out["wordpiece_s"] = {"prompts": len(texts), "native": t_native, "python": t_python}
+    # 25b: the indexers on phase 19's TFRecord shards and phase 21's tar shards
+    tfds_dir, tars = os.path.join(work, "eval_tfds"), os.path.join(work, "shards")
+    if not os.path.isdir(tfds_dir):
+        tfds_dir = write_eval_fixture(work, images)[0]
+    if not os.path.isdir(tars):
+        tars = os.path.dirname(write_curriculum_shards(work, images))
+    files = {"tfrecord": sorted(glob.glob(os.path.join(tfds_dir, "**", "*tfrecord*"),
+                                          recursive=True)),
+             "tar": sorted(glob.glob(os.path.join(tars, "*.tar")))}
+    scans = {"tfrecord": (indexer.tfrecord_index, tfrecord.index_records_py),
+             "tar": (indexer.tar_index, pipeline.tar_members_py)}
+    out["index_s"] = {}
+    def best_of(scan, paths, n=3):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            for p in paths:
+                scan(p)
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    for kind, paths in files.items():
+        fast, slow = scans[kind]
+        got, want = [fast(p) for p in paths], [slow(p) for p in paths]  # also warms the reads
+        t_fast, t_slow = best_of(fast, paths), best_of(slow, paths)
+        entries = sum(map(len, got))
+        print(f"25b {kind} shards: {len(paths)} files, {entries} entries; best of 3 warm scans: "
+              f"native {t_fast:.4f} s, Python {t_slow:.4f} s; equal: {got == want}")
+        if not paths or got != want:
+            raise AssertionError(f"the native {kind} index differs from the Python scan's")
+        out["index_s"][kind] = {"files": len(paths), "entries": entries, "native": t_fast,
+                                "python": t_slow}
+    # 25c: the committed ArrayRecord fixtures
+    spec = importlib.util.spec_from_file_location(
+        "make_arrayrecord_fixture", os.path.join(REPO, "tests", "fixtures",
+                                                 "make_arrayrecord_fixture.py"))
+    gen_mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen_mod)
+    records = gen_mod.fixture_records()
+    for name in gen_mod.FILES:
+        src = ArrayRecordSource(os.path.join(REPO, "tests", "fixtures", "arrayrecord", name))
+        if [src[i] for i in range(len(src))] != records:
+            raise AssertionError(f"ArrayRecord fixture {name}: records differ")
+        print(f"25c ArrayRecord {name}: {len(src)} records read back, equal")
+    # 25d: B/16 stage-1 steps with RandAugment and random erasing in the pp
+    out["aug"] = aug_steps(device, no_pil, totals)
+    # 25e-g: L/14 + text L at OPT_DEPTH: remat minimal against minimal_offloaded,
+    # param_dtype=bfloat16, optax_name=scale_by_lion
+    cfg = opt_config(no_pil=no_pil)
+    host_batch = next(pipeline.training(cfg["input"], seed=SEED)[0])
+    batch = tstep.to_device(host_batch, device)
+    m = tstep.build_model(cfg).to(device)
+    init_params(m, SEED)
+    state = {k: v.detach().clone() for k, v in m.state_dict().items()}
+    del m
+    grads, out["remat"] = {}, {}
+    for remat in ("minimal", "minimal_offloaded"):
+        c = opt_config(remat, impl="xla", no_pil=no_pil)
+        m = tstep.build_model(c).to(device)
+        m.load_state_dict(state)
+        loss_fn = tstep.make_loss_fn(c, m)
+        ms = []
+        for _ in range(2):  # the first also allocates the pinned buffers and warms up
+            m.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            loss, _ = loss_fn(batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        grads[remat] = {k: p.grad.detach().float() for k, p in m.named_parameters()}
+        out["remat"][remat] = {"loss": loss.item(), "peak_gb": peak, "fwd_bwd_ms": ms}
+        print(f"25e remat={remat} (xla attention, b={OPT_BATCH}): loss {loss.item():.6f}, "
+              f"forward + backward {ms[0]:.1f} then {ms[1]:.1f} ms (host clock), peak above "
+              f"the model and its gradients {peak:.2f} GB")
+        del m, loss
+        torch.cuda.empty_cache()
+    glob_cos, (worst, name) = grad_cosines(grads["minimal"], grads["minimal_offloaded"])
+    equal = all(torch.equal(grads["minimal"][k], grads["minimal_offloaded"][k])
+                for k in grads["minimal"])
+    print(f"25e gradients minimal_offloaded vs minimal: global cosine {glob_cos:.9f}, min "
+          f"per-tensor {worst:.9f} ({name}), bit-equal {equal}")
+    out["remat"]["grad_cos"], out["remat"]["bit_equal"] = glob_cos, equal
+    if glob_cos < 0.999999 or not (out["remat"]["minimal_offloaded"]["peak_gb"]
+                                   < out["remat"]["minimal"]["peak_gb"]):
+        raise AssertionError(f"minimal_offloaded: gradient cosine {glob_cos}, peaks "
+                             f"{out['remat']}")
+    del grads
+    for tag, c in (("param_dtype=bfloat16", opt_config(no_pil=no_pil, param_dtype="bfloat16")),
+                   ("optax_name=scale_by_lion", opt_config(no_pil=no_pil,
+                                                           optax_name="scale_by_lion"))):
+        m = tstep.build_model(c).to(device)
+        m.load_state_dict(state)
+        torch.cuda.reset_peak_memory_stats()
+        opt = tstep.init_train_state(c, m, total_steps=10, params=state)
+        update = tstep.make_update_fn(c, m, opt)
+        before = {k: v.detach().float().clone() for k, v in m.named_parameters()}
+        meas, got = count_path(lambda: [update(host_batch) for _ in range(2)][-1], totals)
+        loss = float(meas["training_loss"])
+        moved = max((p.detach().float() - before[k]).abs().max().item()
+                    for k, p in m.named_parameters())
+        dtypes = sorted({str(p.dtype) for p in m.parameters()})
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        print(f"25f/g {tag}: 2 steps b={OPT_BATCH}, loss {loss:.6f}, largest param move "
+              f"{moved:.3e}, param dtypes {dtypes}, peak {peak:.2f} GB; launches {got}")
+        want = {k: 2 * v * OPT_DEPTH[0] for k, v in FUSED_BLOCK_STEP.items() if v}
+        if not np.isfinite(loss) or moved == 0 or {k: v for k, v in got.items() if v} != want:
+            raise AssertionError(f"{tag}: loss {loss}, moved {moved}, launches {got} (want {want})")
+        out[tag] = {"loss": loss, "peak_gb": peak, "dtypes": dtypes}
+        del m, opt, update
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 25 in {out['phase_s']:.1f} s")
+    return out
+
+
+def aug_steps(device, no_pil: bool, totals: dict) -> dict:
+    """Phase 25d: 3 steps of B/16 + text B (stage 1's widths, CLIP loss) on
+    fused with AUG_PP after the crop, 4 pp workers, b=AUG_BATCH: loss, step
+    ms, the pp's records/s; without Pillow the steps are skipped and that is
+    printed."""
+    import torch
+
+    from openvision_tpu_torch.configs.openvision import get_config
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.train import step as tstep
+
+    if no_pil:
+        print("25d Pillow is not installed on this machine: randaug, autoaugment and the "
+              "colour ops need it (random_erasing alone runs); the B/16 steps are skipped")
+        return {"skipped": "no Pillow"}
+    c = get_config("res=224,img=B/16,txt_name=B,dtype=bfloat16")
+    c["model"]["text_decoder"], c["loss_type"] = "none", "clip"
+    c["input"]["batch_size"] = AUG_BATCH
+    c["input"]["data"] = {"name": "synthetic", "num_examples": 4 * AUG_BATCH, "res": 256}
+    crop, rest = c["input"]["pp"].split("|", 1)
+    c["input"]["pp"] = f"{crop}|{AUG_PP}|{rest}"
+    c["input"]["num_workers"] = 4
+    c["total_steps"], c["schedule"][0][1]["warmup_steps"] = 10, 1
+    loader, _ = pipeline.training(c["input"], seed=SEED)
+    try:
+        t0 = time.perf_counter()
+        batches = [next(loader) for _ in range(3)]
+        pp_rate = 3 * AUG_BATCH / (time.perf_counter() - t0)
+    finally:
+        loader.close()
+    m = tstep.build_model(c).to(device)
+    opt = tstep.init_train_state(c, m, total_steps=10)
+    update = tstep.make_update_fn(c, m, opt)
+    losses = []
+    t0 = time.perf_counter()
+    for b in batches:
+        losses.append(float(update(b)["training_loss"]))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"25d B/16 with '{AUG_PP}': 3 steps b={AUG_BATCH}, losses "
+          f"{[round(x, 6) for x in losses]}, {ms:.1f} ms a step (host clock), pp "
+          f"{pp_rate:.1f} records/s with 4 workers")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("B/16 steps with the augmentations: loss not finite")
+    del m, opt, update
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": ms, "pp_records_per_s": pp_rate}
+
+
+def native_only() -> int:
+    """``chip_smoke.py --native``: the kernel build and phase 25 alone."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from openvision_tpu_torch.data.ops_image import decode_png
+    from openvision_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    kernels.lib()
+    print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    names = sorted(f for f in os.listdir(os.path.join(REPO, "testcat")) if f.endswith(".png"))
+    images = [decode_png(open(os.path.join(REPO, "testcat", f), "rb").read()) for f in names]
+    try:
+        import PIL  # noqa: F401
+        no_pil = False
+    except ImportError:
+        no_pil = True
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        native_phase(work, images, torch.device("cuda"), no_pil, totals)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 25 launches: { {k: v for k, v in totals.items() if v} }")
+    return 0
 
 
 def wide_only() -> int:
@@ -6401,8 +6881,8 @@ def run(work: str) -> int:
     with torch.inference_mode():
         ckpt_res = checkpoint_phase(ckpts["concat"], images, names, work, device, totals, greedy)
 
-    phase("23. the recipe on a process mesh: ViT-L/14 + text L + decoder L at a third of the depth, "
-          "two ranks of a data=2 mesh on the one card (gloo); GradCache, siglip and the global mode against one "
+    phase("23. the recipe on a process mesh: ViT-L/14 + text L + decoder L at a sixth of the "
+          "depth, two ranks of a data=2 mesh on the one card (gloo); GradCache, siglip and the global mode against one "
           "process, config 5 through main_clip with SIGTERM and load_transform, evals and "
           "eval_only")
     mesh_res = mesh_recipe_phase(work, images, device, totals)
@@ -6411,6 +6891,10 @@ def run(work: str) -> int:
           "72, 80, 96, 128; ViT-H/14 zero-shot (bf16, int8) and its training step; So400m/14's "
           "map pool, scan_mlp and the KV-cache decode")
     wide = wide_phase(work, images, names, device, no_pil, totals, worst)
+
+    phase("25. native WordPiece and shard indexer, ArrayRecord, the augmentation pp, remat "
+          "minimal_offloaded, param_dtype=bfloat16, optax_name=scale_by_lion")
+    native = native_phase(work, images, device, no_pil, totals)
 
     phase("summary")
     print(f"card: {smi}")
@@ -6470,7 +6954,12 @@ def run(work: str) -> int:
         print(f"{k}: {t['ms'] * 1e3:.1f} us (graph {t['graph_ms'] * 1e3:.1f}), bound "
               f"{t['bound_ms'] * 1e3:.1f}, plain {t['plain_ms'] * 1e3:.1f}, library "
               f"{t['library_ms'] * 1e3:.1f}")
-    print(f"model options: {wide['options']}; phase 24 in {wide['phase_s']:.1f} s")
+    print(f"model options: {wide['options']}; head_dim 136 tower: {wide['hd136']}; phase 24 in "
+          f"{wide['phase_s']:.1f} s")
+    print(f"phase 25: WordPiece {native['wordpiece_s']}; indexers {native['index_s']}; "
+          f"augmented B/16 {native['aug']}; remat {native['remat']}; "
+          f"bf16 params {native['param_dtype=bfloat16']}; lion "
+          f"{native['optax_name=scale_by_lion']}; phase 25 in {native['phase_s']:.1f} s")
     print(f"main-path launches (zero-shot, caption, training, int8 encode and daemon runs): "
           f"{totals}")
     missing = [k for k, v in totals.items() if v == 0]
@@ -6524,6 +7013,42 @@ def gemm_only(root: str) -> int:
     with torch.inference_mode():
         gemm_phase(fe, gk, fe8, device, {}, check=root == REPO)
         export_encode_rates(device)
+    return 0
+
+
+def train_only(root: str) -> int:
+    """``chip_smoke.py --train [ROOT]``: phase 8's trainer steps and step ms
+    (``train_step_times``, 5 timed steps), with phase 14's fused_t path,
+    alone, on the package of the
+    checkout at ROOT (this one by default), so that two checkouts are timed
+    on one card in one call; launch counts checked only for this checkout."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --train: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"package {os.path.dirname(kernels.__file__)}")
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    kernels.lib()
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    try:
+        import PIL  # noqa: F401
+        no_pil = False
+    except ImportError:
+        no_pil = True
+    loader, _ = pipeline.training(train_config("concat", "fused", no_pil=no_pil)["input"],
+                                  seed=SEED)
+    out = train_step_times(torch.device("cuda"), no_pil, {}, loader, check=root == REPO,
+                           iters=5, fused_t=True)
+    print(json.dumps({"root": root, "train": out}))
     return 0
 
 
@@ -6755,6 +7280,8 @@ if __name__ == "__main__":
         sys.exit(gemm_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     if sys.argv[1:2] == ["--attn"]:
         sys.exit(attn_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
+    if sys.argv[1:2] == ["--train"]:
+        sys.exit(train_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     if sys.argv[1:2] == ["--ln"]:
         sys.exit(ln_only(sys.argv[2] if len(sys.argv) > 2 else REPO))
     if sys.argv[1:2] == ["--curriculum"]:
@@ -6767,4 +7294,6 @@ if __name__ == "__main__":
         sys.exit(mesh_recipe_only())
     if sys.argv[1:2] == ["--wide"]:
         sys.exit(wide_only())
+    if sys.argv[1:2] == ["--native"]:
+        sys.exit(native_only())
     sys.exit(main())

@@ -1,7 +1,7 @@
 // The pieces the attention kernels share (attention.cu's forward,
 // attention_bwd.cu's backward pair): operands of one head read by TMA in
 // 64-row boxes, swizzled, and wgmma on them, at every head_dim that is a
-// multiple of 8 from 16 to 128.
+// multiple of 8 from 16 to 256.
 //
 // Every operand is a (batch, rows, heads, hd) bf16 view at element strides
 // (batch, row, head) with unit stride in head_dim: the flash path's tensors,
@@ -16,7 +16,19 @@
 // zero-fills the columns past hd and the rows past the last, so the pad
 // columns add nothing to q.k^T, P.V never writes them, and ragged tiles
 // need no predicates on load. hd * 2 bytes must be a multiple of 16 (TMA's
-// stride rule), hence hd % 8 == 0.
+// stride rule), hence hd % 8 == 0 (the wrappers zero-pad any other head_dim
+// to the next multiple of 8, and one below 16 to 16).
+//
+// Above 128 the head_dim is rounded up to 64 (192 or 256: three or four
+// 64-column chunks, TMA's zero fill past hd again) and the output columns
+// are split into two parts (Part below): 0..127 and the rest. A CTA owns
+// one part: it forms the scores over the whole head_dim (q.k^T, and do.v^T
+// in the backward, k16 steps over every chunk) and accumulates only its
+// part's columns of O (or dq, dk and dv), so its accumulator is at most 128
+// columns wide, as at head_dim 128, and fits the register file. Each part
+// is a launch of its own over the same grid; the two recompute the same
+// scores (the forward's row max and sum come out bit for bit the same, so
+// part 0 alone writes the LSE, and the dq kernel's part 0 alone delta).
 //
 // The fragments are wgmma's: a 64 x N f32 accumulator d over the
 // warpgroup's 128 threads holds d[4j + e] = row 16 w + lane / 4 + 8 (e >> 1),
@@ -40,11 +52,11 @@ namespace hp = ovt::hopper;
 constexpr int BT = 64;  // rows of a box
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The chunks of a padded head_dim HDP (a multiple of 16, 16..128): full
+// The chunks of a padded head_dim HDP (a multiple of 16, 16..256): full
 // 64-column chunks, then 32 and 16 for the rest.
 template <int HDP>
 struct Hd {
-  static_assert(HDP % 16 == 0 && HDP >= 16 && HDP <= 128, "padded head_dim: 16..128, step 16");
+  static_assert(HDP % 16 == 0 && HDP >= 16 && HDP <= 256, "padded head_dim: 16..256, step 16");
   static constexpr int kFull = HDP / 64, kRem = HDP % 64;
   static constexpr int kChunks = kFull + (kRem >= 32 ? 1 : 0) + (kRem % 32 ? 1 : 0);
   static constexpr int kTileBytes = BT * HDP * 2;  // 64 rows of every chunk
@@ -56,6 +68,20 @@ struct Hd {
   __host__ __device__ static constexpr uint32_t off(int c, int row = 0) {
     return static_cast<uint32_t>(BT * col(c) * 2 + row * width(c) * 2);
   }
+};
+
+// The output columns of part P of a padded head_dim: all of them up to 128;
+// above, part 0 holds columns 0..127 (chunks 0 and 1) and part 1 the rest
+// (chunks 2.., 64 or 128 columns). A part's columns of a tile are laid out
+// as the tile of Hd<kCols> at byte offset kOff.
+template <int HDP>
+constexpr int kParts = HDP <= 128 ? 1 : 2;
+template <int HDP, int P>
+struct Part {
+  static_assert(P < kParts<HDP>, "a head_dim up to 128 has one part, above two");
+  static constexpr int kCols = HDP <= 128 ? HDP : P == 0 ? 128 : HDP - 128;
+  static constexpr int kCol0 = 128 * P;
+  static constexpr uint32_t kOff = Hd<HDP>::off(2 * P);
 };
 
 // Calls f(std::integral_constant<int, c>) for each chunk c of Hd<HDP>, so
@@ -384,14 +410,20 @@ inline bool head_maps(OpMaps<HDP>* maps, const void* ptr, const Strides& st, int
   return true;
 }
 
-// Whether the kernels take head_dim hd: a multiple of 8 from 16 to 128.
-inline bool head_dim_ok(int hd) { return hd % 8 == 0 && hd >= 16 && hd <= 128; }
+// Whether the kernels take head_dim hd: a multiple of 8 from 16 to 256.
+// Above 256 Q's tile and two stages of K and V (at least 1 + 4 tiles of
+// 64 x 320 bf16, 205 KB, and 6 such tiles in the backward) pass the 227 KB
+// of shared memory a CTA can have.
+inline bool head_dim_ok(int hd) { return hd % 8 == 0 && hd >= 16 && hd <= 256; }
+
+// The padded head_dim of hd: rounded up to 16 up to 128, to 64 above.
+inline int padded_head_dim(int hd) { return hd <= 128 ? (hd + 15) / 16 * 16 : (hd + 63) / 64 * 64; }
 
 // Calls f(std::integral_constant<int, HDP>) for the padded head_dim of hd
-// (hd rounded up to 16) if it is one of kHdps; cudaErrorInvalidValue else.
+// if it is one of kHdps; cudaErrorInvalidValue else.
 template <int... kHdps, class F>
 inline int by_head_dim(int hd, F&& f) {
-  const int hdp = (hd + 15) / 16 * 16;
+  const int hdp = padded_head_dim(hd);
   int rc = static_cast<int>(cudaErrorInvalidValue);
   (void)((hdp == kHdps && (rc = f(std::integral_constant<int, kHdps>{}), true)) || ...);
   return rc;

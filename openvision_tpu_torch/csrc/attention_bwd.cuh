@@ -1,7 +1,9 @@
 // The attention backward pair of attention_bwd.cu (see its notes), templated
 // on the padded head_dim, with one entry a kernel (bwd_dq, bwd_dkv).
-// attention_bwd.cu instantiates the padded head_dims up to 64 and
-// attention_bwd_wide.cu those above, so that the two build in parallel.
+// attention_bwd.cu instantiates the padded head_dims up to 64,
+// attention_bwd_wide.cu those from 80 to 128 and attention_bwd_xwide.cu 192
+// and 256 (two column parts each, attention.cuh's Part), so that the three
+// build in parallel.
 #pragma once
 
 #include <limits>
@@ -19,14 +21,16 @@ constexpr int kThreads = 128;  // one warpgroup
 constexpr int kStages = 2;
 
 // Per padded head_dim: dynamic shared memory (1 KB to align the swizzled
-// tiles, then Q and dO (dq) or K and V (dk/dv), then the ring), CTAs an SM,
-// and the dk/dv kernel's streamed sub-tile (queries a product).
+// tiles, then Q and dO (dq) or K and V (dk/dv), then the ring: 193 KB at
+// 256), CTAs an SM, and the dk/dv kernel's streamed sub-tile (queries a
+// product).
 template <int HDP>
 struct Bwd {
   static constexpr int kTileBytes = Hd<HDP>::kTileBytes;
   static constexpr int kSmem = 1024 + (2 + 2 * kStages) * kTileBytes;
-  static constexpr int kDqBlocks = HDP == 48 ? 3 : HDP <= 64 ? 4 : 2;  // 48 spills at 128 registers
-  static constexpr int kDkvBlocks = HDP <= 64 ? 3 : 2;
+  // 48 spills at 128 registers
+  static constexpr int kDqBlocks = HDP == 48 ? 3 : HDP <= 64 ? 4 : HDP <= 128 ? 2 : 1;
+  static constexpr int kDkvBlocks = HDP <= 64 ? 3 : HDP <= 128 ? 2 : 1;
   static constexpr int kSub = HDP <= 96 ? BT : 32;
 };
 
@@ -113,13 +117,14 @@ __device__ __forceinline__ void dq_probs(float (&s)[N / 2], const BwdArgs& a, in
   }
 }
 
-// One K/V tile: S and dP (the dP product runs on while P is formed), dS in
-// place of P, then dq += dS K from registers.
-template <int HDP, int N>
-__device__ __forceinline__ void dq_tile(float (&dq)[HDP / 2], uint32_t qs, uint32_t dos,
-                                        uint32_t ks, uint32_t vs, const BwdArgs& a, int k0, int q0,
-                                        int warp, int lane, const float (&lse)[2],
-                                        const float (&del)[2]) {
+// One K/V tile: S and dP over the whole head_dim (the dP product runs on
+// while P is formed), dS in place of P, then dq += dS K from registers over
+// the part's HO columns of K (kp: where they start in the K tile).
+template <int HDP, int HO, int N>
+__device__ __forceinline__ void dq_tile(float (&dq)[HO / 2], uint32_t qs, uint32_t dos,
+                                        uint32_t ks, uint32_t vs, uint32_t kp, const BwdArgs& a,
+                                        int k0, int q0, int warp, int lane,
+                                        const float (&lse)[2], const float (&del)[2]) {
   float s[N / 2], dp[N / 2];
   start_scores<HDP, N>(s, dp, qs, ks, dos, vs);
   hp::wgmma_wait<1>();
@@ -138,17 +143,18 @@ __device__ __forceinline__ void dq_tile(float (&dq)[HDP / 2], uint32_t qs, uint3
   for (int i = 0; i < N / 2; ++i) s[i] = s[i] * (dp[i] - del[(i >> 1) & 1]) * a.scale;
   uint32_t f[(N + 15) / 16][4];
   pack_a<N>(f, s);
-  start_rs<HDP, (N + 15) / 16>(dq, f, ks);
+  start_rs<HO, (N + 15) / 16>(dq, f, kp);
   hp::wgmma_wait<0>();
   hp::fence_acc(dq);
   fence_frag(f);
 }
 
-template <int HDP>
+template <int HDP, int PART>
 __global__ void __launch_bounds__(kThreads, Bwd<HDP>::kDqBlocks)
     attention_bwd_dq_kernel(const __grid_constant__ Maps<HDP> maps, const BwdArgs a) {
   using H = Hd<HDP>;
-  constexpr int kTileBytes = H::kTileBytes;
+  using Cols = Part<HDP, PART>;
+  constexpr int kTileBytes = H::kTileBytes, HO = Cols::kCols;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar[1 + kStages];  // Q, dO and O; the K/V stages
   __shared__ float delta_s[BT];
@@ -206,7 +212,7 @@ __global__ void __launch_bounds__(kThreads, Bwd<HDP>::kDqBlocks)
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     if ((tid & 1) == 0) {
       delta_s[r] = acc;
-      if (q0 + r < a.Lq) a.delta[(static_cast<long long>(b) * a.H + h) * a.Lq + q0 + r] = acc;
+      if (PART == 0 && q0 + r < a.Lq) a.delta[(static_cast<long long>(b) * a.H + h) * a.Lq + q0 + r] = acc;
     }
   }
   // O's reads (generic proxy) before the next TMA write (async proxy) there
@@ -214,9 +220,9 @@ __global__ void __launch_bounds__(kThreads, Bwd<HDP>::kDqBlocks)
   __syncthreads();
   const float del[2] = {delta_s[warp * 16 + (lane >> 2)], delta_s[warp * 16 + (lane >> 2) + 8]};
 
-  float dq[HDP / 2];
+  float dq[HO / 2];  // this part's columns of dq
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) dq[i] = 0.f;
+  for (int i = 0; i < HO / 2; ++i) dq[i] = 0.f;
   for (int kt = 0; kt <= last; ++kt) {
     const int s = kt % kStages, ahead = kt + kStages - 1;
     hp::mbar_wait(&bar[1 + s], (kt / kStages) & 1);
@@ -229,16 +235,17 @@ __global__ void __launch_bounds__(kThreads, Bwd<HDP>::kDqBlocks)
     const int k0 = kt * BT;
     const uint32_t ks = stage_at(s), vs = ks + kTileBytes;
     by_rows<BT>(a.Lk - k0, [&](auto n) {
-      dq_tile<HDP, decltype(n)::value>(dq, qs, dos, ks, vs, a, k0, q0, warp, lane, lse, del);
+      dq_tile<HDP, HO, decltype(n)::value>(dq, qs, dos, ks, vs, ks + Cols::kOff, a, k0, q0, warp,
+                                            lane, lse, del);
     });
     __syncthreads();  // every thread is done with this stage before it is loaded again
   }
   if (a.dq_round) {  // the fused blocks' dq: the rounded sum times the scale
 #pragma unroll
-    for (int i = 0; i < HDP / 2; ++i) dq[i] = round_bf16(dq[i]);
+    for (int i = 0; i < HO / 2; ++i) dq[i] = round_bf16(dq[i]);
   }
-  store_tile<HDP>(a.dq + b * a.sdq.b + h * a.sdq.h, a.sdq.l, q0, a.Lq, a.hd, dq, warp, lane,
-                  a.dq_scale, a.dq_scale);
+  store_tile<HO>(a.dq + b * a.sdq.b + h * a.sdq.h + Cols::kCol0, a.sdq.l, q0, a.Lq,
+                 a.hd - Cols::kCol0, dq, warp, lane, a.dq_scale, a.dq_scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -265,15 +272,17 @@ __device__ __forceinline__ void dkv_probs(float (&st)[N / 2], const BwdArgs& a, 
   }
 }
 
-// N queries of a Q/dO tile, `sub` rows into it: S^T and dP^T (the dP^T
-// product runs on while P^T is formed), dv += P^T dO started before dS^T is
-// formed in place of dP^T, then dk += dS^T Q; both from registers. rows[0]
-// holds the queries' lse * log2(e), rows[1] their delta.
-template <int HDP, int N>
-__device__ __forceinline__ void dkv_tile(float (&dk)[HDP / 2], float (&dv)[HDP / 2], uint32_t ks,
-                                         uint32_t vs, uint32_t qs, uint32_t dos, int sub,
-                                         const BwdArgs& a, int k0, int q0, int warp, int lane,
-                                         const float* lse_s, const float* del_s) {
+// N queries of a Q/dO tile, `sub` rows into it: S^T and dP^T over the whole
+// head_dim (the dP^T product runs on while P^T is formed), dv += P^T dO
+// started before dS^T is formed in place of dP^T, then dk += dS^T Q; both
+// from registers, over the part's HO columns of dO and Q (`off` bytes into
+// their tiles). rows[0] holds the queries' lse * log2(e), rows[1] their
+// delta.
+template <int HDP, int HO, int N>
+__device__ __forceinline__ void dkv_tile(float (&dk)[HO / 2], float (&dv)[HO / 2], uint32_t ks,
+                                         uint32_t vs, uint32_t qs, uint32_t dos, uint32_t off,
+                                         int sub, const BwdArgs& a, int k0, int q0, int warp,
+                                         int lane, const float* lse_s, const float* del_s) {
   float st[N / 2], dpt[N / 2];
   start_scores<HDP, N>(st, dpt, ks, qs, vs, dos, sub);
   hp::wgmma_wait<1>();
@@ -287,7 +296,7 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[HDP / 2], float (&dv)[HDP /
     dkv_probs<N, true>(st, a, key0, q0, t4, lse_s);
   uint32_t fp[(N + 15) / 16][4], fd[(N + 15) / 16][4];
   pack_a<N>(fp, st);
-  start_rs<HDP, (N + 15) / 16>(dv, fp, dos, sub);
+  start_rs<HO, (N + 15) / 16>(dv, fp, dos + off, sub);
   hp::wgmma_wait<1>();  // dP^T (dv's product may still run)
   hp::fence_acc(dpt);
 #pragma unroll
@@ -300,7 +309,7 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[HDP / 2], float (&dv)[HDP /
     }
   }
   pack_a<N>(fd, dpt);
-  start_rs<HDP, (N + 15) / 16>(dk, fd, qs, sub);
+  start_rs<HO, (N + 15) / 16>(dk, fd, qs + off, sub);
   hp::wgmma_wait<0>();
   hp::fence_acc(dk);
   hp::fence_acc(dv);
@@ -308,10 +317,11 @@ __device__ __forceinline__ void dkv_tile(float (&dk)[HDP / 2], float (&dv)[HDP /
   fence_frag(fd);
 }
 
-template <int HDP>
+template <int HDP, int PART>
 __global__ void __launch_bounds__(kThreads, Bwd<HDP>::kDkvBlocks)
     attention_bwd_dkv_kernel(const __grid_constant__ Maps<HDP> maps, const BwdArgs a) {
-  constexpr int kTileBytes = Hd<HDP>::kTileBytes, kSub = Bwd<HDP>::kSub;
+  using Cols = Part<HDP, PART>;
+  constexpr int kTileBytes = Hd<HDP>::kTileBytes, kSub = Bwd<HDP>::kSub, HO = Cols::kCols;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar[1 + kStages];       // K and V; the Q/dO stages
   __shared__ __align__(16) float rows_s[kStages][2][BT];  // per stage: lse * log2(e), delta
@@ -325,15 +335,16 @@ __global__ void __launch_bounds__(kThreads, Bwd<HDP>::kDkvBlocks)
   // query tiles that can see this key tile: all of them, or with the causal
   // mask those from the diagonal on unless the tile reaches into the prefix
   const int first = (a.causal && k0 >= a.prefix) ? k0 / BT : 0;
-  bf16* dk_out = a.dk + b * a.sdk.b + h * a.sdk.h;
-  bf16* dv_out = a.dv + b * a.sdv.b + h * a.sdv.h;
+  bf16* dk_out = a.dk + b * a.sdk.b + h * a.sdk.h + Cols::kCol0;
+  bf16* dv_out = a.dv + b * a.sdv.b + h * a.sdv.h + Cols::kCol0;
+  const int hd = a.hd - Cols::kCol0;  // this part's columns below head_dim
 
-  float dk[HDP / 2], dv[HDP / 2];
+  float dk[HO / 2], dv[HO / 2];  // this part's columns
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < HO / 2; ++i) dk[i] = dv[i] = 0.f;
   if (first >= nq) {  // keys no query sees: zero gradients
-    store_tile<HDP>(dk_out, a.sdk.l, k0, a.Lk, a.hd, dk, warp, lane);
-    store_tile<HDP>(dv_out, a.sdv.l, k0, a.Lk, a.hd, dv, warp, lane);
+    store_tile<HO>(dk_out, a.sdk.l, k0, a.Lk, hd, dk, warp, lane);
+    store_tile<HO>(dv_out, a.sdv.l, k0, a.Lk, hd, dv, warp, lane);
     return;
   }
 
@@ -377,14 +388,15 @@ __global__ void __launch_bounds__(kThreads, Bwd<HDP>::kDkvBlocks)
       const int q0 = qt * BT + sub;
       if (q0 >= a.Lq) break;
       by_rows<kSub>(a.Lq - q0, [&](auto n) {
-        dkv_tile<HDP, decltype(n)::value>(dk, dv, ks, vs, qs, dos, sub, a, k0, q0, warp, lane,
-                                          rows_s[s][0] + sub, rows_s[s][1] + sub);
+        dkv_tile<HDP, HO, decltype(n)::value>(dk, dv, ks, vs, qs, dos, Cols::kOff, sub, a, k0,
+                                              q0, warp, lane, rows_s[s][0] + sub,
+                                              rows_s[s][1] + sub);
       });
     }
     __syncthreads();  // every thread is done with this stage before it is loaded again
   }
-  store_tile<HDP>(dk_out, a.sdk.l, k0, a.Lk, a.hd, dk, warp, lane);
-  store_tile<HDP>(dv_out, a.sdv.l, k0, a.Lk, a.hd, dv, warp, lane);
+  store_tile<HO>(dk_out, a.sdk.l, k0, a.Lk, hd, dk, warp, lane);
+  store_tile<HO>(dv_out, a.sdv.l, k0, a.Lk, hd, dv, warp, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -399,6 +411,29 @@ BwdArgs make_args(const void* lse, void* delta, void* dq, void* dk, void* dv, co
                  strides_of(s, 5), strides_of(s, 6), strides_of(s, 7), lq, lk, heads, hd, scale,
                  scale * kLog2e, nomax ? 80.f * kLog2e : std::numeric_limits<float>::infinity(),
                  dq_scale, dq_round, causal, prefix};
+}
+
+// One column part's launch of each kernel (the shared-memory limit raised
+// once an instantiation).
+template <int HDP, int PART>
+int run_dq(const Maps<HDP>& maps, const BwdArgs& a, dim3 grid, void* stream) {
+  constexpr int kSmem = Bwd<HDP>::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_dq_kernel<HDP, PART>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  attention_bwd_dq_kernel<HDP, PART>
+      <<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+template <int HDP, int PART>
+int run_dkv(const Maps<HDP>& maps, const BwdArgs& a, dim3 grid, void* stream) {
+  constexpr int kSmem = Bwd<HDP>::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      attention_bwd_dkv_kernel<HDP, PART>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  attention_bwd_dkv_kernel<HDP, PART>
+      <<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The maps of the operands in `ops` (null: not read), rows lk for k and v.
@@ -426,14 +461,12 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a = make_args(lse, delta, dq, nullptr, nullptr, strides, lq, lk, heads, hd, scale,
                               causal, prefix, nomax, dq_scale, dq_round);
-  constexpr int kSmem = Bwd<HDP>::kSmem;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_dq_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((lq + BT - 1) / BT, heads, batch);
-  attention_bwd_dq_kernel<HDP><<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      maps, a);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = run_dq<HDP, 0>(maps, a, grid, stream);
+  if constexpr (kParts<HDP> > 1) {
+    if (rc == 0) return run_dq<HDP, 1>(maps, a, grid, stream);
+  }
+  return rc;
 }
 
 // The dk/dv entry at one padded head_dim.
@@ -448,14 +481,12 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
     return static_cast<int>(cudaErrorInvalidValue);
   const BwdArgs a = make_args(lse, const_cast<void*>(delta), nullptr, dk, dv, strides, lq, lk,
                               heads, hd, scale, causal, prefix, nomax, 1.f, 0);
-  constexpr int kSmem = Bwd<HDP>::kSmem;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_bwd_dkv_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((lk + BT - 1) / BT, heads, batch);
-  attention_bwd_dkv_kernel<HDP><<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      maps, a);
-  return static_cast<int>(cudaGetLastError());
+  const int rc = run_dkv<HDP, 0>(maps, a, grid, stream);
+  if constexpr (kParts<HDP> > 1) {
+    if (rc == 0) return run_dkv<HDP, 1>(maps, a, grid, stream);
+  }
+  return rc;
 }
 
 }  // namespace

@@ -1,7 +1,9 @@
 // The forward attention kernel of attention.cu (see its notes), templated on
 // the padded head_dim, with one entry a layout (fwd_packed, fwd_flash).
-// attention.cu instantiates the padded head_dims up to 64 and
-// attention_wide.cu those above, so that the two build in parallel.
+// attention.cu instantiates the padded head_dims up to 64,
+// attention_wide.cu those from 80 to 128 and attention_xwide.cu 192 and 256
+// (two column parts each, attention.cuh's Part), so that the three build in
+// parallel.
 #pragma once
 
 #include <cmath>
@@ -17,11 +19,11 @@ using ovt::bf16;
 constexpr int kThreads = 128 + 32;        // one consumer warpgroup, then the producer warp
 
 // The ring's K/V stages, CTAs an SM (registers) and dynamic shared memory
-// (Q, then K, V a stage) of a padded head_dim.
+// (Q, then K, V a stage) of a padded head_dim: 161 KB at 256, one CTA an SM.
 template <int HDP>
 struct Fwd {
   static constexpr int kStages = HDP <= 64 ? 4 : 2;
-  static constexpr int kMinBlocks = HDP <= 64 ? 3 : 2;
+  static constexpr int kMinBlocks = HDP <= 64 ? 3 : HDP <= 128 ? 2 : 1;
   static constexpr int kTileBytes = Hd<HDP>::kTileBytes;
   static constexpr int kSmem = 1024 + kTileBytes + kStages * 2 * kTileBytes;
 };
@@ -141,14 +143,17 @@ __device__ __forceinline__ void store_out(float* base, long long stride, int r0,
   }
 }
 
-// HDP: the padded head_dim. kCausal: the causal / prefix-LM mask (a
-// compile-time switch, so the unmasked encoder path carries none of its
-// index arithmetic). OutT: the output's type, bf16 or f32.
-template <int HDP, bool kCausal, typename OutT>
+// HDP: the padded head_dim. PART: the output columns this CTA accumulates
+// (attention.cuh's Part: all of them up to 128). kCausal: the causal /
+// prefix-LM mask (a compile-time switch, so the unmasked encoder path
+// carries none of its index arithmetic). OutT: the output's type, bf16 or
+// f32.
+template <int HDP, int PART, bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
     attention_fwd_kernel(const __grid_constant__ FwdMaps<HDP> maps, const FwdArgs a) {
   using P = Fwd<HDP>;
-  constexpr int kStages = P::kStages, kTileBytes = P::kTileBytes;
+  using Cols = Part<HDP, PART>;
+  constexpr int kStages = P::kStages, kTileBytes = P::kTileBytes, HO = Cols::kCols;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_bar;
   __shared__ __align__(8) uint64_t full[kStages];
@@ -215,9 +220,9 @@ __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
     hp::named_barrier(1, 128);
   }
 
-  float o[HDP / 2];
+  float o[HO / 2];  // this part's columns of O
 #pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < HO / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   const int wrow = r0 + warp * 16, row0 = wrow + (lane >> 2), col_lane = 2 * (lane & 3);
@@ -246,7 +251,7 @@ __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
       // this tile's scores, then the previous tile's P V (a whole tile)
       hp::wgmma_fence();
       start_ss<HDP, N>(s, base, k_at(st));
-      start_rs<HDP, BT / 16>(o, p, k_at((kt - 1) % kStages) + kTileBytes);
+      start_rs<HO, BT / 16>(o, p, k_at((kt - 1) % kStages) + kTileBytes + Cols::kOff);
       hp::wgmma_wait<1>();
       hp::fence_acc(s);
       float alpha[2];
@@ -255,13 +260,13 @@ __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
       hp::fence_acc(o);
       fence_frag(p);
       release(kt - 1);
-      if (!a.nomax) rescale<HDP>(o, alpha);
+      if (!a.nomax) rescale<HO>(o, alpha);
       pack_a<N>(p, s);
     });
   }
   by_width(a.Lk - last * BT, [&](auto n) {  // the last tile's P V
     constexpr int N = decltype(n)::value;
-    start_rs<HDP, (N + 15) / 16>(o, p, k_at(last % kStages) + kTileBytes);
+    start_rs<HO, (N + 15) / 16>(o, p, k_at(last % kStages) + kTileBytes + Cols::kOff);
     hp::wgmma_wait<0>();
     hp::fence_acc(o);
     fence_frag(p);
@@ -274,9 +279,9 @@ __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (l[r] <= 0.f) l[r] = 1.f;  // no visible key: o = 0
   }
-  store_out<HDP>(static_cast<OutT*>(a.o) + b * a.so.b + h * a.so.h, a.so.l, r0, a.Lq, a.hd, o, l,
-                 warp, lane);
-  if (a.lse != nullptr && (lane & 3) == 0) {  // rows of 257 floats: no 16-byte alignment
+  store_out<HO>(static_cast<OutT*>(a.o) + b * a.so.b + h * a.so.h + Cols::kCol0, a.so.l, r0,
+                a.Lq, a.hd - Cols::kCol0, o, l, warp, lane);
+  if (PART == 0 && a.lse != nullptr && (lane & 3) == 0) {  // rows of 257 floats: no 16-byte alignment
     float* lrow = a.lse + (static_cast<long long>(b) * a.H + h) * a.Lq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -286,16 +291,26 @@ __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
   }
 }
 
-template <int HDP, bool kCausal, typename OutT>
-int run(const FwdMaps<HDP>& maps, const FwdArgs& a, int batch, cudaStream_t stream) {
+template <int HDP, int PART, bool kCausal, typename OutT>
+int run_part(const FwdMaps<HDP>& maps, const FwdArgs& a, int batch, cudaStream_t stream) {
   constexpr int kSmem = Fwd<HDP>::kSmem;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(attention_fwd_kernel<HDP, kCausal, OutT>,
+      cudaFuncSetAttribute(attention_fwd_kernel<HDP, PART, kCausal, OutT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((a.Lq + BT - 1) / BT, a.H, batch);
-  attention_fwd_kernel<HDP, kCausal, OutT><<<grid, kThreads, kSmem, stream>>>(maps, a);
+  attention_fwd_kernel<HDP, PART, kCausal, OutT><<<grid, kThreads, kSmem, stream>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One launch a column part (two above head_dim 128), on one stream.
+template <int HDP, bool kCausal, typename OutT>
+int run(const FwdMaps<HDP>& maps, const FwdArgs& a, int batch, cudaStream_t stream) {
+  const int rc = run_part<HDP, 0, kCausal, OutT>(maps, a, batch, stream);
+  if constexpr (kParts<HDP> > 1) {
+    if (rc == 0) return run_part<HDP, 1, kCausal, OutT>(maps, a, batch, stream);
+  }
+  return rc;
 }
 
 template <int HDP>

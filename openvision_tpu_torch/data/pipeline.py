@@ -35,13 +35,13 @@ contiguous part of the source (``shard=True``) or the whole of it.
 
 Sources: ``synthetic``, ``DictSource`` (:73), ``JsonlImageSource`` (:92),
 ``WebdatasetTarSource`` (:489-565: webdataset tar shards, ``paths`` or the
-sorted glob of ``pattern``; each shard indexed once with Python's tarfile,
-the native indexer not ported) and ``TfdsDirectorySource`` (:567), which
+sorted glob of ``pattern``; each shard indexed once by the port's native
+indexer, ``native/indexer.cpp``), ``TfdsDirectorySource`` (:567), which
 serves a TFDS-format directory of TFRecord shards (``data/tfrecord.py``: no
 tensorflow, no tensorflow_datasets), with the ``split[a:b]`` sub-split
-syntax and ``label.labels.txt``; its shards are indexed in Python (the JAX
-package's native indexer is not ported). ``arrayrecord`` needs grain and
-raises by name.
+syntax and ``label.labels.txt``; its shards indexed natively too), and
+``arrayrecord`` (``data/arrayrecord.py``: each record's bytes, as grain's
+``ArrayRecordDataSource``).
 """
 
 from __future__ import annotations
@@ -205,10 +205,29 @@ def _tfds_label_names(data_dir: str):
     return None
 
 
+def tar_members(path: str) -> list[tuple[str, int, int]]:
+    """(name, data offset, size) of each regular member of a tar shard, in
+    archive order: the native indexer's scan, or tarfile's with
+    ``OPENVISION_NO_NATIVE`` set (:func:`tar_members_py`)."""
+    from openvision_tpu_torch.native import indexer
+
+    out = indexer.tar_index(path)
+    return tar_members_py(path) if out is None else out
+
+
+def tar_members_py(path: str) -> list[tuple[str, int, int]]:
+    """:func:`tar_members` by tarfile."""
+    import tarfile
+
+    with tarfile.open(path) as tf:
+        return [(m.name, m.offset_data, m.size) for m in tf if m.isfile()]
+
+
 class WebdatasetTarSource:
     """Random access over webdataset-style tar shards.
 
-    Each shard is scanned once with tarfile, its members grouped by key
+    Each shard is scanned once (the native indexer, ``native/indexer.cpp``;
+    tarfile with ``OPENVISION_NO_NATIVE`` set), its members grouped by key
     prefix (``<key>.jpg``, ``<key>.txt``, ``<key>.json``, ...), the keys of a
     shard in sorted order; a record is read back with ``os.pread`` at its
     members' offsets. Image members (jpg, jpeg, png, webp) stay encoded
@@ -219,18 +238,14 @@ class WebdatasetTarSource:
     """
 
     def __init__(self, paths: Sequence[str], text_keys=("txt", "json")):
-        import tarfile
-
         self._shards: list[str] = list(paths)
         self._text_keys = text_keys
         self._index: list[tuple[int, dict[str, tuple[int, int]]]] = []
         for si, path in enumerate(self._shards):
             groups: dict[str, dict[str, tuple[int, int]]] = {}
-            with tarfile.open(path) as tf:
-                for m in tf:
-                    if m.isfile():
-                        key, _, ext = os.path.basename(m.name).rpartition(".")
-                        groups.setdefault(key, {})[ext.lower()] = (m.offset_data, m.size)
+            for name, offset, size in tar_members(path):
+                key, _, ext = os.path.basename(name).rpartition(".")
+                groups.setdefault(key, {})[ext.lower()] = (offset, size)
             self._index.extend((si, groups[key]) for key in sorted(groups))
         self._fds: dict[int, int] = {}
 
@@ -275,9 +290,10 @@ def get_source(data_cfg: dict):
         return TfdsDirectorySource(data_cfg["data_dir"], data_cfg.get("split", "train"))
     if name == "webdataset":
         return WebdatasetTarSource(data_cfg.get("paths") or sorted(glob.glob(data_cfg["pattern"])))
-    if name == "arrayrecord":
-        raise NotImplementedError("data source 'arrayrecord' needs grain, which the port does "
-                                  "not use; convert the records with data/prepare.py")
+    if name == "arrayrecord":  # each record's bytes, as grain.ArrayRecordDataSource
+        from openvision_tpu_torch.data.arrayrecord import ArrayRecordSource
+
+        return ArrayRecordSource(data_cfg["paths"])
     raise ValueError(f"Unknown data source: {name!r}")
 
 

@@ -77,11 +77,11 @@ def build_pp_fn(pp_string: str) -> Callable:
     return composed
 
 
-def import_pp_modules(names=("ops_general", "ops_image", "ops_text", "bert_ops")):
-    """Imports the port's op modules so their registrations run (the
-    per-image augmentation ops of the JAX package's ops_aug and
-    ops_autoaugment are not ported; ops_aug's batch mixup/cutmix is, in
-    ``data/ops_aug.py``, applied by the training pipeline)."""
+def import_pp_modules(names=("ops_general", "ops_image", "ops_text", "bert_ops", "ops_aug",
+                             "ops_autoaugment")):
+    """Imports the port's op modules so their registrations run (ops_aug's
+    batch mixup/cutmix is applied by the training pipeline, not as a pp
+    op)."""
     import importlib
 
     for n in names:

@@ -168,7 +168,17 @@ class TFRecordWriter:
 
 def index_records(path: str) -> List[Tuple[int, int]]:
     """(payload offset, payload length) of every record of one file; the
-    checksums are not verified (as the JAX reader)."""
+    checksums are not verified (as the JAX reader). The native indexer
+    (``native/indexer.cpp``) walks the file; with ``OPENVISION_NO_NATIVE``
+    set, :func:`index_records_py` does."""
+    from openvision_tpu_torch.native import indexer
+
+    out = indexer.tfrecord_index(path)
+    return index_records_py(path) if out is None else out
+
+
+def index_records_py(path: str) -> List[Tuple[int, int]]:
+    """The Python walk of :func:`index_records`."""
     out = []
     size = os.path.getsize(path)
     with open(path, "rb") as f:

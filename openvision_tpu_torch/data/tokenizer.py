@@ -1,11 +1,18 @@
-"""Pure-Python BERT WordPiece tokenizer and the CLIP label finalizer.
+"""BERT WordPiece tokenizer and the CLIP label finalizer.
 
 Counterpart of ``openvision_tpu/data/tokenizer.py`` (BasicTokenizer +
 greedy longest-match WordPiece) and of ``_encode_special`` and
 ``_finalize_clip_tokens`` in ``openvision_tpu/data/bert_ops.py``. The JAX
 package's modules are not imported because ``openvision_tpu.data`` loads
-JAX through its package ``__init__``. The native C++ hot path
-(``openvision_tpu/native/wordpiece.cpp``) is not wired in yet.
+JAX through its package ``__init__``.
+
+With the defaults (lower case, ``[UNK]``, ``##``) ``encode`` runs the
+port's native C++ WordPiece (``native/wordpiece.cpp``, built with g++ at
+first use), as JAX's tokenizer wires in its own: texts with a capital
+sigma and results longer than the native buffer take the Python path. The
+native path is checked on a canary text at load and a mismatch raises (JAX
+falls back quietly there); ``OPENVISION_NO_NATIVE=1`` is the one way to the
+Python path.
 
 Vocab: assets/bert_base_vocab_bos_eos.txt -- 30,522 lines; [PAD]=0, [bos]=1,
 [eos]=2, [CLS]/[SEP]/[UNK] at their standard BERT positions.
@@ -109,6 +116,38 @@ class WordPieceTokenizer:
         self.bos_id = self.vocab.get("[bos]")
         self.eos_id = self.vocab.get("[eos]")
 
+        self._vocab_path = vocab_path
+        self._init_native()
+
+    def _init_native(self):
+        """The native encode for the defaults, held against the Python path
+        on a canary text (accents, punctuation, digits, a dash) at load."""
+        self._native = None
+        if not (self.lower_case and self.unk_token == "[UNK]" and self.suffix == "##"):
+            return
+        from openvision_tpu_torch.native.wordpiece import load_native
+
+        native = load_native(self._vocab_path)
+        if native is None:  # OPENVISION_NO_NATIVE
+            return
+        canary = "Hello, naïve WordPiece test — ÜBER 123!"
+        got, want = native.encode(canary), self._encode_py(canary)
+        if got != want:
+            raise RuntimeError(f"the native WordPiece gives {got} for the canary {canary!r}, the "
+                               f"Python path {want}; set OPENVISION_NO_NATIVE=1 to use Python")
+        self._native = native
+
+    def __getstate__(self):
+        # input workers pickle the pp transforms; the ctypes handle does not
+        # pickle, so each process loads its own
+        state = self.__dict__.copy()
+        state["_native"] = None
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._init_native()
+
     def wordpiece(self, word: str) -> List[int]:
         if len(word) > self.max_chars:
             return [self.unk_id]
@@ -133,6 +172,18 @@ class WordPieceTokenizer:
 
     def encode(self, text: str) -> List[int]:
         """Tokenizes free text to WordPiece ids (no special tokens added)."""
+        if self._native is not None:
+            from openvision_tpu_torch.native.wordpiece import CONTEXT_SENSITIVE
+
+            # str.lower's final-sigma rule depends on context; the native
+            # table is per character, so such texts take the Python path
+            if not any(c in text for c in CONTEXT_SENSITIVE):
+                ids = self._native.encode(text)
+                if ids is not None:  # None: past the native buffer
+                    return ids
+        return self._encode_py(text)
+
+    def _encode_py(self, text: str) -> List[int]:
         ids: List[int] = []
         for word in basic_tokenize(text, self.lower_case):
             ids.extend(self.wordpiece(word))

@@ -58,7 +58,7 @@ import numpy as np
 
 from openvision_tpu_torch.models.encoder import (
     Encoder, EncoderBlock, check_remat_policy, drop_seeds, remat)
-from openvision_tpu_torch.models.vit import check_param_dtype
+from openvision_tpu_torch.models.vit import cast_params, check_param_dtype
 from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, MlpBlock, shard_seed,
                                                 sharded_head, zero_init)
 
@@ -164,7 +164,7 @@ class TextDecoder(nn.Module):
                  chunk: int = 128, use_dense_general: bool = False, param_dtype=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_param_dtype(param_dtype)
+        param_dtype = check_param_dtype(param_dtype)
         self.image_projection_layer = zero_init(nn.Linear, image_width, width, bias=False)
         self.text_projection_layer = zero_init(nn.Linear, text_width, width, bias=False)
         self.learnable_tokens = nn.Parameter(torch.zeros(num_learnable_tokens, width))
@@ -191,6 +191,9 @@ class TextDecoder(nn.Module):
         self.return_prelogits = return_prelogits
         self.width, self.depth = width, depth
         self.dtype = dtype
+        # the modules JAX builds with flax's default f32 params
+        cast_params(self, param_dtype, keep=("learnable_tokens", "image_projection_layer.",
+                                             "text_projection_layer.", "decoder_norm."))
 
     def forward(self, image_embeds: torch.Tensor, text_embeds: torch.Tensor,
                 train: bool = False, rng: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -56,7 +56,14 @@ the outputs of the matrix products that have no batch dimension, the nearest
 PyTorch form being a selective checkpoint that saves ``aten.mm`` and
 ``aten.addmm`` (the linear layers; the attention einsums, batched over
 heads, and the hand-written kernels are recomputed); ``minimal_offloaded``
-raises.
+(JAX ``offload_dot_with_no_batch_dims`` to ``pinned_host``) keeps the same
+products, but in pinned host memory: each is copied out on a side stream
+as the forward makes it (the device copy is then freed with the forward's
+other intermediates) and copied back for the backward's recompute, which
+uses it in place of the product (``_OffloadSaves`` / ``_FetchSaves``, the
+two dispatch modes of the checkpoint's ``context_fn``). The gradients are
+``minimal``'s; the device holds no saved product between the passes. On
+the CPU the copy is a host-to-host clone.
 
 Tensor parallelism (weights sharded by ``train/step.py:shard_model``, the
 tensor axis of the active mesh): a ``fused`` block's attention half runs
@@ -95,12 +102,14 @@ from __future__ import annotations
 
 import functools
 import logging
+from collections import defaultdict
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
 from openvision_tpu_torch.models.layers import (DropPath, Dropout, LayerNorm, LayerScale, MlpBlock,
@@ -115,20 +124,92 @@ ATTN_IMPLS = ("xla", "fused", "fused_t", "flash", "scan", "ring")
 REMAT_POLICIES = ("none", "full", "minimal", "minimal_offloaded")
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
 def _save_matmuls(ctx, op, *args, **kwargs):
     """The ``minimal`` policy: keep the linear layers' products, recompute the rest."""
-    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+    if op in _MATMULS:
         return ckpt.CheckpointPolicy.MUST_SAVE
     return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_SIDE_STREAMS: dict = {}  # device -> the stream the offload copies run on
+
+
+def _offload(t: torch.Tensor):
+    """(host copy, the copy's event or None, device) of a saved product: a
+    CUDA tensor goes to pinned host memory on a side stream (after the
+    current stream's work that made it; its memory kept until the copy is
+    done), a CPU tensor is cloned."""
+    if not t.is_cuda:
+        return t.clone(), None, t.device
+    stream = _SIDE_STREAMS.get(t.device)
+    if stream is None:
+        stream = _SIDE_STREAMS[t.device] = torch.cuda.Stream(t.device)
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    stream.wait_stream(torch.cuda.current_stream(t.device))
+    with torch.cuda.stream(stream):
+        host.copy_(t, non_blocking=True)
+    t.record_stream(stream)
+    return host, stream.record_event(), t.device
+
+
+def _fetch(saved) -> torch.Tensor:
+    """The product back on its device (the current stream waits for its
+    offload copy first)."""
+    host, event, device = saved
+    if event is None:
+        return host
+    torch.cuda.current_stream(device).wait_event(event)
+    return host.to(device, non_blocking=True)
+
+
+class _OffloadSaves(TorchDispatchMode):
+    """``minimal_offloaded``'s forward: each linear product (aten.mm /
+    addmm) is copied to the host (:func:`_offload`) into `store`, by op and
+    call index."""
+
+    def __init__(self, store: dict):
+        super().__init__()
+        self.store, self.calls = store, defaultdict(int)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _MATMULS:
+            self.store[func, self.calls[func]] = _offload(out)
+            self.calls[func] += 1
+        return out
+
+
+class _FetchSaves(TorchDispatchMode):
+    """``minimal_offloaded``'s recompute: the linear products come back from
+    `store` (:func:`_fetch`) in place of being computed; the rest runs."""
+
+    def __init__(self, store: dict):
+        super().__init__()
+        self.store, self.calls = store, defaultdict(int)
+
+    def __enter__(self):
+        self.calls.clear()
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _MATMULS:
+            key = func, self.calls[func]
+            self.calls[func] += 1
+            return _fetch(self.store.pop(key))
+        return func(*args, **(kwargs or {}))
+
+
+def _offload_contexts():
+    store: dict = {}
+    return _OffloadSaves(store), _FetchSaves(store)
 
 
 def check_remat_policy(policy: str) -> str:
     if policy not in REMAT_POLICIES:
         raise ValueError(f"Unknown remat policy: {policy!r}")
-    if policy == "minimal_offloaded":
-        raise NotImplementedError(
-            "remat policy 'minimal_offloaded' (device-to-host offload of the saved products) "
-            "is not ported yet")
     return policy
 
 
@@ -154,6 +235,8 @@ def remat(fn, *args, policy: str, **kwargs):
     if policy == "minimal":
         kwargs["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts,
                                                  _save_matmuls)
+    elif policy == "minimal_offloaded":
+        kwargs["context_fn"] = _offload_contexts
     return ckpt.checkpoint(fn, *args, use_reentrant=False, **kwargs)
 
 
@@ -283,6 +366,11 @@ class Encoder(nn.Module):
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"Unknown attention impl: {attn_impl!r}")
         self.remat_policy = check_remat_policy(remat_policy)
+        if remat_policy in ("minimal", "minimal_offloaded") and attn_impl in ("fused", "fused_t"):
+            logging.getLogger(__name__).warning(
+                "remat=%s saves only aten.mm/addmm products; attn_impl=%s runs its products "
+                "in the port's own kernels, so the policy saves nothing and acts as 'full'",
+                remat_policy, attn_impl)
         # an ineligible fused_t stack runs natural-layout fused blocks
         block_impl = "fused" if attn_impl == "fused_t" else attn_impl
         self.drop_rates = [float(r) for r in np.linspace(0.0, drop_path, depth)]  # :590

@@ -19,8 +19,9 @@ the vocab axis). In training (``train=True`` with a generator) the
 embedded tokens take the dropout (:124) and the Encoder its dropout and
 drop-path (:125-131), the draws in that order. ``scan_mlp``, ``chunk`` and
 ``use_dense_general`` pass to the Encoder; ``embed_cls`` is accepted and
-unused, as in JAX (kept for config compat, :83); ``param_dtype`` other
-than f32 raises.
+unused, as in JAX (kept for config compat, :83); ``param_dtype``
+(float32 or bfloat16) is the dtype the parameters are stored in, all but
+``ln_final`` (flax's default f32 there).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import torch
 from torch import nn
 
 from openvision_tpu_torch.models.encoder import Encoder
-from openvision_tpu_torch.models.vit import check_param_dtype
+from openvision_tpu_torch.models.vit import cast_params, check_param_dtype
 from openvision_tpu_torch.models.layers import (Dropout, LayerNorm, dropout_generator,
                                                 posemb_sincos_1d, sharded_head, zero_init)
 from openvision_tpu_torch.parallel import sharded_mesh, vocab_parallel_embedding
@@ -83,7 +84,7 @@ class TextTransformer(nn.Module):
                  use_dense_general: bool = False, param_dtype=None,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        check_param_dtype(param_dtype)
+        param_dtype = check_param_dtype(param_dtype)
         if posemb not in ("learn", "sincos1d"):
             raise ValueError(f"Unknown posemb type: {posemb!r}")
         self.token_embedding = zero_init(nn.Embedding, vocab_size, width)
@@ -108,6 +109,7 @@ class TextTransformer(nn.Module):
         self.output_tokens = output_tokens
         self.head_zeroinit = head_zeroinit
         self.dtype = dtype
+        cast_params(self, param_dtype, keep=("ln_final.",))  # JAX's default f32 norm
 
     def forward(self, text: torch.Tensor, train: bool = False,
                 rng: Optional[torch.Generator] = None):

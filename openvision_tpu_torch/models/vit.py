@@ -40,7 +40,9 @@ the image over 4) or ``linear`` (the ``nhpwqc`` patch order into one Dense,
 dtype first); ``final_drop`` (dropout on the pooled row before the head,
 in training); ``pool_type="map"`` (:class:`MAPHead`); and ``scan_mlp``,
 ``chunk`` and ``use_dense_general``, which pass to the Encoder.
-``param_dtype`` other than f32 is not ported yet and raises.
+``param_dtype`` (float32 or bfloat16) is the dtype the parameters are
+stored in, as flax's: all but cls, the position embedding and the MAP head,
+which JAX creates in f32 (:func:`cast_params`).
 """
 
 from __future__ import annotations
@@ -92,11 +94,30 @@ PATCH_EMBEDDINGS = ("conv", "stem", "linear")
 STEM_WIDTHS, STEM_STRIDES = (96, 192, 384), (1, 2, 2)  # JAX :238-250
 
 
-def check_param_dtype(param_dtype) -> None:
-    """The towers keep f32 parameters; another param_dtype is not ported yet."""
-    if param_dtype not in (None, torch.float32, "float32"):
-        raise NotImplementedError(f"param_dtype={param_dtype!r}: the port keeps f32 parameters "
-                                  "(param_dtype other than float32 is not ported yet)")
+PARAM_DTYPES = {None: torch.float32, "float32": torch.float32, "bfloat16": torch.bfloat16,
+                torch.float32: torch.float32, torch.bfloat16: torch.bfloat16}
+
+
+def check_param_dtype(param_dtype) -> torch.dtype:
+    """The dtype the towers store their parameters in (the flax modules'
+    ``param_dtype``): float32 (the default) or bfloat16; another raises."""
+    if param_dtype not in PARAM_DTYPES:
+        raise NotImplementedError(f"param_dtype={param_dtype!r}: the port stores parameters in "
+                                  "float32 or bfloat16")
+    return PARAM_DTYPES[param_dtype]
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype, keep=()) -> None:
+    """Stores `module`'s parameters in `dtype` (values rounded once), but
+    those whose names start with one of `keep` (the JAX modules that create
+    theirs in f32 whatever ``param_dtype`` says). The layers cast a weight
+    to the compute dtype at use, so a bf16 weight enters a bf16 product as
+    it is."""
+    if dtype == torch.float32:
+        return
+    for name, p in module.named_parameters():
+        if not name.startswith(tuple(keep)):
+            p.data = p.data.to(dtype)
 
 
 class MAPHead(nn.Module):
@@ -251,7 +272,7 @@ class ViT(nn.Module):
             raise ValueError(f"Unknown mask_mode: {mask_mode!r}")
         if patch_embedding not in PATCH_EMBEDDINGS:
             raise ValueError(f"Unknown patch_embedding: {patch_embedding!r}")
-        check_param_dtype(param_dtype)
+        param_dtype = check_param_dtype(param_dtype)
         p = tuple(patch_size)
         if patch_embedding == "conv":
             self.conv1 = zero_init(nn.Conv2d, 3, width, p, stride=p, bias=emb_head_bias)
@@ -298,6 +319,10 @@ class ViT(nn.Module):
         self.dropout = Dropout(dropout)
         self.head_zeroinit = head_zeroinit
         self.dtype = dtype
+        # JAX creates cls and the position embedding in the stream's dtype
+        # and the MAP head with flax's defaults: f32
+        cast_params(self, param_dtype, keep=("class_embedding", "positional_embedding",
+                                             "map_head."))
 
     def forward(self, image: torch.Tensor, train: bool = False,
                 rng: Optional[torch.Generator] = None):

@@ -16,7 +16,9 @@ the f32 scores are scaled (:155). The CUDA kernel tiles keys by 64 either
 way and follows the order that plan takes for Lk; at head_dim 64 the two
 agree exactly (the scale is 2**-3), at 72 or 80 they differ in the last
 bits. The kernels take every head_dim that is a multiple of 8 from 16 to
-128 (``kernels.check_head_dim``).
+256 (``kernels.check_head_dim``); any other up to 256 runs zero-padded to
+the next multiple of 8 (at least 16) at its own softmax scale, o sliced
+back (``kernels.kernel_head_dim``).
 
 :func:`flash_attention_plain` is the f32 counterpart (o and lse).
 
@@ -99,8 +101,8 @@ def flash_attention(q, k, v, *, causal: bool = False, prefix_len: int = 0,
     """Flash attention over (batch, length, heads, head_dim) inputs.
 
     q: (B, Lq, H, hd), k and v: (B, Lk, H, hd), bf16 on CUDA with unit
-    stride in head_dim (any other strides that are multiples of 8), hd a
-    multiple of 8 from 16 to 128; returns o (B, Lq, H, hd) bf16, and lse
+    stride in head_dim (any other strides that are multiples of 8), hd up to
+    256 (padded as the module doc says); returns o (B, Lq, H, hd) bf16, and lse
     (B, H, Lq) f32 with ``return_lse``. On the CPU the plain version runs.
     When autograd records (grad enabled and an input requires grad) the call
     is differentiable through the backward kernels; it then returns o only.
@@ -122,11 +124,19 @@ def _forward(q, k, v, *, causal: bool, prefix_len: int, sm_scale, return_lse: bo
     """The forward: the plain version on the CPU, the kernel on CUDA.
     ``nomax`` (exp(min(s, 80)), lse = log(l)) serves the fused_t backward's
     recompute (``_mhsa_t_bwd_kernel``); the flash path itself has none."""
+    b, lq, h, hd = q.shape
+    hdk = kernels.kernel_head_dim("flash_attention", hd)
+    if hdk != hd:  # zero-padded at the true head_dim's scale, o sliced back
+        pad = lambda t: kernels.pad_head_dim(t, hdk)
+        out = _forward(pad(q), pad(k), pad(v), causal=causal, prefix_len=prefix_len,
+                       sm_scale=hd ** -0.5 if sm_scale is None else sm_scale,
+                       return_lse=True, nomax=nomax)
+        o = out[0][..., :hd].contiguous()
+        return (o, out[1]) if return_lse else o
     if kernels.on_cpu(q, k, v):
         o, lse = flash_attention_plain(q, k, v, causal=causal, prefix_len=prefix_len,
                                        sm_scale=sm_scale, nomax=nomax)
         return (o, lse) if return_lse else o
-    b, lq, h, hd = q.shape
     lk = k.shape[1]
     kernels.check_head_dim("flash_attention", hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -146,5 +156,5 @@ def _forward(q, k, v, *, causal: bool, prefix_len: int, sm_scale, return_lse: bo
         None if lse is None else lse.data_ptr(), strides, b, lq, lk, h, hd, scale,
         int(prescale), int(causal), int(prefix_len), int(nomax), kernels.stream(q))
     kernels.raise_on(rc, "flash_attention")
-    kernels.count("flash_attention")
+    kernels.count("flash_attention", kernels.attention_parts(hd))
     return (out, lse) if return_lse else out

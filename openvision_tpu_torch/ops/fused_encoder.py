@@ -256,17 +256,26 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
     prefix-LM masks of ``_tvalid`` (fused_attention.py:64). One block per
     (batch, head, 64-query tile), online softmax over 64-key tiles in
     registers, keys past L and masked keys dropped, key tiles no query of the
-    block sees skipped; reads q, k, v by stride, no permutes. head_dim: a
-    multiple of 8 from 16 to 128.
+    block sees skipped; reads q, k, v by stride, no permutes. head_dim: up
+    to 256; one that is not a multiple of 8, or below 16, runs zero-padded
+    (``kernels.kernel_head_dim``) at its own softmax scale, on the CPU too.
     """
+    b, l, d3 = qkv.shape
+    d = d3 // 3
+    if d3 % 3 or d % num_heads:
+        raise ValueError(f"attention: width {d} does not split over {num_heads} heads")
+    hd = d // num_heads
+    hdk = kernels.kernel_head_dim("attention", hd)
+    if hdk != hd:  # the padded QKV buffer, the scale of the true head_dim, o sliced back
+        if scale is None:
+            scale = kernels.cast_scalar(hd ** -0.5, qkv.dtype)
+        padded = kernels.pad_head_dim(qkv.reshape(b, l, 3 * num_heads, hd), hdk)
+        o = attention(padded.reshape(b, l, 3 * num_heads * hdk), num_heads, nomax=nomax,
+                      causal=causal, prefix_len=prefix_len, scale=scale, out_dtype=out_dtype)
+        return o.reshape(b, l, num_heads, hdk)[..., :hd].reshape(b, l, d)
     if kernels.on_cpu(qkv):
         return attention_plain(qkv, num_heads, nomax=nomax, causal=causal,
                                prefix_len=prefix_len, scale=scale, out_dtype=out_dtype)
-    b, l, d3 = qkv.shape
-    d = d3 // 3
-    hd = d // num_heads
-    if d3 % 3 or d % num_heads:
-        raise ValueError(f"attention: width {d} does not split over {num_heads} heads")
     kernels.check_head_dim("attention", hd)
     kernels.check_operand("attention qkv", qkv, torch.bfloat16)
     if l * d3 >= 2**31:
@@ -282,7 +291,7 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
         int(causal),
         int(prefix_len) if causal else 0, int(out_dtype == torch.float32), kernels.stream(qkv))
     kernels.raise_on(rc, "attention")
-    kernels.count("attention")
+    kernels.count("attention", kernels.attention_parts(hd))
     return out
 
 

@@ -121,7 +121,7 @@ def attention_bwd_dq(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
         scale, int(causal), int(prefix_len) if causal else 0, int(nomax), dq_scale,
         int(dq_round), kernels.stream(q))
     kernels.raise_on(rc, "attention_bwd_dq")
-    kernels.count("attention_bwd_dq")
+    kernels.count("attention_bwd_dq", kernels.attention_parts(hd))
     return dq, delta
 
 
@@ -144,7 +144,7 @@ def attention_bwd_dkv(q, k, v, lse, delta, do, *, scale: float, causal: bool = F
         lq, lk, h, hd, scale, int(causal), int(prefix_len) if causal else 0, int(nomax),
         kernels.stream(q))
     kernels.raise_on(rc, "attention_bwd_dkv")
-    kernels.count("attention_bwd_dkv")
+    kernels.count("attention_bwd_dkv", kernels.attention_parts(hd))
     return dk, dv
 
 
@@ -155,13 +155,27 @@ def attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
 
     q, o, do: (B, Lq, H, hd); k, v: (B, Lk, H, hd); bf16 with unit stride in
     head_dim and other strides multiples of 8 (views of a QKV buffer work),
-    hd a multiple of 8 from 16 to 128; lse: (B, H, Lq) f32 from the
-    forward. dq, dk and dv may be given as such views (the fused block
-    writes them into one dqkv buffer); else they are allocated. ``nomax``
+    hd up to 256 (one that is not a multiple of 8 from 16 runs zero-padded
+    to ``kernels.kernel_head_dim``, the gradients sliced back; on the CPU
+    too); lse: (B, H, Lq) f32 from the forward. dq, dk and dv may be given
+    as such views (the fused block writes them into one dqkv buffer); else
+    they are allocated. ``nomax``
     recomputes P as the nomax forward's (lse = log(l)). dq's f32 sum is
     multiplied by ``dq_scale``, after rounding it to bf16 with ``dq_round``.
     Returns (dq, dk, dv). On the CPU the plain version runs.
     """
+    hd = q.shape[-1]
+    hdk = kernels.kernel_head_dim("attention_bwd", hd)
+    if hdk != hd:  # zero columns: zero gradient columns, delta unchanged
+        pad = lambda t: kernels.pad_head_dim(t, hdk)
+        grads = attention_bwd(pad(q), pad(k), pad(v), pad(o), lse, pad(do), scale=scale,
+                              causal=causal, prefix_len=prefix_len, nomax=nomax,
+                              dq_scale=dq_scale, dq_round=dq_round)
+        outs = []
+        for out, grad in zip((dq, dk, dv), grads):
+            grad = grad[..., :hd]
+            outs.append(grad.contiguous() if out is None else out.copy_(grad))
+        return tuple(outs)
     if kernels.on_cpu(q, k, v, o, lse, do):
         grads = attention_bwd_plain(q, k, v, o, lse, do, scale=scale, causal=causal,
                                     prefix_len=prefix_len, nomax=nomax, dq_scale=dq_scale,

@@ -8,14 +8,17 @@ with ``torch.load(weights_only=True)`` onto the CPU, move to `device`, and
 the encoder blocks' weight matrices are cast once to the compute `dtype`
 (what the flax modules do at every call). With ``int8=True`` the image
 tower's int8 serving weights are quantised first, from the f32 weights as
-loaded (``serving/quant.py``), and kept beside the float tower. Hub tags (``hf-hub:``) and a
-Hugging Face tokenizer in the model dir are not supported yet: tokens come
-from the WordPiece vocab.
+loaded (``serving/quant.py``), and kept beside the float tower. Hub tags
+(``hf-hub:``) are not supported yet. A Hugging Face ``tokenizer.json`` in
+the model dir (the WordPiece model type) tokenizes as JAX's route through
+``transformers`` does (``data/hf_tokenizer.py``); otherwise tokens come from
+the WordPiece vocab.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 from pathlib import Path
@@ -62,6 +65,14 @@ class LoadedModel:
         return z / (torch.linalg.norm(z, dim=-1, keepdim=True) + 1e-8)
 
     def tokenize(self, texts) -> np.ndarray:
+        """Label strings to (N, context_length) int32 ids with the model
+        dir's own tokenizer, in JAX's order of preference: a Hugging Face
+        ``tokenizer.json`` (padded and truncated to the context length, as
+        JAX calls ``AutoTokenizer``), else the dir's ``vocab.txt`` or the
+        repo's vocab in the bos/eos/CLS-at-end convention."""
+        hf = hf_tokenizer(self.model_dir) if self.model_dir else None
+        if hf is not None:
+            return hf(list(texts), self.context_length)
         return tokenize_labels(list(texts), self.vocab_path, self.context_length)
 
     def preprocess(self, image) -> np.ndarray:
@@ -165,6 +176,21 @@ def load_model(model_dir: str, *, vocab_path: str = DEFAULT_VOCAB,
         device=device,
         int8=qvision,
     )
+
+
+@functools.lru_cache(maxsize=8)
+def hf_tokenizer(model_dir: str):
+    """The model dir's ``tokenizer.json`` (WordPiece), or None without one.
+    A ``tokenizer_config.json`` alone (a slow tokenizer for
+    ``transformers``) raises by name."""
+    from openvision_tpu_torch.data.hf_tokenizer import HFWordPieceTokenizer
+
+    if os.path.exists(os.path.join(model_dir, "tokenizer.json")):
+        return HFWordPieceTokenizer(model_dir)
+    if os.path.exists(os.path.join(model_dir, "tokenizer_config.json")):
+        raise ValueError(f"{model_dir}: tokenizer_config.json without tokenizer.json; the port "
+                         "reads a Hugging Face tokenizer from tokenizer.json only")
+    return None
 
 
 def tokenize_labels(labels, vocab_path: str, max_len: int) -> np.ndarray:

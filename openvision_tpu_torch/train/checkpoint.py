@@ -68,7 +68,7 @@ import torch.distributed as dist
 
 from openvision_tpu_torch import optim
 from openvision_tpu_torch.convert.openclip import (
-    jax_params_to_state_dict, partial_state_dict_to_jax_params, shard_tensor,
+    flax_paths, jax_params_to_state_dict, partial_state_dict_to_jax_params, shard_tensor,
     state_dict_to_jax_params, unshard_tensor)
 from openvision_tpu_torch.train import codecs, ocdbt, zarr
 
@@ -426,19 +426,34 @@ def jax_heads(model: torch.nn.Module) -> dict:
 
 def _jax_train_state(state: dict, heads: dict, opt) -> dict:
     """The JAX train state (params, the optax chain) of a gathered one."""
+    dtypes = {n: t.dtype for n, t in state["params"].items()}
     params = {n: t.detach().float().cpu().numpy() for n, t in state["params"].items()}
     shapes = {n: v.shape for n, v in params.items()}
     chain = optim.state_dict_to_chain(
         state, opt.chain, to_jax=lambda m: partial_state_dict_to_jax_params(m, shapes, **heads))
-    adam = chain[str(opt.chain.index("adam"))]["inner_state"]
-    adam["mu"] = _map_leaves(adam["mu"], lambda v: torch.from_numpy(v).to(opt.mu_dtype))
-    return {"params": state_dict_to_jax_params(params, **heads), "opt": chain}
+    inner = chain["1"]["inner_state"]
+    slot = opt.chain[1]
+    # the converted leaves come back f32: each in its own dtype (a param's,
+    # param_dtype's; a field's, its configured dtype or its param's)
+    leaf_dt = {path: dt for n, dt in dtypes.items() for path in flax_paths(n)}
+    if slot != "factored_rms":
+        for f in optim.SLOTS[slot][0]:
+            given = (opt.mu_dtype if f == "mu" else
+                     opt.field_dtype(f, None) if f == "trace" else None)
+            inner[f] = _cast_leaves(inner[f], lambda path, g=given: g or leaf_dt[path])
+    tree = _cast_leaves(state_dict_to_jax_params(params, **heads), leaf_dt.get)
+    return {"params": tree, "opt": chain}
 
 
-def _map_leaves(tree, fn):
+def _cast_leaves(tree, dtype_of, prefix: str = ""):
+    """`tree` with each array leaf whose dtype_of(its path) is not f32 as a
+    torch tensor of that dtype (``save_orbax`` writes it so)."""
     if isinstance(tree, dict):
-        return {k: _map_leaves(v, fn) for k, v in tree.items()}
-    return None if tree is None else fn(tree)
+        return {k: _cast_leaves(v, dtype_of, f"{prefix}{k}/") for k, v in tree.items()}
+    dt = None if tree is None else dtype_of(prefix[:-1])
+    if dt is None or dt == torch.float32:
+        return tree
+    return torch.from_numpy(np.asarray(tree)).to(dt)
 
 
 def _remove_step(directory: str, step: int) -> None:
@@ -489,14 +504,14 @@ def gather_leaves(pieces: dict, model: torch.nn.Module, opt) -> dict:
 
 
 def gather_train_state(model: torch.nn.Module, opt) -> dict:
-    """The whole train state (params, opt count, mu, nu) on the CPU; a
-    collective on a process mesh."""
+    """The whole train state (params, opt count, the optimizer's fields:
+    Adam's mu and nu, ...) on the CPU; a collective on a process mesh."""
     if opt.mesh is None:
-        return {"params": dict(model.state_dict()), "count": opt.state["count"],
-                "mu": opt.state["mu"], "nu": opt.state["nu"]}
+        return {"params": dict(model.state_dict()), **opt.state_dict()}
+    if opt.slot == "factored_rms":  # one process or data parallel: whole leaves already
+        return {"params": dict(model.state_dict()), **opt.state_dict()}
     return {"params": gather_leaves(opt.params, model, opt), "count": opt.state["count"],
-            "mu": gather_leaves(opt.state["mu"], model, opt),
-            "nu": gather_leaves(opt.state["nu"], model, opt)}
+            **{f: gather_leaves(opt.state[f], model, opt) for f in opt.fields}}
 
 
 def save_train_state(directory: str, step: int, model: torch.nn.Module, opt,
@@ -554,17 +569,19 @@ def restore_train_state(directory: str, step: int, model: torch.nn.Module,
         position = data_position(directory, step)
     names = dict(model.named_parameters())
     _check_names(params, names, "parameter", where)
-    for what in ("mu", "nu"):
-        _check_names(moments[what], opt.live, f"optimizer {what}", where)
-    if opt.mesh is None:
+    leaf_keys = opt.state  # factored_rms: its fields per JAX leaf path
+    for what in opt.fields:
+        _check_names(moments[what], leaf_keys[what] if opt.slot == "factored_rms" else opt.live,
+                     f"optimizer {what}", where)
+    fields = {f: moments[f] for f in opt.fields}
+    if opt.mesh is None or opt.slot == "factored_rms":
         model.load_state_dict({k: torch.as_tensor(v) for k, v in params.items()})
-        mu, nu = moments["mu"], moments["nu"]
     else:
         def pieces(leaves, keys):
             return {n: _piece(torch.as_tensor(leaves[n]), n, names[n], opt) for n in keys}
 
         for n, t in pieces(params, opt.params).items():
             opt.params[n].copy_(t)
-        mu, nu = pieces(moments["mu"], opt.live), pieces(moments["nu"], opt.live)
-    opt.load_state_dict({"count": int(moments["count"]), "mu": mu, "nu": nu})
+        fields = {f: pieces(moments[f], opt.live) for f in opt.fields}
+    opt.load_state_dict({"count": int(moments["count"]), **fields})
     return position

@@ -90,8 +90,6 @@ def normalize_uint8(images: torch.Tensor) -> torch.Tensor:
 def build_model(config: dict) -> CLIPModel:
     """The CLIP/CoCa model of a config dict (``configs/openvision.py``),
     its parameters zero until initialized or loaded."""
-    if config.get("param_dtype", "float32") != "float32":
-        raise NotImplementedError("param_dtype other than float32 is not ported yet")
     m = config["model"]
     out_dim = m["out_dim"]
     return CLIPModel(  # the towers' factories take the string dtypes (models/compat.py)
@@ -210,7 +208,20 @@ def init_train_state(config: dict, model: CLIPModel, *, total_steps: int,
     named = {n: local(p) for n, p in model.named_parameters()}
     return optim.Optimizer(config, named, sched_kw=dict(
         total_steps=total_steps, batch_size=config["input"]["batch_size"],
-        data_size=data_size), mesh=mesh, tensor_plan=plan, fsdp_chunked=chunked)
+        data_size=data_size), mesh=mesh, tensor_plan=plan, fsdp_chunked=chunked,
+        jax_layout=jax_layout(model))
+
+
+def jax_layout(model: CLIPModel):
+    """The port's names -> the JAX param tree (``partial_state_dict_to_jax_params``
+    with the model's shapes and head counts): the leaf layout
+    ``scale_by_factored_rms`` needs."""
+    from openvision_tpu_torch.convert.openclip import partial_state_dict_to_jax_params
+    from openvision_tpu_torch.train.checkpoint import jax_heads
+
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    heads = jax_heads(model)
+    return lambda named: partial_state_dict_to_jax_params(named, shapes, **heads)
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:

@@ -227,7 +227,9 @@ def test_reference_keys_build_the_towers(images):
         np.testing.assert_allclose(txt(torch.from_numpy(ids)).numpy(),
                                    np.asarray(_apply(jtxt, {"params": tparams}, ids)), **TOL)
     with pytest.raises(NotImplementedError, match="param_dtype"):
-        tvit.Model(8, variant="mu/8", param_dtype="bfloat16")
+        tvit.Model(8, variant="mu/8", param_dtype="float16")
+    bf16 = tvit.Model(8, variant="mu/8", param_dtype="bfloat16")  # tests/test_torch_param_dtype.py
+    assert bf16.transformer.resblocks[0].attn.in_proj_weight.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("image_opts", [dict(pool_type="map"), dict(patch_embedding="stem"),

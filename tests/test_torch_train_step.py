@@ -209,7 +209,7 @@ def test_trainer_fine_tunes_from_a_jax_npz(tmp_path):
         assert torch.equal(a, b), n
 
 
-@pytest.mark.parametrize("policy", ["full", "minimal"])
+@pytest.mark.parametrize("policy", ["full", "minimal", "minimal_offloaded"])
 def test_remat_policies_give_the_gradients_of_no_remat(policy):
     from openvision_tpu_torch.models.encoder import Encoder
 
@@ -227,8 +227,8 @@ def test_remat_policies_give_the_gradients_of_no_remat(policy):
         grads.append([xi.grad] + [p.grad for p in enc.parameters()])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="minimal_offloaded"):
-        Encoder(32, 1, 2, remat_policy="minimal_offloaded")
+    with pytest.raises(ValueError, match="Unknown remat policy"):
+        Encoder(32, 1, 2, remat_policy="offloaded")
 
 
 def test_init_draws_the_jax_initializers_distributions():
