@@ -356,6 +356,26 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    within 0.5 points, retrieval similarities within SIM_TOL, the int8
    static scales equal on both ranks and to this process's; the eval
    seconds on two ranks and on one.
+   (d) Sequence and pipeline parallelism in the same two processes: a seq=2
+   mesh and a pipe=2 mesh (gloo carries point-to-point sends through host
+   copies; the compute stays on the card). Ring attention
+   (ops/ring_attention.py) at ViT-L/14's attention (b=8, L=257, 16 heads of
+   64) and at text L's causal L=77 (12 heads of 64), f32 with TF32 off: the
+   output and the q, k, v gradients of sum(out**2) within 1e-4 of max|ref|
+   against this process's xla_attention. The ViT-L/14 image tower at full
+   depth (24 blocks, 1024 wide) on flash, bf16, pipelined over pipe 2 (v 2,
+   m 4) at b=32: the pooled rows and the gradients (the patch conv's, block
+   0's and block 23's QKV weights, the blocks' summed over pipe) at cosine
+   >= 0.999 against this process's sequential flash stack on the same
+   random weights; each rank's flash launches exactly m x 12 of each of
+   #13 (flash_attention), #15 and #16 (attention_bwd_dq, _dkv); step ms and
+   peak memory per rank beside one process's. main_clip's main for one
+   step at phase 23's depth at pipe_parallelism=2 (flash) and at
+   seq_parallelism=2 (attn_impl=ring): finite losses, both ranks'
+   parameters bit-equal (a checksum per leaf), the loss within 2**-7 of
+   this process's one-process step on the same batch. The part prints its
+   seconds. `python3 chip_smoke.py --ring-pipe` builds the kernels and runs
+   (d) alone (one torchrun; it writes phase 21's shards itself).
    `python3 chip_smoke.py --mesh-recipe` builds the kernels and runs this
    phase alone (it writes the shards and the fixture itself).
 24. The wide-head towers and the model options (random weights, seed 0;
@@ -5204,6 +5224,145 @@ def instrument_evaluators(evaluators, store: dict):
     return evaluators
 
 
+# Phase 23 (d): sequence and pipeline parallelism on the two ranks. The ring cases
+# (label, batch, length, heads, head_dim, causal) and their bound against one
+# process's xla_attention (f32, TF32 off: a fraction of max|ref|)
+RP_RING_CASES = (("ViT-L/14 attention", 8, 257, 16, 64, False),
+                 ("text L causal", 8, 77, 12, 64, True))
+RP_RING_TOL = 1e-4
+RP_PIPE_BATCH, RP_PIPE_M, RP_PIPE_V = 32, 4, 2  # ViT-L/14 on flash, bf16, pipe 2
+RP_GRADS = ("conv1.weight", "transformer.resblocks.0.attn.in_proj_weight",
+            "transformer.resblocks.23.attn.in_proj_weight")
+RP_FLASH = ("flash_attention", "attention_bwd_dq", "attention_bwd_dkv")  # #13, #15, #16
+# (d)'s two main_clip runs: (name, the mesh's overrides); one step of RP_STEP
+RP_RUNS = (("pipe 2 (flash)", ["sharding.mesh.data=1", "sharding.mesh.pipe=2",
+                               "model.image.attn_impl=flash", "model.text.attn_impl=flash",
+                               "model.text_decoder_config.attn_impl=flash"]),
+           ("seq 2 (ring)", ["sharding.mesh.data=1", "sharding.mesh.seq=2",
+                             "model.image.attn_impl=ring", "model.text.attn_impl=ring"]))
+RP_STEP = (160, 32, 1, 1, 0.0)  # (res, batch, grad_accum, steps, mask_ratio)
+
+
+def rp_ring_inputs(device, b: int, length: int, heads: int, hd: int, seed: int):
+    """q, k, v (f32, on the card) of a ring case, the same on every process."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(b, length, heads, hd, generator=gen, device=device) for _ in range(3)]
+
+
+def rp_vit(device):
+    """The ViT-L/14-224 image tower (the repo's image config: sincos2d, gap,
+    no head) on flash in bf16, its weights drawn on the card from one seed
+    (N(0, 0.02); LayerNorm scales 1 + N(0, 0.02)), so every process builds
+    the same one; the pipeline's microbatches and chunks set."""
+    import torch
+
+    from openvision_tpu_torch.models import vit as tvit
+    from openvision_tpu_torch.models.encoder import cast_block_matrices
+
+    model = tvit.Model(variant="L/14", image_size=224, posemb="sincos2d", pool_type="gap",
+                       attn_impl="flash", fast_gelu=True, emb_head_bias=False,
+                       dtype=torch.bfloat16).to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+            if ".ln_" in name and name.endswith("weight"):
+                p.add_(1.0)
+    cast_block_matrices(model, torch.bfloat16)
+    model.transformer.pipe_microbatches = RP_PIPE_M
+    model.transformer.pipe_interleave = RP_PIPE_V
+    return model
+
+
+def rp_images(device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    return torch.randn(RP_PIPE_BATCH, 224, 224, 3, generator=gen, device=device)
+
+
+def rp_tower_step(model, images, iters: int = 2) -> tuple:
+    """`iters` forward + backward passes of sum(pooled**2) / B (each timed,
+    synchronized); (the pooled rows, the launches of the last pass, ms)."""
+    import torch
+
+    from openvision_tpu_torch.ops import kernels
+
+    times = []
+    for _ in range(iters):
+        model.zero_grad(set_to_none=True)
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model(images, train=True)
+        (out.float().pow(2).sum() / out.shape[0]).backward()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    return out.detach().float(), launches, times
+
+
+def param_checksums(model):
+    """Each parameter's bits summed as integers (one int64 a leaf, on its
+    device): equal on two processes when their parameters are."""
+    import torch
+
+    sums = []
+    for p in model.parameters():
+        t = p.detach().contiguous()
+        sums.append(t.view(torch.int16 if t.element_size() == 2 else torch.int32).long().sum())
+    return torch.stack(sums)
+
+
+def ring_pipe_ranks(run_dir: str, device, report: dict) -> None:
+    """Phase 23 (d) in one rank: the ring cases on a seq=2 mesh and the
+    pipelined ViT-L/14 tower on a pipe=2 mesh; process 0 writes the
+    results, each rank its times, launches and peak memory into `report`."""
+    import torch
+
+    from openvision_tpu_torch import parallel
+    from openvision_tpu_torch.ops.ring_attention import ring_attention_sharded
+
+    rank = parallel.rank()
+    rp = report["ring_pipe"] = {"backend": torch.distributed.get_backend()}
+    seq = parallel.create_mesh(seq=MR_RANKS, device_type=device.type)
+    for i, (label, b, length, heads, hd, causal) in enumerate(RP_RING_CASES):
+        q, k, v = (t.requires_grad_(True) for t in rp_ring_inputs(device, b, length, heads, hd,
+                                                                    SEED + 30 + i))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ring_attention_sharded(q, k, v, seq, seq_axis="seq", causal=causal)
+        (out ** 2).sum().backward()
+        torch.cuda.synchronize()
+        rp[label] = {"ms": (time.perf_counter() - t0) * 1e3}
+        if rank == 0:
+            torch.save({"out": out.detach().cpu(), "dq": q.grad.cpu(), "dk": k.grad.cpu(),
+                        "dv": v.grad.cpu()}, os.path.join(run_dir, f"ring_{i}.pt"))
+        del q, k, v, out
+    pipe = parallel.create_mesh(pipe=MR_RANKS, device_type=device.type)
+    model, images = rp_vit(device), rp_images(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with parallel.use_mesh(pipe):
+        out, launches, times = rp_tower_step(model, images)
+    grads = {}
+    for name in RP_GRADS:
+        g = dict(model.named_parameters())[name].grad
+        g = torch.zeros_like(dict(model.named_parameters())[name]) if g is None else g
+        if ".resblocks." in name:  # a stage holds its own layers' gradients
+            g = parallel.all_reduce(g, pipe.pipe_group)
+        grads[name] = g.float().cpu()
+    rp["pipeline"] = {"step_ms": times, "launches": launches,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "pipelined": int(model.transformer.pipelined)}
+    if rank == 0:
+        torch.save({"out": out.cpu(), "grads": grads}, os.path.join(run_dir, "pipe_tower.pt"))
+    del model, images, out
+    torch.cuda.empty_cache()
+
+
 def mesh_recipe_worker(run_dir: str) -> int:
     """One rank of phase 23 (``chip_smoke.py --mesh-worker RUN_DIR``;
     torchrun starts it): (a)'s gradients and step times, then every
@@ -5236,7 +5395,11 @@ def mesh_recipe_worker(run_dir: str) -> int:
     spec = json.load(open(os.path.join(run_dir, "runs.json")))
     device = parallel.maybe_distributed_init("cuda")
     report = {"rank": rank, "grads": {}, "stages": {}, "runs": {}}
-    mesh_grads(run_dir, spec["pattern"], device, report)
+    if not spec.get("ring_pipe_only"):
+        mesh_grads(run_dir, spec["pattern"], device, report)
+    t0 = time.perf_counter()
+    ring_pipe_ranks(run_dir, device, report)
+    report["ring_pipe"]["s"] = time.perf_counter() - t0
     build = trainer.build_evaluators
     for run in spec["runs"]:
         store = {}
@@ -5246,10 +5409,17 @@ def mesh_recipe_worker(run_dir: str) -> int:
             print(f"RUN {run['name']}", flush=True)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        main_clip.main(run["argv"])
+        model = main_clip.main(run["argv"])[0]
         torch.cuda.synchronize()
         launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
         report["runs"][run["name"]] = {"s": time.perf_counter() - t0, "launches": launches}
+        if run.get("params_equal"):  # both ranks' parameters, leaf by leaf
+            sums = param_checksums(model)
+            parts = [torch.empty_like(sums) for _ in range(MR_RANKS)]
+            torch.distributed.all_gather(parts, sums)
+            report["runs"][run["name"]]["params_equal"] = int(
+                all(torch.equal(p, sums) for p in parts))
+        del model
         if run["capture"]:
             torch.save({"rank": rank, "store": store, "launches": launches},
                        os.path.join(run_dir, f"evals_rank{rank}.pt"))
@@ -5301,13 +5471,14 @@ def _run_pids(run_dir: str) -> list:
     return pids
 
 
-def mesh_launch(run_dir: str, log_path: str) -> tuple:
+def mesh_launch(run_dir: str, log_path: str, sigterm: bool = True) -> tuple:
     """torchrun (MR_RANKS processes) of this script's --mesh-worker mode on
     RUN_DIR, in a session of its own; torchrun, the ranks and all they start
     are killed at MR_TIMEOUT_S. Once the first main_clip run has noted the
     model's size and rank 1 has installed its SIGTERM handler (its training
-    loop is starting: step 1 is under way), rank 1 alone gets SIGTERM.
-    Returns (seconds, the second at which SIGTERM was sent)."""
+    loop is starting: step 1 is under way), rank 1 alone gets SIGTERM
+    (unless `sigterm` is False). Returns (seconds, the second at which
+    SIGTERM was sent)."""
     import signal
     import socket
     import threading
@@ -5337,7 +5508,7 @@ def mesh_launch(run_dir: str, log_path: str) -> tuple:
                 log.write(line)
                 if line.startswith(("NOTE", "RUN")):
                     print(f"    [{time.perf_counter() - t0:.1f} s] {line.rstrip()}")
-                if sent is None and line.startswith("NOTE") and "M params" in line:
+                if sigterm and sent is None and line.startswith("NOTE") and "M params" in line:
                     while not os.path.exists(ready) and proc.poll() is None \
                             and time.perf_counter() - t0 < MR_TIMEOUT_S:
                         time.sleep(0.01)
@@ -5356,7 +5527,7 @@ def mesh_launch(run_dir: str, log_path: str) -> tuple:
     if rc != 0:
         print(open(log_path).read()[-8000:])
         raise AssertionError(f"phase 23's torchrun: exit {'timeout' if rc < 0 else rc}")
-    if sent is None:
+    if sigterm and sent is None:
         raise AssertionError("rank 1 never installed its SIGTERM handler")
     return took, sent
 
@@ -5494,6 +5665,124 @@ def mesh_eval_checks(ranks: list, one: dict, n_images: int) -> dict:
     return seconds
 
 
+def ring_pipe_runs(pattern: str, out_dir: str, argv) -> list:
+    """(d)'s main_clip runs as runs.json lists them: one step of RP_STEP at
+    phase 23's depth on each RP_RUNS mesh, no checkpoint."""
+    res, batch, accum, steps, mask = RP_STEP
+    runs = []
+    for name, mesh_ovs in RP_RUNS:
+        arg, ovs, _ = recipe_config(res, batch, accum, steps, mask, pattern,
+                                    **{"save_ckpt": False})
+        wd = os.path.join(out_dir, name.split()[0] + "_" + name.split()[1])
+        runs.append({"name": name, "argv": argv(arg, ovs + mesh_ovs, wd), "capture": False,
+                     "params_equal": True, "workdir": wd, "arg": arg, "overrides": ovs})
+    return runs
+
+
+def ring_pipe_checks(out_dir: str, ranks: list, runs: list, pattern: str, device,
+                     totals: dict) -> dict:
+    """Phase 23 (d) in this process, against what the ranks wrote (see the
+    module doc)."""
+    import torch
+
+    from openvision_tpu_torch.data import pipeline
+    from openvision_tpu_torch.main_clip import apply_override, load_config
+    from openvision_tpu_torch.ops.attention import xla_attention
+    from openvision_tpu_torch.train import step as tstep
+
+    t0 = time.perf_counter()
+    out = {"ring": {}, "ranks": {r["rank"]: r["ring_pipe"] for r in ranks}}
+    backend = ranks[0]["ring_pipe"]["backend"]
+    print(f"(d) ring attention over seq=2 ({backend}) against one process's xla_attention (f32, "
+          "TF32 off):")
+    for i, (label, b, length, heads, hd, causal) in enumerate(RP_RING_CASES):
+        q, k, v = (t.requires_grad_(True) for t in rp_ring_inputs(device, b, length, heads, hd,
+                                                                    SEED + 30 + i))
+        ref = xla_attention(q, k, v, causal=causal)
+        (ref ** 2).sum().backward()
+        got = torch.load(os.path.join(out_dir, f"ring_{i}.pt"))
+        errs = {}
+        for name, want in (("out", ref.detach()), ("dq", q.grad), ("dk", k.grad),
+                           ("dv", v.grad)):
+            errs[name] = float((got[name].to(device) - want).abs().max() / want.abs().max())
+        ms = [r["ring_pipe"][label]["ms"] for r in ranks]
+        print(f"  [{label}: b={b}, L={length}, {heads} heads of {hd}] error / max|ref| "
+              f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (bound {RP_RING_TOL:.0e}); forward"
+              f" + backward on each rank {[round(x, 1) for x in ms]} ms (first call)")
+        if max(errs.values()) > RP_RING_TOL:
+            raise AssertionError(f"ring attention [{label}]: {errs}")
+        out["ring"][label] = errs
+        del q, k, v, ref, got
+
+    print(f"(d) ViT-L/14 (24 blocks) on flash, bf16, pipelined over pipe=2 (v={RP_PIPE_V}, "
+          f"m={RP_PIPE_M}) at b={RP_PIPE_BATCH} against one process's sequential stack:")
+    model, images = rp_vit(device), rp_images(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ref, one_launches, one_ms = rp_tower_step(model, images)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    params = dict(model.named_parameters())
+    got = torch.load(os.path.join(out_dir, "pipe_tower.pt"))
+    row_cos = float(cosine_rows(got["out"].to(device), ref).min())
+    grad_cos = {n: flat_cos(got["grads"][n].to(device), params[n].grad.float())
+                for n in RP_GRADS}
+    depth = len(model.transformer.resblocks)
+    want = {k: RP_PIPE_M * depth // MR_RANKS for k in RP_FLASH}
+    for r in ranks:
+        p = r["ring_pipe"]["pipeline"]
+        print(f"  rank {r['rank']}: step (forward + backward) {[round(x, 1) for x in p['step_ms']]}"
+              f" ms (first, second), peak {p['peak_gb']:.2f} GB, launches {p['launches']}")
+        if p["pipelined"] != 1 or {k: p["launches"].get(k, 0) for k in RP_FLASH} != want:
+            raise AssertionError(f"rank {r['rank']}: pipelined {p['pipelined']}, launches "
+                                 f"{p['launches']}, expected {want} of {RP_FLASH}")
+    print(f"  one process: step {[round(x, 1) for x in one_ms]} ms, peak {one_peak:.2f} GB, "
+          f"launches {one_launches}  [{smi_line()}]")
+    print(f"  pooled rows: min cosine {row_cos:.6f}; gradient cosines "
+          f"{ {n: round(c, 6) for n, c in grad_cos.items()} } (bound 0.999)")
+    if row_cos < 0.999 or min(grad_cos.values()) < 0.999:
+        raise AssertionError(f"pipelined ViT-L/14: rows {row_cos}, gradients {grad_cos}")
+    for k, v in ranks[0]["ring_pipe"]["pipeline"]["launches"].items():
+        totals[k] += v
+    out["pipeline"] = {"row_cos": row_cos, "grad_cos": grad_cos, "one_ms": one_ms,
+                       "one_peak_gb": one_peak}
+    del model, images, ref, params, got
+    torch.cuda.empty_cache()
+
+    print(f"(d) main_clip for one step (res {RP_STEP[0]}, batch {RP_STEP[1]}) on each mesh "
+          "against one process's step on the same batch:")
+    batch = None
+    for run in runs:
+        name = run["name"]
+        rows = [json.loads(line) for line in open(os.path.join(run["workdir"], "metrics.jsonl"))]
+        losses = [r["training_loss"] for r in rows if "training_loss" in r]
+        cfg = load_config(f"{os.path.join(out_dir, 'recipe_config.py')}:{run['arg']}")
+        for ov in run["overrides"] + ["input.num_workers=0"]:
+            apply_override(cfg, ov)
+        if batch is None:
+            loader, _ = pipeline.training(cfg["input"], seed=SEED)
+            batch = tstep.to_device(next(loader), device)
+            loader.close()
+        model = tstep.build_model(cfg).to(device)
+        opt = tstep.init_train_state(cfg, model, total_steps=10)
+        meas, _ = tstep.make_grad_fn(cfg, model, opt)(batch, rng=tstep.step_generator(SEED, 0))
+        loss = float(meas["training_loss"])
+        equal = [r["runs"][name]["params_equal"] for r in ranks]
+        rel = abs(losses[0] - loss) / abs(loss) if losses else float("inf")
+        print(f"  [{name}] loss {losses} vs one process {loss:.6f} (rel {rel:.3e}, bound "
+              f"{2**-7:.3e}); parameters equal on the ranks {equal}; main_clip in the ranks "
+              f"{[round(r['runs'][name]['s'], 1) for r in ranks]} s; rank 0's launches "
+              f"{ranks[0]['runs'][name]['launches']}")
+        if len(losses) != 1 or not np.isfinite(losses).all() or rel > 2**-7 or equal != [1, 1]:
+            raise AssertionError(f"{name}: losses {losses} vs {loss}, parameters equal {equal}")
+        out[name] = {"loss": losses[0], "one": loss}
+        del model, opt
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(f"(d) in the ranks {[round(r['ring_pipe']['s'], 1) for r in ranks]} s (ring and tower),"
+          f" its checks here {out['s']:.1f} s")
+    return out
+
+
 def mesh_recipe_phase(work: str, images, device, totals: dict) -> dict:
     """Phase 23: the recipe on a process mesh (see the module doc)."""
     import torch
@@ -5547,9 +5836,11 @@ def mesh_recipe_phase(work: str, images, device, totals: dict) -> dict:
             ("stage 160 resumed", stage_arg, stage_ovs, stage_wd, False),
             ("load_transform 224", lt_arg, lt_ovs, lt_wd, False),
             ("eval_only", lt_arg, eval_ovs, eval_wd, True)]
+    rp_runs = ring_pipe_runs(pattern, out_dir, argv)  # (d), after the SIGTERM run
     with open(os.path.join(out_dir, "runs.json"), "w") as f:
         json.dump({"pattern": pattern, "runs": [
-            {"name": n, "argv": argv(a, o, w), "capture": c} for n, a, o, w, c in runs]}, f)
+            {"name": n, "argv": argv(a, o, w), "capture": c} for n, a, o, w, c in runs]
+            + rp_runs}, f)
     torch.cuda.empty_cache()
 
     print("one torchrun of two ranks: (a) three gradients of one global batch of 128 at 160 "
@@ -5659,6 +5950,7 @@ def mesh_recipe_phase(work: str, images, device, totals: dict) -> dict:
     del model
     torch.cuda.empty_cache()
     results["eval_seconds"] = seconds
+    results["ring_pipe"] = ring_pipe_checks(out_dir, ranks, rp_runs, pattern, device, totals)
     results["phase_s"] = time.perf_counter() - t_phase
     print(f"phase 23 in {results['phase_s']:.1f} s  [{smi_line()}]")
     return results
@@ -5694,6 +5986,61 @@ def mesh_recipe_only() -> int:
     print(f"phase 23 launches: { {k: v for k, v in totals.items() if v} }")
     print(smi_line())
     return 0
+
+def ring_pipe_only() -> int:
+    """``chip_smoke.py --ring-pipe``: the kernel build and phase 23 (d)
+    alone: one torchrun of two ranks (the ring cases, the pipelined tower,
+    two main_clip runs), then this process's checks."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from openvision_tpu_torch.data.ops_image import decode_png
+    from openvision_tpu_torch.ops import kernels
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"nvidia-smi: {smi_line()}")
+    t0 = time.perf_counter()
+    kernels.lib()
+    print(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    images = [decode_png(open(os.path.join(REPO, "testcat", f), "rb").read())
+              for f in sorted(os.listdir(os.path.join(REPO, "testcat"))) if f.endswith(".png")]
+    totals = dict.fromkeys(kernels.LAUNCHES, 0)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        pattern = write_curriculum_shards(work, images)
+        out_dir = os.path.join(work, "mesh")
+        os.makedirs(out_dir)
+        config_py = os.path.join(out_dir, "recipe_config.py")
+        with open(config_py, "w") as f:
+            f.write(MR_CONFIG_PY)
+
+        def argv(arg, overrides, workdir):
+            out = ["--config", f"{config_py}:{arg}", "--workdir", workdir, "--device", "cuda"]
+            for ov in overrides:
+                out += ["--override", ov]
+            return out
+
+        runs = ring_pipe_runs(pattern, out_dir, argv)
+        with open(os.path.join(out_dir, "runs.json"), "w") as f:
+            json.dump({"pattern": pattern, "ring_pipe_only": True, "runs": runs}, f)
+        t1 = time.perf_counter()
+        took, _ = mesh_launch(out_dir, os.path.join(out_dir, "ranks.log"), sigterm=False)
+        print(f"the ranks done in {took:.1f} s")
+        ranks = [json.load(open(os.path.join(out_dir, f"mesh_rank{r}.json")))
+                 for r in range(MR_RANKS)]
+        ring_pipe_checks(out_dir, ranks, runs, pattern, torch.device("cuda"), totals)
+        print(f"phase 23 (d) in {time.perf_counter() - t1:.1f} s  [{smi_line()}]")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 23 (d) launches (rank 0's tower): { {k: v for k, v in totals.items() if v} }")
+    print(smi_line())
+    return 0
+
 
 # ---------------------------------------------------------------------------
 # Phase 24: the attention kernels at the wide head_dims, the wide-head towers
@@ -7292,6 +7639,8 @@ if __name__ == "__main__":
         sys.exit(mesh_recipe_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--mesh-recipe"]:
         sys.exit(mesh_recipe_only())
+    if sys.argv[1:2] == ["--ring-pipe"]:
+        sys.exit(ring_pipe_only())
     if sys.argv[1:2] == ["--wide"]:
         sys.exit(wide_only())
     if sys.argv[1:2] == ["--native"]:

@@ -13,7 +13,8 @@ caption, the caption cross-entropy head-fused in ``cap_xent_chunk`` chunks),
 tower dicts carry the port's keyword names (the JAX names, plus
 ``image_size`` and ``context_length``, which flax infers from the first
 input). ``sharding.mesh`` is the JAX section (:81-92): the (data, fsdp,
-tensor) process mesh of ``train/trainer.py`` (seq and pipe > 1 raise). The
+tensor, seq, pipe) process mesh of ``train/trainer.py``; ``auto`` picks
+``xla`` for every tower under pipe > 1 (JAX :144-165). The
 eval section is JAX's (:272-316): ``eval_only`` and ``evals.disclf`` (zero-shot
 ImageNet-1K, prefix ``z/0shot/``) and ``evals.retrieval`` (COCO captions),
 their data_dir empty until a run names one, the image pp stopping after the

@@ -1,46 +1,90 @@
-"""A Hugging Face ``tokenizer.json`` of the WordPiece model type, read and
-run without ``transformers``.
+"""A model dir's Hugging Face tokenizer, read and run without ``transformers``.
 
-JAX's ``ModelIO.tokenize`` (``openvision_tpu/tools/model_io.py:52-77``)
+JAX's ``LoadedModel.tokenize`` (``openvision_tpu/tools/model_io.py:52-77``)
 hands a model dir with ``tokenizer.json`` / ``tokenizer_config.json`` to
 ``transformers.AutoTokenizer`` and calls it with ``padding="max_length",
-truncation=True, max_length=context_length``. The card's machine has no
-``transformers``, so the port reads the file itself and repeats what the
-``tokenizers`` library computes for a BERT WordPiece tokenizer:
+truncation=True, max_length=context_length``; where that raises (no pad
+token, no class to load, a config without a loadable tokenizer), it falls
+through to the dir's ``vocab.txt``, else the repo's vocab. The card's
+machine has no ``transformers`` and no ``tokenizers``, so :func:`load`
+repeats that resolution from the dir's files (nothing is downloaded) and
+:class:`HFTokenizer` repeats what the ``tokenizers`` library computes; it
+returns None where JAX's route raises, so the caller falls through too.
+
+The resolution: ``tokenizer_config.json`` names the class
+(``tokenizer_class``; without the file or the name ``AutoTokenizer`` needs
+a ``config.json``, which a model dir of this repo does not have, and
+raises). With ``tokenizer.json`` the tokenizer is the file's; the
+``BertTokenizer`` classes write the config's ``do_lower_case``,
+``strip_accents`` and ``tokenize_chinese_chars`` over its normalizer, as
+``BertTokenizerFast`` does. Without it, a ``BertTokenizer`` class builds
+what ``BertTokenizerFast`` builds from ``vocab.txt`` (``[CLS] ... [SEP]``,
+``do_lower_case``, ``[UNK]``); ``PreTrainedTokenizerFast`` without it
+loads nothing (AutoTokenizer raises); other classes without a
+``tokenizer.json`` (built from their own vocab files) raise by name. The pad token is the config's (the BERT classes default to
+``[PAD]``), and ``padding_side`` / ``truncation_side`` are the config's.
+
+The pipeline, as the library runs it on each text:
 
 - the added tokens (``added_tokens``): matched in the raw text first
   (leftmost, longest) and kept whole, their ``lstrip`` / ``rstrip``
-  whitespace taken with them;
-- ``BertNormalizer``: ``clean_text`` (drop NUL, U+FFFD and control
-  characters, whitespace to a space), ``handle_chinese_chars`` (spaces
-  around CJK ideographs), ``strip_accents`` (NFD, drop nonspacing marks;
-  unset: as ``lowercase``), then ``lowercase`` per character;
-- ``BertPreTokenizer``: split on whitespace, each punctuation character a
-  word of its own;
-- ``WordPiece``: ``vocab``, ``unk_token``, ``continuing_subword_prefix``,
-  ``max_input_chars_per_word`` (greedy longest match, the whole word as
-  ``unk_token`` when a piece is missing or the word is too long);
-- the post-processor (``BertProcessing``, ``TemplateProcessing``'s single
-  template, or none), after truncating the pieces to ``max_length`` less
-  the special tokens it adds (``truncation_side``); then padding to
-  ``max_length`` with the pad token's id (``padding_side``).
+  whitespace taken with them and ``single_word`` honoured;
+- the normalizer: ``NFC`` / ``NFD`` / ``NFKC`` / ``NFKD``, ``Lowercase``
+  (per character, as Rust's ``to_lowercase``), ``Strip``, ``StripAccents``
+  (NFD's combining marks, every ``M*`` category, dropped), ``Replace``
+  (string or regex pattern), ``Prepend`` (not on an empty text), ``Nmt``
+  (SentencePiece's control characters dropped and its other spaces made
+  one), ``BertNormalizer`` (``clean_text``, ``handle_chinese_chars``,
+  ``strip_accents`` (``Mn`` only; unset: as ``lowercase``), ``lowercase``)
+  and ``Sequence``;
+- the pre-tokenizer, each splitting every piece it is given:
+  ``ByteLevel`` (``add_prefix_space``, the GPT-2 split pattern under
+  ``use_regex``, then each piece's UTF-8 bytes through GPT-2's
+  byte-to-unicode table), ``Whitespace`` (``\\w+|[^\\w\\s]+``),
+  ``WhitespaceSplit``, ``Split`` (a string or regex pattern, ``invert``,
+  and each ``behavior``: ``Removed``, ``Isolated``,
+  ``MergedWithPrevious``, ``MergedWithNext``, ``Contiguous``),
+  ``Metaspace`` (``replacement``, ``prepend_scheme`` always / first /
+  never or the older ``add_prefix_space``, ``split``), ``Punctuation``,
+  ``Digits`` (ASCII digits, ``individual_digits``), ``BertPreTokenizer``
+  and ``Sequence``;
+- the model: ``WordPiece`` (greedy longest match, ``unk_token``,
+  ``continuing_subword_prefix``, ``max_input_chars_per_word``),
+  ``WordLevel`` (``vocab``, ``unk_token``), ``BPE`` (``merges`` as ``"a
+  b"`` strings or ``[a, b]`` pairs, applied lowest rank first, leftmost
+  on a tie; ``unk_token`` with ``fuse_unk``; ``continuing_subword_prefix``
+  (stripped from a merge's second half, as the library names the merged
+  token); ``end_of_word_suffix`` (CLIP's ``</w>``); ``byte_fallback``
+  (``<0xXX>`` pieces); ``ignore_merges``) and ``Unigram`` (Viterbi over
+  the pieces' scores, an unknown character scoring the lowest score less
+  10, consecutive unknowns fused into one ``unk_id``, ``byte_fallback``);
+- the post-processor: ``TemplateProcessing`` (the single template),
+  ``BertProcessing`` and ``RobertaProcessing`` (``cls ... sep``),
+  ``ByteLevel`` (offsets only: no ids) and ``Sequence`` (each wrapping the
+  last); the pieces are first truncated to ``max_length`` less the special
+  tokens it adds (``truncation_side``), then padded to ``max_length``
+  (``padding_side``).
 
-``tokenizer_config.json`` gives the pad token and the sides, and for the
-``BertTokenizer`` classes the normalizer flags that ``BertTokenizerFast``
-writes over the file's (``do_lower_case``, ``strip_accents``,
-``tokenize_chinese_chars``). Whitespace is Unicode's White_Space property
-(Rust's ``char::is_whitespace``), control characters the ``C*``
-categories, punctuation ASCII's and the ``P*`` categories, with this
-interpreter's ``unicodedata``. Any other model type (BPE, Unigram,
-WordLevel), normalizer or pre-tokenizer raises by name, as does a model dir
-without a pad token: falling through to ``vocab.txt`` would give other ids
-than JAX's route.
+Python's ``re`` has no ``\\p{L}`` / ``\\p{N}`` classes, and its ``\\s`` and
+``\\w`` are not the Rust engines' (``\\s`` takes U+001C-U+001F, ``\\w``
+takes the ``No`` numbers and misses the marks). :func:`translate_regex`
+rewrites a pattern's ``\\p{..}`` / ``\\P{..}`` (one- or two-letter general
+categories), ``\\s`` / ``\\S`` (Unicode's White_Space property) and ``\\w``
+/ ``\\W`` (letters, marks, ``Nd``, ``Nl``, ``Pc`` and the two join
+controls) into explicit character ranges built from this interpreter's
+``unicodedata``, inside or outside a bracketed class. Any other
+component raises by name, as do the ``Precompiled`` normalizer (the
+SentencePiece charsmap) and the ``UnicodeScripts`` and ``CharDelimiterSplit``
+pre-tokenizers.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import re
+import sys
 import unicodedata
 
 import numpy as np
@@ -51,6 +95,12 @@ from openvision_tpu_torch.data.tokenizer import _is_cjk, _is_control, _is_punctu
 _WHITE_SPACE = frozenset([*range(0x09, 0x0E), 0x20, 0x85, 0xA0, 0x1680, *range(0x2000, 0x200B),
                           0x2028, 0x2029, 0x202F, 0x205F, 0x3000])
 _BERT_CLASSES = ("BertTokenizer", "BertTokenizerFast")
+# GPT-2's split pattern (the ByteLevel pre-tokenizer's use_regex)
+GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+")
+_NMT_DROP = frozenset([*range(0x01, 0x09), 0x0B, *range(0x0E, 0x20), 0x7F, 0x8F, 0x9F])
+_NMT_SPACE = frozenset([0x09, 0x0A, 0x0C, 0x0D, 0x1680, *range(0x200B, 0x2010), 0x2028, 0x2029,
+                        0x2581, 0xFEFF, 0xFFFD])
+_UNK_PENALTY = 10.0  # a Unigram unknown character scores the lowest piece's score less this
 
 
 def _is_whitespace(ch: str) -> bool:
@@ -63,82 +113,548 @@ def _token_content(t) -> str | None:
     return t.get("content")
 
 
-class HFWordPieceTokenizer:
-    """The WordPiece ``tokenizer.json`` of a model dir; ``__call__(texts,
-    max_length)`` gives (N, max_length) int32 ids as JAX's AutoTokenizer
-    route does."""
+# ---------------------------------------------------------------------------
+# regex translation
+# ---------------------------------------------------------------------------
 
-    def __init__(self, model_dir: str):
-        with open(os.path.join(model_dir, "tokenizer.json"), encoding="utf-8") as f:
-            spec = json.load(f)
-        config = {}
-        for name in ("special_tokens_map.json", "tokenizer_config.json"):
-            path = os.path.join(model_dir, name)
-            if os.path.exists(path):
-                with open(path, encoding="utf-8") as f:
-                    config.update(json.load(f))
+
+def _ranges(pred) -> str:
+    """A bracket class body of every code point `pred` takes, as ranges."""
+    out, start, prev = [], None, None
+    for cp in range(sys.maxunicode + 1):
+        if pred(cp):
+            if start is None:
+                start = cp
+            prev = cp
+        elif start is not None:
+            out.append((start, prev))
+            start = None
+    if start is not None:
+        out.append((start, prev))
+    esc = lambda cp: f"\\U{cp:08x}"  # noqa: E731 - a range endpoint, escaped
+    return "".join(esc(a) if a == b else f"{esc(a)}-{esc(b)}" for a, b in out)
+
+
+@functools.lru_cache(maxsize=None)
+def _class_body(name: str) -> str:
+    """The ranges of a class: ``s`` (White_Space), ``w`` (word characters)
+    or a one- or two-letter general category (``L``, ``Nd``, ...)."""
+    if name == "s":
+        return _ranges(lambda cp: cp in _WHITE_SPACE)
+    if name == "w":
+        return _ranges(lambda cp: unicodedata.category(chr(cp))[0] in "LM"
+                       or unicodedata.category(chr(cp)) in ("Nd", "Nl", "Pc")
+                       or cp in (0x200C, 0x200D))
+    return _ranges(lambda cp: unicodedata.category(chr(cp)).startswith(name))
+
+
+@functools.lru_cache(maxsize=None)
+def translate_regex(pattern: str) -> "re.Pattern":
+    """`pattern` (Rust / Oniguruma syntax) compiled for Python's ``re``: see
+    the module doc."""
+    out, i, depth = [], 0, 0  # depth: inside a bracketed class
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\" and i + 1 < len(pattern):
+            nxt = pattern[i + 1]
+            if nxt in "pP" and pattern[i + 2:i + 3] == "{":
+                end = pattern.index("}", i)
+                body, negate = _class_body(pattern[i + 3:end]), nxt == "P"
+                i = end + 1
+            elif nxt in "sSwW":
+                body, negate, i = _class_body(nxt.lower()), nxt.isupper(), i + 2
+            else:
+                out.append(pattern[i:i + 2])
+                i += 2
+                continue
+            if depth and negate:
+                raise ValueError(f"regex {pattern!r}: a negated class inside brackets")
+            out.append(body if depth else f"[{'^' if negate else ''}{body}]")
+            continue
+        if c == "[" and not depth:  # a class opens: copy its ^ and a leading ]
+            depth, j = 1, i + 1
+            j += pattern[j:j + 1] == "^"
+            j += pattern[j:j + 1] == "]"
+            out.append(pattern[i:j])
+            i = j
+            continue
+        if c == "]" and depth:
+            depth = 0
+        out.append(c)
+        i += 1
+    return re.compile("".join(out))
+
+
+# ---------------------------------------------------------------------------
+# normalizers
+# ---------------------------------------------------------------------------
+
+
+def _bert_normalize(text: str, clean_text, chinese, strip_accents, lowercase) -> str:
+    if clean_text:
+        text = "".join(" " if _is_whitespace(c) else c for c in text
+                       if not (c in "\x00\ufffd" or _is_control(c)))
+    if chinese:
+        text = "".join(f" {c} " if _is_cjk(ord(c)) else c for c in text)
+    strip = lowercase if strip_accents is None else strip_accents
+    if strip:
+        text = "".join(c for c in unicodedata.normalize("NFD", text)
+                       if unicodedata.category(c) != "Mn")
+    if lowercase:
+        text = "".join(c.lower() for c in text)
+    return text
+
+
+def _pattern(spec: dict) -> "re.Pattern":
+    """A Replace / Split pattern: {"String": s} or {"Regex": r}."""
+    if "String" in spec:
+        return re.compile(re.escape(spec["String"]))
+    return translate_regex(spec["Regex"])
+
+
+def build_normalizer(spec, where: str, bert_overrides: dict | None = None):
+    """str -> str for a normalizer spec (None: the identity)."""
+    if spec is None:
+        return lambda s: s
+    kind = spec.get("type")
+    if kind == "Sequence":
+        parts = [build_normalizer(n, where, bert_overrides) for n in spec["normalizers"]]
+        return lambda s: functools.reduce(lambda acc, f: f(acc), parts, s)
+    if kind in ("NFC", "NFD", "NFKC", "NFKD"):
+        return lambda s: unicodedata.normalize(kind, s)
+    if kind == "Lowercase":
+        return lambda s: "".join(c.lower() for c in s)
+    if kind == "Strip":
+        left, right = spec.get("strip_left", True), spec.get("strip_right", True)
+
+        def strip(s):
+            lo, hi = 0, len(s)
+            while left and lo < hi and _is_whitespace(s[lo]):
+                lo += 1
+            while right and hi > lo and _is_whitespace(s[hi - 1]):
+                hi -= 1
+            return s[lo:hi]
+
+        return strip
+    if kind == "StripAccents":
+        return lambda s: "".join(c for c in s if unicodedata.category(c)[0] != "M")
+    if kind == "Replace":
+        pat, content = _pattern(spec["pattern"]), spec["content"]
+        return lambda s: pat.sub(lambda m: content, s)
+    if kind == "Prepend":
+        pre = spec["prepend"]
+        return lambda s: pre + s if s else s
+    if kind == "Nmt":
+        return lambda s: "".join(" " if ord(c) in _NMT_SPACE else c for c in s
+                                 if ord(c) not in _NMT_DROP)
+    if kind == "BertNormalizer":
+        flags = dict(clean_text=spec.get("clean_text", True),
+                     chinese=spec.get("handle_chinese_chars", True),
+                     strip_accents=spec.get("strip_accents"),
+                     lowercase=spec.get("lowercase", True))
+        flags.update(bert_overrides or {})
+        return lambda s: _bert_normalize(s, **flags)
+    raise ValueError(f"{where}: normalizer {kind!r} is not read by the port (it reads NFC, NFD, "
+                     "NFKC, NFKD, Lowercase, Strip, StripAccents, Replace, Prepend, Nmt, "
+                     "BertNormalizer and Sequence)")
+
+
+# ---------------------------------------------------------------------------
+# pre-tokenizers: each maps a list of (piece, starts the text) to a new list
+# ---------------------------------------------------------------------------
+
+
+def _regex_matches(pat, s: str) -> list:
+    """[((start, end), is_match)] covering `s`, as the library's find_matches."""
+    if not s:
+        return [((0, 0), False)]
+    out, prev = [], 0
+    for m in pat.finditer(s):
+        if prev != m.start():
+            out.append(((prev, m.start()), False))
+        out.append(((m.start(), m.end()), True))
+        prev = m.end()
+    if prev != len(s):
+        out.append(((prev, len(s)), False))
+    return out
+
+
+def _char_matches(pred, s: str) -> list:
+    """[((start, end), is_match)]: each character `pred` takes a match of its own."""
+    if not s:
+        return [((0, 0), False)]
+    out, last = [], 0
+    for i, c in enumerate(s):
+        if pred(c):
+            if last < i:
+                out.append(((last, i), False))
+            out.append(((i, i + 1), True))
+            last = i + 1
+    if last < len(s):
+        out.append(((last, len(s)), False))
+    return out
+
+
+def _split(s: str, matches: list, behavior: str, invert: bool = False) -> list:
+    """The pieces of `s` (non-empty) under a split `behavior`."""
+    if invert:
+        matches = [(o, not m) for o, m in matches]
+    if behavior == "Removed":
+        spans = [o for o, m in matches if not m]
+    elif behavior == "Isolated":
+        spans = [o for o, _ in matches]
+    elif behavior in ("Contiguous", "MergedWithPrevious", "MergedWithNext"):
+        seq = matches[::-1] if behavior == "MergedWithNext" else matches
+        acc, prev = [], False
+        for (a, b), m in seq:
+            merge = (m == prev) if behavior == "Contiguous" else (m and not prev)
+            if merge and acc:
+                lo, hi = acc[-1]
+                acc[-1] = (lo, b) if behavior != "MergedWithNext" else (a, hi)
+            else:
+                acc.append((a, b))
+            prev = m
+        spans = acc[::-1] if behavior == "MergedWithNext" else acc
+    else:
+        raise ValueError(f"split behavior {behavior!r}")
+    return [s[a:b] for a, b in spans if b > a]
+
+
+@functools.lru_cache(maxsize=None)
+def bytes_to_unicode() -> dict:
+    """GPT-2's byte -> printable character table."""
+    bs = [*range(ord("!"), ord("~") + 1), *range(ord("¡"), ord("¬") + 1),
+          *range(ord("®"), ord("ÿ") + 1)]
+    cs, n = bs[:], 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return {b: chr(c) for b, c in zip(bs, cs)}
+
+
+def _each(fn):
+    """A pre-tokenizer that splits each piece by fn(piece, first) -> pieces;
+    a piece's first part keeps its `first` flag."""
+    def run(pieces):
+        out = []
+        for piece, first in pieces:
+            out.extend((p, first and j == 0) for j, p in enumerate(fn(piece, first)))
+        return out
+    return run
+
+
+def build_pre_tokenizer(spec, where: str):
+    """[(piece, first)] -> [(piece, first)] for a pre-tokenizer spec."""
+    if spec is None:
+        return lambda pieces: [(p, f) for p, f in pieces if p]
+    kind = spec.get("type")
+    if kind == "Sequence":
+        parts = [build_pre_tokenizer(p, where) for p in spec["pretokenizers"]]
+        return lambda pieces: functools.reduce(lambda acc, f: f(acc), parts, pieces)
+    if kind == "BertPreTokenizer":
+        def bert(s, _):
+            words = _split(s, _char_matches(_is_whitespace, s), "Removed")
+            return [p for w in words for p in _split(w, _char_matches(_is_punctuation, w),
+                                                     "Isolated")]
+        return _each(bert)
+    if kind == "Whitespace":
+        pat = translate_regex(r"\w+|[^\w\s]+")
+        return _each(lambda s, _: _split(s, _regex_matches(pat, s), "Removed", invert=True))
+    if kind == "WhitespaceSplit":
+        return _each(lambda s, _: _split(s, _char_matches(_is_whitespace, s), "Removed"))
+    if kind == "Split":
+        pat = _pattern(spec["pattern"])
+        behavior, invert = spec["behavior"], spec.get("invert", False)
+        return _each(lambda s, _: _split(s, _regex_matches(pat, s), behavior, invert))
+    if kind == "Punctuation":
+        behavior = spec.get("behavior", "Isolated")
+        return _each(lambda s, _: _split(s, _char_matches(_is_punctuation, s), behavior))
+    if kind == "Digits":
+        behavior = "Isolated" if spec.get("individual_digits") else "Contiguous"
+        return _each(lambda s, _: _split(s, _char_matches(lambda c: "0" <= c <= "9", s),
+                                         behavior))
+    if kind == "Metaspace":
+        rep = spec.get("replacement", "▁")
+        scheme = spec.get("prepend_scheme")
+        if scheme is None:
+            scheme = "always" if spec.get("add_prefix_space", True) else "never"
+        split = spec.get("split", True)
+
+        def meta(s, first):
+            s = s.replace(" ", rep)
+            if not s.startswith(rep) and (scheme == "always" or (scheme == "first" and first)):
+                s = rep + s
+            if not split:
+                return [s] if s else []
+            return _split(s, _char_matches(lambda c: c == rep, s), "MergedWithNext")
+
+        return _each(meta)
+    if kind == "ByteLevel":
+        prefix, use_regex = spec.get("add_prefix_space", True), spec.get("use_regex", True)
+        pat = translate_regex(GPT2_PATTERN)
+        table = bytes_to_unicode()
+
+        def byte_level(s, _):
+            if prefix and s and not s.startswith(" "):
+                s = " " + s
+            pieces = _split(s, _regex_matches(pat, s), "Isolated") if use_regex else (
+                [s] if s else [])
+            return ["".join(table[b] for b in p.encode("utf-8")) for p in pieces]
+
+        return _each(byte_level)
+    raise ValueError(f"{where}: pre_tokenizer {kind!r} is not read by the port (it reads "
+                     "ByteLevel, Whitespace, WhitespaceSplit, Split, Metaspace, Punctuation, "
+                     "Digits, BertPreTokenizer and Sequence)")
+
+
+# ---------------------------------------------------------------------------
+# models: piece -> ids
+# ---------------------------------------------------------------------------
+
+
+class WordPiece:
+    def __init__(self, spec: dict, vocab: dict):
+        self.vocab = vocab
+        self.unk = spec.get("unk_token", "[UNK]")
+        self.prefix = spec.get("continuing_subword_prefix", "##")
+        self.max_chars = spec.get("max_input_chars_per_word", 100)
+
+    def __call__(self, word: str) -> list:
+        if len(word) > self.max_chars:
+            return [self.vocab[self.unk]]
+        ids, start = [], 0
+        while start < len(word):
+            end, cur = len(word), None
+            while start < end:
+                piece = word[start:end] if start == 0 else self.prefix + word[start:end]
+                if piece in self.vocab:
+                    cur = self.vocab[piece]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.vocab[self.unk]]
+            ids.append(cur)
+            start = end
+        return ids
+
+
+class WordLevel:
+    def __init__(self, spec: dict, vocab: dict):
+        self.vocab, self.unk = vocab, spec.get("unk_token")
+
+    def __call__(self, word: str) -> list:
+        if word in self.vocab:
+            return [self.vocab[word]]
+        if self.unk not in self.vocab:
+            raise ValueError(f"WordLevel: {word!r} is not in the vocab and there is no unk token")
+        return [self.vocab[self.unk]]
+
+
+class BPE:
+    def __init__(self, spec: dict, vocab: dict):
+        self.vocab = vocab
+        self.unk = spec.get("unk_token")
+        self.prefix = spec.get("continuing_subword_prefix") or ""
+        self.suffix = spec.get("end_of_word_suffix") or ""
+        self.fuse_unk = bool(spec.get("fuse_unk", False))
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
+        self.ignore_merges = bool(spec.get("ignore_merges", False))
+        self.ranks = {}
+        for rank, m in enumerate(spec.get("merges") or []):
+            a, b = m.split(" ") if isinstance(m, str) else m
+            tail = b[len(self.prefix):] if self.prefix and b.startswith(self.prefix) else b
+            self.ranks[a, b] = (rank, a + tail)
+        self.cache = {}
+
+    def __call__(self, word: str) -> list:
+        if not word:
+            return []
+        if word in self.cache:
+            return self.cache[word]
+        if self.ignore_merges and word in self.vocab:
+            return [self.vocab[word]]
+        symbols, unk = [], None  # (token string, id) in order; unk: the pending unknown
+        for i, ch in enumerate(word):
+            s = (self.prefix if i > 0 else "") + ch + (self.suffix if i == len(word) - 1 else "")
+            if s in self.vocab:
+                if unk is not None:
+                    symbols.append(unk)
+                    unk = None
+                symbols.append((s, self.vocab[s]))
+                continue
+            if self.byte_fallback:
+                codes = [f"<0x{b:02X}>" for b in s.encode("utf-8")]
+                if all(c in self.vocab for c in codes):
+                    if unk is not None:
+                        symbols.append(unk)
+                        unk = None
+                    symbols.extend((c, self.vocab[c]) for c in codes)
+                    continue
+            if self.unk is not None:
+                if unk is not None and not self.fuse_unk:
+                    symbols.append(unk)
+                if unk is None or not self.fuse_unk:
+                    unk = (None, self.vocab[self.unk])  # an unknown merges with nothing
+        if unk is not None:
+            symbols.append(unk)
+        while len(symbols) > 1:
+            best, at = None, None
+            for j in range(len(symbols) - 1):
+                r = self.ranks.get((symbols[j][0], symbols[j + 1][0]))
+                if r is not None and (best is None or r[0] < best[0]):
+                    best, at = r, j
+            if best is None:
+                break
+            symbols[at:at + 2] = [(best[1], self.vocab[best[1]])]
+        ids = [i for _, i in symbols]
+        self.cache[word] = ids
+        return ids
+
+
+class Unigram:
+    def __init__(self, spec: dict, vocab: dict):
+        pieces = spec["vocab"]
+        self.scores = {p: float(s) for p, s in pieces}
+        self.ids = {p: i for i, (p, _) in enumerate(pieces)}
+        self.unk_id = spec.get("unk_id")
+        self.byte_fallback = bool(spec.get("byte_fallback", False))
+        self.unk_score = min(self.scores.values()) - _UNK_PENALTY
+        self.max_len = max(len(p) for p in self.scores)
+        self.cache = {}
+
+    def _viterbi(self, s: str) -> list:
+        """The best segmentation's pieces, consecutive unknowns fused."""
+        n = len(s)
+        best = [None] * (n + 1)  # (score, start, id) of the best path ending at i
+        best[0] = (0.0, None, None)
+        for i in range(n):
+            if best[i] is None:
+                continue
+            base, single = best[i][0], False
+            for j in range(i + 1, min(n, i + self.max_len) + 1):
+                piece = s[i:j]
+                if piece not in self.scores:
+                    continue
+                cand = base + self.scores[piece]
+                if best[j] is None or cand > best[j][0]:
+                    best[j] = (cand, i, self.ids[piece])
+                single = single or j == i + 1
+            if not single:
+                cand = base + self.unk_score
+                if best[i + 1] is None or cand > best[i + 1][0]:
+                    best[i + 1] = (cand, i, self.unk_id)
+        out, pending, end = [], [], n
+        while end > 0:
+            _, start, pid = best[end]
+            if self.unk_id is not None and pid == self.unk_id:
+                pending.append(s[start:end])
+            else:
+                if pending:
+                    out.append("".join(pending[::-1]))
+                    pending = []
+                out.append(s[start:end])
+            end = start
+        if pending:
+            out.append("".join(pending[::-1]))
+        return out[::-1]
+
+    def __call__(self, word: str) -> list:
+        if word in self.cache:
+            return self.cache[word]
+        ids = []
+        for piece in self._viterbi(word):
+            if piece in self.ids:
+                ids.append(self.ids[piece])
+                continue
+            if self.byte_fallback:
+                codes = [f"<0x{b:02X}>" for b in piece.encode("utf-8")]
+                if all(c in self.ids for c in codes):
+                    ids.extend(self.ids[c] for c in codes)
+                    continue
+            if self.unk_id is None:
+                raise ValueError(f"Unigram: {piece!r} is unknown and there is no unk_id")
+            ids.append(self.unk_id)
+        self.cache[word] = ids
+        return ids
+
+
+_MODELS = {"WordPiece": WordPiece, "WordLevel": WordLevel, "BPE": BPE, "Unigram": Unigram}
+
+
+# ---------------------------------------------------------------------------
+# post-processors: (ids before, ids after) the sequence
+# ---------------------------------------------------------------------------
+
+
+def build_post_processor(spec, where: str) -> tuple:
+    if spec is None:
+        return [], []
+    kind = spec.get("type")
+    if kind in ("BertProcessing", "RobertaProcessing"):
+        return [spec["cls"][1]], [spec["sep"][1]]
+    if kind == "ByteLevel":
+        return [], []
+    if kind == "TemplateProcessing":
+        before, after, seen = [], [], False
+        for item in spec["single"]:
+            if "Sequence" in item:
+                seen = True
+                continue
+            ids = spec["special_tokens"][item["SpecialToken"]["id"]]["ids"]
+            (after if seen else before).extend(ids)
+        return before, after
+    if kind == "Sequence":
+        before, after = [], []
+        for p in spec["processors"]:
+            b, a = build_post_processor(p, where)
+            before, after = b + before, after + a
+        return before, after
+    raise ValueError(f"{where}: post_processor {kind!r} is not read by the port (it reads "
+                     "TemplateProcessing, BertProcessing, RobertaProcessing, ByteLevel and "
+                     "Sequence)")
+
+
+# ---------------------------------------------------------------------------
+# the tokenizer
+# ---------------------------------------------------------------------------
+
+
+class HFTokenizer:
+    """A tokenizer of the ``tokenizer.json`` form (`spec`) with the class
+    config `config`; ``__call__(texts, max_length)`` gives (N, max_length)
+    int32 ids as JAX's AutoTokenizer route does. ``pad_id`` is None without
+    a pad token (transformers refuses to pad: :func:`load` falls through)."""
+
+    def __init__(self, spec: dict, config: dict, where: str):
         model = spec.get("model") or {}
-        if model.get("type") != "WordPiece":
-            raise ValueError(f"{model_dir}/tokenizer.json: model type {model.get('type')!r}; the "
-                             "port reads the WordPiece model type only (not BPE, Unigram or "
-                             "WordLevel)")
-        self.vocab = dict(model["vocab"])
-        self.unk = model.get("unk_token", "[UNK]")
-        self.prefix = model.get("continuing_subword_prefix", "##")
-        self.max_chars = model.get("max_input_chars_per_word", 100)
+        kind = model.get("type")
+        if kind not in _MODELS:
+            raise ValueError(f"{where}: model type {kind!r} is not read by the port (it reads "
+                             f"{', '.join(_MODELS)})")
+        vocab = dict(model["vocab"]) if kind != "Unigram" else {
+            p: i for i, (p, _) in enumerate(model["vocab"])}
         self.added = {t["content"]: t for t in spec.get("added_tokens") or []}
+        self.model = _MODELS[kind](model, vocab)
+        self.vocab = dict(vocab)
         for content, t in self.added.items():
             self.vocab.setdefault(content, t["id"])
-
-        norm = spec.get("normalizer")
-        self.norm = None
-        if norm is not None:
-            if norm.get("type") != "BertNormalizer":
-                raise ValueError(f"{model_dir}/tokenizer.json: normalizer {norm.get('type')!r}; "
-                                 "the port reads BertNormalizer (or none)")
-            self.norm = dict(clean_text=norm.get("clean_text", True),
-                             chinese=norm.get("handle_chinese_chars", True),
-                             strip_accents=norm.get("strip_accents"),
-                             lowercase=norm.get("lowercase", True))
-            if config.get("tokenizer_class") in _BERT_CLASSES:  # BertTokenizerFast's override
-                self.norm.update(lowercase=config.get("do_lower_case", True),
-                                 strip_accents=config.get("strip_accents"),
-                                 chinese=config.get("tokenize_chinese_chars", True))
-        pre = spec.get("pre_tokenizer")
-        if pre is not None and pre.get("type") != "BertPreTokenizer":
-            raise ValueError(f"{model_dir}/tokenizer.json: pre_tokenizer {pre.get('type')!r}; the "
-                             "port reads BertPreTokenizer (or none)")
-        self.split_words = pre is not None
-        self.prefix_ids, self.suffix_ids = self._template(spec.get("post_processor"), model_dir)
-
+        bert = None
+        if config.get("tokenizer_class") in _BERT_CLASSES:  # BertTokenizerFast's override
+            bert = dict(lowercase=config.get("do_lower_case", True),
+                        strip_accents=config.get("strip_accents"),
+                        chinese=config.get("tokenize_chinese_chars", True))
+        self.normalize = build_normalizer(spec.get("normalizer"), where, bert)
+        self.pre_tokenize = build_pre_tokenizer(spec.get("pre_tokenizer"), where)
+        self.prefix_ids, self.suffix_ids = build_post_processor(spec.get("post_processor"),
+                                                                where)
         pad = _token_content(config.get("pad_token"))
-        if pad is None or pad not in self.vocab:
-            raise ValueError(f"{model_dir}: no pad token in tokenizer_config.json (or not in the "
-                             "vocab); JAX's route pads to max_length with it")
-        self.pad_id = self.vocab[pad]
+        if pad is None and config.get("tokenizer_class") in _BERT_CLASSES:
+            pad = "[PAD]"  # BertTokenizerFast's default
+        self.pad_id = self.vocab.get(pad)
         self.padding_side = config.get("padding_side", "right")
         self.truncation_side = config.get("truncation_side", "right")
-
-    def _template(self, post, model_dir):
-        """(ids before, ids after) the sequence, from the post-processor."""
-        if post is None:
-            return [], []
-        kind = post.get("type")
-        if kind == "BertProcessing":
-            return [post["cls"][1]], [post["sep"][1]]
-        if kind == "TemplateProcessing":
-            before, after, seen = [], [], False
-            for item in post["single"]:
-                if "Sequence" in item:
-                    seen = True
-                    continue
-                ids = post["special_tokens"][item["SpecialToken"]["id"]]["ids"]
-                (after if seen else before).extend(ids)
-            return before, after
-        raise ValueError(f"{model_dir}/tokenizer.json: post_processor {kind!r}; the port reads "
-                         "BertProcessing and TemplateProcessing (or none)")
-
-    # ------------------------------------------------------------------
 
     def _split_added(self, text: str):
         """[(segment, is_added_token)] in order: the added tokens matched in
@@ -174,67 +690,15 @@ class HFWordPieceTokenizer:
             out.append((text[start:], False))
         return out
 
-    def _normalize(self, text: str) -> str:
-        n = self.norm
-        if n is None:
-            return text
-        if n["clean_text"]:
-            text = "".join(" " if _is_whitespace(c) else c for c in text
-                           if not (c in "\x00\ufffd" or _is_control(c)))
-        if n["chinese"]:
-            text = "".join(f" {c} " if _is_cjk(ord(c)) else c for c in text)
-        strip = n["lowercase"] if n["strip_accents"] is None else n["strip_accents"]
-        if strip:
-            text = "".join(c for c in unicodedata.normalize("NFD", text)
-                           if unicodedata.category(c) != "Mn")
-        if n["lowercase"]:
-            text = "".join(c.lower() for c in text)  # per character, as Rust's to_lowercase
-        return text
-
-    def _words(self, text: str):
-        if not self.split_words:
-            return [text] if text else []
-        words, cur = [], []
-        for c in text:
-            if _is_whitespace(c) or _is_punctuation(c):
-                if cur:
-                    words.append("".join(cur))
-                    cur = []
-                if not _is_whitespace(c):
-                    words.append(c)
-            else:
-                cur.append(c)
-        if cur:
-            words.append("".join(cur))
-        return words
-
-    def _wordpiece(self, word: str):
-        if len(word) > self.max_chars:
-            return [self.vocab[self.unk]]
-        ids, start = [], 0
-        while start < len(word):
-            end, cur = len(word), None
-            while start < end:
-                piece = word[start:end] if start == 0 else self.prefix + word[start:end]
-                if piece in self.vocab:
-                    cur = self.vocab[piece]
-                    break
-                end -= 1
-            if cur is None:
-                return [self.vocab[self.unk]]
-            ids.append(cur)
-            start = end
-        return ids
-
     def encode(self, text: str) -> list[int]:
         """The pieces' ids, before truncation and the special tokens."""
         ids = []
-        for segment, is_added in self._split_added(text):
+        for j, (segment, is_added) in enumerate(self._split_added(text)):
             if is_added:
                 ids.append(self.vocab[segment])
                 continue
-            for word in self._words(self._normalize(segment)):
-                ids.extend(self._wordpiece(word))
+            for piece, _ in self.pre_tokenize([(self.normalize(segment), j == 0)]):
+                ids.extend(self.model(piece))
         return ids
 
     def __call__(self, texts, max_length: int) -> np.ndarray:
@@ -250,3 +714,62 @@ class HFWordPieceTokenizer:
             else:
                 out[i, max_length - len(ids):] = ids
         return out
+
+
+def bert_vocab_spec(vocab_path: str, config: dict) -> dict:
+    """The ``tokenizer.json`` form of what ``BertTokenizerFast`` builds from
+    a ``vocab.txt`` (transformers' BertConverter): BertNormalizer,
+    BertPreTokenizer, WordPiece over the file's lines, ``[CLS] $A [SEP]``."""
+    with open(vocab_path, encoding="utf-8") as f:
+        vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+    cls = _token_content(config.get("cls_token")) or "[CLS]"
+    sep = _token_content(config.get("sep_token")) or "[SEP]"
+    specials = [_token_content(config.get(k)) or d for k, d in (
+        ("pad_token", "[PAD]"), ("unk_token", "[UNK]"), ("cls_token", "[CLS]"),
+        ("sep_token", "[SEP]"), ("mask_token", "[MASK]"))]
+    return {
+        "added_tokens": [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+                          "rstrip": False} for t in specials if t in vocab],
+        "normalizer": {"type": "BertNormalizer"},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "model": {"type": "WordPiece", "vocab": vocab,
+                  "unk_token": _token_content(config.get("unk_token")) or "[UNK]"},
+        "post_processor": {"type": "BertProcessing", "cls": [cls, vocab[cls]],
+                           "sep": [sep, vocab[sep]]},
+    }
+
+
+def load(model_dir: str):
+    """The model dir's tokenizer as JAX's ``AutoTokenizer`` route resolves
+    it (see the module doc): an :class:`HFTokenizer`, or None where that
+    route raises and JAX falls through to the vocab convention. A class the
+    port cannot read without its ``tokenizer.json``, and a component the
+    port does not read, raise by name."""
+    config = {}
+    for name in ("special_tokens_map.json", "tokenizer_config.json"):
+        path = os.path.join(model_dir, name)
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                config.update(json.load(f))
+    cls = config.get("tokenizer_class")
+    if cls is None:  # AutoTokenizer would need config.json's model_type
+        if os.path.exists(os.path.join(model_dir, "config.json")):
+            raise NotImplementedError(f"{model_dir}: a tokenizer resolved through config.json's "
+                                      "model_type is not read by the port")
+        return None
+    path = os.path.join(model_dir, "tokenizer.json")
+    if os.path.exists(path):
+        with open(path, encoding="utf-8") as f:
+            spec = json.load(f)
+    elif cls in _BERT_CLASSES:
+        vocab = os.path.join(model_dir, "vocab.txt")
+        if not os.path.exists(vocab):
+            return None  # BertTokenizer without its vocab: AutoTokenizer raises
+        spec = bert_vocab_spec(vocab, config)
+    elif cls == "PreTrainedTokenizerFast":
+        return None  # nothing to build its backend from: AutoTokenizer raises
+    else:
+        raise NotImplementedError(f"{model_dir}: tokenizer_class {cls!r} without tokenizer.json "
+                                  "is not read by the port (it reads BertTokenizer's vocab.txt)")
+    tok = HFTokenizer(spec, config, f"{model_dir}/tokenizer.json")
+    return None if tok.pad_id is None else tok

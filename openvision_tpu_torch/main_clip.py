@@ -24,7 +24,8 @@ evaluator's data named by an override, e.g. a TFRecord directory written by
         --override evals.retrieval.data_dir=/data/coco_val.npz
 
 Several processes, one per rank of the config's ``sharding.mesh``
-(``data_parallelism``, ``fsdp_parallelism``, ``tensor_parallelism`` in the
+(``data_parallelism``, ``fsdp_parallelism``, ``tensor_parallelism``,
+``seq_parallelism`` (with ``attn_impl=ring``), ``pipe_parallelism`` in the
 config arg, or ``--override sharding.mesh.tensor=2``), come from torchrun:
 
     python -m torch.distributed.run --nproc_per_node 2 -m openvision_tpu_torch.main_clip \

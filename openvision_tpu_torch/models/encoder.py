@@ -93,15 +93,28 @@ The model options (:77-99, :411-432):
   same numbers in another layout (``convert/openclip.py`` reshapes them);
   as in JAX, the fused routes are off under it (:139, :577).
 
+Pipeline parallelism (:436-475, :499-552, :588-589): under an active mesh
+with pipe > 1 the stack runs through ``ops/pipeline_parallel.py`` when
+:meth:`Encoder._pipe_eligible` holds (pipe divides the depth; attn_impl
+xla, scan or flash; no drop-path, no decode, no active dropout; rows to
+split), else in sequence, with a warning for an impl that cannot ride the
+pipe. The microbatches are ``pipe_microbatches`` (0: 2 P), clipped to the
+process's rows and lowered until they divide them, the chunks a stage
+``pipe_interleave`` (0: 2; 1 where P v does not divide the depth), and
+``remat`` wraps each block as in the sequential stack. Every pipe rank
+holds every block, so the parameters and their names are the sequential
+stack's; :attr:`Encoder.pipelined` says whether the last call ran the
+pipeline (its blocks' gradients then sum over ``pipe``, ``train/step.py``).
+
 Parameters carry OpenCLIP's names (``transformer.resblocks.N.{ln_1, attn,
 ln_2, mlp}``, and ``ls_1.gamma`` / ``ls_2.gamma`` with LayerScale).
-Pipelining is not ported yet.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import warnings
 from collections import defaultdict
 from typing import Optional
 
@@ -117,7 +130,8 @@ from openvision_tpu_torch.models.layers import (DropPath, Dropout, LayerNorm, La
 from openvision_tpu_torch.ops.attention import prefix_lm_mask
 from openvision_tpu_torch.ops.fused_attention import fused_mhsa_block, fused_mhsa_block_tp
 from openvision_tpu_torch.ops.fused_encoder import mhsa_block, mlp_block
-from openvision_tpu_torch.parallel import sharded_mesh, tensor_size
+from openvision_tpu_torch.ops.pipeline_parallel import pipeline_apply
+from openvision_tpu_torch.parallel import active_mesh, sharded_mesh, tensor_size
 
 _GELU_APPROX = {"vit": False, "scaled": True}  # init_style -> tanh GELU
 ATTN_IMPLS = ("xla", "fused", "fused_t", "flash", "scan", "ring")
@@ -361,6 +375,7 @@ class Encoder(nn.Module):
                  remat_policy: str = "none", dropout: float = 0.0, drop_path: float = 0.0,
                  init_values: Optional[float] = None, scan_mlp: bool = False, chunk: int = 128,
                  decode: bool = False, use_dense_general: bool = False,
+                 pipe_microbatches: int = 0, pipe_interleave: int = 0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
@@ -382,6 +397,9 @@ class Encoder(nn.Module):
                          use_dense_general=use_dense_general, dtype=dtype)
             for rate in self.drop_rates)
         self.dropout = float(dropout)
+        self.drop_path = float(drop_path)
+        self.pipe_microbatches, self.pipe_interleave = int(pipe_microbatches), int(pipe_interleave)
+        self.pipelined = False  # whether the last call ran the pipeline
         self.init_values = init_values
         self.attn_impl = attn_impl
         self.scan_mlp, self.decode, self.use_dense_general = scan_mlp, decode, use_dense_general
@@ -415,6 +433,58 @@ class Encoder(nn.Module):
             and not (train and (any(self.drop_rates) or self.dropout))
         )
 
+    def _pipe_eligible(self, x: torch.Tensor, train: bool) -> bool:
+        """The pipeline applies (JAX :436-475) under a mesh with pipe > 1
+        dividing the depth, when the blocks are functions of their own
+        parameters (no drop-path schedule, no active dropout, no KV cache)
+        on an impl that rides the pipe (xla, scan, flash), and the process
+        holds rows to split into microbatches (JAX: the global batch
+        divides over the data axes, which holds for any rows the mesh
+        split). An impl that cannot ride it warns, as in JAX."""
+        mesh = active_mesh()
+        if mesh is None or mesh.pipe <= 1:
+            return False
+        eligible = (
+            self.depth % mesh.pipe == 0
+            and x.ndim == 3
+            and self.attn_impl in ("xla", "scan", "flash")
+            and self.drop_path == 0.0
+            and not self.decode
+            and (not train or self.dropout == 0.0)
+            and x.shape[0] >= 1
+        )
+        if not eligible and self.attn_impl not in ("xla", "scan", "flash"):
+            warnings.warn(
+                f"mesh has pipe={mesh.pipe} but attn_impl={self.attn_impl!r} is not "
+                "pipeline-eligible (the fused kernels run whole blocks); running the block "
+                "stack sequentially: the pipe axis does no useful work. Use attn_impl in "
+                "('xla', 'scan', 'flash') with pipe parallelism.", stacklevel=3)
+        return eligible
+
+    @property
+    def depth(self) -> int:
+        return len(self.resblocks)
+
+    def _pipelined(self, x: torch.Tensor, prefix_len: int) -> torch.Tensor:
+        """The stack through ``pipeline_apply`` (JAX :499-552): m
+        microbatches of this process's rows, v chunks a stage, ``remat``
+        around each block."""
+        mesh = active_mesh()
+        n_stages = mesh.pipe
+        m = self.pipe_microbatches or 2 * n_stages
+        m = max(1, min(m, x.shape[0]))
+        while x.shape[0] % m:
+            m -= 1
+        v = self.pipe_interleave or 2
+        if self.depth % (n_stages * v):
+            v = 1
+
+        def block_fn(block, h):
+            return remat(block, h, policy=self.remat_policy, prefix_len=prefix_len)
+
+        return pipeline_apply(block_fn, list(self.resblocks), x, mesh, num_microbatches=m,
+                              interleave=v)
+
     def init_cache(self, batch: int, max_len: int) -> None:
         """Zeroes every block's KV cache (``decode``) for `batch` sequences
         of up to `max_len` positions; each forward call then takes the next
@@ -431,6 +501,9 @@ class Encoder(nn.Module):
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """`prefix_len > 0` on a causal stack is the prefix-LM mask; `train`
         turns drop-path on, its masks drawn from `rng`."""
+        self.pipelined = self._pipe_eligible(x, train)
+        if self.pipelined:
+            return self._pipelined(x.to(self.dtype), prefix_len)
         fused_t = self._fused_t_eligible(x, prefix_len, train)
         x = x.to(self.dtype)
         for block, seed in zip(self.resblocks, self._drop_seeds(train, rng)):

@@ -8,7 +8,13 @@ Counterpart of ``openvision_tpu/ops/attention.py``:
   :func:`xla_attention`; ``flash`` runs the flash kernel
   (``ops/flash_attention.py``); ``scan`` (the JAX package's blockwise
   online-softmax scan, the same function) runs ``flash`` too. ``ring``
-  (sequence-parallel attention) is not ported yet and raises.
+  runs :func:`xla_attention` with no active mesh or a mesh with seq = 1
+  (:203-217), and ``ops/ring_attention.py:ring_attention_sharded`` over
+  the ``seq`` axis otherwise. JAX's ring route drops the mask, the
+  prefix-LM mask and the attention dropout without a word (:216 passes
+  only ``causal`` and ``sm_scale``; with no seq axis it drops
+  ``prefix_len`` too); the port passes all of them to ``xla`` and raises by
+  name for each under seq > 1, where the ring cannot honour them.
 
 :func:`xla_attention` takes the JAX function's attention dropout (:50-54):
 one (Lq, Lk) keep mask, broadcast over batch and heads, drawn from a given
@@ -24,6 +30,8 @@ from typing import Optional
 import torch
 
 from openvision_tpu_torch.ops.flash_attention import flash_attention
+from openvision_tpu_torch.ops.ring_attention import ring_attention_sharded
+from openvision_tpu_torch.parallel.mesh import active_mesh
 
 
 def prefix_lm_mask(batch: int, length: int, prefix_len: int, device=None) -> torch.Tensor:
@@ -93,15 +101,30 @@ def dispatch_attention(
     dropout_gen: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """Routes to an attention implementation by name: "xla" | "flash" |
-    "scan" (runs flash). Arbitrary masks and the dropout only on "xla";
-    "flash" takes the causal and prefix-LM masks natively."""
+    "scan" (runs flash) | "ring". Arbitrary masks and the dropout only on
+    "xla"; "flash" takes the causal and prefix-LM masks natively; "ring" is
+    "xla" without a seq axis and takes the causal mask alone over one."""
     if impl == "xla":
         return xla_attention(q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
                              sm_scale=sm_scale, dtype=dtype, dropout_rate=dropout_rate,
                              dropout_gen=dropout_gen)
     if impl == "ring":
-        raise NotImplementedError(
-            "attention impl 'ring' (sequence-parallel ring attention) is not ported yet")
+        mesh = active_mesh()
+        if mesh is None or mesh.seq <= 1:  # no sequence sharding: plain attention
+            return xla_attention(q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
+                                 sm_scale=sm_scale, dtype=dtype, dropout_rate=dropout_rate,
+                                 dropout_gen=dropout_gen)
+        for name, given in (("a mask", mask is not None),
+                            ("a prefix-LM mask (prefix_len > 0)", prefix_len > 0),
+                            ("attention dropout", dropout_rate > 0.0 and dropout_gen is not None)):
+            if given:
+                raise NotImplementedError(
+                    f"attention impl 'ring' over seq={mesh.seq} does not take {name} (the ring "
+                    "masks causally or not at all); use impl='xla' or seq=1")
+        if dtype is not None:
+            q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+        return ring_attention_sharded(q, k, v, mesh, seq_axis="seq", causal=causal,
+                                      sm_scale=sm_scale)
     if impl not in ("flash", "scan"):
         raise ValueError(f"Unknown attention impl: {impl!r}")
     if mask is not None:

@@ -1,24 +1,27 @@
-"""The (data, fsdp, tensor) process mesh, its groups and collectives.
+"""The (data, fsdp, tensor, seq, pipe) process mesh, its groups and collectives.
 
 Counterpart of ``openvision_tpu/parallel/mesh.py``: :func:`create_mesh`
-(:71) with the same axis names, the same ``data=-1`` inference and the
-same assertion, over ``torch.distributed.device_mesh.init_device_mesh``;
-:func:`active_mesh` / :func:`use_mesh` (:155-160), the registry through
-which the model's blocks find the mesh without threading it through every
-module; and the batch rows a process loads (``local_batch_to_global``,
-:127). The JAX ``activation_batch`` rule (:41) shards activations over
-(data, fsdp) only, so the processes of one tensor group see the same rows:
-batch shard ``data_index * fsdp + fsdp_index`` of ``data * fsdp``.
+(:71) with the same five axes in the same order (``MESH_AXES``, :32), the
+same ``data=-1`` inference and the same assertion, over
+``torch.distributed.device_mesh.init_device_mesh``; :func:`active_mesh` /
+:func:`use_mesh` (:155-160), the registry through which the model's blocks
+find the mesh without threading it through every module; and the batch
+rows a process loads (``local_batch_to_global``, :127). The JAX
+``activation_batch`` rule (:41) shards activations over (data, fsdp) only,
+so the processes of one tensor, seq or pipe group see the same rows: batch
+shard ``data_index * fsdp + fsdp_index`` of ``data * fsdp``.
 
-One process per rank, as ``torchrun`` launches them: rank
-``(data_index * fsdp + fsdp_index) * tensor + tensor_index`` (the row-major
-order of ``init_device_mesh``). :func:`maybe_distributed_init` (the JAX
-trainer's, :82) joins the process
+One process per rank, as ``torchrun`` launches them: ranks are row-major
+over ``(data, fsdp, tensor, seq, pipe)`` (the order of
+``init_device_mesh``), so with seq = pipe = 1 rank ``(data_index * fsdp +
+fsdp_index) * tensor + tensor_index``. The mesh holds the group of each of
+the tensor, seq and pipe axes and the batch group: the ``data * fsdp``
+processes that share this one's (tensor, seq, pipe) coordinates.
+:func:`maybe_distributed_init` (the JAX trainer's, :82) joins the process
 group that torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` /
 ``MASTER_ADDR`` / ``MASTER_PORT`` describe; the backend follows from the
 topology: NCCL when each process of a node has a GPU of its own, gloo when
-processes share a card or run on the CPU. The ``seq`` and ``pipe`` axes
-(ring attention, pipeline stages) are not ported yet and raise by name.
+processes share a card or run on the CPU.
 
 The collectives the model runs under autograd are explicit, as the JAX
 package's shard_maps make them: :func:`copy_to_tensor` (identity forward,
@@ -29,8 +32,19 @@ backward: a product split by output features, whose consumer is the same
 on every tensor rank), :func:`vocab_parallel_embedding` (a lookup in this
 rank's vocab rows, ids outside them masked to zero, summed over
 ``tensor``) and :func:`gather_batch` (the rows of every batch shard, its
-backward summing each rank's gradients into the owner's rows). A group of
-one process skips its collective. With ``COMM["timing"]`` on, each collective
+backward summing each rank's gradients into the owner's rows). For the
+seq and pipe axes (``ops/ring_attention.py``, ``ops/pipeline_parallel.py``):
+:func:`ring_shift` (JAX's ``ppermute`` by a fixed shift; its backward the
+opposite shift, the ppermute's transpose), :func:`scatter_to_seq` /
+:func:`gather_from_seq` (this rank's sequence chunk of a replicated
+tensor, and the chunks joined again; each one's backward is the other, as
+the activations outside attention, and so their gradients, are the same on
+every seq rank) and :func:`broadcast_from_stage` (a stage's tensor given to
+every rank of the group; the backward passes this rank's cotangent, the
+same on every rank, to the source alone). Under gloo a point-to-point send
+of a CUDA tensor goes through a host copy (gloo's send and recv take CPU
+tensors); the compute stays on the card. A group of one process skips its
+collective. With ``COMM["timing"]`` on, each collective
 synchronizes the device before and after itself and adds its host time to
 ``COMM["seconds"]`` (the step's collective share; off by default, as it
 costs two synchronizations a call).
@@ -49,25 +63,40 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-MESH_AXES = ("data", "fsdp", "tensor")
+MESH_AXES = ("data", "fsdp", "tensor", "seq", "pipe")
 
 
 @dataclass
 class Mesh:
     """This process's place on the mesh: the axis sizes, its coordinates,
-    the ``DeviceMesh`` (None in a single process), the group of its tensor
-    axis and the group of the ``data * fsdp`` processes that share its
-    tensor coordinate (the batch axes, flattened)."""
+    the ``DeviceMesh`` (None in a single process), the groups of its
+    tensor, seq and pipe axes, and the group of the ``data * fsdp``
+    processes that share its (tensor, seq, pipe) coordinates (the batch
+    axes, flattened)."""
 
     shape: dict
     coords: dict
     device_mesh: Optional[object] = None
     tensor_group: Optional[object] = None
     batch_group: Optional[object] = None
+    seq_group: Optional[object] = None
+    pipe_group: Optional[object] = None
 
     @property
     def tensor(self) -> int:
         return self.shape["tensor"]
+
+    @property
+    def seq(self) -> int:
+        return self.shape.get("seq", 1)
+
+    @property
+    def pipe(self) -> int:
+        return self.shape.get("pipe", 1)
+
+    def group(self, axis: str):
+        """The process group of the tensor, seq or pipe axis."""
+        return getattr(self, f"{axis}_group")
 
     @property
     def batch_shards(self) -> int:
@@ -88,31 +117,30 @@ class Mesh:
 
 def create_mesh(data: int = -1, fsdp: int = 1, tensor: int = 1, seq: int = 1, pipe: int = 1,
                 device_type: str = "cpu") -> Mesh:
-    """The (data, fsdp, tensor) mesh over the processes of the default
-    group (one process without one). `data=-1` absorbs the remainder."""
-    for name, size in (("seq", seq), ("pipe", pipe)):
-        if size not in (1, -1):
-            raise NotImplementedError(
-                f"the {name!r} mesh axis ({name}={size}) is not ported yet: ring attention "
-                "and pipeline parallelism wait for their own slice")
+    """The (data, fsdp, tensor, seq, pipe) mesh over the processes of the
+    default group (one process without one). `data=-1` absorbs the
+    remainder."""
     n = dist.get_world_size() if dist.is_initialized() else 1
+    rest = fsdp * tensor * seq * pipe
     if data == -1:
-        assert n % (fsdp * tensor) == 0, (n, fsdp, tensor)
-        data = n // (fsdp * tensor)
-    assert data * fsdp * tensor == n, f"mesh {data}x{fsdp}x{tensor} != {n} processes"
-    shape = dict(data=data, fsdp=fsdp, tensor=tensor)
+        assert n % rest == 0, (n, fsdp, tensor, seq, pipe)
+        data = n // rest
+    assert data * rest == n, f"mesh {data}x{fsdp}x{tensor}x{seq}x{pipe} != {n} processes"
+    dims = (data, fsdp, tensor, seq, pipe)
+    shape = dict(zip(MESH_AXES, dims))
     if n == 1:
-        return Mesh(shape, dict(data=0, fsdp=0, tensor=0))
+        return Mesh(shape, dict.fromkeys(MESH_AXES, 0))
     from torch.distributed.device_mesh import init_device_mesh
 
-    device_mesh = init_device_mesh(device_type, (data, fsdp, tensor), mesh_dim_names=MESH_AXES)
-    coords = dict(zip(MESH_AXES, (int(c) for c in np.unravel_index(dist.get_rank(),
-                                                                   (data, fsdp, tensor)))))
+    device_mesh = init_device_mesh(device_type, dims, mesh_dim_names=MESH_AXES)
+    coords = dict(zip(MESH_AXES, (int(c) for c in np.unravel_index(dist.get_rank(), dims))))
     # every process makes every group, in one order
-    batch_groups = [dist.new_group([b * tensor + t for b in range(data * fsdp)])
-                    for t in range(tensor)]
-    return Mesh(shape, coords, device_mesh, device_mesh.get_group("tensor"),
-                batch_groups[coords["tensor"]])
+    inner = tensor * seq * pipe
+    batch_groups = [dist.new_group([b * inner + i for b in range(data * fsdp)])
+                    for i in range(inner)]
+    own = (coords["tensor"] * seq + coords["seq"]) * pipe + coords["pipe"]
+    return Mesh(shape, coords, device_mesh, device_mesh.get_group("tensor"), batch_groups[own],
+                device_mesh.get_group("seq"), device_mesh.get_group("pipe"))
 
 
 # ---------------------------------------------------------------------------
@@ -333,3 +361,129 @@ def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     if _size(mesh.batch_group) == 1:
         return x
     return _GatherBatch.apply(x, mesh.batch_group, mesh.batch_index)
+
+
+# ---------------------------------------------------------------------------
+# the seq and pipe axes
+# ---------------------------------------------------------------------------
+
+
+def _via_host(t: torch.Tensor, group) -> bool:
+    """Whether a point-to-point transfer of `t` goes through a host copy:
+    a CUDA tensor over gloo, whose send and recv take CPU tensors."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def shift(x: torch.Tensor, group, offset: int) -> torch.Tensor:
+    """`x` sent to the rank `offset` places on around `group` and the
+    tensor of the rank `offset` places back received (no autograd): one
+    ``batch_isend_irecv`` pair a rank."""
+    n = _size(group)
+    if n == 1 or offset % n == 0:
+        return x.clone()
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + offset) % n)
+    src = dist.get_global_rank(group, (me - offset) % n)
+    staged = _via_host(x, group)
+    send = x.detach().contiguous()
+    if staged:  # gloo takes host tensors: the compute stays on the card
+        send = send.cpu()
+    recv = torch.empty_like(send)
+
+    def run():
+        for work in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
+                                            dist.P2POp(dist.irecv, recv, src, group)]):
+            work.wait()
+
+    _timed(run, x)
+    return recv.to(x.device, non_blocking=True) if staged else recv
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, offset):
+        ctx.group, ctx.offset = group, offset
+        return shift(x, group, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return shift(g, ctx.group, -ctx.offset), None, None
+
+
+def ring_shift(x: torch.Tensor, group, offset: int = 1) -> torch.Tensor:
+    """Rank i's `x` at rank (i + offset) mod n of `group` (JAX's ``ppermute``
+    with the permutation ``[(j, (j + offset) % n)]``); the backward sends
+    each gradient the opposite way, the ppermute's transpose. Every rank of
+    the group must call it, in the same order."""
+    return _RingShift.apply(x, group, offset)
+
+
+def _all_gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(_size(group))]
+    _timed(lambda: dist.all_gather(parts, x.contiguous(), group=group), x)
+    return torch.cat(parts, dim=dim)
+
+
+class _ScatterToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        ctx.group, ctx.dim = group, dim
+        return x.chunk(_size(group), dim=dim)[index].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather_dim(g, ctx.group, ctx.dim), None, None, None
+
+
+class _GatherFromSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index, dim):
+        ctx.group, ctx.index, ctx.dim = group, index, dim
+        return _all_gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(_size(ctx.group), dim=ctx.dim)[ctx.index].contiguous(), None, None, None
+
+
+def scatter_to_seq(x: torch.Tensor, mesh: Mesh, axis: str = "seq", dim: int = 1) -> torch.Tensor:
+    """This rank's chunk of `x` (the same on every rank of the `axis`
+    group) along `dim`; the backward gathers the chunks' gradients, so the
+    input's gradient is whole and the same on every rank."""
+    group = mesh.group(axis)
+    if _size(group) == 1:
+        return x
+    return _ScatterToSeq.apply(x, group, mesh.coords[axis], dim)
+
+
+def gather_from_seq(x: torch.Tensor, mesh: Mesh, axis: str = "seq", dim: int = 1) -> torch.Tensor:
+    """The chunks of every rank of the `axis` group joined along `dim`, in
+    rank order; the backward keeps this rank's chunk of the gradient (the
+    consumers are the same on every rank, so each holds the whole
+    gradient)."""
+    group = mesh.group(axis)
+    if _size(group) == 1:
+        return x
+    return _GatherFromSeq.apply(x, group, mesh.coords[axis], dim)
+
+
+class _BroadcastFromStage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.own = dist.get_rank(group) == src
+        out = x.detach().contiguous().clone()
+        _timed(lambda: dist.broadcast(out, dist.get_global_rank(group, src), group=group), out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.own else torch.zeros_like(g)), None, None
+
+
+def broadcast_from_stage(x: torch.Tensor, group, src: int) -> torch.Tensor:
+    """Rank `src`'s `x` (a rank of `group`) on every rank of the group (the
+    pipeline's output from its last stage); the backward passes this rank's
+    cotangent, the same on every rank, to the source alone."""
+    if _size(group) == 1:
+        return x
+    return _BroadcastFromStage.apply(x, group, src)

@@ -9,10 +9,12 @@ the encoder blocks' weight matrices are cast once to the compute `dtype`
 (what the flax modules do at every call). With ``int8=True`` the image
 tower's int8 serving weights are quantised first, from the f32 weights as
 loaded (``serving/quant.py``), and kept beside the float tower. Hub tags
-(``hf-hub:``) are not supported yet. A Hugging Face ``tokenizer.json`` in
-the model dir (the WordPiece model type) tokenizes as JAX's route through
-``transformers`` does (``data/hf_tokenizer.py``); otherwise tokens come from
-the WordPiece vocab.
+(``hf-hub:``) are not supported yet. A Hugging Face tokenizer in the model
+dir (``tokenizer.json`` of the WordPiece, BPE, WordLevel or Unigram model
+type, or a ``BertTokenizer`` config beside a ``vocab.txt``) tokenizes as
+JAX's route through ``transformers`` does (``data/hf_tokenizer.py``);
+otherwise, and where that route refuses the dir, tokens come from the
+WordPiece vocab.
 """
 
 from __future__ import annotations
@@ -67,9 +69,10 @@ class LoadedModel:
     def tokenize(self, texts) -> np.ndarray:
         """Label strings to (N, context_length) int32 ids with the model
         dir's own tokenizer, in JAX's order of preference: a Hugging Face
-        ``tokenizer.json`` (padded and truncated to the context length, as
-        JAX calls ``AutoTokenizer``), else the dir's ``vocab.txt`` or the
-        repo's vocab in the bos/eos/CLS-at-end convention."""
+        tokenizer (padded and truncated to the context length, as JAX calls
+        ``AutoTokenizer``), else (none, or one ``AutoTokenizer`` refuses) the
+        dir's ``vocab.txt`` or the repo's vocab in the bos/eos/CLS-at-end
+        convention."""
         hf = hf_tokenizer(self.model_dir) if self.model_dir else None
         if hf is not None:
             return hf(list(texts), self.context_length)
@@ -180,16 +183,15 @@ def load_model(model_dir: str, *, vocab_path: str = DEFAULT_VOCAB,
 
 @functools.lru_cache(maxsize=8)
 def hf_tokenizer(model_dir: str):
-    """The model dir's ``tokenizer.json`` (WordPiece), or None without one.
-    A ``tokenizer_config.json`` alone (a slow tokenizer for
-    ``transformers``) raises by name."""
-    from openvision_tpu_torch.data.hf_tokenizer import HFWordPieceTokenizer
+    """The model dir's Hugging Face tokenizer (``data/hf_tokenizer.py``), or
+    None without ``tokenizer.json`` / ``tokenizer_config.json`` and where
+    JAX's ``AutoTokenizer`` route raises and falls through (no pad token, no
+    class to load)."""
+    from openvision_tpu_torch.data import hf_tokenizer as hf
 
-    if os.path.exists(os.path.join(model_dir, "tokenizer.json")):
-        return HFWordPieceTokenizer(model_dir)
-    if os.path.exists(os.path.join(model_dir, "tokenizer_config.json")):
-        raise ValueError(f"{model_dir}: tokenizer_config.json without tokenizer.json; the port "
-                         "reads a Hugging Face tokenizer from tokenizer.json only")
+    if any(os.path.exists(os.path.join(model_dir, f))
+           for f in ("tokenizer.json", "tokenizer_config.json")):
+        return hf.load(model_dir)
     return None
 
 

@@ -21,7 +21,7 @@ count, as the JAX step folds the count into its rng (:175-183): a resumed
 run draws the masks an uninterrupted one draws.
 
 On a process mesh (``parallel/mesh.py``; the JAX ``sharding.mesh``
-(data, fsdp, tensor), one process per rank):
+(data, fsdp, tensor, seq, pipe), one process per rank):
 
 - placement (:func:`shard_model`): every process draws the whole model from
   the seed, then keeps its tensor shard of each attention whose heads divide
@@ -42,6 +42,14 @@ On a process mesh (``parallel/mesh.py``; the JAX ``sharding.mesh``
   all-reduce of the other leaves' flattened gradients. The tensor axis's
   sums are the blocks' own (``parallel.copy_to_tensor``, the TP block's
   backward), so replicated leaves come out the same on every tensor rank;
+- the seq and pipe ranks hold every parameter and the same batch rows. A
+  ``ring`` attention's gradients come out whole on every seq rank
+  (``ops/ring_attention.py``), so nothing sums over ``seq``. A pipelined
+  stack's stage holds its own layers' gradients only, so the gradients of
+  the blocks of every stack that ran the pipeline are summed over ``pipe``
+  once a step (:func:`reduce_over_pipe`, before the batch sum, in one order
+  on every rank); the input gradient of the stack reached every stage in
+  its backward. Every rank's parameters stay the same bits after a step;
 - the measurements are the global ones: the loss terms summed over the
   batch shards, the embedding norms averaged, and the l2 norms of
   ``Optimizer.global_norm``.
@@ -68,7 +76,7 @@ from openvision_tpu_torch.convert.openclip import shard_tensor
 from openvision_tpu_torch.models.attention_module import MultiHeadAttention
 from openvision_tpu_torch.models.clip import CLIPModel
 from openvision_tpu_torch.models.decoder import CrossAttnBlock, TextDecoder
-from openvision_tpu_torch.models.encoder import EncoderBlock
+from openvision_tpu_torch.models.encoder import Encoder, EncoderBlock
 from openvision_tpu_torch.models.init import init_params
 from openvision_tpu_torch.models.layers import MlpBlock
 from openvision_tpu_torch.models.text import TextTransformer
@@ -336,14 +344,30 @@ def make_loss_fn(config: dict, model: CLIPModel) -> Callable:
 SHARES = ("training_loss", "clip_loss", "caption_loss")  # summed over the batch shards
 
 
-def sum_over_batch(grads: dict, mesh: Mesh) -> None:
-    """Sums the gradients over data x fsdp in place: one all-reduce of
-    them flattened."""
-    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads.values()]), mesh.batch_group)
+def sum_over(grads: dict, group) -> None:
+    """Sums the gradients over `group` in place: one all-reduce of them
+    flattened."""
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in grads.values()]), group)
     offset = 0
     for g in grads.values():
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
         offset += g.numel()
+
+
+def reduce_over_pipe(grads: dict, model: torch.nn.Module, opt: optim.Optimizer) -> None:
+    """On a mesh with pipe > 1, in place: the gradients of the blocks of
+    every stack whose last call ran the pipeline (each stage holds its own
+    layers' share, zeros elsewhere) summed over ``pipe``, one all-reduce of
+    them flattened; an FSDP2-chunked leaf's piece is summed as it is (the
+    ranks of a pipe group hold the same chunk)."""
+    mesh = opt.mesh
+    if mesh is None or mesh.pipe == 1:
+        return
+    prefixes = tuple(f"{name}.resblocks." for name, m in model.named_modules()
+                     if isinstance(m, Encoder) and m.pipelined)
+    names = [n for n in grads if n.startswith(prefixes)]
+    if names:
+        sum_over({n: grads[n] for n in names}, mesh.pipe_group)
 
 
 def reduce_over_batch(measurements: dict, grads: dict, opt: optim.Optimizer) -> None:
@@ -353,7 +377,7 @@ def reduce_over_batch(measurements: dict, grads: dict, opt: optim.Optimizer) -> 
     mesh = opt.mesh
     if mesh is None or mesh.batch_shards == 1:
         return
-    sum_over_batch({n: g for n, g in grads.items() if n not in opt.fsdp_chunked}, mesh)
+    sum_over({n: g for n, g in grads.items() if n not in opt.fsdp_chunked}, mesh.batch_group)
     for k in measurements:
         total = all_reduce(measurements[k], mesh.batch_group)
         measurements[k] = total if k in SHARES else total / mesh.batch_shards
@@ -385,6 +409,7 @@ def make_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer) -> Callab
         grads = _grads(params, opt)
         measurements = {k: v.detach().reshape(()) for k, v in measurements.items()}
         measurements["training_loss"] = loss.detach()
+        reduce_over_pipe(grads, model, opt)
         reduce_over_batch(measurements, grads, opt)
         return measurements, grads
 
@@ -506,6 +531,7 @@ def make_accum_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer,
             measurements["training_loss"] = clip_w * l_clip.detach() + cap_w * cap_l
         else:
             measurements["training_loss"] = l_clip.detach()
+        reduce_over_pipe(grads, model, opt)
         reduce_over_batch(measurements, grads, opt)
         return measurements, grads
 

@@ -53,15 +53,13 @@ work and the chronometer's host-wait share is the input pipeline's part.
 Several processes (``torchrun``, one per rank): ``maybe_distributed_init``
 (``parallel/mesh.py``; JAX :82) joins the process group of torchrun's
 environment and gives each process its device, the config's
-``sharding.mesh`` (data, fsdp, tensor) becomes the process mesh, active for
+``sharding.mesh`` (data, fsdp, tensor, seq, pipe) becomes the process mesh, active for
 the whole run, each process loads its (data, fsdp) rows of every batch, the
 model and optimizer are placed by ``train/step.py``, ``sync`` (JAX :90) is a
 barrier at the run's named points, and process 0 alone writes the metrics,
 the chronometer and the checkpoints (JAX :194, :228, :385), which save the
-whole state.
-
-Left out, and refused by name when a config asks for them: the seq and
-pipe mesh axes (``parallel/mesh.py``).
+whole state (every seq and pipe rank holds every parameter). The first
+note names the mesh.
 """
 
 from __future__ import annotations

@@ -6,16 +6,31 @@ machine). The tokenizers are built here with the ``tokenizers`` library
 from the repo's vocab (BERT WordPiece): lowercase through
 ``PreTrainedTokenizerFast``, ``BertTokenizerFast`` (whose config's
 ``do_lower_case`` rules the normalizer), and a cased one with a
-``TemplateProcessing`` post-processor and an added token. Ids must be
-equal, padded and truncated to the context length. A BPE tokenizer and a
-dir without a pad token raise by name.
+``TemplateProcessing`` post-processor and an added token; then, each
+trained here on this file's ``TEXTS`` with the ``tokenizers`` trainers
+(nothing downloaded): a BPE with ``Whitespace``, a CLIP-style BPE
+(``NFC`` + ``Replace`` + ``Lowercase``, ``Split`` + ``ByteLevel`` with
+``</w>``, ``RobertaProcessing``), a ``ByteLevelBPETokenizer``, a
+``WordLevel`` (``StripAccents``, ``Strip``, ``Punctuation``, ``Digits``,
+``BertProcessing``), a ``SentencePieceUnigramTokenizer`` (``Nmt``,
+``NFKC``, ``Metaspace``) and a byte-fallback BPE with a ``Prepend``
+normalizer and a ``Metaspace`` split; a WordPiece dir without a pad token
+(``transformers`` refuses to pad, JAX falls through to the vocab
+convention) and a ``BertTokenizer`` config beside a ``vocab.txt``. Ids must
+be equal, padded and truncated to the context length (8 or 16, and 80). A
+component the port does not read raises by name.
 """
 
 import os
 
 import numpy as np
 import pytest
-from tokenizers import BertWordPieceTokenizer, Tokenizer, models, processors
+import json
+import shutil
+
+from tokenizers import (BertWordPieceTokenizer, ByteLevelBPETokenizer, Regex,
+                        SentencePieceUnigramTokenizer, Tokenizer, decoders, models, normalizers,
+                        pre_tokenizers, processors, trainers)
 from transformers import BertTokenizerFast, PreTrainedTokenizerFast
 
 from openvision_tpu.tools.model_io import LoadedModel as JaxLoaded
@@ -73,16 +88,128 @@ def test_tokenizer_json_gives_jax_autotokenizer_ids(tmp_path, kind):
     assert not np.array_equal(got, model_io.tokenize_labels(TEXTS, VOCAB, 80))
 
 
+CLIP_SPLIT = (r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|"
+              r"[^\s\p{L}\p{N}]+")
+
+
+def _trained(kind):
+    """(tokenizer, pad token) of each model type, trained on TEXTS."""
+    if kind == "bpe_whitespace":  # ROADMAP queue 3's measured case
+        tok = Tokenizer(models.BPE(unk_token="[UNK]"))
+        tok.pre_tokenizer = pre_tokenizers.Whitespace()
+        tok.train_from_iterator(TEXTS, trainers.BpeTrainer(vocab_size=60,
+                                                           special_tokens=["[PAD]", "[UNK]"]))
+        return tok, "[PAD]"
+    if kind == "clip_bpe":
+        tok = Tokenizer(models.BPE(unk_token="<|endoftext|>", end_of_word_suffix="</w>",
+                                   continuing_subword_prefix=""))
+        tok.normalizer = normalizers.Sequence([normalizers.NFC(),
+                                               normalizers.Replace(Regex(r"\s+"), " "),
+                                               normalizers.Lowercase()])
+        tok.pre_tokenizer = pre_tokenizers.Sequence([
+            pre_tokenizers.Split(Regex(CLIP_SPLIT), behavior="removed", invert=True),
+            pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
+        tok.train_from_iterator(TEXTS, trainers.BpeTrainer(
+            vocab_size=400, special_tokens=["<|startoftext|>", "<|endoftext|>"],
+            end_of_word_suffix="</w>", initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+        tok.post_processor = processors.RobertaProcessing(
+            ("<|endoftext|>", tok.token_to_id("<|endoftext|>")),
+            ("<|startoftext|>", tok.token_to_id("<|startoftext|>")), trim_offsets=False,
+            add_prefix_space=False)
+        return tok, "<|endoftext|>"
+    if kind == "byte_level_bpe":
+        bl = ByteLevelBPETokenizer(add_prefix_space=True)
+        bl.train_from_iterator(TEXTS, vocab_size=320, special_tokens=["<pad>", "<s>", "</s>"])
+        tok = bl._tokenizer
+        tok.post_processor = processors.Sequence([
+            processors.ByteLevel(trim_offsets=False),
+            processors.TemplateProcessing(single="<s> $A </s>", special_tokens=[
+                ("<s>", tok.token_to_id("<s>")), ("</s>", tok.token_to_id("</s>"))])])
+        return tok, "<pad>"
+    if kind == "word_level":
+        tok = Tokenizer(models.WordLevel(unk_token="[UNK]"))
+        tok.normalizer = normalizers.Sequence([normalizers.NFD(), normalizers.StripAccents(),
+                                               normalizers.Lowercase(), normalizers.Strip()])
+        tok.pre_tokenizer = pre_tokenizers.Sequence([
+            pre_tokenizers.WhitespaceSplit(), pre_tokenizers.Punctuation(),
+            pre_tokenizers.Digits(individual_digits=True)])
+        tok.train_from_iterator(TEXTS[::2], trainers.WordLevelTrainer(
+            special_tokens=["[PAD]", "[UNK]", "[CLS]", "[SEP]"]))
+        tok.post_processor = processors.BertProcessing(("[SEP]", 3), ("[CLS]", 2))
+        return tok, "[PAD]"
+    if kind == "unigram":
+        sp = SentencePieceUnigramTokenizer()
+        sp.train_from_iterator(TEXTS[::2], vocab_size=120, special_tokens=["<pad>", "<unk>"],
+                               unk_token="<unk>")
+        return sp._tokenizer, "<pad>"
+    # a byte-fallback BPE (the Llama form): Prepend + Replace, a Metaspace split
+    tok = Tokenizer(models.BPE(unk_token="<unk>", byte_fallback=True, fuse_unk=True))
+    tok.normalizer = normalizers.Sequence([normalizers.Prepend("▁"),
+                                           normalizers.Replace(" ", "▁")])
+    tok.pre_tokenizer = pre_tokenizers.Metaspace(prepend_scheme="first", split=True)
+    tok.train_from_iterator(TEXTS[::3], trainers.BpeTrainer(
+        vocab_size=200, special_tokens=["<unk>", "<pad>"] + [f"<0x{b:02X}>" for b in range(256)]))
+    tok.post_processor = processors.TemplateProcessing(single="<unk> $A", special_tokens=[
+        ("<unk>", 0)])
+    tok.decoder = decoders.ByteFallback()
+    return tok, "<pad>"
+
+
+TRAINED = ["bpe_whitespace", "clip_bpe", "byte_level_bpe", "word_level", "unigram",
+           "byte_fallback_bpe"]
+
+
+@pytest.mark.parametrize("kind", TRAINED)
+def test_other_model_types_give_jax_autotokenizer_ids(tmp_path, kind):
+    tok, pad = _trained(kind)
+    PreTrainedTokenizerFast(tokenizer_object=tok, pad_token=pad).save_pretrained(tmp_path)
+    model_io.hf_tokenizer.cache_clear()
+    path = str(tmp_path)
+    for length in (8, 16, 80):
+        want = _jax_ids(path, length)
+        np.testing.assert_array_equal(_port_ids(path, length), want, err_msg=f"{kind} {length}")
+    assert not np.array_equal(want, model_io.tokenize_labels(TEXTS, VOCAB, 80))
+
+
+def test_bert_tokenizer_config_beside_a_vocab_txt(tmp_path):
+    """tokenizer_config.json naming BertTokenizer and a vocab.txt, no
+    tokenizer.json: AutoTokenizer builds BertTokenizerFast from the vocab."""
+    shutil.copy(VOCAB, tmp_path / "vocab.txt")
+    (tmp_path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "BertTokenizer", "do_lower_case": True}))
+    model_io.hf_tokenizer.cache_clear()
+    for length in (12, 80):
+        np.testing.assert_array_equal(_port_ids(str(tmp_path), length),
+                                      _jax_ids(str(tmp_path), length))
+    ids = _port_ids(str(tmp_path), 12)[TEXTS.index("a photo of a {}.".format(
+        CLIP_IMAGENET_CLASS_NAMES[0]))]
+    assert ids[0] == 101 and 102 in ids  # [CLS] ... [SEP]
+
+
 def test_other_model_types_and_a_missing_pad_token_raise(tmp_path):
+    """The name is from when these cases raised: a BPE model type, a
+    WordPiece dir without a pad token, and a tokenizer_config.json without
+    tokenizer.json. They now give JAX's ids: the BPE its own, the other two
+    the vocab convention JAX falls through to (transformers refuses to pad
+    without a pad token; a config that names no class loads nothing). A
+    component the port does not read still raises by name."""
     bpe = Tokenizer(models.BPE(vocab={"a": 0, "b": 1, "ab": 2}, merges=[("a", "b")]))
     path = _save(bpe, PreTrainedTokenizerFast, tmp_path / "bpe", pad_token="a")
-    with pytest.raises(ValueError, match="model type 'BPE'.*WordPiece"):
-        _port_ids(path)
+    np.testing.assert_array_equal(_port_ids(path), _jax_ids(path))
     tok = BertWordPieceTokenizer(VOCAB)._tokenizer
     path = _save(tok, PreTrainedTokenizerFast, tmp_path / "nopad")
-    with pytest.raises(ValueError, match="no pad token"):
-        _port_ids(path)
+    want = model_io.tokenize_labels(TEXTS, VOCAB, 16)
+    np.testing.assert_array_equal(_jax_ids(path), want)
+    np.testing.assert_array_equal(_port_ids(path), want)
     os.remove(os.path.join(path, "tokenizer.json"))
     model_io.hf_tokenizer.cache_clear()
-    with pytest.raises(ValueError, match="tokenizer_config.json without tokenizer.json"):
-        _port_ids(path)
+    np.testing.assert_array_equal(_port_ids(path), _jax_ids(path))
+    spec = json.loads(tok.to_str())
+    spec["normalizer"] = {"type": "Precompiled", "precompiled_charsmap": ""}
+    os.makedirs(tmp_path / "charsmap")
+    (tmp_path / "charsmap" / "tokenizer.json").write_text(json.dumps(spec))
+    (tmp_path / "charsmap" / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "[PAD]"}))
+    model_io.hf_tokenizer.cache_clear()
+    with pytest.raises(ValueError, match="normalizer 'Precompiled' is not read by the port"):
+        _port_ids(str(tmp_path / "charsmap"))

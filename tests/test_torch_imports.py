@@ -35,7 +35,8 @@ def test_port_imports_no_jax_flax_or_triton():
               "evaluators.prompts", "evaluators.in1k_classes", "tools.augment", "tools.capture",
               "tools.optimizers", "tools.feature_viz", "tools.gradient_ascent",
               "tools.neuron_capture", "tools.adversarial", "train.codecs", "train.zarr",
-              "train.ocdbt", "models.compat", "models.loading", "convert.export"):
+              "train.ocdbt", "models.compat", "models.loading", "convert.export",
+              "ops.ring_attention", "ops.pipeline_parallel", "data.hf_tokenizer"):
         assert f"openvision_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
