@@ -205,10 +205,9 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    gathered gradients
    are held against the one-process kernel path (loss within 2**-7
    relative, global cosine >= 0.999), and which prints each rank's step
-   time, peak memory and the all-reduce's share of a step; then
-   python -m torch.distributed.run --nproc_per_node 2 -m
-   openvision_tpu_torch.main_clip with sharding.mesh tensor=2 trains 3
-   steps: finite losses, every TP block's #11/#12 launches as the block
+   time, peak memory and the all-reduce's share of a step; then, in the
+   same two processes (one start-up), openvision_tpu_torch.main_clip's main
+   with sharding.mesh tensor=2 trains 3 steps: finite losses, every TP block's #11/#12 launches as the block
    counts give (4 image + 2 decoder blocks, the forward twice under
    remat), one checkpoint (an Orbax step directory; its save's GB/s from
    the trainer's note), which the caption tool loads in one process and
@@ -217,16 +216,17 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    output features): each rank's peak memory is printed beside the one
    measured when those leaves were whole on each rank. A failure in any rank fails
    the phase.
-19. Evaluation at full width on phase 3's export: 1000 PNGs of 224 x 288
+19. Evaluation at full width on phase 3's export: 600 PNGs of 224 x 288
    (testcat images in a wider canvas, each at another offset), one class
    directory each, turned into TFRecord shards by data/prepare.py, and an
    npz of the same pixels with 5 captions an image. The disclf evaluator
-   (the config's eval section: IN-1K names x 81 clip_paper prompts, batch
-   256, so the last batch holds 232 real rows, device_norm vgg) in bf16
+   (the config's eval section but for the prompts: IN-1K names x 7
+   clip_best prompts, batch 256, so the last batch holds 88 real rows,
+   device_norm vgg) in bf16
    fused_t, in int8 with static scales calibrated on 64 images and in int8
-   with dynamic scales; the retrieval evaluator over the 5000 captions;
+   with dynamic scales; the retrieval evaluator over the 3000 captions;
    then main_clip eval_only on a port state npz of the same weights.
-   Checks: ntotal == 1000, the accuracy from the counts equals the one
+   Checks: ntotal == 600, the accuracy from the counts equals the one
    from return_preds, exact launch counts (#1 and #2 24 times an image
    batch; the int8 kernels per block and per encode, the calibration's two
    32-image encodes included), zimg and class-embedding cosine >= 0.999
@@ -237,10 +237,10 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    alone), the class embeddings' host tokenisation and device seconds,
    and Recall@k.
 20. The interpretability tools at full width: gradient_ascent.main on phase
-   3's L/14 export (catcat.png, batch 8, all 340 iterations,
+   3's L/14 export (catcat.png, batch 8, 60 of its 340 iterations,
    --deterministic, in a temp working directory), feature_viz.main on a
    new random ViT-S/8-224 export (S8_CONFIG, seed 1; --layer 6 --feature
-   5, all 400 steps), neuron_capture.main (all 24 layers, --topk 3) and
+   5, 80 of its 400 steps), neuron_capture.main (all 24 layers, --topk 3) and
    adversarial.main on catbat.png (untargeted PGD, targeted towards "a
    dog", --unsigned, each with --out), every CLI at its defaults (f32 xla)
    with the loads shared. Then feature viz step 0, one PGD input gradient,
@@ -277,12 +277,12 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    (grad_accum 4 against 1 with masking off, L=50; the kernel route
    against plain bf16 at grad_accum 4, mask 0.5, on the same draws: loss
    within 2**-7, gradient cosine >= 0.999). Then stage 1 (res 112,
-   mask_ratio 0.5, batch 1024, grad_accum 4, 8 input workers, 3 steps, a
-   checkpoint), stage 2 (ft_from stage 1 at 224, batch 512, grad_accum 2,
+   mask_ratio 0.5, batch 512, grad_accum 4, 8 input workers, 3 steps, a
+   checkpoint), stage 2 (ft_from stage 1 at 224, batch 256, grad_accum 2,
    3 steps: SIGTERM, which the script sends itself once step 1's update is
    done, must leave a checkpoint at step 1 and return; the rerun must
    resume from it and finish),
-   stage 3 (ft_from stage 2 at 384, batch 256, grad_accum 4, 2 steps) and
+   stage 3 (ft_from stage 2 at 384, batch 128, grad_accum 4, 2 steps) and
    a load_transform start (a learned-posemb B/16 state written at 224,
    started at 384: posemb 1+196 -> 1+576, 1 step). Checks: finite losses,
    every run's #9/#10 launches as a GradCache step gives them (pass 1: the
@@ -346,7 +346,7 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    load_transform start at 224 from that checkpoint (position embedding 1 +
    121 -> 1 + 256), batch 64, GradCache 2, one step, then disclf bf16,
    disclf int8 with static scales and retrieval on phase 19's fixture (1000
-   IN-1K classes x 7 clip_best prompts; 1000 images; 5000 captions).
+   IN-1K classes x 7 clip_best prompts; 600 images; 3000 captions).
    Checks: finite losses, process 0's launches of each run as a GradCache
    step gives them; each Orbax save's GB/s (the trainer's note). (c) main_clip eval_only on the mesh from that
    checkpoint, its evaluators recording what they computed: the metrics
@@ -369,7 +369,14 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    >= 0.999 against this process's sequential flash stack on the same
    random weights; each rank's flash launches exactly m x 12 of each of
    #13 (flash_attention), #15 and #16 (attention_bwd_dq, _dkv); step ms and
-   peak memory per rank beside one process's. main_clip's main for one
+   peak memory per rank beside one process's. The same tower on ring over
+   seq 2, its tokens sharded between the embedding and the pool (each block
+   on (b, 129, 1024)): each rank's peak memory beside one process's (the
+   xla route), and each above what the process held before its step, the
+   loss within 2**-7 of one process's, the rows and the
+   gradients (the blocks' summed over seq) at cosine >= 0.999, and both
+   ranks' parameters bit-equal after one plain step on those gradients.
+   main_clip's main for one
    step at phase 23's depth at pipe_parallelism=2 (flash) and at
    seq_parallelism=2 (attn_impl=ring): finite losses, both ranks'
    parameters bit-equal (a checksum per leaf), the loss within 2**-7 of
@@ -385,9 +392,13 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    (2**-6): the packed attention at L=257 over 16 heads of 72 and of 80,
    max and nomax, and the int8 block's f32 output; the causal and
    prefix-LM masks and flash (single-k, multi-k) at 80; attention_bwd at
-   72 and 80 (L=257 and cross-attention); one case each at 96 and 128; then
-   the forward and attention_bwd at b=64, L=257 for 72 and 80 by events and
-   graph replay beside their bound and SDPA. (b) ViT-H/14-224 (32 blocks,
+   72 and 80 (L=257 and cross-attention); one case each at 96 and 128; the
+   padded head_dims 36, 100, 136, 192 and, on the slab kernels
+   (csrc/attention_slab.cu, attention_bwd_slab.cu), 264, 320, 384 and 512
+   (packed, nomax, f32 output, prefix-LM, flash single-k and multi-k, the
+   backward pair at L=257 and prefix-LM); then the forward and
+   attention_bwd at b=64, L=257 by events and graph replay beside their
+   bound and SDPA. (b) ViT-H/14-224 (32 blocks,
    1280 wide, 16 heads of 80) + text H (1024 wide; depth cut to
    H14_TXT_DEPTH) as a random export through tools/model_io.load_model:
    zero-shot on fused_t with phase 3's launch counts, zimg cosine >= 0.999
@@ -689,19 +700,24 @@ def spill_gate(lib_path) -> None:
     if not int8_gemms:
         raise AssertionError("no int8 instantiation of gemm_ws_kernel in the build")
     parts = sum(1 if hdp <= 128 else 2 for hdp in HEAD_DIMS_PADDED)
-    if len(attn_fwd) != 3 * parts:
+    slab_fwd = [f for f in attn_fwd if "slab" in f]
+    slab_bwd = [f for f in attn_bwd if "slab" in f]
+    if len(attn_fwd) != 3 * parts + 3 or len(slab_fwd) != 3:
         raise AssertionError(f"expected the forward attention kernel's 3 variants at each padded "
-                             f"head_dim {HEAD_DIMS_PADDED} and column part, found {attn_fwd}")
-    if len(attn_bwd) != 2 * parts:
+                             f"head_dim {HEAD_DIMS_PADDED} and column part, and the slab "
+                             f"kernel's 3, found {attn_fwd}")
+    if len(attn_bwd) != 2 * parts + 2 or len(slab_bwd) != 2:
         raise AssertionError(f"expected the two attention backward kernels at each padded "
-                             f"head_dim {HEAD_DIMS_PADDED} and column part, found {attn_bwd}")
+                             f"head_dim {HEAD_DIMS_PADDED} and column part, and the two slab "
+                             f"kernels, found {attn_bwd}")
     if any(spills[f] for f in gated):
         raise AssertionError(f"kernels that spill registers: {[f for f in gated if spills[f]]}")
 
 
-# The attention kernels' instantiations: head_dim (a multiple of 8 from 16
-# to 256; the wrappers pad any other) rounded up to 16, above 128 to 64, in
-# two column parts each (csrc/attention.cuh).
+# The attention tile kernels' instantiations: head_dim (a multiple of 8 from
+# 16 to 256; the wrappers pad any other) rounded up to 16, above 128 to 64, in
+# two column parts each (csrc/attention.cuh); above 256 the slab kernels, one
+# instantiation for every head_dim.
 HEAD_DIMS_PADDED = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)
 
 
@@ -744,14 +760,16 @@ def graph_ms(fn, iters: int = 20) -> float:
 
 def kernel_ms(fn, iters: int) -> dict:
     """{CUDA kernel name: its device time per fn() call in ms}, from
-    torch.profiler over `iters` calls after one warm-up call."""
+    torch.profiler over `iters` calls after one warm-up call. Only the
+    device is traced: host events are not read, and collecting them for a
+    training step's thousands of operators costs seconds a call."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
@@ -763,6 +781,18 @@ def kernel_ms(fn, iters: int) -> dict:
                 us = e.self_cuda_time_total
             per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / iters / 1e3
     return per_kernel
+
+
+def build_on(cfg: dict, device):
+    """train/step.py's build_model(cfg) with its zero parameters allocated
+    on `device` (a 525M-parameter model's memset and copy cost the host
+    seconds)."""
+    import torch
+
+    from openvision_tpu_torch.train import step as tstep
+
+    with torch.device(device):
+        return tstep.build_model(cfg).to(device)
 
 
 def export_random_model(out_dir: str, cfg: dict, seed: int, device=None) -> None:
@@ -1452,13 +1482,15 @@ def caption_arg(fusion: str, dec_impl: str, dtype: str = "bfloat16", plain: bool
     return arg + ",attn_impl=xla" if plain else arg
 
 
-def write_random_caption_checkpoint(path: str, fusion: str, seed: int) -> int:
+def write_random_caption_checkpoint(path: str, fusion: str, seed: int, device=None) -> int:
     """Random CoCa weights drawn as a port state dict, mapped to the JAX flat
     names with the port's inverse map and written with the port's save_npz.
 
     Block matrices, biases and embeddings ~ N(0, 0.02), LayerNorm scales
     1 + N(0, 0.02), the learnable queries N(0, 1), heads, projections and the
-    patch conv N(0, fan_in**-0.5), logit scale log(1/0.07). Returns the
+    patch conv N(0, fan_in**-0.5), logit scale log(1/0.07). The draws come
+    from numpy's generator of `seed`, or with `device` from a torch one on
+    that device (the same distributions, drawn faster). Returns the
     parameter count.
     """
     import torch
@@ -1475,19 +1507,26 @@ def write_random_caption_checkpoint(path: str, fusion: str, seed: int) -> int:
     shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
     del model
     rng = np.random.default_rng(seed)
+    gen = None if device is None else torch.Generator(device=device).manual_seed(seed)
+
+    def normal(shape):
+        if gen is None:
+            return rng.standard_normal(shape, dtype=np.float32)
+        return torch.randn(shape, generator=gen, device=device).cpu().numpy()
+
     sd = {}
     for name, shape in shapes.items():
         if name == "logit_scale":
             arr = np.full(shape, np.log(1 / 0.07), np.float32)
         elif name.endswith("learnable_tokens"):
-            arr = rng.standard_normal(shape, dtype=np.float32)
+            arr = normal(shape)
         elif name.endswith(("visual.proj", "text_projection", "conv1.weight")):
             fan_in = int(np.prod(shape[1:])) if name.endswith("conv1.weight") else shape[0]
-            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(fan_in**-0.5)
+            arr = normal(shape) * np.float32(fan_in**-0.5)
         elif name.endswith(("projection_layer.weight", "txt_decoder.head.weight")):
-            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(shape[1]**-0.5)
+            arr = normal(shape) * np.float32(shape[1]**-0.5)
         else:
-            arr = rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+            arr = normal(shape) * np.float32(0.02)
             if (".ln_" in name or "decoder_norm" in name) and name.endswith("weight"):
                 arr += 1.0
         sd[name] = torch.from_numpy(arr)
@@ -1543,7 +1582,7 @@ def caption_phase(device, tmp: str, batch: np.ndarray, names, totals: dict) -> d
     for fusion in ("concat", "cross_attn"):
         ckpts[fusion] = os.path.join(tmp, f"caption_{fusion}.npz")
         t0 = time.perf_counter()
-        n_params = write_random_caption_checkpoint(ckpts[fusion], fusion, SEED)
+        n_params = write_random_caption_checkpoint(ckpts[fusion], fusion, SEED, device)
         print(f"\n[{fusion}] wrote {n_params / 1e6:.1f}M random params as "
               f"{os.path.getsize(ckpts[fusion]) / 1e9:.2f} GB npz in "
               f"{time.perf_counter() - t0:.1f} s")
@@ -2049,13 +2088,13 @@ def train_phase(device, no_pil: bool, totals: dict) -> dict:
     loader, _ = pipeline.training(cfg_k["input"], seed=SEED)
     batch = next(loader)
     print(f"batch: { {k: (v.shape, str(v.dtype)) for k, v in batch.items()} }")
-    model = tstep.build_model(cfg_k).to(device)
+    model = build_on(cfg_k, device)
     init_params(model, SEED)
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del model
 
     def grads_for(cfg):
-        m = tstep.build_model(cfg).to(device)
+        m = build_on(cfg, device)
         m.load_state_dict(state)
         loss, _ = tstep.make_loss_fn(cfg, m)(tstep.to_device(batch, device))
         loss.backward()
@@ -2977,13 +3016,13 @@ def training_path_phase(path: str, device, no_pil: bool, totals: dict) -> dict:
     cfg_k = training_config(path, no_pil=no_pil)
     loader, _ = pipeline.training(cfg_k["input"], seed=SEED)
     batch = next(loader)
-    model = tstep.build_model(cfg_k).to(device)
+    model = build_on(cfg_k, device)
     init_params(model, SEED)
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del model
 
     def grads_for(cfg):
-        m = tstep.build_model(cfg).to(device)
+        m = build_on(cfg, device)
         m.load_state_dict(state)
         kernels.reset_launch_counts()
         loss, _ = tstep.make_loss_fn(cfg, m)(tstep.to_device(batch, device),
@@ -3058,7 +3097,7 @@ def layerscale_encode(trained: dict, batch: dict, device, no_pil: bool, totals: 
     for which, cfg in (("kernels", training_config("b", no_pil=no_pil)),
                        ("plain f32", training_config("b", "float32", plain=True,
                                                      no_pil=no_pil))):
-        m = tstep.build_model(cfg).to(device)
+        m = build_on(cfg, device)
         m.load_state_dict(trained)
         m.eval()
         kernels.reset_launch_counts()
@@ -3305,14 +3344,16 @@ def torchrun(args, log_path: str) -> None:
 
 
 def tp_grads_worker(out_dir: str, no_pil: bool) -> int:
-    """One rank of phase 18's first launch (``chip_smoke.py --tp-grads``):
-    phase 8's model on a tensor-2 mesh, the loss and gradients of the first
-    batch (process 0 writes them gathered whole), then each rank's step
-    time, peak memory and the collectives' share of one step."""
+    """One rank of phase 18 (``chip_smoke.py --tp-grads``; torchrun starts
+    it): phase 8's model on a tensor-2 mesh, the loss and gradients of the
+    first batch (process 0 writes them gathered whole), then each rank's
+    step time, peak memory and the collectives' share of one step; then
+    main_clip's main in this process (launch counts from 0) trains on the
+    tensor-2 mesh into OUT_DIR/train."""
     import torch
 
     sys.path.insert(0, REPO)
-    from openvision_tpu_torch import parallel
+    from openvision_tpu_torch import main_clip, parallel
     from openvision_tpu_torch.data import pipeline
     from openvision_tpu_torch.ops import kernels
     from openvision_tpu_torch.parallel import mesh as mesh_mod
@@ -3324,7 +3365,7 @@ def tp_grads_worker(out_dir: str, no_pil: bool) -> int:
     rank = parallel.rank()
     cfg = tp_config(train_config("concat", "fused", no_pil=no_pil))
     with parallel.use_mesh(mesh):
-        model = tstep.build_model(cfg).to(device)
+        model = build_on(cfg, device)
         opt = tstep.init_train_state(cfg, model, total_steps=TRAIN_STEPS, mesh=mesh)
         loader, _ = pipeline.training(cfg["input"], seed=SEED,
                                       rows=mesh.batch_rows(TRAIN_BATCH))
@@ -3349,10 +3390,17 @@ def tp_grads_worker(out_dir: str, no_pil: bool) -> int:
         torch.cuda.synchronize()
         timed_ms = (time.perf_counter() - t0) * 1e3
         mesh_mod.COMM["timing"] = False
+    comm = {"comm_ms": mesh_mod.COMM["seconds"] * 1e3, "comm_calls": mesh_mod.COMM["calls"]}
+    del model, opt, update, batch, step_batch, loader
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    main_clip.main(tp_train_overrides(no_pil) + ["--workdir", os.path.join(out_dir, "train")])
+    torch.cuda.synchronize()
+    main_clip_s = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"tp_rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "step_ms": ms, "peak_gb": peak, "timed_step_ms": timed_ms,
-                   "comm_ms": mesh_mod.COMM["seconds"] * 1e3, "comm_calls": mesh_mod.COMM["calls"],
-                   "launches": launches}, f)
+                   **comm, "launches": launches, "main_clip_s": main_clip_s}, f)
     parallel.sync("done")
     torch.distributed.destroy_process_group()
     return 0
@@ -3371,7 +3419,7 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
     # the one-process kernel path on the params and batch the ranks see
     cfg = tp_config(train_config("concat", "fused", no_pil=no_pil))
     loader, _ = pipeline.training(cfg["input"], seed=SEED)
-    model = init_params(tstep.build_model(cfg).to(device), SEED)
+    model = init_params(build_on(cfg, device), SEED)
     loss, _ = tstep.make_loss_fn(cfg, model)(tstep.to_device(next(loader), device))
     loss.backward()
     ref_loss = loss.item()
@@ -3382,9 +3430,10 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
     out_dir = os.path.join(work, "tp")
     os.makedirs(out_dir)
     t0 = time.perf_counter()
-    torchrun([os.path.abspath(__file__), "--tp-grads", out_dir]
-             + (["--no-pil"] if no_pil else []), os.path.join(out_dir, "grads.log"))
-    print(f"[tensor={TP_SIZE}] --tp-grads ranks done in {time.perf_counter() - t0:.1f} s")
+    log = torchrun([os.path.abspath(__file__), "--tp-grads", out_dir]
+                   + (["--no-pil"] if no_pil else []), os.path.join(out_dir, "ranks.log"))
+    print(f"[tensor={TP_SIZE}] --tp-grads ranks (the gradients, then main_clip) done in "
+          f"{time.perf_counter() - t0:.1f} s")
     got = torch.load(os.path.join(out_dir, "tp_grads.pt"))
     tp = {n: g.to(device) for n, g in got["grads"].items()}
     glob, (worst, name) = grad_cosines(tp, ref)
@@ -3413,17 +3462,14 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
                                  f"{grad_want}")
 
     wd = os.path.join(out_dir, "train")
-    t0 = time.perf_counter()
-    log = torchrun(["-m", "openvision_tpu_torch.main_clip", *tp_train_overrides(no_pil),
-                    "--workdir", wd], os.path.join(out_dir, "train.log"))
-    took = time.perf_counter() - t0
+    took = ranks[0]["main_clip_s"]
     print("\n".join(line for line in log.splitlines() if line.startswith("NOTE")))
     rows = [json.loads(line) for line in open(os.path.join(wd, "metrics.jsonl"))]
     losses = [r["training_loss"] for r in rows if "training_loss" in r]
     launches = {k.split("/", 1)[1]: int(v) for k, v in rows[-1].items()
                 if k.startswith("launches/")}
     want = {k: v * blocks * TRAIN_STEPS for k, v in TP_BLOCK_STEP.items() if v}
-    print(f"[tensor={TP_SIZE}] main_clip: {TRAIN_STEPS} steps in {took:.1f} s (start-up, build, "
+    print(f"[tensor={TP_SIZE}] main_clip: {TRAIN_STEPS} steps in {took:.1f} s (process 0: build, "
           f"init, data, steps, checkpoint); losses {losses}; process 0's launches {launches}; "
           f"last step_ms {rows[-1].get('step_ms')}")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
@@ -3459,14 +3505,19 @@ def tp_train_phase(device, work: str, no_pil: bool, cap_batch, totals: dict) -> 
 # Evaluation at full width (phase 19)
 # ---------------------------------------------------------------------------
 
-EVAL_IMAGES, EVAL_H, EVAL_W, EVAL_BATCH, EVAL_CAPTIONS = 1000, 224, 288, 256, 5
+# 600 images: three batches of 256, the last with 88 real rows
+EVAL_IMAGES, EVAL_H, EVAL_W, EVAL_BATCH, EVAL_CAPTIONS = 600, 224, 288, 256, 5
+# the disclf prompts: the 7 clip_best templates an IN-1K class (the config's
+# 81 clip_paper ones only repeat the same text-tower batches elevenfold)
+EVAL_PROMPTS = "clip_best"
 # the trainer's config of phase 3's export (main_clip eval_only): its widths,
 # vocabulary and 80 text tokens
 EVAL_ARG = "res=224,img=L/14,txt_name=L,vocab_size=30522,token_len=80"
 EVAL_CALIB = 64
 EVAL_CLASS_CHECK = 100  # classes whose prompts the f32 text tower also embeds
 RECALL_MARGIN = 1e-3
-# max|sim - f32 sim| over the 1000 x 5000 retrieval similarities, bf16
+# max|sim - f32 sim| over the 1000 x 5000 retrieval similarities (the fixture's
+# earlier size), bf16
 # fused_t towers against f32 xla at random weights: 1.46e-3 measured on an
 # H100, bound at about three times that
 SIM_TOL = 5e-3
@@ -3642,7 +3693,7 @@ def static_scale_checks(q8: dict, x, scales: dict, geom: dict) -> None:
 
 def eval_phase(model_dir: str, work: str, images, device, totals: dict) -> dict:
     """Phase 19: the zero-shot (bf16, int8 static and dynamic) and retrieval
-    evaluators at full width on a TFRecord fixture of 1000 images, and
+    evaluators at full width on a TFRecord fixture of EVAL_IMAGES images, and
     main_clip eval_only on a port state npz of the same weights."""
     import torch
 
@@ -3663,8 +3714,14 @@ def eval_phase(model_dir: str, work: str, images, device, totals: dict) -> dict:
     for cfg in (dcfg, rcfg):
         for key in ("type", "prefix", "log_steps"):
             cfg.pop(key, None)
-    tfds_dir, npz, labels = write_eval_fixture(work, images)
+    dcfg["prompt_templates"] = EVAL_PROMPTS
+    tfds_dir, npz, by_image = write_eval_fixture(work, images)
     src = pipe.TfdsDirectorySource(tfds_dir, "validation")
+    # the labels in the order the evaluator reads the records: prepare.py
+    # deals the files round-robin over its shards, read one shard after another
+    labels = np.array([int(np.asarray(src[i]["label"]).reshape(-1)[0]) for i in range(len(src))])
+    if sorted(labels.tolist()) != by_image.tolist():
+        raise AssertionError("the TFRecord fixture's labels are not one a class")
     t0 = time.perf_counter()
     for i in range(len(src)):
         decode_png(src[i]["image"])
@@ -3808,7 +3865,8 @@ def eval_phase(model_dir: str, work: str, images, device, totals: dict) -> dict:
             "--workdir", wd, "--device", torch.device(device).type]
     for ov in ("eval_only=True", f"ft_from={state}", "model.image.posemb=learn",
                "model.image.attn_impl=fused_t", "model.text_decoder=none",
-               f"evals.disclf.data_dir={tfds_dir}", f"evals.retrieval.data_dir={npz}"):
+               f"evals.disclf.data_dir={tfds_dir}", f"evals.disclf.prompt_templates={EVAL_PROMPTS}",
+               f"evals.retrieval.data_dir={npz}"):
         args += ["--override", ov]
     t0 = time.perf_counter()
     counted(lambda: main_clip.main(args), eval_launches(2 * batches, False, depth),
@@ -3844,6 +3902,9 @@ S8_CONFIG = {
     "preprocess_cfg": L14_CONFIG["preprocess_cfg"],
 }
 FV_LAYER, FV_FEATURE = 6, 5
+# the CLIs' loops, cut from their 340 and 400 to keep the script inside its
+# time: each iteration is the same step, timed and checked as before
+GA_ITERATIONS, FV_STEPS = 60, 80
 ADV_LABELS = "a cat,a bat,a dog,text"
 # #9's forward and #10's backward of one fused block (ops/fused_attention.py).
 # A step runs #9 in every block and #10 in the blocks its loss reaches back
@@ -4000,7 +4061,7 @@ def interp_phase(model_dir: str, work: str, device, totals: dict) -> dict:
     s8_dir = os.path.join(work, "s8")
     os.makedirs(s8_dir)
     t0 = time.perf_counter()
-    export_random_model(s8_dir, S8_CONFIG, SEED + 1)
+    export_random_model(s8_dir, S8_CONFIG, SEED + 1, device=device)
     print(f"wrote the random ViT-S/8-224 export in {time.perf_counter() - t0:.1f} s")
     cat = os.path.join(REPO, "testcat", "catcat.png")
     bat = os.path.join(REPO, "testcat", "catbat.png")
@@ -4009,6 +4070,8 @@ def interp_phase(model_dir: str, work: str, device, totals: dict) -> dict:
     originals = [m.load_model for m in tools]
     for m in tools:
         m.load_model = loads
+    loops = (ga.ITERATIONS, fv.STEPS)
+    ga.ITERATIONS, fv.STEPS = GA_ITERATIONS, FV_STEPS
     cwd = os.getcwd()
     results, secs = {}, {}
     try:
@@ -4122,6 +4185,7 @@ def interp_phase(model_dir: str, work: str, device, totals: dict) -> dict:
         results["adversarial"] = {"clean_prob_target": float(probs0[dog])}
     finally:
         os.chdir(cwd)
+        ga.ITERATIONS, fv.STEPS = loops
         for m, orig in zip(tools, originals):
             m.load_model = orig
 
@@ -4261,17 +4325,19 @@ CUR_WORKERS = 8
 CUR_DEPTH = {"image": 4, "text": 4, "text_decoder_config": 4}
 CUR_IMG_BLOCKS, CUR_DEC_BLOCKS = CUR_DEPTH["image"], CUR_DEPTH["text_decoder_config"]
 # (name, res, batch, grad_accum, steps, mask_ratio): pretraining at 112 with
-# half the patch tokens masked, then the 224 and 384 finetunes
-CUR_STAGES = (("stage 1", 112, 1024, 4, 3, 0.5), ("stage 2", 224, 512, 2, 3, 0.0),
-              ("stage 3", 384, 256, 4, 2, 0.0))
-CUR_LOAD_TRANSFORM = ("load_transform", 384, 256, 4, 1, 0.0)  # from a learned-posemb 224 state
+# half the patch tokens masked, then the 224 and 384 finetunes; batches
+# sized to keep the script inside its time (the input pipeline, not the
+# card, sets a stage's seconds)
+CUR_STAGES = (("stage 1", 112, 512, 4, 3, 0.5), ("stage 2", 224, 256, 2, 3, 0.0),
+              ("stage 3", 384, 128, 4, 2, 0.0))
+CUR_LOAD_TRANSFORM = ("load_transform", 384, 128, 4, 1, 0.0)  # from a learned-posemb 224 state
 CUR_CHECK_BATCH = 256  # GradCache and the kernel route on the card
 # #9 (L, D, heads, causal, prefix) at the slice's lengths: the image tower at
 # 112 masked (1 + 24), 112 (1 + 49), 224 (1 + 196) and 384 (1 + 576), and the
 # concat decoder at the masked stage (24 image + 79 text tokens + 128 queries)
 CUR_BLOCK_SHAPES = ((25, 768, 12, False, 0), (50, 768, 12, False, 0), (197, 768, 12, False, 0),
                     (577, 768, 12, False, 0), (231, 768, 12, True, 103))
-# the main path's batch at each of them (a microbatch of its stage)
+# the batch each is timed at (fixed, so that the times compare across runs)
 CUR_TIMED = ((256, (25, 768, 12, False, 0)), (256, (197, 768, 12, False, 0)),
              (64, (577, 768, 12, False, 0)), (256, (231, 768, 12, True, 103)))
 
@@ -4462,12 +4528,13 @@ def stage_report(tag: str, rows, steps_run: int, accum: int, batch: int, took: f
 def pp_rates(pattern: str) -> dict:
     """Records/s of stage 1's input pipeline (webdataset read, PNG decode,
     inception crop to 112, color jitter, two tokenizations) with 0 and
-    CUR_WORKERS worker processes: a batch of 1024 after a warm-up batch."""
+    CUR_WORKERS worker processes: a batch of stage 1's after a warm-up batch."""
     from openvision_tpu_torch.data import pipeline
 
     rates = {}
+    batch = CUR_STAGES[0][2]
     for workers in (0, CUR_WORKERS):
-        _, _, cfg = curriculum_config(112, 1024, 4, 3, 0.5, pattern, workers=workers)
+        _, _, cfg = curriculum_config(112, batch, 4, 3, 0.5, pattern, workers=workers)
         loader, _ = pipeline.training(cfg["input"], seed=SEED)
         try:
             t0 = time.perf_counter()
@@ -4477,7 +4544,7 @@ def pp_rates(pattern: str) -> dict:
             t2 = time.perf_counter()
         finally:
             loader.close()
-        rates[workers] = 1024 / (t2 - t1)
+        rates[workers] = batch / (t2 - t1)
         print(f"pp, {workers} workers: {rates[workers]:.1f} records/s (first batch, with the "
               f"start-up: {t1 - t0:.2f} s)  [{smi_line()}]")
     return rates
@@ -4505,7 +4572,7 @@ def gradcache_checks(pattern: str, device) -> None:
     _, _, cfg = curriculum_config(112, CUR_CHECK_BATCH, 4, 1, 0.5, pattern, workers=0)
     loader, _ = pipeline.training(cfg["input"], seed=SEED)
     batch = tstep.to_device(next(loader), device)
-    model = init_params(tstep.build_model(cfg).to(device), SEED)
+    model = init_params(build_on(cfg, device), SEED)
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     del model
 
@@ -4516,7 +4583,7 @@ def gradcache_checks(pattern: str, device) -> None:
                 c["model"][tower]["attn_impl"] = "xla"
             if drop_path:
                 c["model"][tower]["drop_path"] = drop_path
-        m = tstep.build_model(c).to(device)
+        m = build_on(c, device)
         opt = tstep.init_train_state(c, m, total_steps=10, params=state)
         t0 = time.perf_counter()
         meas, g = tstep.make_grad_fn(c, m, opt)(batch, rng=tstep.step_generator(SEED, 0))
@@ -4589,7 +4656,6 @@ def curriculum_phase(images, work: str, device, totals: dict, worst: dict) -> di
     from openvision_tpu_torch.models.init import init_params
     from openvision_tpu_torch.ops import fused_attention as fa
     from openvision_tpu_torch.train import checkpoint as ckpt_lib
-    from openvision_tpu_torch.train import step as tstep
 
     t_phase = time.perf_counter()
     dev = torch.device(device).type
@@ -4652,7 +4718,7 @@ def curriculum_phase(images, work: str, device, totals: dict, worst: dict) -> di
     name, res, batch, accum, steps, mask = CUR_LOAD_TRANSFORM
     src_cfg = curriculum_config(224, batch, accum, steps, mask, pattern,
                                 **{"model.image.posemb": "learn"})[2]
-    src = init_params(tstep.build_model(src_cfg).to(device), SEED + 5)
+    src = init_params(build_on(src_cfg, device), SEED + 5)
     pe = src.visual.positional_embedding.shape
     src_path = os.path.join(work, "posemb_learn_224.npz")
     ckpt_lib.save_npz(src_path, {"params": dict(src.state_dict())})
@@ -5030,7 +5096,7 @@ def checkpoints_only() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         ckpt = os.path.join(work, "caption_concat.npz")
-        write_random_caption_checkpoint(ckpt, "concat", SEED)
+        write_random_caption_checkpoint(ckpt, "concat", SEED, "cuda")
         with torch.inference_mode():
             checkpoint_phase(ckpt, images, names, work, torch.device("cuda"), totals)
     finally:
@@ -5070,7 +5136,7 @@ MR_GRAD_CASES = (
     ("siglip, GradCache 2", {"grad_accum": 2, "loss_type": "siglip",
                              "model.init_logit_bias": -10.0}),
     ("coca, global mode, accum 1", {"grad_accum": 1, "local_loss": False}))
-MR_PROMPTS = "clip_best"  # 7 templates an IN-1K class (phase 19 runs the 81 of clip_paper)
+MR_PROMPTS = EVAL_PROMPTS  # 7 templates an IN-1K class, as phase 19
 MR_PRED_AGREE, MR_ACC_POINTS = 0.99, 0.5
 # The runs' config file: the repo's config with a second zero-shot evaluator
 # on the int8 encode (static scales from 64 images)
@@ -5136,7 +5202,7 @@ def mesh_grads(out_dir: str, pattern: str, device, report: dict) -> None:
                                               rows=mesh.batch_rows(batch_size))
                 batch = tstep.to_device(next(loader), device)
                 loader.close()
-            model = tstep.build_model(cfg).to(device)
+            model = build_on(cfg, device)
             opt = tstep.init_train_state(cfg, model, total_steps=10, mesh=mesh)
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
@@ -5157,7 +5223,7 @@ def mesh_grads(out_dir: str, pattern: str, device, report: dict) -> None:
             loader, _ = pipeline.training(cfg["input"], seed=SEED, rows=mesh.batch_rows(batch_s))
             step_batch = next(loader)
             loader.close()
-            model = tstep.build_model(cfg).to(device)
+            model = build_on(cfg, device)
             opt = tstep.init_train_state(cfg, model, total_steps=10, mesh=mesh)
             update = tstep.make_update_fn(cfg, model, opt)
             torch.cuda.reset_peak_memory_stats()
@@ -5241,6 +5307,7 @@ RP_RUNS = (("pipe 2 (flash)", ["sharding.mesh.data=1", "sharding.mesh.pipe=2",
            ("seq 2 (ring)", ["sharding.mesh.data=1", "sharding.mesh.seq=2",
                              "model.image.attn_impl=ring", "model.text.attn_impl=ring"]))
 RP_STEP = (160, 32, 1, 1, 0.0)  # (res, batch, grad_accum, steps, mask_ratio)
+RP_RING_LR = 1e-3  # the ring tower's plain step after its gradients
 
 
 def rp_ring_inputs(device, b: int, length: int, heads: int, hd: int, seed: int):
@@ -5251,18 +5318,18 @@ def rp_ring_inputs(device, b: int, length: int, heads: int, hd: int, seed: int):
     return [torch.randn(b, length, heads, hd, generator=gen, device=device) for _ in range(3)]
 
 
-def rp_vit(device):
+def rp_vit(device, attn_impl: str = "flash"):
     """The ViT-L/14-224 image tower (the repo's image config: sincos2d, gap,
-    no head) on flash in bf16, its weights drawn on the card from one seed
-    (N(0, 0.02); LayerNorm scales 1 + N(0, 0.02)), so every process builds
-    the same one; the pipeline's microbatches and chunks set."""
+    no head) on `attn_impl` in bf16, its weights drawn on the card from one
+    seed (N(0, 0.02); LayerNorm scales 1 + N(0, 0.02)), so every process
+    builds the same one; the pipeline's microbatches and chunks set."""
     import torch
 
     from openvision_tpu_torch.models import vit as tvit
     from openvision_tpu_torch.models.encoder import cast_block_matrices
 
     model = tvit.Model(variant="L/14", image_size=224, posemb="sincos2d", pool_type="gap",
-                       attn_impl="flash", fast_gelu=True, emb_head_bias=False,
+                       attn_impl=attn_impl, fast_gelu=True, emb_head_bias=False,
                        dtype=torch.bfloat16).to(device)
     gen = torch.Generator(device=device).manual_seed(SEED + 23)
     with torch.no_grad():
@@ -5323,7 +5390,7 @@ def ring_pipe_ranks(run_dir: str, device, report: dict) -> None:
     import torch
 
     from openvision_tpu_torch import parallel
-    from openvision_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from openvision_tpu_torch.ops.ring_attention import ring_attention_whole
 
     rank = parallel.rank()
     rp = report["ring_pipe"] = {"backend": torch.distributed.get_backend()}
@@ -5333,7 +5400,7 @@ def ring_pipe_ranks(run_dir: str, device, report: dict) -> None:
                                                                     SEED + 30 + i))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = ring_attention_sharded(q, k, v, seq, seq_axis="seq", causal=causal)
+        out = ring_attention_whole(q, k, v, seq, seq_axis="seq", causal=causal)
         (out ** 2).sum().backward()
         torch.cuda.synchronize()
         rp[label] = {"ms": (time.perf_counter() - t0) * 1e3}
@@ -5359,6 +5426,37 @@ def ring_pipe_ranks(run_dir: str, device, report: dict) -> None:
                       "pipelined": int(model.transformer.pipelined)}
     if rank == 0:
         torch.save({"out": out.cpu(), "grads": grads}, os.path.join(run_dir, "pipe_tower.pt"))
+    del model, images, out
+    torch.cuda.empty_cache()
+    # the tower on ring over seq=2: its tokens stay sharded between the
+    # embedding and the pool; the blocks' gradients summed over seq, then one
+    # plain step on them (p - RP_RING_LR g) so the ranks' parameters compare
+    model, images = rp_vit(device, "ring"), rp_images(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # the tower, the images and what came before
+    with parallel.use_mesh(seq):
+        out, launches, times = rp_tower_step(model, images)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    step_gb = peak - held / 1e9
+    grads = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            g = p.grad
+            if ".resblocks." in name:
+                g = parallel.all_reduce(g, seq.seq_group)
+            if name in RP_GRADS:
+                grads[name] = g.float().cpu()
+            p.sub_(RP_RING_LR * g)
+    sums = param_checksums(model)
+    parts = [torch.empty_like(sums) for _ in range(MR_RANKS)]
+    torch.distributed.all_gather(parts, sums)
+    rp["ring_tower"] = {"step_ms": times, "peak_gb": peak, "step_gb": step_gb,
+                        "seq_sharded": int(model.transformer.seq_sharded),
+                        "loss": float(out.pow(2).sum() / out.shape[0]),
+                        "params_equal": int(all(torch.equal(q, sums) for q in parts))}
+    if rank == 0:
+        torch.save({"out": out.cpu(), "grads": grads}, os.path.join(run_dir, "ring_tower.pt"))
     del model, images, out
     torch.cuda.empty_cache()
 
@@ -5576,7 +5674,7 @@ def mesh_grad_checks(out_dir: str, pattern: str, device) -> None:
             loader, _ = pipeline.training(cfg["input"], seed=SEED)
             batch = tstep.to_device(next(loader), device)
             loader.close()
-        model = tstep.build_model(cfg).to(device)
+        model = build_on(cfg, device)
         opt = tstep.init_train_state(cfg, model, total_steps=10)  # the mesh's init (seed 0)
         t0 = time.perf_counter()
         meas, grads = tstep.make_grad_fn(cfg, model, opt)(batch,
@@ -5748,6 +5846,44 @@ def ring_pipe_checks(out_dir: str, ranks: list, runs: list, pattern: str, device
     del model, images, ref, params, got
     torch.cuda.empty_cache()
 
+    print(f"(d) ViT-L/14 (24 blocks) on ring, bf16, its tokens sharded over seq=2 between the "
+          f"embedding and the pool, at b={RP_PIPE_BATCH}, against one process's stack:")
+    model, images = rp_vit(device, "ring"), rp_images(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ref, _, one_ms = rp_tower_step(model, images)
+    one_peak = torch.cuda.max_memory_allocated() / 1e9
+    one_step = one_peak - held / 1e9
+    one_loss = float(ref.pow(2).sum() / ref.shape[0])
+    params = dict(model.named_parameters())
+    got = torch.load(os.path.join(out_dir, "ring_tower.pt"))
+    row_cos = float(cosine_rows(got["out"].to(device), ref).min())
+    grad_cos = {n: flat_cos(got["grads"][n].to(device), params[n].grad.float())
+                for n in RP_GRADS}
+    for r in ranks:
+        t = r["ring_pipe"]["ring_tower"]
+        rel = abs(t["loss"] - one_loss) / abs(one_loss)
+        print(f"  rank {r['rank']}: step (forward + backward) {[round(x, 1) for x in t['step_ms']]}"
+              f" ms, peak {t['peak_gb']:.2f} GB ({t['step_gb']:.2f} above what the process "
+              f"held before the step), loss {t['loss']:.6f} (rel {rel:.2e} to one "
+              f"process's), tokens sharded {t['seq_sharded']}, parameters bit-equal across the "
+              f"ranks after a step {t['params_equal']}")
+        if t["seq_sharded"] != 1 or t["params_equal"] != 1 or rel > 2**-7:
+            raise AssertionError(f"rank {r['rank']}'s ring tower: {t}, one process {one_loss}")
+    print(f"  one process: step {[round(x, 1) for x in one_ms]} ms, peak {one_peak:.2f} GB "
+          f"({one_step:.2f} above what it held before the step: this process keeps earlier "
+          f"phases' tensors), loss {one_loss:.6f}  [{smi_line()}]")
+    print(f"  pooled rows: min cosine {row_cos:.6f}; gradient cosines "
+          f"{ {n: round(c, 6) for n, c in grad_cos.items()} } (bound 0.999)")
+    if row_cos < 0.999 or min(grad_cos.values()) < 0.999:
+        raise AssertionError(f"ring ViT-L/14: rows {row_cos}, gradients {grad_cos}")
+    out["ring_tower"] = {"row_cos": row_cos, "grad_cos": grad_cos, "one_ms": one_ms,
+                         "one_peak_gb": one_peak, "one_step_gb": one_step, "one_loss": one_loss,
+                         "rank_step_gb": [r["ring_pipe"]["ring_tower"]["step_gb"] for r in ranks]}
+    del model, images, ref, params, got
+    torch.cuda.empty_cache()
+
     print(f"(d) main_clip for one step (res {RP_STEP[0]}, batch {RP_STEP[1]}) on each mesh "
           "against one process's step on the same batch:")
     batch = None
@@ -5762,7 +5898,7 @@ def ring_pipe_checks(out_dir: str, ranks: list, runs: list, pattern: str, device
             loader, _ = pipeline.training(cfg["input"], seed=SEED)
             batch = tstep.to_device(next(loader), device)
             loader.close()
-        model = tstep.build_model(cfg).to(device)
+        model = build_on(cfg, device)
         opt = tstep.init_train_state(cfg, model, total_steps=10)
         meas, _ = tstep.make_grad_fn(cfg, model, opt)(batch, rng=tstep.step_generator(SEED, 0))
         loss = float(meas["training_loss"])
@@ -5789,7 +5925,6 @@ def mesh_recipe_phase(work: str, images, device, totals: dict) -> dict:
 
     from openvision_tpu_torch.main_clip import apply_override, load_config
     from openvision_tpu_torch.train import checkpoint as ckpt_lib
-    from openvision_tpu_torch.train import step as tstep
     from openvision_tpu_torch.train import trainer
 
     t_phase = time.perf_counter()
@@ -5935,7 +6070,7 @@ def mesh_recipe_phase(work: str, images, device, totals: dict) -> dict:
     cfg = load_config(f"{config_py}:{lt_arg}")
     for ov in eval_ovs:
         apply_override(cfg, ov)
-    model = tstep.build_model(cfg).to(device)
+    model = build_on(cfg, device)
     model.load_state_dict({k: v.to(device) for k, v in params.items()})
     del params
     one = {}
@@ -6124,6 +6259,10 @@ def wide_kernel_cases(fe, fa, fl, gk, device, gen, b: int = 8):
 # zero-pad to 40 and 104) or in two column parts (136 and 192: instances 192
 # and 256... 136 rounds up to 192, 192 is its own), 16 heads each
 PADDED_HEAD_DIMS = (36, 100, 136, 192)
+# and those above 256, which the slab kernels take (csrc/attention.cuh: the
+# head_dim streamed in 128-column slabs, ceil(hd / 128) column parts in one
+# launch)
+SLAB_HEAD_DIMS = (264, 320, 384, 512)
 
 
 def padded_head_dim_cases(fe, fl, gk, device, gen, b: int = 8, head_dims=PADDED_HEAD_DIMS):
@@ -6335,7 +6474,7 @@ def h14_train_step(device, no_pil: bool, totals: dict) -> dict:
     cfg = h14_train_config("fused", H14_CHECK_BATCH, no_pil)
     loader, _ = pipeline.training(cfg["input"], seed=SEED)
     batch = tstep.to_device(next(loader), device)
-    model = tstep.build_model(cfg).to(device)
+    model = build_on(cfg, device)
     init_params(model, SEED)
     n_params = sum(p.numel() for p in model.parameters())
     state = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -6356,7 +6495,7 @@ def h14_train_step(device, no_pil: bool, totals: dict) -> dict:
         raise AssertionError(f"H/14 step launches {got}, expected {want}")
     del model
     plain_cfg = h14_train_config("xla", H14_CHECK_BATCH, no_pil)
-    plain = tstep.build_model(plain_cfg).to(device)
+    plain = build_on(plain_cfg, device)
     lp, gp = grads_for(plain_cfg, plain)
     del plain
     glob, (worst, name) = grad_cosines(gk_, gp)
@@ -6369,7 +6508,7 @@ def h14_train_step(device, no_pil: bool, totals: dict) -> dict:
     del state
     torch.cuda.empty_cache()
     cfg = h14_train_config("fused", H14_TRAIN_BATCH, no_pil)
-    model = tstep.build_model(cfg).to(device)
+    model = build_on(cfg, device)
     torch.cuda.reset_peak_memory_stats()
     opt = tstep.init_train_state(cfg, model, total_steps=H14_STEPS)  # the same draws (seed 0)
     update = tstep.make_update_fn(cfg, model, opt)
@@ -6571,7 +6710,7 @@ def hd136_phase(work: str, images, names, device, no_pil: bool, totals: dict) ->
     runs = {}
     for impl in ("fused", "xla"):
         c = config(impl)
-        m = tstep.build_model(c).to(device)
+        m = build_on(c, device)
         if state is None:
             init_params(m, SEED)
             state = {k: v.detach().clone() for k, v in m.state_dict().items()}
@@ -6622,8 +6761,16 @@ def wide_phase(work: str, images, names, device, no_pil: bool, totals: dict,
         check_cases(fwd, worst)
         check_bwd_cases(bwd, worst)
         del fwd, bwd
+        print(f"head_dims {SLAB_HEAD_DIMS}: the slab kernels")
+        for hd in SLAB_HEAD_DIMS:
+            fwd, bwd = padded_head_dim_cases(fe, fl, gk, device, gen, head_dims=(hd,))
+            check_cases(fwd, worst)
+            check_bwd_cases(bwd, worst)
+            del fwd, bwd
+        torch.cuda.empty_cache()
         times = time_wide_kernels(fe, fa, fl, gk, device, gen)
-        times.update(time_padded_head_dims(fe, fl, gk, device, gen))
+        times.update(time_padded_head_dims(fe, fl, gk, device, gen,
+                                           head_dims=PADDED_HEAD_DIMS + SLAB_HEAD_DIMS))
     torch.cuda.empty_cache()
     print(f"24a in {time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
@@ -6669,6 +6816,38 @@ def opt_config(remat: str = "full", impl: str = "fused", no_pil: bool = False,
     if optax_name is not None:
         c["optax_name"], c["optax"] = optax_name, {"b1": 0.9, "b2": 0.99}
     return c
+
+
+def hf_tokenizer_fixtures() -> dict:
+    """Phase 25c: each committed dir under tests/fixtures/hf_tokenizers (a
+    component or route of data/hf_tokenizer.py) through the port's
+    ``LoadedModel.tokenize``; its ids must equal those stored beside it,
+    which JAX's AutoTokenizer route gave (or the vocab convention it fell
+    through to) when the fixtures were written. {dir: (texts, seconds)}."""
+    from openvision_tpu_torch.tools import model_io
+
+    root = os.path.join(REPO, "tests", "fixtures", "hf_tokenizers")
+    vocab = os.path.join(REPO, "assets", "bert_base_vocab_bos_eos.txt")
+    out = {}
+    for name in sorted(os.listdir(root)):
+        with open(os.path.join(root, name, "expected_ids.json"), encoding="utf-8") as f:
+            want = json.load(f)
+        t0 = time.perf_counter()
+        for length in (k for k in want if k != "texts"):
+            model_io.hf_tokenizer.cache_clear()
+            m = model_io.LoadedModel(vision=None, text=None, logit_scale=1.0, image_size=224,
+                                     context_length=int(length), vocab_size=30522,
+                                     mean=(0,) * 3, std=(1,) * 3, vocab_path=vocab,
+                                     device="cpu", model_dir=os.path.join(root, name))
+            got = m.tokenize(want["texts"])
+            if got.tolist() != want[length]:
+                raise AssertionError(f"HF tokenizer fixture {name} at {length}: the port's ids "
+                                     "differ from the stored AutoTokenizer ids")
+        out[name] = (len(want["texts"]), time.perf_counter() - t0)
+        print(f"25c HF tokenizer {name}: {len(want['texts'])} texts at lengths "
+              f"{[k for k in want if k != 'texts']}, ids equal to the stored AutoTokenizer "
+              f"ones ({out[name][1]:.2f} s)")
+    return out
 
 
 def native_phase(work: str, images, device, no_pil: bool, totals: dict) -> dict:
@@ -6751,6 +6930,8 @@ def native_phase(work: str, images, device, no_pil: bool, totals: dict) -> dict:
         if [src[i] for i in range(len(src))] != records:
             raise AssertionError(f"ArrayRecord fixture {name}: records differ")
         print(f"25c ArrayRecord {name}: {len(src)} records read back, equal")
+    # 25c: the committed Hugging Face tokenizer fixtures (no transformers here)
+    out["hf_tokenizers"] = hf_tokenizer_fixtures()
     # 25d: B/16 stage-1 steps with RandAugment and random erasing in the pp
     out["aug"] = aug_steps(device, no_pil, totals)
     # 25e-g: L/14 + text L at OPT_DEPTH: remat minimal against minimal_offloaded,
@@ -6758,14 +6939,14 @@ def native_phase(work: str, images, device, no_pil: bool, totals: dict) -> dict:
     cfg = opt_config(no_pil=no_pil)
     host_batch = next(pipeline.training(cfg["input"], seed=SEED)[0])
     batch = tstep.to_device(host_batch, device)
-    m = tstep.build_model(cfg).to(device)
+    m = build_on(cfg, device)
     init_params(m, SEED)
     state = {k: v.detach().clone() for k, v in m.state_dict().items()}
     del m
     grads, out["remat"] = {}, {}
     for remat in ("minimal", "minimal_offloaded"):
         c = opt_config(remat, impl="xla", no_pil=no_pil)
-        m = tstep.build_model(c).to(device)
+        m = build_on(c, device)
         m.load_state_dict(state)
         loss_fn = tstep.make_loss_fn(c, m)
         ms = []
@@ -6801,7 +6982,7 @@ def native_phase(work: str, images, device, no_pil: bool, totals: dict) -> dict:
     for tag, c in (("param_dtype=bfloat16", opt_config(no_pil=no_pil, param_dtype="bfloat16")),
                    ("optax_name=scale_by_lion", opt_config(no_pil=no_pil,
                                                            optax_name="scale_by_lion"))):
-        m = tstep.build_model(c).to(device)
+        m = build_on(c, device)
         m.load_state_dict(state)
         torch.cuda.reset_peak_memory_stats()
         opt = tstep.init_train_state(c, m, total_steps=10, params=state)
@@ -6856,7 +7037,7 @@ def aug_steps(device, no_pil: bool, totals: dict) -> dict:
         pp_rate = 3 * AUG_BATCH / (time.perf_counter() - t0)
     finally:
         loader.close()
-    m = tstep.build_model(c).to(device)
+    m = build_on(c, device)
     opt = tstep.init_train_state(c, m, total_steps=10)
     update = tstep.make_update_fn(c, m, opt)
     losses = []
@@ -7022,7 +7203,7 @@ def run(work: str) -> int:
         model_dir = os.path.join(work, "model")
         os.makedirs(model_dir)
         t0 = time.perf_counter()
-        export_random_model(model_dir, L14_CONFIG, SEED)
+        export_random_model(model_dir, L14_CONFIG, SEED, device=device)
         print(f"wrote random-init export in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         model = load_model(model_dir, dtype=torch.bfloat16, attn_impl="fused_t",
@@ -7209,7 +7390,7 @@ def run(work: str) -> int:
     train_results.update(tp_train_phase(device, work, no_pil, cap_batch, totals))
 
     phase("19. evaluation at full width: zero-shot IN-1K (bf16, int8 static and dynamic) and "
-          "retrieval over a 1000-image TFRecord fixture, then main_clip eval_only")
+          f"retrieval over a {EVAL_IMAGES}-image TFRecord fixture, then main_clip eval_only")
     eval_results = eval_phase(model_dir, work, images, device, totals)
     torch.cuda.empty_cache()
 

@@ -34,14 +34,17 @@
 // skipped, as _live (flash_attention.py:61) skips dead blocks: the live tiles
 // are the contiguous range [0, last].
 //
-// Every head_dim that is a multiple of 8 from 16 to 256 (attention.cuh: a
+// Every head_dim that is a multiple of 8 from 16 (attention.cuh: up to 256 a
 // tile is the head_dim rounded up to 16 in chunks of 64, 32 and 16 columns,
 // one TMA box and one swizzle each, or above 128 rounded up to 64); one
 // instantiation a padded head_dim. Above 64 the ring holds two stages (not
 // four) and two CTAs an SM (not three): the P V accumulator grows with
 // head_dim (HDP / 2 registers). Above 128 (192, 256) each CTA accumulates
 // one of two column parts of O over the whole head_dim's scores, one launch
-// a part, one CTA an SM (161 KB of shared memory at 256).
+// a part, one CTA an SM (161 KB of shared memory at 256). Above 256 the
+// slab kernel (attention_slab.cu) streams the head_dim in 128-column slabs
+// and accumulates ceil(head_dim / 128) parts of O in one launch, in 129 KB
+// of shared memory at every head_dim.
 //
 // Bound on the H100: at the port's shapes (head_dim 64, L of 128..900) the
 // FLOPs are 4*Lq*Lk*64 per (batch, head) against 2*(2*Lq + 2*Lk)*64 bytes,
@@ -93,8 +96,14 @@
 // PERF.md's design-choice table.
 #include "attention_fwd.cuh"
 
-// The padded head_dims 80..128, built in attention_wide.cu, and 192 and 256,
-// built in attention_xwide.cu.
+// The padded head_dims 80..128, built in attention_wide.cu, 192 and 256,
+// built in attention_xwide.cu, and the slab kernel above, in attention_slab.cu.
+int attention_slab(const void* qkv, void* out, int batch, int seq, int heads, int head_dim,
+                   float scale, int nomax, int causal, int prefix, int out_f32, void* stream);
+int flash_attention_slab(const void* q, const void* k, const void* v, void* out, void* lse,
+                         const long long* strides, int batch, int lq, int lk, int heads,
+                         int head_dim, float scale, int prescale, int causal, int prefix,
+                         int nomax, void* stream);
 int attention_xwide(const void* qkv, void* out, int batch, int seq, int heads, int head_dim,
                     float scale, int nomax, int causal, int prefix, int out_f32, void* stream);
 int flash_attention_xwide(const void* q, const void* k, const void* v, void* out, void* lse,
@@ -113,13 +122,16 @@ int flash_attention_wide(const void* q, const void* k, const void* v, void* out,
 // or f32 when out_f32 (unmasked only); one batch item of qkv must hold fewer
 // than 2**31 elements.
 // q is scaled by `scale` and rounded before q.k^T. causal / prefix select the
-// causal and prefix-LM masks. head_dim: a multiple of 8 from 16 to 256.
+// causal and prefix-LM masks. head_dim: a multiple of 8 from 16 up.
 // Returns cudaGetLastError() after the launch (or cudaErrorInvalidValue for
 // what the kernel does not take).
 extern "C" int ovt_attention(const void* qkv, void* out, int batch, int seq, int heads,
                              int head_dim, float scale, int nomax, int causal, int prefix,
                              int out_f32, void* stream) {
   if ((out_f32 && causal) || !head_dim_ok(head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim > 256)
+    return attention_slab(qkv, out, batch, seq, heads, head_dim, scale, nomax, causal, prefix,
+                          out_f32, stream);
   if (head_dim > 128)
     return attention_xwide(qkv, out, batch, seq, heads, head_dim, scale, nomax, causal, prefix,
                            out_f32, stream);
@@ -134,7 +146,7 @@ extern "C" int ovt_attention(const void* qkv, void* out, int batch, int seq, int
 
 // q: (batch, lq, heads, head_dim), k and v: (batch, lk, heads, head_dim), all
 // bf16 with unit stride in head_dim and 16-byte aligned rows (head_dim a
-// multiple of 8 from 16 to 256); `strides` holds the (batch, row, head)
+// multiple of 8 from 16 up); `strides` holds the (batch, row, head)
 // strides of q, k, v and out, in elements, 12 in all.
 // Within one batch item, offsets must stay below 2**31 elements.
 // out: (batch, lq, heads, head_dim) bf16 by its strides; lse: (batch, heads,
@@ -149,6 +161,9 @@ extern "C" int ovt_flash_attention(const void* q, const void* k, const void* v, 
                                    int prescale, int causal, int prefix, int nomax,
                                    void* stream) {
   if (!head_dim_ok(head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim > 256)
+    return flash_attention_slab(q, k, v, out, lse, strides, batch, lq, lk, heads, head_dim,
+                                scale, prescale, causal, prefix, nomax, stream);
   if (head_dim > 128)
     return flash_attention_xwide(q, k, v, out, lse, strides, batch, lq, lk, heads, head_dim,
                                  scale, prescale, causal, prefix, nomax, stream);

@@ -1,7 +1,7 @@
 // The pieces the attention kernels share (attention.cu's forward,
 // attention_bwd.cu's backward pair): operands of one head read by TMA in
 // 64-row boxes, swizzled, and wgmma on them, at every head_dim that is a
-// multiple of 8 from 16 to 256.
+// multiple of 8 from 16 (whole tiles up to 256, slabs above).
 //
 // Every operand is a (batch, rows, heads, hd) bf16 view at element strides
 // (batch, row, head) with unit stride in head_dim: the flash path's tensors,
@@ -18,6 +18,9 @@
 // need no predicates on load. hd * 2 bytes must be a multiple of 16 (TMA's
 // stride rule), hence hd % 8 == 0 (the wrappers zero-pad any other head_dim
 // to the next multiple of 8, and one below 16 to 16).
+//
+// Above 256 the slab kernels (attention_slab.cu, attention_bwd_slab.cu) take
+// over: their shared memory does not grow with the head_dim.
 //
 // Above 128 the head_dim is rounded up to 64 (192 or 256: three or four
 // 64-column chunks, TMA's zero fill past hd again) and the output columns
@@ -378,14 +381,109 @@ __device__ __forceinline__ int swizzled(int r, int u) {
   return r * 2 * W + ((u ^ ((r * 2 * W >> 7) & (W / 8 - 1))) << 4);
 }
 
+// ---------------------------------------------------------------------------
+// Slabs: the head_dims above 256
+// ---------------------------------------------------------------------------
+//
+// Above 256 a 64-row tile of the whole head_dim no longer fits beside a ring
+// (Q and two stages of K and V at 320: 205 KB; the backward's six tiles
+// 246 KB). The slab kernels (attention_slab.cu, attention_bwd_slab.cu) stream
+// the head_dim instead: a slab is `rows` rows (64, or 32 for the dk/dv
+// kernel's queries) of one head's 128 columns 128 j.., two 64-column boxes
+// of one map (OpMaps<64>, 128-byte swizzle) laid one after the other (chunk
+// c at c * rows * 128 bytes), TMA's zero fill past hd as for a tile. The
+// score products accumulate over the slabs (slab_ss with `acc`), and each
+// CTA accumulates one 128-column part of O, dq, dk and dv (slab_rs, or
+// start_rs<128> on a 64-row slab): ceil(hd / 128) parts, one launch, the
+// part in blockIdx.y. The slabs run through one ring of kSlabStages stages
+// of 32 KB in a fixed order, loaded by a producer warp (SlabRing), so the
+// shared memory is 129 KB at every head_dim.
+
+constexpr int kSlab = 128;  // columns of a slab
+constexpr int kSlabStages = 4;
+constexpr int kStageBytes = 2 * BT * kSlab * 2;  // two 64-row slabs
+constexpr int kSlabSmem = 1024 + kSlabStages * kStageBytes;
+constexpr int kSlabThreads = 128 + 32;  // one consumer warpgroup, then the producer warp
+
+// Slab j of one head's rows row.. (`rows` of them, the map's box) into dst.
+__device__ __forceinline__ void load_slab(uint32_t dst, const OpMaps<64>& map, uint64_t* bar,
+                                          int j, int h, int row, int b, int rows) {
+  load_box(dst, &map.m[0], bar, kSlab * j, h, row, b);
+  load_box(dst + rows * 128, &map.m[0], bar, kSlab * j + 64, h, row, b);
+}
+
+// Starts x (64 x N) (+)= A . B^T over one slab's 128 columns as one wgmma
+// group, A a slab of 64 rows (a_rows apart chunks), B one of b_rows >= N
+// rows; acc: add to x (a later slab), else overwrite.
+template <int N>
+__device__ __forceinline__ void slab_ss(float (&x)[N / 2], uint32_t a, int a_rows, uint32_t b,
+                                        int b_rows, bool acc) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<N>(x, desc_k<64>(a + c * a_rows * 128, kk), desc_k<64>(b + c * b_rows * 128, kk),
+                  acc || c > 0 || kk > 0);
+  hp::wgmma_commit();
+}
+
+// Starts acc (64 x 128) += X . T for X's first K k16 steps (A fragments), T
+// a slab of `rows` rows (MN-major): start_rs on a slab of any row count.
+template <int K, int KF>
+__device__ __forceinline__ void slab_rs(float (&acc)[kSlab / 2], const uint32_t (&f)[KF][4],
+                                        uint32_t tile, int rows) {
+  static_assert(K <= KF, "more k16 steps than fragments");
+  hp::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < K; ++kk)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      wgmma_rs<64>(acc + 32 * c, f[kk], desc_mn<64>(tile + c * rows * 128, kk));
+  hp::wgmma_commit();
+}
+
+// The slab kernels' ring: load t goes to stage t % kSlabStages; the
+// producer acquires it once its last use was released (one arrive per
+// consumer warp), the consumers wait for its bytes and release it.
+struct SlabRing {
+  uint64_t* full;
+  uint64_t* empty;
+  uint32_t base;
+  __device__ __forceinline__ uint32_t stage(int t) const {
+    return base + (t % kSlabStages) * kStageBytes;
+  }
+  __device__ __forceinline__ uint64_t* bar(int t) const { return &full[t % kSlabStages]; }
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < kSlabStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __device__ __forceinline__ uint32_t acquire(int t, uint32_t bytes) const {
+    const int st = t % kSlabStages;
+    if (t >= kSlabStages) hp::mbar_wait(&empty[st], (t / kSlabStages - 1) & 1);
+    hp::mbar_expect_tx(&full[st], bytes);
+    return stage(t);
+  }
+  __device__ __forceinline__ uint32_t wait(int t) const {
+    hp::mbar_wait(&full[t % kSlabStages], (t / kSlabStages) & 1);
+    return stage(t);
+  }
+  __device__ __forceinline__ void release(int t, int lane) const {
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&empty[t % kSlabStages]);
+  }
+};
+
 // The tensor maps of a (batch, rows, heads, hd) bf16 operand at element
 // strides `st`, one a chunk of Hd<HDP>: the (hd, heads, rows, batch) view
-// read in (width, 1, 64, 1) boxes, swizzled by the chunk's row. A dimension
+// read in (width, 1, box_rows, 1) boxes, swizzled by the chunk's row. A dimension
 // of size 1 takes a stride that TMA accepts (its own is never used). False
 // if cuTensorMapEncodeTiled refuses the view.
 template <int HDP>
 inline bool head_maps(OpMaps<HDP>* maps, const void* ptr, const Strides& st, int hd, int heads,
-                      int rows, int batch) {
+                      int rows, int batch, int box_rows = BT) {
   using H = Hd<HDP>;
   const hp::EncodeTiledFn fn = hp::encode_tiled();
   if (fn == nullptr || !hp::bind_context()) return false;
@@ -398,7 +496,7 @@ inline bool head_maps(OpMaps<HDP>* maps, const void* ptr, const Strides& st, int
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   for (int c = 0; c < H::kChunks; ++c) {
     const int w = H::width(c);
-    const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), 1, BT, 1};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(w), 1, static_cast<cuuint32_t>(box_rows), 1};
     const CUtensorMapSwizzle sw = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                   : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                             : CU_TENSOR_MAP_SWIZZLE_32B;
@@ -410,11 +508,9 @@ inline bool head_maps(OpMaps<HDP>* maps, const void* ptr, const Strides& st, int
   return true;
 }
 
-// Whether the kernels take head_dim hd: a multiple of 8 from 16 to 256.
-// Above 256 Q's tile and two stages of K and V (at least 1 + 4 tiles of
-// 64 x 320 bf16, 205 KB, and 6 such tiles in the backward) pass the 227 KB
-// of shared memory a CTA can have.
-inline bool head_dim_ok(int hd) { return hd % 8 == 0 && hd >= 16 && hd <= 256; }
+// Whether the kernels take head_dim hd: a multiple of 8 from 16 (up to 256
+// by the tile kernels, above by the slab kernels, attention_slab.cuh).
+inline bool head_dim_ok(int hd) { return hd % 8 == 0 && hd >= 16; }
 
 // The padded head_dim of hd: rounded up to 16 up to 128, to 64 above.
 inline int padded_head_dim(int hd) { return hd <= 128 ? (hd + 15) / 16 * 16 : (hd + 63) / 64 * 64; }

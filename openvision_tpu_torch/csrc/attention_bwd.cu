@@ -1,5 +1,5 @@
 // FlashAttention-2 backward over q, k and v read by base pointer and
-// strides, at every head_dim that is a multiple of 8 from 16 to 256
+// strides, at every head_dim that is a multiple of 8 from 16 up
 // (attention.cuh's chunked tiles, one instantiation a padded head_dim; above
 // 128 two launches of each kernel, one a column part of dq, dk and dv, each
 // recomputing S and dP over the whole head_dim), so
@@ -87,8 +87,19 @@
 // its edge (a warp-uniform test per 16 rows); whole tiles run unmasked.
 #include "attention_bwd.cuh"
 
-// The padded head_dims 80..128, built in attention_bwd_wide.cu, and 192 and
-// 256, built in attention_bwd_xwide.cu.
+// The padded head_dims 80..128, built in attention_bwd_wide.cu, 192 and 256,
+// built in attention_bwd_xwide.cu, and the slab kernels above, in
+// attention_bwd_slab.cu.
+int attention_bwd_dq_slab(const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const void* lse, void* delta, void* dq,
+                          const long long* strides, int batch, int lq, int lk, int heads,
+                          int head_dim, float scale, int causal, int prefix, int nomax,
+                          float dq_scale, int dq_round, void* stream);
+int attention_bwd_dkv_slab(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dk, void* dv,
+                           const long long* strides, int batch, int lq, int lk, int heads,
+                           int head_dim, float scale, int causal, int prefix, int nomax,
+                           void* stream);
 int attention_bwd_dq_xwide(const void* q, const void* k, const void* v, const void* o,
                            const void* dout, const void* lse, void* delta, void* dq,
                            const long long* strides, int batch, int lq, int lk, int heads,
@@ -113,7 +124,7 @@ int attention_bwd_dkv_wide(const void* q, const void* k, const void* v, const vo
 
 // q, o, do, dq: (batch, lq, heads, head_dim); k, v, dk, dv: (batch, lk,
 // heads, head_dim); all bf16 with unit stride in head_dim (a multiple of 8
-// from 16 to 256) and 16-byte aligned rows; `strides` holds the (batch, row,
+// from 16 up) and 16-byte aligned rows; `strides` holds the (batch, row,
 // head) strides of q, k, v, o, do, dq, dk and dv in elements, 24 in all;
 // offsets inside one batch item stay below 2**31.
 // lse and delta: (batch, heads, lq) f32 contiguous. The dq entry writes delta
@@ -130,6 +141,10 @@ extern "C" int ovt_attention_bwd_dq(const void* q, const void* k, const void* v,
                                     int prefix, int nomax, float dq_scale, int dq_round,
                                     void* stream) {
   if (!head_dim_ok(head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim > 256)
+    return attention_bwd_dq_slab(q, k, v, o, dout, lse, delta, dq, strides, batch, lq, lk, heads,
+                                 head_dim, scale, causal, prefix, nomax, dq_scale, dq_round,
+                                 stream);
   if (head_dim > 128)
     return attention_bwd_dq_xwide(q, k, v, o, dout, lse, delta, dq, strides, batch, lq, lk,
                                   heads, head_dim, scale, causal, prefix, nomax, dq_scale,
@@ -151,6 +166,9 @@ extern "C" int ovt_attention_bwd_dkv(const void* q, const void* k, const void* v
                                      int lq, int lk, int heads, int head_dim, float scale,
                                      int causal, int prefix, int nomax, void* stream) {
   if (!head_dim_ok(head_dim)) return static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim > 256)
+    return attention_bwd_dkv_slab(q, k, v, dout, lse, delta, dk, dv, strides, batch, lq, lk,
+                                  heads, head_dim, scale, causal, prefix, nomax, stream);
   if (head_dim > 128)
     return attention_bwd_dkv_xwide(q, k, v, dout, lse, delta, dk, dv, strides, batch, lq, lk,
                                    heads, head_dim, scale, causal, prefix, nomax, stream);

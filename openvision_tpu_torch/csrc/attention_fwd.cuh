@@ -3,7 +3,7 @@
 // attention.cu instantiates the padded head_dims up to 64,
 // attention_wide.cu those from 80 to 128 and attention_xwide.cu 192 and 256
 // (two column parts each, attention.cuh's Part), so that the three build in
-// parallel.
+// parallel; attention_slab.cu holds the slab kernel above 256.
 #pragma once
 
 #include <cmath>

@@ -11,30 +11,43 @@ repeats that resolution from the dir's files (nothing is downloaded) and
 :class:`HFTokenizer` repeats what the ``tokenizers`` library computes; it
 returns None where JAX's route raises, so the caller falls through too.
 
-The resolution: ``tokenizer_config.json`` names the class
-(``tokenizer_class``; without the file or the name ``AutoTokenizer`` needs
-a ``config.json``, which a model dir of this repo does not have, and
-raises). With ``tokenizer.json`` the tokenizer is the file's; the
-``BertTokenizer`` classes write the config's ``do_lower_case``,
-``strip_accents`` and ``tokenize_chinese_chars`` over its normalizer, as
-``BertTokenizerFast`` does. Without it, a ``BertTokenizer`` class builds
-what ``BertTokenizerFast`` builds from ``vocab.txt`` (``[CLS] ... [SEP]``,
-``do_lower_case``, ``[UNK]``); ``PreTrainedTokenizerFast`` without it
-loads nothing (AutoTokenizer raises); other classes without a
-``tokenizer.json`` (built from their own vocab files) raise by name. The pad token is the config's (the BERT classes default to
-``[PAD]``), and ``padding_side`` / ``truncation_side`` are the config's.
+The resolution (:func:`resolve_class`): ``tokenizer_config.json``'s
+``tokenizer_class``, else ``config.json``'s, else ``config.json``'s
+``model_type`` through transformers' own mapping (``data/hf_classes.py``,
+generated here by ``data/gen_hf_tables.py``); the fast class where one
+exists. None (AutoTokenizer raises) without ``config.json``, for a name or
+model type transformers does not know, and for a class it cannot load
+here (SentencePiece's, without ``sentencepiece``). With ``tokenizer.json``
+the tokenizer is the file's; the ``BertTokenizer`` classes write the
+config's ``do_lower_case``, ``strip_accents`` and
+``tokenize_chinese_chars`` over its normalizer, as ``BertTokenizerFast``
+does. Without it, a ``BertTokenizer`` class builds what
+``BertTokenizerFast`` builds from ``vocab.txt`` (``[CLS] ... [SEP]``,
+``do_lower_case``, ``[UNK]``) and a ``CLIPTokenizer`` class what
+``CLIPTokenizerFast`` converts from ``vocab.json`` + ``merges.txt``;
+``PreTrainedTokenizerFast`` and a fast class whose slow class needs
+``sentencepiece`` load nothing (AutoTokenizer raises); any other class
+built from its own vocab files raises by name. Then, as
+``PreTrainedTokenizerFast.__init__``, the config's special tokens (the
+class's defaults where it names none, ``hf_classes.SPECIAL_DEFAULTS``)
+that are not added tokens yet become added tokens, new ids past the vocab
+for those it lacks (:class:`HFTokenizer`). The pad token is the config's
+or the class's, and ``padding_side`` / ``truncation_side`` are the config's.
 
 The pipeline, as the library runs it on each text:
 
-- the added tokens (``added_tokens``): matched in the raw text first
-  (leftmost, longest) and kept whole, their ``lstrip`` / ``rstrip``
-  whitespace taken with them and ``single_word`` honoured;
+- the added tokens (``added_tokens``): those not ``normalized`` matched in
+  the raw text first, the others in each normalized segment by their
+  normalized content (leftmost, longest), each kept whole, their ``lstrip``
+  / ``rstrip`` whitespace taken with them and ``single_word`` honoured;
 - the normalizer: ``NFC`` / ``NFD`` / ``NFKC`` / ``NFKD``, ``Lowercase``
   (per character, as Rust's ``to_lowercase``), ``Strip``, ``StripAccents``
   (NFD's combining marks, every ``M*`` category, dropped), ``Replace``
   (string or regex pattern), ``Prepend`` (not on an empty text), ``Nmt``
   (SentencePiece's control characters dropped and its other spaces made
-  one), ``BertNormalizer`` (``clean_text``, ``handle_chinese_chars``,
+  one), ``Precompiled`` (SentencePiece's charsmap: :class:`Precompiled`),
+  ``ByteLevel`` (each character's UTF-8 bytes through GPT-2's table),
+  ``BertNormalizer`` (``clean_text``, ``handle_chinese_chars``,
   ``strip_accents`` (``Mn`` only; unset: as ``lowercase``), ``lowercase``)
   and ``Sequence``;
 - the pre-tokenizer, each splitting every piece it is given:
@@ -46,8 +59,10 @@ The pipeline, as the library runs it on each text:
   ``MergedWithPrevious``, ``MergedWithNext``, ``Contiguous``),
   ``Metaspace`` (``replacement``, ``prepend_scheme`` always / first /
   never or the older ``add_prefix_space``, ``split``), ``Punctuation``,
-  ``Digits`` (ASCII digits, ``individual_digits``), ``BertPreTokenizer``
-  and ``Sequence``;
+  ``Digits`` (ASCII digits, ``individual_digits``), ``BertPreTokenizer``,
+  ``UnicodeScripts`` (cut where the script changes, the library's own
+  script table, ``Any`` characters joining the piece before them),
+  ``CharDelimiterSplit`` and ``Sequence``;
 - the model: ``WordPiece`` (greedy longest match, ``unk_token``,
   ``continuing_subword_prefix``, ``max_input_chars_per_word``),
   ``WordLevel`` (``vocab``, ``unk_token``), ``BPE`` (``merges`` as ``"a
@@ -72,29 +87,40 @@ rewrites a pattern's ``\\p{..}`` / ``\\P{..}`` (one- or two-letter general
 categories), ``\\s`` / ``\\S`` (Unicode's White_Space property) and ``\\w``
 / ``\\W`` (letters, marks, ``Nd``, ``Nl``, ``Pc`` and the two join
 controls) into explicit character ranges built from this interpreter's
-``unicodedata``, inside or outside a bracketed class. Any other
-component raises by name, as do the ``Precompiled`` normalizer (the
-SentencePiece charsmap) and the ``UnicodeScripts`` and ``CharDelimiterSplit``
-pre-tokenizers.
+``unicodedata``, inside or outside a bracketed class. The scripts and the
+grapheme-cluster breaks that Python's ``unicodedata`` lacks come from
+``data/unicode_tables.py`` (generated by ``data/gen_hf_tables.py`` and held
+there against the library and ``regex``). Any other component raises by
+name.
 """
 
 from __future__ import annotations
 
+import base64
+import bisect
 import functools
+import importlib
 import json
 import os
 import re
+import struct
 import sys
 import unicodedata
 
 import numpy as np
 
+from openvision_tpu_torch.data import hf_classes
 from openvision_tpu_torch.data.tokenizer import _is_cjk, _is_control, _is_punctuation
 
 # Unicode's White_Space property (Rust's char::is_whitespace)
 _WHITE_SPACE = frozenset([*range(0x09, 0x0E), 0x20, 0x85, 0xA0, 0x1680, *range(0x2000, 0x200B),
                           0x2028, 0x2029, 0x202F, 0x205F, 0x3000])
 _BERT_CLASSES = ("BertTokenizer", "BertTokenizerFast")
+# transformers' SPECIAL_TOKENS_ATTRIBUTES, in its order
+SPECIAL_ATTRS = ("bos_token", "eos_token", "unk_token", "sep_token", "pad_token", "cls_token",
+                 "mask_token")
+# CLIPTokenizer's split pattern (transformers' CLIPConverter)
+CLIP_PATTERN = r"""'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|[^\s\p{L}\p{N}]+"""
 # GPT-2's split pattern (the ByteLevel pre-tokenizer's use_regex)
 GPT2_PATTERN = (r"'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+")
 _NMT_DROP = frozenset([*range(0x01, 0x09), 0x0B, *range(0x0E, 0x20), 0x7F, 0x8F, 0x9F])
@@ -186,6 +212,177 @@ def translate_regex(pattern: str) -> "re.Pattern":
 
 
 # ---------------------------------------------------------------------------
+# Unicode properties Python lacks, and grapheme clusters
+# ---------------------------------------------------------------------------
+
+
+class UnicodeTables:
+    """Lookups in ``data/unicode_tables.py`` (generated by ``data/gen_hf_tables.py``):
+    a code point's script id (0 for the library's ``Any``: unassigned; the
+    fixed scripts as ``tokenizers`` folds them: Hiragana, Katakana and
+    U+30FC to Han, the space to Any), grapheme-cluster break, Indic conjunct
+    break and Extended_Pictographic values."""
+
+    def __init__(self):
+        t = importlib.import_module("openvision_tpu_torch.data.unicode_tables")
+        self._runs = {}
+        for name in ("SCRIPT", "GCB", "PICT", "INCB"):
+            runs = getattr(t, f"{name}_RUNS")
+            self._runs[name] = ([a for a, _ in runs], [v for _, v in runs],
+                                {n: i for i, n in enumerate(getattr(t, f"{name}_NAMES"))})
+        ids = self._runs["SCRIPT"][2]
+        self._han, self._fold = ids["HAN"], {ids["HIRAGANA"], ids["KATAKANA"]}
+        self._any = ids["UNKNOWN"]
+        self.GCB = self._runs["GCB"][2]
+        self.INCB = self._runs["INCB"][2]
+
+    def _value(self, name: str, cp: int) -> int:
+        starts, values, _ = self._runs[name]
+        return values[bisect.bisect_right(starts, cp) - 1]
+
+    @functools.lru_cache(maxsize=None)
+    def script(self, cp: int) -> int:
+        """The script UnicodeScripts splits by (``Any``: 0, splits nothing)."""
+        if cp == 0x30FC:
+            return self._han
+        if cp == 0x20:
+            return 0
+        v = self._value("SCRIPT", cp)
+        return 0 if v == self._any else self._han if v in self._fold else v
+
+    @functools.lru_cache(maxsize=None)
+    def gcb(self, cp: int) -> int:
+        return self._value("GCB", cp)
+
+    @functools.lru_cache(maxsize=None)
+    def incb(self, cp: int) -> int:
+        return self._value("INCB", cp)
+
+    @functools.lru_cache(maxsize=None)
+    def pict(self, cp: int) -> int:
+        return self._value("PICT", cp)
+
+
+@functools.lru_cache(maxsize=1)
+def unicode_tables() -> UnicodeTables:
+    return UnicodeTables()
+
+
+def graphemes(s: str, tables: UnicodeTables | None = None) -> list:
+    """`s` cut into UAX #29's extended grapheme clusters (GB3-GB13 with
+    GB9c's Indic conjuncts), as ``unicode-segmentation`` cuts them for the
+    ``tokenizers`` library."""
+    if not s:
+        return []
+    t = tables or unicode_tables()
+    g = t.GCB
+    ctrl = (g["CONTROL"], g["CR"], g["LF"])
+    hangul_l, hangul_t, v_t = g["L"], g["T"], (g["V"], g["T"])
+    lv_lvt, v_lv = (g["V"], g["LV"], g["LVT"]), (g["LV"], g["V"])
+    t_lvt, extend = (g["LVT"], g["T"]), (g["EXTEND"], g["ZWJ"])
+    cons, linker, inc_ext = t.INCB["CONSONANT"], t.INCB["LINKER"], t.INCB["EXTEND"]
+    out, start = [], 0
+    prev = t.gcb(ord(s[0]))
+    ri = 1 if prev == g["REGIONALINDICATOR"] else 0  # regional indicators in a row
+    pict = bool(t.pict(ord(s[0])))  # ExtPict Extend* so far
+    zwj = False  # ExtPict Extend* ZWJ just before
+    conj, link = t.incb(ord(s[0])) == cons, False  # Consonant [Extend Linker]*, a Linker seen
+    for i in range(1, len(s)):
+        cp = ord(s[i])
+        cur, inc = t.gcb(cp), t.incb(cp)
+        if prev == g["CR"] and cur == g["LF"]:
+            joined = True
+        elif prev in ctrl or cur in ctrl:
+            joined = False
+        elif prev == hangul_l and cur in (hangul_l, *lv_lvt):
+            joined = True
+        elif (prev in v_lv and cur in v_t) or (prev in t_lvt and cur == hangul_t):
+            joined = True
+        elif cur in extend or cur == g["SPACINGMARK"] or prev == g["PREPEND"]:
+            joined = True
+        elif inc == cons and conj and link:
+            joined = True
+        elif zwj and t.pict(cp):
+            joined = True
+        else:
+            joined = cur == prev == g["REGIONALINDICATOR"] and ri % 2 == 1
+        if not joined:
+            out.append(s[start:i])
+            start = i
+        ri = ri + 1 if cur == g["REGIONALINDICATOR"] else 0
+        zwj = pict and cur == g["ZWJ"]
+        pict = bool(t.pict(cp)) or (pict and cur == g["EXTEND"])
+        if inc == cons:
+            conj, link = True, False
+        elif conj and inc in (linker, inc_ext):
+            link = link or inc == linker
+        else:
+            conj = link = False
+        prev = cur
+    out.append(s[start:])
+    return out
+
+
+class Precompiled:
+    """SentencePiece's ``precompiled_charsmap`` normalizer, as the
+    ``tokenizers`` library runs it (``spm_precompiled``): the base64 blob is
+    a little-endian u32 byte count, that many bytes of a darts-clone double
+    array (u32 units), then the NUL-terminated replacement strings the
+    trie's values point into. A text goes by extended grapheme clusters: a
+    cluster under 6 bytes whose UTF-8 has a prefix in the trie is replaced
+    whole by the shortest prefix's string; any other cluster goes character
+    by character, each replaced where it has a prefix in the trie."""
+
+    def __init__(self, charsmap: str, where: str):
+        blob = base64.b64decode(charsmap or "")
+        size = int.from_bytes(blob[:4], "little") // 4 if len(blob) >= 4 else -1
+        if size < 0 or len(blob) < 4 + 4 * size:
+            raise ValueError(f"{where}: Precompiled: cannot parse precompiled_charsmap")
+        self.units = struct.unpack(f"<{size}I", blob[4:4 + 4 * size])
+        self.strings = blob[4 + 4 * size:]
+        self.strings.decode("utf-8")  # the library refuses a blob that is not UTF-8
+        self._cache = {}
+
+    @staticmethod
+    def _offset(unit: int) -> int:
+        return (unit >> 10) << ((unit & (1 << 9)) >> 6)
+
+    def transform(self, chunk: str) -> str | None:
+        """The replacement of `chunk`'s shortest prefix in the trie, or None."""
+        if chunk in self._cache:
+            return self._cache[chunk]
+        units, found = self.units, None
+        node = self._offset(units[0])
+        for c in chunk.encode("utf-8"):
+            if c == 0:
+                break
+            node ^= c
+            unit = units[node]
+            if unit & ((1 << 31) | 0xFF) != c:
+                break
+            node ^= self._offset(unit)
+            if (unit >> 8) & 1:  # a leaf: its value is the replacement's offset
+                at = units[node] & ((1 << 31) - 1)
+                found = self.strings[at:self.strings.index(b"\0", at)].decode("utf-8")
+                break
+        self._cache[chunk] = found
+        return found
+
+    def __call__(self, s: str) -> str:
+        out = []
+        for cluster in graphemes(s):
+            if len(cluster.encode("utf-8")) < 6:
+                rep = self.transform(cluster)
+                if rep is not None:
+                    out.append(rep)
+                    continue
+            for ch in cluster:
+                rep = self.transform(ch)
+                out.append(ch if rep is None else rep)
+        return "".join(out)
+
+
+# ---------------------------------------------------------------------------
 # normalizers
 # ---------------------------------------------------------------------------
 
@@ -247,6 +444,11 @@ def build_normalizer(spec, where: str, bert_overrides: dict | None = None):
     if kind == "Nmt":
         return lambda s: "".join(" " if ord(c) in _NMT_SPACE else c for c in s
                                  if ord(c) not in _NMT_DROP)
+    if kind == "Precompiled":
+        return Precompiled(spec.get("precompiled_charsmap"), where)
+    if kind == "ByteLevel":  # each character's UTF-8 bytes through GPT-2's table
+        table = bytes_to_unicode()
+        return lambda s: "".join(table[b] for b in s.encode("utf-8"))
     if kind == "BertNormalizer":
         flags = dict(clean_text=spec.get("clean_text", True),
                      chinese=spec.get("handle_chinese_chars", True),
@@ -256,7 +458,7 @@ def build_normalizer(spec, where: str, bert_overrides: dict | None = None):
         return lambda s: _bert_normalize(s, **flags)
     raise ValueError(f"{where}: normalizer {kind!r} is not read by the port (it reads NFC, NFD, "
                      "NFKC, NFKD, Lowercase, Strip, StripAccents, Replace, Prepend, Nmt, "
-                     "BertNormalizer and Sequence)")
+                     "Precompiled, ByteLevel, BertNormalizer and Sequence)")
 
 
 # ---------------------------------------------------------------------------
@@ -345,13 +547,28 @@ def _each(fn):
     return run
 
 
-def build_pre_tokenizer(spec, where: str):
+def _script_splits(s: str, tables: UnicodeTables) -> list:
+    """The UnicodeScripts pre-tokenizer's pieces: a cut before the first
+    character that is not ``Any`` and before each whose script differs from
+    the last such one (``Any`` characters join the piece before them); as
+    in the library, what precedes the first cut is dropped."""
+    cuts, last = [], None
+    for i, c in enumerate(s):
+        script = tables.script(ord(c))
+        if script and script != last:
+            cuts.append(i)
+            last = script
+    bounds = [*cuts, len(s)]
+    return [s[a:b] for a, b in zip(bounds, bounds[1:]) if b > a]
+
+
+def build_pre_tokenizer(spec, where: str, tables: UnicodeTables | None = None):
     """[(piece, first)] -> [(piece, first)] for a pre-tokenizer spec."""
     if spec is None:
         return lambda pieces: [(p, f) for p, f in pieces if p]
     kind = spec.get("type")
     if kind == "Sequence":
-        parts = [build_pre_tokenizer(p, where) for p in spec["pretokenizers"]]
+        parts = [build_pre_tokenizer(p, where, tables) for p in spec["pretokenizers"]]
         return lambda pieces: functools.reduce(lambda acc, f: f(acc), parts, pieces)
     if kind == "BertPreTokenizer":
         def bert(s, _):
@@ -404,9 +621,16 @@ def build_pre_tokenizer(spec, where: str):
             return ["".join(table[b] for b in p.encode("utf-8")) for p in pieces]
 
         return _each(byte_level)
+    if kind == "UnicodeScripts":
+        t = tables or unicode_tables()
+        return _each(lambda s, _: _script_splits(s, t))
+    if kind == "CharDelimiterSplit":
+        delim = spec["delimiter"]
+        return _each(lambda s, _: _split(s, _char_matches(lambda c: c == delim, s), "Removed"))
     raise ValueError(f"{where}: pre_tokenizer {kind!r} is not read by the port (it reads "
                      "ByteLevel, Whitespace, WhitespaceSplit, Split, Metaspace, Punctuation, "
-                     "Digits, BertPreTokenizer and Sequence)")
+                     "Digits, BertPreTokenizer, UnicodeScripts, CharDelimiterSplit and "
+                     "Sequence)")
 
 
 # ---------------------------------------------------------------------------
@@ -621,13 +845,40 @@ def build_post_processor(spec, where: str) -> tuple:
 # ---------------------------------------------------------------------------
 
 
-class HFTokenizer:
-    """A tokenizer of the ``tokenizer.json`` form (`spec`) with the class
-    config `config`; ``__call__(texts, max_length)`` gives (N, max_length)
-    int32 ids as JAX's AutoTokenizer route does. ``pad_id`` is None without
-    a pad token (transformers refuses to pad: :func:`load` falls through)."""
+def _added_token(t, special: bool) -> dict:
+    """An ``AddedToken`` as the fields of ``tokenizer.json``'s
+    ``added_tokens`` from a config's form of it (a string, or a dict of its
+    fields): a string is ``AddedToken(t, special=special)``, normalized
+    unless special."""
+    if isinstance(t, str):
+        return {"content": t, "single_word": False, "lstrip": False, "rstrip": False,
+                "normalized": not special, "special": special}
+    d = {k: v for k, v in t.items() if k != "__type"}
+    d["special"] = special or bool(d.get("special"))
+    d.setdefault("normalized", not d["special"])
+    return d
 
-    def __init__(self, spec: dict, config: dict, where: str):
+
+class HFTokenizer:
+    """A tokenizer of the ``tokenizer.json`` form (`spec`) loaded as the
+    fast class `cls` with the class config `config`; ``__call__(texts,
+    max_length)`` gives (N, max_length) int32 ids as JAX's AutoTokenizer
+    route does. ``pad_id`` is None without a pad token (transformers refuses
+    to pad: :func:`load` falls through).
+
+    As ``PreTrainedTokenizerFast.__init__`` after loading the file: the
+    config's ``added_tokens_decoder`` entries the file lacks (by id), then
+    its special tokens (``bos`` ... ``mask``, the class's defaults where
+    the config names none, then ``additional_special_tokens``) that are not
+    added tokens yet become added tokens: a special token in the model's
+    vocab keeps its id (and is matched in the raw text from then on), one
+    missing from it takes the next new id (the vocab size, or one past the
+    largest added id above it). Added tokens with ``normalized`` true are
+    matched in each normalized segment by their normalized content, the
+    others in the raw text first."""
+
+    def __init__(self, spec: dict, config: dict, where: str,
+                 cls: str = "PreTrainedTokenizerFast"):
         model = spec.get("model") or {}
         kind = model.get("type")
         if kind not in _MODELS:
@@ -635,13 +886,14 @@ class HFTokenizer:
                              f"{', '.join(_MODELS)})")
         vocab = dict(model["vocab"]) if kind != "Unigram" else {
             p: i for i, (p, _) in enumerate(model["vocab"])}
-        self.added = {t["content"]: t for t in spec.get("added_tokens") or []}
         self.model = _MODELS[kind](model, vocab)
         self.vocab = dict(vocab)
-        for content, t in self.added.items():
-            self.vocab.setdefault(content, t["id"])
+        self.added = {}
+        for t in spec.get("added_tokens") or []:
+            self.added[t["content"]] = t
+            self.vocab.setdefault(t["content"], t["id"])
         bert = None
-        if config.get("tokenizer_class") in _BERT_CLASSES:  # BertTokenizerFast's override
+        if cls in _BERT_CLASSES:  # BertTokenizerFast's override
             bert = dict(lowercase=config.get("do_lower_case", True),
                         strip_accents=config.get("strip_accents"),
                         chinese=config.get("tokenize_chinese_chars", True))
@@ -649,26 +901,52 @@ class HFTokenizer:
         self.pre_tokenize = build_pre_tokenizer(spec.get("pre_tokenizer"), where)
         self.prefix_ids, self.suffix_ids = build_post_processor(spec.get("post_processor"),
                                                                 where)
-        pad = _token_content(config.get("pad_token"))
-        if pad is None and config.get("tokenizer_class") in _BERT_CLASSES:
-            pad = "[PAD]"  # BertTokenizerFast's default
-        self.pad_id = self.vocab.get(pad)
+        defaults = hf_classes.SPECIAL_DEFAULTS.get(cls, {})
+        specials = {a: config.get(a, defaults.get(a)) for a in SPECIAL_ATTRS}
+        self._add_config_tokens(config, specials, len(vocab))
+        self.pad_id = self.vocab.get(_token_content(specials["pad_token"]))
         self.padding_side = config.get("padding_side", "right")
         self.truncation_side = config.get("truncation_side", "right")
+        self.raw = {c: t for c, t in self.added.items() if not t.get("normalized", True)}
+        self.norm = {}
+        for c, t in self.added.items():
+            if t.get("normalized", True) and c:
+                self.norm.setdefault(self.normalize(c), t)
 
-    def _split_added(self, text: str):
-        """[(segment, is_added_token)] in order: the added tokens matched in
-        the raw text (leftmost, longest), with their lstrip/rstrip spaces."""
-        if not self.added:
-            return [(text, False)]
-        contents = sorted(self.added, key=len, reverse=True)
+    def _add_config_tokens(self, config: dict, specials: dict, model_size: int) -> None:
+        decoder = config.get("added_tokens_decoder") or {}
+        todo = [_added_token(t, False) for _, t in sorted((int(i), t) for i, t in decoder.items())
+                if t["content"] not in self.added]
+        seen = {*self.added, *(t["content"] for t in todo)}
+        named = [t for t in specials.values() if t is not None]
+        for t in named + list(config.get("additional_special_tokens") or []):
+            if _token_content(t) not in seen:
+                seen.add(_token_content(t))
+                todo.append(_added_token(t, True))
+        for t in todo:
+            c = t["content"]
+            if not c or c in self.added:
+                continue
+            if c not in self.vocab:
+                top = max((a["id"] for a in self.added.values()), default=-1)
+                self.vocab[c] = top + 1 if top >= model_size else model_size
+            self.added[c] = dict(t, id=self.vocab[c])
+
+    @staticmethod
+    def _split_added(text: str, tokens: dict):
+        """[(segment, added token or None)] in order: `tokens` (content ->
+        token) matched in `text` (leftmost, longest), with their
+        lstrip/rstrip spaces."""
+        if not tokens:
+            return [(text, None)]
+        contents = sorted(tokens, key=len, reverse=True)
         out, start, i = [], 0, 0
         while i < len(text):
             hit = next((c for c in contents if text.startswith(c, i)), None)
             if hit is None:
                 i += 1
                 continue
-            t = self.added[hit]
+            t = tokens[hit]
             if t.get("single_word") and (
                     (i > 0 and not _is_whitespace(text[i - 1]) and not _is_punctuation(text[i - 1]))
                     or (i + len(hit) < len(text) and not _is_whitespace(text[i + len(hit)])
@@ -683,22 +961,27 @@ class HFTokenizer:
                 while hi < len(text) and _is_whitespace(text[hi]):
                     hi += 1
             if lo > start:
-                out.append((text[start:lo], False))
-            out.append((hit, True))
+                out.append((text[start:lo], None))
+            out.append((hit, t))
             start = i = hi
         if start < len(text):
-            out.append((text[start:], False))
+            out.append((text[start:], None))
         return out
 
     def encode(self, text: str) -> list[int]:
         """The pieces' ids, before truncation and the special tokens."""
         ids = []
-        for j, (segment, is_added) in enumerate(self._split_added(text)):
-            if is_added:
-                ids.append(self.vocab[segment])
+        for j, (segment, tok) in enumerate(self._split_added(text, self.raw)):
+            if tok is not None:
+                ids.append(tok["id"])
                 continue
-            for piece, _ in self.pre_tokenize([(self.normalize(segment), j == 0)]):
-                ids.extend(self.model(piece))
+            for k, (part, ntok) in enumerate(self._split_added(self.normalize(segment),
+                                                               self.norm)):
+                if ntok is not None:
+                    ids.append(ntok["id"])
+                    continue
+                for piece, _ in self.pre_tokenize([(part, j == 0 and k == 0)]):
+                    ids.extend(self.model(piece))
         return ids
 
     def __call__(self, texts, max_length: int) -> np.ndarray:
@@ -739,26 +1022,89 @@ def bert_vocab_spec(vocab_path: str, config: dict) -> dict:
     }
 
 
+def clip_vocab_spec(model_dir: str, config: dict) -> dict | None:
+    """The ``tokenizer.json`` form of what ``CLIPTokenizerFast`` builds from
+    ``vocab.json`` and ``merges.txt`` (transformers' CLIPConverter over the
+    slow ``CLIPTokenizer``: its first merges line skipped and at most
+    48,894 read; NFC, whitespace runs made one space, lowercase; CLIP's
+    split pattern then ``ByteLevel`` without a prefix space; BPE with
+    ``</w>``; ``<|startoftext|> ... <|endoftext|>``), the slow class's
+    special tokens added (normalized); None without the files
+    (AutoTokenizer raises)."""
+    paths = [os.path.join(model_dir, n) for n in ("vocab.json", "merges.txt")]
+    if not all(map(os.path.exists, paths)):
+        return None
+    with open(paths[0], encoding="utf-8") as f:
+        vocab = json.load(f)
+    with open(paths[1], encoding="utf-8") as f:
+        merges = [line.split() for line in f.read().strip().split("\n")[1:49152 - 256 - 2 + 1]]
+    defaults = hf_classes.SPECIAL_DEFAULTS["CLIPTokenizerFast"]
+    tok = {a: _token_content(config.get(a)) or defaults[a]
+           for a in ("bos_token", "eos_token", "unk_token", "pad_token")}
+    ids, added = dict(vocab), []
+    for content in dict.fromkeys(tok.values()):
+        ids.setdefault(content, len(ids))
+        added.append({"id": ids[content], "content": content, "single_word": False,
+                      "lstrip": False, "rstrip": False, "normalized": True, "special": True})
+    return {
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "NFC"}, {"type": "Replace", "pattern": {"Regex": r"\s+"}, "content": " "},
+            {"type": "Lowercase"}]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": CLIP_PATTERN}, "behavior": "Removed",
+             "invert": True},
+            {"type": "ByteLevel", "add_prefix_space": False, "use_regex": True}]},
+        "model": {"type": "BPE", "vocab": vocab, "merges": merges,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "</w>",
+                  "fuse_unk": False, "unk_token": tok["unk_token"]},
+        "post_processor": {"type": "RobertaProcessing",
+                           "sep": [tok["eos_token"], ids[tok["eos_token"]]],
+                           "cls": [tok["bos_token"], ids[tok["bos_token"]]]},
+    }
+
+
+def resolve_class(model_dir: str, config: dict) -> str | None:
+    """The tokenizer class ``AutoTokenizer`` loads for the dir here (the
+    fast one where it exists), or None where it raises: the config's
+    ``tokenizer_class``, else ``config.json``'s, else its ``model_type``
+    through transformers' own mapping (``hf_classes.MODEL_TYPES``); a name
+    transformers does not know, a model type it has no tokenizer for, a
+    class it cannot load here (SentencePiece's, without ``sentencepiece``)
+    and a dir without ``config.json`` give None."""
+    cls = config.get("tokenizer_class")
+    if cls is None:
+        path = os.path.join(model_dir, "config.json")
+        if not os.path.exists(path):
+            return None
+        with open(path, encoding="utf-8") as f:
+            model_config = json.load(f)
+        cls = model_config.get("tokenizer_class")
+        if cls is None:
+            slow, fast = hf_classes.MODEL_TYPES.get(model_config.get("model_type"), (None, None))
+            return fast or slow
+    if not cls.endswith("Fast") and f"{cls}Fast" in hf_classes.CLASSES:
+        return f"{cls}Fast"
+    return cls if cls in hf_classes.CLASSES else None
+
+
 def load(model_dir: str):
     """The model dir's tokenizer as JAX's ``AutoTokenizer`` route resolves
     it (see the module doc): an :class:`HFTokenizer`, or None where that
-    route raises and JAX falls through to the vocab convention. A class the
-    port cannot read without its ``tokenizer.json``, and a component the
-    port does not read, raise by name."""
+    route raises and JAX falls through to the vocab convention. A class
+    built from its own vocab files other than BERT's and CLIP's raises by
+    name."""
     config = {}
     for name in ("special_tokens_map.json", "tokenizer_config.json"):
         path = os.path.join(model_dir, name)
         if os.path.exists(path):
             with open(path, encoding="utf-8") as f:
                 config.update(json.load(f))
-    cls = config.get("tokenizer_class")
-    if cls is None:  # AutoTokenizer would need config.json's model_type
-        if os.path.exists(os.path.join(model_dir, "config.json")):
-            raise NotImplementedError(f"{model_dir}: a tokenizer resolved through config.json's "
-                                      "model_type is not read by the port")
+    cls = resolve_class(model_dir, config)
+    if cls is None:
         return None
     path = os.path.join(model_dir, "tokenizer.json")
-    if os.path.exists(path):
+    if cls.endswith("Fast") and os.path.exists(path):
         with open(path, encoding="utf-8") as f:
             spec = json.load(f)
     elif cls in _BERT_CLASSES:
@@ -766,10 +1112,24 @@ def load(model_dir: str):
         if not os.path.exists(vocab):
             return None  # BertTokenizer without its vocab: AutoTokenizer raises
         spec = bert_vocab_spec(vocab, config)
-    elif cls == "PreTrainedTokenizerFast":
-        return None  # nothing to build its backend from: AutoTokenizer raises
+    elif cls in ("CLIPTokenizerFast", "CLIPTokenizer"):
+        spec = clip_vocab_spec(model_dir, config)
+        if spec is None:
+            return None
+    elif cls == "PreTrainedTokenizerFast" or not _slow_loadable(cls):
+        return None  # nothing to build its backend from here: AutoTokenizer raises
     else:
-        raise NotImplementedError(f"{model_dir}: tokenizer_class {cls!r} without tokenizer.json "
-                                  "is not read by the port (it reads BertTokenizer's vocab.txt)")
-    tok = HFTokenizer(spec, config, f"{model_dir}/tokenizer.json")
+        raise NotImplementedError(f"{model_dir}: tokenizer class {cls!r} built from its own "
+                                  "vocab files is not read by the port (it builds BERT's "
+                                  "vocab.txt and CLIP's vocab.json + merges.txt)")
+    tok = HFTokenizer(spec, config, f"{model_dir}/tokenizer.json", cls)
     return None if tok.pad_id is None else tok
+
+
+def _slow_loadable(cls: str) -> bool:
+    """Whether transformers can build `cls` (a fast class without its
+    ``tokenizer.json``, or a slow one) here: a fast class converts its slow
+    class, which a SentencePiece class lacks without ``sentencepiece``."""
+    slow = cls.removesuffix("Fast")
+    pairs = [p for p in hf_classes.MODEL_TYPES.values() if cls in p]
+    return slow in hf_classes.CLASSES and all(p[0] is not None for p in pairs)

@@ -90,10 +90,13 @@ class MultiHeadAttention(nn.Module):
     def forward(self, inputs_q: torch.Tensor, inputs_kv: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, *, causal: bool = False,
                 prefix_len: int = 0,
-                dropout_gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                dropout_gen: Optional[torch.Generator] = None,
+                seq_chunk=None) -> torch.Tensor:
         """inputs_kv=None is self-attention; `mask` broadcasts to (B, H, Lq,
         Lk); `causal` with `prefix_len > 0` is the prefix-LM mask;
-        `dropout_gen` (training) draws the probabilities' dropout mask."""
+        `dropout_gen` (training) draws the probabilities' dropout mask;
+        `seq_chunk` (``parallel.SeqChunk``): the inputs are this rank's
+        tokens of a sequence-sharded ``ring`` stack."""
         self_attn = inputs_kv is None or inputs_kv is inputs_q
         dropping = self.dropout_rate > 0.0 and dropout_gen is not None
         b, lq, _ = inputs_q.shape
@@ -133,7 +136,7 @@ class MultiHeadAttention(nn.Module):
         impl = "xla" if mask is not None or self.attn_impl == "fused" else self.attn_impl
         o = dispatch_attention(impl, q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
                                dtype=dt, dropout_rate=self.dropout_rate if dropping else 0.0,
-                               dropout_gen=dropout_gen)
+                               dropout_gen=dropout_gen, seq_chunk=seq_chunk)
         return self._out_proj(o.reshape(b, lq, d), mesh)
 
     def _cached(self, k, v, mask):

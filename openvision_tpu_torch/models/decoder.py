@@ -43,7 +43,9 @@ towers' Encoder, and under ``cross_attn`` each causal self-attention block's
 drop-path (linspace(0, drop_path, depth // 2)) and dropout and each
 cross-attention block's dropout (attention probabilities, the attention
 output, the MLP hidden, the MLP output; it takes no drop-path, as in the JAX
-block). The scanned MLP is not ported.
+block). ``scan_mlp`` / ``chunk`` reach the concat stack's Encoder (the MLP
+half over sequence chunks, as the JAX concat stack's); the cross stack takes
+none, as JAX's (:217-231).
 """
 
 from __future__ import annotations

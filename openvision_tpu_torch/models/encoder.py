@@ -106,6 +106,23 @@ holds every block, so the parameters and their names are the sequential
 stack's; :attr:`Encoder.pipelined` says whether the last call ran the
 pipeline (its blocks' gradients then sum over ``pipe``, ``train/step.py``).
 
+Sequence parallelism (JAX's ``activation_length`` rule,
+``openvision_tpu/parallel/mesh.py:43``, applied at every block boundary):
+under an active mesh with seq > 1 a stack whose attention is ``ring``
+(:meth:`Encoder._seq_eligible`) pads its L to a multiple of seq and keeps
+this rank's chunk once at entry (``parallel.enter_seq``), runs every
+block's LN, QKV, MLP, residual, drop-path and dropout on the chunk, the
+ring on the local chunks (``ring_attention_sharded``: the causal and
+pad-key masks on global positions), and joins the chunks once at exit
+(``parallel.exit_seq``), so the pools see whole tokens. A dropout draws the
+whole sequence's mask and keeps its chunk (``layers.Dropout``), drop-path
+draws per sample as before. The blocks' parameters then get a partial
+gradient on each seq rank (:attr:`Encoder.seq_sharded`; summed over
+``seq`` in ``train/step.py``), while the embeddings before the entry and
+the pool and heads after the exit keep whole, equal gradients. A stack on
+any other attention keeps whole tokens under seq > 1: its kernels need
+the whole sequence.
+
 Parameters carry OpenCLIP's names (``transformer.resblocks.N.{ln_1, attn,
 ln_2, mlp}``, and ``ls_1.gamma`` / ``ls_2.gamma`` with LayerScale).
 """
@@ -131,7 +148,8 @@ from openvision_tpu_torch.ops.attention import prefix_lm_mask
 from openvision_tpu_torch.ops.fused_attention import fused_mhsa_block, fused_mhsa_block_tp
 from openvision_tpu_torch.ops.fused_encoder import mhsa_block, mlp_block
 from openvision_tpu_torch.ops.pipeline_parallel import pipeline_apply
-from openvision_tpu_torch.parallel import active_mesh, sharded_mesh, tensor_size
+from openvision_tpu_torch.parallel import (active_mesh, enter_seq, exit_seq, sharded_mesh,
+                                           tensor_size)
 
 _GELU_APPROX = {"vit": False, "scaled": True}  # init_style -> tanh GELU
 ATTN_IMPLS = ("xla", "fused", "fused_t", "flash", "scan", "ring")
@@ -293,11 +311,13 @@ class EncoderBlock(nn.Module):
         return blockwise(fn, x, self.chunk) if self.scan_mlp else fn(x)
 
     def forward(self, x: torch.Tensor, fused_t: bool = False, prefix_len: int = 0,
-                drop_seed: Optional[int] = None) -> torch.Tensor:
+                drop_seed: Optional[int] = None, seq_chunk=None) -> torch.Tensor:
         """`prefix_len > 0` on a causal block is the prefix-LM mask (the
         caption decoder knows its prefix only from its inputs). `drop_seed`
         (training with a drop-path or dropout rate > 0) seeds the generator
-        of this block's dropout and drop-path masks."""
+        of this block's dropout and drop-path masks. `seq_chunk`
+        (``parallel.SeqChunk``): `x` holds this rank's tokens of a
+        sequence-sharded ``ring`` stack (:meth:`Encoder.forward`)."""
         x = x.to(self.dtype)
         if fused_t:
             return self._fused_t_block(x)
@@ -321,10 +341,11 @@ class EncoderBlock(nn.Module):
                 return self._mlp(self._mlp_subblock_kernels, x)
             return x + self._mlp(self.mlp, self.ln_2(x))
         y = self.attn(self.ln_1(x), mask=mask, causal=causal, prefix_len=native_prefix,
-                      dropout_gen=dgen)
-        y = self.dropout(y, dgen)
+                      dropout_gen=dgen, seq_chunk=seq_chunk)
+        y = self.dropout(y, dgen, seq_chunk)
         x = x + self.drop_path(self.ls_1(y) if self.layer_scale else y, gen)
-        y = self.dropout(self._mlp(lambda t: self.mlp(t, dgen), self.ln_2(x)), dgen)
+        y = self.dropout(self._mlp(lambda t: self.mlp(t, dgen, seq_chunk), self.ln_2(x)), dgen,
+                         seq_chunk)
         return x + self.drop_path(self.ls_2(y) if self.layer_scale else y, gen)
 
     def _fused_attn_subblock(self, x, causal: bool, prefix_len: int):
@@ -400,6 +421,7 @@ class Encoder(nn.Module):
         self.drop_path = float(drop_path)
         self.pipe_microbatches, self.pipe_interleave = int(pipe_microbatches), int(pipe_interleave)
         self.pipelined = False  # whether the last call ran the pipeline
+        self.seq_sharded = False  # whether the last call kept its tokens sharded over seq
         self.init_values = init_values
         self.attn_impl = attn_impl
         self.scan_mlp, self.decode, self.use_dense_general = scan_mlp, decode, use_dense_general
@@ -504,12 +526,28 @@ class Encoder(nn.Module):
         self.pipelined = self._pipe_eligible(x, train)
         if self.pipelined:
             return self._pipelined(x.to(self.dtype), prefix_len)
+        self.seq_sharded = self._seq_eligible(prefix_len, train)
         fused_t = self._fused_t_eligible(x, prefix_len, train)
-        x = x.to(self.dtype)
+        x, chunk = x.to(self.dtype), None
+        if self.seq_sharded:  # this rank's tokens from here to the exit
+            x, chunk = enter_seq(x, active_mesh())
         for block, seed in zip(self.resblocks, self._drop_seeds(train, rng)):
             x = remat(block, x, policy=self.remat_policy, fused_t=fused_t, prefix_len=prefix_len,
-                      drop_seed=seed)
-        return x
+                      drop_seed=seed, seq_chunk=chunk)
+        return exit_seq(x, active_mesh(), chunk) if self.seq_sharded else x
+
+    def _seq_eligible(self, prefix_len: int, train: bool) -> bool:
+        """The stack keeps its tokens sharded over ``seq`` (JAX's
+        ``activation_length`` rule, ``openvision_tpu/parallel/mesh.py:43``)
+        under a mesh with seq > 1 when its attention is ``ring``: no KV
+        cache, no prefix-LM mask (the ring refuses it), and no scanned MLP
+        with dropout in training (its draws go by JAX's chunks of the
+        whole sequence). Any other stack keeps whole tokens: its attention
+        kernels need the whole sequence."""
+        mesh = active_mesh()
+        return (mesh is not None and mesh.seq > 1 and self.attn_impl == "ring"
+                and not self.decode and prefix_len == 0
+                and not (train and self.scan_mlp and self.dropout))
 
 
 def drop_seeds(rates, dropout: float, train: bool, rng: Optional[torch.Generator]) -> list:

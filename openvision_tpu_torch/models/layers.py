@@ -161,15 +161,15 @@ class MlpBlock(nn.Module):
         self.dtype = dtype
         self.tensor_parallel = 1  # the tensor axis size its weights are sharded over
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seq_chunk=None) -> torch.Tensor:
         """`generator` (training) draws the dropout mask of the hidden, after
-        the GELU (JAX :170)."""
+        the GELU (JAX :170); `seq_chunk` as :class:`Dropout`'s."""
         mesh = sharded_mesh(self.tensor_parallel)
         if mesh is not None:  # the input's gradient sums over the shards
             x = copy_to_tensor(x, mesh)
         h = linear(x, self.c_fc, self.dtype)
-        h = self.dropout(self.act(h), generator)
+        h = self.dropout(self.act(h), generator, seq_chunk)
         if mesh is None:
             return linear(h, self.c_proj, self.dtype)
         part = F.linear(h.to(self.dtype), self.c_proj.weight.to(self.dtype))
@@ -221,13 +221,19 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seq_chunk=None) -> torch.Tensor:
+        """`seq_chunk` (``parallel.SeqChunk``): `x` holds this rank's tokens
+        (dim 1) of a sequence-sharded stack; the draws are those of the
+        whole sequence, of which this rank keeps its chunk, so the mask is
+        the one a process holding every token draws."""
         if generator is None or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=generator, device=generator.device,
-                       dtype=torch.float32)
+        shape = x.shape if seq_chunk is None else (x.shape[0], seq_chunk.length, *x.shape[2:])
+        u = torch.rand(shape, generator=generator, device=generator.device, dtype=torch.float32)
+        if seq_chunk is not None:
+            u = seq_chunk.take(u)
         return torch.where((u < keep).to(x.device), x / keep, torch.zeros_like(x))
 
 

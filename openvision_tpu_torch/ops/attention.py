@@ -9,8 +9,10 @@ Counterpart of ``openvision_tpu/ops/attention.py``:
   (``ops/flash_attention.py``); ``scan`` (the JAX package's blockwise
   online-softmax scan, the same function) runs ``flash`` too. ``ring``
   runs :func:`xla_attention` with no active mesh or a mesh with seq = 1
-  (:203-217), and ``ops/ring_attention.py:ring_attention_sharded`` over
-  the ``seq`` axis otherwise. JAX's ring route drops the mask, the
+  (:203-217), and the ring over the ``seq`` axis otherwise:
+  ``ops/ring_attention.py:ring_attention_sharded`` on this rank's chunks
+  inside a stack whose tokens stay sharded over seq (``seq_chunk``), else
+  ``ring_attention_whole`` on whole tokens. JAX's ring route drops the mask, the
   prefix-LM mask and the attention dropout without a word (:216 passes
   only ``causal`` and ``sm_scale``; with no seq axis it drops
   ``prefix_len`` too); the port passes all of them to ``xla`` and raises by
@@ -30,7 +32,7 @@ from typing import Optional
 import torch
 
 from openvision_tpu_torch.ops.flash_attention import flash_attention
-from openvision_tpu_torch.ops.ring_attention import ring_attention_sharded
+from openvision_tpu_torch.ops.ring_attention import ring_attention_sharded, ring_attention_whole
 from openvision_tpu_torch.parallel.mesh import active_mesh
 
 
@@ -99,18 +101,21 @@ def dispatch_attention(
     dtype: torch.dtype | None = None,
     dropout_rate: float = 0.0,
     dropout_gen: Optional[torch.Generator] = None,
+    seq_chunk=None,
 ) -> torch.Tensor:
     """Routes to an attention implementation by name: "xla" | "flash" |
     "scan" (runs flash) | "ring". Arbitrary masks and the dropout only on
     "xla"; "flash" takes the causal and prefix-LM masks natively; "ring" is
-    "xla" without a seq axis and takes the causal mask alone over one."""
+    "xla" without a seq axis and takes the causal mask alone over one.
+    `seq_chunk` (a ``parallel.SeqChunk``): q, k and v are this rank's
+    chunks of a sequence-sharded stack ("ring" only), else whole."""
     if impl == "xla":
         return xla_attention(q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
                              sm_scale=sm_scale, dtype=dtype, dropout_rate=dropout_rate,
                              dropout_gen=dropout_gen)
     if impl == "ring":
         mesh = active_mesh()
-        if mesh is None or mesh.seq <= 1:  # no sequence sharding: plain attention
+        if seq_chunk is None and (mesh is None or mesh.seq <= 1):  # plain attention
             return xla_attention(q, k, v, mask=mask, causal=causal, prefix_len=prefix_len,
                                  sm_scale=sm_scale, dtype=dtype, dropout_rate=dropout_rate,
                                  dropout_gen=dropout_gen)
@@ -123,8 +128,11 @@ def dispatch_attention(
                     "masks causally or not at all); use impl='xla' or seq=1")
         if dtype is not None:
             q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-        return ring_attention_sharded(q, k, v, mesh, seq_axis="seq", causal=causal,
-                                      sm_scale=sm_scale)
+        if seq_chunk is not None:  # this rank's chunk of a sequence-sharded stack
+            return ring_attention_sharded(q, k, v, mesh, length=seq_chunk.length,
+                                          seq_axis="seq", causal=causal, sm_scale=sm_scale)
+        return ring_attention_whole(q, k, v, mesh, seq_axis="seq", causal=causal,
+                                    sm_scale=sm_scale)
     if impl not in ("flash", "scan"):
         raise ValueError(f"Unknown attention impl: {impl!r}")
     if mask is not None:

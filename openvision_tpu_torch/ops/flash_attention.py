@@ -15,10 +15,10 @@ plan (``_plan`` :294): with a single k block (Lk padded to 128 is at most
 the f32 scores are scaled (:155). The CUDA kernel tiles keys by 64 either
 way and follows the order that plan takes for Lk; at head_dim 64 the two
 agree exactly (the scale is 2**-3), at 72 or 80 they differ in the last
-bits. The kernels take every head_dim that is a multiple of 8 from 16 to
-256 (``kernels.check_head_dim``); any other up to 256 runs zero-padded to
-the next multiple of 8 (at least 16) at its own softmax scale, o sliced
-back (``kernels.kernel_head_dim``).
+bits. The kernels take every head_dim that is a multiple of 8 from 16
+(``kernels.check_head_dim``; above 256 in 128-column slabs); any other
+runs zero-padded to the next multiple of 8 (at least 16) at its own
+softmax scale, o sliced back (``kernels.kernel_head_dim``).
 
 :func:`flash_attention_plain` is the f32 counterpart (o and lse).
 
@@ -101,8 +101,8 @@ def flash_attention(q, k, v, *, causal: bool = False, prefix_len: int = 0,
     """Flash attention over (batch, length, heads, head_dim) inputs.
 
     q: (B, Lq, H, hd), k and v: (B, Lk, H, hd), bf16 on CUDA with unit
-    stride in head_dim (any other strides that are multiples of 8), hd up to
-    256 (padded as the module doc says); returns o (B, Lq, H, hd) bf16, and lse
+    stride in head_dim (any other strides that are multiples of 8), any hd
+    (padded as the module doc says); returns o (B, Lq, H, hd) bf16, and lse
     (B, H, Lq) f32 with ``return_lse``. On the CPU the plain version runs.
     When autograd records (grad enabled and an input requires grad) the call
     is differentiable through the backward kernels; it then returns o only.

@@ -256,8 +256,8 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
     prefix-LM masks of ``_tvalid`` (fused_attention.py:64). One block per
     (batch, head, 64-query tile), online softmax over 64-key tiles in
     registers, keys past L and masked keys dropped, key tiles no query of the
-    block sees skipped; reads q, k, v by stride, no permutes. head_dim: up
-    to 256; one that is not a multiple of 8, or below 16, runs zero-padded
+    block sees skipped; reads q, k, v by stride, no permutes. head_dim: any
+    (above 256 in slabs); one that is not a multiple of 8, or below 16, runs zero-padded
     (``kernels.kernel_head_dim``) at its own softmax scale, on the CPU too.
     """
     b, l, d3 = qkv.shape

@@ -155,7 +155,7 @@ def attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool = False,
 
     q, o, do: (B, Lq, H, hd); k, v: (B, Lk, H, hd); bf16 with unit stride in
     head_dim and other strides multiples of 8 (views of a QKV buffer work),
-    hd up to 256 (one that is not a multiple of 8 from 16 runs zero-padded
+    any hd (one that is not a multiple of 8 from 16 runs zero-padded
     to ``kernels.kernel_head_dim``, the gradients sliced back; on the CPU
     too); lse: (B, H, Lq) f32 from the forward. dq, dk and dv may be given
     as such views (the fused block writes them into one dqkv buffer); else

@@ -38,8 +38,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("layernorm.cu", "gemm_bias_act.cu", "attention.cu", "attention_wide.cu",
-           "attention_xwide.cu", "attention_bwd.cu", "attention_bwd_wide.cu",
-           "attention_bwd_xwide.cu", "gemm_grad.cu", "gemm_int8.cu")
+           "attention_xwide.cu", "attention_slab.cu", "attention_bwd.cu",
+           "attention_bwd_wide.cu", "attention_bwd_xwide.cu", "attention_bwd_slab.cu",
+           "gemm_grad.cu", "gemm_int8.cu")
 HEADERS = ("common.cuh", "hopper.cuh", "attention.cuh", "attention_fwd.cuh", "attention_bwd.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "openvision_tpu_torch"
 NVCC_FLAGS = (
@@ -66,9 +67,11 @@ def count(name: str, n: int = 1) -> None:
 
 
 def attention_parts(hd: int) -> int:
-    """Launches of one attention kernel call at head_dim `hd`: above 128 the
-    C entry launches once per column part of the output (two), else once."""
-    return 2 if hd > 128 else 1
+    """Launches of one attention kernel call at head_dim `hd`: from 136 to
+    256 the C entry launches once per column part of the output (two);
+    otherwise once (above 256 the slab kernels hold ceil(hd / 128) parts in
+    one launch's grid)."""
+    return 2 if 128 < hd <= 256 else 1
 
 
 def reset_launch_counts() -> None:
@@ -113,17 +116,14 @@ def check_operand(name: str, t, dtype, shape=None, contiguous: bool = True) -> N
             "fused_mhsa_block / fused_qkv_attention) or run under torch.inference_mode()")
 
 
-MAX_HEAD_DIM = 256
-
-
 def check_head_dim(name: str, hd: int) -> None:
     """Raises unless the attention kernels take head_dim `hd` as it is: a
     multiple of 8 (a row of hd bf16 values must be a whole number of 16-byte
-    units for TMA) from 16 to 256. :func:`kernel_head_dim` gives the width
-    a wrapper pads any other head_dim to."""
-    if hd % 8 or not 16 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: the kernels take a head_dim that is a multiple of 8 from 16 "
-                         f"to {MAX_HEAD_DIM}, got {hd}")
+    units for TMA), at least 16. :func:`kernel_head_dim` gives the width a
+    wrapper pads any other head_dim to."""
+    if hd % 8 or hd < 16:
+        raise ValueError(f"{name}: the kernels take a head_dim that is a multiple of 8, at "
+                         f"least 16, got {hd}")
 
 
 def kernel_head_dim(name: str, hd: int) -> int:
@@ -131,14 +131,10 @@ def kernel_head_dim(name: str, hd: int) -> int:
     multiple of 8, and at least 16. The wrappers zero-pad q, k, v (and o and
     do in the backward) to it and slice the outputs back: zero columns add
     nothing to q.k^T and give zero output columns, so this is exact. Above
-    256 it raises: Q's tile and two stages of K and V pass the 227 KB of
-    shared memory a CTA can have, and the P.V accumulator the register
-    budget."""
-    if hd < 1 or hd > MAX_HEAD_DIM:
-        raise ValueError(
-            f"{name}: the attention kernels take a head_dim up to {MAX_HEAD_DIM}, got {hd}: "
-            "above it a 64-row tile of Q and two stages of K and V pass the 227 KB of shared "
-            "memory a block can have, and the P.V accumulator the register budget")
+    256 the kernels stream the head_dim in 128-column slabs
+    (``csrc/attention.cuh``), so no head_dim is refused."""
+    if hd < 1:
+        raise ValueError(f"{name}: head_dim must be positive, got {hd}")
     return max(16, -(-hd // 8) * 8)
 
 

@@ -17,17 +17,21 @@ shifts (and their backwards, the opposite shifts) pair up in one order.
 The per-step products are plain ``torch.einsum``: JAX computes them in jnp
 outside any Pallas kernel, and neither function reaches one.
 
-:func:`ring_attention_sharded` (:94-128) takes the global (B, L, H, D)
-tensors, the same on every rank of the ring (the port keeps the
-activations outside attention whole on every seq rank; JAX's GSPMD shards
-them over ``seq`` by its ``activation_length`` rule, a memory layout with
-the same result), zero-pads L to a multiple of n, keeps this rank's chunk
+:func:`ring_attention_sharded` (:94-128) is the call of a stack whose
+tokens stay sharded over ``seq`` (``models/encoder.py``, as JAX's GSPMD
+keeps them by its ``activation_length`` rule): q, k and v are this rank's
+chunks of a sequence padded to a multiple of n, and the output is this
+rank's chunk; no scatter or gather inside. Each seq rank then holds the
+gradients of its own tokens, so the parameters of such a stack's blocks
+get a partial gradient on each seq rank, summed over ``seq`` once a step
+(``train/step.py:reduce_over_seq``). :func:`ring_attention_whole` takes
+global (B, L, H, D) tensors, the same on every rank of the ring (an
+attention outside such a stack): it zero-pads L, keeps this rank's chunk
 (:func:`parallel.scatter_to_seq`), runs the ring and joins the chunks
-(:func:`parallel.gather_from_seq`). So every seq rank holds the same
-output and the same gradients of q, k and v, and no parameter gradient
-needs a sum over ``seq``. The batch is this process's rows already: the
-JAX wrapper's ``batch_axes`` shard the batch that the port's mesh splits
-before the model runs.
+(:func:`parallel.gather_from_seq`), so every seq rank holds the same
+output and the same gradients of q, k and v. The batch is this process's
+rows already: the JAX wrapper's ``batch_axes`` shard the batch that the
+port's mesh splits before the model runs.
 """
 
 from __future__ import annotations
@@ -92,24 +96,35 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, group,
 
 
 def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: Mesh, *,
-                           seq_axis: str = "tensor", causal: bool = False,
+                           length: int, seq_axis: str = "seq", causal: bool = False,
                            sm_scale: Optional[float] = None) -> torch.Tensor:
-    """Ring attention over the `seq_axis` group of `mesh` (the JAX default
-    axis, ``tensor``; the attention dispatcher passes ``seq``).
+    """Ring attention over the `seq_axis` group of `mesh` on this rank's
+    chunks: q, k, v (B, chunk, H, D) hold positions [rank * chunk, (rank + 1)
+    * chunk) of a sequence of `length` real tokens zero-padded to chunk * n
+    (the 257/577-token cls + patches sequences); the pad keys are masked.
+    Returns this rank's chunk of the output."""
+    n = mesh.shape[seq_axis]
+    valid = length if q.shape[1] * n != length else None
+    return ring_attention(q, k, v, group=mesh.group(seq_axis), causal=causal, sm_scale=sm_scale,
+                          valid=valid)
 
-    Inputs are global (B, L, H, D), the same on every rank of the group.
-    Lengths that do not divide the axis size (the 257/577-token cls +
-    patches sequences) are zero-padded and the pad keys masked inside.
-    """
+
+def ring_attention_whole(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh: Mesh, *,
+                         seq_axis: str = "tensor", causal: bool = False,
+                         sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Ring attention over the `seq_axis` group of `mesh` (the JAX default
+    axis, ``tensor``; the attention dispatcher passes ``seq``) on global
+    (B, L, H, D) inputs, the same on every rank of the group: zero-padded
+    to a multiple of the axis size, scattered, :func:`ring_attention_sharded`,
+    gathered and cut. The JAX wrapper's form (:94-128)."""
     n = mesh.shape[seq_axis]
     length = q.shape[1]
     lpad = -(-length // n) * n
-    valid = length if lpad != length else None
     if lpad != length:
         pad = (0, 0, 0, 0, 0, lpad - length)
         q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
     q, k, v = (scatter_to_seq(t, mesh, seq_axis) for t in (q, k, v))
-    out = ring_attention(q, k, v, group=mesh.group(seq_axis), causal=causal,
-                         sm_scale=sm_scale, valid=valid)
+    out = ring_attention_sharded(q, k, v, mesh, length=length, seq_axis=seq_axis, causal=causal,
+                                 sm_scale=sm_scale)
     out = gather_from_seq(out, mesh, seq_axis)
     return out[:, :length] if lpad != length else out

@@ -467,6 +467,47 @@ def gather_from_seq(x: torch.Tensor, mesh: Mesh, axis: str = "seq", dim: int = 1
     return _GatherFromSeq.apply(x, group, mesh.coords[axis], dim)
 
 
+@dataclass(frozen=True)
+class SeqChunk:
+    """This rank's chunk of a sequence-sharded stack's tokens: rank `index`
+    of the `n` ranks of the seq axis holds positions [index * size, (index
+    + 1) * size) of the `length` real tokens, zero-padded to n * size."""
+
+    index: int
+    n: int
+    length: int
+
+    @property
+    def size(self) -> int:
+        return -(-self.length // self.n)
+
+    def take(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's chunk of `x`, whole along dim 1 (`length` tokens),
+        padded first (what is drawn there is never seen)."""
+        pad = self.size * self.n - self.length
+        if pad:
+            x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, pad))
+        return x[:, self.index * self.size:(self.index + 1) * self.size]
+
+
+def enter_seq(x: torch.Tensor, mesh: Mesh) -> tuple:
+    """(this rank's chunk of `x`, its SeqChunk): `x` (B, L, ...), the same
+    on every rank of the seq group, zero-padded along L to a multiple of
+    seq and scattered (:func:`scatter_to_seq`: the backward gathers the
+    chunks' gradients, so the input's gradient is whole on every rank)."""
+    chunk = SeqChunk(mesh.coords["seq"], mesh.seq, x.shape[1])
+    pad = chunk.size * chunk.n - chunk.length
+    if pad:
+        x = F.pad(x, (0, 0) * (x.ndim - 2) + (0, pad))
+    return scatter_to_seq(x, mesh), chunk
+
+
+def exit_seq(x: torch.Tensor, mesh: Mesh, chunk: SeqChunk) -> torch.Tensor:
+    """The chunks of the seq group joined (:func:`gather_from_seq`) and the
+    pad cut: whole tokens again, the same on every rank."""
+    return gather_from_seq(x, mesh)[:, :chunk.length]
+
+
 class _BroadcastFromStage(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, src):

@@ -109,7 +109,8 @@ def build_captioner(config: dict, checkpoint: str, vocab_path: str = DEFAULT_VOC
             f"which take bfloat16, but the config's dtype is {m['image']['dtype']}: add "
             "dtype=bfloat16, or attn_impl=xla,dec_attn_impl=xla for the plain path")
     device = resolve_device(device)
-    model = build_model(config)
+    with device:  # its zero parameters allocated on the device, where the checkpoint fills them
+        model = build_model(config)
     model.load_state_dict(load_state_dict(checkpoint, step))
     model = model.to(device).eval().requires_grad_(False)
     cast_block_matrices(model, dtype)

@@ -43,8 +43,12 @@ On a process mesh (``parallel/mesh.py``; the JAX ``sharding.mesh``
   sums are the blocks' own (``parallel.copy_to_tensor``, the TP block's
   backward), so replicated leaves come out the same on every tensor rank;
 - the seq and pipe ranks hold every parameter and the same batch rows. A
-  ``ring`` attention's gradients come out whole on every seq rank
-  (``ops/ring_attention.py``), so nothing sums over ``seq``. A pipelined
+  stack that kept its tokens sharded over ``seq`` (``ring``,
+  ``models/encoder.py``) leaves each seq rank the gradients of its own
+  tokens, so its blocks' gradients are summed over ``seq`` once a step
+  (:func:`reduce_over_seq`, beside the pipe sum, in one order on every
+  rank); the embeddings before its entry and the pool and heads after its
+  exit see whole tokens and hold whole, equal gradients. A pipelined
   stack's stage holds its own layers' gradients only, so the gradients of
   the blocks of every stack that ran the pipeline are summed over ``pipe``
   once a step (:func:`reduce_over_pipe`, before the batch sum, in one order
@@ -354,6 +358,29 @@ def sum_over(grads: dict, group) -> None:
         offset += g.numel()
 
 
+def _stack_grads(grads: dict, model: torch.nn.Module, flag: str) -> dict:
+    """The gradients of the blocks of every Encoder whose last call set
+    `flag` (``pipelined`` or ``seq_sharded``), in the model's order."""
+    prefixes = tuple(f"{name}.resblocks." if name else "resblocks."
+                     for name, m in model.named_modules()
+                     if isinstance(m, Encoder) and getattr(m, flag))
+    return {n: g for n, g in grads.items() if prefixes and n.startswith(prefixes)}
+
+
+def reduce_over_seq(grads: dict, model: torch.nn.Module, opt: optim.Optimizer) -> None:
+    """On a mesh with seq > 1, in place: the gradients of the blocks of
+    every stack whose last call kept its tokens sharded over ``seq`` (each
+    rank holds its tokens' share) summed over ``seq``, one all-reduce of
+    them flattened; an FSDP2-chunked leaf's piece is summed as it is (the
+    ranks of a seq group hold the same chunk)."""
+    mesh = opt.mesh
+    if mesh is None or mesh.seq == 1:
+        return
+    partial = _stack_grads(grads, model, "seq_sharded")
+    if partial:
+        sum_over(partial, mesh.seq_group)
+
+
 def reduce_over_pipe(grads: dict, model: torch.nn.Module, opt: optim.Optimizer) -> None:
     """On a mesh with pipe > 1, in place: the gradients of the blocks of
     every stack whose last call ran the pipeline (each stage holds its own
@@ -363,11 +390,9 @@ def reduce_over_pipe(grads: dict, model: torch.nn.Module, opt: optim.Optimizer) 
     mesh = opt.mesh
     if mesh is None or mesh.pipe == 1:
         return
-    prefixes = tuple(f"{name}.resblocks." for name, m in model.named_modules()
-                     if isinstance(m, Encoder) and m.pipelined)
-    names = [n for n in grads if n.startswith(prefixes)]
-    if names:
-        sum_over({n: grads[n] for n in names}, mesh.pipe_group)
+    partial = _stack_grads(grads, model, "pipelined")
+    if partial:
+        sum_over(partial, mesh.pipe_group)
 
 
 def reduce_over_batch(measurements: dict, grads: dict, opt: optim.Optimizer) -> None:
@@ -410,6 +435,7 @@ def make_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer) -> Callab
         measurements = {k: v.detach().reshape(()) for k, v in measurements.items()}
         measurements["training_loss"] = loss.detach()
         reduce_over_pipe(grads, model, opt)
+        reduce_over_seq(grads, model, opt)
         reduce_over_batch(measurements, grads, opt)
         return measurements, grads
 
@@ -532,6 +558,7 @@ def make_accum_grad_fn(config: dict, model: CLIPModel, opt: optim.Optimizer,
         else:
             measurements["training_loss"] = l_clip.detach()
         reduce_over_pipe(grads, model, opt)
+        reduce_over_seq(grads, model, opt)
         reduce_over_batch(measurements, grads, opt)
         return measurements, grads
 

@@ -248,7 +248,8 @@ def _train(config, workdir, device, mesh):
     ckpt_dir = os.path.join(workdir, "checkpoints") if workdir else None
     chrono_path = os.path.join(workdir, "chrono.json") if workdir else None
     saved = ckpt_lib.saved_steps(ckpt_dir) if ckpt_dir else []
-    model = step_mod.build_model(config).to(device)
+    with torch.device(device):  # its zero parameters allocated on the device, not the host
+        model = step_mod.build_model(config).to(device)
     params = None if saved else initial_params(config, model, note)
     sizes = {n: p.numel() for n, p in model.named_parameters()}  # whole, before placement
     opt = step_mod.init_train_state(

@@ -12,8 +12,8 @@ twins (which the CUDA kernels are held against on the card), at 2 heads of
 72 or 80, L = 17 and 40, B = 2. f32 throughout: the two sides differ only
 in summation order, so forward outputs agree to 1e-5 (1e-4 for the fused_t
 sub-block pair, the existing test's bound) and gradients to 1e-4 of their
-largest value. The kernels' head_dim rule (a multiple of 8 from 16 to 256;
-the wrappers pad any other up to 256) is checked on CPU tensors too.
+largest value. The kernels' head_dim rule (a multiple of 8 from 16; the
+wrappers pad any other) is checked on CPU tensors too.
 """
 
 import jax
@@ -190,17 +190,19 @@ def test_attention_plain_rounds_q_by_the_bf16_scale():
 
 @pytest.mark.parametrize("hd", [12, 136, 36])
 def test_head_dim_rule_names_the_limit(hd):
-    """The kernels take a multiple of 8 from 16 to 256 (rows of whole 16-byte
-    units for TMA; above 128 in two column parts); the kernel-level check
-    names that rule for any other head_dim, which the wrappers zero-pad to
-    the next multiple of 8 (at least 16); past 256 they raise by name."""
+    """The kernels take a multiple of 8 from 16 (rows of whole 16-byte
+    units for TMA; above 128 in two column parts, above 256 in 128-column
+    slabs); the kernel-level check names that rule for any other head_dim,
+    which the wrappers zero-pad to the next multiple of 8 (at least 16)."""
     if hd % 8:
-        with pytest.raises(ValueError, match="multiple of 8 from 16 to 256"):
+        with pytest.raises(ValueError, match="multiple of 8, at least 16"):
             kernels.check_head_dim("attention", hd)
     else:
         kernels.check_head_dim("attention", hd)
     assert kernels.kernel_head_dim("attention", hd) == max(16, -(-hd // 8) * 8)
-    for ok in (16, 72, 80, 88, 104, 128, 192, 256):
+    for ok in (16, 72, 80, 88, 104, 128, 192, 256, 264, 512, 1024):
         kernels.check_head_dim("attention", ok)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        kernels.kernel_head_dim("attention", 264)
+    for bad in (8, 260):
+        with pytest.raises(ValueError, match="multiple of 8, at least 16"):
+            kernels.check_head_dim("attention", bad)
+    assert kernels.kernel_head_dim("attention", 260) == 264

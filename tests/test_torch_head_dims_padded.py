@@ -2,7 +2,7 @@
 column parts, against the JAX kernels.
 
 The Pallas kernels take any head_dim. The port's CUDA kernels take a
-multiple of 8 from 16 to 256: the wrappers (``fused_encoder.attention``,
+multiple of 8 from 16 (up to 256 in whole tiles, above in slabs): the wrappers (``fused_encoder.attention``,
 ``flash_attention``, ``grad_kernels.attention_bwd``) zero-pad any other
 head_dim to the next multiple of 8 (at least 16) at the true head_dim's
 softmax scale and slice the outputs back, on the CPU as on the card, so the
@@ -15,7 +15,9 @@ heads of 12, 36, 100, 136 and 192, L = 17 or 24, B = 2. f32 throughout:
 forward outputs agree to 1e-5 (1e-4 for the fused_t sub-block pair),
 gradients to 1e-4 of their largest value, as at 72 and 80
 (``test_torch_head_dims.py``). Padding itself is held exact against the
-unpadded plain versions; past 256 the wrappers raise by name.
+unpadded plain versions. Past 256 (264, 320, 512) the wrappers take the
+head_dim as any other (the kernels stream it in 128-column slabs) and are
+held against the JAX flash kernel.
 """
 
 import jax
@@ -175,15 +177,38 @@ def test_padding_is_exact_against_the_unpadded_plain_versions(hd):
         torch.testing.assert_close(got_, want_, atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("hd", [264, 512])
-def test_head_dims_past_256_raise_by_name(hd):
-    """Above 256 the kernels' tiles pass the shared memory a block has: the
-    wrappers raise on the CPU too, naming the limit and its reason."""
-    qkv = torch.zeros(1, 4, 3 * hd)
-    with pytest.raises(ValueError, match="head_dim up to 256.*shared memory"):
-        fe.attention(qkv, 1)
-    q = torch.zeros(1, 4, 1, hd)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        fl.flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        gk.attention_bwd(q, q, q, q, torch.zeros(1, 1, 4), q, scale=1.0)
+@pytest.mark.parametrize("hd,causal,prefix", [(264, False, 0), (320, True, 5), (512, False, 0)])
+def test_wrappers_past_256_match_jax(hd, causal, prefix):
+    """Above 256 the kernels stream the head_dim in 128-column slabs
+    (``csrc/attention.cuh``) and the wrappers take it as any other: the
+    packed attention (``fe.attention``, the core of #1/#5/#7/#9/#11), flash
+    (#13/#14) with its LSE, and the backward pair (#15/#16, through
+    ``grad_kernels.attention_bwd``) against the JAX flash kernel and its
+    VJP in interpret mode, L = 17 (queries) by 24 (keys) for flash, 24 for
+    the packed buffer."""
+    n = _rng(hd)
+    d = HEADS * hd
+    qkv = n(2, 24, 3 * d)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(2, 24, HEADS, hd) for i in range(3))
+
+    def f(q, k, v):
+        return jflash(q, k, v, causal=causal, prefix_len=prefix, interpret=True)
+
+    got = fe.attention(torch.from_numpy(qkv), HEADS, causal=causal, prefix_len=prefix)
+    np.testing.assert_allclose(got.numpy().reshape(2, 24, HEADS, hd), np.asarray(f(q, k, v)),
+                               **FWD)
+    qf, kf, vf, g = n(2, 17, HEADS, hd), n(2, 24, HEADS, hd), n(2, 24, HEADS, hd), n(2, 17, HEADS,
+                                                                                       hd)
+    want, vjp = jax.vjp(f, qf, kf, vf)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (qf, kf, vf)]
+    out = fl.flash_attention(*leaves, causal=causal, prefix_len=prefix)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **FWD)
+    grads = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    o, lse = fl._forward(*(t.detach() for t in leaves), causal=causal, prefix_len=prefix,
+                         sm_scale=None, return_lse=True)
+    direct = gk.attention_bwd(*(t.detach() for t in leaves), o, lse, torch.from_numpy(g),
+                              scale=hd**-0.5, causal=causal, prefix_len=prefix)
+    for name, a, b_, w in zip(("dq", "dk", "dv"), grads, direct, vjp(g)):
+        assert a.shape == b_.shape == w.shape
+        assert _rel(a.numpy(), w) <= GRAD, name
+        assert _rel(b_.numpy(), w) <= GRAD, name

@@ -18,10 +18,18 @@ normalizer and a ``Metaspace`` split; a WordPiece dir without a pad token
 (``transformers`` refuses to pad, JAX falls through to the vocab
 convention) and a ``BertTokenizer`` config beside a ``vocab.txt``. Ids must
 be equal, padded and truncated to the context length (8 or 16, and 80). A
-component the port does not read raises by name.
+component the port does not read raises by name. Then each component and
+route added since (``tests/fixtures/make_hf_tokenizer_fixtures.py``: the
+Precompiled charsmap, the ByteLevel normalizer, UnicodeScripts,
+CharDelimiterSplit, config-named special tokens missing from the vocab,
+normalized added tokens, config.json's model_type, CLIP's vocab files,
+and the dirs where AutoTokenizer raises), built anew against JAX, and the
+committed fixture dirs against the ids stored beside them.
 """
 
+import base64
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -37,6 +45,9 @@ from openvision_tpu.tools.model_io import LoadedModel as JaxLoaded
 from openvision_tpu_torch.evaluators.in1k_classes import CLIP_IMAGENET_CLASS_NAMES
 from openvision_tpu_torch.tools import model_io
 
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "fixtures"))
+import make_hf_tokenizer_fixtures as fx  # noqa: E402
+
 VOCAB = "assets/bert_base_vocab_bos_eos.txt"
 TEXTS = [t.format(c) for c in CLIP_IMAGENET_CLASS_NAMES[::4] for t in ("a photo of a {}.",
                                                                         "itap of my {}")] + [
@@ -51,11 +62,11 @@ def _jax_ids(model_dir, length=16):
     return m.tokenize(TEXTS)
 
 
-def _port_ids(model_dir, length=16):
+def _port_ids(model_dir, length=16, texts=TEXTS):
     m = model_io.LoadedModel(vision=None, text=None, logit_scale=1.0, image_size=224,
                              context_length=length, vocab_size=30522, mean=(0,) * 3,
                              std=(1,) * 3, vocab_path=VOCAB, device="cpu", model_dir=model_dir)
-    return m.tokenize(TEXTS)
+    return m.tokenize(texts)
 
 
 def _save(tok, cls, path, **kw):
@@ -188,11 +199,13 @@ def test_bert_tokenizer_config_beside_a_vocab_txt(tmp_path):
 
 def test_other_model_types_and_a_missing_pad_token_raise(tmp_path):
     """The name is from when these cases raised: a BPE model type, a
-    WordPiece dir without a pad token, and a tokenizer_config.json without
-    tokenizer.json. They now give JAX's ids: the BPE its own, the other two
-    the vocab convention JAX falls through to (transformers refuses to pad
-    without a pad token; a config that names no class loads nothing). A
-    component the port does not read still raises by name."""
+    WordPiece dir without a pad token, a tokenizer_config.json without
+    tokenizer.json, and the Precompiled normalizer. They now give JAX's ids:
+    the BPE its own, the next two the vocab convention JAX falls through to
+    (transformers refuses to pad without a pad token; a config that names
+    no class loads nothing), the Precompiled charsmap its own. A charsmap
+    the library cannot parse raises on both sides (its panic is no
+    Exception, so JAX does not fall through)."""
     bpe = Tokenizer(models.BPE(vocab={"a": 0, "b": 1, "ab": 2}, merges=[("a", "b")]))
     path = _save(bpe, PreTrainedTokenizerFast, tmp_path / "bpe", pad_token="a")
     np.testing.assert_array_equal(_port_ids(path), _jax_ids(path))
@@ -205,11 +218,70 @@ def test_other_model_types_and_a_missing_pad_token_raise(tmp_path):
     model_io.hf_tokenizer.cache_clear()
     np.testing.assert_array_equal(_port_ids(path), _jax_ids(path))
     spec = json.loads(tok.to_str())
-    spec["normalizer"] = {"type": "Precompiled", "precompiled_charsmap": ""}
+    blob = base64.b64encode(fx.charsmap(fx.CHARSMAP)).decode()
+    spec["normalizer"] = {"type": "Precompiled", "precompiled_charsmap": blob}
     os.makedirs(tmp_path / "charsmap")
     (tmp_path / "charsmap" / "tokenizer.json").write_text(json.dumps(spec))
     (tmp_path / "charsmap" / "tokenizer_config.json").write_text(json.dumps(
         {"tokenizer_class": "PreTrainedTokenizerFast", "pad_token": "[PAD]"}))
     model_io.hf_tokenizer.cache_clear()
-    with pytest.raises(ValueError, match="normalizer 'Precompiled' is not read by the port"):
-        _port_ids(str(tmp_path / "charsmap"))
+    path = str(tmp_path / "charsmap")
+    np.testing.assert_array_equal(_port_ids(path), _jax_ids(path))
+    # a charsmap the library cannot parse: its panic passes JAX's fall-through
+    spec["normalizer"]["precompiled_charsmap"] = ""
+    (tmp_path / "charsmap" / "tokenizer.json").write_text(json.dumps(spec))
+    model_io.hf_tokenizer.cache_clear()
+    with pytest.raises(BaseException, match="precompiled_charsmap"):
+        _jax_ids(path)
+    with pytest.raises(ValueError, match="Precompiled: cannot parse precompiled_charsmap"):
+        _port_ids(path)
+
+
+@pytest.mark.parametrize("name", fx.NAMES)
+def test_components_and_routes_give_jax_autotokenizer_ids(tmp_path, name):
+    """Each component and route the port reads since the Precompiled
+    normalizer (a darts-clone charsmap built here), the ByteLevel
+    normalizer, the UnicodeScripts and CharDelimiterSplit pre-tokenizers,
+    special tokens the config names and the vocab lacks, added tokens
+    matched after normalization, config.json's model_type (BERT's class
+    with its normalizer override, CLIP's from vocab files), CLIP's vocab.json
+    + merges.txt, and the dirs where AutoTokenizer raises here (an unknown
+    model type, SigLIP's and T5's SentencePiece classes without
+    sentencepiece: the vocab convention), built anew here: the port's ids
+    equal JAX's exactly."""
+    path = str(tmp_path / name)
+    fx.write_dir(name, path)
+    for length in fx.LENGTHS:
+        model_io.hf_tokenizer.cache_clear()
+        want = fx.jax_ids(path, length)
+        got = _port_ids(path, length, fx.TEXTS)
+        np.testing.assert_array_equal(got, want, err_msg=f"{name} {length}")
+    convention = model_io.tokenize_labels(fx.TEXTS, VOCAB, fx.LENGTHS[-1])
+    falls_through = name in {n for n, _, _ in fx.FALL_THROUGH}
+    assert np.array_equal(want, convention) == falls_through
+
+
+@pytest.mark.parametrize("name", fx.NAMES)
+def test_committed_fixtures_give_their_stored_ids(name):
+    """The committed dirs under tests/fixtures/hf_tokenizers (which
+    chip_smoke.py's phase 25 reads on the card, without transformers) give
+    the ids stored beside them, JAX's when they were written."""
+    path = os.path.join(fx.OUT, name)
+    with open(os.path.join(path, "expected_ids.json"), encoding="utf-8") as f:
+        want = json.load(f)
+    assert want["texts"] == fx.TEXTS
+    for length in fx.LENGTHS:
+        model_io.hf_tokenizer.cache_clear()
+        np.testing.assert_array_equal(_port_ids(path, length, fx.TEXTS),
+                                      np.asarray(want[str(length)]), err_msg=f"{name} {length}")
+
+
+def test_unicode_tables_match_the_library_and_regex():
+    """The generated tables (``data/gen_hf_tables.py``): UnicodeScripts on
+    every code point, in order and shuffled, as the tokenizers library
+    splits; grapheme clusters as regex's \\X."""
+    from openvision_tpu_torch.data import gen_hf_tables, hf_tokenizer
+
+    tables = hf_tokenizer.unicode_tables()
+    gen_hf_tables._script_check(tables)
+    gen_hf_tables._grapheme_check(tables)

@@ -1,7 +1,7 @@
 """The port imports neither JAX, flax, optax, grain, Triton, tensorflow,
 tensorflow_datasets, protobuf, tensorstore nor orbax, directly or through
-openvision_tpu, nor Pillow when its modules are imported (the card's machine
-may lack it); no line of chip_smoke.py imports JAX, tensorstore, orbax or
+openvision_tpu, nor Pillow, transformers, tokenizers or regex when its
+modules are imported (the card's machine may lack them); no line of chip_smoke.py imports JAX, tensorstore, orbax or
 openvision_tpu; and chip_smoke.py refuses to run without a card."""
 
 import os
@@ -36,7 +36,8 @@ def test_port_imports_no_jax_flax_or_triton():
               "tools.optimizers", "tools.feature_viz", "tools.gradient_ascent",
               "tools.neuron_capture", "tools.adversarial", "train.codecs", "train.zarr",
               "train.ocdbt", "models.compat", "models.loading", "convert.export",
-              "ops.ring_attention", "ops.pipeline_parallel", "data.hf_tokenizer"):
+              "ops.ring_attention", "ops.pipeline_parallel", "data.hf_tokenizer",
+              "data.unicode_tables", "data.hf_classes", "data.gen_hf_tables"):
         assert f"openvision_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -44,7 +45,8 @@ def test_port_imports_no_jax_flax_or_triton():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'grain', 'triton', 'openvision_tpu', 'tensorflow', "
-        "'tensorflow_datasets', 'PIL', 'tensorstore', 'orbax') "
+        "'tensorflow_datasets', 'PIL', 'tensorstore', 'orbax', 'transformers', 'tokenizers', "
+        "'regex') "
         "or m.startswith('google.protobuf'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"

@@ -193,9 +193,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         fe.gemm_bias_act(x, torch.zeros(12, 16, device=dev, dtype=torch.bfloat16))
     with pytest.raises(TypeError, match="bfloat16"):
         fe.gemm_bias_act(x.float(), torch.zeros(8, 16, device=dev))
-    for hd in (264, 520):  # past 256 (any other head_dim is padded or taken in parts)
-        with pytest.raises(ValueError, match="head_dim up to 256"):
-            fe.attention(torch.zeros(1, 4, 3 * 3 * hd, device=dev, dtype=torch.bfloat16), 3)
+    with pytest.raises(TypeError, match="bfloat16"):  # any head_dim, but bf16 only
+        fe.attention(torch.zeros(1, 4, 3 * 3 * 264, device=dev), 3)
     w = torch.ones(16, device=dev, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward kernel"):
         fe.layernorm(x, w, torch.zeros(16, device=dev), 1e-6)
@@ -356,8 +355,8 @@ def test_forward_attention_kernels_are_deterministic(dev):
 @pytest.mark.gpu
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
     q = torch.zeros(1, 8, 2, 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        flash_attention(*(torch.zeros(1, 8, 2, 264, device=dev, dtype=torch.bfloat16),) * 3)
+    wide = torch.zeros(1, 8, 2, 264, device=dev, dtype=torch.bfloat16)  # taken since the slabs
+    assert flash_attention(wide, wide, wide).shape == wide.shape
     with pytest.raises(TypeError, match="bfloat16"):
         flash_attention(q.float(), q.float(), q.float())
     with pytest.raises(ValueError, match="unit stride"):
@@ -688,16 +687,19 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
         gk.gemm_tn(a.float(), a.float())
     with pytest.raises(ValueError, match="whole segments"):
         gk.colsum(a, seg_len=3)
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        q = torch.zeros(1, 8, 2, 264, device=dev, dtype=torch.bfloat16)
-        gk.attention_bwd(q, q, q, q, torch.zeros(1, 2, 8, device=dev), q, scale=264**-0.5)
+    q = torch.zeros(1, 8, 2, 264, device=dev, dtype=torch.bfloat16)  # any head_dim since the slabs
+    with pytest.raises(TypeError, match="float32"):
+        gk.attention_bwd(q, q, q, q, torch.zeros(1, 2, 8, device=dev).bfloat16(), q,
+                         scale=264**-0.5)
+    with pytest.raises(ValueError, match=r"expected shape \(1, 2, 8\)"):
+        gk.attention_bwd(q, q, q, q, torch.zeros(1, 2, 9, device=dev), q, scale=264**-0.5)
 
 
 # The head_dims the attention kernels take beside 64: So400m's 72, H/14's
 # 80 (softmax scales that are no power of two), 128, then head_dims the
-# wrappers zero-pad (36, 100) and those above 128 in two column parts
-# (136, 192, 256).
-WIDE_HEAD_DIMS = (72, 80, 128, 36, 100, 136, 192, 256)
+# wrappers zero-pad (36, 100), those above 128 in two column parts (136,
+# 192, 256) and those above 256 in 128-column slabs (264, 320, 384, 512).
+WIDE_HEAD_DIMS = (72, 80, 128, 36, 100, 136, 192, 256, 264, 320, 384, 512)
 
 
 @pytest.mark.gpu

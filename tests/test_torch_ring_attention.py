@@ -8,7 +8,8 @@ process computes the JAX side on the 8-device virtual CPU mesh. Checks
 and tolerances (JAX's own, ``tests/test_ring_attention.py`` and
 ``tests/test_ring_wiring.py``):
 
-- ``ring_attention_sharded`` on (seq 4) and (data 2, seq 2), causal and
+- ``ring_attention_whole`` (the per-chunk ``ring_attention_sharded``
+  between a scatter and a gather) on (seq 4) and (data 2, seq 2), causal and
   not, at L = 10 (padded to 12 on the ring of 4), against JAX's
   ``ring_attention_sharded``: the output within 1e-5, the gradients of
   sum(out**2) with respect to q, k and v within 1e-4 absolute and 1e-3
@@ -24,6 +25,11 @@ and tolerances (JAX's own, ``tests/test_ring_attention.py`` and
   on the whole batch: loss within 1e-5 relative, every gradient
   within 1e-5 of its norm; after an update every process holds the same
   parameters, and the draws are equal within each seq group;
+- inside a ``ring`` stack over (data 2, seq 2) each block takes this
+  rank's (B, ceil(L / 2), D) tokens (a forward hook), and a stack with
+  dropout and drop-path in training gives the output and gradients of the
+  same stack at seq 1 on the process's rows (its draws) within f32
+  rounding;
 - without a world: ``ring`` with no mesh, or a mesh whose seq is 1, equals
   ``xla``; a mask, a prefix-LM mask or attention dropout under seq > 1
   raises by name (JAX drops them without a word).
@@ -136,6 +142,28 @@ def test_ring_train_step_matches_one_process(world, mesh):
     assert e["leaves"] == e["want_leaves"] and e["pipelined"] == [], e
     assert e["loss"] < 1e-5 and e["grad"] < 1e-5, e
     assert e["params_equal"] == 1 and e["draws_equal"] == 1, e
+
+
+@pytest.mark.parametrize("tower,length", [("vit", 17), ("text", worker.TEXT_LEN)])
+def test_ring_stack_keeps_its_tokens_sharded_over_seq(world, tower, length):
+    """Inside a ``ring`` stack at (data 2, seq 2) every block takes this
+    rank's (B, ceil(L / 2), D) tokens (a forward hook on each block), the
+    stack records it, and the pool sees whole tokens again."""
+    e = worker.errors(world[0], "towers")[tower]
+    width = {"vit": tvit.decode_variant(worker.VIT["variant"])["width"], "text": 192}[tower]
+    assert e["seq_sharded"] == 1
+    assert e["blocks"] and all(b == [4, -(-length // 2), width] for b in e["blocks"]), e
+    assert e["out"] == [4, worker.VIT["num_classes"]], e
+
+
+def test_ring_stack_dropout_draws_what_one_process_draws(world):
+    """Dropout and drop-path in training on a ``ring`` stack over (data 2,
+    seq 2), L = 7 padded to 8: the output and the input's and every
+    parameter's gradient (the blocks' summed over seq) equal those of the
+    same stack on the process's rows at seq 1, within f32 rounding."""
+    e = worker.errors(world[0], "dropout_stack")
+    assert e["sharded"] == 1 and e["ref_sharded"] == 0 and e["draws"] > 0.05, e
+    assert e["out"] < FWD["atol"] and e["dx"] < GRAD["atol"] and e["grad"] < GRAD["atol"], e
 
 
 def _vit(impl):

@@ -105,8 +105,8 @@ def text_tokens(seed=2) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 128, (8, TEXT_LEN)).astype(np.int64)
 
 
-def encoder_input(seed=4) -> np.ndarray:
-    return np.random.default_rng(seed).standard_normal((8, 5, 16)).astype(np.float32)
+def encoder_input(seed=4, length=5) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((8, length, 16)).astype(np.float32)
 
 
 def coca_config(extra: str = "") -> dict:
@@ -283,11 +283,12 @@ def group_equal(t: torch.Tensor, group) -> bool:
 
 
 def ring(world):
-    """``ring_attention_sharded`` over seq (causal and not) on each ring
+    """``ring_attention_whole`` (the per-chunk ``ring_attention_sharded``
+    between a scatter and a gather) over seq (causal and not) on each ring
     mesh: the output and the gradients of sum(out**2) with respect to q, k
     and v, gathered over the batch shards; and whether every seq rank holds
     the same bits of them."""
-    from openvision_tpu_torch.ops.ring_attention import ring_attention_sharded
+    from openvision_tpu_torch.ops.ring_attention import ring_attention_whole
 
     arrays, equal = {}, {}
     for name, kw in RING_MESHES.items():
@@ -295,7 +296,7 @@ def ring(world):
         for causal in (False, True):
             qkv = [torch.from_numpy(a)[mesh.batch_rows(RING_SHAPE[0])].requires_grad_(True)
                    for a in ring_inputs()]
-            out = ring_attention_sharded(*qkv, mesh, seq_axis="seq", causal=causal)
+            out = ring_attention_whole(*qkv, mesh, seq_axis="seq", causal=causal)
             (out ** 2).sum().backward()
             tag = f"{name}_{'causal' if causal else 'full'}"
             got = [out.detach()] + [t.grad for t in qkv]
@@ -335,20 +336,27 @@ def pipeline(world):
     world.save("pipeline", arrays=arrays, errors={"pipe_equal": equal})
 
 
-def _whole_grads(model, mesh) -> dict:
-    """The model's parameter gradients summed over pipe (the pipelined
-    blocks' stages) and over the batch shards, as the train step sums
-    them."""
+def _stack_prefixes(model, flag: str) -> tuple:
     from openvision_tpu_torch.models.encoder import Encoder
 
-    prefixes = tuple(f"{n}.resblocks." if n else "resblocks." for n, m in model.named_modules()
-                     if isinstance(m, Encoder) and m.pipelined)
+    return tuple(f"{n}.resblocks." if n else "resblocks." for n, m in model.named_modules()
+                 if isinstance(m, Encoder) and getattr(m, flag))
+
+
+def _whole_grads(model, mesh, batch: bool = True) -> dict:
+    """The model's parameter gradients summed over pipe (the pipelined
+    blocks' stages), over seq (the blocks of the stacks whose tokens stayed
+    sharded over seq) and over the batch shards (unless `batch` is False),
+    as the train step sums them."""
+    pipe, seq = _stack_prefixes(model, "pipelined"), _stack_prefixes(model, "seq_sharded")
     out = {}
     for n, p in model.named_parameters():
         g = p.grad if p.grad is not None else torch.zeros_like(p)
-        if prefixes and n.startswith(prefixes):
+        if pipe and n.startswith(pipe):
             g = parallel.all_reduce(g, mesh.pipe_group)
-        out[n] = parallel.all_reduce(g, mesh.batch_group).numpy()
+        if seq and n.startswith(seq):
+            g = parallel.all_reduce(g, mesh.seq_group)
+        out[n] = (parallel.all_reduce(g, mesh.batch_group) if batch else g).numpy()
     return out
 
 
@@ -359,19 +367,63 @@ def towers(world, weights):
     from openvision_tpu_torch.models import vit as tvit
 
     mesh = mesh_of(data=2, seq=2)
-    arrays = {}
+    arrays, layout = {}, {}
     for name, model, x in (
             ("vit", tvit.Model(image_size=VIT_RES, attn_impl="ring", **VIT),
              torch.from_numpy(vit_images())),
             ("text", ttext.Model(context_length=TEXT_LEN, attn_impl="ring", **TEXT),
              torch.from_numpy(text_tokens()))):
         model.load_state_dict(weights[name])
+        seen = []  # the tokens each block takes
+        for block in model.transformer.resblocks:
+            block.register_forward_hook(lambda m, args, out: seen.append(list(args[0].shape)))
         with parallel.use_mesh(mesh):
             out = model(x[mesh.batch_rows(x.shape[0])])
         (out ** 2).sum().backward()
+        layout[name] = {"blocks": seen, "out": list(out.shape),
+                        "seq_sharded": int(model.transformer.seq_sharded)}
         arrays[f"{name}/out"] = tp.gather_rows(out, mesh).numpy()
         arrays.update({f"{name}/grad/{n}": g for n, g in _whole_grads(model, mesh).items()})
-    world.save("towers", arrays=arrays)
+    world.save("towers", arrays=arrays, errors=layout)
+
+
+def dropout_stack(world, weights):
+    """The Encoder on ``ring`` in training with dropout and drop-path over
+    (data 2, seq 2) against the same stack on this process's batch rows
+    under a mesh of the same batch shard and seq 1 (the draws of a process
+    that holds every token of those rows): the output and the gradients of
+    sum(out**2) (the input's and every parameter's, the blocks' summed over
+    seq), each within its largest value's f32 rounding; the ring refuses
+    the probabilities' dropout by name, so the blocks' attention dropout is
+    off and the per-token dropouts (the residual branches', the MLP
+    hidden's) and drop-path are what the layout draws."""
+    from openvision_tpu_torch.models.encoder import Encoder
+
+    mesh = mesh_of(data=2, seq=2)
+    one = parallel.Mesh(dict(data=2, fsdp=1, tensor=1, seq=1, pipe=1),
+                        dict(data=mesh.coords["data"], fsdp=0, tensor=0, seq=0, pipe=0))
+    x = torch.from_numpy(encoder_input(seed=6, length=7))[mesh.batch_rows(8)]
+
+    def run(m, train=True):
+        enc = Encoder(16, attn_impl="ring", dropout=0.2, drop_path=0.3, **ENCODER)
+        enc.load_state_dict(weights["encoder"])
+        for block in enc.resblocks:
+            block.attn.dropout_rate = 0.0
+        xin = x.clone().requires_grad_(True)
+        with parallel.use_mesh(m):
+            out = enc(xin, train=train, rng=torch.Generator().manual_seed(11))
+        (out ** 2).sum().backward()
+        return out.detach(), xin.grad, _whole_grads(enc, m, batch=False), enc.seq_sharded
+
+    out, dx, grads, sharded = run(mesh)
+    ref_out, ref_dx, ref_grads, ref_sharded = run(one)
+    errors = {"sharded": int(sharded), "ref_sharded": int(ref_sharded),
+              "out": tp.rel(out, ref_out), "dx": tp.rel(dx, ref_dx),
+              "grad": max(tp.rel(g, ref_grads[n]) for n, g in grads.items()),
+              "draws": tp.rel(ref_out, run(one, train=False)[0])}  # what the draws changed
+    errors = {k: float(parallel.all_reduce_max(torch.tensor(float(v)), None))  # every rank's
+              for k, v in errors.items()}
+    world.save("dropout_stack", errors=errors)
 
 
 def encoder(world, weights):
@@ -509,6 +561,7 @@ def main(out_dir: str) -> None:
     ring(world)
     pipeline(world)
     towers(world, weights)
+    dropout_stack(world, weights)
     encoder(world, weights)
     train_steps(world)
     trainer_run(world, out_dir)
