@@ -109,7 +109,9 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    computes what the two compute together, and each wrapper's host time a
    call. `python3 chip_smoke.py --attn [ROOT]` times the forward kernel's
    cases (phase 2b's, the f32 nomax output at L=257, b=64: events, graph
-   replay, bound, SDPA, the wrapper's host time a call), then runs the
+   replay, bound, SDPA, the wrapper's host time a call), phase 24a's
+   forward shapes above head_dim 128 (for this checkout each one slower
+   than SDPA also under torch.profiler), then runs the
    flash backward shapes and #10's chain at L=257 alone, on the package of
    the checkout at ROOT (for this checkout it first applies phase 1's spill
    gate and the forward and phase 7's checks at B=8), so that two checkouts
@@ -393,12 +395,14 @@ Phases (each prints as it goes; any failure raises and exits non-zero):
    max and nomax, and the int8 block's f32 output; the causal and
    prefix-LM masks and flash (single-k, multi-k) at 80; attention_bwd at
    72 and 80 (L=257 and cross-attention); one case each at 96 and 128; the
-   padded head_dims 36, 100, 136, 192 and, on the slab kernels
-   (csrc/attention_slab.cu, attention_bwd_slab.cu), 264, 320, 384 and 512
-   (packed, nomax, f32 output, prefix-LM, flash single-k and multi-k, the
-   backward pair at L=257 and prefix-LM); then the forward and
-   attention_bwd at b=64, L=257 by events and graph replay beside their
-   bound and SDPA. (b) ViT-H/14-224 (32 blocks,
+   padded head_dims 36 and 100, the whole-O forward of
+   csrc/attention_xwide.cu at 136 and 192 and, on the slab kernels
+   (csrc/attention_slab.cu, attention_bwd_slab.cu), 264, 320, 384, 512
+   and 520 (the forward's per-part kernel above 512) (packed, nomax, f32
+   output, prefix-LM, flash single-k and multi-k, the multi-k LSE within
+   LSE_ABS_TOL, an Lq=1 tail, the backward pair at L=257 and prefix-LM);
+   then the forward (L=257, 128 x 335, 64 x 900) and attention_bwd at
+   b=64, L=257 by events and graph replay beside their bound and SDPA. (b) ViT-H/14-224 (32 blocks,
    1280 wide, 16 heads of 80) + text H (1024 wide; depth cut to
    H14_TXT_DEPTH) as a random export through tools/model_io.load_model:
    zero-shot on fused_t with phase 3's launch counts, zimg cosine >= 0.999
@@ -699,26 +703,35 @@ def spill_gate(lib_path) -> None:
             print(f"  ptxas: {line.strip()[:200]}")
     if not int8_gemms:
         raise AssertionError("no int8 instantiation of gemm_ws_kernel in the build")
-    parts = sum(1 if hdp <= 128 else 2 for hdp in HEAD_DIMS_PADDED)
-    slab_fwd = [f for f in attn_fwd if "slab" in f]
+    tiles = [f for f in attn_fwd if "attention_fwd_kernel" in f]
+    xwide = [f for f in attn_fwd if "attention_fwd_xwide_kernel" in f]
+    slabs = [f for f in attn_fwd if "attention_fwd_slabs_kernel" in f]
+    per_part = [f for f in attn_fwd if "attention_fwd_slab_kernel" in f]
+    if (len(tiles) != 3 * len(FWD_TILE_HEAD_DIMS) or len(xwide) != 3 * len(FWD_XWIDE_HEAD_DIMS)
+            or len(slabs) != 6 or len(per_part) != 3
+            or len(attn_fwd) != len(tiles) + len(xwide) + len(slabs) + len(per_part)):
+        raise AssertionError(f"expected the forward attention kernels' 3 variants at each padded "
+                             f"head_dim {FWD_TILE_HEAD_DIMS + FWD_XWIDE_HEAD_DIMS}, at 3 and 4 "
+                             f"slabs and above 512, found {attn_fwd}")
+    parts = sum(1 if hdp <= 128 else 2 for hdp in BWD_HEAD_DIMS_PADDED)
     slab_bwd = [f for f in attn_bwd if "slab" in f]
-    if len(attn_fwd) != 3 * parts + 3 or len(slab_fwd) != 3:
-        raise AssertionError(f"expected the forward attention kernel's 3 variants at each padded "
-                             f"head_dim {HEAD_DIMS_PADDED} and column part, and the slab "
-                             f"kernel's 3, found {attn_fwd}")
     if len(attn_bwd) != 2 * parts + 2 or len(slab_bwd) != 2:
         raise AssertionError(f"expected the two attention backward kernels at each padded "
-                             f"head_dim {HEAD_DIMS_PADDED} and column part, and the two slab "
+                             f"head_dim {BWD_HEAD_DIMS_PADDED} and column part, and the two slab "
                              f"kernels, found {attn_bwd}")
     if any(spills[f] for f in gated):
         raise AssertionError(f"kernels that spill registers: {[f for f in gated if spills[f]]}")
 
 
-# The attention tile kernels' instantiations: head_dim (a multiple of 8 from
-# 16 to 256; the wrappers pad any other) rounded up to 16, above 128 to 64, in
-# two column parts each (csrc/attention.cuh); above 256 the slab kernels, one
-# instantiation for every head_dim.
-HEAD_DIMS_PADDED = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)
+# The attention kernels' instantiations: head_dim (a multiple of 8 from 16
+# to 256; the wrappers pad any other) rounded up to 16 in the forward
+# (csrc/attention.cu and attention_wide.cu up to 128, attention_xwide.cu's
+# whole-O kernel above), and in the backward to 16, above 128 to 64 in two
+# column parts each (csrc/attention.cuh); above 256 the slab kernels (the
+# forward's at 3 and 4 slabs and its per-part kernel above 512).
+FWD_TILE_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+FWD_XWIDE_HEAD_DIMS = (144, 160, 176, 192, 208, 224, 240, 256)
+BWD_HEAD_DIMS_PADDED = (16, 32, 48, 64, 80, 96, 112, 128, 192, 256)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -854,7 +867,7 @@ class Case:
     block its input x (the check then holds the block on out - x)."""
 
     def __init__(self, name, label, kern, plain, lib, nbytes, flops, f32_ops=0, residual=None,
-                 int8_ops=0, quant=False, exact=False, row_max=False):
+                 int8_ops=0, quant=False, exact=False, row_max=False, abs_tol=None):
         self.name, self.label, self.kern, self.plain, self.lib = name, label, kern, plain, lib
         self.nbytes, self.flops, self.f32_ops, self.int8_ops = nbytes, flops, f32_ops, int8_ops
         self.residual = residual
@@ -862,6 +875,7 @@ class Case:
         self.exact = exact  # the kernel's output must equal the plain version's bit for bit
         # (not for a quantise: the plain scale on the card may round otherwise)
         self.row_max = row_max  # kern returns (out, each row's max |out|): held bit-equal
+        self.abs_tol = abs_tol  # an absolute bound in place of CASE_REL_TOL's relative one
 
     def bound(self):
         """(ms, "bytes" | "operations"): the least time the card could take,
@@ -959,6 +973,26 @@ def flash_case(fl, q, k, v, label, *, causal=False, prefix=0) -> Case:
         _sdpa(qt, kt, vt, causal, prefix),
         (2 * b * lq * h * hd + 2 * b * lk * h * hd) * 2,
         4 * b * h * hd * visible_pairs(lq, lk, causal, prefix))
+
+
+# The flash kernel's f32 logsumexp, absolute: the backward's recompute reads
+# exp(s - lse), so 1e-3 moves its P by 0.1%; one 64-key tile of 900 keys
+# left out of l moves the LSE by about log(900 / 836) = 0.074.
+LSE_ABS_TOL = 1e-3
+
+
+def flash_lse_case(fl, q, k, v) -> Case:
+    """The flash kernel's f32 logsumexp (read by the backward chains'
+    recompute) against the plain version's, multi-k order, within
+    LSE_ABS_TOL."""
+    b, lq, h, hd = q.shape
+    lk = k.shape[1]
+    return Case(
+        "flash_attention", f"flash lse b={b} Lq={lq} Lk={lk} H={h} hd={hd}",
+        lambda: fl.flash_attention(q, k, v, return_lse=True)[1],
+        lambda: fl.flash_attention_plain(q.float(), k.float(), v.float())[1],
+        None, (2 * b * lq * h * hd + 2 * b * lk * h * hd) * 2 + b * h * lq * 4,
+        4 * b * h * hd * lq * lk, abs_tol=LSE_ABS_TOL)
 
 
 def kernel_cases(fe, device, gen, b: int, l: int, d: int = 1024, heads: int = 16,
@@ -1079,21 +1113,23 @@ def check_cases(cases, worst: dict) -> None:
             check_quant(c, got, ref, worst)
             continue
         err = (got.float() - ref).abs()
-        if c.residual is None:
-            scale = ref.abs().max().item()
-            bound = torch.full_like(ref, CASE_REL_TOL[c.name] * scale)
-            note = ""
+        if c.abs_tol is not None:
+            tol, note = c.abs_tol, " (absolute)"
+            bound = torch.full_like(ref, tol)
+        elif c.residual is None:
+            tol, note = CASE_REL_TOL[c.name] * ref.abs().max().item(), ""
+            bound = torch.full_like(ref, tol)
         else:
             scale = (ref - c.residual.float()).abs().max().item()
-            bound = CASE_REL_TOL[c.name] * scale + RESIDUAL_ROUNDING * ref.abs()
-            note = f" max|out-x|={scale:.3e}"
+            tol, note = CASE_REL_TOL[c.name] * scale, f" max|out-x|={scale:.3e}"
+            bound = tol + RESIDUAL_ROUNDING * ref.abs()
         ratio = (err / bound).max().item()
         ok = ratio <= 1 and bool(torch.isfinite(got).all())
         if c.exact:
             ok = ok and err.max().item() == 0
             note += "  (bit-equal required)"
         print(f"  {c.name:15s} {c.label:46s} max|err|={err.max().item():.3e}  "
-              f"bound={CASE_REL_TOL[c.name] * scale:.3e}{note}  err/bound<={ratio:.3f}  "
+              f"bound={tol:.3e}{note}  err/bound<={ratio:.3f}  "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{c.name} {c.label}: max|err|/bound {ratio} > 1")
@@ -6255,14 +6291,18 @@ def wide_kernel_cases(fe, fa, fl, gk, device, gen, b: int = 8):
     return fwd, bwd
 
 
-# Phase 24a's head_dims that the kernels take padded (36, 100: the wrappers
-# zero-pad to 40 and 104) or in two column parts (136 and 192: instances 192
-# and 256... 136 rounds up to 192, 192 is its own), 16 heads each
-PADDED_HEAD_DIMS = (36, 100, 136, 192)
-# and those above 256, which the slab kernels take (csrc/attention.cuh: the
-# head_dim streamed in 128-column slabs, ceil(hd / 128) column parts in one
-# launch)
+# Phase 24a's head_dims that the wrappers zero-pad (36, 100: to 40 and 104),
+# 16 heads each,
+PADDED_HEAD_DIMS = (36, 100)
+# those of csrc/attention_xwide.cu's whole-O forward (136 runs at 144; the
+# backward in two column parts at 192 and 256),
+XWIDE_HEAD_DIMS = (136, 192)
+# those above 256, which the slab kernels take (the forward one consumer
+# warpgroup a 128-column slab, the backward ceil(hd / 128) column parts in
+# one launch),
 SLAB_HEAD_DIMS = (264, 320, 384, 512)
+# and one above 512, the forward's per-part slab kernel (checked, not timed)
+PART_HEAD_DIMS = (520,)
 
 
 def padded_head_dim_cases(fe, fl, gk, device, gen, b: int = 8, head_dims=PADDED_HEAD_DIMS):
@@ -6270,8 +6310,9 @@ def padded_head_dim_cases(fe, fl, gk, device, gen, b: int = 8, head_dims=PADDED_
     wrappers and the column parts: per head_dim the packed attention (#1,
     #9) at L=257, nomax and the int8 block's f32 output (#5), the prefix-LM
     mask at L=463, flash single-k (#14, 128 x 335) and multi-k (#13, 64 x
-    900), and the backward pair (#15/#16) at L=257 and the prefix-LM
-    shape, each against its plain version."""
+    900, and its LSE), an Lq=1 tail (#13's decode-sized case, 1 x 335),
+    and the backward pair (#15/#16) at L=257 and the prefix-LM shape, each
+    against its plain version."""
     def rnd(*shape):
         return torch_randn(gen, device, *shape)
 
@@ -6281,34 +6322,57 @@ def padded_head_dim_cases(fe, fl, gk, device, gen, b: int = 8, head_dims=PADDED_
         fwd += [attention_case(fe, qkv, 16), attention_case(fe, qkv, 16, nomax=True),
                 f32_attention_case(fe, qkv, 16),
                 attention_case(fe, rnd(b, 463, 3 * 16 * hd), 16, causal=True, prefix=335)]
-        for label, lq, lk in (("single-k cross", 128, 335), ("multi-k", 64, 900)):
+        for label, lq, lk in (("single-k cross", 128, 335), ("multi-k", 64, 900),
+                              ("Lq=1 tail", 1, 335)):
             kv = rnd(b, lk, 2, 16, hd)
             fwd.append(flash_case(fl, rnd(b, lq, 16, hd), kv[:, :, 0], kv[:, :, 1], label))
+        q, kv = rnd(b, 64, 16, hd), rnd(b, 900, 2, 16, hd)
+        fwd.append(flash_lse_case(fl, q, kv[:, :, 0], kv[:, :, 1]))
         bwd += attention_bwd_cases(fl, gk, device, gen, b, hd=hd, shapes=[
             ("#10 image", 257, 257, 16, False, 0), ("#10 prefix=335", 463, 463, 16, True, 335)])
     return fwd, bwd
 
 
+def head_dim_fwd_cases(fe, fl, device, gen, hd: int, b: int = 64) -> list:
+    """Phase 24a's timed forward shapes at 16 heads of `hd`: the packed
+    attention at L=257 (#1/#9's), flash single-k (#14, 128 x 335) and
+    multi-k (#13, 64 x 900)."""
+    cases = [attention_case(fe, torch_randn(gen, device, b, 257, 3 * 16 * hd), 16)]
+    for label, lq, lk in (("single-k cross", 128, 335), ("multi-k", 64, 900)):
+        kv = torch_randn(gen, device, b, lk, 2, 16, hd)
+        cases.append(flash_case(fl, torch_randn(gen, device, b, lq, 16, hd), kv[:, :, 0],
+                                kv[:, :, 1], label))
+    return cases
+
+
 def time_padded_head_dims(fe, fl, gk, device, gen, head_dims=PADDED_HEAD_DIMS) -> dict:
-    """Phase 24a's times at b=64 for 16 heads of each of PADDED_HEAD_DIMS:
-    the packed attention at L=257 (#1/#9's), flash single-k (#14, 128 x 335)
-    and multi-k (#13, 64 x 900), the backward pair at L=257 (#15/#16), each
-    by events and graph replay beside its bound, plain version and SDPA (or
-    SDPA's autograd backward)."""
+    """Phase 24a's times at b=64 for 16 heads of each of `head_dims`: the
+    forward shapes of head_dim_fwd_cases and the backward pair at L=257
+    (#15/#16), each by events and graph replay beside its bound, plain
+    version and SDPA (or SDPA's autograd backward)."""
     out = {}
-    b = 64
     for hd in head_dims:
-        cases = [attention_case(fe, torch_randn(gen, device, b, 257, 3 * 16 * hd), 16)]
-        for label, lq, lk in (("single-k cross", 128, 335), ("multi-k", 64, 900)):
-            kv = torch_randn(gen, device, b, lk, 2, 16, hd)
-            cases.append(flash_case(fl, torch_randn(gen, device, b, lq, 16, hd), kv[:, :, 0],
-                                    kv[:, :, 1], label))
-        for c in cases:
+        for c in head_dim_fwd_cases(fe, fl, device, gen, hd):
             out[c.label] = time_case(c)
-        for c in attention_bwd_cases(fl, gk, device, gen, b, hd=hd,
+        for c in attention_bwd_cases(fl, gk, device, gen, 64, hd=hd,
                                      shapes=[("#10 image", 257, 257, 16, False, 0)]):
             out[f"{c.name} {c.label}"] = time_bwd_case(c)
     return out
+
+
+def trace_slower_than_sdpa(timed) -> None:
+    """`--attn`: each (case, time_case result) of `timed` whose graph time is
+    above SDPA's, traced by torch.profiler (kernel_ms): every CUDA kernel of
+    the call and of SDPA's call, its device time a call and the case's work
+    (its FLOPs at the true head_dim) over that time."""
+    for c, t in timed:
+        if t["graph_ms"] <= t["library_graph_ms"]:
+            continue
+        for who, fn in (("kernel", c.kern), ("SDPA", c.lib)):
+            per = sorted(kernel_ms(fn, 10).items(), key=lambda kv: -kv[1])
+            print(f"  trace {c.label} {who}: " + "; ".join(
+                f"{name[:72]} {ms * 1e3:.1f} us ({c.flops / ms / 1e9:.0f} TFLOP/s)"
+                for name, ms in per))
 
 
 def mhsa_case(fe, device, gen, b: int, l: int, d: int, heads: int) -> Case:
@@ -6624,8 +6688,8 @@ def model_options_phase(device, totals: dict) -> dict:
     return out
 
 
-# phase 24e: a tower of a custom width whose head_dim (136) the kernels take
-# in two column parts: 8 heads of 136 (width 1088, mlp 4352), patch 14 at
+# phase 24e: a tower of a custom width whose head_dim (136) the forward takes
+# whole at 144 and the backward in two column parts: 8 heads of 136 (width 1088, mlp 4352), patch 14 at
 # 224, depth cut to HD136_DEPTH; text tower S-wide (512, 8 heads), 2 blocks
 HD136_DEPTH = 4
 HD136_CONFIG = {
@@ -6643,22 +6707,24 @@ HD136_CONFIG = {
 HD136_IMAGE = dict(width=1088, num_heads=8, depth=HD136_DEPTH, mlp_dim=4352, patch_size=(14, 14))
 
 
-ATTENTION_KERNELS = ("attention", "flash_attention", "attention_bwd_dq", "attention_bwd_dkv")
+BWD_ATTENTION_KERNELS = ("attention_bwd_dq", "attention_bwd_dkv")
 
 
 def in_parts(counts: dict, hd: int) -> dict:
     """`counts` (launches of calls) as device launches at head_dim `hd`: an
-    attention kernel's call launches once per column part above 128."""
+    attention backward kernel's call launches once per column part above
+    128; the forward once a call."""
     from openvision_tpu_torch.ops import kernels
 
-    return {k: v * kernels.attention_parts(hd) if k in ATTENTION_KERNELS else v
+    return {k: v * kernels.attention_parts(hd) if k in BWD_ATTENTION_KERNELS else v
             for k, v in counts.items()}
 
 
 def hd136_phase(work: str, images, names, device, no_pil: bool, totals: dict) -> dict:
     """Phase 24e: the head_dim 136 tower through zero-shot (a random export,
     load_model on fused_t bf16: launch counts, zimg cosine >= 0.999 against
-    f32 xla) and one training step on fused (#9/#10 at 136, two column parts)
+    f32 xla) and one training step on fused (#9 at 136 whole, #10 in two
+    column parts)
     against plain bf16 at b=8 (loss within 2**-7, gradient cosine >= 0.999)."""
     import torch
 
@@ -6755,22 +6821,23 @@ def wide_phase(work: str, images, names, device, no_pil: bool, totals: dict,
         check_cases(fwd, worst)
         check_bwd_cases(bwd, worst)
         del fwd, bwd
-        print(f"head_dims {PADDED_HEAD_DIMS}: zero-padded (36, 100) or two column parts "
-              "(136, 192) in the kernels")
-        fwd, bwd = padded_head_dim_cases(fe, fl, gk, device, gen)
+        print(f"head_dims {PADDED_HEAD_DIMS}: zero-padded by the wrappers; "
+              f"{XWIDE_HEAD_DIMS}: the whole-O forward (csrc/attention_xwide.cu)")
+        fwd, bwd = padded_head_dim_cases(fe, fl, gk, device, gen,
+                                         head_dims=PADDED_HEAD_DIMS + XWIDE_HEAD_DIMS)
         check_cases(fwd, worst)
         check_bwd_cases(bwd, worst)
         del fwd, bwd
-        print(f"head_dims {SLAB_HEAD_DIMS}: the slab kernels")
-        for hd in SLAB_HEAD_DIMS:
+        print(f"head_dims {SLAB_HEAD_DIMS + PART_HEAD_DIMS}: the slab kernels")
+        for hd in SLAB_HEAD_DIMS + PART_HEAD_DIMS:
             fwd, bwd = padded_head_dim_cases(fe, fl, gk, device, gen, head_dims=(hd,))
             check_cases(fwd, worst)
             check_bwd_cases(bwd, worst)
             del fwd, bwd
         torch.cuda.empty_cache()
         times = time_wide_kernels(fe, fa, fl, gk, device, gen)
-        times.update(time_padded_head_dims(fe, fl, gk, device, gen,
-                                           head_dims=PADDED_HEAD_DIMS + SLAB_HEAD_DIMS))
+        times.update(time_padded_head_dims(
+            fe, fl, gk, device, gen, head_dims=PADDED_HEAD_DIMS + XWIDE_HEAD_DIMS + SLAB_HEAD_DIMS))
     torch.cuda.empty_cache()
     print(f"24a in {time.perf_counter() - t0:.1f} s")
     with torch.inference_mode():
@@ -7603,13 +7670,19 @@ def export_encode_rates(device) -> dict:
 def attn_only(root: str) -> int:
     """``chip_smoke.py --attn [ROOT]``: the forward attention kernel's cases
     at b=64 (time_attention_fwd: events, graph replay, bound, SDPA and the
-    wrapper's host time a call), then phase 9's flash backward cases at b=64
+    wrapper's host time a call), the forward above head_dim 128 at b=64
+    (phase 24a's three shapes at 136, 192, 264, 320, 384 and 512; for this
+    checkout's package each one still slower than SDPA traced by
+    torch.profiler, trace_slower_than_sdpa), then phase 9's flash backward
+    cases at b=64
     (each kernel by CUDA events and graph replay, the pair's sum beside
     SDPA's autograd backward) and #10's chain at L=257, on the package of the
     checkout at ROOT (this one by default), so that two checkouts are timed
     on one card in one call. For this checkout's package it first holds the
     build to phase 1's spill gate, the forward cases at B=8 and the
-    backward cases at B=8 to their bounds (phases 2b and 7)."""
+    backward cases at B=8 to their bounds (phases 2b and 7) and phase 24a's
+    cases at those head_dims and at 520 (the per-part slab kernel) to
+    theirs."""
     import torch
 
     if not torch.cuda.is_available():
@@ -7639,9 +7712,25 @@ def attn_only(root: str) -> int:
             gen = torch.Generator(device=device).manual_seed(SEED + 3)
             check_bwd_cases(attention_bwd_cases(fl, gk, device, gen, 8)
                             + fused_block_bwd_cases(fa, device, gen, 8, lengths=(257,)), {})
+            wide = XWIDE_HEAD_DIMS + SLAB_HEAD_DIMS + PART_HEAD_DIMS
+            print(f"phase 24a's cases at head_dims {wide}:")
+            for hd in wide:
+                fwd, bwd = padded_head_dim_cases(fe, fl, gk, device, gen, head_dims=(hd,))
+                check_cases(fwd, {})
+                check_bwd_cases(bwd, {})
+                del fwd, bwd
         gen = torch.Generator(device=device).manual_seed(SEED + 2)
         print("forward attention (csrc/attention.cu) at b=64:")
         time_attention_fwd(fe, fl, device, gen)
+        torch.cuda.empty_cache()
+        print("forward attention above head_dim 128 (csrc/attention_xwide.cu, "
+              "attention_slab.cu) at b=64:")
+        timed = [(c, time_case(c)) for hd in XWIDE_HEAD_DIMS + SLAB_HEAD_DIMS
+                 for c in head_dim_fwd_cases(fe, fl, device, gen, hd)]
+        if root == REPO:
+            print("the cases above still slower than SDPA, traced:")
+            trace_slower_than_sdpa(timed)
+        del timed
         torch.cuda.empty_cache()
         gen = torch.Generator(device=device).manual_seed(SEED + 4)
         for c in fused_block_bwd_cases(fa, device, gen, 64, lengths=(257,)):

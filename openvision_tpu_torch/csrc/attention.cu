@@ -34,17 +34,16 @@
 // skipped, as _live (flash_attention.py:61) skips dead blocks: the live tiles
 // are the contiguous range [0, last].
 //
-// Every head_dim that is a multiple of 8 from 16 (attention.cuh: up to 256 a
-// tile is the head_dim rounded up to 16 in chunks of 64, 32 and 16 columns,
-// one TMA box and one swizzle each, or above 128 rounded up to 64); one
-// instantiation a padded head_dim. Above 64 the ring holds two stages (not
-// four) and two CTAs an SM (not three): the P V accumulator grows with
-// head_dim (HDP / 2 registers). Above 128 (192, 256) each CTA accumulates
-// one of two column parts of O over the whole head_dim's scores, one launch
-// a part, one CTA an SM (161 KB of shared memory at 256). Above 256 the
-// slab kernel (attention_slab.cu) streams the head_dim in 128-column slabs
-// and accumulates ceil(head_dim / 128) parts of O in one launch, in 129 KB
-// of shared memory at every head_dim.
+// Every head_dim that is a multiple of 8 from 16 (attention.cuh: a tile is
+// the head_dim rounded up to 16 in chunks of 64, 32 and 16 columns, one TMA
+// box and one swizzle each); one instantiation a padded head_dim. Above 64
+// the ring holds two stages (not four) and two CTAs an SM (not three): the
+// P V accumulator grows with head_dim (HDP / 2 registers). From 136 to 256
+// attention_xwide.cu's kernel holds the whole O in two consumer warpgroups
+// of a 128-row CTA (193 KB of shared memory at 256), and from 264 to 512
+// attention_slab.cu's holds it in one consumer warpgroup a 128-column slab,
+// the scores summed over the slabs once; above 512 the per-part slab kernel
+// streams the head_dim. Each is one launch a call.
 //
 // Bound on the H100: at the port's shapes (head_dim 64, L of 128..900) the
 // FLOPs are 4*Lq*Lk*64 per (batch, head) against 2*(2*Lq + 2*Lk)*64 bytes,
@@ -96,8 +95,8 @@
 // PERF.md's design-choice table.
 #include "attention_fwd.cuh"
 
-// The padded head_dims 80..128, built in attention_wide.cu, 192 and 256,
-// built in attention_xwide.cu, and the slab kernel above, in attention_slab.cu.
+// The padded head_dims 80..128, built in attention_wide.cu, 144..256, built
+// in attention_xwide.cu, and the slab kernels above, in attention_slab.cu.
 int attention_slab(const void* qkv, void* out, int batch, int seq, int heads, int head_dim,
                    float scale, int nomax, int causal, int prefix, int out_f32, void* stream);
 int flash_attention_slab(const void* q, const void* k, const void* v, void* out, void* lse,

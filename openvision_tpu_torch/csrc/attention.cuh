@@ -22,16 +22,17 @@
 // Above 256 the slab kernels (attention_slab.cu, attention_bwd_slab.cu) take
 // over: their shared memory does not grow with the head_dim.
 //
-// Above 128 the head_dim is rounded up to 64 (192 or 256: three or four
-// 64-column chunks, TMA's zero fill past hd again) and the output columns
-// are split into two parts (Part below): 0..127 and the rest. A CTA owns
-// one part: it forms the scores over the whole head_dim (q.k^T, and do.v^T
-// in the backward, k16 steps over every chunk) and accumulates only its
-// part's columns of O (or dq, dk and dv), so its accumulator is at most 128
+// The forward above 128 (attention_xwide.cu) rounds the head_dim up to 16
+// as below (144, 160, .., 256) and holds the whole O in two consumer
+// warpgroups' registers. The backward above 128 rounds it up to 64 (192 or
+// 256: three or four 64-column chunks, TMA's zero fill past hd again) and
+// splits the output columns into two parts (Part below): 0..127 and the
+// rest. A CTA owns one part: it forms the scores over the whole head_dim
+// (q.k^T and do.v^T, k16 steps over every chunk) and accumulates only its
+// part's columns of dq, dk and dv, so its accumulator is at most 128
 // columns wide, as at head_dim 128, and fits the register file. Each part
 // is a launch of its own over the same grid; the two recompute the same
-// scores (the forward's row max and sum come out bit for bit the same, so
-// part 0 alone writes the LSE, and the dq kernel's part 0 alone delta).
+// scores (the dq kernel's part 0 alone writes delta).
 //
 // The fragments are wgmma's: a 64 x N f32 accumulator d over the
 // warpgroup's 128 threads holds d[4j + e] = row 16 w + lane / 4 + 8 (e >> 1),
@@ -73,7 +74,7 @@ struct Hd {
   }
 };
 
-// The output columns of part P of a padded head_dim: all of them up to 128;
+// The backward's output columns of part P of a padded head_dim: all of them up to 128;
 // above, part 0 holds columns 0..127 (chunks 0 and 1) and part 1 the rest
 // (chunks 2.., 64 or 128 columns). A part's columns of a tile are laid out
 // as the tile of Hd<kCols> at byte offset kOff.
@@ -220,7 +221,9 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_
 }
 
 // d (64 x N f32) += A (64 x 16 bf16, registers: mma.m16n8k16's A fragment
-// per warp) B (16 x N, MN-major in shared memory): N is a chunk's width.
+// per warp) B (16 x N, MN-major in shared memory): N is a chunk's width, or
+// that of several 64-column chunks side by side (128, 192, 256: the
+// descriptor's leading offset steps from one chunk to the next).
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint64_t db) {
   if constexpr (N == 16) {
@@ -238,8 +241,7 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint6
         "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
         : OVT_F16(0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  } else {
-    static_assert(N == 64, "a chunk is 16, 32 or 64 wide");
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -248,6 +250,50 @@ __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t (&a)[4], uint6
         "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
         : OVT_F32(0)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : OVT_F32(0), OVT_F32(32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 192) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : OVT_F32(0), OVT_F32(32), OVT_F32(64)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 256) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+        : OVT_F32(0), OVT_F32(32), OVT_F32(64), OVT_F32(96)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    static_assert(N == 0, "a register-A product is 16, 32, 64, 128, 192 or 256 wide");
   }
 }
 
@@ -391,13 +437,16 @@ __device__ __forceinline__ int swizzled(int r, int u) {
 // the head_dim instead: a slab is `rows` rows (64, or 32 for the dk/dv
 // kernel's queries) of one head's 128 columns 128 j.., two 64-column boxes
 // of one map (OpMaps<64>, 128-byte swizzle) laid one after the other (chunk
-// c at c * rows * 128 bytes), TMA's zero fill past hd as for a tile. The
-// score products accumulate over the slabs (slab_ss with `acc`), and each
-// CTA accumulates one 128-column part of O, dq, dk and dv (slab_rs, or
-// start_rs<128> on a 64-row slab): ceil(hd / 128) parts, one launch, the
-// part in blockIdx.y. The slabs run through one ring of kSlabStages stages
-// of 32 KB in a fixed order, loaded by a producer warp (SlabRing), so the
-// shared memory is 129 KB at every head_dim.
+// c at c * rows * 128 bytes), TMA's zero fill past hd as for a tile. In the
+// backward (and the forward above 512) the score products accumulate over
+// the slabs (slab_ss with `acc`), and each CTA accumulates one 128-column
+// part of dq, dk and dv (or O) (slab_rs, or start_rs<128> on a 64-row
+// slab): ceil(hd / 128) parts, one launch, the part in blockIdx.y. The slabs
+// run through one ring of kSlabStages stages of 32 KB in a fixed order,
+// loaded by a producer warp (SlabRing), so the shared memory is 129 KB at
+// every head_dim. The forward from 264 to 512 (attention_slab.cu) keeps
+// every slab of its Q and of 32-key K and V tiles in shared memory instead,
+// one consumer warpgroup a slab, and forms the scores once.
 
 constexpr int kSlab = 128;  // columns of a slab
 constexpr int kSlabStages = 4;
@@ -509,20 +558,28 @@ inline bool head_maps(OpMaps<HDP>* maps, const void* ptr, const Strides& st, int
 }
 
 // Whether the kernels take head_dim hd: a multiple of 8 from 16 (up to 256
-// by the tile kernels, above by the slab kernels, attention_slab.cuh).
+// by the tile kernels, above by the slab kernels).
 inline bool head_dim_ok(int hd) { return hd % 8 == 0 && hd >= 16; }
 
-// The padded head_dim of hd: rounded up to 16 up to 128, to 64 above.
+// The backward's padded head_dim of hd: rounded up to 16 up to 128, to 64
+// above (its column parts).
 inline int padded_head_dim(int hd) { return hd <= 128 ? (hd + 15) / 16 * 16 : (hd + 63) / 64 * 64; }
 
-// Calls f(std::integral_constant<int, HDP>) for the padded head_dim of hd
-// if it is one of kHdps; cudaErrorInvalidValue else.
+// The forward's padded head_dim of hd up to 256: rounded up to 16 (wgmma's
+// k16), at every width.
+inline int fwd_padded_head_dim(int hd) { return (hd + 15) / 16 * 16; }
+
+// Calls f(std::integral_constant<int, HDP>) if the padded head_dim hdp is
+// one of kHdps; cudaErrorInvalidValue else.
 template <int... kHdps, class F>
-inline int by_head_dim(int hd, F&& f) {
-  const int hdp = padded_head_dim(hd);
+inline int by_padded(int hdp, F&& f) {
   int rc = static_cast<int>(cudaErrorInvalidValue);
   (void)((hdp == kHdps && (rc = f(std::integral_constant<int, kHdps>{}), true)) || ...);
   return rc;
+}
+template <int... kHdps, class F>
+inline int by_head_dim(int hd, F&& f) {
+  return by_padded<kHdps...>(padded_head_dim(hd), f);
 }
 
 }  // namespace attn

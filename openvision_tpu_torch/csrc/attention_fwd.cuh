@@ -1,9 +1,11 @@
-// The forward attention kernel of attention.cu (see its notes), templated on
-// the padded head_dim, with one entry a layout (fwd_packed, fwd_flash).
-// attention.cu instantiates the padded head_dims up to 64,
-// attention_wide.cu those from 80 to 128 and attention_xwide.cu 192 and 256
-// (two column parts each, attention.cuh's Part), so that the three build in
-// parallel; attention_slab.cu holds the slab kernel above 256.
+// The forward attention kernel of attention.cu (see its notes) up to head_dim
+// 128, templated on the padded head_dim, with one entry a layout (fwd_packed,
+// fwd_flash), and what the forward kernels above 128 share with it (the
+// arguments, the online softmax, the epilogue, the entries' maps).
+// attention.cu instantiates the padded head_dims up to 64 and
+// attention_wide.cu those from 80 to 128, so that they build in parallel;
+// attention_xwide.cu holds the kernel from 136 to 256 and attention_slab.cu
+// the one above.
 #pragma once
 
 #include <cmath>
@@ -19,11 +21,11 @@ using ovt::bf16;
 constexpr int kThreads = 128 + 32;        // one consumer warpgroup, then the producer warp
 
 // The ring's K/V stages, CTAs an SM (registers) and dynamic shared memory
-// (Q, then K, V a stage) of a padded head_dim: 161 KB at 256, one CTA an SM.
+// (Q, then K, V a stage) of a padded head_dim up to 128.
 template <int HDP>
 struct Fwd {
   static constexpr int kStages = HDP <= 64 ? 4 : 2;
-  static constexpr int kMinBlocks = HDP <= 64 ? 3 : HDP <= 128 ? 2 : 1;
+  static constexpr int kMinBlocks = HDP <= 64 ? 3 : 2;
   static constexpr int kTileBytes = Hd<HDP>::kTileBytes;
   static constexpr int kSmem = 1024 + kTileBytes + kStages * 2 * kTileBytes;
 };
@@ -143,17 +145,41 @@ __device__ __forceinline__ void store_out(float* base, long long stride, int r0,
   }
 }
 
-// HDP: the padded head_dim. PART: the output columns this CTA accumulates
-// (attention.cuh's Part: all of them up to 128). kCausal: the causal /
-// prefix-LM mask (a compile-time switch, so the unmasked encoder path
-// carries none of its index arithmetic). OutT: the output's type, bf16 or
-// f32.
-template <int HDP, int PART, bool kCausal, typename OutT>
+// A warpgroup's 64 rows from r0 at the end: each row's sum over its quad of
+// lanes, o / l stored into the head's columns col0.. below hd (base: the
+// head's first column), and, with `lse`, each row's m + log(l) (log(l)
+// under nomax: m stays -inf there).
+template <int HO, typename OutT>
+__device__ __forceinline__ void finish_rows(OutT* base, const FwdArgs& a, int b, int h, int r0,
+                                            int row0, const float (&o)[HO / 2],
+                                            const float (&m)[2], float (&l)[2], int warp,
+                                            int lane, int col0 = 0, bool lse = true) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (l[r] <= 0.f) l[r] = 1.f;  // no visible key: o = 0
+  }
+  store_out<HO>(base + col0, a.so.l, r0, a.Lq, a.hd - col0, o, l, warp, lane);
+  if (lse && a.lse != nullptr && (lane & 3) == 0) {  // rows of 257 floats: no 16-byte alignment
+    float* lrow = a.lse + (static_cast<long long>(b) * a.H + h) * a.Lq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < a.Lq) lrow[row] = (m[r] == -INFINITY ? 0.f : m[r] * a.sc) + logf(l[r]);
+    }
+  }
+}
+
+// HDP: the padded head_dim (up to 128). kCausal: the causal / prefix-LM
+// mask (a compile-time switch, so the unmasked encoder path carries none of
+// its index arithmetic). OutT: the output's type, bf16 or f32.
+template <int HDP, bool kCausal, typename OutT>
 __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
     attention_fwd_kernel(const __grid_constant__ FwdMaps<HDP> maps, const FwdArgs a) {
+  static_assert(HDP <= 128, "above 128: attention_xwide.cu's kernel");
   using P = Fwd<HDP>;
-  using Cols = Part<HDP, PART>;
-  constexpr int kStages = P::kStages, kTileBytes = P::kTileBytes, HO = Cols::kCols;
+  constexpr int kStages = P::kStages, kTileBytes = P::kTileBytes, HO = HDP;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_bar;
   __shared__ __align__(8) uint64_t full[kStages];
@@ -220,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
     hp::named_barrier(1, 128);
   }
 
-  float o[HO / 2];  // this part's columns of O
+  float o[HO / 2];
 #pragma unroll
   for (int i = 0; i < HO / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
@@ -251,7 +277,7 @@ __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
       // this tile's scores, then the previous tile's P V (a whole tile)
       hp::wgmma_fence();
       start_ss<HDP, N>(s, base, k_at(st));
-      start_rs<HO, BT / 16>(o, p, k_at((kt - 1) % kStages) + kTileBytes + Cols::kOff);
+      start_rs<HO, BT / 16>(o, p, k_at((kt - 1) % kStages) + kTileBytes);
       hp::wgmma_wait<1>();
       hp::fence_acc(s);
       float alpha[2];
@@ -266,51 +292,27 @@ __global__ void __launch_bounds__(kThreads, Fwd<HDP>::kMinBlocks)
   }
   by_width(a.Lk - last * BT, [&](auto n) {  // the last tile's P V
     constexpr int N = decltype(n)::value;
-    start_rs<HO, (N + 15) / 16>(o, p, k_at(last % kStages) + kTileBytes + Cols::kOff);
+    start_rs<HO, (N + 15) / 16>(o, p, k_at(last % kStages) + kTileBytes);
     hp::wgmma_wait<0>();
     hp::fence_acc(o);
     fence_frag(p);
   });
   release(last);
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (l[r] <= 0.f) l[r] = 1.f;  // no visible key: o = 0
-  }
-  store_out<HO>(static_cast<OutT*>(a.o) + b * a.so.b + h * a.so.h + Cols::kCol0, a.so.l, r0,
-                a.Lq, a.hd - Cols::kCol0, o, l, warp, lane);
-  if (PART == 0 && a.lse != nullptr && (lane & 3) == 0) {  // rows of 257 floats: no 16-byte alignment
-    float* lrow = a.lse + (static_cast<long long>(b) * a.H + h) * a.Lq;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row < a.Lq) lrow[row] = (m[r] == -INFINITY ? 0.f : m[r] * a.sc) + logf(l[r]);
-    }
-  }
+  finish_rows<HO>(static_cast<OutT*>(a.o) + b * a.so.b + h * a.so.h, a, b, h, r0, row0, o, m, l,
+                  warp, lane);
 }
 
-template <int HDP, int PART, bool kCausal, typename OutT>
-int run_part(const FwdMaps<HDP>& maps, const FwdArgs& a, int batch, cudaStream_t stream) {
+template <int HDP, bool kCausal, typename OutT>
+int run(const FwdMaps<HDP>& maps, const FwdArgs& a, int batch, cudaStream_t stream) {
   constexpr int kSmem = Fwd<HDP>::kSmem;
   static const cudaError_t attr =
-      cudaFuncSetAttribute(attention_fwd_kernel<HDP, PART, kCausal, OutT>,
+      cudaFuncSetAttribute(attention_fwd_kernel<HDP, kCausal, OutT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((a.Lq + BT - 1) / BT, a.H, batch);
-  attention_fwd_kernel<HDP, PART, kCausal, OutT><<<grid, kThreads, kSmem, stream>>>(maps, a);
+  attention_fwd_kernel<HDP, kCausal, OutT><<<grid, kThreads, kSmem, stream>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// One launch a column part (two above head_dim 128), on one stream.
-template <int HDP, bool kCausal, typename OutT>
-int run(const FwdMaps<HDP>& maps, const FwdArgs& a, int batch, cudaStream_t stream) {
-  const int rc = run_part<HDP, 0, kCausal, OutT>(maps, a, batch, stream);
-  if constexpr (kParts<HDP> > 1) {
-    if (rc == 0) return run_part<HDP, 1, kCausal, OutT>(maps, a, batch, stream);
-  }
-  return rc;
 }
 
 template <int HDP>
@@ -335,20 +337,53 @@ FwdArgs make_args(void* out, void* lse, const Strides& so, int lq, int lk, int h
                  sc, sc * kLog2e, 80.f * kLog2e, nomax, causal, prefix};
 }
 
+// The packed (B, L, 3D) QKV entry's maps and arguments: one map set over
+// the buffer's 3 * heads heads, q, k and v by head offset (k's and v's box
+// rows `kv_rows` where they differ from q's 64). False if TMA refuses a view.
+template <int W>
+bool packed_setup(OpMaps<W>* q, OpMaps<W>* kv, FwdArgs* a, const void* qkv, void* out, int batch,
+                  int seq, int heads, int hd, float scale, int nomax, int causal, int prefix,
+                  int kv_rows = BT) {
+  const int d = heads * hd;
+  const Strides st{static_cast<long long>(seq) * 3 * d, 3 * d, hd};
+  if (!head_maps(q, qkv, st, hd, 3 * heads, seq, batch)) return false;
+  if (kv_rows == BT)
+    *kv = *q;
+  else if (!head_maps(kv, qkv, st, hd, 3 * heads, seq, batch, kv_rows))
+    return false;
+  *a = make_args(out, nullptr, Strides{static_cast<long long>(seq) * d, d, hd}, seq, seq, heads,
+                 hd, scale, 1, nomax, causal, prefix);
+  a->hk = heads;
+  a->hv = 2 * heads;
+  return true;
+}
+
+// The flash entry's maps (q, k, v by strides; k's and v's box rows
+// `kv_rows`) and arguments.
+template <int W>
+bool flash_setup(OpMaps<W>* q, OpMaps<W>* k, OpMaps<W>* v, FwdArgs* a, const void* qp,
+                 const void* kp, const void* vp, void* out, void* lse, const long long* strides,
+                 int batch, int lq, int lk, int heads, int hd, float scale, int prescale,
+                 int causal, int prefix, int nomax, int kv_rows = BT) {
+  if (!head_maps(q, qp, strides_of(strides, 0), hd, heads, lq, batch) ||
+      !head_maps(k, kp, strides_of(strides, 1), hd, heads, lk, batch, kv_rows) ||
+      !head_maps(v, vp, strides_of(strides, 2), hd, heads, lk, batch, kv_rows))
+    return false;
+  *a = make_args(out, lse, strides_of(strides, 3), lq, lk, heads, hd, scale, prescale, nomax,
+                 causal, prefix);
+  return true;
+}
+
 // The packed (B, L, 3D) QKV entry at one padded head_dim.
 template <int HDP>
 int fwd_packed(const void* qkv, void* out, int batch, int seq, int heads, int hd, float scale,
                int nomax, int causal, int prefix, int out_f32, void* stream) {
-  const int d = heads * hd;
-  FwdMaps<HDP> maps;  // one map set over the buffer's 3 * heads heads: q, k and v by head offset
-  if (!head_maps(&maps.q, qkv, Strides{static_cast<long long>(seq) * 3 * d, 3 * d, hd}, hd,
-                 3 * heads, seq, batch))
+  FwdMaps<HDP> maps;
+  FwdArgs a;
+  if (!packed_setup(&maps.q, &maps.k, &a, qkv, out, batch, seq, heads, hd, scale, nomax, causal,
+                    prefix))
     return static_cast<int>(cudaErrorInvalidValue);
-  maps.k = maps.v = maps.q;
-  FwdArgs a = make_args(out, nullptr, Strides{static_cast<long long>(seq) * d, d, hd}, seq, seq,
-                        heads, hd, scale, 1, nomax, causal, prefix);
-  a.hk = heads;
-  a.hv = 2 * heads;
+  maps.v = maps.k;
   return launch<HDP>(maps, a, batch, out_f32, stream);
 }
 
@@ -358,12 +393,10 @@ int fwd_flash(const void* q, const void* k, const void* v, void* out, void* lse,
               const long long* strides, int batch, int lq, int lk, int heads, int hd, float scale,
               int prescale, int causal, int prefix, int nomax, void* stream) {
   FwdMaps<HDP> maps;
-  if (!head_maps(&maps.q, q, strides_of(strides, 0), hd, heads, lq, batch) ||
-      !head_maps(&maps.k, k, strides_of(strides, 1), hd, heads, lk, batch) ||
-      !head_maps(&maps.v, v, strides_of(strides, 2), hd, heads, lk, batch))
+  FwdArgs a;
+  if (!flash_setup(&maps.q, &maps.k, &maps.v, &a, q, k, v, out, lse, strides, batch, lq, lk,
+                   heads, hd, scale, prescale, causal, prefix, nomax))
     return static_cast<int>(cudaErrorInvalidValue);
-  const FwdArgs a = make_args(out, lse, strides_of(strides, 3), lq, lk, heads, hd, scale,
-                              prescale, nomax, causal, prefix);
   return launch<HDP>(maps, a, batch, 0, stream);
 }
 

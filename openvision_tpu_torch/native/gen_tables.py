@@ -12,6 +12,9 @@ Emitted tables:
 - WS_RANGES: Zs category (plus the explicit \\t\\n\\r\\x20 handled in C++)
 - CTRL_RANGES: C* categories minus \\t\\n\\r
 - PUNCT_RANGES: P* categories (the ASCII blocks are also hardcoded in C++)
+- SPLIT_RANGES: what str.split() splits on (str.isspace): after the
+  cleanup's controls and Zs, that leaves the line and paragraph
+  separators U+2028 and U+2029, which the Python path splits words at
 - LOWER_MAP: cp -> up-to-3 output cps for chars where
   strip_accents(NFD(lower(c))) != c  (identity elsewhere)
 
@@ -56,6 +59,7 @@ def main(out_path: str = "unicode_tables.h"):
         lambda c: c not in "\t\n\r" and unicodedata.category(c).startswith("C")
     )
     punct = _ranges(lambda c: unicodedata.category(c).startswith("P"))
+    split = _ranges(str.isspace)
     mn = _ranges(lambda c: unicodedata.category(c) == "Mn")
 
     lower_map = []
@@ -87,6 +91,7 @@ def main(out_path: str = "unicode_tables.h"):
         f.write(fmt_ranges("WS_RANGES", ws))
         f.write(fmt_ranges("CTRL_RANGES", ctrl))
         f.write(fmt_ranges("PUNCT_RANGES", punct))
+        f.write(fmt_ranges("SPLIT_RANGES", split))
         f.write(fmt_ranges("MN_RANGES", mn))
         body = ",".join(
             f"{{{cp},{{{o[0]},{o[1]},{o[2]}}}}}" for cp, o in lower_map
@@ -94,7 +99,7 @@ def main(out_path: str = "unicode_tables.h"):
         f.write(f"static const LowerEntry LOWER_MAP[] = {{{body}}};\n")
         f.write(f"static const int LOWER_MAP_N = {len(lower_map)};\n")
     print(f"wrote {out_path}: ws={len(ws)} ctrl={len(ctrl)} "
-          f"punct={len(punct)} mn={len(mn)} lower={len(lower_map)}")
+          f"punct={len(punct)} split={len(split)} mn={len(mn)} lower={len(lower_map)}")
 
 
 if __name__ == "__main__":

@@ -61,6 +61,11 @@ bool is_punct(uint32_t cp) {
   return in_ranges(cp, PUNCT_RANGES, PUNCT_RANGES_N);
 }
 
+// Where str.split() ends a word (str.isspace), once the cleanup has turned
+// \t, \n, \r and Zs into ' ' and dropped the controls: ' ', and U+2028 and
+// U+2029 (Zl, Zp), which are neither.
+bool is_split(uint32_t cp) { return cp == ' ' || in_ranges(cp, SPLIT_RANGES, SPLIT_RANGES_N); }
+
 bool is_cjk(uint32_t cp) {
   return (cp >= 0x4E00 && cp <= 0x9FFF) || (cp >= 0x3400 && cp <= 0x4DBF) ||
          (cp >= 0x20000 && cp <= 0x2A6DF) || (cp >= 0x2A700 && cp <= 0x2B73F) ||
@@ -194,7 +199,7 @@ void basic_tokenize(const std::vector<uint32_t>& cps,
   };
 
   for (uint32_t cp : cleaned) {
-    if (cp == ' ') {
+    if (is_split(cp)) {
       flush_word(cur);
     } else {
       cur.push_back(cp);

@@ -291,7 +291,7 @@ def attention(qkv, num_heads: int, *, nomax: bool = False, causal: bool = False,
         int(causal),
         int(prefix_len) if causal else 0, int(out_dtype == torch.float32), kernels.stream(qkv))
     kernels.raise_on(rc, "attention")
-    kernels.count("attention", kernels.attention_parts(hd))
+    kernels.count("attention")
     return out
 
 

@@ -67,10 +67,11 @@ def count(name: str, n: int = 1) -> None:
 
 
 def attention_parts(hd: int) -> int:
-    """Launches of one attention kernel call at head_dim `hd`: from 136 to
-    256 the C entry launches once per column part of the output (two);
-    otherwise once (above 256 the slab kernels hold ceil(hd / 128) parts in
-    one launch's grid)."""
+    """Launches of one attention backward kernel call at head_dim `hd`: from
+    136 to 256 the C entry launches once per column part of dq, dk and dv
+    (two); otherwise once (above 256 the slab kernels hold ceil(hd / 128)
+    parts in one launch's grid). The forward launches once a call at every
+    head_dim."""
     return 2 if 128 < hd <= 256 else 1
 
 

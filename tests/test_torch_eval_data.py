@@ -36,6 +36,7 @@ from openvision_tpu_torch.data import pipeline as tpipe
 from openvision_tpu_torch.data import pp as tpp
 from openvision_tpu_torch.data import prepare as tprepare
 from openvision_tpu_torch.data import tfrecord
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = os.path.join(REPO, "assets", "bert_base_vocab_bos_eos.txt")

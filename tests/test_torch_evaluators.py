@@ -47,6 +47,7 @@ from openvision_tpu_torch.main_clip import main
 from openvision_tpu_torch.models.init import init_params
 from openvision_tpu_torch.train import step as tstep
 from openvision_tpu_torch.train import trainer
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = os.path.join(REPO, "assets", "bert_base_vocab_bos_eos.txt")

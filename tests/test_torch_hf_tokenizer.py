@@ -47,6 +47,7 @@ from openvision_tpu_torch.tools import model_io
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "fixtures"))
 import make_hf_tokenizer_fixtures as fx  # noqa: E402
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 VOCAB = "assets/bert_base_vocab_bos_eos.txt"
 TEXTS = [t.format(c) for c in CLIP_IMAGENET_CLASS_NAMES[::4] for t in ("a photo of a {}.",

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from test_torch_tools import CTX, RES, V, model_dir  # noqa: F401  (the tiny export)
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 IMG = "testcat/catcat.png"
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from test_torch_tools import RES, model_dir  # noqa: F401  (the tiny export)
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 IMG = "testcat/catcat.png"
 

@@ -697,18 +697,21 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 # The head_dims the attention kernels take beside 64: So400m's 72, H/14's
 # 80 (softmax scales that are no power of two), 128, then head_dims the
-# wrappers zero-pad (36, 100), those above 128 in two column parts (136,
-# 192, 256) and those above 256 in 128-column slabs (264, 320, 384, 512).
-WIDE_HEAD_DIMS = (72, 80, 128, 36, 100, 136, 192, 256, 264, 320, 384, 512)
+# wrappers zero-pad (36, 100), those of the whole-O forward above 128 (136
+# and 144 at the padded width 144, 192, 200 at 208, 256; the backward in two
+# column parts) and those above 256 in 128-column slabs (264, 320, 384, 392
+# and 512: three and four slabs; 520: the forward's per-part kernel).
+WIDE_HEAD_DIMS = (72, 80, 128, 36, 100, 136, 144, 192, 200, 256, 264, 320, 384, 392, 512, 520)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
 def test_attention_kernels_at_wide_head_dims(dev, hd):
     """The forward kernel over the QKV buffer (max and nomax, the f32 output,
-    a prefix-LM mask), flash (single-k and multi-k) and attention_bwd at
-    head_dim `hd`, each within the bound of its plain version that phases
-    2/2b/7 use (2**-6)."""
+    a prefix-LM mask), flash (single-k, multi-k at Lq=64, and a one-query
+    tail) with its LSE and attention_bwd at head_dim `hd`, each within the
+    bound of its plain version that phases 2/2b/7 use (2**-6; the LSE within
+    1e-3 absolute of the plain version's on the same bf16 inputs)."""
     g = torch.Generator().manual_seed(hd)
     qkv = _rand(g, dev, 2, 257, 3 * 4 * hd).bfloat16()
     with torch.inference_mode():
@@ -717,12 +720,17 @@ def test_attention_kernels_at_wide_head_dims(dev, hd):
             got = fe.attention(qkv, 4, **kw)
             ref = fe.attention_plain(qkv.float(), 4, **kw)
             assert _rel_err(got, ref) <= 2**-6, kw
-        for lq, lk in ((128, 335), (64, 900)):  # single-k, multi-k
+        for lq, lk in ((128, 335), (64, 900), (1, 335)):  # single-k, multi-k, a tail
             q = _rand(g, dev, 2, lq, 4, hd).bfloat16()
             kv = _rand(g, dev, 2, lk, 2, 4, hd).bfloat16()
-            got = flash_attention(q, kv[:, :, 0], kv[:, :, 1])
+            got, lse = flash_attention(q, kv[:, :, 0], kv[:, :, 1], return_lse=True)
             ref = flash_attention_plain(q.float(), kv[:, :, 0].float(), kv[:, :, 1].float())[0]
             assert _rel_err(got, ref) <= 2**-6, (lq, lk)
+            # the LSE from the plain version on the same bf16 inputs: at a scale that is
+            # no power of two the single-k order rounds q * scale to bf16, which moves
+            # the logsumexp by up to ~1e-2 against f32 inputs
+            ref_lse = flash_attention_plain(q, kv[:, :, 0], kv[:, :, 1])[1]
+            assert (lse - ref_lse).abs().max().item() <= 1e-3, (lq, lk)
     q, k, v, do = (_rand(g, dev, 2, 101, 4, hd).bfloat16() for _ in range(4))
     with torch.no_grad():
         o, lse = flash_attention(q, k, v, causal=True, prefix_len=37, return_lse=True)

@@ -5,7 +5,9 @@ The native encode is held against the port's Python path and against the
 JAX package's tokenizer on the same interpreter (the Unicode tables come
 from its ``unicodedata``; stored ids would tie the test to one Python
 version): the 1000 ImageNet class names in three prompt templates, accents,
-CJK, a capital sigma (routed to Python) and a text of more than 8192 ids
+CJK, a capital sigma (routed to Python), the line and paragraph separators
+(U+2028, U+2029: neither Zs nor controls, so the cleanup keeps them, but
+str.split() ends a word there) and a text of more than 8192 ids
 (past the native buffer, routed to Python). Ids must be equal. The
 indexers are held against tarfile and the Python struct walk on shards
 written here (GNU long names and PAX headers included). A missing library
@@ -29,11 +31,13 @@ from openvision_tpu_torch.data import tfrecord
 from openvision_tpu_torch.data import tokenizer as ttok
 from openvision_tpu_torch.evaluators.in1k_classes import CLIP_IMAGENET_CLASS_NAMES
 from openvision_tpu_torch.native import build, indexer, wordpiece
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 VOCAB = "assets/bert_base_vocab_bos_eos.txt"
 EXTRA = ["Hello, naïve café — ÜBER straße!", "日本語のテキスト and English 中文",
          "ΣΟΦΙΑ ΚΑΙ ΣΟΦΟΣ Σ", "emoji 🙂 ∑∫√", "control\x01chars\x7f", "ÅNGSTRÖM İstanbul ǅ ﬁ",
-         "\t tabs\nnew\rlines nbsp em", "verylongwordnotinthevocabulary" * 5, "", "   "]
+         "\t tabs\nnew\rlines nbsp em", "verylongwordnotinthevocabulary" * 5, "", "   ",
+         "line\u2028sep\u2029para x\u2028y\x85z"]
 
 
 @pytest.fixture(scope="module")

@@ -55,6 +55,7 @@ from openvision_tpu_torch.models.init import init_params
 from openvision_tpu_torch.ops import fused_encoder_int8 as tfe8
 from openvision_tpu_torch.serving import quant as tquant
 from openvision_tpu_torch.train import step as tstep
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 RES, P, W, DEPTH, HEADS, MLP, E = 64, 16, 192, 2, 3, 768, 64
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from openvision_tpu_torch.serving import server as srv
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 W, L, H, E, RES, P, CTX, V = 64, 2, 2, 32, 32, 16, 16, 30522
 CAPTION_ARG = ("res=32,img=mu/16,txt_name=Ti,txt_decoder_name=Ti,token_len=16,"

@@ -21,6 +21,7 @@ from openvision_tpu.convert.openclip import jax_to_openclip
 from openvision_tpu.models import text as text_mod
 from openvision_tpu.models import vit as vit_mod
 from openvision_tpu.parallel import unbox
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 W, L, H, E, RES, P, CTX, V = 64, 2, 2, 32, 32, 16, 16, 30522
 IMG_DIR = "testcat"

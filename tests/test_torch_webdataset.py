@@ -29,6 +29,7 @@ from openvision_tpu.data import pipeline as jpipe
 from openvision_tpu_torch.data import pipeline as tpipe
 from openvision_tpu_torch.data.ops_aug import mixup_cutmix
 from openvision_tpu_torch.data.ops_image import decode_png, encode_png
+from torch_jax_wordpiece import jax_python_wordpiece  # noqa: E402,F401 (autouse)
 
 PP = ('inception_crop(inkey="jpg", size=16, area_min=40)'
       '|my_bert_tokenize(max_len=12, output_token_len=8, '
